@@ -1,0 +1,19 @@
+"""sparse_tpu_torch — the port of ``sparse_tpu`` to PyTorch and CUDA.
+
+N-dimensional sparse arrays on torch tensors, with the semantics of
+``sparse_tpu`` (the reference, which stays beside this package unchanged).
+Arrays live on the GPU unless ``device="cpu"`` is asked for; the hot
+products run in hand-written CUDA kernels (``kernels``). This package never
+imports ``jax`` or ``sparse_tpu``.
+
+This slice holds the sparse × dense main path: a canonical 2-D ``COO``,
+``a @ b`` / ``matmul`` / ``dot`` on the cached row-ELL layout, and the fused
+``matvec_add``.
+"""
+
+from . import kernels
+from .core.base import SparseArray
+from .core.coo import COO
+from .ops.dot import dot, matmul, matvec_add
+
+__all__ = ["COO", "SparseArray", "dot", "kernels", "matmul", "matvec_add"]

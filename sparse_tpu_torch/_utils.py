@@ -1,0 +1,169 @@
+"""Shared helpers: dtype maps between NumPy and torch, bitwise fill-value
+equivalence, axis normalization and index-dtype sizing.
+
+Same semantics as ``sparse_tpu._utils`` (``equivalent``, ``zero_of_dtype``,
+``normalize_axis``, ``can_store``, ``index_dtype_for``, ``get_out_dtype``,
+``check_zero_fill_value``); ``equivalent`` works on torch tensors so that a
+prune runs on the device the data lives on.
+"""
+
+from __future__ import annotations
+
+import warnings
+from collections.abc import Iterable
+from numbers import Integral
+
+import numpy as np
+import torch
+
+from . import _settings
+
+_NP_TO_TORCH = {
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex64): torch.complex64,
+    np.dtype(np.complex128): torch.complex128,
+}
+_TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+
+# same-width integer views for the bitwise float compare
+_BITS = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def torch_dtype(dtype):
+    """The torch dtype for a NumPy or torch dtype (TypeError if torch has none)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    dt = np.dtype(dtype)
+    try:
+        return _NP_TO_TORCH[dt]
+    except KeyError:
+        raise TypeError(f"dtype {dt} is not supported by sparse_tpu_torch") from None
+
+
+def numpy_dtype(dtype):
+    """The NumPy dtype for a torch or NumPy dtype."""
+    if isinstance(dtype, torch.dtype):
+        try:
+            return _TORCH_TO_NP[dtype]
+        except KeyError:
+            raise TypeError(f"dtype {dtype} has no NumPy counterpart") from None
+    return np.dtype(dtype)
+
+
+def result_dtype(*dtypes):
+    """NumPy promotion (``np.promote_types``) of torch/NumPy dtypes, as a torch dtype."""
+    out = numpy_dtype(dtypes[0])
+    for dt in dtypes[1:]:
+        out = np.promote_types(out, numpy_dtype(dt))
+    return torch_dtype(out)
+
+
+def _is_inexact(dtype):
+    return dtype.is_floating_point or dtype.is_complex
+
+
+def equivalent(x, y, /, loose=False):
+    """Element-wise equivalence with *bitwise* float semantics, on tensors.
+
+    For float/complex dtypes two values are equivalent iff their bit patterns
+    match — so ``NaN ≡ NaN`` and ``0.0 ≢ -0.0``. With ``loose=True`` values
+    compare by ``==`` but NaNs still match (``NaN ≡ NaN``, ``0.0 ≡ -0.0``).
+    Non-float dtypes use ``==``. ``y`` may be a scalar; it is placed on ``x``'s
+    device."""
+    x = torch.as_tensor(x)
+    y = torch.as_tensor(np.asarray(y) if not isinstance(y, torch.Tensor) else y, device=x.device)
+    dt = result_dtype(x.dtype, y.dtype)
+    x = x.to(dt)
+    y = y.to(dt)
+    if not _is_inexact(dt):
+        return x == y
+    if dt.is_complex:
+        xr, yr = torch.view_as_real(x.resolve_conj()), torch.view_as_real(y.resolve_conj())
+        return equivalent(xr[..., 0], yr[..., 0], loose=loose) & equivalent(xr[..., 1], yr[..., 1], loose=loose)
+    if loose:
+        return (x == y) | (torch.isnan(x) & torch.isnan(y))
+    bits = _BITS[dt]
+    return x.contiguous().view(bits) == y.contiguous().view(bits)
+
+
+def zero_of_dtype(dtype):
+    """A NumPy zero scalar of ``dtype`` (torch or NumPy)."""
+    return np.zeros((), dtype=numpy_dtype(dtype))[()]
+
+
+def normalize_axis(axis, ndim):
+    """Normalize negative/iterable axes against ``ndim``; raise on overflow."""
+    if axis is None:
+        return None
+    if isinstance(axis, Integral):
+        axis = int(axis)
+        if axis < 0:
+            axis += ndim
+        if axis < 0 or axis >= ndim:
+            raise ValueError(f"Invalid axis index {axis} for ndim={ndim}")
+        return axis
+    if isinstance(axis, Iterable):
+        if not all(isinstance(a, Integral) for a in axis):
+            raise ValueError(f"axis {axis} not understood")
+        return tuple(normalize_axis(a, ndim) for a in axis)
+    raise ValueError(f"axis {axis} not understood")
+
+
+def can_store(dtype, nelem):
+    """Whether ``dtype`` can represent the scalar ``nelem`` exactly (handles
+    negatives and overflow)."""
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            warnings.filterwarnings("error", "out-of-bound", DeprecationWarning)
+            return bool(np.array(nelem, dtype=numpy_dtype(dtype)) == np.array(nelem))
+    except (ValueError, OverflowError):
+        return False
+
+
+def index_dtype_for(max_value):
+    """Smallest of int32/int64 that can hold ``max_value`` (NumPy dtype)."""
+    if _settings.DEFAULT_INDEX_DTYPE == "int64":
+        return np.dtype(np.int64)
+    return np.dtype(np.int32 if max_value <= np.iinfo(np.int32).max else np.int64)
+
+
+def get_out_dtype(arr_dtype, max_value):
+    """Index dtype for outputs: keep ``arr_dtype`` when it can store the
+    value, else the minimal upcast (uint8 → uint16, ...)."""
+    if can_store(arr_dtype, max_value):
+        return numpy_dtype(arr_dtype)
+    return np.dtype(np.min_scalar_type(int(max_value)))
+
+
+def check_zero_fill_value(*args, func_name=""):
+    """Raise ``ValueError`` unless every sparse argument has a zero fill value
+    (``-0.0`` counts as zero). The test is memoized per instance, keyed on the
+    fill value object, so reassigning ``fill_value`` re-runs it."""
+    for i, arr in enumerate(args):
+        if hasattr(arr, "fill_value"):
+            if getattr(arr, "size", 1) == 0:
+                continue
+            fv = arr.fill_value
+            memo = getattr(arr, "_fv_is_zero_memo", None)
+            if memo is not None and memo[0] is fv:
+                ok = memo[1]
+            else:
+                # loose equivalence with zero: NaN never matches, -0.0 does
+                ok = bool(np.asarray(fv) == 0)
+                try:
+                    arr._fv_is_zero_memo = (fv, ok)
+                except AttributeError:
+                    pass
+            if not ok:
+                raise ValueError(
+                    f"This operation requires zero fill values, but argument {i:d} had a fill value of {fv!s}."
+                )

@@ -1,0 +1,95 @@
+"""sparse_tpu_torch stands alone: it loads neither jax nor sparse_tpu, places
+data on the GPU unless told otherwise, and never lets a tensor that is not on
+the CPU reach a kernel's plain version."""
+
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import sparse_tpu_torch as st
+from sparse_tpu_torch.kernels import _cuda, row_ell
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "sparse_tpu_torch"
+
+
+def test_import_loads_no_jax_and_no_sparse_tpu():
+    code = "import json, sys, sparse_tpu_torch; print(json.dumps(sorted(sys.modules)))"
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
+    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    bad = [m for m in mods if m == "jax" or m.startswith("jax.") or m == "sparse_tpu" or m.startswith("sparse_tpu.")]
+    assert bad == []
+    assert "sparse_tpu_torch" in mods
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|sparse_tpu)\b(?!_torch)|from\s+(jax|sparse_tpu)\b(?!_torch))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")))
+def test_source_imports_no_jax_and_no_sparse_tpu(path):
+    assert not _FORBIDDEN.findall((REPO / path).read_text())
+
+
+def test_forbidden_import_pattern():
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("from sparse_tpu.kernels import x")
+    assert _FORBIDDEN.search("    from jax import lax")
+    assert not _FORBIDDEN.search("from sparse_tpu_torch import COO")
+    assert not _FORBIDDEN.search("import sparse_tpu_torch")
+
+
+def test_default_device_is_the_gpu():
+    x = np.eye(3)
+    if torch.cuda.is_available():
+        assert st.COO.from_numpy(x).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        st.COO.from_numpy(x)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        st.COO(np.array([[0], [1]]), np.array([1.0]), shape=(2, 2))
+    assert st.COO.from_numpy(x, device="cpu").device.type == "cpu"
+
+
+def test_tensor_on_another_device_is_not_moved():
+    a = st.COO.from_numpy(np.eye(4), device="cpu")
+    with pytest.raises(ValueError, match="meta"):
+        a @ torch.empty((4, 2), device="meta")
+    with pytest.raises(ValueError):
+        st.COO(torch.zeros((2, 1), dtype=torch.int64), torch.ones(1), shape=(2, 2), device="meta")
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version():
+    # a tensor that is not on the CPU goes to the kernel launcher, which
+    # refuses what is not a CUDA device instead of computing elsewhere
+    re_meta = row_ell.build_row_ell(np.array([0, 1]), np.array([1, 0]), np.array([1.0, 2.0]), 2, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        row_ell.row_ell_spmm(re_meta, torch.empty((2, 3), dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        row_ell.row_ell_spmv(re_meta, torch.empty(2, dtype=torch.float64, device="meta"))
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda._nvcc()
+
+
+def test_kernel_sources_ship_with_the_package():
+    assert _cuda._SRC.exists()
+    src = _cuda._SRC.read_text()
+    for fn in ("st_row_ell_spmv_f32", "st_row_ell_spmv_f64", "st_row_ell_spmm_f32", "st_row_ell_spmm_f64"):
+        assert f"int {fn}(" in src
+    assert "arch=compute_90a,code=sm_90a" in _cuda._NVCC_FLAGS
+
+
+def test_launch_counters_start_and_reset():
+    _cuda.LAUNCHES["row_ell_spmm"] += 3
+    _cuda.reset_launch_counts()
+    assert _cuda.LAUNCHES == {"row_ell_spmv": 0, "row_ell_spmm": 0}
