@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of the sparse × dense main path from the sources in
-this checkout, holds each against its plain PyTorch version on the card,
-drives the main path through the public entry points at the benchmark shape
-(65,536², 2^21 entry draws, N = 128, float32) and the spmv_add shape
-(99,990 × 100,000 at density 1e-6), checks the outputs against a float64
-scipy oracle, shows through the launch counters that the path ran the
-kernels, and times each kernel beside its plain version, a cuSPARSE product
-(``torch.sparse_csr_tensor``, timed here only; the package never calls it)
-and its bound.
+Builds the CUDA kernels from the sources in this checkout (one nvcc per
+source under sparse_tpu_torch/kernels/csrc/, all started together) and
+drives the port's two paths on the card:
 
-Output: one JSON line per kernel with its measurements, then one line
+- the sparse × dense main path: holds the row-ELL kernels against their
+  plain PyTorch versions, drives ``COO`` → ``a @ B`` / ``a @ x`` /
+  ``matvec_add`` at the benchmark shape (65,536², 2^21 entry draws, N = 128,
+  float32) and the spmv_add shape (99,990 × 100,000 at density 1e-6), and
+  checks the outputs against a float64 scipy oracle;
+- the block-sparse layer: holds the BSR kernels (SpMM, its two-block form,
+  the block SDDMM) against their plain versions in float32, float64 and
+  bfloat16, then trains ``BlockSparseLinear(8192, 8192, block_density=0.25)``
+  at batch 512 (the JAX package's block-sparse training benchmark,
+  bench_suite.py), checks the first step's output and both gradients
+  against a float64 oracle, and takes three SGD steps on which the loss
+  must fall.
+
+The launch counters show that each path ran its kernels; each kernel is
+timed beside its plain version, one library call on the same inputs
+(torch.sparse, which reaches cuSPARSE or torch's own kernels; timed here
+only, the package never calls it) and its bound.
+
+Output: one JSON line per phase and per kernel, then one line
 ``{"kernels": [...]}``, then the card's ``name, power.limit`` from
 nvidia-smi, and last ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero before that line; so does a machine without a CUDA device.
@@ -46,11 +58,35 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6), torch.float64: dict(rtol=1e-12
 # against the float64 oracle (bench.py's check)
 ORACLE_TOL = dict(rtol=1e-3, atol=1e-5)
 
-SOURCE = "sparse_tpu_torch/kernels/csrc/row_ell.cu"
+SOURCE = {
+    "row_ell_spmv": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
+    "row_ell_spmm": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
+    "bsr_spmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
+    "bsr_spmm2": "sparse_tpu_torch/kernels/csrc/bsr.cu",
+    "bsr_sddmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
+}
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
     "row_ell_spmm": "sparse_tpu/kernels/row_ell.py:198",  # _spmm (XLA)
+    "bsr_spmm": "sparse_tpu/kernels/bsr.py:168",  # bsr_spmm_pallas (Pallas P2)
+    "bsr_spmm2": "sparse_tpu/kernels/bsr.py:235",  # bsr_spmm_pallas2 (Pallas P3)
+    "bsr_sddmm": "sparse_tpu/kernels/bsr.py:341",  # bsr_sddmm_pallas (Pallas P4)
 }
+
+# the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
+# 25 % of the 128 x 128 blocks, batch 512, float32
+LAYER_IN = LAYER_OUT = 8192
+LAYER_DENSITY = 0.25
+LAYER_BATCH = 512
+LAYER_LR = 0.02  # SGD on the per-sample summed squared error; stable below ~0.08 at this width
+# BSR kernel vs plain, unit-normal inputs (the two sum in another order)
+BSR_TOL = {
+    torch.float32: dict(rtol=1e-4, atol=1e-4),
+    torch.float64: dict(rtol=1e-10, atol=1e-12),
+    torch.bfloat16: dict(rtol=2e-2, atol=2e-2),  # one final rounding each side
+}
+# the training step against the float64 oracle: max|got - want| / max|want|
+LAYER_ORACLE_TOL = 1e-4
 
 
 def log(*parts):
@@ -188,8 +224,8 @@ def phase_main_path(dev):
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("row_ell_spmv", "row_ell_spmm"):
+        if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}: {launches}")
     for name, t, shape in (("a@B", out1, (M, N)), ("a@B again", out2, (M, N)), ("a@x", outv, (M,)), ("matvec_add", outa, (m2,))):
         if tuple(t.shape) != shape or t.device.type != "cuda" or not bool(torch.isfinite(t).all()):
@@ -321,7 +357,7 @@ def phase_times(a, re, b, x, launches, errs, card):
         line = {
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": errs[name],
@@ -353,6 +389,353 @@ def phase_times(a, re, b, x, launches, errs, card):
     return lines
 
 
+def bsr_problem(case, rng, dev):
+    """``(layout, m, k)`` of a BSR test matrix with unit-normal values."""
+    from sparse_tpu_torch.kernels import bsr
+
+    m, k, density, block_shape, pad = {
+        "test_bsr": (500, 600, 0.02, (128, 128), 1),  # tests/test_bsr.py's ragged problem
+        "empty": (128, 128, 0.0, (128, 128), 1),  # the single zero block
+        "pad2": (500, 600, 0.02, (128, 128), 2),
+        "block_32x64": (200, 300, 0.03, (32, 64), 1),
+    }[case]
+    lin = rng.choice(m * k, size=round(m * k * density), replace=False)
+    layout = bsr.build_bsr(lin // k, lin % k, rng.standard_normal(lin.size), (m, k), block_shape, pad, device=dev)
+    return layout, m, k
+
+
+def layer_layout(dev):
+    """The full-width layer, its input and its weighted-sum gradient: seeded."""
+    from sparse_tpu_torch import nn
+
+    layer = nn.BlockSparseLinear(
+        LAYER_IN, LAYER_OUT, LAYER_DENSITY, generator=torch.Generator().manual_seed(0), device=dev
+    )
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((LAYER_BATCH, LAYER_IN), dtype=np.float32), device=dev)
+    target = torch.as_tensor(rng.standard_normal((LAYER_BATCH, LAYER_OUT), dtype=np.float32), device=dev)
+    wsum = torch.as_tensor(rng.standard_normal((LAYER_BATCH, LAYER_OUT), dtype=np.float32), device=dev)
+    return layer, x, target, wsum
+
+
+def phase_bsr_kernels_vs_plain(dev, layer, x, wsum):
+    """The three BSR kernels against their plain versions on the card, in
+    float32, float64 and bfloat16: ragged edges, an empty matrix, a padded
+    layout through both SpMMs, a (32, 64) block shape, transposed-view
+    operands, a ragged SDDMM contraction, and the full-width layer."""
+    from sparse_tpu_torch.kernels import _cuda, bsr
+
+    rng = np.random.default_rng(2)
+    errs = {"bsr_spmm": 0.0, "bsr_spmm2": 0.0, "bsr_sddmm": 0.0}
+    _cuda.reset_launch_counts()
+    for dt in (torch.float32, torch.float64, torch.bfloat16):
+        tol = BSR_TOL[dt]
+        for case in ("test_bsr", "empty", "pad2", "block_32x64"):
+            a, m, k = bsr_problem(case, rng, dev)
+            blocks = a.blocks.to(dt)
+            for n, transposed in ((200, False), (37, False), (37, True)):
+                d = torch.as_tensor(rng.standard_normal((n, k) if transposed else (k, n)), device=dev).to(dt)
+                d = d.T if transposed else d
+                want = bsr.bsr_spmm_plain(a.block_rows, a.block_cols, blocks, d, n_rows=m)
+                got = bsr.bsr_spmm_kernel(a.block_rows, a.block_cols, blocks, d, n_rows=m, row_ptr=a.row_ptr)
+                check_close(f"bsr_spmm {case} {dt} N={n} T={transposed}", got, want, tol)
+                if case == "pad2":
+                    got2 = bsr.bsr_spmm_kernel2(a.block_rows, a.block_cols, blocks, d, n_rows=m, row_ptr=a.row_ptr)
+                    check_close(f"bsr_spmm2 {case} {dt} N={n} T={transposed}", got2, want, tol)
+            for b in (96, 37):  # 37: a ragged contraction
+                lhs = torch.as_tensor(rng.standard_normal((b, m)), device=dev).to(dt).T
+                rhs = torch.as_tensor(rng.standard_normal((b, k)), device=dev).to(dt)
+                want = bsr.bsr_sddmm_plain(a.block_rows, a.block_cols, lhs, rhs, block_shape=a.block_shape)
+                got = bsr.bsr_sddmm_kernel(a.block_rows, a.block_cols, lhs, rhs, block_shape=a.block_shape)
+                check_close(f"bsr_sddmm {case} {dt} B={b}", got, want, tol)
+            torch.cuda.synchronize()
+        # the full-width layer: its blocks and x.T (forward), the gradient of
+        # an MSE-like loss, scaled as one (unit-normal / sqrt(batch)), for the SDDMM
+        p = layer.params()
+        blocks = p.blocks.detach().to(dt)
+        xt = x.to(dt).T
+        g = (wsum / LAYER_BATCH**0.5).to(dt).T  # (out, batch), a transposed view as in the backward
+        args = (p.block_rows, p.block_cols, blocks, xt)
+        want = bsr.bsr_spmm_plain(*args, n_rows=LAYER_OUT)
+        e1 = check_close(f"bsr_spmm layer {dt}", bsr.bsr_spmm_kernel(*args, n_rows=LAYER_OUT, row_ptr=p.row_ptr), want, tol)
+        e2 = check_close(f"bsr_spmm2 layer {dt}", bsr.bsr_spmm_kernel2(*args, n_rows=LAYER_OUT, row_ptr=p.row_ptr), want, tol)
+        want = bsr.bsr_sddmm_plain(p.block_rows, p.block_cols, g, x.to(dt))
+        e3 = check_close(f"bsr_sddmm layer {dt}", bsr.bsr_sddmm_kernel(p.block_rows, p.block_cols, g, x.to(dt)), want, tol)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            errs = {"bsr_spmm": e1, "bsr_spmm2": e2, "bsr_sddmm": e3}
+        log(f"bsr kernel_vs_plain {dt}: ok")
+    launches = dict(_cuda.LAUNCHES)
+    if launches["bsr_spmm2"] == 0 or launches["bsr_spmm"] == 0 or launches["bsr_sddmm"] == 0:
+        raise AssertionError(f"the BSR comparison launched no kernel: {launches}")
+    return errs, launches
+
+
+def normalised_err(got, want):
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def phase_training(dev, layer, x, target, wsum):
+    """The block-sparse layer's training path at full width, counted: a
+    first step checked against a float64 oracle, then three SGD steps."""
+    from sparse_tpu_torch.kernels import LAUNCHES, bsr, reset_launch_counts
+
+    p = layer.params()
+    runs, t_runs = torch.diff(p.row_ptr), torch.diff(p.t_row_ptr)
+    layout = {
+        "n_pad_blocks": int((~p.blocks.detach().reshape(p.blocks.shape[0], -1).any(dim=1)).sum()),
+        "run_min_max": [int(runs.min()), int(runs.max())],
+        "t_run_min_max": [int(t_runs.min()), int(t_runs.max())],
+        "t_run_of_block_row_0": int(t_runs[0]),
+    }
+    w64 = bsr.BSR(p.blocks.detach().double(), p.block_rows, p.block_cols, (LAYER_OUT, LAYER_IN), (128, 128), p.row_ptr)
+    w64 = w64.todense()
+    b64 = p.bias.detach().double()
+    opt = torch.optim.SGD(layer.parameters(), lr=LAYER_LR)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    # step 0: the output and both gradients of the weighted sum sum(y * wsum)
+    x_in = x.clone().requires_grad_(True)
+    y = layer(x_in)
+    (y * wsum).sum().backward()
+    torch.cuda.synchronize()
+    first = dict(LAUNCHES)
+    x64, g64 = x.double(), wsum.double()
+    err_y = normalised_err(y.detach(), x64 @ w64.T + b64)
+    err_dx = normalised_err(x_in.grad, g64 @ w64)
+    dw = (g64.T @ x64).reshape(LAYER_OUT // 128, 128, LAYER_IN // 128, 128).transpose(1, 2)
+    err_db = normalised_err(layer.blocks.grad, dw[p.block_rows.long(), p.block_cols.long()])
+    del dw, w64
+    for name, e in (("y", err_y), ("dx", err_dx), ("d_blocks", err_db)):
+        if not e <= LAYER_ORACLE_TOL:
+            raise AssertionError(f"training step 0: {name} off the float64 oracle by {e} (limit {LAYER_ORACLE_TOL})")
+    if first["bsr_spmm"] < 2 or first["bsr_sddmm"] < 1:
+        raise AssertionError(f"training step 0 did not run forward, dgrad and wgrad on the kernels: {first}")
+
+    # three SGD steps on the per-sample summed squared error
+    losses, steps = [], []
+    for _ in range(3):
+        before = dict(LAUNCHES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        opt.zero_grad(set_to_none=True)
+        loss = ((layer(x) - target) ** 2).sum(dim=1).mean()
+        loss.backward()
+        opt.step()
+        end.record()
+        end.synchronize()
+        host_s = time.perf_counter() - t0
+        per_step = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        if per_step["bsr_spmm"] < 2 or per_step["bsr_sddmm"] < 1:
+            raise AssertionError(f"an SGD step did not run forward, dgrad and wgrad on the kernels: {per_step}")
+        losses.append(loss.item())
+        steps.append({"host_s": host_s, "device_ms": start.elapsed_time(end), "launches": per_step})
+    with torch.no_grad():
+        losses.append(((layer(x) - target) ** 2).sum(dim=1).mean().item())
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not all(a > b for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"the loss is not finite and falling: {losses}")
+    return {
+        "err_y": err_y,
+        "err_dx": err_dx,
+        "err_d_blocks": err_db,
+        "first_step_launches": first,
+        "losses": losses,
+        "lr": LAYER_LR,
+        "steps": steps,
+        "launches": launches,
+        "peak_memory_bytes": peak,
+        "n_blocks": int(p.blocks.shape[0]),
+        "layout": layout,
+    }
+
+
+def phase_pairs_path(dev, layer, x):
+    """The two-block SpMM (P3) driven through its public wrapper on the
+    trained layer's even-run layout, counted, against the layer's forward."""
+    from sparse_tpu_torch.kernels import LAUNCHES, bsr, reset_launch_counts
+
+    p = layer.params()
+    with torch.no_grad():
+        want = layer(x) - p.bias
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = bsr.bsr_spmm_kernel2(p.block_rows, p.block_cols, p.blocks, x.T, n_rows=LAYER_OUT, row_ptr=p.row_ptr).T
+        torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["bsr_spmm2"] == 0:
+        raise AssertionError(f"the two-block path never launched bsr_spmm2: {launches}")
+    err = normalised_err(got, want.double())
+    if not err <= LAYER_ORACLE_TOL:
+        raise AssertionError(f"bsr_spmm_kernel2 off the layer's forward by {err}")
+    return launches, err
+
+
+def phase_step_breakdown(layer, x, wsum):
+    """Device ms of each part of one training step (CUDA events, eager)."""
+    from sparse_tpu_torch.kernels import bsr
+
+    p = layer.params()
+    blocks = p.blocks.detach()
+    g = wsum.T  # the gradient of out_t, a transposed view
+    blocks_t = bsr.transposed_blocks(blocks, p.t_perm)
+    opt = torch.optim.SGD(layer.parameters(), lr=LAYER_LR)
+    for prm in layer.parameters():
+        prm.grad = torch.zeros_like(prm)
+    parts = {
+        "forward": lambda: bsr.bsr_spmm_kernel(p.block_rows, p.block_cols, blocks, x.T, n_rows=LAYER_OUT, row_ptr=p.row_ptr),
+        "blocks_t_gather": lambda: bsr.transposed_blocks(blocks, p.t_perm),
+        "dgrad": lambda: bsr.bsr_spmm_kernel(p.t_block_rows, p.t_block_cols, blocks_t, g, n_rows=LAYER_IN, row_ptr=p.t_row_ptr),
+        "wgrad": lambda: bsr.bsr_sddmm_kernel(p.block_rows, p.block_cols, g, x),
+        "sgd_step": opt.step,
+    }
+    with torch.no_grad():
+        out = {name: time_eager(fn, reps=10) for name, fn in parts.items()}
+    opt.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_bsr_times(layer, x, wsum, launches, errs, card):
+    """One line per BSR kernel at the full-width layer shape."""
+    from sparse_tpu_torch.kernels import _cuda, bsr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = layer.params()
+    blocks = p.blocks.detach()
+    nb, bm, bn = blocks.shape
+    xt = x.T  # (in, batch), the forward's dense operand
+    g = (wsum / LAYER_BATCH**0.5).T  # (out, batch), the wgrad's left operand
+    cols = p.block_cols
+    out_f = torch.empty((LAYER_OUT, LAYER_BATCH), device=x.device)
+    out_w = torch.empty_like(blocks)
+    w_dense = bsr.BSR(blocks, p.block_rows, cols, (LAYER_OUT, LAYER_IN), (bm, bn), p.row_ptr).todense()
+    xt_c = xt.contiguous()
+
+    library_notes = {}
+
+    def yardstick(name, make):
+        """One PyTorch call computing the same function, timed only; None (and
+        the reason printed) where the installed torch does not take it here."""
+        try:
+            fn = make()
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError, TypeError, ValueError) as exc:
+            library_notes[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+            return None
+        return time_eager(fn, reps=10)
+
+    def bsr_matmul():
+        w_bsr = w_dense.to_sparse_bsr((bm, bn))
+        return lambda: w_bsr @ xt_c
+
+    def sampled():
+        # on the BSR pattern where torch takes it, else on the same pattern as
+        # CSR; the pattern holds every stored block, pad blocks included
+        ones = bsr.BSR(torch.ones_like(blocks), p.block_rows, cols, (LAYER_OUT, LAYER_IN), (bm, bn), p.row_ptr)
+        ones = ones.todense()
+        pattern = ones.to_sparse_bsr((bm, bn))
+        try:
+            torch.sparse.sampled_addmm(pattern, g, x, beta=0.0)
+        except RuntimeError as exc:
+            library_notes["bsr_sddmm_bsr_pattern"] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+            pattern = ones.to_sparse_csr()
+        library_notes["bsr_sddmm"] = f"torch.sparse.sampled_addmm on the {pattern.layout} pattern"
+        return lambda: torch.sparse.sampled_addmm(pattern, g, x, beta=0.0)
+
+    touched_cols = int(torch.unique(cols).numel())
+    touched_rows = int(torch.unique(p.block_rows).numel())
+    idx_bytes = nb * 4 + (p.row_ptr.numel()) * 8
+    spmm_bytes = nb * bm * bn * 4 + min(touched_cols * bn, LAYER_IN) * LAYER_BATCH * 4 + LAYER_OUT * LAYER_BATCH * 4 + idx_bytes
+    sddmm_bytes = (min(touched_rows * bm, LAYER_OUT) + min(touched_cols * bn, LAYER_IN)) * LAYER_BATCH * 4 + nb * bm * bn * 4 + nb * 8
+    flops = 2 * nb * bm * bn * LAYER_BATCH
+    specs = [
+        (
+            "bsr_spmm",
+            lambda: _cuda.bsr_spmm(blocks, cols, p.row_ptr, xt, out_f),
+            lambda: bsr.bsr_spmm_kernel(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT, row_ptr=p.row_ptr),
+            lambda: bsr.bsr_spmm_plain(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT),
+            bsr_matmul,
+            lambda: w_dense @ xt_c,
+            spmm_bytes,
+        ),
+        (
+            "bsr_spmm2",
+            lambda: _cuda.bsr_spmm(blocks, cols, p.row_ptr, xt, out_f, pairs=2),
+            lambda: bsr.bsr_spmm_kernel2(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT, row_ptr=p.row_ptr),
+            lambda: bsr.bsr_spmm_plain(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT),
+            bsr_matmul,
+            lambda: w_dense @ xt_c,
+            spmm_bytes,
+        ),
+        (
+            "bsr_sddmm",
+            lambda: _cuda.bsr_sddmm(p.block_rows, cols, g, x, out_w),
+            lambda: bsr.bsr_sddmm_kernel(p.block_rows, cols, g, x),
+            lambda: bsr.bsr_sddmm_plain(p.block_rows, cols, g, x),
+            sampled,
+            lambda: g @ x,
+            sddmm_bytes,
+        ),
+    ]
+    lines = []
+    for name, launch, wrapper, plain, library, dense, nbytes in specs:
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_graph(launch, reps=20)
+        peak_kernel = torch.cuda.max_memory_allocated()
+        ms_wrapper = time_eager(wrapper, reps=20)
+        ms_cold = time_cold(launch, reps=10)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = time_eager(plain, reps=5)
+        peak_plain = torch.cuda.max_memory_allocated()
+        library_ms = yardstick(name, library)
+        dense_ms = time_eager(dense, reps=10)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        line = {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        }
+        lines.append(line)
+        log(
+            json.dumps(
+                {
+                    **line,
+                    "kernel_ms": ms,
+                    "kernel_ms_l2_flushed": ms_cold,
+                    "wrapper_ms_eager": ms_wrapper,
+                    "dense_ms": dense_ms,
+                    "library_note": library_notes.get(name, "W.to_sparse_bsr((128, 128)) @ dense"),
+                    "library_note_bsr_pattern": library_notes.get(f"{name}_bsr_pattern"),
+                    "bound_bytes": nbytes,
+                    "bound_flops": flops,
+                    "bound_share": bound_ms / ms,
+                    "f32_peak_flops_per_s": F32_FLOPS_PER_S,
+                    "peak_memory_bytes_kernel": peak_kernel,
+                    "peak_memory_bytes_plain": peak_plain,
+                    "shape": {"out": LAYER_OUT, "in": LAYER_IN, "batch": LAYER_BATCH, "n_blocks": nb, "block": [bm, bn], "dtype": "float32"},
+                    "card": card,
+                }
+            )
+        )
+    return lines
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -365,19 +748,38 @@ def main():
     count = torch.cuda.device_count()
     card = nvidia_smi_name_power()
     log(f"device: {kind} count={count} nvidia-smi: {card} torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    _cuda.load()
-    info = _cuda.BUILD_INFO
-    if "seconds" in info:
-        log(f"build: nvcc {info['seconds']:.2f} s -> {info['path']}")
-        log(info["ptxas"].strip())
-    else:
-        log(f"build: library already built at {info['path']}")
+    t0 = time.perf_counter()
+    _cuda.load_all()
+    log(f"build: all sources in {time.perf_counter() - t0:.2f} s")
+    for name, info in _cuda.BUILD_INFO.items():
+        if "seconds" in info:
+            log(f"build {name}: nvcc {info['seconds']:.2f} s -> {info['path']}")
+            log(info["ptxas"].strip())
+        else:
+            log(f"build {name}: library already built at {info['path']}")
 
+    # the sparse x dense main path (row-ELL)
     errs = phase_kernels_vs_plain(dev)
     log(json.dumps({"kernel_vs_plain": "ok", "bench_max_abs_err_f32": errs}))
     a, re, b, x, launches = phase_main_path(dev)
     lines = phase_times(a, re, b, x, launches, errs, card)
+    del a, re, b, x
+    torch.cuda.empty_cache()
+
+    # the block-sparse layer (BSR)
+    layer, lx, target, wsum = layer_layout(dev)
+    bsr_errs, cmp_launches = phase_bsr_kernels_vs_plain(dev, layer, lx, wsum)
+    log(json.dumps({"bsr_kernel_vs_plain": "ok", "layer_max_abs_err_f32": bsr_errs, "launches": cmp_launches}))
+    training = phase_training(dev, layer, lx, target, wsum)
+    breakdown = phase_step_breakdown(layer, lx, wsum)
+    log(json.dumps({"training_path": "ok", **training, "step_breakdown_device_ms": breakdown, "card": card}))
+    pairs_launches, pairs_err = phase_pairs_path(dev, layer, lx)
+    log(json.dumps({"pairs_path": "ok", "launches": pairs_launches, "err_vs_layer_forward": pairs_err}))
+    bsr_launches = {**training["launches"], "bsr_spmm2": pairs_launches["bsr_spmm2"]}
+    lines += phase_bsr_times(layer, lx, wsum, bsr_launches, bsr_errs, card)
 
     log(json.dumps({"kernels": lines}))
     log(card)

@@ -6,14 +6,15 @@ Arrays live on the GPU unless ``device="cpu"`` is asked for; the hot
 products run in hand-written CUDA kernels (``kernels``). This package never
 imports ``jax`` or ``sparse_tpu``.
 
-This slice holds the sparse × dense main path: a canonical 2-D ``COO``,
-``a @ b`` / ``matmul`` / ``dot`` on the cached row-ELL layout, and the fused
-``matvec_add``.
+It holds the sparse × dense main path (a canonical 2-D ``COO``, ``a @ b`` /
+``matmul`` / ``dot`` on the cached row-ELL layout, the fused ``matvec_add``)
+and the block-sparse linear layer of ``nn`` (BSR forward, dgrad and wgrad
+kernels).
 """
 
-from . import kernels
+from . import kernels, nn
 from .core.base import SparseArray
 from .core.coo import COO
 from .ops.dot import dot, matmul, matvec_add
 
-__all__ = ["COO", "SparseArray", "dot", "kernels", "matmul", "matvec_add"]
+__all__ = ["COO", "SparseArray", "dot", "kernels", "matmul", "matvec_add", "nn"]

@@ -1,0 +1,410 @@
+"""BSR — block compressed sparse row layout and its products.
+
+The layout is the one ``sparse_tpu.kernels.bsr.build_bsr`` builds, array for
+array: stored dense blocks ``(n_blocks, bm, bn)`` sorted row-major by
+(block-row, block-col), one zero block at column 0 for every empty
+block-row, and with ``pad_run_multiple > 1`` zero pad blocks at column 0
+appended to each run. It is built host-side with NumPy and moved to the
+device once, with a host-built int64 ``row_ptr`` (``n_block_rows + 1``)
+that gives each block-row's run, so that the kernels need no sequential
+grid.
+
+The products run in the hand-written CUDA kernels of ``csrc/bsr.cu`` for
+tensors on the GPU: ``bsr_spmm_kernel`` (P2), its two-blocks-per-step form
+``bsr_spmm_kernel2`` (P3) and ``bsr_sddmm_kernel`` (P4). Beside them sit
+their plain PyTorch versions (``bsr_spmm_plain``, ``bsr_sddmm_plain``),
+which the wrappers take only for tensors on the CPU. There is no
+``use_pallas`` switch: the device decides.
+
+``bsr_spmm`` and ``bsr_spmm_trainable`` are the differentiable products
+(``torch.autograd.Function``): the first with the XLA-derived backward of
+the JAX package as torch ops, the second with the kernels in its backward
+too (dgrad on the transposed layout, wgrad by the block SDDMM).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._settings import resolve_device
+from .._utils import torch_dtype
+from . import _cuda
+
+
+class BSR(NamedTuple):
+    """Block compressed sparse row matrix (zero fill).
+
+    blocks: (n_blocks, bm, bn) stored dense blocks
+    block_rows/block_cols: (n_blocks,) int32 block coordinates, each
+        block-row's run contiguous
+    row_ptr: (n_block_rows + 1,) int64, block-row ``r``'s run is
+        ``row_ptr[r]:row_ptr[r + 1]``
+    """
+
+    blocks: torch.Tensor
+    block_rows: torch.Tensor
+    block_cols: torch.Tensor
+    shape: tuple
+    block_shape: tuple
+    row_ptr: torch.Tensor
+
+    @property
+    def n_blocks(self):
+        return self.blocks.shape[0]
+
+    @property
+    def nnz(self):
+        return int(self.blocks.shape[0] * self.blocks.shape[1] * self.blocks.shape[2])
+
+    def todense(self):
+        """The dense ``shape`` tensor on the blocks' device (overlapping
+        blocks add up)."""
+        m, n = self.shape
+        bm, bn = self.block_shape
+        mb, nb = -(-m // bm), -(-n // bn)
+        out = torch.zeros((mb * nb, bm, bn), dtype=self.blocks.dtype, device=self.blocks.device)
+        out.index_add_(0, self.block_rows.long() * nb + self.block_cols.long(), self.blocks)
+        return out.reshape(mb, nb, bm, bn).transpose(1, 2).reshape(mb * bm, nb * bn)[:m, :n]
+
+
+def _host(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def block_row_ptr(block_rows, n_block_rows):
+    """Host-side int64 ``(n_block_rows + 1,)`` run offsets of a layout whose
+    block-rows each form one contiguous run in ascending order (raises
+    ``ValueError`` otherwise)."""
+    br = _host(block_rows).astype(np.int64)
+    if br.size and (br[0] < 0 or br[-1] >= n_block_rows or (np.diff(br) < 0).any()):
+        raise ValueError(f"block_rows must be ascending block-row ids in [0, {n_block_rows})")
+    return np.concatenate([[0], np.cumsum(np.bincount(br, minlength=n_block_rows))]).astype(np.int64)
+
+
+def build_bsr_arrays(rows, cols, data, shape, block_shape=(128, 128), pad_run_multiple=1):
+    """The NumPy layout ``(blocks, block_rows, block_cols)`` of
+    ``sparse_tpu.kernels.bsr.build_bsr``, array for array."""
+    bm, bn = block_shape
+    m, k = shape
+    n_block_rows = -(-m // bm)
+    kb = -(-k // bn)
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    data = np.asarray(data)
+
+    brow = rows // bm
+    bcol = cols // bn
+    key = brow.astype(np.int64) * kb + bcol
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    starts = np.flatnonzero(np.concatenate([[True], np.diff(key_s) != 0])) if key_s.size else np.empty(0, np.int64)
+    uniq = key_s[starts] if key_s.size else np.empty(0, np.int64)
+    block_of_entry = np.searchsorted(uniq, key_s)
+
+    n_stored = uniq.shape[0]
+    u_brow = (uniq // kb).astype(np.int32)
+    u_bcol = (uniq % kb).astype(np.int32)
+
+    # empty block-rows get one zero block at column 0
+    present = np.zeros(n_block_rows, dtype=bool)
+    present[u_brow] = True
+    missing = np.flatnonzero(~present).astype(np.int32)
+
+    total = n_stored + missing.shape[0]
+    blocks = np.zeros((max(total, 1), bm, bn), dtype=data.dtype)
+    if key_s.size:
+        r_local = (rows[order] % bm).astype(np.int64)
+        c_local = (cols[order] % bn).astype(np.int64)
+        np.add.at(blocks, (block_of_entry, r_local, c_local), data[order])
+    all_brow = np.concatenate([u_brow, missing]).astype(np.int32)
+    all_bcol = np.concatenate([u_bcol, np.zeros(missing.shape[0], dtype=np.int32)]).astype(np.int32)
+    if total == 0:
+        all_brow = np.zeros(1, dtype=np.int32)
+        all_bcol = np.zeros(1, dtype=np.int32)
+        total = 1
+    forder = np.argsort(all_brow.astype(np.int64) * kb + all_bcol, kind="stable")
+    blocks = blocks[:total][forder]
+    all_brow = all_brow[forder]
+    all_bcol = all_bcol[forder]
+
+    if pad_run_multiple > 1:
+        # zero blocks at column 0 appended to each run (a stable sort by block-row alone)
+        counts = np.bincount(all_brow, minlength=n_block_rows)
+        extra = -(-counts // pad_run_multiple) * pad_run_multiple - counts
+        if extra.sum():
+            pad_rows = np.repeat(np.arange(n_block_rows, dtype=np.int32), extra)
+            blocks = np.concatenate([blocks, np.zeros((pad_rows.size, bm, bn), dtype=blocks.dtype)])
+            all_brow = np.concatenate([all_brow, pad_rows])
+            all_bcol = np.concatenate([all_bcol, np.zeros(pad_rows.size, dtype=np.int32)])
+            forder = np.argsort(all_brow.astype(np.int64) * (kb + 1), kind="stable")
+            blocks = blocks[forder]
+            all_brow = all_brow[forder]
+            all_bcol = all_bcol[forder]
+    return blocks, all_brow, all_bcol
+
+
+def bsr_from_numpy(blocks, block_rows, block_cols, shape, block_shape, device=None):
+    """A :class:`BSR` on ``device`` from NumPy arrays taken as they are
+    (``blocks`` may already be a tensor on ``device``)."""
+    device = resolve_device(device)
+    if not isinstance(blocks, torch.Tensor):
+        blocks = np.ascontiguousarray(blocks)
+        blocks = torch.as_tensor(blocks, dtype=torch_dtype(blocks.dtype), device=device)
+    row_ptr = block_row_ptr(block_rows, -(-shape[0] // block_shape[0]))
+    return BSR(
+        blocks,
+        torch.as_tensor(np.asarray(block_rows, dtype=np.int32), device=device),
+        torch.as_tensor(np.asarray(block_cols, dtype=np.int32), device=device),
+        tuple(int(s) for s in shape),
+        tuple(int(s) for s in block_shape),
+        torch.as_tensor(row_ptr, device=device),
+    )
+
+
+def build_bsr(rows, cols, data, shape, block_shape=(128, 128), pad_run_multiple=1, device=None):
+    """Build a BSR layout from COO triplets (host-side, one-time), then move
+    it to ``device`` once.
+
+    Every empty block-row receives one zero block. ``pad_run_multiple > 1``
+    pads each block-row's run of stored blocks to a multiple of that count
+    (with zero blocks), as :func:`bsr_spmm_kernel2` needs for 2."""
+    blocks, brow, bcol = build_bsr_arrays(rows, cols, data, shape, block_shape, pad_run_multiple)
+    return bsr_from_numpy(blocks, brow, bcol, shape, block_shape, device=device)
+
+
+def transpose_bsr_layout(block_rows, block_cols, n_block_rows_t):
+    """Host-side one-time transpose layout for a BSR pattern: returns
+    ``(t_rows, t_cols, t_perm)`` NumPy arrays sorted row-major in the
+    transposed space, with every empty transposed block-row padded by one
+    zero block (``t_perm == -1``), ready for :func:`bsr_spmm_kernel` on Aᵀ
+    (stored block ``j`` of Aᵀ is ``blocks[t_perm[j]]ᵀ``)."""
+    br = _host(block_rows)
+    bc = _host(block_cols)
+    order = np.argsort(bc.astype(np.int64) * (br.max(initial=0) + 1) + br, kind="stable")
+    t_rows = bc[order].astype(np.int32)
+    t_cols = br[order].astype(np.int32)
+    t_perm = order.astype(np.int64)
+    present = np.zeros(n_block_rows_t, dtype=bool)
+    present[t_rows] = True
+    missing = np.flatnonzero(~present).astype(np.int32)
+    if missing.size:
+        t_rows = np.concatenate([t_rows, missing])
+        t_cols = np.concatenate([t_cols, np.zeros(missing.size, np.int32)])
+        t_perm = np.concatenate([t_perm, np.full(missing.size, -1, np.int64)])
+        order2 = np.argsort(t_rows.astype(np.int64) * (int(t_cols.max(initial=0)) + 2) + t_cols, kind="stable")
+        t_rows, t_cols, t_perm = t_rows[order2], t_cols[order2], t_perm[order2]
+    return t_rows, t_cols, t_perm
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the kernels' arithmetic; used for CPU tensors)
+# ---------------------------------------------------------------------------
+
+
+def _block_index(ids, size, limit):
+    """``(n, size)`` element indices of the blocks ``ids`` along an axis of
+    ``limit`` elements, clamped into range, and the mask of those in range."""
+    idx = ids.long()[:, None] * size + torch.arange(size, device=ids.device)
+    valid = (idx >= 0) & (idx < limit)
+    return idx.clamp(0, max(limit - 1, 0)), valid
+
+
+def _gather_row_blocks(mat, ids, size):
+    """``(n, size, cols)``: the row-blocks ``ids`` of ``mat``, zero past its
+    last row (no padded copy of ``mat``)."""
+    idx, valid = _block_index(ids, size, mat.shape[0])
+    if mat.shape[0] == 0:
+        return mat.new_zeros((ids.shape[0], size, mat.shape[1]))
+    return mat[idx] * valid[:, :, None].to(mat.dtype)
+
+
+def _add_row_blocks(out, ids, prods):
+    """``out[ids-block rows] += prods`` (``(n, size, cols)``), dropping rows past ``out``'s end."""
+    n, size, cols = prods.shape
+    idx, valid = _block_index(ids, size, out.shape[0])
+    keep = valid.reshape(-1)
+    return out.index_add_(0, idx.reshape(-1)[keep], prods.reshape(n * size, cols)[keep])
+
+
+def _compute_dtype(dtype):
+    # bf16 sums in float32 and rounds once at the end, as the kernel does
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def bsr_spmm_plain(block_rows, block_cols, blocks, dense, *, n_rows):
+    """``A @ dense`` by a pad-free gather of dense's column-blocks, one
+    ``bmm`` and an ``index_add_`` by block-row: the counterpart of
+    ``sparse_tpu.kernels.bsr.bsr_spmm_xla``."""
+    _, bm, bn = blocks.shape
+    ct = _compute_dtype(dense.dtype)
+    prods = torch.bmm(blocks.to(ct), _gather_row_blocks(dense.to(ct), block_cols, bn))
+    out = torch.zeros((n_rows, dense.shape[1]), dtype=ct, device=dense.device)
+    return _add_row_blocks(out, block_rows, prods).to(dense.dtype)
+
+
+def bsr_sddmm_plain(block_rows, block_cols, lhs, rhs, *, block_shape=(128, 128)):
+    """``out[j] = lhs[rows[j]-block, :] @ rhs[:, cols[j]-block]``: the
+    row-blocks of ``lhs`` and the column-blocks of ``rhs`` gathered, then one
+    ``bmm``; entries past ``lhs``'s rows or ``rhs``'s columns are zero."""
+    bm, bn = block_shape
+    ct = _compute_dtype(lhs.dtype)
+    a = _gather_row_blocks(lhs.to(ct), block_rows, bm)
+    b = _gather_row_blocks(rhs.to(ct).T, block_cols, bn).transpose(1, 2)
+    return torch.bmm(a, b).to(lhs.dtype)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_spmm(block_rows, block_cols, blocks, dense, block_shape):
+    for name, t in (("block_rows", block_rows), ("block_cols", block_cols), ("blocks", blocks), ("dense", dense)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != dense.device:
+            raise ValueError(f"{name} is on {t.device} but dense is on {dense.device}")
+    n = (blocks.shape[0],) if blocks.ndim == 3 else None
+    if n is None or dense.ndim != 2 or block_rows.shape != n or block_cols.shape != n:
+        raise ValueError("bsr_spmm: blocks must be (n_blocks, bm, bn) and dense 2-D, with one row and col per block")
+    if block_shape is not None and tuple(block_shape) != tuple(blocks.shape[1:]):
+        raise ValueError(f"block_shape {tuple(block_shape)} does not match blocks of shape {tuple(blocks.shape[1:])}")
+    if blocks.dtype != dense.dtype:
+        raise TypeError(f"blocks ({blocks.dtype}) and dense ({dense.dtype}) must share one dtype")
+    _cuda.check_bsr_dtype(dense.dtype)
+
+
+def _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, pairs):
+    _check_spmm(block_rows, block_cols, blocks, dense, block_shape)
+    device = dense.device
+    if device.type != "cpu":
+        _cuda.require_cuda(device, "BSR")
+    if row_ptr is None:
+        row_ptr = torch.as_tensor(block_row_ptr(block_rows, -(-n_rows // blocks.shape[1])), device=device)
+    if pairs == 2 and bool((torch.diff(row_ptr) % 2 != 0).any()):
+        raise ValueError("bsr_spmm_kernel2 needs every block-row's run to have even length (pad_run_multiple=2)")
+    if device.type == "cpu":
+        return bsr_spmm_plain(block_rows, block_cols, blocks, dense, n_rows=n_rows)
+    out = torch.empty((n_rows, dense.shape[1]), dtype=dense.dtype, device=device)
+    return _cuda.bsr_spmm(blocks, block_cols.to(torch.int32).contiguous(), row_ptr, dense, out, pairs=pairs)
+
+
+def bsr_spmm_kernel(block_rows, block_cols, blocks, dense, *, n_rows, block_shape=None, row_ptr=None):
+    """``A @ dense`` for BSR ``A`` (``n_rows`` rows) on the CUDA kernel
+    (P2, the counterpart of ``bsr_spmm_pallas``); its plain version for CPU
+    tensors. float32, float64 or bfloat16 (float32 sum, bf16 output);
+    ``blocks`` and ``dense`` may be any strided views. ``row_ptr``
+    (:func:`block_row_ptr`, on the device) saves a host pass over
+    ``block_rows``."""
+    return _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, pairs=1)
+
+
+def bsr_spmm_kernel2(block_rows, block_cols, blocks, dense, *, n_rows, block_shape=None, row_ptr=None):
+    """:func:`bsr_spmm_kernel` taking TWO stored blocks per step (P3, the
+    counterpart of ``bsr_spmm_pallas2``). Every block-row's run must have
+    even length (``build_bsr(..., pad_run_multiple=2)``), else
+    ``ValueError``: the JAX package checks only an even total. The check
+    reads the run lengths back from the device on every call."""
+    return _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, pairs=2)
+
+
+def bsr_sddmm_kernel(block_rows, block_cols, lhs, rhs, *, block_shape=(128, 128)):
+    """Block-sampled dense-dense matmul on the CUDA kernel (P4, the
+    counterpart of ``bsr_sddmm_pallas``): for each stored block ``(r, c)``
+    ``lhs[r·bm:(r+1)·bm, :] @ rhs[:, c·bn:(c+1)·bn]`` (rows and columns past
+    the operands' ends are zero). lhs ``(M, B)``, rhs ``(B, K)`` →
+    ``(n_blocks, bm, bn)``; its plain version for CPU tensors."""
+    for name, t in (("block_rows", block_rows), ("block_cols", block_cols), ("lhs", lhs), ("rhs", rhs)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != lhs.device:
+            raise ValueError(f"{name} is on {t.device} but lhs is on {lhs.device}")
+    if lhs.ndim != 2 or rhs.ndim != 2 or lhs.shape[1] != rhs.shape[0] or block_rows.shape != block_cols.shape:
+        raise ValueError(f"bsr_sddmm: lhs {tuple(lhs.shape)} and rhs {tuple(rhs.shape)} do not contract")
+    if lhs.dtype != rhs.dtype:
+        raise TypeError(f"lhs ({lhs.dtype}) and rhs ({rhs.dtype}) must share one dtype")
+    _cuda.check_bsr_dtype(lhs.dtype)
+    if lhs.device.type == "cpu":
+        return bsr_sddmm_plain(block_rows, block_cols, lhs, rhs, block_shape=block_shape)
+    _cuda.require_cuda(lhs.device, "BSR")
+    bm, bn = block_shape
+    out = torch.empty((block_rows.shape[0], bm, bn), dtype=lhs.dtype, device=lhs.device)
+    i32 = torch.int32
+    return _cuda.bsr_sddmm(block_rows.to(i32).contiguous(), block_cols.to(i32).contiguous(), lhs, rhs, out)
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def _bsr_spmm_vjp(block_rows, block_cols, blocks, dense, g):
+    """The VJP of ``A @ dense`` as torch ops (what XLA derives from
+    ``bsr_spmm_xla``): ``d_blocks[j] = g[rows[j]-block] @ dense[cols[j]-block]ᵀ``
+    and ``d_dense[cols[j]-block] += blocks[j]ᵀ @ g[rows[j]-block]``."""
+    _, bm, bn = blocks.shape
+    g_rows = _gather_row_blocks(g, block_rows, bm)  # (n_blocks, bm, N)
+    d_blocks = torch.bmm(g_rows, _gather_row_blocks(dense, block_cols, bn).transpose(1, 2))
+    d_dense = torch.zeros_like(dense, memory_format=torch.contiguous_format)
+    _add_row_blocks(d_dense, block_cols, torch.bmm(blocks.transpose(1, 2), g_rows))
+    return d_blocks, d_dense
+
+
+class _BsrSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block_rows, block_cols, blocks, dense, n_rows, row_ptr):
+        ctx.save_for_backward(block_rows, block_cols, blocks, dense)
+        return bsr_spmm_kernel(block_rows, block_cols, blocks, dense, n_rows=n_rows, row_ptr=row_ptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        block_rows, block_cols, blocks, dense = ctx.saved_tensors
+        d_blocks, d_dense = _bsr_spmm_vjp(block_rows, block_cols, blocks, dense, g)
+        return None, None, d_blocks, d_dense, None, None
+
+
+def bsr_spmm(block_rows, block_cols, blocks, dense, n_rows, row_ptr=None):
+    """Differentiable BSR SpMM: kernel forward, backward as torch ops (the
+    XLA-derived VJP of ``sparse_tpu.kernels.bsr.bsr_spmm``)."""
+    return _BsrSpmm.apply(block_rows, block_cols, blocks, dense, n_rows, row_ptr)
+
+
+def transposed_blocks(blocks, t_perm):
+    """``blocks_t`` of the transposed layout: ``blocks[t_perm[j]]ᵀ``, zero
+    where ``t_perm[j] == -1``, as a transposed view of one gathered copy
+    (the kernels read it through its strides)."""
+    gathered = blocks.index_select(0, t_perm.clamp(min=0))
+    return gathered.masked_fill_((t_perm < 0)[:, None, None], 0).transpose(1, 2)
+
+
+class _BsrSpmmTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block_rows, block_cols, t_rows, t_cols, t_perm, blocks, dense, n_rows, n_cols, row_ptr, t_row_ptr):
+        ctx.save_for_backward(block_rows, block_cols, t_rows, t_cols, t_perm, blocks, dense)
+        ctx.sizes = (n_cols, t_row_ptr)
+        return bsr_spmm_kernel(block_rows, block_cols, blocks, dense, n_rows=n_rows, row_ptr=row_ptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        block_rows, block_cols, t_rows, t_cols, t_perm, blocks, dense = ctx.saved_tensors
+        n_cols, t_row_ptr = ctx.sizes
+        blocks_t = transposed_blocks(blocks, t_perm)
+        d_dense = bsr_spmm_kernel(t_rows, t_cols, blocks_t, g, n_rows=n_cols, row_ptr=t_row_ptr)
+        d_blocks = bsr_sddmm_kernel(block_rows, block_cols, g, dense.T, block_shape=tuple(blocks.shape[1:]))
+        return None, None, None, None, None, d_blocks, d_dense, None, None, None, None
+
+
+def bsr_spmm_trainable(
+    block_rows, block_cols, t_rows, t_cols, t_perm, blocks, dense, n_rows, n_cols, row_ptr=None, t_row_ptr=None
+):
+    """Fully kernelized differentiable BSR SpMM: kernel forward, kernel
+    backward — dgrad through the transposed layout
+    (:func:`transpose_bsr_layout`) on :func:`bsr_spmm_kernel`, wgrad through
+    :func:`bsr_sddmm_kernel`. ``row_ptr``/``t_row_ptr`` (device tensors from
+    :func:`block_row_ptr`) save a host pass per call."""
+    return _BsrSpmmTrainable.apply(
+        block_rows, block_cols, t_rows, t_cols, t_perm, blocks, dense, n_rows, n_cols, row_ptr, t_row_ptr
+    )

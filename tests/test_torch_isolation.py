@@ -72,6 +72,9 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         row_ell.row_ell_spmm(re_meta, torch.empty((2, 3), dtype=torch.float64, device="meta"))
     with pytest.raises(ValueError, match="CUDA device"):
         row_ell.row_ell_spmv(re_meta, torch.empty(2, dtype=torch.float64, device="meta"))
+    p = st.nn.init_block_sparse_linear(128, 128, 1.0, generator=torch.Generator().manual_seed(0), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        st.nn.block_sparse_linear(p, torch.empty((4, 128), device="meta"))
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -82,14 +85,20 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert _cuda._SRC.exists()
-    src = _cuda._SRC.read_text()
-    for fn in ("st_row_ell_spmv_f32", "st_row_ell_spmv_f64", "st_row_ell_spmm_f32", "st_row_ell_spmm_f64"):
-        assert f"int {fn}(" in src
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr"}
+    for name, path in _cuda.SOURCES.items():
+        assert path.exists() and path.parent == PKG / "kernels" / "csrc"
+        src = path.read_text()
+        for fn in _cuda._SIGNATURES[name]:
+            # an entry point of its own or one stamped out by the BSR source's macro
+            assert f"int {fn}(" in src or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src
+    bsr_src = _cuda.SOURCES["bsr"].read_text()
+    for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
+        assert f"ST_BSR_ENTRY_POINTS({suffix}, {ctype})" in bsr_src
     assert "arch=compute_90a,code=sm_90a" in _cuda._NVCC_FLAGS
 
 
 def test_launch_counters_start_and_reset():
     _cuda.LAUNCHES["row_ell_spmm"] += 3
     _cuda.reset_launch_counts()
-    assert _cuda.LAUNCHES == {"row_ell_spmv": 0, "row_ell_spmm": 0}
+    assert _cuda.LAUNCHES == {"row_ell_spmv": 0, "row_ell_spmm": 0, "bsr_spmm": 0, "bsr_spmm2": 0, "bsr_sddmm": 0}
