@@ -18,7 +18,14 @@ drives the port's two paths on the card:
   at batch 512 (the JAX package's block-sparse training benchmark,
   bench_suite.py), checks the first step's output and both gradients
   against a float64 oracle, and takes three SGD steps on which the loss
-  must fall.
+  must fall;
+- the MTTKRP of a 3-D tensor: builds the BASELINE-scale tensor (100,000 x
+  2,000 x 2,000, 10M draws, r = 32, float32; bench_suite.py) as a ``COO``
+  on the card and its block-ELL layout, holds the MTTKRP kernel against its
+  plain version (float32, float64, bf16 tables; both forms), drives
+  ``ell_mttkrp`` (exact and bf16), ``kernels.mttkrp`` and ``jitops.mttkrp``
+  against a float64 oracle, and the example's shape (1000 x 1000 x 100 at
+  density 1e-4, r = 25, float64) against ``np.einsum``.
 
 The launch counters show that each path ran its kernels; each kernel is
 timed beside its plain version, one library call on the same inputs
@@ -64,6 +71,8 @@ SOURCE = {
     "bsr_spmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
     "bsr_spmm2": "sparse_tpu_torch/kernels/csrc/bsr.cu",
     "bsr_sddmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
+    "ell_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
+    "coo_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -71,6 +80,8 @@ REPLACES = {
     "bsr_spmm": "sparse_tpu/kernels/bsr.py:168",  # bsr_spmm_pallas (Pallas P2)
     "bsr_spmm2": "sparse_tpu/kernels/bsr.py:235",  # bsr_spmm_pallas2 (Pallas P3)
     "bsr_sddmm": "sparse_tpu/kernels/bsr.py:341",  # bsr_sddmm_pallas (Pallas P4)
+    "ell_mttkrp": "experiments/mttkrp_onehot.py:38",  # products_call (Pallas E2), for ell_mttkrp
+    "coo_mttkrp": "sparse_tpu/kernels/dot.py:132",  # mttkrp (XLA segment_sum)
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -87,6 +98,16 @@ BSR_TOL = {
 }
 # the training step against the float64 oracle: max|got - want| / max|want|
 LAYER_ORACLE_TOL = 1e-4
+
+# MTTKRP at the BASELINE scale (bench_suite.py:227-253): 100k x 2k x 2k from
+# 10M draws of np.random.default_rng(0), r = 32, float32; not cut
+MT_I, MT_J, MT_K, MT_R = 100_000, 2000, 2000, 32
+MT_DRAWS = 10_000_000
+# against the float64 oracle, max|got - want| / max|want|: exact f32, and the
+# bf16 strategy's grade (tests/test_kernels.py:317)
+MT_ORACLE_TOL = {"exact": 1e-5, "bf16": 3e-2}
+# the example's shape (examples/mttkrp_example.py:17-41), float64, its own limit
+EX_SHAPE, EX_DENSITY, EX_R, EX_RTOL = (1000, 1000, 100), 1e-4, 25, 1e-8
 
 
 def log(*parts):
@@ -736,6 +757,252 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
     return lines
 
 
+def mttkrp_problem(dev):
+    """The BASELINE-scale tensor as a ``COO`` built on the card, its factors
+    and its block-ELL layout, drawn as bench_suite.py draws them."""
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch.kernels import build_block_ell_3d
+
+    rng = np.random.default_rng(0)
+    lin = np.unique(rng.integers(0, MT_I * MT_J * MT_K, size=MT_DRAWS, dtype=np.int64))
+    coords = np.stack([lin // (MT_J * MT_K), (lin // MT_K) % MT_J, lin % MT_K])
+    tv = rng.random(lin.size, dtype=np.float32)
+    c = torch.as_tensor(rng.random((MT_J, MT_R), dtype=np.float32), device=dev)
+    d = torch.as_tensor(rng.random((MT_K, MT_R), dtype=np.float32), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = st.COO(coords, tv, shape=(MT_I, MT_J, MT_K), device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lay = build_block_ell_3d(t.coords[0], t.coords[1], t.coords[2], t.data, MT_I, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return t, c, d, lay, {"coo_build_s": t1 - t0, "layout_build_s": t2 - t1}
+
+
+def example_problem(dev):
+    """The example's tensor (seeded numpy draws) as a ``COO`` on the card,
+    its factors, and the dense einsum oracle, computed in slabs of rows."""
+    import sparse_tpu_torch as st
+
+    I, K, L = EX_SHAPE
+    rng = np.random.default_rng(0)
+    lin = np.sort(rng.choice(I * K * L, size=round(I * K * L * EX_DENSITY), replace=False))
+    coords = np.stack([lin // (K * L), (lin // L) % K, lin % L])
+    vals = rng.random(lin.size)
+    c, d = rng.random((K, EX_R)), rng.random((L, EX_R))
+    want = np.empty((I, EX_R))
+    for i0 in range(0, I, 100):
+        sel = (coords[0] >= i0) & (coords[0] < i0 + 100)
+        slab = np.zeros((100, K, L))
+        slab[coords[0, sel] - i0, coords[1, sel], coords[2, sel]] = vals[sel]
+        want[i0 : i0 + 100] = np.einsum("ikl,kj,lj->ij", slab, c, d, optimize=True)
+    return st.COO(coords, vals, shape=EX_SHAPE, device=dev), c, d, want
+
+
+def phase_mttkrp_vs_plain(t, c, d, lay):
+    """The MTTKRP kernel, both forms, against its plain version at full
+    width: float32, float64 and the bf16 tables (positive values: no
+    cancellation, so the row-ELL tolerances hold)."""
+    from sparse_tpu_torch.kernels import dot, ell
+
+    runs = dict(order=lay.order, row_ptr=lay.row_ptr)
+    errs = {}
+    for dt in (torch.float32, torch.float64):
+        lay_dt, c_dt, d_dt = (*lay[:3], lay.e_data.to(dt)), c.to(dt), d.to(dt)
+        for strategy in ("exact", "bf16"):
+            got = ell.ell_mttkrp(*lay_dt, c_dt, d_dt, n_rows=MT_I, strategy=strategy, **runs)
+            want = ell.ell_mttkrp_plain(*lay_dt, c_dt, d_dt, n_rows=MT_I, strategy=strategy)
+            errs[f"ell_mttkrp {strategy} {dt}"] = check_close(f"ell_mttkrp {strategy} {dt}", got, want, TOL[dt])
+            del got, want
+        v_dt = t.data.to(dt)
+        got = dot.mttkrp(*t.coords, v_dt, c_dt, d_dt, n_rows=MT_I)
+        want = dot.mttkrp_plain(*t.coords, v_dt, c_dt, d_dt, n_rows=MT_I)
+        errs[f"coo_mttkrp {dt}"] = check_close(f"coo_mttkrp {dt}", got, want, TOL[dt])
+        del got, want, lay_dt
+        torch.cuda.synchronize()
+    return errs
+
+
+def phase_mttkrp_path(dev, t, c, d, lay, ex):
+    """The MTTKRP path through its entry points, counted: every call must
+    launch its kernel exactly once."""
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch.kernels import LAUNCHES, dot, ell, reset_launch_counts
+
+    t_ex, c_ex, d_ex, want_ex = ex
+    lay_ex = ell.build_block_ell_3d(t_ex.coords[0], t_ex.coords[1], t_ex.coords[2], t_ex.data, EX_SHAPE[0], device=dev)
+    runs = dict(order=lay.order, row_ptr=lay.row_ptr)
+    c_ex_t, d_ex_t = torch.as_tensor(c_ex, device=dev), torch.as_tensor(d_ex, device=dev)
+    calls = [
+        ("ell exact", "ell_mttkrp", lambda: ell.ell_mttkrp(*lay[:4], c, d, n_rows=MT_I, **runs)),
+        ("ell bf16", "ell_mttkrp", lambda: ell.ell_mttkrp(*lay[:4], c, d, n_rows=MT_I, strategy="bf16", **runs)),
+        ("kernels.mttkrp", "coo_mttkrp", lambda: st.kernels.mttkrp(*t.coords, t.data, c, d, n_rows=MT_I)),
+        ("jitops.mttkrp", "coo_mttkrp", lambda: st.jitops.mttkrp(t, c, d)),
+        ("example jitops.mttkrp", "coo_mttkrp", lambda: st.jitops.mttkrp(t_ex, c_ex, d_ex)),
+        (
+            "example ell",
+            "ell_mttkrp",
+            lambda: ell.ell_mttkrp(*lay_ex[:4], c_ex_t, d_ex_t, n_rows=EX_SHAPE[0], order=lay_ex.order, row_ptr=lay_ex.row_ptr),
+        ),
+    ]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = {}
+    for label, counter, call in calls:
+        before = dict(LAUNCHES)
+        outs[label] = call()
+        step = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        if step != {k: int(k == counter) for k in LAUNCHES}:
+            raise AssertionError(f"{label}: expected one {counter} launch and nothing else, got {step}")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+
+    want = dot.mttkrp_plain(*t.coords, t.data.double(), c.double(), d.double(), n_rows=MT_I)
+    errs = {}
+    for label in ("ell exact", "ell bf16", "kernels.mttkrp", "jitops.mttkrp"):
+        got = outs[label]
+        if tuple(got.shape) != (MT_I, MT_R) or got.device.type != dev.type or got.dtype != torch.float32:
+            raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} on {got.device}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: output not finite")
+        errs[label] = normalised_err(got, want)
+        limit = MT_ORACLE_TOL["bf16" if "bf16" in label else "exact"]
+        if not errs[label] <= limit:
+            raise AssertionError(f"{label}: off the float64 oracle by {errs[label]} (limit {limit})")
+    if not torch.equal(outs["kernels.mttkrp"], outs["jitops.mttkrp"]):
+        raise AssertionError("kernels.mttkrp and jitops.mttkrp differ on the same tensor")
+    for label in ("example jitops.mttkrp", "example ell"):
+        got = outs[label]
+        if got.dtype != torch.float64:
+            raise AssertionError(f"{label}: {got.dtype}, expected float64")
+        np.testing.assert_allclose(got.cpu().numpy(), want_ex, rtol=EX_RTOL, err_msg=label)
+    return launches, errs, want
+
+
+def phase_mttkrp_times(t, c, d, lay, want, launches, errs, card, build):
+    """One line per MTTKRP kernel at the BASELINE scale, with the bf16
+    tables' time and the yardstick: torch.sparse.mm of the mode-1 unfolding
+    (I x J*K CSR) with a Khatri-Rao product built beforehand."""
+    from sparse_tpu_torch.kernels import _cuda, dot, ell
+
+    slots, nnz = lay.order.numel(), t.nnz
+    ej, ek, ed = (a.reshape(-1) for a in lay[1:4])
+    ci, cj, ck = t.coords
+    row_ptr_coo = torch.searchsorted(ci.long(), torch.arange(MT_I + 1, device=ci.device))
+    c16, d16 = c.to(torch.bfloat16), d.to(torch.bfloat16)
+    out = torch.empty((MT_I, MT_R), device=c.device)
+    runs = dict(order=lay.order, row_ptr=lay.row_ptr)
+
+    kr_ms = time_eager(lambda: (c[:, None, :] * d[None, :, :]).reshape(MT_J * MT_K, MT_R), reps=5)
+    kr = (c[:, None, :] * d[None, :, :]).reshape(MT_J * MT_K, MT_R)
+    unfold = torch.sparse_coo_tensor(
+        torch.stack([ci.long(), cj.long() * MT_K + ck.long()]), t.data, (MT_I, MT_J * MT_K)
+    ).coalesce().to_sparse_csr()
+    library_note = "torch.sparse.mm(mode-1 unfolding CSR, Khatri-Rao (J*K, r)), Khatri-Rao built beforehand"
+    try:
+        lib_out = torch.sparse.mm(unfold, kr)
+        torch.cuda.synchronize()
+        library_err = normalised_err(lib_out, want)
+        del lib_out
+        library_ms = time_eager(lambda: torch.sparse.mm(unfold, kr), reps=10)
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as exc:
+        library_ms, library_err = None, None
+        library_note += f": {type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+
+    table_bytes = (MT_J + MT_K) * MT_R * 4
+    out_bytes = MT_I * MT_R * 4
+    # the block-ELL runs: every pad slot of a block joins its local row 0,
+    # so the ragged last block's row 0 is the longest run by far; timing the
+    # rows before that block shows what its one warp costs
+    run_len = torch.diff(lay.row_ptr[: MT_I + 1])
+    full_rows = MT_I // 128 * 128
+    ell_runs = {
+        "longest_run": int(run_len.max()),
+        "longest_run_row": int(run_len.argmax()),
+        "median_run": float(run_len.float().median()),
+        "kernel_ms_rows_before_last_block": time_graph(
+            lambda: _cuda.mttkrp(lay.row_ptr, lay.order, ej, ek, ed, c, d, out[:full_rows]), reps=20
+        ),
+        "rows_before_last_block": full_rows,
+    }
+    specs = [
+        (
+            "ell_mttkrp",
+            lambda: _cuda.mttkrp(lay.row_ptr, lay.order, ej, ek, ed, c, d, out),
+            lambda: _cuda.mttkrp(lay.row_ptr, lay.order, ej, ek, ed, c16, d16, out),
+            lambda: ell.ell_mttkrp(*lay[:4], c, d, n_rows=MT_I, **runs),
+            lambda: ell.ell_mttkrp_plain(*lay[:4], c, d, n_rows=MT_I),
+            # j, k, data and order per slot, the row offsets, the tables, the output
+            slots * 16 + (MT_I + 1) * 8 + table_bytes + out_bytes,
+            3 * slots * MT_R,
+            slots,
+        ),
+        (
+            "coo_mttkrp",
+            lambda: _cuda.mttkrp(row_ptr_coo, None, cj, ck, t.data, c, d, out),
+            lambda: _cuda.mttkrp(row_ptr_coo, None, cj, ck, t.data, c16, d16, out),
+            lambda: dot.mttkrp(ci, cj, ck, t.data, c, d, n_rows=MT_I),
+            lambda: dot.mttkrp_plain(ci, cj, ck, t.data, c, d, n_rows=MT_I),
+            nnz * 12 + (MT_I + 1) * 8 + table_bytes + out_bytes,
+            3 * nnz * MT_R,
+            nnz,
+        ),
+    ]
+    lines = []
+    for name, launch, launch_bf16, wrapper, plain, nbytes, flops, n_slots in specs:
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_graph(launch, reps=20)
+        ms_bf16 = time_graph(launch_bf16, reps=20)
+        ms_wrapper = time_eager(wrapper, reps=10)
+        ms_cold = time_cold(launch, reps=10)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = time_eager(plain, reps=3)
+        peak_plain = torch.cuda.max_memory_allocated()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        line = {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        }
+        lines.append(line)
+        log(
+            json.dumps(
+                {
+                    **line,
+                    "kernel_ms": ms,
+                    "kernel_ms_bf16_tables": ms_bf16,
+                    "kernel_ms_l2_flushed": ms_cold,
+                    "wrapper_ms_eager": ms_wrapper,
+                    "library_note": library_note,
+                    "library_err_vs_oracle": library_err,
+                    "khatri_rao_build_ms": kr_ms,
+                    "bound_bytes": nbytes,
+                    "bound_flops": flops,
+                    "bound_share": bound_ms / ms,
+                    # two factor rows of r values gathered per slot, through L2
+                    "gathered_bytes": 2 * n_slots * MT_R * 4,
+                    "peak_memory_bytes_plain": peak_plain,
+                    **(ell_runs if name == "ell_mttkrp" else {}),
+                    "shape": {"I": MT_I, "J": MT_J, "K": MT_K, "r": MT_R, "nnz": nnz, "slots": n_slots, "dtype": "float32"},
+                    **build,
+                    "card": card,
+                }
+            )
+        )
+    return lines
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -780,6 +1047,31 @@ def main():
     log(json.dumps({"pairs_path": "ok", "launches": pairs_launches, "err_vs_layer_forward": pairs_err}))
     bsr_launches = {**training["launches"], "bsr_spmm2": pairs_launches["bsr_spmm2"]}
     lines += phase_bsr_times(layer, lx, wsum, bsr_launches, bsr_errs, card)
+    del layer, lx, target, wsum
+    torch.cuda.empty_cache()
+
+    # the MTTKRP of a 3-D tensor (block-ELL and sorted-COO forms)
+    t, c, d, lay, build = mttkrp_problem(dev)
+    cmp_errs = phase_mttkrp_vs_plain(t, c, d, lay)
+    log(json.dumps({"mttkrp_kernel_vs_plain": "ok", "max_abs_err": cmp_errs}))
+    ex = example_problem(dev)
+    mt_launches, oracle_errs, want = phase_mttkrp_path(dev, t, c, d, lay, ex)
+    log(
+        json.dumps(
+            {
+                "mttkrp_path": "ok",
+                "nnz": t.nnz,
+                "slots": lay.order.numel(),
+                "cap": lay.e_rows.shape[1],
+                "launches": mt_launches,
+                "err_vs_f64_oracle": oracle_errs,
+                "example": {"shape": EX_SHAPE, "r": EX_R, "nnz": ex[0].nnz, "rtol": EX_RTOL},
+                **build,
+            }
+        )
+    )
+    mt_errs = {"ell_mttkrp": cmp_errs["ell_mttkrp exact torch.float32"], "coo_mttkrp": cmp_errs["coo_mttkrp torch.float32"]}
+    lines += phase_mttkrp_times(t, c, d, lay, want, mt_launches, mt_errs, card, build)
 
     log(json.dumps({"kernels": lines}))
     log(card)

@@ -7,14 +7,16 @@ products run in hand-written CUDA kernels (``kernels``). This package never
 imports ``jax`` or ``sparse_tpu``.
 
 It holds the sparse × dense main path (a canonical 2-D ``COO``, ``a @ b`` /
-``matmul`` / ``dot`` on the cached row-ELL layout, the fused ``matvec_add``)
-and the block-sparse linear layer of ``nn`` (BSR forward, dgrad and wgrad
-kernels).
+``matmul`` / ``dot`` on the cached row-ELL layout, the fused ``matvec_add``),
+the block-sparse linear layer of ``nn`` (BSR forward, dgrad and wgrad
+kernels), and the MTTKRP of a 3-D tensor (``jitops.mttkrp`` on a ``COO``,
+``kernels.mttkrp`` and the block-ELL ``kernels.ell_mttkrp``, one CUDA
+kernel).
 """
 
-from . import kernels, nn
+from . import jitops, kernels, nn
 from .core.base import SparseArray
 from .core.coo import COO
 from .ops.dot import dot, matmul, matvec_add
 
-__all__ = ["COO", "SparseArray", "dot", "kernels", "matmul", "matvec_add", "nn"]
+__all__ = ["COO", "SparseArray", "dot", "jitops", "kernels", "matmul", "matvec_add", "nn"]

@@ -14,6 +14,7 @@ from ._settings import resolve_device
 from ._utils import torch_dtype, zero_of_dtype
 from .core.coo import COO, _as_tensor
 from .kernels.bsr import bsr_from_numpy
+from .kernels.ell import DEFAULT_BLOCK_ROWS, block_ell_3d_from_numpy
 from .kernels.row_ell import pack_row_ell
 from .nn import make_block_sparse_linear_params
 
@@ -48,6 +49,14 @@ def bsr_from_arrays(blocks, block_rows, block_cols, shape, block_shape=(128, 128
     """The port's ``BSR`` from a JAX ``BSR``'s arrays, taken as they are."""
     device = resolve_device(device)
     return bsr_from_numpy(_float_tensor(blocks, device), block_rows, block_cols, shape, block_shape, device)
+
+
+def block_ell_3d_from_arrays(e_rows, e_j, e_k, e_data, block_rows=DEFAULT_BLOCK_ROWS, device=None):
+    """The port's ``BlockEll3d`` from the four arrays of a JAX
+    ``build_block_ell_3d``, taken as they are, with the runs the kernel
+    needs built beside them on the host."""
+    device = resolve_device(device)
+    return block_ell_3d_from_numpy(e_rows, e_j, e_k, _float_tensor(e_data, device), block_rows, device)
 
 
 def block_sparse_linear_params_from_arrays(

@@ -2,9 +2,11 @@
 
 ``row_ell`` holds the row-ELL layout and the wrappers of its CUDA kernels
 (``csrc/row_ell.cu``); ``bsr`` the block-sparse layout, the wrappers of its
-CUDA kernels (``csrc/bsr.cu``) and the differentiable BSR products; both
-are built and launched by ``_cuda``. ``dot`` holds the COO gather +
-``index_add_`` products for the dtypes the row-ELL kernels do not take.
+CUDA kernels (``csrc/bsr.cu``) and the differentiable BSR products; ``ell``
+the block-ELL layouts, their SpMM/SpMV and the block-ELL MTTKRP; ``dot`` the
+COO gather + ``index_add_`` products for the dtypes the row-ELL kernels do
+not take and the sorted-COO MTTKRP. Both MTTKRP forms run one CUDA kernel
+(``csrc/mttkrp.cu``). ``_cuda`` builds and launches every kernel.
 """
 
 from ._cuda import LAUNCHES, reset_launch_counts
@@ -21,7 +23,19 @@ from .bsr import (
     build_bsr,
     transpose_bsr_layout,
 )
-from .dot import coo_spmm, coo_spmv
+from .dot import coo_spmm, coo_spmv, mttkrp, mttkrp_plain
+from .ell import (
+    DEFAULT_BLOCK_ROWS,
+    BlockEll,
+    BlockEll3d,
+    block_ell_3d_runs,
+    build_block_ell,
+    build_block_ell_3d,
+    ell_mttkrp,
+    ell_mttkrp_plain,
+    ell_spmm,
+    ell_spmv,
+)
 from .row_ell import (
     ONEHOT_SPMV_MAX_K,
     RowEll,
@@ -33,9 +47,13 @@ from .row_ell import (
 
 __all__ = [
     "BSR",
+    "DEFAULT_BLOCK_ROWS",
+    "BlockEll",
+    "BlockEll3d",
     "LAUNCHES",
     "ONEHOT_SPMV_MAX_K",
     "RowEll",
+    "block_ell_3d_runs",
     "block_row_ptr",
     "bsr_sddmm_kernel",
     "bsr_sddmm_plain",
@@ -44,10 +62,18 @@ __all__ = [
     "bsr_spmm_kernel2",
     "bsr_spmm_plain",
     "bsr_spmm_trainable",
+    "build_block_ell",
+    "build_block_ell_3d",
     "build_bsr",
     "build_row_ell",
     "coo_spmm",
     "coo_spmv",
+    "ell_mttkrp",
+    "ell_mttkrp_plain",
+    "ell_spmm",
+    "ell_spmv",
+    "mttkrp",
+    "mttkrp_plain",
     "reset_launch_counts",
     "row_ell_spmm",
     "row_ell_spmm_program",

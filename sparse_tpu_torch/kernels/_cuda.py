@@ -10,8 +10,8 @@ that CUDA refuses (each C entry point returns ``cudaGetLastError()``).
 
 The launchers take tensors already on the GPU, of the kernel's dtype, check
 that, allocate nothing themselves, launch on the current stream and do not
-synchronize. The row-ELL launchers take contiguous tensors; the BSR
-launchers read their operands through their strides. ``LAUNCHES`` counts
+synchronize. The row-ELL and MTTKRP launchers take contiguous tensors; the
+BSR launchers read their operands through their strides. ``LAUNCHES`` counts
 the launches of each kernel; nothing else touches it.
 """
 
@@ -30,7 +30,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"row_ell": _CSRC / "row_ell.cu", "bsr": _CSRC / "bsr.cu"}
+SOURCES = {"row_ell": _CSRC / "row_ell.cu", "bsr": _CSRC / "bsr.cu", "mttkrp": _CSRC / "mttkrp.cu"}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparse_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -51,9 +51,21 @@ _SIGNATURES = {
             for dt in ("f32", "f64", "bf16")
         },
     },
+    "mttkrp": {
+        f"st_mttkrp_{dt}": [_p, _p, _i64, _p, _p, _p, _p, _p, _i64, _p, _p]
+        for dt in ("f32", "f64", "bf16_f32", "bf16_f64")
+    },
 }
 
-LAUNCHES = {"row_ell_spmv": 0, "row_ell_spmm": 0, "bsr_spmm": 0, "bsr_spmm2": 0, "bsr_sddmm": 0}
+LAUNCHES = {
+    "row_ell_spmv": 0,
+    "row_ell_spmm": 0,
+    "bsr_spmm": 0,
+    "bsr_spmm2": 0,
+    "bsr_sddmm": 0,
+    "ell_mttkrp": 0,
+    "coo_mttkrp": 0,
+}
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
 # -Xptxas -v report, "path": the library}; only "path" when already built
@@ -326,4 +338,74 @@ def bsr_sddmm(block_rows, block_cols, lhs, rhs, out):
     )
     _raise_on(err, "bsr_sddmm")
     LAUNCHES["bsr_sddmm"] += 1
+    return out
+
+
+# (table dtype, value dtype) -> entry point suffix of csrc/mttkrp.cu
+_MTTKRP_SUFFIX = {
+    (torch.float32, torch.float32): "f32",
+    (torch.float64, torch.float64): "f64",
+    (torch.bfloat16, torch.float32): "bf16_f32",
+    (torch.bfloat16, torch.float64): "bf16_f64",
+}
+
+
+def mttkrp(row_ptr, order, cj, ck, v, c, d, out):
+    """Launch the MTTKRP kernel: ``out[i] = Σ v[s] · c[cj[s]] · d[ck[s]]``
+    over the slots ``s`` of row ``i``'s run ``row_ptr[i]:row_ptr[i + 1]``,
+    read through ``order`` (int32, the block-ELL form, counted as
+    ``ell_mttkrp``) or in place (``order=None``, the sorted-COO form,
+    ``coo_mttkrp``). ``cj``/``ck`` int32 and ``v`` flat and of one length,
+    ``c``/``d`` ``(J, r)``/``(K, r)`` of the table dtype, ``out`` ``(n_rows,
+    r)`` of ``v``'s dtype; all contiguous. The caller guarantees every index
+    in range."""
+    name = "coo_mttkrp" if order is None else "ell_mttkrp"
+    dtype, device = v.dtype, v.device
+    require_cuda(device, "MTTKRP")
+    suffix = _MTTKRP_SUFFIX.get((c.dtype, dtype))
+    if suffix is None:
+        raise TypeError(f"the MTTKRP kernel takes tables of {dtype} or bfloat16 with {dtype} values, not {c.dtype}")
+    _check("row_ptr", row_ptr, torch.int64, device)
+    if order is not None:
+        _check("order", order, torch.int32, device)
+    _check("cj", cj, torch.int32, device)
+    _check("ck", ck, torch.int32, device)
+    _check("v", v, dtype, device)
+    _check("c", c, c.dtype, device)
+    _check("d", d, c.dtype, device)
+    _check("out", out, dtype, device)
+    n_rows, r = out.shape
+    n_slots = v.shape[0]
+    if (
+        cj.shape != (n_slots,)
+        or ck.shape != (n_slots,)
+        or (order is not None and order.shape != (n_slots,))
+        or row_ptr.ndim != 1
+        or row_ptr.shape[0] < n_rows + 1
+        or c.ndim != 2
+        or d.ndim != 2
+        or c.shape[1] != r
+        or d.shape[1] != r
+    ):
+        raise ValueError("mttkrp: operand shapes do not match")
+    if n_rows == 0 or r == 0:
+        return out
+    if -(-r // 32) > 65535:
+        raise ValueError(f"mttkrp: r = {r} needs more than 65535 column chunks")
+    fn = getattr(load("mttkrp"), f"st_mttkrp_{suffix}")
+    err = fn(
+        row_ptr.data_ptr(),
+        None if order is None else order.data_ptr(),
+        n_rows,
+        cj.data_ptr(),
+        ck.data_ptr(),
+        v.data_ptr(),
+        c.data_ptr(),
+        d.data_ptr(),
+        r,
+        out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out

@@ -1,14 +1,24 @@
-"""COO SpMM/SpMV as torch gather + ``index_add_``.
+"""COO products as torch gather + ``index_add_``, and the sorted-segment MTTKRP.
 
-The path for the dtypes the row-ELL kernels do not take (integers, complex,
-float16): ``ops.dot`` sends those here by dtype, as ``sparse_tpu`` keeps them
-off its row-ELL path. Same functions as ``sparse_tpu.kernels.dot.coo_spmm``
-and ``coo_spmv``.
+``coo_spmm``/``coo_spmv`` are the path for the dtypes the row-ELL kernels do
+not take (integers, complex, float16): ``ops.dot`` sends those here by dtype,
+as ``sparse_tpu`` keeps them off its row-ELL path. Same functions as
+``sparse_tpu.kernels.dot.coo_spmm`` and ``coo_spmv``.
+
+``mttkrp`` is ``sparse_tpu.kernels.dot.mttkrp``: for tensors on the GPU it
+runs the hand-written CUDA kernel of ``csrc/mttkrp.cu`` (counted as
+``coo_mttkrp``), with each row's run found by ``torch.searchsorted`` on the
+device; ``mttkrp_plain`` beside it is its plain PyTorch version, taken only
+for tensors on the CPU. The differentiable core (``_Mttkrp``) is shared
+with the block-ELL form, ``ell.ell_mttkrp``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .._utils import result_dtype
+from . import _cuda
 
 
 def coo_spmm(rows, cols, data, dense, *, n_rows):
@@ -21,3 +31,170 @@ def coo_spmv(rows, cols, data, x, *, n_rows):
     """``A @ x`` for COO ``A`` and a dense vector ``x`` → ``(n_rows,)``."""
     out = torch.zeros(n_rows, dtype=data.dtype, device=data.device)
     return out.index_add_(0, rows.long(), data * x[cols.long()])
+
+
+# ---------------------------------------------------------------------------
+# MTTKRP: out[i, :] = Σ_{e in row i} v[e] · C[j[e], :] · D[k[e], :]
+# ---------------------------------------------------------------------------
+
+MTTKRP_STRATEGIES = ("exact", "hilo", "bf16")
+_KERNEL_DTYPES = (torch.float32, torch.float64)
+
+
+def mttkrp_dtypes(data, c, d, strategy="exact"):
+    """``(value dtype, table dtype)`` of an MTTKRP, as ``sparse_tpu`` computes
+    it: NumPy promotion of the three for ``"exact"``/``"hilo"``; for
+    ``"bf16"`` bfloat16 tables and ``data``'s dtype. The value dtype is
+    float32 or float64, else ``TypeError``."""
+    vt = data.dtype if strategy == "bf16" else result_dtype(data.dtype, c.dtype, d.dtype)
+    if vt not in _KERNEL_DTYPES:
+        raise TypeError(f"mttkrp computes in float32 or float64, not {vt}")
+    return vt, torch.bfloat16 if strategy == "bf16" else vt
+
+
+def slot_rows(rows, block_rows=0):
+    """The int64 output row of every slot, flat: ``rows`` itself for the COO
+    form (``block_rows=0``); ``block · block_rows + rows[block, slot]`` for
+    a block-ELL ``rows`` of local row ids ``(n_blocks, cap)``."""
+    if not block_rows:
+        return rows.long()
+    base = torch.arange(rows.shape[0], device=rows.device, dtype=torch.int64)[:, None] * block_rows
+    return (rows.long() + base).reshape(-1)
+
+
+def _products(cj, ck, v, c, d, strategy):
+    """``(n_slots, r)``: ``v · (C[j] · D[k])`` in the value dtype, flat slots;
+    ``"bf16"`` multiplies the bf16-rounded factors in float32 (exact) first."""
+    vt, tt = mttkrp_dtypes(v, c, d, strategy)
+    cg, dg = c.to(tt)[cj.long()], d.to(tt)[ck.long()]
+    g = (cg.float() * dg.float()).to(vt) if strategy == "bf16" else cg * dg
+    return v.to(vt)[:, None] * g
+
+
+def segment_sum(prods, rows, n_rows):
+    """``out[rows[s]] += prods[s]`` into ``(n_rows, r)`` zeros; rows outside
+    ``[0, n_rows)`` are dropped, as ``jax.ops.segment_sum`` drops them."""
+    keep = (rows >= 0) & (rows < n_rows)
+    if not bool(keep.all()):
+        rows, prods = rows[keep], prods[keep]
+    out = torch.zeros((n_rows, prods.shape[1]), dtype=prods.dtype, device=prods.device)
+    return out.index_add_(0, rows, prods)
+
+
+def mttkrp_plain(coords_i, coords_j, coords_k, data, c, d, *, n_rows, block_rows=0, strategy="exact"):
+    """The kernel's function in torch ops (gather, multiply, ``index_add_``),
+    on any device. ``coords_i`` is the COO form's row ids (``block_rows=0``)
+    or a block-ELL layout's local rows; ``coords_j``/``coords_k``/``data``
+    have its shape."""
+    prods = _products(coords_j.reshape(-1), coords_k.reshape(-1), data.reshape(-1), c, d, strategy)
+    return segment_sum(prods, slot_rows(coords_i, block_rows), n_rows)
+
+
+def check_indices(cj, ck, c, d, ci=None):
+    """Raise ``IndexError`` unless every ``cj``/``ck`` indexes a row of
+    ``c``/``d``, and ``ValueError`` unless ``ci`` (when given) is sorted:
+    one host read for all of it. The kernel reads the factors unchecked."""
+    if cj.numel() == 0:
+        return
+    flags = [cj.min() < 0, cj.max() >= c.shape[0], ck.min() < 0, ck.max() >= d.shape[0]]
+    if ci is not None and ci.numel() > 1:
+        flags.append((ci[1:] < ci[:-1]).any())
+    bad = torch.stack(flags).tolist()
+    if any(bad[:4]):
+        raise IndexError(f"mttkrp: a j or k index is out of range for factors of {c.shape[0]} and {d.shape[0]} rows")
+    if len(bad) > 4 and bad[4]:
+        raise ValueError("mttkrp: coords_i must be sorted (sparse_tpu's segment sum assumes indices_are_sorted)")
+
+
+def _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order):
+    if data.device.type == "cpu":
+        return mttkrp_plain(rows, cj, ck, data, c, d, n_rows=n_rows, block_rows=block_rows, strategy=strategy)
+    _cuda.require_cuda(data.device, "MTTKRP")
+    vt, tt = mttkrp_dtypes(data, c, d, strategy)
+    out = torch.empty((n_rows, c.shape[1]), dtype=vt, device=data.device)
+    i32 = torch.int32
+    return _cuda.mttkrp(
+        row_ptr,
+        order,
+        cj.reshape(-1).to(i32).contiguous(),
+        ck.reshape(-1).to(i32).contiguous(),
+        data.reshape(-1).to(vt).contiguous(),
+        c.to(tt).contiguous(),
+        d.to(tt).contiguous(),
+        out,
+    )
+
+
+class _Mttkrp(torch.autograd.Function):
+    """Kernel forward (plain on the CPU); backward as torch ops, the VJP
+    that JAX derives: ``d data[s] = Σ_r g[row(s)] · C[j] · D[k]``,
+    ``dC = index_add_ by j of data · g[row] · D[k]``, ``dD`` likewise by k.
+    For ``"bf16"`` the rounding of the factors passes the gradient straight
+    through, in the value dtype."""
+
+    @staticmethod
+    def forward(ctx, rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order):
+        ctx.save_for_backward(rows, cj, ck, data, c, d)
+        ctx.meta = (block_rows, n_rows, strategy)
+        return _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, cj, ck, data, c, d = ctx.saved_tensors
+        block_rows, n_rows, strategy = ctx.meta
+        vt, tt = mttkrp_dtypes(data, c, d, strategy)
+        flat = slot_rows(rows, block_rows)
+        g_ext = torch.cat([g.to(vt), g.new_zeros((1, g.shape[1]), dtype=vt)])
+        gr = g_ext[torch.where((flat >= 0) & (flat < n_rows), flat, n_rows)]
+        cf, df = c.to(tt).to(vt), d.to(tt).to(vt)
+        cjl, ckl = cj.reshape(-1).long(), ck.reshape(-1).long()
+        cg, dg = cf[cjl], df[ckl]
+        v = data.reshape(-1).to(vt)[:, None]
+        d_data = d_c = d_d = None
+        if ctx.needs_input_grad[4]:
+            d_data = (gr * cg * dg).sum(1).reshape(data.shape).to(data.dtype)
+        if ctx.needs_input_grad[5]:
+            d_c = torch.zeros_like(cf).index_add_(0, cjl, v * gr * dg).to(c.dtype)
+        if ctx.needs_input_grad[6]:
+            d_d = torch.zeros_like(df).index_add_(0, ckl, v * gr * cg).to(d.dtype)
+        return None, None, None, None, d_data, d_c, d_d, None, None, None, None
+
+
+def check_mttkrp_operands(what, tensors, c, d):
+    """Tensors on one device; ``c`` and ``d`` 2-D with one rank ``r``."""
+    device = c.device
+    for name, t in (*tensors, ("c", c), ("d", d)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{what}: {name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device} but c is on {device}")
+    if c.ndim != 2 or d.ndim != 2 or c.shape[1] != d.shape[1]:
+        raise ValueError(f"{what}: c {tuple(c.shape)} and d {tuple(d.shape)} must be (J, r) and (K, r)")
+
+
+def mttkrp(coords_i, coords_j, coords_k, data, c, d, *, n_rows):
+    """MTTKRP of a 3-D COO tensor B with entries sorted by ``coords_i``:
+    ``out[i, r] = Σ_{(i,j,k) in B} B[i,j,k] · C[j, r] · D[k, r]`` → dense
+    ``(n_rows, r)`` in the promoted dtype (float32 or float64).
+    Differentiable in ``data``, ``c`` and ``d``.
+
+    ``coords_i`` must be sorted (``ValueError`` otherwise; ``sparse_tpu``
+    assumes it without checking); ``i`` outside ``[0, n_rows)`` is dropped,
+    a ``j`` or ``k`` outside the factors raises ``IndexError``. The checks
+    read one flag vector back from the device."""
+    tensors = (("coords_i", coords_i), ("coords_j", coords_j), ("coords_k", coords_k), ("data", data))
+    check_mttkrp_operands("mttkrp", tensors, c, d)
+    if not coords_i.ndim == coords_j.ndim == coords_k.ndim == data.ndim == 1 or not (
+        coords_i.shape == coords_j.shape == coords_k.shape == data.shape
+    ):
+        raise ValueError("mttkrp: coords_i, coords_j, coords_k and data must be 1-D of one length")
+    mttkrp_dtypes(data, c, d)
+    on_cpu = data.device.type == "cpu"
+    if not on_cpu:
+        _cuda.require_cuda(data.device, "MTTKRP")
+    check_indices(coords_j, coords_k, c, d, ci=coords_i)
+    row_ptr = None
+    if not on_cpu:
+        ci = coords_i if coords_i.dtype == torch.int64 else coords_i.long()
+        row_ptr = torch.searchsorted(ci, torch.arange(n_rows + 1, device=ci.device))
+    return _Mttkrp.apply(coords_i, 0, coords_j, coords_k, data, c, d, n_rows, "exact", row_ptr, None)

@@ -85,7 +85,7 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert set(_cuda.SOURCES) == {"row_ell", "bsr"}
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "mttkrp"}
     for name, path in _cuda.SOURCES.items():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
@@ -101,4 +101,12 @@ def test_kernel_sources_ship_with_the_package():
 def test_launch_counters_start_and_reset():
     _cuda.LAUNCHES["row_ell_spmm"] += 3
     _cuda.reset_launch_counts()
-    assert _cuda.LAUNCHES == {"row_ell_spmv": 0, "row_ell_spmm": 0, "bsr_spmm": 0, "bsr_spmm2": 0, "bsr_sddmm": 0}
+    assert _cuda.LAUNCHES == {
+        "row_ell_spmv": 0,
+        "row_ell_spmm": 0,
+        "bsr_spmm": 0,
+        "bsr_spmm2": 0,
+        "bsr_sddmm": 0,
+        "ell_mttkrp": 0,
+        "coo_mttkrp": 0,
+    }

@@ -7,7 +7,9 @@ kernel and the plain version sum each row in another order; row-ELL float64
 at rtol=1e-12 and float32 at rtol=1e-5, atol=1e-6, on positive values (no
 cancellation); BSR on unit-normal values float32 at rtol=atol=1e-4, float64
 at rtol=1e-10, atol=1e-12, bfloat16 (one final rounding each side) at
-rtol=atol=2e-2.
+rtol=atol=2e-2; MTTKRP on positive values at the row-ELL tolerances, for
+every table type (the bf16 tables' products are exact in float32 on both
+sides, so only the order of the row sum differs).
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 import sparse_tpu_torch as st
-from sparse_tpu_torch.kernels import _cuda, bsr, row_ell
+from sparse_tpu_torch.kernels import _cuda, bsr, dot, ell, row_ell
 
 pytestmark = pytest.mark.gpu
 
@@ -111,7 +113,15 @@ def test_launch_counters_and_main_path(cuda):
     out_v = a @ v
     out_a = st.matvec_add(a, v, y)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES == {"row_ell_spmv": 2, "row_ell_spmm": 1, "bsr_spmm": 0, "bsr_spmm2": 0, "bsr_sddmm": 0}
+    assert _cuda.LAUNCHES == {
+        "row_ell_spmv": 2,
+        "row_ell_spmm": 1,
+        "bsr_spmm": 0,
+        "bsr_spmm2": 0,
+        "bsr_sddmm": 0,
+        "ell_mttkrp": 0,
+        "coo_mttkrp": 0,
+    }
     np.testing.assert_allclose(out_m.cpu().numpy(), x @ b, rtol=1e-12)
     np.testing.assert_allclose(out_v.cpu().numpy(), x @ v, rtol=1e-12)
     np.testing.assert_allclose(out_a.cpu().numpy(), x @ v + y, rtol=1e-12)
@@ -213,3 +223,85 @@ def test_bsr_launchers_refuse_mismatched_inputs(cuda):
     bc = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="even length"):
         bsr.bsr_spmm_kernel2(br, bc, torch.ones((4, 2, 2), device=cuda), torch.ones((6, 1), device=cuda), n_rows=4)
+
+
+# (I, J, K, draws): a ragged I (three blocks and 44 rows), rows without
+# entries, and one hub row with a run of several hundred slots
+MTTKRP_CASES = {"ragged": (3 * 128 + 44, 50, 40, 6000), "hub": (300, 60, 70, 2000)}
+
+
+def _tensor3(case, dt, cuda):
+    I, J, K, draws = MTTKRP_CASES[case]
+    rng = np.random.default_rng(list(MTTKRP_CASES).index(case))
+    lin = rng.integers(0, I * J * K, draws)
+    if case == "hub":
+        lin = np.concatenate([lin, 7 * J * K + rng.choice(J * K, 700, replace=False)])
+    lin = np.unique(lin)
+    lin = lin[(lin // (J * K)) % 5 != 3]  # every fifth row empty
+    coords = np.stack([lin // (J * K), (lin // K) % J, lin % K])
+    return st.COO(coords, rng.random(lin.size).astype(np.float32 if dt == torch.float32 else np.float64), shape=(I, J, K), device=cuda)
+
+
+def _mttkrp_factors(t, r, dt, cuda):
+    g = torch.Generator(device="cpu").manual_seed(r)
+    return tuple(torch.rand((n, r), generator=g, dtype=dt).to(cuda) for n in t.shape[1:])
+
+
+@pytest.mark.parametrize("case", list(MTTKRP_CASES))
+@pytest.mark.parametrize("dt,strategy", [(torch.float32, "exact"), (torch.float64, "exact"), (torch.float32, "bf16"), (torch.float64, "bf16")])
+@pytest.mark.parametrize("r", [25, 32, 64])
+def test_ell_mttkrp_kernel_matches_plain(cuda, case, dt, strategy, r):
+    t = _tensor3(case, dt, cuda)
+    c, d = _mttkrp_factors(t, r, dt, cuda)
+    lay = ell.build_block_ell_3d(t.coords[0], t.coords[1], t.coords[2], t.data, t.shape[0], device=cuda)
+    want = ell.ell_mttkrp_plain(*lay[:4], c, d, n_rows=t.shape[0], strategy=strategy)
+    _cuda.reset_launch_counts()
+    got = ell.ell_mttkrp(*lay[:4], c, d, n_rows=t.shape[0], strategy=strategy, order=lay.order, row_ptr=lay.row_ptr)
+    bare = ell.ell_mttkrp(*lay[:4], c, d, n_rows=t.shape[0], strategy=strategy)  # runs sorted on the device
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ell_mttkrp"] == 2 and got.dtype == dt
+    torch.testing.assert_close(got, want, **TOL[dt])
+    assert torch.equal(bare, got)  # the same run order: deterministic to the bit
+
+
+@pytest.mark.parametrize("case", list(MTTKRP_CASES))
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("r", [25, 32, 64])
+def test_coo_mttkrp_kernel_matches_plain(cuda, case, dt, r):
+    t = _tensor3(case, dt, cuda)
+    c, d = _mttkrp_factors(t, r, dt, cuda)
+    _cuda.reset_launch_counts()
+    got = st.jitops.mttkrp(t, c, d)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["coo_mttkrp"] == 1 and got.dtype == dt
+    torch.testing.assert_close(got, dot.mttkrp_plain(*t.coords, t.data, c, d, n_rows=t.shape[0]), **TOL[dt])
+    # the block-ELL form sums each row's entries in the same order (its pad
+    # slots add an exact 0 to local row 0 of each block)
+    lay = ell.build_block_ell_3d(t.coords[0], t.coords[1], t.coords[2], t.data, t.shape[0], device=cuda)
+    assert torch.equal(ell.ell_mttkrp(*lay[:4], c, d, n_rows=t.shape[0], order=lay.order, row_ptr=lay.row_ptr), got)
+
+
+def test_mttkrp_kernels_on_empty_tensors(cuda):
+    c, d = torch.ones((4, 3), device=cuda), torch.ones((5, 3), device=cuda)
+    empty = [torch.empty(0, dtype=torch.int32, device=cuda) for _ in range(3)]
+    lay = ell.build_block_ell_3d(*empty, torch.empty(0, device=cuda), 16, device=cuda)
+    _cuda.reset_launch_counts()
+    out = ell.ell_mttkrp(*lay[:4], c, d, n_rows=16, order=lay.order, row_ptr=lay.row_ptr)
+    out_coo = dot.mttkrp(*empty, torch.empty(0, device=cuda), c, d, n_rows=16)
+    torch.cuda.synchronize()
+    assert out.shape == out_coo.shape == (16, 3) and not out.any() and not out_coo.any()
+    assert (_cuda.LAUNCHES["ell_mttkrp"], _cuda.LAUNCHES["coo_mttkrp"]) == (1, 1)  # empty rows store zeros
+    zero = ell.build_block_ell_3d(*empty, torch.empty(0, device=cuda), 0, device=cuda)
+    assert ell.ell_mttkrp(*zero[:4], c, d, n_rows=0).shape == (0, 3)
+
+
+def test_mttkrp_kernel_refuses_unsorted_rows(cuda):
+    t = _tensor3("ragged", torch.float32, cuda)
+    c, d = _mttkrp_factors(t, 32, torch.float32, cuda)
+    ci, cj, ck = t.coords
+    with pytest.raises(ValueError, match="sorted"):
+        dot.mttkrp(ci.flip(0), cj, ck, t.data, c, d, n_rows=t.shape[0])
+    with pytest.raises(IndexError):
+        dot.mttkrp(ci, cj, ck, t.data, c[:10], d, n_rows=t.shape[0])
+    with pytest.raises(TypeError):
+        _cuda.mttkrp(torch.zeros(2, dtype=torch.int64, device=cuda), None, cj, ck, t.data, c.double(), d.double(), torch.empty((1, 32), device=cuda))
