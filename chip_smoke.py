@@ -25,7 +25,12 @@ drives the port's two paths on the card:
   plain version (float32, float64, bf16 tables; both forms), drives
   ``ell_mttkrp`` (exact and bf16), ``kernels.mttkrp`` and ``jitops.mttkrp``
   against a float64 oracle, and the example's shape (1000 x 1000 x 100 at
-  density 1e-4, r = 25, float64) against ``np.einsum``.
+  density 1e-4, r = 25, float64) against ``np.einsum``;
+- the experiments: the one-hot SpMV prototype's full SpMV at the benchmark
+  shape through the row-ELL layout (hi|lo and bf16 tables, blocks of 2048
+  and 4096 slots) against a float64 oracle and beside K1, and the VMEM
+  gather probes p1-p4 and g1-g3 at their own full sizes; each of the eight
+  kernels held against its plain version, and the card's gather rates.
 
 The launch counters show that each path ran its kernels; each kernel is
 timed beside its plain version, one library call on the same inputs
@@ -48,6 +53,8 @@ import time
 
 import numpy as np
 import torch
+
+from sparse_tpu_torch.experiments.common import REPS, WARMUP, time_graph
 
 M = K = 1 << 16  # benchmark shape (bench.py)
 NNZ_DRAWS = 1 << 21
@@ -73,6 +80,19 @@ SOURCE = {
     "bsr_sddmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
     "ell_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
     "coo_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
+    **{
+        k: "sparse_tpu_torch/kernels/csrc/probes.cu"
+        for k in (
+            "spmv_products",
+            "lane_gather",
+            "row_gather_sum",
+            "row_pick_bf16",
+            "scalar_gather_sum",
+            "lane_gather_blocksum",
+            "row_pick_blocksum",
+            "pick_scale_wsum",
+        )
+    },
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -82,6 +102,14 @@ REPLACES = {
     "bsr_sddmm": "sparse_tpu/kernels/bsr.py:341",  # bsr_sddmm_pallas (Pallas P4)
     "ell_mttkrp": "experiments/mttkrp_onehot.py:38",  # products_call (Pallas E2), for ell_mttkrp
     "coo_mttkrp": "sparse_tpu/kernels/dot.py:132",  # mttkrp (XLA segment_sum)
+    "spmv_products": "experiments/pallas_spmv_onehot.py:77",  # products_kernel (Pallas E1)
+    "lane_gather": "experiments/pallas_vmem.py:76",  # p1 (E3)
+    "row_gather_sum": "experiments/pallas_vmem.py:121",  # p2 (E4)
+    "row_pick_bf16": "experiments/pallas_vmem.py:166",  # p3 (E5)
+    "scalar_gather_sum": "experiments/pallas_vmem.py:209",  # p4 (E6)
+    "lane_gather_blocksum": "experiments/pallas_vmem2.py:69",  # g1 (E7)
+    "row_pick_blocksum": "experiments/pallas_vmem2.py:107",  # g2 (E8)
+    "pick_scale_wsum": "experiments/pallas_vmem2.py:146",  # g3 (E9)
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -108,6 +136,14 @@ MT_DRAWS = 10_000_000
 MT_ORACLE_TOL = {"exact": 1e-5, "bf16": 3e-2}
 # the example's shape (examples/mttkrp_example.py:17-41), float64, its own limit
 EX_SHAPE, EX_DENSITY, EX_R, EX_RTOL = (1000, 1000, 100), 1e-4, 25, 1e-8
+
+# the one-hot SpMV prototype against the float64 oracle, max|out - oracle| /
+# max|oracle|, by table (the prototype's docstring: ~1e-5 and ~2e-3)
+E1_ORACLE_TOL = {"hilo": 1e-4, "bf16": 1e-2}
+# probe sums against their plain versions: up to 8,192 positive terms, about
+# 4e3 at most, added in another order
+PROBE_TOL = dict(rtol=1e-4, atol=1e-3)
+L2_ROW_BYTES = 128 * 4  # one picked f32 table row
 
 
 def log(*parts):
@@ -276,29 +312,6 @@ def phase_main_path(dev):
         )
     )
     return a, layout, b, x, launches
-
-
-def time_graph(fn, reps=50):
-    """Device ms per call of ``fn`` (a bare kernel launch), from CUDA events
-    around the replay of a graph holding ``reps`` calls: no host overhead."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    best = float("inf")
-    for _ in range(5):
-        start.record()
-        g.replay()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / reps)
-    return best
 
 
 def time_eager(fn, reps=20):
@@ -1003,6 +1016,228 @@ def phase_mttkrp_times(t, c, d, lay, want, launches, errs, card, build):
     return lines
 
 
+def phase_experiments(dev):
+    """The experiments through their runners, counted: E1's ``main`` at the
+    benchmark shape, then each probe at its ``__main__`` size. Each runner
+    runs its output call, then times the kernel (``WARMUP + REPS`` calls
+    from Python); E1's ``main`` times its full SpMV for each of its four
+    runs, and K1 once."""
+    from sparse_tpu_torch.experiments import pallas_spmv_onehot as e1
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+    from sparse_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    timed = WARMUP + REPS
+    expected = {
+        "spmv_products": 4 * (1 + timed),
+        "row_ell_spmv": timed,
+        "lane_gather": 2 * (2 + timed),  # the capability call and the gather
+        "row_gather_sum": 1 + timed,
+        "row_pick_bf16": 1 + timed,
+        "scalar_gather_sum": 1 + timed,
+        "lane_gather_blocksum": 2 * (1 + timed),
+        "row_pick_blocksum": 1 + timed,
+        "pick_scale_wsum": 1 + timed,
+    }
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    spmv = e1.main(dev)
+    runs = {
+        "p1": v.p1(512, label="p1(512)", device=dev),
+        "p1b": v.p1(8192, label="p1b(8192)", device=dev),
+        "p2": v.p2(device=dev),
+        "p3": v.p3(device=dev),
+        "p4": v.p4(device=dev),
+        "g1": v2.g1(512, n_blocks=36, device=dev),
+        "g1b": v2.g1(8192, n_blocks=4, label="g1b", device=dev),
+        "g2": v2.g2(device=dev),
+        "g3": v2.g3(device=dev),
+    }
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = {k: expected.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"the experiments phase launched {launches}, expected {want}")
+    for label, run in spmv["runs"].items():
+        limit = E1_ORACLE_TOL[label.split()[0]]
+        if not run["relerr"] <= limit:
+            raise AssertionError(f"E1 {label}: off the float64 oracle by {run['relerr']} (limit {limit})")
+    for label, out in spmv["outputs"].items():
+        if tuple(out.shape) != (M,) or out.device.type != "cuda" or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"E1 {label}: {tuple(out.shape)} on {out.device}")
+    return spmv, runs, launches, seconds
+
+
+def phase_experiments_vs_plain(spmv, runs):
+    """Each of the eight kernels against its plain version on the phase's
+    own inputs at full size: the picks bit for bit, the sums at PROBE_TOL.
+    Returns the largest absolute difference of each run, by its label."""
+    from sparse_tpu_torch.experiments import pallas_spmv_onehot as e1
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+
+    def exact(name, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel and plain version differ by {float((got - want).abs().max())}")
+        return 0.0
+
+    errs = {}
+    re, x = spmv["layout"], spmv["x"]
+    fc, fd = e1.flatten_tiers(re, 2048)
+    for hilo in (True, False):
+        x2 = e1.make_table(x, hilo)
+        errs[f"E1 {'hilo' if hilo else 'bf16'} blk=2048"] = exact("spmv_products", e1.products(x2, fc, fd), e1.products_plain(x2, fc, fd))
+    for key in ("p1", "p1b"):
+        r = runs[key]
+        table, idx = r.inputs["table"], r.inputs["idx"]
+        h = min(table.shape[0], 512)
+        exact(f"lane_gather {r.label} capability", r.outputs[0], v.lane_gather_plain(table[:h], idx[:8] % h))
+        errs[r.label] = exact(f"lane_gather {r.label}", r.outputs[1], v.lane_gather_plain(table, idx))
+    r = runs["p2"]
+    errs["p2"] = check_close("row_gather_sum", r.outputs[0], v.row_gather_sum_plain(r.inputs["strip"], r.inputs["idx"], 1024), PROBE_TOL)
+    r = runs["p3"]
+    errs["p3"] = exact("row_pick_bf16", r.outputs[0], v.row_pick_bf16_plain(r.inputs["strip"], r.inputs["idx"]))
+    r = runs["p4"]
+    errs["p4"] = check_close(
+        "scalar_gather_sum", r.outputs[0], v.scalar_gather_sum_plain(r.inputs["x"], r.inputs["qi"], r.inputs["qj"], 1024), PROBE_TOL
+    )
+    for key in ("g1", "g1b"):
+        r = runs[key]
+        T = r.inputs["table"].shape[0]
+        want = v2.lane_gather_blocksum_plain(r.inputs["table"], r.inputs["idx"], T)
+        errs[r.label] = check_close(f"lane_gather_blocksum {r.label}", r.outputs[0], want, PROBE_TOL)
+    r = runs["g2"]
+    want = v2.row_pick_blocksum_plain(r.inputs["table"], r.inputs["cols"], r.inputs["table"].shape[0])
+    errs["g2"] = check_close("row_pick_blocksum", r.outputs[0], want, PROBE_TOL)
+    r = runs["g3"]
+    want = v2.pick_scale_wsum_plain(r.inputs["table"], r.inputs["cols2"], r.inputs["data2"])
+    errs["g3"] = check_close("pick_scale_wsum", r.outputs[0], want, PROBE_TOL)
+    torch.cuda.synchronize()
+    return errs
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_experiments_times(spmv, runs, launches, errs, card):
+    """One line per probe run and one kernel row per kernel: device ms and
+    the rate in the experiment's unit, the byte bound (each input read once,
+    each output written once) and its share, the L2 bytes of the whole-row
+    picks and their rate, the plain version's ms and one PyTorch call's."""
+    import torch.nn.functional as F
+
+    from sparse_tpu_torch.experiments import pallas_spmv_onehot as e1
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+    from sparse_tpu_torch.experiments.common import Run
+    from sparse_tpu_torch.kernels import _cuda
+
+    # E1: the products kernel alone, on the blk=2048 stream of the main run
+    re, x = spmv["layout"], spmv["x"]
+    fc, fd = e1.flatten_tiers(re, 2048)
+    x2h, x2b = e1.make_table(x, True), e1.make_table(x, False)
+    out = torch.empty((fc.numel(), 1), device=fc.device)
+    e1_ms = {t: time_graph(lambda x2=x2: _cuda.spmv_products(x2, fc, fd, out)) for t, x2 in (("hilo", x2h), ("bf16", x2b))}
+    e1_run = Run("E1 hilo blk=2048", {}, (out,), spmv["nnz"], "M nnz/s", e1_ms["hilo"])
+
+    specs = []
+
+    def add(name, run, plain, library, note, tensors, whole_rows=False):
+        """``tensors``: the inputs and outputs, each counted once in the bound;
+        ``whole_rows``: the run picks n 512-byte table rows through L2."""
+        specs.append((name, run, plain, library, note, nbytes(*tensors), run.n * L2_ROW_BYTES if whole_rows else None))
+
+    add("spmv_products", e1_run, lambda: e1.products_plain(x2h, fc, fd), None,
+        "none: no single PyTorch call picks from a hi|lo bf16 table", (fc, fd, x2h, out))
+    for r in (runs["p1"], runs["p1b"]):
+        table, idx = r.inputs["table"], r.inputs["idx"]
+        i64 = idx.long()
+        add("lane_gather", r, lambda t=table, i=idx: v.lane_gather_plain(t, i), lambda t=table, i=i64: torch.gather(t, 0, i),
+            "torch.gather(table, 0, idx), idx int64 beforehand", (table, idx, r.outputs[1]))
+    r = runs["p2"]
+    strip, idx = r.inputs["strip"], r.inputs["idx"]
+    bags = idx.long().view(-1, 1024)
+    add("row_gather_sum", r, lambda: v.row_gather_sum_plain(strip, idx, 1024), lambda: F.embedding_bag(bags, strip, mode="sum"),
+        "F.embedding_bag(idx.view(128, 1024), strip, mode='sum')", (strip, idx, r.outputs[0]), whole_rows=True)
+    r = runs["p3"]
+    strip3, idx3 = r.inputs["strip"], r.inputs["idx"]
+    rounded, i3 = strip3.to(torch.bfloat16).float(), idx3.long()
+    add("row_pick_bf16", r, lambda: v.row_pick_bf16_plain(strip3, idx3), lambda: torch.index_select(rounded, 0, i3),
+        "torch.index_select on the strip rounded to bf16 beforehand", (strip3, idx3, r.outputs[0]))
+    r = runs["p4"]
+    xs, qi, qj = r.inputs["x"], r.inputs["qi"], r.inputs["qj"]
+    flat = (qi.long() * xs.shape[1] + qj.long()).view(-1, 1024)
+    add("scalar_gather_sum", r, lambda: v.scalar_gather_sum_plain(xs, qi, qj, 1024),
+        lambda: F.embedding_bag(flat, xs.view(-1, 1), mode="sum"),
+        "F.embedding_bag(flat indices (64, 1024), x.view(-1, 1), mode='sum')", (xs, qi, qj, r.outputs[0]))
+    for r in (runs["g1"], runs["g1b"]):
+        table, idx = r.inputs["table"], r.inputs["idx"]
+        add("lane_gather_blocksum", r, lambda t=table, i=idx: v2.lane_gather_blocksum_plain(t, i, t.shape[0]), None,
+            "none: no single PyTorch call gathers per lane and sums blocks", (table, idx, r.outputs[0]))
+    r = runs["g2"]
+    table2, cols = r.inputs["table"], r.inputs["cols"]
+    bags2 = cols.long().view(-1, table2.shape[0])
+    add("row_pick_blocksum", r, lambda: v2.row_pick_blocksum_plain(table2, cols, table2.shape[0]),
+        lambda: F.embedding_bag(bags2, table2, mode="sum"),
+        "F.embedding_bag(cols.view(285, 8192), table, mode='sum')", (table2, cols, r.outputs[0]), whole_rows=True)
+    r = runs["g3"]
+    table3, cols2, data2 = r.inputs["table"], r.inputs["cols2"], r.inputs["data2"]
+    n_cells, _, w = cols2.shape
+
+    def regroup(t):  # the picks each kept output row adds: (cell, r < 8, g < 64, w)
+        return t.view(n_cells, 64, 128, w)[:, :, :8, :].permute(0, 2, 1, 3).reshape(n_cells * 8, 64 * w).contiguous()
+
+    bags3, weights3 = regroup(cols2.long()), regroup(data2)
+    add("pick_scale_wsum", r, lambda: v2.pick_scale_wsum_plain(table3, cols2, data2),
+        lambda: F.embedding_bag(bags3, table3, mode="sum", per_sample_weights=weights3),
+        "F.embedding_bag(mode='sum', per_sample_weights) over the 1/16 of the picks that the 8 kept rows of each "
+        "cell add, regrouped beforehand", (table3, cols2, data2, r.outputs[0]), whole_rows=True)
+
+    rows, seen = [], set()
+    for name, run, plain, library, note, nb, l2 in specs:
+        plain_ms = time_eager(plain, reps=3)
+        library_ms = None if library is None else time_eager(library, reps=10)
+        bound_ms = nb / HBM_BYTES_PER_S * 1e3
+        line = {
+            "name": name,
+            "route": "cuda",
+            "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": errs[run.label],
+            "ms": run.ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": library_ms,
+        }
+        log(
+            json.dumps(
+                {
+                    **line,
+                    "probe": run.label,
+                    "rate": run.rate,
+                    "unit": run.unit,
+                    "n": run.n,
+                    "bound_bytes": nb,
+                    "bound_share": bound_ms / run.ms,
+                    "l2_bytes": l2,
+                    "l2_tb_per_s": None if l2 is None else l2 / (run.ms * 1e-3) / 1e12,
+                    "library_note": note,
+                    **({"kernel_ms_bf16_table": e1_ms["bf16"]} if name == "spmv_products" else {}),
+                    "card": card,
+                }
+            )
+        )
+        if name not in seen:  # the first run of each kernel is its row
+            seen.add(name)
+            rows.append(line)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -1072,6 +1307,31 @@ def main():
     )
     mt_errs = {"ell_mttkrp": cmp_errs["ell_mttkrp exact torch.float32"], "coo_mttkrp": cmp_errs["coo_mttkrp torch.float32"]}
     lines += phase_mttkrp_times(t, c, d, lay, want, mt_launches, mt_errs, card, build)
+    del t, c, d, lay, ex, want
+    torch.cuda.empty_cache()
+
+    # the experiments: the one-hot SpMV prototype and the VMEM gather probes
+    spmv, runs, ex_launches, ex_seconds = phase_experiments(dev)
+    ex_errs = phase_experiments_vs_plain(spmv, runs)
+    log(
+        json.dumps(
+            {
+                "experiments": "ok",
+                "seconds": ex_seconds,
+                "launches": ex_launches,
+                "e1_entries": spmv["entries"],
+                "e1_padded": spmv["padded"],
+                "e1_full_spmv": spmv["runs"],
+                "k1_row_ell_spmv": spmv["row_ell_spmv"],
+                "probes": {r.label: {"ms": r.ms, "rate": r.rate, "unit": r.unit, "n": r.n} for r in runs.values()},
+                "max_abs_err_vs_plain": ex_errs,
+                "card": card,
+            }
+        )
+    )
+    lines += phase_experiments_times(spmv, runs, ex_launches, ex_errs, card)
+    del spmv, runs
+    torch.cuda.empty_cache()
 
     log(json.dumps({"kernels": lines}))
     log(card)

@@ -10,9 +10,9 @@ that CUDA refuses (each C entry point returns ``cudaGetLastError()``).
 
 The launchers take tensors already on the GPU, of the kernel's dtype, check
 that, allocate nothing themselves, launch on the current stream and do not
-synchronize. The row-ELL and MTTKRP launchers take contiguous tensors; the
-BSR launchers read their operands through their strides. ``LAUNCHES`` counts
-the launches of each kernel; nothing else touches it.
+synchronize. The row-ELL, MTTKRP and probe launchers take contiguous tensors;
+the BSR launchers read their operands through their strides. ``LAUNCHES``
+counts the launches of each kernel; nothing else touches it.
 """
 
 from __future__ import annotations
@@ -30,7 +30,12 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"row_ell": _CSRC / "row_ell.cu", "bsr": _CSRC / "bsr.cu", "mttkrp": _CSRC / "mttkrp.cu"}
+SOURCES = {
+    "row_ell": _CSRC / "row_ell.cu",
+    "bsr": _CSRC / "bsr.cu",
+    "mttkrp": _CSRC / "mttkrp.cu",
+    "probes": _CSRC / "probes.cu",
+}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparse_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -55,6 +60,13 @@ _SIGNATURES = {
         f"st_mttkrp_{dt}": [_p, _p, _i64, _p, _p, _p, _p, _p, _i64, _p, _p]
         for dt in ("f32", "f64", "bf16_f32", "bf16_f64")
     },
+    "probes": {
+        **{f"st_spmv_products_{t}": [_p, _i64, _p, _p, _i64, _p, _p] for t in ("hilo", "bf16")},
+        "st_lane_gather": [_p, _p, _i64, _p, _p],
+        "st_lane_gather_blocksum": [_p, _p, _i64, _i64, _p, _p, _p, _p],
+        "st_row_gather": [_p, _p, _p, *[_i64] * 10, _p, _p],
+        "st_scalar_gather_sum": [_p, _i64, _p, _p, _i64, _i64, _p, _p],
+    },
 }
 
 LAUNCHES = {
@@ -65,6 +77,14 @@ LAUNCHES = {
     "bsr_sddmm": 0,
     "ell_mttkrp": 0,
     "coo_mttkrp": 0,
+    "spmv_products": 0,
+    "lane_gather": 0,
+    "row_gather_sum": 0,
+    "row_pick_bf16": 0,
+    "scalar_gather_sum": 0,
+    "lane_gather_blocksum": 0,
+    "row_pick_blocksum": 0,
+    "pick_scale_wsum": 0,
 }
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
@@ -408,4 +428,248 @@ def mttkrp(row_ptr, order, cj, ck, v, c, d, out):
     )
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    return out
+
+
+# the width of every probe table (csrc/probes.cu: kLanes) and the rows of a
+# block that one CTA of the lane-gather block sum takes (kSplitRows)
+PROBE_LANES = 128
+LANE_SPLIT_ROWS = 64
+
+
+def _check_probe_table(name, t, device):
+    _check(name, t, torch.float32, device)
+    if t.ndim != 2 or t.shape[1] != PROBE_LANES:
+        raise ValueError(f"{name} of shape {tuple(t.shape)}: the probe kernels take (rows, {PROBE_LANES})")
+
+
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the probe kernels' vector loads")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def spmv_products(x2, cols, data, out):
+    """Launch E1: ``out[e, 0] = (x2[q, m] + x2[q, 128 + m]) · data[e]`` with a
+    hi|lo table ``x2`` of shape ``(rows, 256)``, or ``x2[q, m] · data[e]``
+    with a bf16 table ``(rows, 128)``, where ``q, m = divmod(cols[e], 128)``;
+    0 where ``q`` is outside the table. ``x2`` bfloat16, ``cols`` int32 and
+    ``data`` float32 of shape ``(n,)``, ``out`` float32 ``(n, 1)``."""
+    device = cols.device
+    require_cuda(device, "probe")
+    _check("x2", x2, torch.bfloat16, device)
+    _check("cols", cols, torch.int32, device)
+    _check("data", data, torch.float32, device)
+    _check("out", out, torch.float32, device)
+    n = cols.shape[0]
+    if x2.ndim != 2 or x2.shape[1] not in (PROBE_LANES, 2 * PROBE_LANES):
+        raise ValueError(f"spmv_products: x2 of shape {tuple(x2.shape)}, expected (rows, 128) or (rows, 256)")
+    if cols.ndim != 1 or data.shape != (n,) or out.shape != (n, 1):
+        raise ValueError("spmv_products: cols, data and out must be (n,), (n,) and (n, 1)")
+    hilo = x2.shape[1] == 2 * PROBE_LANES
+    fn = getattr(load("probes"), "st_spmv_products_hilo" if hilo else "st_spmv_products_bf16")
+    err = fn(x2.data_ptr(), x2.shape[0], cols.data_ptr(), data.data_ptr(), n, out.data_ptr(), _stream(device))
+    _raise_on(err, "spmv_products")
+    LAUNCHES["spmv_products"] += 1
+    return out
+
+
+def lane_gather(table, idx, out):
+    """Launch E3 (``pallas_vmem.py:p1``): ``out[i, l] = table[idx[i, l], l]``;
+    ``table`` float32 ``(rows, 128)``, ``idx`` int32 and ``out`` float32
+    ``(n, 128)``, both 16-byte aligned. The caller guarantees every index in
+    range."""
+    device = idx.device
+    require_cuda(device, "probe")
+    _check_probe_table("table", table, device)
+    _check("idx", idx, torch.int32, device)
+    _check("out", out, torch.float32, device)
+    if idx.ndim != 2 or idx.shape[1] != PROBE_LANES or out.shape != idx.shape:
+        raise ValueError(f"lane_gather: idx and out must both be (n, {PROBE_LANES})")
+    _check_aligned(idx=idx, out=out)
+    err = load("probes").st_lane_gather(table.data_ptr(), idx.data_ptr(), idx.shape[0], out.data_ptr(), _stream(device))
+    _raise_on(err, "lane_gather")
+    LAUNCHES["lane_gather"] += 1
+    return out
+
+
+def lane_gather_blocksum(table, idx, rows_per_block, out, partial, tickets):
+    """Launch E7 (``pallas_vmem2.py:g1``): ``out[8b + c, l] = Σ_{t < T}
+    table[idx[bT + t, l], l]`` for ``c < 8``, ``T = rows_per_block``;
+    ``idx`` int32 ``(n_blocks · T, 128)``, ``out`` float32 ``(n_blocks · 8,
+    128)``, scratch ``partial`` float32 ``(n_blocks, ⌈T / 64⌉, 128)`` and
+    ``tickets`` int32 ``(n_blocks,)``, zero before the first launch (each
+    launch leaves it zero). The caller guarantees every index in range."""
+    device = idx.device
+    require_cuda(device, "probe")
+    _check_probe_table("table", table, device)
+    _check("idx", idx, torch.int32, device)
+    _check("out", out, torch.float32, device)
+    _check("partial", partial, torch.float32, device)
+    _check("tickets", tickets, torch.int32, device)
+    if rows_per_block <= 0 or idx.ndim != 2 or idx.shape[1] != PROBE_LANES or idx.shape[0] % rows_per_block:
+        raise ValueError(f"lane_gather_blocksum: idx must be (n_blocks * {rows_per_block}, {PROBE_LANES})")
+    n_blocks = idx.shape[0] // rows_per_block
+    n_splits = -(-rows_per_block // LANE_SPLIT_ROWS)
+    if out.shape != (n_blocks * 8, PROBE_LANES) or partial.shape != (n_blocks, n_splits, PROBE_LANES) or tickets.shape != (n_blocks,):
+        raise ValueError("lane_gather_blocksum: out, partial or tickets do not match idx")
+    if n_blocks > 65535:
+        raise ValueError(f"lane_gather_blocksum: {n_blocks} blocks, at most 65535")
+    err = load("probes").st_lane_gather_blocksum(
+        table.data_ptr(),
+        idx.data_ptr(),
+        n_blocks,
+        rows_per_block,
+        out.data_ptr(),
+        partial.data_ptr(),
+        tickets.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, "lane_gather_blocksum")
+    LAUNCHES["lane_gather_blocksum"] += 1
+    return out
+
+
+def _row_gather(name, table, idx, weights, out, out_shape, *, n_seg, seg_per_group=1, group_stride, r_stride=0,
+                n_g, g_stride=1, n_w=1, keep=1, copies=1, round_bf16=False):
+    """Launch the row gather of ``csrc/probes.cu`` for one of its four
+    functions (segment ``s``: group ``s // seg_per_group``, place ``r``; its
+    picked rows summed, stored ``copies`` times at ``(g · keep + r) · copies``
+    when ``r < keep``), counted under ``name``."""
+    device = idx.device
+    require_cuda(device, "probe")
+    _check_probe_table("table", table, device)
+    _check("idx", idx, torch.int32, device)
+    if weights is not None:
+        _check("weights", weights, torch.float32, device)
+        if weights.shape != idx.shape:
+            raise ValueError(f"{name}: weights and indices differ in shape")
+    _check("out", out, torch.float32, device)
+    if out.shape != out_shape:
+        raise ValueError(f"{name}: out of shape {tuple(out.shape)}, expected {out_shape}")
+    _check_aligned(table=table, out=out)
+    err = load("probes").st_row_gather(
+        table.data_ptr(),
+        idx.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        n_seg,
+        seg_per_group,
+        group_stride,
+        r_stride,
+        n_g,
+        g_stride,
+        n_w,
+        keep,
+        copies,
+        int(round_bf16),
+        out.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _segments_of(name, idx, seg_len):
+    if idx.ndim != 1 or seg_len <= 0 or idx.shape[0] % seg_len:
+        raise ValueError(f"{name}: indices of shape {tuple(idx.shape)} do not split into segments of {seg_len}")
+    return idx.shape[0] // seg_len
+
+
+def row_gather_sum(strip, idx, out, seg_len):
+    """Launch E4 (``pallas_vmem.py:p2``): ``out[g] = Σ_{w < L}
+    strip[idx[gL + w], :]``, ``L = seg_len``; ``strip`` float32 ``(rows,
+    128)``, ``idx`` int32 ``(n_seg · L,)``, ``out`` float32 ``(n_seg, 128)``."""
+    n_seg = _segments_of("row_gather_sum", idx, seg_len)
+    return _row_gather(
+        "row_gather_sum", strip, idx, None, out, (n_seg, PROBE_LANES), n_seg=n_seg, group_stride=seg_len, n_g=seg_len
+    )
+
+
+def row_pick_bf16(strip, idx, out):
+    """Launch E5 (``pallas_vmem.py:p3``): ``out[e] = f32(bf16(strip))[idx[e],
+    :]``; ``strip`` float32 ``(rows, 128)``, ``idx`` int32 ``(n,)``, ``out``
+    float32 ``(n, 128)``."""
+    n = _segments_of("row_pick_bf16", idx, 1)
+    return _row_gather(
+        "row_pick_bf16", strip, idx, None, out, (n, PROBE_LANES), n_seg=n, group_stride=1, n_g=1, round_bf16=True
+    )
+
+
+def row_pick_blocksum(table, cols, out, rows_per_block):
+    """Launch E8 (``pallas_vmem2.py:g2``): ``out[8b + c] = Σ_{t < T}
+    table[cols[bT + t], :]`` for ``c < 8``, ``T = rows_per_block``; ``out``
+    float32 ``(n_blocks · 8, 128)``."""
+    n_blocks = _segments_of("row_pick_blocksum", cols, rows_per_block)
+    return _row_gather(
+        "row_pick_blocksum",
+        table,
+        cols,
+        None,
+        out,
+        (n_blocks * 8, PROBE_LANES),
+        n_seg=n_blocks,
+        group_stride=rows_per_block,
+        n_g=rows_per_block,
+        copies=8,
+    )
+
+
+# pallas_vmem2.py:g3 folds each cell's (T, 128) accumulator as
+# acc.reshape(64, 128, 128).sum(0)[:8], which fixes T
+G3_FOLD, G3_ROWS, G3_KEEP = 64, 128, 8
+G3_T = G3_FOLD * G3_ROWS
+
+
+def pick_scale_wsum(table, cols2, data2, out):
+    """Launch E9 (``pallas_vmem2.py:g3``): per cell ``i``, ``acc[t] =
+    Σ_{w < W} data2[i, t, w] · table[cols2[i, t, w], :]`` for ``t < 8192``,
+    then ``out[8i + r] = Σ_{g < 64} acc[128g + r]`` for ``r < 8``. ``cols2``
+    int32 and ``data2`` float32 ``(n_cells, 8192, W)``, ``out`` float32
+    ``(n_cells · 8, 128)``. The kernel computes all 128 rows of each cell's
+    fold, as the Pallas kernel does, and stores the first 8."""
+    if cols2.ndim != 3 or cols2.shape[1] != G3_T:
+        raise ValueError(f"pick_scale_wsum: cols2 of shape {tuple(cols2.shape)}, expected (n_cells, {G3_T}, W)")
+    n_cells, _, w = cols2.shape
+    return _row_gather(
+        "pick_scale_wsum",
+        table,
+        cols2,
+        data2,
+        out,
+        (n_cells * G3_KEEP, PROBE_LANES),
+        n_seg=n_cells * G3_ROWS,
+        seg_per_group=G3_ROWS,
+        group_stride=G3_T * w,
+        r_stride=w,
+        n_g=G3_FOLD,
+        g_stride=G3_ROWS * w,
+        n_w=w,
+        keep=G3_KEEP,
+    )
+
+
+def scalar_gather_sum(x, qi, qj, out, seg_len):
+    """Launch E6 (``pallas_vmem.py:p4``): ``out[g, 0] = Σ_{w < L} x[qi[gL +
+    w], qj[gL + w]]``, ``L = seg_len``; ``x`` float32 ``(rows, cols)``,
+    ``qi``/``qj`` int32 ``(n_seg · L,)``, ``out`` float32 ``(n_seg, 1)``. The
+    caller guarantees every index in range."""
+    device = qi.device
+    require_cuda(device, "probe")
+    _check("x", x, torch.float32, device)
+    _check("qi", qi, torch.int32, device)
+    _check("qj", qj, torch.int32, device)
+    _check("out", out, torch.float32, device)
+    n_seg = _segments_of("scalar_gather_sum", qi, seg_len)
+    if x.ndim != 2 or qj.shape != qi.shape or out.shape != (n_seg, 1):
+        raise ValueError("scalar_gather_sum: x must be 2-D, qi and qj of one shape, out (n_seg, 1)")
+    err = load("probes").st_scalar_gather_sum(
+        x.data_ptr(), x.shape[1], qi.data_ptr(), qj.data_ptr(), n_seg, seg_len, out.data_ptr(), _stream(device)
+    )
+    _raise_on(err, "scalar_gather_sum")
+    LAUNCHES["scalar_gather_sum"] += 1
     return out

@@ -1,6 +1,7 @@
-"""sparse_tpu_torch stands alone: it loads neither jax nor sparse_tpu, places
-data on the GPU unless told otherwise, and never lets a tensor that is not on
-the CPU reach a kernel's plain version."""
+"""sparse_tpu_torch stands alone: it loads neither jax nor sparse_tpu nor the
+repository's Pallas experiments, places data on the GPU unless told
+otherwise, and never lets a tensor that is not on the CPU reach a kernel's
+plain version."""
 
 import json
 import re
@@ -19,16 +20,21 @@ REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "sparse_tpu_torch"
 
 
+_EXPERIMENTS = ("pallas_spmv_onehot", "pallas_vmem", "pallas_vmem2")
+
+
 def test_import_loads_no_jax_and_no_sparse_tpu():
-    code = "import json, sys, sparse_tpu_torch; print(json.dumps(sorted(sys.modules)))"
+    imports = ", ".join(["sparse_tpu_torch", *(f"sparse_tpu_torch.experiments.{m}" for m in _EXPERIMENTS)])
+    code = f"import json, sys, {imports}; print(json.dumps(sorted(sys.modules)))"
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
     mods = json.loads(res.stdout.strip().splitlines()[-1])
-    bad = [m for m in mods if m == "jax" or m.startswith("jax.") or m == "sparse_tpu" or m.startswith("sparse_tpu.")]
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "sparse_tpu", "experiments")]
     assert bad == []
     assert "sparse_tpu_torch" in mods
+    assert all(f"sparse_tpu_torch.experiments.{m}" in mods for m in _EXPERIMENTS)
 
 
-_FORBIDDEN = re.compile(r"^\s*(import\s+(jax|sparse_tpu)\b(?!_torch)|from\s+(jax|sparse_tpu)\b(?!_torch))", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|sparse_tpu|experiments)\b", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")))
@@ -42,6 +48,10 @@ def test_forbidden_import_pattern():
     assert _FORBIDDEN.search("    from jax import lax")
     assert not _FORBIDDEN.search("from sparse_tpu_torch import COO")
     assert not _FORBIDDEN.search("import sparse_tpu_torch")
+    assert _FORBIDDEN.search("import experiments.pallas_vmem")
+    assert _FORBIDDEN.search("from experiments.pallas_spmv_onehot import products_kernel")
+    assert not _FORBIDDEN.search("from sparse_tpu_torch.experiments import pallas_vmem")
+    assert not _FORBIDDEN.search("from .pallas_vmem import lane_gather")
 
 
 def test_default_device_is_the_gpu():
@@ -85,7 +95,7 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "mttkrp"}
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "mttkrp", "probes"}
     for name, path in _cuda.SOURCES.items():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
@@ -109,4 +119,12 @@ def test_launch_counters_start_and_reset():
         "bsr_sddmm": 0,
         "ell_mttkrp": 0,
         "coo_mttkrp": 0,
+        "spmv_products": 0,
+        "lane_gather": 0,
+        "row_gather_sum": 0,
+        "row_pick_bf16": 0,
+        "scalar_gather_sum": 0,
+        "lane_gather_blocksum": 0,
+        "row_pick_blocksum": 0,
+        "pick_scale_wsum": 0,
     }

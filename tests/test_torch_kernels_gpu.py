@@ -9,7 +9,9 @@ cancellation); BSR on unit-normal values float32 at rtol=atol=1e-4, float64
 at rtol=1e-10, atol=1e-12, bfloat16 (one final rounding each side) at
 rtol=atol=2e-2; MTTKRP on positive values at the row-ELL tolerances, for
 every table type (the bf16 tables' products are exact in float32 on both
-sides, so only the order of the row sum differs).
+sides, so only the order of the row sum differs). The probe kernels
+(csrc/probes.cu): the picks (E1, p1, p3) exactly; the sums (p2, p4, g1-g3)
+of positive values at rtol=1e-4, atol=1e-3, as chip_smoke.py holds them.
 """
 
 import numpy as np
@@ -113,15 +115,7 @@ def test_launch_counters_and_main_path(cuda):
     out_v = a @ v
     out_a = st.matvec_add(a, v, y)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES == {
-        "row_ell_spmv": 2,
-        "row_ell_spmm": 1,
-        "bsr_spmm": 0,
-        "bsr_spmm2": 0,
-        "bsr_sddmm": 0,
-        "ell_mttkrp": 0,
-        "coo_mttkrp": 0,
-    }
+    assert _cuda.LAUNCHES == {**{k: 0 for k in _cuda.LAUNCHES}, "row_ell_spmv": 2, "row_ell_spmm": 1}
     np.testing.assert_allclose(out_m.cpu().numpy(), x @ b, rtol=1e-12)
     np.testing.assert_allclose(out_v.cpu().numpy(), x @ v, rtol=1e-12)
     np.testing.assert_allclose(out_a.cpu().numpy(), x @ v + y, rtol=1e-12)
@@ -305,3 +299,167 @@ def test_mttkrp_kernel_refuses_unsorted_rows(cuda):
         dot.mttkrp(ci, cj, ck, t.data, c[:10], d, n_rows=t.shape[0])
     with pytest.raises(TypeError):
         _cuda.mttkrp(torch.zeros(2, dtype=torch.int64, device=cuda), None, cj, ck, t.data, c.double(), d.double(), torch.empty((1, 32), device=cuda))
+
+
+# ---------------------------------------------------------------- probes (csrc/probes.cu)
+PROBE_SUMS = dict(rtol=1e-4, atol=1e-3)
+
+
+def _probe_gen(seed):
+    return np.random.default_rng(seed)
+
+
+def _rand(rng, shape, cuda):
+    return torch.as_tensor(rng.random(shape, dtype=np.float32), device=cuda)
+
+
+def _ints(rng, high, shape, cuda):
+    return torch.as_tensor(rng.integers(0, high, size=shape, dtype=np.int32), device=cuda)
+
+
+@pytest.mark.parametrize("hilo", [True, False])
+@pytest.mark.parametrize("n", [4096, 1001, 1])
+def test_spmv_products_kernel_equals_plain(cuda, hilo, n):
+    from sparse_tpu_torch.experiments import pallas_spmv_onehot as e1
+
+    rng = _probe_gen(n)
+    x2 = e1.make_table(_rand(rng, 65536, cuda), hilo)
+    cols = _ints(rng, 65536, n, cuda)
+    cols[: min(n, 3)] = torch.tensor([-5, 65536, 1 << 30][: min(n, 3)], dtype=torch.int32, device=cuda)
+    data = _rand(rng, n, cuda)
+    _cuda.reset_launch_counts()
+    got = e1.products(x2, cols, data)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["spmv_products"] == 1
+    assert torch.equal(got, e1.products_plain(x2, cols, data))
+
+
+@pytest.mark.parametrize("table_h,rows", [(512, 18432 // 16), (8192, 37), (300, 1)])
+def test_lane_gather_kernel_equals_plain(cuda, table_h, rows):
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+
+    rng = _probe_gen(rows)
+    table, idx = _rand(rng, (table_h, 128), cuda), _ints(rng, table_h, (rows, 128), cuda)
+    got = v.lane_gather(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v.lane_gather_plain(table, idx))
+
+
+@pytest.mark.parametrize("T,n_blocks", [(512, 5), (8192, 2), (200, 3), (65, 1), (1, 4)])
+def test_lane_gather_blocksum_kernel_matches_plain(cuda, T, n_blocks):
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+
+    rng = _probe_gen(T)
+    table, idx = _rand(rng, (T, 128), cuda), _ints(rng, T, (n_blocks * T, 128), cuda)
+    got = v2.lane_gather_blocksum(table, idx, T)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, v2.lane_gather_blocksum_plain(table, idx, T), **PROBE_SUMS)
+    # the tickets return to zero: a second launch on the same scratch gives the same bits
+    out, partial, tickets = v2._blocksum_buffers(n_blocks, T, cuda)
+    for _ in range(3):
+        _cuda.lane_gather_blocksum(table, idx, T, out, partial, tickets)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got) and not tickets.any()
+
+
+@pytest.mark.parametrize("strip_h,n_seg,per_step", [(8192, 9, 1024), (256, 5, 37), (100, 7, 1), (512, 2, 5000)])
+def test_row_gather_sum_kernel_matches_plain(cuda, strip_h, n_seg, per_step):
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+
+    rng = _probe_gen(per_step)
+    strip, idx = _rand(rng, (strip_h, 128), cuda), _ints(rng, strip_h, n_seg * per_step, cuda)
+    got = v.row_gather_sum(strip, idx, per_step)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, v.row_gather_sum_plain(strip, idx, per_step), **PROBE_SUMS)
+
+
+@pytest.mark.parametrize("strip_h,n", [(512, 4096), (8192, 37), (3, 1)])
+def test_row_pick_bf16_kernel_equals_plain(cuda, strip_h, n):
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+
+    rng = _probe_gen(n)
+    strip = torch.as_tensor(rng.standard_normal((strip_h, 128), dtype=np.float32), device=cuda)
+    idx = _ints(rng, strip_h, n, cuda)
+    got = v.row_pick_bf16(strip, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v.row_pick_bf16_plain(strip, idx))
+
+
+@pytest.mark.parametrize("T,n_blocks", [(8192, 3), (2000, 2), (37, 5)])
+def test_row_pick_blocksum_kernel_matches_plain(cuda, T, n_blocks):
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+
+    rng = _probe_gen(T)
+    table, cols = _rand(rng, (T, 128), cuda), _ints(rng, T, n_blocks * T, cuda)
+    got = v2.row_pick_blocksum(table, cols, T)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, v2.row_pick_blocksum_plain(table, cols, T), **PROBE_SUMS)
+
+
+@pytest.mark.parametrize("n_cells,W,table_h", [(2, 4, 8192), (1, 3, 500), (3, 1, 8192)])
+def test_pick_scale_wsum_kernel_matches_plain(cuda, n_cells, W, table_h):
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+
+    rng = _probe_gen(W)
+    table = _rand(rng, (table_h, 128), cuda)
+    cols2, data2 = _ints(rng, table_h, (n_cells, 8192, W), cuda), _rand(rng, (n_cells, 8192, W), cuda)
+    got = v2.pick_scale_wsum(table, cols2, data2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, v2.pick_scale_wsum_plain(table, cols2, data2), **PROBE_SUMS)
+
+
+@pytest.mark.parametrize("rows,cols,n_seg,per_step", [(512, 128, 3, 1024), (100, 77, 5, 37), (1, 1, 2, 1)])
+def test_scalar_gather_sum_kernel_matches_plain(cuda, rows, cols, n_seg, per_step):
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+
+    rng = _probe_gen(per_step)
+    x = _rand(rng, (rows, cols), cuda)
+    qi, qj = _ints(rng, rows, n_seg * per_step, cuda), _ints(rng, cols, n_seg * per_step, cuda)
+    got = v.scalar_gather_sum(x, qi, qj, per_step)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, v.scalar_gather_sum_plain(x, qi, qj, per_step), **PROBE_SUMS)
+
+
+def test_probe_runners_run_and_count_on_the_card(cuda):
+    from sparse_tpu_torch.experiments import common, pallas_vmem as v, pallas_vmem2 as v2
+
+    calls = common.WARMUP + common.REPS
+    runs = {
+        "lane_gather": (lambda: v.p1(512, 1024, 512), 2 + calls),
+        "row_gather_sum": (lambda: v.p2(256, 2048, 1024), 1 + calls),
+        "row_pick_bf16": (lambda: v.p3(512, 2048, 1024), 1 + calls),
+        "scalar_gather_sum": (lambda: v.p4(2048, 1024), 1 + calls),
+        "lane_gather_blocksum": (lambda: v2.g1(512, 2), 1 + calls),
+        "row_pick_blocksum": (lambda: v2.g2(512, 2), 1 + calls),
+        "pick_scale_wsum": (lambda: v2.g3(8192, 4, 8), 1 + calls),
+    }
+    for name, (drive, launches) in runs.items():
+        _cuda.reset_launch_counts()
+        run = drive()
+        assert _cuda.LAUNCHES == {**{k: 0 for k in _cuda.LAUNCHES}, name: launches}, name
+        assert run.ms > 0 and run.rate > 0 and all(o.device.type == "cuda" for o in run.outputs)
+
+
+def test_probe_launchers_refuse_what_their_kernels_do_not_take(cuda):
+    from sparse_tpu_torch.experiments import pallas_spmv_onehot as e1
+
+    table = torch.rand((64, 128), device=cuda)
+    idx = torch.zeros((8, 128), dtype=torch.int32, device=cuda)
+    out = torch.empty((8, 128), device=cuda)
+    with pytest.raises(TypeError):
+        _cuda.lane_gather(table.double(), idx, out)
+    with pytest.raises(ValueError, match="aligned"):
+        base = torch.zeros(8 * 128 + 1, dtype=torch.int32, device=cuda)
+        _cuda.lane_gather(table, base[1:].view(8, 128), out)
+    with pytest.raises(ValueError):
+        _cuda.lane_gather(torch.rand((64, 96), device=cuda), idx[:, :96].contiguous(), out[:, :96].contiguous())
+    with pytest.raises(ValueError):
+        _cuda.row_pick_blocksum(table, idx.view(-1), torch.empty((8, 128), device=cuda), 8)  # out is one block short
+    with pytest.raises(ValueError, match="8192"):
+        _cuda.pick_scale_wsum(table, torch.zeros((1, 512, 4), dtype=torch.int32, device=cuda), torch.ones((1, 512, 4), device=cuda), out)
+    with pytest.raises(TypeError):
+        e1.products(torch.rand((512, 128), device=cuda), idx.view(-1), torch.rand(1024, device=cuda))
+    with pytest.raises(TypeError):
+        _cuda.spmv_products(torch.rand((512, 128), device=cuda), idx.view(-1), torch.rand(1024, device=cuda), torch.empty((1024, 1), device=cuda))
+    with pytest.raises(ValueError):
+        _cuda.scalar_gather_sum(table, idx.view(-1), idx.view(-1), torch.empty((3, 1), device=cuda), 1000)
