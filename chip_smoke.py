@@ -12,20 +12,25 @@ drives the port's two paths on the card:
   ``matvec_add`` at the benchmark shape (65,536², 2^21 entry draws, N = 128,
   float32) and the spmv_add shape (99,990 × 100,000 at density 1e-6), and
   checks the outputs against a float64 scipy oracle;
-- the block-sparse layer: holds the BSR kernels (SpMM, its two-block form,
-  the block SDDMM) against their plain versions in float32, float64 and
-  bfloat16, then trains ``BlockSparseLinear(8192, 8192, block_density=0.25)``
-  at batch 512 (the JAX package's block-sparse training benchmark,
-  bench_suite.py), checks the first step's output and both gradients
-  against a float64 oracle, and takes three SGD steps on which the loss
-  must fall;
+- the block-sparse layer: holds the BSR kernels (the SpMM on the tensor
+  cores for float32 (3xTF32) and bfloat16 and on the CUDA cores for
+  float64, its two-block form, the block SDDMM) against their plain
+  versions in float32, float64 and bfloat16, on the layer's forward and
+  dgrad operands too, then trains ``BlockSparseLinear(8192, 8192,
+  block_density=0.25)`` at batch 512 (the JAX package's block-sparse
+  training benchmark, bench_suite.py), checks the first step's output and
+  both gradients against a float64 oracle, takes three SGD steps on
+  which the loss must fall, then 20 more back to back for the steady
+  step time; the SpMM is timed against its run piece (forward and dgrad,
+  no split and 32, 16, 8 blocks);
 - the MTTKRP of a 3-D tensor: builds the BASELINE-scale tensor (100,000 x
   2,000 x 2,000, 10M draws, r = 32, float32; bench_suite.py) as a ``COO``
   on the card and its block-ELL layout, holds the MTTKRP kernel against its
   plain version (float32, float64, bf16 tables; both forms), drives
   ``ell_mttkrp`` (exact and bf16), ``kernels.mttkrp`` and ``jitops.mttkrp``
   against a float64 oracle, and the example's shape (1000 x 1000 x 100 at
-  density 1e-4, r = 25, float64) against ``np.einsum``;
+  density 1e-4, r = 25, float64) against ``np.einsum``; the block-ELL form
+  is timed against its run piece (no split and 512, 256, 128 slots);
 - the experiments: the one-hot SpMV prototype's full SpMV at the benchmark
   shape through the row-ELL layout (hi|lo and bf16 tables, blocks of 2048
   and 4096 slots) against a float64 oracle and beside K1, and the VMEM
@@ -65,6 +70,7 @@ SPMV_ADD_DENSITY = 1e-6
 # published H100 SXM peaks at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # tensor cores, dense; float32 products at HIGHEST take three passes (3xTF32)
 
 # kernel vs plain: the two sum each row in another order (the kernel
 # sequentially with FMAs, the plain version by torch's reduction)
@@ -75,7 +81,7 @@ ORACLE_TOL = dict(rtol=1e-3, atol=1e-5)
 SOURCE = {
     "row_ell_spmv": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
     "row_ell_spmm": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
-    "bsr_spmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
+    "bsr_spmm": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
     "bsr_spmm2": "sparse_tpu_torch/kernels/csrc/bsr.cu",
     "bsr_sddmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
     "ell_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
@@ -126,6 +132,7 @@ BSR_TOL = {
 }
 # the training step against the float64 oracle: max|got - want| / max|want|
 LAYER_ORACLE_TOL = 1e-4
+STEADY_STEPS = 20  # SGD steps timed back to back after the checked ones
 
 # MTTKRP at the BASELINE scale (bench_suite.py:227-253): 100k x 2k x 2k from
 # 10M draws of np.random.default_rng(0), r = 32, float32; not cut
@@ -495,6 +502,12 @@ def phase_bsr_kernels_vs_plain(dev, layer, x, wsum):
         e2 = check_close(f"bsr_spmm2 layer {dt}", bsr.bsr_spmm_kernel2(*args, n_rows=LAYER_OUT, row_ptr=p.row_ptr), want, tol)
         want = bsr.bsr_sddmm_plain(p.block_rows, p.block_cols, g, x.to(dt))
         e3 = check_close(f"bsr_sddmm layer {dt}", bsr.bsr_sddmm_kernel(p.block_rows, p.block_cols, g, x.to(dt)), want, tol)
+        # the dgrad: the K-major transposed blocks and the gradient's transposed view
+        blocks_t = bsr.transposed_blocks(blocks, p.t_perm)
+        args_t = (p.t_block_rows, p.t_block_cols, blocks_t, g)
+        want = bsr.bsr_spmm_plain(*args_t, n_rows=LAYER_IN)
+        check_close(f"bsr_spmm dgrad {dt}", bsr.bsr_spmm_kernel(*args_t, n_rows=LAYER_IN, row_ptr=p.t_row_ptr), want, tol)
+        del blocks_t, want
         torch.cuda.synchronize()
         if dt == torch.float32:
             errs = {"bsr_spmm": e1, "bsr_spmm2": e2, "bsr_sddmm": e3}
@@ -574,6 +587,41 @@ def phase_training(dev, layer, x, target, wsum):
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses)) or not all(a > b for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"the loss is not finite and falling: {losses}")
+
+    # the steady state: STEADY_STEPS steps back to back, synchronised once, so
+    # the host enqueues a step while the card runs the one before; the host
+    # clock of each part is its enqueue time
+    def sgd_step(marks):
+        t = [time.perf_counter()]
+        opt.zero_grad(set_to_none=True)
+        y = layer(x)
+        t.append(time.perf_counter())
+        loss = ((y - target) ** 2).sum(dim=1).mean()
+        loss.backward()
+        t.append(time.perf_counter())
+        opt.step()
+        t.append(time.perf_counter())
+        marks.append([(b - a) * 1e3 for a, b in zip(t, t[1:])])
+        return loss
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    marks = []
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(STEADY_STEPS):
+        loss = sgd_step(marks)
+    end.record()
+    end.synchronize()
+    steady = {
+        "steps": STEADY_STEPS,
+        "device_ms_per_step": start.elapsed_time(end) / STEADY_STEPS,
+        "host_ms_per_step": (time.perf_counter() - t0) * 1e3 / STEADY_STEPS,
+        "host_enqueue_ms_median": dict(zip(("forward", "loss_backward", "sgd"), np.median(marks, axis=0).tolist())),
+        "loss_after": loss.item(),
+    }
+    if not np.isfinite(steady["loss_after"]):
+        raise AssertionError(f"the loss is not finite after {STEADY_STEPS} more steps")
+
     return {
         "err_y": err_y,
         "err_dx": err_dx,
@@ -582,6 +630,7 @@ def phase_training(dev, layer, x, target, wsum):
         "losses": losses,
         "lr": LAYER_LR,
         "steps": steps,
+        "steady_state": steady,
         "launches": launches,
         "peak_memory_bytes": peak,
         "n_blocks": int(p.blocks.shape[0]),
@@ -688,10 +737,32 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
     spmm_bytes = nb * bm * bn * 4 + min(touched_cols * bn, LAYER_IN) * LAYER_BATCH * 4 + LAYER_OUT * LAYER_BATCH * 4 + idx_bytes
     sddmm_bytes = (min(touched_rows * bm, LAYER_OUT) + min(touched_cols * bn, LAYER_IN)) * LAYER_BATCH * 4 + nb * bm * bn * 4 + nb * 8
     flops = 2 * nb * bm * bn * LAYER_BATCH
+    # the forward (block-rows of W) and the dgrad (block-rows of Wᵀ, K-major blocks_t)
+    blocks_t = bsr.transposed_blocks(blocks, p.t_perm)
+    g_dgrad = wsum.T  # the gradient of out_t, a transposed (K-major) view
+    fwd = (blocks, cols, p.row_ptr, xt, LAYER_OUT)
+    dgrad = (blocks_t, p.t_block_cols, p.t_row_ptr, g_dgrad, LAYER_IN)
+
+    def tc_launch(operands, piece=_cuda.BSR_PIECE):
+        """The bare tensor-core launch on ``operands``, its scratch made once."""
+        blk, bcols, row_ptr, dense_op, n_rows = operands
+        out = torch.empty((n_rows, dense_op.shape[1]), device=dense_op.device)
+        pieces = _cuda.run_pieces(row_ptr, piece)
+        _, n_partial, n_tickets = _cuda.bsr_tc_scratch(blk.shape[0], row_ptr.shape[0] - 1, bm, dense_op.shape[1], piece)
+        partial = torch.empty(n_partial, device=dense_op.device)
+        tickets = _cuda.zeroed_tickets(dense_op.device, n_tickets)
+        return lambda: _cuda.bsr_spmm_tc(blk, bcols, row_ptr, pieces, dense_op, out, partial, tickets, piece=piece)
+
+    # the run piece L, picked on this card: no split (one CTA per run) against 32, 16 and 8 blocks
+    piece_sweep = {
+        str(piece): {part: time_graph(tc_launch(ops, piece), reps=20) for part, ops in (("forward", fwd), ("dgrad", dgrad))}
+        for piece in (1 << 20, 32, 16, 8)
+    }
+    dgrad_ms = time_graph(tc_launch(dgrad), reps=20)
     specs = [
         (
             "bsr_spmm",
-            lambda: _cuda.bsr_spmm(blocks, cols, p.row_ptr, xt, out_f),
+            tc_launch(fwd),
             lambda: bsr.bsr_spmm_kernel(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT, row_ptr=p.row_ptr),
             lambda: bsr.bsr_spmm_plain(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT),
             bsr_matmul,
@@ -730,7 +801,9 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
         library_ms = yardstick(name, library)
         dense_ms = time_eager(dense, reps=10)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        # the same work has the same bound, whatever the kernel runs on: the
+        # float32 products at HIGHEST on the CUDA cores or as 3xTF32 on the tensor cores
+        t_ops = min(flops / F32_FLOPS_PER_S, 3 * flops / TF32_FLOPS_PER_S) * 1e3
         bound_ms = max(t_bytes, t_ops)
         line = {
             "name": name,
@@ -746,10 +819,17 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
             "library_ms": library_ms,
         }
         lines.append(line)
+        extra = {}
+        if name == "bsr_spmm":
+            extra = {"dgrad_kernel_ms": dgrad_ms, "piece": _cuda.BSR_PIECE, "piece_sweep_ms": piece_sweep}
         log(
             json.dumps(
                 {
                     **line,
+                    "bound_note": "operations: 3xTF32 on the tensor cores (3 x flops / 495 TFLOP/s)"
+                    if t_ops < flops / F32_FLOPS_PER_S * 1e3
+                    else "operations: FP32 FMA",
+                    **extra,
                     "kernel_ms": ms,
                     "kernel_ms_l2_flushed": ms_cold,
                     "wrapper_ms_eager": ms_wrapper,
@@ -760,6 +840,7 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
                     "bound_flops": flops,
                     "bound_share": bound_ms / ms,
                     "f32_peak_flops_per_s": F32_FLOPS_PER_S,
+                    "tf32_peak_flops_per_s": TF32_FLOPS_PER_S,
                     "peak_memory_bytes_kernel": peak_kernel,
                     "peak_memory_bytes_plain": peak_plain,
                     "shape": {"out": LAYER_OUT, "in": LAYER_IN, "batch": LAYER_BATCH, "n_blocks": nb, "block": [bm, bn], "dtype": "float32"},
@@ -905,7 +986,15 @@ def phase_mttkrp_times(t, c, d, lay, want, launches, errs, card, build):
     row_ptr_coo = torch.searchsorted(ci.long(), torch.arange(MT_I + 1, device=ci.device))
     c16, d16 = c.to(torch.bfloat16), d.to(torch.bfloat16)
     out = torch.empty((MT_I, MT_R), device=c.device)
-    runs = dict(order=lay.order, row_ptr=lay.row_ptr)
+    runs = dict(order=lay.order, row_ptr=lay.row_ptr, pieces=lay.pieces)
+    pieces_coo = _cuda.run_pieces(row_ptr_coo, _cuda.MTTKRP_PIECE)
+
+    def scratch(n_slots, piece=_cuda.MTTKRP_PIECE):
+        n_front = _cuda.front_bound(n_slots, MT_I, piece)
+        return torch.empty(n_front * MT_R, device=c.device), _cuda.zeroed_tickets(c.device, n_front)
+
+    part_ell, tix = scratch(slots)
+    part_coo, _ = scratch(nnz)
 
     kr_ms = time_eager(lambda: (c[:, None, :] * d[None, :, :]).reshape(MT_J * MT_K, MT_R), reps=5)
     kr = (c[:, None, :] * d[None, :, :]).reshape(MT_J * MT_K, MT_R)
@@ -930,20 +1019,33 @@ def phase_mttkrp_times(t, c, d, lay, want, launches, errs, card, build):
     # rows before that block shows what its one warp costs
     run_len = torch.diff(lay.row_ptr[: MT_I + 1])
     full_rows = MT_I // 128 * 128
+
+    def ell_launch(piece):
+        pieces = _cuda.run_pieces(lay.row_ptr, piece)
+        part, tickets = scratch(slots, piece)
+        return lambda: _cuda.mttkrp(lay.row_ptr, pieces, lay.order, ej, ek, ed, c, d, out, part, tickets, piece=piece)
+
+    # the piece P, picked on this card: no split (the first design) against 512, 256 and 128 slots
     ell_runs = {
         "longest_run": int(run_len.max()),
         "longest_run_row": int(run_len.argmax()),
         "median_run": float(run_len.float().median()),
+        "piece": _cuda.MTTKRP_PIECE,
+        "split_rows": int((run_len > _cuda.MTTKRP_PIECE).sum()),
+        "pieces_of_split_rows": int(lay.pieces[MT_I]),
+        "front_bound": _cuda.front_bound(slots, MT_I, _cuda.MTTKRP_PIECE),
+        "piece_sweep_ms": {str(P): time_graph(ell_launch(P), reps=20) for P in (1 << 40, 512, 256, 128)},
         "kernel_ms_rows_before_last_block": time_graph(
-            lambda: _cuda.mttkrp(lay.row_ptr, lay.order, ej, ek, ed, c, d, out[:full_rows]), reps=20
+            lambda: _cuda.mttkrp(lay.row_ptr, lay.pieces, lay.order, ej, ek, ed, c, d, out[:full_rows], part_ell, tix),
+            reps=20,
         ),
         "rows_before_last_block": full_rows,
     }
     specs = [
         (
             "ell_mttkrp",
-            lambda: _cuda.mttkrp(lay.row_ptr, lay.order, ej, ek, ed, c, d, out),
-            lambda: _cuda.mttkrp(lay.row_ptr, lay.order, ej, ek, ed, c16, d16, out),
+            lambda: _cuda.mttkrp(lay.row_ptr, lay.pieces, lay.order, ej, ek, ed, c, d, out, part_ell, tix),
+            lambda: _cuda.mttkrp(lay.row_ptr, lay.pieces, lay.order, ej, ek, ed, c16, d16, out, part_ell, tix),
             lambda: ell.ell_mttkrp(*lay[:4], c, d, n_rows=MT_I, **runs),
             lambda: ell.ell_mttkrp_plain(*lay[:4], c, d, n_rows=MT_I),
             # j, k, data and order per slot, the row offsets, the tables, the output
@@ -953,8 +1055,8 @@ def phase_mttkrp_times(t, c, d, lay, want, launches, errs, card, build):
         ),
         (
             "coo_mttkrp",
-            lambda: _cuda.mttkrp(row_ptr_coo, None, cj, ck, t.data, c, d, out),
-            lambda: _cuda.mttkrp(row_ptr_coo, None, cj, ck, t.data, c16, d16, out),
+            lambda: _cuda.mttkrp(row_ptr_coo, pieces_coo, None, cj, ck, t.data, c, d, out, part_coo, tix),
+            lambda: _cuda.mttkrp(row_ptr_coo, pieces_coo, None, cj, ck, t.data, c16, d16, out, part_coo, tix),
             lambda: dot.mttkrp(ci, cj, ck, t.data, c, d, n_rows=MT_I),
             lambda: dot.mttkrp_plain(ci, cj, ck, t.data, c, d, n_rows=MT_I),
             nnz * 12 + (MT_I + 1) * 8 + table_bytes + out_bytes,

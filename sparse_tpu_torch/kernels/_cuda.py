@@ -33,6 +33,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "row_ell": _CSRC / "row_ell.cu",
     "bsr": _CSRC / "bsr.cu",
+    "bsr_tc": _CSRC / "bsr_tc.cu",
     "mttkrp": _CSRC / "mttkrp.cu",
     "probes": _CSRC / "probes.cu",
 }
@@ -56,8 +57,12 @@ _SIGNATURES = {
             for dt in ("f32", "f64", "bf16")
         },
     },
+    "bsr_tc": {
+        f"st_bsr_spmm_tc_{dt}": [_p, *[_i64] * 3, _p, _p, _p, *[_i64] * 5, _p, *[_i64] * 3, _p, _i64, _p, _p, _p]
+        for dt in ("f32", "bf16")
+    },
     "mttkrp": {
-        f"st_mttkrp_{dt}": [_p, _p, _i64, _p, _p, _p, _p, _p, _i64, _p, _p]
+        f"st_mttkrp_{dt}": [_p, _p, _p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p]
         for dt in ("f32", "f64", "bf16_f32", "bf16_f64")
     },
     "probes": {
@@ -93,6 +98,9 @@ BUILD_INFO = {}
 
 _locks = {name: threading.Lock() for name in SOURCES}
 _libs = {}
+# zeroed ticket buffers of the kernels that finish split runs, by (device,
+# stream); every launch leaves its tickets zero
+_tickets = {}
 
 
 def reset_launch_counts():
@@ -187,9 +195,16 @@ def _check_layout(re, dtype, device):
     _check("row_of_pos", re.row_of_pos, torch.int32, device)
 
 
+# error codes of csrc/bsr_tc.cu beyond CUDA's own
+_KERNEL_ERRORS = {
+    100001: "cuTensorMapEncodeTiled is not available through the CUDA runtime",
+    100002: "cuTensorMapEncodeTiled refused an operand's layout",
+}
+
+
 def _raise_on(err, name):
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: {_KERNEL_ERRORS.get(err, f'CUDA error {err}')}")
 
 
 def spmv(re, x, y, out):
@@ -271,14 +286,17 @@ def check_bsr_dtype(dtype):
 
 
 def bsr_spmm(blocks, block_cols, row_ptr, dense, out, pairs=1):
-    """Launch the BSR SpMM (P2 with ``pairs=1``, its two-block form P3 with
-    ``pairs=2``): ``out = A @ dense`` with ``A``'s block-row ``r`` the run
-    ``row_ptr[r]:row_ptr[r+1]`` of ``blocks`` (any strides) and
-    ``block_cols`` (int32), ``dense`` of any strides, ``out`` contiguous
-    ``(n_rows, N)``. With ``pairs=2`` every run must have even length; the
-    caller checks."""
+    """Launch the BSR SpMM of ``csrc/bsr.cu`` on the CUDA cores (P2 in
+    float64 with ``pairs=1``, its two-block form P3 in every dtype with
+    ``pairs=2``; float32 and bfloat16 P2 is :func:`bsr_spmm_tc`): ``out =
+    A @ dense`` with ``A``'s block-row ``r`` the run ``row_ptr[r]:row_ptr[r+1]``
+    of ``blocks`` (any strides) and ``block_cols`` (int32), ``dense`` of any
+    strides, ``out`` contiguous ``(n_rows, N)``. With ``pairs=2`` every run
+    must have even length; the caller checks."""
     dtype, device = dense.dtype, dense.device
     check_bsr_dtype(dtype)
+    if pairs == 1 and dtype in TC_DTYPES:
+        raise TypeError(f"the {dtype} BSR SpMM runs on the tensor cores: bsr_spmm_tc")
     require_cuda(device, "BSR")
     _check_device(blocks, dtype, device, "blocks")
     _check_device(dense, dtype, device, "dense")
@@ -361,6 +379,149 @@ def bsr_sddmm(block_rows, block_cols, lhs, rhs, out):
     return out
 
 
+# Long runs are cut into pieces counted from the run's start: MTTKRP runs
+# longer than MTTKRP_PIECE slots, BSR runs longer than BSR_PIECE blocks
+# (csrc/mttkrp.cu, csrc/bsr_tc.cu). Both were picked on an H100 (PERF.md).
+MTTKRP_PIECE = 256
+BSR_PIECE = 32
+
+
+def run_pieces(row_ptr, piece):
+    """int64 ``(n + 1,)`` from run offsets ``row_ptr`` ``(n + 1,)``: the
+    number of pieces of ``piece`` entries that the runs longer than
+    ``piece`` make, summed over the rows before each row (0 for a row that
+    is not split). Torch ops on ``row_ptr``'s device."""
+    lens = row_ptr[1:] - row_ptr[:-1]
+    n = torch.where(lens > piece, torch.div(lens + (piece - 1), piece, rounding_mode="floor"), 0)
+    out = torch.zeros(row_ptr.shape[0], dtype=torch.int64, device=row_ptr.device)
+    torch.cumsum(n, 0, out=out[1:])
+    return out
+
+
+def front_bound(n_entries, n_rows, piece):
+    """An upper bound, from sizes alone, on the pieces of :func:`run_pieces`
+    over ``n_rows`` runs of ``n_entries`` in all: a split run of ``l >
+    piece`` entries makes ``⌈l / piece⌉ < l / piece + 1`` pieces, and at
+    most ``n_entries // (piece + 1)`` runs are split."""
+    return -(-n_entries // piece) + min(n_rows, n_entries // (piece + 1))
+
+
+def zeroed_tickets(device, n):
+    """An int32 buffer of at least ``n`` zeros on ``device``, one per
+    stream, that the kernels finishing split runs leave zero."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
+# the tensor-core BSR SpMM (csrc/bsr_tc.cu): output tile BSR_TC_TILE x
+# BSR_TC_TILE, stages of TC_ROW_BYTES of k per row
+BSR_TC_TILE = 128
+TC_ROW_BYTES = 128
+TC_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def tc_k_per_stage(dtype):
+    return TC_ROW_BYTES // dtype.itemsize
+
+
+def bsr_tc_scratch(n_blocks, n_block_rows, bm, n, piece=BSR_PIECE):
+    """``(n_front, partial elements, tickets)`` of a tensor-core BSR SpMM."""
+    n_front = front_bound(n_blocks, n_block_rows, piece)
+    tiles = -(-bm // BSR_TC_TILE) * -(-n // BSR_TC_TILE)
+    return n_front, n_front * tiles * BSR_TC_TILE * BSR_TC_TILE, n_front * tiles
+
+
+def _tc_ready(t, k_dim):
+    """True when ``t`` has stride 1 along ``k_dim`` and TMA-legal (16-byte)
+    other strides and base."""
+    es = t.element_size()
+    return (
+        t.stride(k_dim) == 1
+        and t.data_ptr() % 16 == 0
+        and all((st * es) % 16 == 0 for i, st in enumerate(t.stride()) if i != k_dim)
+    )
+
+
+def bsr_spmm_tc(blocks, block_cols, row_ptr, pieces, dense, out, partial, tickets, piece=None):
+    """Launch P2 on the tensor cores (float32 as 3xTF32, bfloat16): ``out =
+    A @ dense`` with ``A``'s block-row ``r`` the run ``row_ptr[r]:row_ptr[r +
+    1]`` of ``blocks`` and ``block_cols`` (int32). Both operands K-major
+    with 16-byte strides: ``blocks`` ``(n_blocks, bm, bn)`` with stride 1
+    along bn, bn a multiple of :func:`tc_k_per_stage`; ``dense`` ``(K, N)``
+    with stride 1 along K. ``out`` contiguous ``(n_rows, N)``. Runs longer
+    than ``piece`` blocks (:data:`BSR_PIECE`) are split: ``pieces`` is
+    ``run_pieces(row_ptr, piece)``, ``partial`` (float32) and ``tickets``
+    (:func:`zeroed_tickets`) are sized by :func:`bsr_tc_scratch`. Counted
+    as ``bsr_spmm``."""
+    piece = BSR_PIECE if piece is None else int(piece)
+    dtype, device = dense.dtype, dense.device
+    if dtype not in TC_DTYPES:
+        raise TypeError(f"the tensor-core BSR SpMM takes float32 or bfloat16, not {dtype}")
+    require_cuda(device, "BSR")
+    _check_device(blocks, dtype, device, "blocks")
+    _check_device(dense, dtype, device, "dense")
+    _check("block_cols", block_cols, torch.int32, device)
+    _check("row_ptr", row_ptr, torch.int64, device)
+    _check("pieces", pieces, torch.int64, device)
+    _check("out", out, dtype, device)
+    _check("partial", partial, torch.float32, device)
+    _check("tickets", tickets, torch.int32, device)
+    n_blocks, bm, bn = blocks.shape
+    k, n = dense.shape
+    n_rows = out.shape[0]
+    n_block_rows = row_ptr.shape[0] - 1
+    if (
+        block_cols.shape != (n_blocks,)
+        or out.shape != (n_rows, n)
+        or n_block_rows != -(-n_rows // bm)
+        or pieces.shape != row_ptr.shape
+    ):
+        raise ValueError("bsr_spmm_tc: operand shapes do not match the layout")
+    if not (_tc_ready(blocks, 2) and _tc_ready(dense, 0)) or bn % tc_k_per_stage(dtype):
+        raise ValueError(
+            "bsr_spmm_tc: blocks and dense must be K-major with 16-byte strides and bn a multiple of "
+            f"{tc_k_per_stage(dtype)}; the wrapper bsr_spmm_kernel copies other layouts"
+        )
+    n_front, n_partial, n_tickets = bsr_tc_scratch(n_blocks, n_block_rows, bm, n, piece)
+    if partial.numel() < n_partial or tickets.numel() < n_tickets:
+        raise ValueError("bsr_spmm_tc: partial or tickets smaller than bsr_tc_scratch asks")
+    if n_rows == 0 or n == 0:
+        return out
+    if n_blocks == 0 or k == 0:  # no stored block or an empty contraction: the product is zero
+        return out.zero_()
+    fn = getattr(load("bsr_tc"), f"st_bsr_spmm_tc_{_SUFFIX[dtype]}")
+    err = fn(
+        blocks.data_ptr(),
+        n_blocks,
+        blocks.stride(0),
+        blocks.stride(1),
+        block_cols.data_ptr(),
+        row_ptr.data_ptr(),
+        pieces.data_ptr(),
+        n_block_rows,
+        n_front,
+        piece,
+        bm,
+        bn,
+        dense.data_ptr(),
+        k,
+        n,
+        dense.stride(1),
+        out.data_ptr(),
+        n_rows,
+        partial.data_ptr(),
+        tickets.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(err, "bsr_spmm")
+    LAUNCHES["bsr_spmm"] += 1
+    return out
+
+
 # (table dtype, value dtype) -> entry point suffix of csrc/mttkrp.cu
 _MTTKRP_SUFFIX = {
     (torch.float32, torch.float32): "f32",
@@ -370,22 +531,29 @@ _MTTKRP_SUFFIX = {
 }
 
 
-def mttkrp(row_ptr, order, cj, ck, v, c, d, out):
+def mttkrp(row_ptr, pieces, order, cj, ck, v, c, d, out, partial, tickets, piece=None):
     """Launch the MTTKRP kernel: ``out[i] = Σ v[s] · c[cj[s]] · d[ck[s]]``
     over the slots ``s`` of row ``i``'s run ``row_ptr[i]:row_ptr[i + 1]``,
     read through ``order`` (int32, the block-ELL form, counted as
     ``ell_mttkrp``) or in place (``order=None``, the sorted-COO form,
     ``coo_mttkrp``). ``cj``/``ck`` int32 and ``v`` flat and of one length,
     ``c``/``d`` ``(J, r)``/``(K, r)`` of the table dtype, ``out`` ``(n_rows,
-    r)`` of ``v``'s dtype; all contiguous. The caller guarantees every index
-    in range."""
+    r)`` of ``v``'s dtype; all contiguous. Runs longer than ``piece`` slots
+    (:data:`MTTKRP_PIECE`) are split: ``pieces`` is
+    ``run_pieces(row_ptr, piece)``, scratch ``partial`` of ``out``'s dtype
+    holds at least ``front_bound(n_slots, n_rows, piece) · r`` values and
+    ``tickets`` (int32, :func:`zeroed_tickets`) as many as ``front_bound ·
+    ⌈r / 32⌉``, zero before the launch and after it. The caller guarantees
+    every index in range."""
     name = "coo_mttkrp" if order is None else "ell_mttkrp"
+    piece = MTTKRP_PIECE if piece is None else int(piece)
     dtype, device = v.dtype, v.device
     require_cuda(device, "MTTKRP")
     suffix = _MTTKRP_SUFFIX.get((c.dtype, dtype))
     if suffix is None:
         raise TypeError(f"the MTTKRP kernel takes tables of {dtype} or bfloat16 with {dtype} values, not {c.dtype}")
     _check("row_ptr", row_ptr, torch.int64, device)
+    _check("pieces", pieces, torch.int64, device)
     if order is not None:
         _check("order", order, torch.int32, device)
     _check("cj", cj, torch.int32, device)
@@ -394,29 +562,36 @@ def mttkrp(row_ptr, order, cj, ck, v, c, d, out):
     _check("c", c, c.dtype, device)
     _check("d", d, c.dtype, device)
     _check("out", out, dtype, device)
+    _check("partial", partial, dtype, device)
+    _check("tickets", tickets, torch.int32, device)
     n_rows, r = out.shape
     n_slots = v.shape[0]
+    n_front = front_bound(n_slots, n_rows, piece)
     if (
         cj.shape != (n_slots,)
         or ck.shape != (n_slots,)
         or (order is not None and order.shape != (n_slots,))
         or row_ptr.ndim != 1
         or row_ptr.shape[0] < n_rows + 1
+        or pieces.shape[0] < n_rows + 1
         or c.ndim != 2
         or d.ndim != 2
         or c.shape[1] != r
         or d.shape[1] != r
+        or partial.numel() < n_front * r
+        or tickets.numel() < n_front * -(-r // 32)
     ):
         raise ValueError("mttkrp: operand shapes do not match")
     if n_rows == 0 or r == 0:
         return out
-    if -(-r // 32) > 65535:
-        raise ValueError(f"mttkrp: r = {r} needs more than 65535 column chunks")
     fn = getattr(load("mttkrp"), f"st_mttkrp_{suffix}")
     err = fn(
         row_ptr.data_ptr(),
+        pieces.data_ptr(),
         None if order is None else order.data_ptr(),
         n_rows,
+        n_front,
+        piece,
         cj.data_ptr(),
         ck.data_ptr(),
         v.data_ptr(),
@@ -424,6 +599,8 @@ def mttkrp(row_ptr, order, cj, ck, v, c, d, out):
         d.data_ptr(),
         r,
         out.data_ptr(),
+        partial.data_ptr(),
+        tickets.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on(err, name)

@@ -9,12 +9,15 @@ device once, with a host-built int64 ``row_ptr`` (``n_block_rows + 1``)
 that gives each block-row's run, so that the kernels need no sequential
 grid.
 
-The products run in the hand-written CUDA kernels of ``csrc/bsr.cu`` for
-tensors on the GPU: ``bsr_spmm_kernel`` (P2), its two-blocks-per-step form
-``bsr_spmm_kernel2`` (P3) and ``bsr_sddmm_kernel`` (P4). Beside them sit
-their plain PyTorch versions (``bsr_spmm_plain``, ``bsr_sddmm_plain``),
-which the wrappers take only for tensors on the CPU. There is no
-``use_pallas`` switch: the device decides.
+The products run in hand-written CUDA kernels for tensors on the GPU:
+``bsr_spmm_kernel`` (P2) on the tensor cores for float32 (as 3xTF32) and
+bfloat16 (``csrc/bsr_tc.cu``) and on the CUDA cores for float64
+(``csrc/bsr.cu``), its two-blocks-per-step form ``bsr_spmm_kernel2`` (P3)
+and ``bsr_sddmm_kernel`` (P4) on the CUDA cores (``csrc/bsr.cu``). Beside
+them sit their plain PyTorch versions (``bsr_spmm_plain``,
+``bsr_sddmm_plain``, and ``tf32_split``, the 3xTF32 split the tensor-core
+kernel makes), which the wrappers take only for tensors on the CPU. There
+is no ``use_pallas`` switch: the device decides.
 
 ``bsr_spmm`` and ``bsr_spmm_trainable`` are the differentiable products
 (``torch.autograd.Function``): the first with the XLA-derived backward of
@@ -245,6 +248,27 @@ def bsr_spmm_plain(block_rows, block_cols, blocks, dense, *, n_rows):
     return _add_row_blocks(out, block_rows, prods).to(dense.dtype)
 
 
+def tf32_split(x):
+    """``(hi, lo)`` of float32 ``x`` as the tensor-core kernel splits it for
+    3xTF32: ``hi`` is ``x`` rounded to tf32 (nearest, ties away from zero:
+    ``cvt.rna.tf32.f32``), ``lo`` is ``x - hi`` rounded the same way, both
+    with their low 13 mantissa bits zero (bit masking), so the tensor core
+    reads them exactly; where ``hi`` is not finite, ``lo = 0``. ``hi + lo``
+    rebuilds ``x`` to about 2^-22 relative, and the kernel's products are
+    ``lo·hi + hi·lo + hi·hi``."""
+
+    def rna(v):
+        bits = v.view(torch.int32)
+        # add half a tf32 ulp to the magnitude, then drop the 13 low bits
+        rounded = torch.where(torch.isfinite(v), (bits + 0x1000) & ~0x1FFF, bits)
+        return rounded.view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    lo = torch.where(torch.isfinite(hi), rna(x - hi), torch.zeros_like(x))
+    return hi, lo
+
+
 def bsr_sddmm_plain(block_rows, block_cols, lhs, rhs, *, block_shape=(128, 128)):
     """``out[j] = lhs[rows[j]-block, :] @ rhs[:, cols[j]-block]``: the
     row-blocks of ``lhs`` and the column-blocks of ``rhs`` gathered, then one
@@ -277,6 +301,33 @@ def _check_spmm(block_rows, block_cols, blocks, dense, block_shape):
     _cuda.check_bsr_dtype(dense.dtype)
 
 
+def _tc_operands(blocks, dense):
+    """``blocks`` and ``dense`` as the tensor-core kernel reads them (K-major,
+    16-byte strides, a block width that is a whole number of stages),
+    copied only where they are not already: a block width off the stage
+    grid pads both with zero columns and rows, any other layout is copied
+    into a fresh K-major buffer."""
+    kps = _cuda.tc_k_per_stage(dense.dtype)
+    _, _, bn = blocks.shape
+    k, n = dense.shape
+    if bn % kps:
+        bn_p, kb = -(-bn // kps) * kps, -(-k // bn)
+        blocks = torch.nn.functional.pad(blocks, (0, bn_p - bn))
+        rows = dense.new_zeros((n, kb * bn))
+        rows[:, :k] = dense.T
+        padded = dense.new_zeros((n, kb, bn_p))
+        padded[:, :, :bn] = rows.view(n, kb, bn)
+        return blocks, padded.view(n, kb * bn_p).T
+    if not _cuda._tc_ready(blocks, 2):
+        blocks = blocks.clone(memory_format=torch.contiguous_format)
+    if not _cuda._tc_ready(dense, 0):
+        step = 16 // dense.element_size()
+        buf = dense.new_empty((n, max(-(-k // step) * step, step)))
+        buf[:, :k] = dense.T
+        dense = buf[:, :k].T
+    return blocks, dense
+
+
 def _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, pairs):
     _check_spmm(block_rows, block_cols, blocks, dense, block_shape)
     device = dense.device
@@ -289,14 +340,30 @@ def _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, p
     if device.type == "cpu":
         return bsr_spmm_plain(block_rows, block_cols, blocks, dense, n_rows=n_rows)
     out = torch.empty((n_rows, dense.shape[1]), dtype=dense.dtype, device=device)
-    return _cuda.bsr_spmm(blocks, block_cols.to(torch.int32).contiguous(), row_ptr, dense, out, pairs=pairs)
+    cols = block_cols.to(torch.int32).contiguous()
+    if pairs == 2 or dense.dtype not in _cuda.TC_DTYPES:
+        return _cuda.bsr_spmm(blocks, cols, row_ptr, dense, out, pairs=pairs)
+    blocks, dense = _tc_operands(blocks, dense)
+    n_front, n_partial, n_tickets = _cuda.bsr_tc_scratch(blocks.shape[0], row_ptr.shape[0] - 1, blocks.shape[1], dense.shape[1])
+    partial = torch.empty(n_partial, dtype=torch.float32, device=device)
+    tickets = _cuda.zeroed_tickets(device, n_tickets)
+    pieces = _cuda.run_pieces(row_ptr, _cuda.BSR_PIECE)
+    return _cuda.bsr_spmm_tc(blocks, cols, row_ptr, pieces, dense, out, partial, tickets)
 
 
 def bsr_spmm_kernel(block_rows, block_cols, blocks, dense, *, n_rows, block_shape=None, row_ptr=None):
     """``A @ dense`` for BSR ``A`` (``n_rows`` rows) on the CUDA kernel
     (P2, the counterpart of ``bsr_spmm_pallas``); its plain version for CPU
-    tensors. float32, float64 or bfloat16 (float32 sum, bf16 output);
-    ``blocks`` and ``dense`` may be any strided views. ``row_ptr``
+    tensors. float32 runs on the tensor cores as 3xTF32 (about 2^-21
+    relative error per product, the reference's ``Precision.HIGHEST``;
+    never one TF32 pass), bfloat16 on the tensor cores with a float32 sum
+    and one rounding at the store, float64 on the CUDA cores. ``blocks``
+    and ``dense`` may be any strided views: the tensor-core kernel reads
+    both K-major (``blocks`` with its last axis contiguous, ``dense`` with
+    its first, as ``x.T`` of a row-major ``x``), and this wrapper copies any
+    other layout into that one first (an N-major ``dense``, a misaligned
+    view, a block width that is not a multiple of 32 float32 or 64 bfloat16
+    values); the layer needs no such copy. ``row_ptr``
     (:func:`block_row_ptr`, on the device) saves a host pass over
     ``block_rows``."""
     return _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, pairs=1)
@@ -374,10 +441,10 @@ def bsr_spmm(block_rows, block_cols, blocks, dense, n_rows, row_ptr=None):
 
 def transposed_blocks(blocks, t_perm):
     """``blocks_t`` of the transposed layout: ``blocks[t_perm[j]]ᵀ``, zero
-    where ``t_perm[j] == -1``, as a transposed view of one gathered copy
-    (the kernels read it through its strides)."""
-    gathered = blocks.index_select(0, t_perm.clamp(min=0))
-    return gathered.masked_fill_((t_perm < 0)[:, None, None], 0).transpose(1, 2)
+    where ``t_perm[j] == -1``, gathered into a contiguous (K-major) tensor
+    in one pass, as the tensor-core SpMM reads it."""
+    gathered = blocks.transpose(1, 2).index_select(0, t_perm.clamp(min=0)).contiguous()
+    return gathered.masked_fill_((t_perm < 0)[:, None, None], 0)
 
 
 class _BsrSpmmTrainable(torch.autograd.Function):

@@ -30,13 +30,15 @@
 // f32 accumulator).
 //
 // Bound on this card at the layer's full width (8192 x 8192, 25 % of the
-// 128 x 128 blocks, batch 512): operations. Each product does
-// 2 * n_blocks * 128 * 128 * 512 = 17.65 GFLOP on about 103 MB, far above
-// the f32 rate's 20 flops per byte. The design does what FFMA tiling can
-// about that: register accumulation, 16-byte shared-memory fragment reads
-// (three shared-memory wavefronts per 16 FMAs a warp), and register
-// prefetch of the next chunk. wgmma with TMA (bf16) or 3xTF32 (f32) would
-// raise the ceiling and restate the bound; they are work for later.
+// 128 x 128 blocks, 1,042 stored blocks, batch 512): operations. Each
+// product does 2 * 1042 * 128 * 128 * 512 = 17.48 GFLOP on about 103 MB.
+// The same work as 3xTF32 on the tensor cores takes 0.106 ms, which is the
+// bound these kernels are held to; the FFMA tiling here reaches about a
+// quarter of the f32 rate: register accumulation, 16-byte shared-memory
+// fragment reads (three shared-memory wavefronts per 16 FMAs a warp), and
+// register prefetch of the next chunk. The SpMM's float32 and bfloat16
+// forms run on the tensor cores (csrc/bsr_tc.cu); here it keeps float64
+// and the two-block form, and the SDDMM every dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,8 +175,8 @@ struct Tile {
 // out[r-block, n-tile] = sum over block-row r's run of blocks[j] @ dense[cols[j]-block, n-tile].
 //
 // Replaces sparse_tpu/kernels/bsr.py:_spmm_kernel (P2, behind
-// bsr_spmm_pallas) with PAIRS = 1, and _spmm_kernel2 (P3, behind
-// bsr_spmm_pallas2) with PAIRS = 2: two stored blocks per step, on layouts
+// bsr_spmm_pallas) with PAIRS = 1 for float64 (csrc/bsr_tc.cu takes float32
+// and bfloat16), and _spmm_kernel2 (P3, behind bsr_spmm_pallas2) with PAIRS = 2: two stored blocks per step, on layouts
 // whose every run has even length (the wrapper checks). The TPU kernels walk
 // a sequential grid over all stored blocks and carry each block-row's sum in
 // VMEM scratch from one step to the next; here one CTA per (block-row,

@@ -7,8 +7,9 @@ as ``sparse_tpu`` keeps them off its row-ELL path. Same functions as
 
 ``mttkrp`` is ``sparse_tpu.kernels.dot.mttkrp``: for tensors on the GPU it
 runs the hand-written CUDA kernel of ``csrc/mttkrp.cu`` (counted as
-``coo_mttkrp``), with each row's run found by ``torch.searchsorted`` on the
-device; ``mttkrp_plain`` beside it is its plain PyTorch version, taken only
+``coo_mttkrp``), with each row's run found by ``torch.searchsorted`` and
+the pieces of the long runs by one ``cumsum`` (``_cuda.run_pieces``), both
+on the device; ``mttkrp_plain`` beside it is its plain PyTorch version, taken only
 for tensors on the CPU. The differentiable core (``_Mttkrp``) is shared
 with the block-ELL form, ``ell.ell_mttkrp``.
 """
@@ -106,15 +107,21 @@ def check_indices(cj, ck, c, d, ci=None):
         raise ValueError("mttkrp: coords_i must be sorted (sparse_tpu's segment sum assumes indices_are_sorted)")
 
 
-def _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order):
+def _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order, pieces):
     if data.device.type == "cpu":
         return mttkrp_plain(rows, cj, ck, data, c, d, n_rows=n_rows, block_rows=block_rows, strategy=strategy)
-    _cuda.require_cuda(data.device, "MTTKRP")
+    device = data.device
+    _cuda.require_cuda(device, "MTTKRP")
     vt, tt = mttkrp_dtypes(data, c, d, strategy)
-    out = torch.empty((n_rows, c.shape[1]), dtype=vt, device=data.device)
+    r = c.shape[1]
+    out = torch.empty((n_rows, r), dtype=vt, device=device)
+    n_front = _cuda.front_bound(data.numel(), n_rows, _cuda.MTTKRP_PIECE)
+    partial = torch.empty(n_front * r, dtype=vt, device=device)
+    tickets = _cuda.zeroed_tickets(device, n_front * -(-r // 32))
     i32 = torch.int32
     return _cuda.mttkrp(
         row_ptr,
+        pieces,
         order,
         cj.reshape(-1).to(i32).contiguous(),
         ck.reshape(-1).to(i32).contiguous(),
@@ -122,6 +129,8 @@ def _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_
         c.to(tt).contiguous(),
         d.to(tt).contiguous(),
         out,
+        partial,
+        tickets,
     )
 
 
@@ -133,10 +142,10 @@ class _Mttkrp(torch.autograd.Function):
     through, in the value dtype."""
 
     @staticmethod
-    def forward(ctx, rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order):
+    def forward(ctx, rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order, pieces):
         ctx.save_for_backward(rows, cj, ck, data, c, d)
         ctx.meta = (block_rows, n_rows, strategy)
-        return _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order)
+        return _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order, pieces)
 
     @staticmethod
     def backward(ctx, g):
@@ -157,7 +166,7 @@ class _Mttkrp(torch.autograd.Function):
             d_c = torch.zeros_like(cf).index_add_(0, cjl, v * gr * dg).to(c.dtype)
         if ctx.needs_input_grad[6]:
             d_d = torch.zeros_like(df).index_add_(0, ckl, v * gr * cg).to(d.dtype)
-        return None, None, None, None, d_data, d_c, d_d, None, None, None, None
+        return None, None, None, None, d_data, d_c, d_d, None, None, None, None, None
 
 
 def check_mttkrp_operands(what, tensors, c, d):
@@ -193,8 +202,9 @@ def mttkrp(coords_i, coords_j, coords_k, data, c, d, *, n_rows):
     if not on_cpu:
         _cuda.require_cuda(data.device, "MTTKRP")
     check_indices(coords_j, coords_k, c, d, ci=coords_i)
-    row_ptr = None
+    row_ptr = pieces = None
     if not on_cpu:
         ci = coords_i if coords_i.dtype == torch.int64 else coords_i.long()
         row_ptr = torch.searchsorted(ci, torch.arange(n_rows + 1, device=ci.device))
-    return _Mttkrp.apply(coords_i, 0, coords_j, coords_k, data, c, d, n_rows, "exact", row_ptr, None)
+        pieces = _cuda.run_pieces(row_ptr, _cuda.MTTKRP_PIECE)
+    return _Mttkrp.apply(coords_i, 0, coords_j, coords_k, data, c, d, n_rows, "exact", row_ptr, None, pieces)

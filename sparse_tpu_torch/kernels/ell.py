@@ -12,8 +12,10 @@ and moved to the device once.
 version (``ell_mttkrp_plain``: gather, multiply, ``index_add_``) for tensors
 on the CPU. The kernel needs each output row's slots together: beside the
 four arrays, ``build_block_ell_3d`` builds on the host the slot ``order``
-(a stable sort by global row, so pads join local row 0 of their block) and
-the int64 ``row_ptr`` of each row's run in it. Neither package ever forms
+(a stable sort by global row, so pads join local row 0 of their block),
+the int64 ``row_ptr`` of each row's run in it, and the int64 ``pieces``
+that cut the runs longer than ``_cuda.MTTKRP_PIECE`` slots (the ragged
+last block's pad run above all) over several warps. Neither package ever forms
 the one-hot scatter matrix that ``sparse_tpu`` contracts on the MXU.
 
 ``ell_spmm``/``ell_spmv`` are XLA code in ``sparse_tpu``, not on a kernel
@@ -139,7 +141,9 @@ class BlockEll3d(NamedTuple):
     ``order`` ``(n_blocks * cap,)`` int32: the flat slots stably sorted by
     global row ``block · block_rows + e_rows``; ``row_ptr``
     ``(n_blocks * block_rows + 1,)`` int64: global row ``i``'s slots are
-    ``order[row_ptr[i]:row_ptr[i + 1]]``.
+    ``order[row_ptr[i]:row_ptr[i + 1]]``; ``pieces`` (the shape of
+    ``row_ptr``, int64): ``_cuda.run_pieces(row_ptr, _cuda.MTTKRP_PIECE)``,
+    how the kernel cuts the long runs.
     """
 
     e_rows: torch.Tensor
@@ -148,6 +152,7 @@ class BlockEll3d(NamedTuple):
     e_data: torch.Tensor
     order: torch.Tensor
     row_ptr: torch.Tensor
+    pieces: torch.Tensor
     block_rows: int
 
 
@@ -170,6 +175,7 @@ def block_ell_3d_from_numpy(e_rows, e_j, e_k, e_data, block_rows=DEFAULT_BLOCK_R
     device = resolve_device(device)
     e_rows = _to_device(np.asarray(e_rows, dtype=np.int32), "cpu")
     order, row_ptr = block_ell_3d_runs(e_rows, block_rows)
+    pieces = _cuda.run_pieces(row_ptr, _cuda.MTTKRP_PIECE)
     if not isinstance(e_data, torch.Tensor):
         e_data = _to_device(e_data, device)
     return BlockEll3d(
@@ -179,6 +185,7 @@ def block_ell_3d_from_numpy(e_rows, e_j, e_k, e_data, block_rows=DEFAULT_BLOCK_R
         e_data,
         order.to(device),
         row_ptr.to(device),
+        pieces.to(device),
         int(block_rows),
     )
 
@@ -201,7 +208,19 @@ def ell_mttkrp_plain(e_rows, e_j, e_k, e_data, c, d, *, n_rows, block_rows=DEFAU
 
 
 def ell_mttkrp(
-    e_rows, e_j, e_k, e_data, c, d, *, n_rows, block_rows=DEFAULT_BLOCK_ROWS, strategy="exact", order=None, row_ptr=None
+    e_rows,
+    e_j,
+    e_k,
+    e_data,
+    c,
+    d,
+    *,
+    n_rows,
+    block_rows=DEFAULT_BLOCK_ROWS,
+    strategy="exact",
+    order=None,
+    row_ptr=None,
+    pieces=None,
 ):
     """MTTKRP on the block-ELL layout: ``out[i, r] = Σ data · C[j, r] ·
     D[k, r]`` over the slots of row ``i`` → dense ``(n_rows, r)``.
@@ -217,10 +236,11 @@ def ell_mttkrp(
     - ``"bf16"``: factors rounded to bfloat16 (round to nearest even), their
       product in float32, then ``e_data · g`` in ``e_data``'s dtype.
 
-    ``order``/``row_ptr`` are the layout's runs (:class:`BlockEll3d`); on
-    the GPU without them they are computed on the device each call
-    (:func:`block_ell_3d_runs`). A ``j`` or ``k`` outside the factors
-    raises ``IndexError`` (one flag read back from the device)."""
+    ``order``/``row_ptr``/``pieces`` are the layout's runs and their pieces
+    (:class:`BlockEll3d`); on the GPU without them they are computed on the
+    device each call (:func:`block_ell_3d_runs`, ``_cuda.run_pieces``; the
+    pieces alone when only they are missing). A ``j`` or ``k`` outside the
+    factors raises ``IndexError`` (one flag read back from the device)."""
     if strategy not in MTTKRP_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; expected one of {MTTKRP_STRATEGIES}")
     tensors = (("e_rows", e_rows), ("e_j", e_j), ("e_k", e_k), ("e_data", e_data))
@@ -238,4 +258,6 @@ def ell_mttkrp(
     check_indices(e_j, e_k, c, d)
     if not on_cpu and order is None:
         order, row_ptr = block_ell_3d_runs(e_rows, block_rows)
-    return _Mttkrp.apply(e_rows, block_rows, e_j, e_k, e_data, c, d, n_rows, strategy, row_ptr, order)
+    if not on_cpu and pieces is None:
+        pieces = _cuda.run_pieces(row_ptr, _cuda.MTTKRP_PIECE)
+    return _Mttkrp.apply(e_rows, block_rows, e_j, e_k, e_data, c, d, n_rows, strategy, row_ptr, order, pieces)

@@ -281,3 +281,131 @@ def test_bsr_from_sparse_tpu_arrays():
     t16 = bsr_from_arrays(np.asarray(j.blocks.astype(jnp.bfloat16)), np.asarray(j.block_rows), np.asarray(j.block_cols), j.shape, j.block_shape, CPU)
     assert t16.blocks.dtype == torch.bfloat16
     np.testing.assert_array_equal(t16.blocks.float().numpy(), np.asarray(j.blocks.astype(jnp.bfloat16).astype(jnp.float32)))
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core SpMM (csrc/bsr_tc.cu): run pieces, K-major operands, 3xTF32
+# ---------------------------------------------------------------------------
+
+
+def _block_spans(row_ptr, pieces, piece):
+    """``{block-row: [(begin, end), ...]}`` as csrc/bsr_tc.cu's CTAs take the
+    runs: the pieces of split runs first, then one CTA per unsplit run."""
+    n = row_ptr.size - 1
+    spans = {}
+    for u in range(int(pieces[n])):
+        r = int(np.searchsorted(pieces, u, side="right")) - 1
+        begin = int(row_ptr[r]) + (u - int(pieces[r])) * piece
+        spans.setdefault(r, []).append((begin, min(begin + piece, int(row_ptr[r + 1]))))
+    for r in range(n):
+        if pieces[r + 1] == pieces[r]:
+            spans[r] = [(int(row_ptr[r]), int(row_ptr[r + 1]))]
+    return spans
+
+
+@pytest.mark.parametrize("piece", [None, 1, 3])
+@pytest.mark.parametrize("case", ["layer", "t_layer", "test_bsr", "empty_block_rows"])
+def test_run_pieces_cover_every_block_in_run_order(case, piece):
+    from sparse_tpu_torch import nn as tnn
+    from sparse_tpu_torch.kernels import _cuda
+
+    if case in ("layer", "t_layer"):  # runs padded to even length; transposed: pads in block-row 0
+        p = tnn.init_block_sparse_linear(1024, 8192, 0.25, generator=torch.Generator().manual_seed(1), device=CPU)
+        row_ptr = (p.row_ptr if case == "layer" else p.t_row_ptr).numpy()
+    else:
+        rows, cols, data, shape, bs = _triplets(case)
+        row_ptr = tb.build_bsr(rows, cols, data, shape, bs, device=CPU).row_ptr.numpy()
+    L = _cuda.BSR_PIECE if piece is None else piece
+    pieces = _cuda.run_pieces(torch.as_tensor(row_ptr), L).numpy()
+    assert pieces.dtype == np.int64 and pieces.shape == row_ptr.shape
+    assert pieces[-1] <= _cuda.front_bound(int(row_ptr[-1]), row_ptr.size - 1, L)
+    spans = _block_spans(row_ptr, pieces, L)
+    covered = []
+    for r in range(row_ptr.size - 1):
+        length, got = int(row_ptr[r + 1] - row_ptr[r]), spans[r]
+        assert len(got) == (1 if length <= L else -(-length // L))
+        assert got[0][0] == row_ptr[r] and got[-1][1] == row_ptr[r + 1]
+        assert all(a[1] == b[0] for a, b in zip(got, got[1:])) and all(e - b == L for b, e in got[:-1])
+        covered += [np.arange(b, e) for b, e in got]
+    np.testing.assert_array_equal(np.sort(np.concatenate(covered)), np.arange(int(row_ptr[-1])))
+    if case == "t_layer" and piece is None:  # the dgrad's long pad run is cut
+        assert len(spans[0]) >= 3
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("pad", [1, 2])
+def test_transposed_blocks_are_kmajor_and_equal_sparse_tpu(case, pad):
+    rows, cols, data, shape, bs = _triplets(case)
+    t = tb.build_bsr(rows, cols, data, shape, bs, pad_run_multiple=pad, device=CPU)
+    n_t = -(-shape[1] // bs[1])
+    _, _, t_perm = tb.transpose_bsr_layout(t.block_rows, t.block_cols, n_t)
+    blocks = jnp.asarray(t.blocks.numpy())
+    tp = jnp.asarray(t_perm)
+    want = np.asarray(jnp.where((tp < 0)[:, None, None], 0, blocks[jnp.clip(tp, 0, None)]).transpose(0, 2, 1))
+    got = tb.transposed_blocks(t.blocks, torch.as_tensor(t_perm))
+    assert got.is_contiguous() and got.shape == (t_perm.size, bs[1], bs[0])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[torch.as_tensor(t_perm) < 0].any()
+
+
+def test_tf32_split_rebuilds_float32():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(200_000).astype(np.float32) * np.exp2(rng.integers(-100, 100, 200_000)).astype(np.float32)
+    x = torch.as_tensor(np.concatenate([x, np.float32([0.0, -0.0, 1.0, 1 + 2**-12, 3.0e38])]))
+    hi, lo = tb.tf32_split(x)
+    for part in (hi, lo):  # tf32 values: the 13 low mantissa bits are zero
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert bool((err <= 2.0**-21 * x.double().abs()).all())
+    hi, lo = tb.tf32_split(torch.tensor([float("inf"), -float("inf"), float("nan")]))
+    assert hi[:2].isinf().all() and not lo[:2].any() and hi[2].isnan()
+
+
+@pytest.mark.parametrize("k", [2048, 4096, 6528])
+def test_three_tf32_passes_reach_float64_and_one_does_not(k):
+    # the layer's contraction lengths: runs of 16 to 51 blocks of 128
+    rng = np.random.default_rng(k)
+    a = torch.as_tensor(rng.standard_normal((64, k), dtype=np.float32))
+    b = torch.as_tensor(rng.standard_normal((k, 64), dtype=np.float32))
+    want = a.double() @ b.double()
+    (ah, al), (bh, bl) = tb.tf32_split(a), tb.tf32_split(b)
+    # products of tf32 values are exact in float32; the sums run in float32, as on the tensor cores
+    three = al @ bh + ah @ bl + ah @ bh
+
+    def norm_err(got):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    assert norm_err(three) <= 1e-5
+    assert norm_err(ah @ bh) > 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["off_grid_width", "n_major", "misaligned"])
+def test_tc_operands_keep_the_product(dtype, layout):
+    """What the wrapper hands the tensor-core kernel: K-major operands with
+    16-byte strides and a block width that fills whole stages, copied only
+    where needed, with the same product."""
+    from sparse_tpu_torch.kernels import _cuda
+
+    rng = np.random.default_rng(9)
+    m, k, bs = (200, 300, (48, 40)) if layout == "off_grid_width" else (500, 600, (128, 128))
+    lin = np.unique(rng.integers(0, m * k, 900))
+    a = tb.build_bsr(lin // k, lin % k, rng.standard_normal(lin.size), (m, k), bs, device=CPU)
+    blocks = a.blocks.to(dtype)
+    base = torch.as_tensor(rng.standard_normal((37, k))).to(dtype)
+    dense = {
+        "off_grid_width": base.T,
+        "n_major": base.T.contiguous(),
+        "misaligned": torch.as_tensor(rng.standard_normal(37 * k + 1)).to(dtype)[1:].view(37, k).T,
+    }[layout]
+    bp, dp = tb._tc_operands(blocks, dense)
+    assert _cuda._tc_ready(bp, 2) and _cuda._tc_ready(dp, 0)
+    assert bp.shape[2] % _cuda.tc_k_per_stage(dtype) == 0
+    if layout == "off_grid_width":  # padded with zero columns and rows
+        kps = _cuda.tc_k_per_stage(dtype)
+        assert bp.shape[2] == -(-bs[1] // kps) * kps and not bp[:, :, bs[1] :].any()
+    else:  # the blocks are read in place, only dense is copied
+        assert bp is blocks
+    want = tb.bsr_spmm_plain(a.block_rows, a.block_cols, blocks.float(), dense.float(), n_rows=m)
+    got = tb.bsr_spmm_plain(a.block_rows, a.block_cols, bp.float(), dp.float(), n_rows=m)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

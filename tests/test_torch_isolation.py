@@ -95,7 +95,7 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "mttkrp", "probes"}
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes"}
     for name, path in _cuda.SOURCES.items():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
@@ -105,6 +105,9 @@ def test_kernel_sources_ship_with_the_package():
     bsr_src = _cuda.SOURCES["bsr"].read_text()
     for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
         assert f"ST_BSR_ENTRY_POINTS({suffix}, {ctype})" in bsr_src
+    tc_src = _cuda.SOURCES["bsr_tc"].read_text()
+    for suffix, ctype in (("f32", "float"), ("bf16", "__nv_bfloat16")):
+        assert f"ST_BSR_TC_ENTRY_POINT({suffix}, {ctype})" in tc_src
     assert "arch=compute_90a,code=sm_90a" in _cuda._NVCC_FLAGS
 
 

@@ -297,8 +297,169 @@ def test_mttkrp_kernel_refuses_unsorted_rows(cuda):
         dot.mttkrp(ci.flip(0), cj, ck, t.data, c, d, n_rows=t.shape[0])
     with pytest.raises(IndexError):
         dot.mttkrp(ci, cj, ck, t.data, c[:10], d, n_rows=t.shape[0])
+    ptr = torch.zeros(2, dtype=torch.int64, device=cuda)
+    scratch = torch.empty(4096, device=cuda)
     with pytest.raises(TypeError):
-        _cuda.mttkrp(torch.zeros(2, dtype=torch.int64, device=cuda), None, cj, ck, t.data, c.double(), d.double(), torch.empty((1, 32), device=cuda))
+        _cuda.mttkrp(ptr, ptr, None, cj, ck, t.data, c.double(), d.double(), torch.empty((1, 32), device=cuda), scratch, _cuda.zeroed_tickets(cuda, 64))
+
+
+def _tail_tensor(dt, cuda):
+    """A ragged last block of 20 rows padded to the cap of full blocks (its
+    row 0 takes every pad slot) and a hub row of 2,400 entries: both runs
+    longer than 4 pieces."""
+    I, J, K = 2 * 128 + 20, 60, 70
+    rng = np.random.default_rng(21)
+    lin = np.unique(np.concatenate([rng.integers(0, 256 * J * K, 9000), rng.integers(256 * J * K, I * J * K, 300)]))
+    lin = np.union1d(lin[lin // (J * K) != 9], 9 * J * K + rng.choice(J * K, 2400, replace=False))
+    coords = np.stack([lin // (J * K), (lin // K) % J, lin % K])
+    return st.COO(coords, rng.random(lin.size).astype(np.float32 if dt == torch.float32 else np.float64), shape=(I, J, K), device=cuda)
+
+
+@pytest.mark.parametrize("dt,strategy", [(torch.float32, "exact"), (torch.float64, "exact"), (torch.float32, "bf16"), (torch.float64, "bf16")])
+@pytest.mark.parametrize("r", [25, 32, 64])
+def test_mttkrp_tail_runs_split_over_warps(cuda, dt, strategy, r):
+    t = _tail_tensor(dt, cuda)
+    c, d = _mttkrp_factors(t, r, dt, cuda)
+    I = t.shape[0]
+    lay = ell.build_block_ell_3d(t.coords[0], t.coords[1], t.coords[2], t.data, I, device=cuda)
+    runs = torch.diff(lay.row_ptr[: I + 1])
+    assert int(runs[9]) > 4 * _cuda.MTTKRP_PIECE and int(runs[256]) > 4 * _cuda.MTTKRP_PIECE
+    assert int(lay.pieces[I]) >= 10  # both long runs are cut
+    want = ell.ell_mttkrp_plain(*lay[:4], c, d, n_rows=I, strategy=strategy)
+    _cuda.reset_launch_counts()
+    got = ell.ell_mttkrp(*lay[:4], c, d, n_rows=I, strategy=strategy, order=lay.order, row_ptr=lay.row_ptr, pieces=lay.pieces)
+    bare = ell.ell_mttkrp(*lay[:4], c, d, n_rows=I, strategy=strategy)  # runs and pieces derived on the device
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == {**{k: 0 for k in _cuda.LAUNCHES}, "ell_mttkrp": 2}
+    torch.testing.assert_close(got, want, **TOL[dt])
+    assert torch.equal(bare, got)
+    again = ell.ell_mttkrp(*lay[:4], c, d, n_rows=I, strategy=strategy, order=lay.order, row_ptr=lay.row_ptr, pieces=lay.pieces)
+    assert torch.equal(again, got)  # the tickets came back to zero: the same bits
+    if strategy == "exact":  # the sorted-COO form, split at the same offsets, to the bit
+        _cuda.reset_launch_counts()
+        coo = dot.mttkrp(*t.coords, t.data, c, d, n_rows=I)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES == {**{k: 0 for k in _cuda.LAUNCHES}, "coo_mttkrp": 1}
+        assert torch.equal(coo, got)
+
+
+@pytest.mark.parametrize("piece", [1, 2])
+def test_mttkrp_more_pieces_than_front_warps(cuda, piece):
+    # every run of more than `piece` slots split: thousands of pieces, so
+    # each front warp strides over several of them
+    t = _tensor3("ragged", torch.float32, cuda)
+    c, d = _mttkrp_factors(t, 40, torch.float32, cuda)
+    I, ci, cj, ck = t.shape[0], *t.coords
+    row_ptr = torch.searchsorted(ci.long(), torch.arange(I + 1, device=cuda))
+    pieces = _cuda.run_pieces(row_ptr, piece)
+    n_front = _cuda.front_bound(t.nnz, I, piece)
+    assert int(pieces[I]) > (2048 if piece == 1 else 1000)
+    out = torch.empty((I, 40), device=cuda)
+    partial = torch.empty(n_front * 40, device=cuda)
+    tickets = _cuda.zeroed_tickets(cuda, n_front * 2)
+    _cuda.mttkrp(row_ptr, pieces, None, cj, ck, t.data, c, d, out, partial, tickets, piece=piece)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, dot.mttkrp_plain(ci, cj, ck, t.data, c, d, n_rows=I), **TOL[torch.float32])
+    assert not tickets.any()
+
+
+def _bsr_long_run(dt, cuda, n_blocks_row0=100):
+    """Block-row 0 holds a run of 100 blocks (4 pieces of 32), the others a few."""
+    bm = bn = 128
+    m, k = 3 * bm, n_blocks_row0 * bn
+    rng = np.random.default_rng(31)
+    cols0 = np.arange(n_blocks_row0)
+    other = rng.choice(n_blocks_row0, 6, replace=False)
+    brow = np.concatenate([np.zeros(n_blocks_row0, np.int64), [1] * 3, [2] * 3])
+    bcol = np.concatenate([cols0, np.sort(other[:3]), np.sort(other[3:])])
+    blocks = torch.as_tensor(rng.standard_normal((brow.size, bm, bn)), device=cuda).to(dt)
+    a = bsr.bsr_from_numpy(blocks, brow, bcol, (m, k), (bm, bn), device=cuda)
+    return a, m, k
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [512, 37])
+def test_bsr_spmm_long_run_split_into_pieces(cuda, dt, n):
+    a, m, k = _bsr_long_run(dt, cuda)
+    runs = torch.diff(a.row_ptr)
+    assert int(runs[0]) >= 3 * _cuda.BSR_PIECE
+    dense = torch.randn((n, k), device=cuda).to(dt).T  # K-major, as the layer's x.T
+    want = bsr.bsr_spmm_plain(a.block_rows, a.block_cols, a.blocks, dense, n_rows=m)
+    _cuda.reset_launch_counts()
+    got = bsr.bsr_spmm_kernel(a.block_rows, a.block_cols, a.blocks, dense, n_rows=m, row_ptr=a.row_ptr)
+    again = bsr.bsr_spmm_kernel(a.block_rows, a.block_cols, a.blocks, dense, n_rows=m, row_ptr=a.row_ptr)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == {**{k: 0 for k in _cuda.LAUNCHES}, "bsr_spmm": 2}
+    # a 12,800-long contraction of unit normals: sums of about 113, so the f32 limit scales up
+    tol = dict(rtol=1e-4, atol=1e-3) if dt == torch.float32 else BSR_TOL[dt]
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(again, got)  # deterministic: pieces summed in order
+
+
+@pytest.mark.parametrize("run_blocks", [16, 51])
+def test_bsr_spmm_f32_is_3xtf32_not_one_tf32_pass(cuda, run_blocks):
+    # the layer's contraction lengths (2,048 and 6,528) against a float64
+    # oracle at 1e-5 normalised: one TF32 pass misses it by about 30x
+    a, m, k = _bsr_long_run(torch.float32, cuda, run_blocks)
+    x = torch.randn((256, k), device=cuda)
+    got = bsr.bsr_spmm_kernel(a.block_rows, a.block_cols, a.blocks, x.T, n_rows=m, row_ptr=a.row_ptr)
+    w = bsr.BSR(a.blocks.double(), a.block_rows, a.block_cols, (m, k), (128, 128), a.row_ptr).todense()
+    want = w @ x.T.double()
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
+    hi_w = bsr.BSR(bsr.tf32_split(a.blocks)[0], a.block_rows, a.block_cols, (m, k), (128, 128), a.row_ptr).todense()
+    one_pass = hi_w.double() @ bsr.tf32_split(x)[0].T.double()
+    assert float((one_pass - want).abs().max() / want.abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["k_major", "n_major", "offset_view", "blocks_t_view"])
+def test_bsr_spmm_takes_every_operand_layout(cuda, dt, layout):
+    a, m, k = _bsr("test_bsr", dt, cuda)
+    blocks = a.blocks
+    base = torch.randn((64, k), device=cuda).to(dt)
+    dense = {
+        "k_major": base.T,  # x.T of a row-major x: read in place
+        "n_major": base.T.contiguous(),  # copied into K-major by the wrapper
+        "offset_view": torch.randn((64 * k + 1,), device=cuda).to(dt)[1:].view(64, k).T,  # misaligned base
+        "blocks_t_view": base.T,
+    }[layout]
+    if layout == "blocks_t_view":  # an M-major blocks view: copied into K-major
+        blocks = blocks.transpose(1, 2).contiguous().transpose(1, 2)
+    want = bsr.bsr_spmm_plain(a.block_rows, a.block_cols, blocks, dense, n_rows=m)
+    got = bsr.bsr_spmm_kernel(a.block_rows, a.block_cols, blocks, dense, n_rows=m, row_ptr=a.row_ptr)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **BSR_TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_bsr_spmm_pads_a_block_width_off_the_stage_grid(cuda, dt):
+    # 48 x 40 blocks: bm below a warpgroup's 64 rows, bn not a whole stage,
+    # K = 300 ragged against bn
+    rng = np.random.default_rng(41)
+    m, k = 200, 300
+    lin = np.unique(rng.integers(0, m * k, 2000))
+    a = bsr.build_bsr(lin // k, lin % k, rng.standard_normal(lin.size), (m, k), (48, 40), device=cuda)
+    blocks = a.blocks.to(dt)
+    for dense in (torch.randn((37, k), device=cuda).to(dt).T, torch.randn((k, 130), device=cuda).to(dt)):
+        want = bsr.bsr_spmm_plain(a.block_rows, a.block_cols, blocks, dense, n_rows=m)
+        got = bsr.bsr_spmm_kernel(a.block_rows, a.block_cols, blocks, dense, n_rows=m, row_ptr=a.row_ptr)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **BSR_TOL[dt])
+
+
+def test_bsr_tc_launcher_refuses_what_its_kernel_does_not_take(cuda):
+    a, m, k = _bsr("test_bsr", torch.float32, cuda)
+    cols = a.block_cols
+    pieces = _cuda.run_pieces(a.row_ptr, _cuda.BSR_PIECE)
+    _, n_partial, n_tickets = _cuda.bsr_tc_scratch(a.blocks.shape[0], a.row_ptr.shape[0] - 1, 128, 64)
+    partial, tickets = torch.empty(n_partial, device=cuda), _cuda.zeroed_tickets(cuda, n_tickets)
+    out = torch.empty((m, 64), device=cuda)
+    with pytest.raises(ValueError, match="K-major"):  # an N-major dense operand
+        _cuda.bsr_spmm_tc(a.blocks, cols, a.row_ptr, pieces, torch.randn((k, 64), device=cuda), out, partial, tickets)
+    with pytest.raises(TypeError):
+        _cuda.bsr_spmm_tc(a.blocks.double(), cols, a.row_ptr, pieces, torch.randn((64, k), device=cuda).double().T, out.double(), partial, tickets)
+    with pytest.raises(ValueError, match="smaller"):
+        _cuda.bsr_spmm_tc(a.blocks, cols, a.row_ptr, pieces, torch.randn((64, k), device=cuda).T, out, partial[:10], tickets)
 
 
 # ---------------------------------------------------------------- probes (csrc/probes.cu)

@@ -35,6 +35,7 @@ from sparse_tpu.kernels.ell import MTTKRP_SCAN_MIN_BLOCKS
 from sparse_tpu_torch import COO
 from sparse_tpu_torch import jitops as t_jitops
 from sparse_tpu_torch.interop import _float_tensor, block_ell_3d_from_arrays, coo_from_arrays
+from sparse_tpu_torch.kernels import _cuda
 from sparse_tpu_torch.kernels import dot as td
 from sparse_tpu_torch.kernels import ell as te
 
@@ -399,3 +400,96 @@ def test_onehot_prototype_in_interpret_mode_matches_the_port(monkeypatch):
     want = want[:I]
     got = te.ell_mttkrp(*lay[:4], torch.from_numpy(C), torch.from_numpy(D), n_rows=I, order=lay.order, row_ptr=lay.row_ptr)
     assert float(np.abs(got.numpy() - want).max() / np.abs(want).max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the pieces that cut long runs (csrc/mttkrp.cu)
+# ---------------------------------------------------------------------------
+
+
+def _kernel_spans(row_ptr, pieces, piece, n_rows):
+    """``{row: [(begin, end), ...]}``: the slot ranges that csrc/mttkrp.cu's
+    warps take, in the kernel's own mapping: front units ``u <
+    pieces[n_rows]`` are the pieces of split rows, then one unit per
+    unsplit row."""
+    row_ptr, pieces = np.asarray(row_ptr), np.asarray(pieces)
+    spans = {}
+    for u in range(int(pieces[n_rows])):
+        row = int(np.searchsorted(pieces[: n_rows + 1], u, side="right")) - 1
+        begin = int(row_ptr[row]) + (u - int(pieces[row])) * piece
+        spans.setdefault(row, []).append((begin, min(begin + piece, int(row_ptr[row + 1]))))
+    for row in range(n_rows):
+        if pieces[row + 1] == pieces[row]:
+            spans[row] = [(int(row_ptr[row]), int(row_ptr[row + 1]))]
+    return spans
+
+
+def _check_spans(row_ptr, pieces, piece, n_rows, n_entries):
+    """Every entry in exactly one piece, each row's pieces in run order from
+    its first entry, one piece for a run of at most ``piece``, ⌈len / piece⌉
+    otherwise, and no more front units than the grid's bound."""
+    row_ptr = np.asarray(row_ptr)
+    assert np.asarray(pieces).dtype == np.int64 and np.asarray(pieces).shape == row_ptr.shape
+    spans = _kernel_spans(row_ptr, pieces, piece, n_rows)
+    covered = []
+    for row in range(n_rows):
+        length = int(row_ptr[row + 1] - row_ptr[row])
+        got = spans[row]
+        assert len(got) == (1 if length <= piece else -(-length // piece)), row
+        assert got[0][0] == row_ptr[row] and got[-1][1] == row_ptr[row + 1]
+        assert all(a[1] == b[0] for a, b in zip(got, got[1:])) and all(0 < e - b <= piece for b, e in got[:-1])
+        covered += [np.arange(b, e) for b, e in got]
+    covered = np.concatenate(covered) if covered else np.empty(0, np.int64)
+    np.testing.assert_array_equal(np.sort(covered), np.arange(int(row_ptr[n_rows]) - int(row_ptr[0])) + int(row_ptr[0]))
+    assert int(np.asarray(pieces)[n_rows]) <= _cuda.front_bound(n_entries, n_rows, piece)
+    return spans
+
+
+@pytest.mark.parametrize("piece", [None, 16, 1])
+@pytest.mark.parametrize("case", ["seed0", "ragged", "hub"])
+def test_block_ell_3d_pieces_cover_every_slot_in_run_order(case, piece):
+    I, J, K, draws = {"seed0": (300, 40, 50, 5000), "ragged": (3 * 128 + 44, 30, 40, 20000), "hub": (300, 60, 70, 2000)}[case]
+    ci, cj, ck, tv = _tensor3(7, I, J, K, draws)
+    if case == "hub":  # one row with a run of 2,400 entries
+        rng = np.random.default_rng(8)
+        hub = np.unique(rng.integers(0, J * K, 2600))[:2400]
+        keep = ci != 7
+        ci = np.concatenate([ci[keep], np.full(hub.size, 7, np.int32)])
+        cj = np.concatenate([cj[keep], (hub // K).astype(np.int32)])
+        ck = np.concatenate([ck[keep], (hub % K).astype(np.int32)])
+        tv = np.concatenate([tv[keep], rng.random(hub.size).astype(np.float32)])
+        order = np.argsort(ci, kind="stable")
+        ci, cj, ck, tv = ci[order], cj[order], ck[order], tv[order]
+    lay = te.build_block_ell_3d(ci, cj, ck, tv, I, device=CPU)
+    p = _cuda.MTTKRP_PIECE if piece is None else piece
+    n_slots = lay.order.numel()
+    # the host-built pieces of the layout, and the same derivation from runs sorted "on the device"
+    pieces = lay.pieces if piece is None else _cuda.run_pieces(lay.row_ptr, p)
+    _check_spans(lay.row_ptr.numpy(), pieces.numpy(), p, I, n_slots)
+    _, row_ptr_d = te.block_ell_3d_runs(lay.e_rows)
+    assert torch.equal(_cuda.run_pieces(row_ptr_d, p), pieces)
+    # the sorted-COO form derives its pieces from searchsorted offsets
+    coo_ptr = torch.searchsorted(torch.as_tensor(ci).long(), torch.arange(I + 1))
+    _check_spans(coo_ptr.numpy(), _cuda.run_pieces(coo_ptr, p).numpy(), p, I, ci.size)
+
+
+def test_baseline_like_tail_gives_ceil_len_over_piece_pieces():
+    # a last block of 32 rows padded to the cap of full blocks: its row 0
+    # collects every pad slot, as row 99,968 does at the BASELINE scale
+    I, J, K = 3 * 128 + 32, 50, 60
+    rng = np.random.default_rng(11)
+    ci = np.sort(np.concatenate([rng.integers(0, 384, 24000), rng.integers(384, I, 600)])).astype(np.int32)
+    cj, ck = rng.integers(0, J, ci.size).astype(np.int32), rng.integers(0, K, ci.size).astype(np.int32)
+    tv = rng.random(ci.size).astype(np.float32)
+    lay = te.build_block_ell_3d(ci, cj, ck, tv, I, device=CPU)
+    row_ptr, P = lay.row_ptr.numpy(), _cuda.MTTKRP_PIECE
+    tail = int(np.diff(row_ptr).argmax())
+    length = int(row_ptr[tail + 1] - row_ptr[tail])
+    assert tail == 384 and length > 4 * P  # the ragged block's row 0 holds its pads
+    spans = _check_spans(row_ptr, lay.pieces.numpy(), P, I, lay.order.numel())
+    assert len(spans[tail]) == -(-length // P)
+    # the layout with its pieces still computes the MTTKRP of the triplets
+    C, D = (torch.from_numpy(f) for f in _factors(12, J, K, 4))
+    got = te.ell_mttkrp(*lay[:4], C, D, n_rows=I, order=lay.order, row_ptr=lay.row_ptr, pieces=lay.pieces)
+    want = td.mttkrp_plain(*(torch.from_numpy(a) for a in (ci, cj, ck, tv)), C, D, n_rows=I)
+    torch.testing.assert_close(got, want, **F32)
