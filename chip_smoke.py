@@ -12,17 +12,20 @@ drives the port's two paths on the card:
   ``matvec_add`` at the benchmark shape (65,536², 2^21 entry draws, N = 128,
   float32) and the spmv_add shape (99,990 × 100,000 at density 1e-6), and
   checks the outputs against a float64 scipy oracle;
-- the block-sparse layer: holds the BSR kernels (the SpMM on the tensor
-  cores for float32 (3xTF32) and bfloat16 and on the CUDA cores for
-  float64, its two-block form, the block SDDMM) against their plain
-  versions in float32, float64 and bfloat16, on the layer's forward and
-  dgrad operands too, then trains ``BlockSparseLinear(8192, 8192,
+- the block-sparse layer: holds the BSR kernels (the SpMM and the block
+  SDDMM on the tensor cores for float32 (3xTF32) and bfloat16 and on the
+  CUDA cores for float64, the SpMM's two-block form) against their plain
+  versions in float32, float64 and bfloat16, on the layer's forward, dgrad
+  and wgrad operands too (the wgrad's MN-major operands and K-major copies
+  of them), then trains ``BlockSparseLinear(8192, 8192,
   block_density=0.25)`` at batch 512 (the JAX package's block-sparse
   training benchmark, bench_suite.py), checks the first step's output and
   both gradients against a float64 oracle, takes three SGD steps on
   which the loss must fall, then 20 more back to back for the steady
-  step time; the SpMM is timed against its run piece (forward and dgrad,
-  no split and 32, 16, 8 blocks);
+  step time, and takes one step of the layer without its transposed
+  layout (the torch-op backward, its wgrad on the SDDMM kernel); the SpMM
+  is timed against its run piece (forward and dgrad, no split and 32, 16,
+  8 blocks);
 - the MTTKRP of a 3-D tensor: builds the BASELINE-scale tensor (100,000 x
   2,000 x 2,000, 10M draws, r = 32, float32; bench_suite.py) as a ``COO``
   on the card and its block-ELL layout, holds the MTTKRP kernel against its
@@ -71,6 +74,7 @@ SPMV_ADD_DENSITY = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # tensor cores, dense; float32 products at HIGHEST take three passes (3xTF32)
+BF16_FLOPS_PER_S = 989e12  # tensor cores, dense
 
 # kernel vs plain: the two sum each row in another order (the kernel
 # sequentially with FMAs, the plain version by torch's reduction)
@@ -83,7 +87,7 @@ SOURCE = {
     "row_ell_spmm": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
     "bsr_spmm": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
     "bsr_spmm2": "sparse_tpu_torch/kernels/csrc/bsr.cu",
-    "bsr_sddmm": "sparse_tpu_torch/kernels/csrc/bsr.cu",
+    "bsr_sddmm": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
     "ell_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
     "coo_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
     **{
@@ -132,6 +136,8 @@ BSR_TOL = {
 }
 # the training step against the float64 oracle: max|got - want| / max|want|
 LAYER_ORACLE_TOL = 1e-4
+# the float32 SDDMM (3xTF32) at the layer shape against its plain version, normalised as above
+SDDMM_NORM_TOL = 1e-5
 STEADY_STEPS = 20  # SGD steps timed back to back after the checked ones
 
 # MTTKRP at the BASELINE scale (bench_suite.py:227-253): 100k x 2k x 2k from
@@ -463,11 +469,13 @@ def phase_bsr_kernels_vs_plain(dev, layer, x, wsum):
     """The three BSR kernels against their plain versions on the card, in
     float32, float64 and bfloat16: ragged edges, an empty matrix, a padded
     layout through both SpMMs, a (32, 64) block shape, transposed-view
-    operands, a ragged SDDMM contraction, and the full-width layer."""
+    operands, a ragged SDDMM contraction, and the full-width layer (its
+    wgrad also on K-major copies of its operands: the same result)."""
     from sparse_tpu_torch.kernels import _cuda, bsr
 
     rng = np.random.default_rng(2)
     errs = {"bsr_spmm": 0.0, "bsr_spmm2": 0.0, "bsr_sddmm": 0.0}
+    sddmm_norm, sddmm_layouts_equal = {}, {}
     _cuda.reset_launch_counts()
     for dt in (torch.float32, torch.float64, torch.bfloat16):
         tol = BSR_TOL[dt]
@@ -500,8 +508,18 @@ def phase_bsr_kernels_vs_plain(dev, layer, x, wsum):
         want = bsr.bsr_spmm_plain(*args, n_rows=LAYER_OUT)
         e1 = check_close(f"bsr_spmm layer {dt}", bsr.bsr_spmm_kernel(*args, n_rows=LAYER_OUT, row_ptr=p.row_ptr), want, tol)
         e2 = check_close(f"bsr_spmm2 layer {dt}", bsr.bsr_spmm_kernel2(*args, n_rows=LAYER_OUT, row_ptr=p.row_ptr), want, tol)
+        # the wgrad: g and x as the layer gives them (both MN-major), then
+        # K-major copies of them; the same products either way
         want = bsr.bsr_sddmm_plain(p.block_rows, p.block_cols, g, x.to(dt))
-        e3 = check_close(f"bsr_sddmm layer {dt}", bsr.bsr_sddmm_kernel(p.block_rows, p.block_cols, g, x.to(dt)), want, tol)
+        got = bsr.bsr_sddmm_kernel(p.block_rows, p.block_cols, g, x.to(dt))
+        e3 = check_close(f"bsr_sddmm layer {dt}", got, want, tol)
+        got_k = bsr.bsr_sddmm_kernel(p.block_rows, p.block_cols, g.contiguous(), x.to(dt).T.contiguous().T)
+        check_close(f"bsr_sddmm layer K-major {dt}", got_k, want, tol)
+        sddmm_norm[str(dt)] = normalised_err(got, want.double())
+        sddmm_layouts_equal[str(dt)] = bool(torch.equal(got, got_k))
+        if dt == torch.float32 and not (sddmm_norm[str(dt)] <= SDDMM_NORM_TOL and sddmm_layouts_equal[str(dt)]):
+            raise AssertionError(f"bsr_sddmm layer float32: {sddmm_norm} normalised, MN/K-major equal {sddmm_layouts_equal}")
+        del got, got_k
         # the dgrad: the K-major transposed blocks and the gradient's transposed view
         blocks_t = bsr.transposed_blocks(blocks, p.t_perm)
         args_t = (p.t_block_rows, p.t_block_cols, blocks_t, g)
@@ -515,7 +533,8 @@ def phase_bsr_kernels_vs_plain(dev, layer, x, wsum):
     launches = dict(_cuda.LAUNCHES)
     if launches["bsr_spmm2"] == 0 or launches["bsr_spmm"] == 0 or launches["bsr_sddmm"] == 0:
         raise AssertionError(f"the BSR comparison launched no kernel: {launches}")
-    return errs, launches
+    sddmm = {"layer_normalised_err": sddmm_norm, "layer_mn_equals_k_major": sddmm_layouts_equal}
+    return errs, launches, sddmm
 
 
 def normalised_err(got, want):
@@ -659,6 +678,32 @@ def phase_pairs_path(dev, layer, x):
     return launches, err
 
 
+def phase_vjp_path(layer, x, wsum):
+    """One step of the layer without its transposed layout (forward on the
+    SpMM, backward as torch ops with the wgrad on the SDDMM kernel), counted,
+    against the trainable path's gradients."""
+    from sparse_tpu_torch import nn as tnn
+    from sparse_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    p = layer.params()
+    grads = []
+    for params in (p, p._replace(t_block_rows=None, t_block_cols=None, t_perm=None)):
+        blocks = p.blocks.detach().clone().requires_grad_(True)
+        x_in = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        (tnn.block_sparse_linear(params._replace(blocks=blocks, bias=p.bias.detach()), x_in) * wsum).sum().backward()
+        torch.cuda.synchronize()
+        grads.append((blocks.grad, x_in.grad))
+    launches = dict(LAUNCHES)
+    if (launches["bsr_spmm"], launches["bsr_sddmm"]) != (1, 1):
+        raise AssertionError(f"the layer without a transposed layout did not run its forward and wgrad on the kernels: {launches}")
+    errs = {name: normalised_err(grads[1][i], grads[0][i].double()) for i, name in enumerate(("d_blocks", "dx"))}
+    if not all(e <= SDDMM_NORM_TOL for e in errs.values()):
+        raise AssertionError(f"the torch-op backward is off the trainable path's gradients: {errs}")
+    return launches, errs, bool(torch.equal(grads[0][0], grads[1][0]))
+
+
 def phase_step_breakdown(layer, x, wsum):
     """Device ms of each part of one training step (CUDA events, eager)."""
     from sparse_tpu_torch.kernels import bsr
@@ -759,6 +804,24 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
         for piece in (1 << 20, 32, 16, 8)
     }
     dgrad_ms = time_graph(tc_launch(dgrad), reps=20)
+
+    def sddmm_extra():
+        """The SDDMM on the layer's operands in the other layouts and dtypes:
+        K-major copies of g and x (float32), bfloat16 (MN-major, read through
+        the wgmma transpose bit) and float64 (the FFMA kernel of bsr.cu)."""
+        g_k, x_k = g.contiguous(), x.T.contiguous().T
+        g16, x16 = g.to(torch.bfloat16), x.to(torch.bfloat16)
+        g64, x64 = g.double(), x.double()
+        out16, out64 = torch.empty_like(out_w, dtype=torch.bfloat16), torch.empty_like(out_w, dtype=torch.float64)
+        return {
+            "mn_major_g_x": [_cuda.sddmm_tc_major(g, 0)[0], _cuda.sddmm_tc_major(x, 1)[0]],
+            "mn_major_g_x_bf16": [_cuda.sddmm_tc_major(g16, 0)[0], _cuda.sddmm_tc_major(x16, 1)[0]],
+            "kernel_ms_k_major": time_graph(lambda: _cuda.bsr_sddmm_tc(p.block_rows, cols, g_k, x_k, out_w), reps=20),
+            "kernel_ms_bf16": time_graph(lambda: _cuda.bsr_sddmm_tc(p.block_rows, cols, g16, x16, out16), reps=20),
+            "bf16_bound_ms": flops / BF16_FLOPS_PER_S * 1e3,
+            "kernel_ms_f64_ffma": time_graph(lambda: _cuda.bsr_sddmm(p.block_rows, cols, g64, x64, out64), reps=5),
+        }
+
     specs = [
         (
             "bsr_spmm",
@@ -780,7 +843,7 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
         ),
         (
             "bsr_sddmm",
-            lambda: _cuda.bsr_sddmm(p.block_rows, cols, g, x, out_w),
+            lambda: _cuda.bsr_sddmm_tc(p.block_rows, cols, g, x, out_w),
             lambda: bsr.bsr_sddmm_kernel(p.block_rows, cols, g, x),
             lambda: bsr.bsr_sddmm_plain(p.block_rows, cols, g, x),
             sampled,
@@ -822,6 +885,8 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
         extra = {}
         if name == "bsr_spmm":
             extra = {"dgrad_kernel_ms": dgrad_ms, "piece": _cuda.BSR_PIECE, "piece_sweep_ms": piece_sweep}
+        if name == "bsr_sddmm":
+            extra = sddmm_extra()
         log(
             json.dumps(
                 {
@@ -1375,13 +1440,15 @@ def main():
 
     # the block-sparse layer (BSR)
     layer, lx, target, wsum = layer_layout(dev)
-    bsr_errs, cmp_launches = phase_bsr_kernels_vs_plain(dev, layer, lx, wsum)
-    log(json.dumps({"bsr_kernel_vs_plain": "ok", "layer_max_abs_err_f32": bsr_errs, "launches": cmp_launches}))
+    bsr_errs, cmp_launches, sddmm_cmp = phase_bsr_kernels_vs_plain(dev, layer, lx, wsum)
+    log(json.dumps({"bsr_kernel_vs_plain": "ok", "layer_max_abs_err_f32": bsr_errs, "launches": cmp_launches, "sddmm": sddmm_cmp}))
     training = phase_training(dev, layer, lx, target, wsum)
     breakdown = phase_step_breakdown(layer, lx, wsum)
     log(json.dumps({"training_path": "ok", **training, "step_breakdown_device_ms": breakdown, "card": card}))
     pairs_launches, pairs_err = phase_pairs_path(dev, layer, lx)
     log(json.dumps({"pairs_path": "ok", "launches": pairs_launches, "err_vs_layer_forward": pairs_err}))
+    vjp_launches, vjp_errs, vjp_equal = phase_vjp_path(layer, lx, wsum)
+    log(json.dumps({"vjp_path": "ok", "launches": vjp_launches, "err_vs_trainable": vjp_errs, "d_blocks_equal": vjp_equal}))
     bsr_launches = {**training["launches"], "bsr_spmm2": pairs_launches["bsr_spmm2"]}
     lines += phase_bsr_times(layer, lx, wsum, bsr_launches, bsr_errs, card)
     del layer, lx, target, wsum

@@ -25,6 +25,9 @@ _NP_TO_TORCH = {
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.uint16): torch.uint16,
+    np.dtype(np.uint32): torch.uint32,
+    np.dtype(np.uint64): torch.uint64,
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
@@ -35,6 +38,19 @@ _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 
 # same-width integer views for the bitwise float compare
 _BITS = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+
+# torch implements few ops for its unsigned types wider than 8 bits (no
+# index_add_ or index_put on the CPU); their values are kept as they are and
+# worked on through a view as the signed type of the same width, whose
+# wrapping sums and products have the same bits
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def signed_view(t):
+    """``t`` viewed as the signed integer type of its width when its dtype
+    is uint16, uint32 or uint64 (same bits, modular arithmetic), else ``t``."""
+    signed = _SIGNED.get(t.dtype)
+    return t if signed is None else t.view(signed)
 
 
 def torch_dtype(dtype):
@@ -84,7 +100,7 @@ def equivalent(x, y, /, loose=False):
     x = x.to(dt)
     y = y.to(dt)
     if not _is_inexact(dt):
-        return x == y
+        return signed_view(x) == signed_view(y)
     if dt.is_complex:
         xr, yr = torch.view_as_real(x.resolve_conj()), torch.view_as_real(y.resolve_conj())
         return equivalent(xr[..., 0], yr[..., 0], loose=loose) & equivalent(xr[..., 1], yr[..., 1], loose=loose)

@@ -28,6 +28,7 @@ from .._utils import (
     equivalent,
     index_dtype_for,
     numpy_dtype,
+    signed_view,
     torch_dtype,
     zero_of_dtype,
 )
@@ -256,7 +257,8 @@ class COO(SparseArray):
             return
         starts = torch.cumsum(counts, 0) - counts
         sums = torch.zeros(uniq.numel(), dtype=self.data.dtype, device=lin.device)
-        self.data = sums.index_add_(0, inverse, self.data)  # booleans add as "or"
+        signed_view(sums).index_add_(0, inverse, signed_view(self.data))  # booleans add as "or"
+        self.data = sums
         self.coords = self.coords[:, starts]
 
     def _prune(self):
@@ -346,7 +348,7 @@ class COO(SparseArray):
         entry is stored."""
         out = torch.full(self.shape, self.fill_value.item(), dtype=self.dtype, device=self.device)
         if self.ndim:
-            out[tuple(self.coords.to(torch.int64))] = self.data
+            signed_view(out)[tuple(self.coords.to(torch.int64))] = signed_view(self.data)
         elif self.nnz:
             out = self.data[-1].reshape(())
         return out

@@ -52,14 +52,17 @@ _SIGNATURES = {
             f"st_bsr_spmm_{dt}": [_p, _i64, _i64, _i64, _p, _p, _i64, _i64, _i64, _p, _i64, _i64, _i64, _i64, _p, _i64, _i64, _p]
             for dt in ("f32", "f64", "bf16")
         },
-        **{
-            f"st_bsr_sddmm_{dt}": [_p, _p, _i64, _i64, _i64, _p, _i64, _i64, _i64, _i64, _p, _i64, _i64, _i64, _p, _p]
-            for dt in ("f32", "f64", "bf16")
-        },
+        "st_bsr_sddmm_f64": [_p, _p, _i64, _i64, _i64, _p, _i64, _i64, _i64, _i64, _p, _i64, _i64, _i64, _p, _p],
     },
     "bsr_tc": {
-        f"st_bsr_spmm_tc_{dt}": [_p, *[_i64] * 3, _p, _p, _p, *[_i64] * 5, _p, *[_i64] * 3, _p, _i64, _p, _p, _p]
-        for dt in ("f32", "bf16")
+        **{
+            f"st_bsr_spmm_tc_{dt}": [_p, *[_i64] * 3, _p, _p, _p, *[_i64] * 5, _p, *[_i64] * 3, _p, _i64, _p, _p, _p]
+            for dt in ("f32", "bf16")
+        },
+        **{
+            f"st_bsr_sddmm_tc_{dt}": [_p, _p, *[_i64] * 3, _p, *[_i64] * 4, _p, *[_i64] * 3, _p, _i64, _p]
+            for dt in ("f32", "bf16")
+        },
     },
     "mttkrp": {
         f"st_mttkrp_{dt}": [_p, _p, _p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p]
@@ -339,25 +342,37 @@ def bsr_spmm(blocks, block_cols, row_ptr, dense, out, pairs=1):
     return out
 
 
-def bsr_sddmm(block_rows, block_cols, lhs, rhs, out):
-    """Launch the block-sampled SDDMM (P4): ``out[j] = lhs[rows[j]-block, :]
-    @ rhs[:, cols[j]-block]`` for every stored block, ``lhs`` ``(M, B)`` and
-    ``rhs`` ``(B, K)`` of any strides, ``out`` contiguous ``(n_blocks, bm, bn)``."""
+def _check_sddmm(block_rows, block_cols, lhs, rhs, out):
     dtype, device = lhs.dtype, lhs.device
-    check_bsr_dtype(dtype)
     require_cuda(device, "BSR")
     _check_device(lhs, dtype, device, "lhs")
     _check_device(rhs, dtype, device, "rhs")
     _check("block_rows", block_rows, torch.int32, device)
     _check("block_cols", block_cols, torch.int32, device)
     _check("out", out, dtype, device)
+    n_blocks = out.shape[0]
+    if lhs.ndim != 2 or rhs.ndim != 2 or out.ndim != 3 or rhs.shape[0] != lhs.shape[1]:
+        raise ValueError("bsr_sddmm: lhs and rhs must be (M, B) and (B, K), out (n_blocks, bm, bn)")
+    if block_rows.shape != (n_blocks,) or block_cols.shape != (n_blocks,):
+        raise ValueError("bsr_sddmm: operand shapes do not match the layout")
+
+
+def bsr_sddmm(block_rows, block_cols, lhs, rhs, out):
+    """Launch the float64 block-sampled SDDMM (P4) of ``csrc/bsr.cu`` on the
+    CUDA cores (float32 and bfloat16 are :func:`bsr_sddmm_tc`): ``out[j] =
+    lhs[rows[j]-block, :] @ rhs[:, cols[j]-block]`` for every stored block,
+    ``lhs`` ``(M, B)`` and ``rhs`` ``(B, K)`` of any strides, ``out``
+    contiguous ``(n_blocks, bm, bn)``."""
+    dtype, device = lhs.dtype, lhs.device
+    check_bsr_dtype(dtype)
+    if dtype in TC_DTYPES:
+        raise TypeError(f"the {dtype} BSR SDDMM runs on the tensor cores: bsr_sddmm_tc")
+    _check_sddmm(block_rows, block_cols, lhs, rhs, out)
     n_blocks, bm, bn = out.shape
     m, b = lhs.shape
-    if rhs.shape[0] != b or block_rows.shape != (n_blocks,) or block_cols.shape != (n_blocks,):
-        raise ValueError("bsr_sddmm: operand shapes do not match the layout")
     if out.numel() == 0:
         return out
-    fn = getattr(load("bsr"), f"st_bsr_sddmm_{_SUFFIX[dtype]}")
+    fn = load("bsr").st_bsr_sddmm_f64
     err = fn(
         block_rows.data_ptr(),
         block_cols.data_ptr(),
@@ -519,6 +534,67 @@ def bsr_spmm_tc(blocks, block_cols, row_ptr, pieces, dense, out, partial, ticket
     )
     _raise_on(err, "bsr_spmm")
     LAUNCHES["bsr_spmm"] += 1
+    return out
+
+
+def sddmm_tc_major(t, mn_dim):
+    """How the tensor-core SDDMM reads the operand ``t`` as it lies:
+    ``(True, ld)`` with stride 1 along its MN axis ``mn_dim`` (0 for lhs
+    ``(M, B)``, 1 for rhs ``(B, K)``), ``(False, ld)`` with stride 1 along
+    its k axis; ``ld``, the other stride, a multiple of 16 bytes and at least
+    the length of the unit-stride axis, and a 16-byte aligned base. ``None``
+    for any other layout."""
+    for inner, mn in ((mn_dim, True), (1 - mn_dim, False)):
+        ld = t.stride(1 - inner)
+        if _tc_ready(t, inner) and ld >= max(t.shape[inner], 1):
+            return mn, ld
+    return None
+
+
+def bsr_sddmm_tc(block_rows, block_cols, lhs, rhs, out):
+    """Launch P4 on the tensor cores (float32 as 3xTF32, bfloat16): ``out[j]
+    = lhs[rows[j]-block, :] @ rhs[:, cols[j]-block]`` for every stored block
+    (zero past M and K; a zero block where an index is negative), ``lhs``
+    ``(M, B)`` and ``rhs`` ``(B, K)`` each K-major or MN-major as
+    :func:`sddmm_tc_major` takes them, ``out`` contiguous ``(n_blocks, bm,
+    bn)``, ``block_rows``/``block_cols`` int32. Counted as ``bsr_sddmm``."""
+    dtype, device = lhs.dtype, lhs.device
+    if dtype not in TC_DTYPES:
+        raise TypeError(f"the tensor-core BSR SDDMM takes float32 or bfloat16, not {dtype}")
+    _check_sddmm(block_rows, block_cols, lhs, rhs, out)
+    if out.numel() == 0:
+        return out
+    if min(lhs.shape[0], lhs.shape[1], rhs.shape[1]) == 0:  # nothing to read: every block is zero
+        return out.zero_()
+    a, b = sddmm_tc_major(lhs, 0), sddmm_tc_major(rhs, 1)
+    if a is None or b is None:
+        raise ValueError(
+            "bsr_sddmm_tc: lhs and rhs must each have stride 1 along one axis, the other stride a multiple of "
+            "16 bytes, and a 16-byte aligned base; the wrapper bsr_sddmm_kernel copies other layouts"
+        )
+    n_blocks, bm, bn = out.shape
+    fn = getattr(load("bsr_tc"), f"st_bsr_sddmm_tc_{_SUFFIX[dtype]}")
+    err = fn(
+        block_rows.data_ptr(),
+        block_cols.data_ptr(),
+        n_blocks,
+        bm,
+        bn,
+        lhs.data_ptr(),
+        lhs.shape[0],
+        lhs.shape[1],
+        a[1],
+        int(a[0]),
+        rhs.data_ptr(),
+        rhs.shape[1],
+        b[1],
+        int(b[0]),
+        out.data_ptr(),
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(err, "bsr_sddmm")
+    LAUNCHES["bsr_sddmm"] += 1
     return out
 
 

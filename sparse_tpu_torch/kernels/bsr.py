@@ -10,10 +10,10 @@ that gives each block-row's run, so that the kernels need no sequential
 grid.
 
 The products run in hand-written CUDA kernels for tensors on the GPU:
-``bsr_spmm_kernel`` (P2) on the tensor cores for float32 (as 3xTF32) and
-bfloat16 (``csrc/bsr_tc.cu``) and on the CUDA cores for float64
-(``csrc/bsr.cu``), its two-blocks-per-step form ``bsr_spmm_kernel2`` (P3)
-and ``bsr_sddmm_kernel`` (P4) on the CUDA cores (``csrc/bsr.cu``). Beside
+``bsr_spmm_kernel`` (P2) and ``bsr_sddmm_kernel`` (P4) on the tensor cores
+for float32 (as 3xTF32) and bfloat16 (``csrc/bsr_tc.cu``) and on the CUDA
+cores for float64 (``csrc/bsr.cu``), and the SpMM's two-blocks-per-step
+form ``bsr_spmm_kernel2`` (P3) on the CUDA cores (``csrc/bsr.cu``). Beside
 them sit their plain PyTorch versions (``bsr_spmm_plain``,
 ``bsr_sddmm_plain``, and ``tf32_split``, the 3xTF32 split the tensor-core
 kernel makes), which the wrappers take only for tensors on the CPU. There
@@ -21,12 +21,14 @@ is no ``use_pallas`` switch: the device decides.
 
 ``bsr_spmm`` and ``bsr_spmm_trainable`` are the differentiable products
 (``torch.autograd.Function``): the first with the XLA-derived backward of
-the JAX package as torch ops, the second with the kernels in its backward
-too (dgrad on the transposed layout, wgrad by the block SDDMM).
+the JAX package (wgrad by the block SDDMM, dgrad as a torch ``bmm`` held at
+full float32 precision), the second with the kernels in its backward too
+(dgrad on the transposed layout, wgrad by the block SDDMM).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -301,6 +303,16 @@ def _check_spmm(block_rows, block_cols, blocks, dense, block_shape):
     _cuda.check_bsr_dtype(dense.dtype)
 
 
+def _padded_rows(t):
+    """A row-major copy of 2-D ``t`` whose rows are padded to 16 bytes (a
+    TMA-legal stride), as a view of ``t``'s shape."""
+    rows, cols = t.shape
+    step = 16 // t.element_size()
+    buf = t.new_empty((rows, max(-(-cols // step) * step, step)))
+    buf[:, :cols] = t
+    return buf[:, :cols]
+
+
 def _tc_operands(blocks, dense):
     """``blocks`` and ``dense`` as the tensor-core kernel reads them (K-major,
     16-byte strides, a block width that is a whole number of stages),
@@ -321,10 +333,7 @@ def _tc_operands(blocks, dense):
     if not _cuda._tc_ready(blocks, 2):
         blocks = blocks.clone(memory_format=torch.contiguous_format)
     if not _cuda._tc_ready(dense, 0):
-        step = 16 // dense.element_size()
-        buf = dense.new_empty((n, max(-(-k // step) * step, step)))
-        buf[:, :k] = dense.T
-        dense = buf[:, :k].T
+        dense = _padded_rows(dense.T).T
     return blocks, dense
 
 
@@ -378,12 +387,24 @@ def bsr_spmm_kernel2(block_rows, block_cols, blocks, dense, *, n_rows, block_sha
     return _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, pairs=2)
 
 
+def _sddmm_tc_operand(t, mn_dim):
+    """``t`` as the tensor-core SDDMM reads it (``_cuda.sddmm_tc_major``):
+    as it lies where it can, else a row-major padded copy."""
+    return t if _cuda.sddmm_tc_major(t, mn_dim) is not None else _padded_rows(t)
+
+
 def bsr_sddmm_kernel(block_rows, block_cols, lhs, rhs, *, block_shape=(128, 128)):
-    """Block-sampled dense-dense matmul on the CUDA kernel (P4, the
+    """Block-sampled dense-dense matmul on the CUDA kernels (P4, the
     counterpart of ``bsr_sddmm_pallas``): for each stored block ``(r, c)``
     ``lhs[r·bm:(r+1)·bm, :] @ rhs[:, c·bn:(c+1)·bn]`` (rows and columns past
     the operands' ends are zero). lhs ``(M, B)``, rhs ``(B, K)`` →
-    ``(n_blocks, bm, bn)``; its plain version for CPU tensors."""
+    ``(n_blocks, bm, bn)``; its plain version for CPU tensors. float32 runs
+    on the tensor cores as 3xTF32 (the reference's ``Precision.HIGHEST``,
+    never one TF32 pass), bfloat16 on the tensor cores with a float32 sum
+    and one rounding at the store, float64 on the CUDA cores. The
+    tensor-core kernel reads each operand with either axis contiguous (the
+    layer's ``grad_y.T`` and ``x`` in place); this wrapper copies any other
+    layout (a misaligned base, a stride that is no multiple of 16 bytes)."""
     for name, t in (("block_rows", block_rows), ("block_cols", block_cols), ("lhs", lhs), ("rhs", rhs)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
@@ -399,8 +420,10 @@ def bsr_sddmm_kernel(block_rows, block_cols, lhs, rhs, *, block_shape=(128, 128)
     _cuda.require_cuda(lhs.device, "BSR")
     bm, bn = block_shape
     out = torch.empty((block_rows.shape[0], bm, bn), dtype=lhs.dtype, device=lhs.device)
-    i32 = torch.int32
-    return _cuda.bsr_sddmm(block_rows.to(i32).contiguous(), block_cols.to(i32).contiguous(), lhs, rhs, out)
+    rows, cols = block_rows.to(torch.int32).contiguous(), block_cols.to(torch.int32).contiguous()
+    if lhs.dtype not in _cuda.TC_DTYPES:
+        return _cuda.bsr_sddmm(rows, cols, lhs, rhs, out)
+    return _cuda.bsr_sddmm_tc(rows, cols, _sddmm_tc_operand(lhs, 0), _sddmm_tc_operand(rhs, 1), out)
 
 
 # ---------------------------------------------------------------------------
@@ -408,15 +431,31 @@ def bsr_sddmm_kernel(block_rows, block_cols, lhs, rhs, *, block_shape=(128, 128)
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """float32 matmuls at full precision (no TF32 pass) inside; the caller's
+    ``torch.backends.cuda.matmul.allow_tf32`` is restored on the way out."""
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
 def _bsr_spmm_vjp(block_rows, block_cols, blocks, dense, g):
-    """The VJP of ``A @ dense`` as torch ops (what XLA derives from
-    ``bsr_spmm_xla``): ``d_blocks[j] = g[rows[j]-block] @ dense[cols[j]-block]ᵀ``
-    and ``d_dense[cols[j]-block] += blocks[j]ᵀ @ g[rows[j]-block]``."""
+    """The VJP of ``A @ dense`` (what XLA derives from ``bsr_spmm_xla``):
+    ``d_blocks[j] = g[rows[j]-block] @ dense[cols[j]-block]ᵀ``, the block
+    SDDMM :func:`bsr_sddmm_kernel`, and ``d_dense[cols[j]-block] +=
+    blocks[j]ᵀ @ g[rows[j]-block]`` as a torch ``bmm`` whose float32
+    products stay at full precision whatever the caller's TF32 setting."""
     _, bm, bn = blocks.shape
+    d_blocks = bsr_sddmm_kernel(block_rows, block_cols, g, dense.T, block_shape=(bm, bn))
     g_rows = _gather_row_blocks(g, block_rows, bm)  # (n_blocks, bm, N)
-    d_blocks = torch.bmm(g_rows, _gather_row_blocks(dense, block_cols, bn).transpose(1, 2))
+    with _full_f32_matmul():
+        prods = torch.bmm(blocks.transpose(1, 2), g_rows)
     d_dense = torch.zeros_like(dense, memory_format=torch.contiguous_format)
-    _add_row_blocks(d_dense, block_cols, torch.bmm(blocks.transpose(1, 2), g_rows))
+    _add_row_blocks(d_dense, block_cols, prods)
     return d_blocks, d_dense
 
 

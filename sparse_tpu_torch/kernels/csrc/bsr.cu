@@ -36,9 +36,9 @@
 // bound these kernels are held to; the FFMA tiling here reaches about a
 // quarter of the f32 rate: register accumulation, 16-byte shared-memory
 // fragment reads (three shared-memory wavefronts per 16 FMAs a warp), and
-// register prefetch of the next chunk. The SpMM's float32 and bfloat16
-// forms run on the tensor cores (csrc/bsr_tc.cu); here it keeps float64
-// and the two-block form, and the SDDMM every dtype.
+// register prefetch of the next chunk. The float32 and bfloat16 SpMM and
+// SDDMM run on the tensor cores (csrc/bsr_tc.cu); here the SpMM keeps
+// float64 and the two-block form, the SDDMM float64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,8 +249,8 @@ __global__ void __launch_bounds__(kThreads)
 // out[j] = lhs[rows[j]-block, :] @ rhs[:, cols[j]-block] for every stored block j.
 //
 // Replaces sparse_tpu/kernels/bsr.py:_sddmm_kernel (P4, behind
-// bsr_sddmm_pallas), the weight gradient of the trainable BSR SpMM. The TPU
-// kernel pads both operands to whole tiles and carries the sum over the
+// bsr_sddmm_pallas), the weight gradient of the trainable BSR SpMM, in
+// float64 (csrc/bsr_tc.cu takes float32 and bfloat16). The TPU kernel pads both operands to whole tiles and carries the sum over the
 // contraction's grid axis in VMEM scratch; here one CTA per (stored block,
 // 64 x 64 sub-tile of it) loops over the contraction B itself in chunks of
 // BK, masking rows past M, columns past K and the ragged end of B. Every
@@ -366,24 +366,26 @@ int sddmm(const void* block_rows, const void* block_cols, long long n_blocks, lo
 
 extern "C" {
 
-#define ST_BSR_ENTRY_POINTS(SUFFIX, T)                                                                             \
+#define ST_BSR_SPMM_ENTRY_POINT(SUFFIX, T)                                                                         \
   int st_bsr_spmm_##SUFFIX(const void* blocks, long long bs0, long long bs1, long long bs2, const void* block_cols, \
                            const void* row_ptr, long long n_block_rows, long long bm, long long bn,              \
                            const void* dense, long long k, long long n, long long d0, long long d1, void* out,    \
                            long long n_rows, long long pairs, void* stream) {                                     \
     return spmm<T>(blocks, bs0, bs1, bs2, block_cols, row_ptr, n_block_rows, bm, bn, dense, k, n, d0, d1, out,    \
                    n_rows, pairs, stream);                                                                        \
-  }                                                                                                               \
-  int st_bsr_sddmm_##SUFFIX(const void* block_rows, const void* block_cols, long long n_blocks, long long bm,     \
-                            long long bn, const void* lhs, long long m, long long b, long long l0, long long l1,  \
-                            const void* rhs, long long k, long long r0, long long r1, void* out, void* stream) {  \
-    return sddmm<T>(block_rows, block_cols, n_blocks, bm, bn, lhs, m, b, l0, l1, rhs, k, r0, r1, out, stream);    \
   }
 
-ST_BSR_ENTRY_POINTS(f32, float)
-ST_BSR_ENTRY_POINTS(f64, double)
-ST_BSR_ENTRY_POINTS(bf16, __nv_bfloat16)
+ST_BSR_SPMM_ENTRY_POINT(f32, float)
+ST_BSR_SPMM_ENTRY_POINT(f64, double)
+ST_BSR_SPMM_ENTRY_POINT(bf16, __nv_bfloat16)
 
-#undef ST_BSR_ENTRY_POINTS
+#undef ST_BSR_SPMM_ENTRY_POINT
+
+// the SDDMM in float64 only: float32 and bfloat16 run on the tensor cores (csrc/bsr_tc.cu)
+int st_bsr_sddmm_f64(const void* block_rows, const void* block_cols, long long n_blocks, long long bm, long long bn,
+                     const void* lhs, long long m, long long b, long long l0, long long l1, const void* rhs,
+                     long long k, long long r0, long long r1, void* out, void* stream) {
+  return sddmm<double>(block_rows, block_cols, n_blocks, bm, bn, lhs, m, b, l0, l1, rhs, k, r0, r1, out, stream);
+}
 
 }  // extern "C"

@@ -18,20 +18,23 @@ from __future__ import annotations
 
 import torch
 
-from .._utils import result_dtype
+from .._utils import result_dtype, signed_view
 from . import _cuda
 
 
 def coo_spmm(rows, cols, data, dense, *, n_rows):
-    """``A @ B`` for COO ``A`` (zero fill) and dense ``B (K, N)`` → ``(n_rows, N)``."""
+    """``A @ B`` for COO ``A`` (zero fill) and dense ``B (K, N)`` of
+    ``data``'s dtype → ``(n_rows, N)``."""
     out = torch.zeros((n_rows, dense.shape[1]), dtype=data.dtype, device=data.device)
-    return out.index_add_(0, rows.long(), data[:, None] * dense[cols.long()])
+    signed_view(out).index_add_(0, rows.long(), signed_view(data)[:, None] * signed_view(dense)[cols.long()])
+    return out
 
 
 def coo_spmv(rows, cols, data, x, *, n_rows):
-    """``A @ x`` for COO ``A`` and a dense vector ``x`` → ``(n_rows,)``."""
+    """``A @ x`` for COO ``A`` and a dense vector ``x`` of ``data``'s dtype → ``(n_rows,)``."""
     out = torch.zeros(n_rows, dtype=data.dtype, device=data.device)
-    return out.index_add_(0, rows.long(), data * x[cols.long()])
+    signed_view(out).index_add_(0, rows.long(), signed_view(data) * signed_view(x)[cols.long()])
+    return out
 
 
 # ---------------------------------------------------------------------------

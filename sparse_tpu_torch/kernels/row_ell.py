@@ -238,7 +238,8 @@ def _spmm_plain(re, dense):
     outs = []
     for c, d in re.tiers:
         g = dense[c.long()]  # grouped (r/G, w, G, n) or legacy (r, w, n)
-        outs.append((d.to(dt).unsqueeze(-1) * g).sum(1).reshape(-1, n))
+        rows = d.shape[0] * (d.shape[2] if d.ndim == 3 else 1)
+        outs.append((d.to(dt).unsqueeze(-1) * g).sum(1).reshape(rows, n))
     outs.append(torch.zeros((re.n_rows - re.nz_rows, n), dtype=dt, device=dense.device))
     return torch.cat(outs)[re.perm_inv.long()]
 

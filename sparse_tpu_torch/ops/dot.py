@@ -20,7 +20,7 @@ import warnings
 import numpy as np
 import torch
 
-from .._utils import check_zero_fill_value, result_dtype, torch_dtype
+from .._utils import check_zero_fill_value, result_dtype, signed_view, torch_dtype
 from ..core.base import SparseArray
 from ..core.coo import COO
 from ..kernels import dot as kdot
@@ -177,4 +177,6 @@ def matvec_add(a, x, y):
             _warn_nan(a, x, stacklevel=2)
             return _spmm_row_ell(a, x.to(dt), y=y.to(dt))
     out = matmul(a, x)
-    return out + _dense_operand(y, out.device)
+    y = _dense_operand(y, out.device)
+    dt = result_dtype(out.dtype, y.dtype)
+    return (signed_view(out.to(dt)) + signed_view(y.to(dt))).view(dt)

@@ -47,6 +47,10 @@ CASES = {
     "float32": dict(shape=(30, 30), n=200, dtype=np.float32),
     "int64": dict(shape=(30, 20), n=200, dtype=np.int64),
     "bool": dict(shape=(20, 20), n=300, dtype=np.bool_),
+    # negative draws wrap, so duplicate sums wrap too
+    "uint16": dict(shape=(20, 15), n=200, dtype=np.uint16),
+    "uint32": dict(shape=(20, 15), n=200, dtype=np.uint32),
+    "uint64": dict(shape=(6, 7, 8), n=150, dtype=np.uint64),
     "empty": dict(shape=(5, 4), n=0),
 }
 
@@ -96,6 +100,10 @@ def test_already_sorted_input_is_kept():
         (np.array([[1, 0, 2], [0, 0, 3]], dtype=np.int32), None),
         (np.array([1.0 + 1j, 0, 2j]), None),
         (np.array([[True, False], [False, True]]), None),
+        (np.array([[0, 7, 0], [2**15 + 3, 0, 1]], dtype=np.uint16), None),
+        (np.array([[0, 2**31 + 9], [4, 0]], dtype=np.uint32), None),
+        (np.array([[2**63 + 5, 0], [0, 7]], dtype=np.uint64), None),
+        (np.array([[3, 9], [9, 1]], dtype=np.uint32), np.uint32(9)),
         (np.float64(5.0), None),  # a 0-d input is its own fill
         (np.zeros((3, 0)), None),
     ],
@@ -226,11 +234,11 @@ def test_index_dtype_helpers(dtype, value):
 
 
 def test_dtype_maps_and_zero():
-    for dt in (np.bool_, np.int8, np.int32, np.int64, np.uint8, np.float32, np.float64, np.complex128):
+    for dt in (np.bool_, np.int8, np.int32, np.int64, np.uint8, np.uint16, np.uint32, np.uint64, np.float32, np.float64, np.complex128):
         assert tutils.numpy_dtype(tutils.torch_dtype(dt)) == np.dtype(dt)
         assert tutils.zero_of_dtype(dt) == jutils.zero_of_dtype(dt)
     with pytest.raises(TypeError):
-        tutils.torch_dtype(np.uint16)
+        tutils.torch_dtype(np.dtype("U3"))
     assert tutils.result_dtype(torch.int32, torch.float32) == torch.float64  # NumPy's rule
 
 

@@ -75,6 +75,26 @@ def test_dtype_promotion_matrix(a_dt, b_dt, vector):
     _check(t @ b, want)
 
 
+@pytest.mark.parametrize("a_dt", [np.uint16, np.uint32, np.uint64])
+@pytest.mark.parametrize("b_dt", [np.int8, np.uint8, np.uint16, np.uint64, np.int64, np.float32])
+@pytest.mark.parametrize("vector", [False, True])
+def test_unsigned_data_products_match_sparse_tpu(a_dt, b_dt, vector):
+    # values near the top of the type, so wrapped products and sums show
+    rng = np.random.default_rng(11)
+    top = np.iinfo(a_dt).max
+    x = ((top - rng.integers(0, 1000, (30, 20), dtype=np.uint64)) * (rng.random((30, 20)) < 0.2)).astype(a_dt)
+    t, j = _pair(x)
+    assert numpy_dtype(t.dtype) == np.dtype(a_dt) == np.asarray(j.data).dtype
+    b = rng.integers(0, 100, 20 if vector else (20, 3)).astype(b_dt)
+    want = np.asarray(j @ b)
+    assert want.dtype == np.promote_types(a_dt, b_dt)
+    _check(t @ b, want)
+    _check(st.dot(t, b), jsp.dot(j, b))
+    if vector:
+        y = rng.integers(0, 100, 30).astype(b_dt)
+        _check(st.matvec_add(t, b, y), jsp.matvec_add(j, b, y))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_matvec_add_matches_sparse_tpu(dtype):
     x = _dense_matrix(200, 150, 0.05, seed=9, dtype=dtype)

@@ -104,10 +104,12 @@ def test_kernel_sources_ship_with_the_package():
             assert f"int {fn}(" in src or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src
     bsr_src = _cuda.SOURCES["bsr"].read_text()
     for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
-        assert f"ST_BSR_ENTRY_POINTS({suffix}, {ctype})" in bsr_src
+        assert f"ST_BSR_SPMM_ENTRY_POINT({suffix}, {ctype})" in bsr_src
+    assert "int st_bsr_sddmm_f64(" in bsr_src  # float32 and bfloat16 run on the tensor cores
     tc_src = _cuda.SOURCES["bsr_tc"].read_text()
     for suffix, ctype in (("f32", "float"), ("bf16", "__nv_bfloat16")):
         assert f"ST_BSR_TC_ENTRY_POINT({suffix}, {ctype})" in tc_src
+        assert f"ST_BSR_SDDMM_TC_ENTRY_POINT({suffix}, {ctype})" in tc_src
     assert "arch=compute_90a,code=sm_90a" in _cuda._NVCC_FLAGS
 
 

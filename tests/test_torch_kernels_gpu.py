@@ -12,6 +12,8 @@ every table type (the bf16 tables' products are exact in float32 on both
 sides, so only the order of the row sum differs). The probe kernels
 (csrc/probes.cu): the picks (E1, p1, p3) exactly; the sums (p2, p4, g1-g3)
 of positive values at rtol=1e-4, atol=1e-3, as chip_smoke.py holds them.
+The SDDMM at max|got - want| / max|want| <= 1e-5 in float32 (3xTF32) and
+1e-10 in float64, bfloat16 at the BSR tolerance.
 """
 
 import numpy as np
@@ -172,17 +174,117 @@ def test_bsr_spmm_kernel_matches_plain(cuda, case, dt, n, transposed):
         torch.testing.assert_close(got, want, **BSR_TOL[dt])
 
 
-@pytest.mark.parametrize("case", ["test_bsr", "block_32x64"])
+# the SDDMM against its plain version, max|got - want| / max|want|: float32
+# (3xTF32 on the tensor cores) and float64 (FFMA) near their own rounding;
+# bfloat16 at BSR_TOL (one final rounding each side)
+SDDMM_NORM_TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
+
+
+def _sddmm_operand(rows, depth, layout, dt, cuda):
+    """An SDDMM operand of ``rows`` MN values and ``depth`` k values, as a
+    ``(rows, depth)`` view: "mn" with the MN axis contiguous (as the layer's
+    ``grad_y.T`` and ``x``), "k" with the k axis contiguous, both with rows
+    padded to 32 values, or "misaligned" (k contiguous, a base one value off
+    16 bytes, which the wrapper copies)."""
+    pad = 32
+    if layout == "mn":
+        return torch.randn((depth, -(-rows // pad) * pad), device=cuda).to(dt)[:, :rows].T
+    if layout == "k":
+        return torch.randn((rows, -(-depth // pad) * pad), device=cuda).to(dt)[:, :depth]
+    return torch.randn(rows * depth + 1, device=cuda).to(dt)[1:].view(rows, depth)
+
+
+def _check_sddmm(got, want, dt):
+    assert got.dtype == want.dtype == dt and got.shape == want.shape
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got, want, **BSR_TOL[dt])
+    elif want.abs().max() == 0:
+        assert not got.any()
+    else:
+        assert float((got.double() - want.double()).abs().max() / want.double().abs().max()) <= SDDMM_NORM_TOL[dt]
+
+
+@pytest.mark.parametrize("case", ["test_bsr", "block_32x64", "pad2"])
 @pytest.mark.parametrize("dt", BSR_DTYPES)
-@pytest.mark.parametrize("b", [96, 37])
-def test_bsr_sddmm_kernel_matches_plain(cuda, case, dt, b):
+@pytest.mark.parametrize("b", [96, 37, 0])  # 37: a contraction off the 32-value stage; 0: zero blocks
+@pytest.mark.parametrize("layout", ["mn", "k", "misaligned"])
+def test_bsr_sddmm_kernel_matches_plain(cuda, case, dt, b, layout):
     a, m, k = _bsr(case, dt, cuda)
-    lhs = torch.randn((b, m), device=cuda).to(dt).T  # a transposed view, as the wgrad's gradient
-    rhs = torch.randn((b, k), device=cuda).to(dt)
+    lhs = _sddmm_operand(m, b, layout, dt, cuda)
+    rhs = _sddmm_operand(k, b, layout, dt, cuda).T
+    _cuda.reset_launch_counts()
     got = bsr.bsr_sddmm_kernel(a.block_rows, a.block_cols, lhs, rhs, block_shape=a.block_shape)
     torch.cuda.synchronize()
+    # a launch of the tensor-core kernel (float32, bfloat16) or the FFMA one (float64); none for B = 0
+    assert _cuda.LAUNCHES["bsr_sddmm"] == (0 if b == 0 and dt != torch.float64 else 1)
     want = bsr.bsr_sddmm_plain(a.block_rows, a.block_cols, lhs, rhs, block_shape=a.block_shape)
-    torch.testing.assert_close(got, want, **BSR_TOL[dt])
+    _check_sddmm(got, want, dt)
+    if case == "pad2":  # pad blocks are computed like any other and get a nonzero product
+        pads = ~a.blocks.reshape(a.blocks.shape[0], -1).any(dim=1)
+        assert pads.any() and (b == 0 or got[pads].abs().max() > 0)
+    assert torch.equal(bsr.bsr_sddmm_kernel(a.block_rows, a.block_cols, lhs, rhs, block_shape=a.block_shape), got)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_shape", [(128, 128), (256, 192), (48, 40)])
+def test_bsr_sddmm_tc_edges(cuda, dt, block_shape):
+    # negative indices and blocks past M or K are zero blocks; blocks that
+    # overhang M or K are masked; several 128 x 128 tiles per block
+    bm, bn = block_shape
+    m, k = 2 * bm + bm // 2, 3 * bn - bn // 3
+    rows = torch.tensor([0, -1, 2, 1, 3, 2, 0], dtype=torch.int32, device=cuda)
+    cols = torch.tensor([2, 0, 1, -1, 0, 2, 0], dtype=torch.int32, device=cuda)
+    lhs = _sddmm_operand(m, 77, "mn", dt, cuda)
+    rhs = _sddmm_operand(k, 77, "mn", dt, cuda).T
+    got = bsr.bsr_sddmm_kernel(rows, cols, lhs, rhs, block_shape=block_shape)
+    torch.cuda.synchronize()
+    want = bsr.bsr_sddmm_plain(rows, cols, lhs, rhs, block_shape=block_shape)
+    _check_sddmm(got, want, dt)
+    assert not got[[1, 3, 4]].any()
+
+
+def test_bsr_sddmm_layer_operands_mn_and_k_major_agree(cuda):
+    # the layer's shapes at batch 512: grad_y.T and x as they come (MN-major),
+    # and K-major copies of them
+    from sparse_tpu_torch import nn as tnn
+
+    layer = tnn.BlockSparseLinear(1024, 768, 0.25, generator=torch.Generator().manual_seed(1), device=cuda)
+    p = layer.params()
+    x = torch.randn((512, 1024), device=cuda)
+    g = torch.randn((512, 768), device=cuda).T / 512**0.5
+    want = bsr.bsr_sddmm_plain(p.block_rows, p.block_cols, g, x)
+    outs = []
+    for lhs, rhs in ((g, x), (g.contiguous(), x.T.contiguous().T)):
+        assert _cuda.sddmm_tc_major(lhs, 0) is not None and _cuda.sddmm_tc_major(rhs, 1) is not None
+        outs.append(bsr.bsr_sddmm_kernel(p.block_rows, p.block_cols, lhs, rhs))
+        _check_sddmm(outs[-1], want, torch.float32)
+    assert torch.equal(outs[0], outs[1])  # the same split and products either way
+
+
+def test_bsr_spmm_vjp_holds_full_precision_under_tf32(cuda):
+    # C1.3: the torch-op backward (the layer without a transposed layout) under
+    # allow_tf32 = True: d_blocks on the 3xTF32 SDDMM, d_dense's bmm held at
+    # full float32, both at 1e-5 against float64; the caller's flag restored
+    a, m, k = _bsr("test_bsr", torch.float32, cuda)
+    dense = torch.randn((k, 256), device=cuda)
+    g = torch.randn((m, 256), device=cuda)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        blocks = a.blocks.clone().requires_grad_(True)
+        d = dense.clone().requires_grad_(True)
+        _cuda.reset_launch_counts()
+        (bsr.bsr_spmm(a.block_rows, a.block_cols, blocks, d, m, a.row_ptr) * g).sum().backward()
+        torch.cuda.synchronize()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert _cuda.LAUNCHES["bsr_sddmm"] == 1
+    want_blocks = bsr.bsr_sddmm_plain(a.block_rows, a.block_cols, g.double(), dense.double().T)
+    w64 = bsr.BSR(a.blocks.double(), a.block_rows, a.block_cols, (m, k), (128, 128), a.row_ptr).todense()
+    want_dense = w64.T @ g.double()
+    for got, want in ((blocks.grad, want_blocks), (d.grad, want_dense)):
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
 
 
 def test_block_sparse_linear_trains_through_the_kernels(cuda):
@@ -460,6 +562,17 @@ def test_bsr_tc_launcher_refuses_what_its_kernel_does_not_take(cuda):
         _cuda.bsr_spmm_tc(a.blocks.double(), cols, a.row_ptr, pieces, torch.randn((64, k), device=cuda).double().T, out.double(), partial, tickets)
     with pytest.raises(ValueError, match="smaller"):
         _cuda.bsr_spmm_tc(a.blocks, cols, a.row_ptr, pieces, torch.randn((64, k), device=cuda).T, out, partial[:10], tickets)
+    # the SDDMM: float64 is the FFMA kernel's, float32 the tensor cores', and a
+    # misaligned operand goes through the wrapper's copy
+    lhs, rhs, d_out = torch.randn((m, 40), device=cuda), torch.randn((40, k), device=cuda), torch.empty_like(a.blocks)
+    with pytest.raises(TypeError, match="tensor cores"):
+        _cuda.bsr_sddmm(a.block_rows, cols, lhs, rhs, d_out)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _cuda.bsr_sddmm_tc(a.block_rows, cols, lhs.double(), rhs.double(), d_out.double())
+    with pytest.raises(ValueError, match="stride 1"):
+        _cuda.bsr_sddmm_tc(a.block_rows, cols, torch.randn(m * 40 + 1, device=cuda)[1:].view(m, 40), rhs, d_out)
+    with pytest.raises(ValueError, match="layout"):
+        _cuda.bsr_sddmm_tc(a.block_rows[1:], cols, lhs, rhs, d_out)
 
 
 # ---------------------------------------------------------------- probes (csrc/probes.cu)

@@ -89,6 +89,60 @@ def test_gradients_match_jax_grad(transposed):
     np.testing.assert_allclose(gx, gx_want, **F32)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("pad", [1, 2])
+def test_bsr_spmm_vjp_matches_jax_grad(dtype, pad):
+    # the layer's path without a transposed layout: d_blocks by the block
+    # SDDMM, d_dense by a bmm, on a ragged (500, 600) matrix (the reference's
+    # bsr_spmm takes 128 x 128 blocks only)
+    from sparse_tpu.kernels import bsr as jb
+
+    block_shape = (128, 128)
+    rng = np.random.default_rng(12)
+    lin = np.unique(rng.integers(0, 500 * 600, 4000))
+    j = jb.build_bsr(lin // 600, lin % 600, rng.standard_normal(lin.size).astype(dtype), (500, 600), block_shape, pad)
+    t = tb.bsr_from_numpy(np.asarray(j.blocks), np.asarray(j.block_rows), np.asarray(j.block_cols), (500, 600), block_shape, device=CPU)
+    x = rng.standard_normal((600, 24)).astype(dtype)
+    w = rng.standard_normal((500, 24)).astype(dtype)
+
+    def loss(blocks, dense):
+        return (jb.bsr_spmm(j.block_rows, j.block_cols, blocks, dense, 500, False) * w).sum()
+
+    gb_want, gx_want = jax.grad(loss, argnums=(0, 1))(j.blocks, jnp.asarray(x))
+    blocks = t.blocks.clone().requires_grad_(True)
+    dense = torch.as_tensor(x).requires_grad_(True)
+    (tb.bsr_spmm(t.block_rows, t.block_cols, blocks, dense, 500) * torch.as_tensor(w)).sum().backward()
+    tol = F32 if dtype == np.float32 else dict(rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(blocks.grad.numpy(), np.asarray(gb_want), **tol)
+    np.testing.assert_allclose(dense.grad.numpy(), np.asarray(gx_want), **tol)
+
+
+def test_bsr_spmm_vjp_holds_full_f32_precision_and_restores_the_flag(monkeypatch):
+    # the torch-op dgrad runs with TF32 off whatever the caller set, and the
+    # caller's flag comes back, also when the product raises
+    bsr, *_ = _tiny_layout()
+    blocks = bsr.blocks.float().requires_grad_(True)
+    dense = torch.randn((7, 3), requires_grad=True)
+    seen, bmm = [], torch.bmm
+
+    def spy(*args):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return bmm(*args)
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        monkeypatch.setattr(torch, "bmm", spy)
+        tb.bsr_spmm(bsr.block_rows, bsr.block_cols, blocks, dense, 5).sum().backward()
+        assert False in seen and torch.backends.cuda.matmul.allow_tf32
+        monkeypatch.setattr(torch, "bmm", lambda *args: (_ for _ in ()).throw(RuntimeError("bmm failed")))
+        with pytest.raises(RuntimeError, match="bmm failed"):
+            tb.bsr_spmm(bsr.block_rows, bsr.block_cols, blocks, dense, 5).sum().backward()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def test_pad_blocks_get_the_reference_gradient():
     # pad_run_multiple=2 pads runs with zero blocks at column 0; the wgrad
     # computes every stored block, so pads get a nonzero gradient in both

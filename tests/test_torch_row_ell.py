@@ -160,6 +160,23 @@ def test_empty_and_degenerate():
     assert tre.row_ell_spmm(t, torch.ones((4, 2), dtype=torch.float64)).shape == (0, 2)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("group", [16, 0])
+def test_spmm_with_no_columns_matches_sparse_tpu(dtype, group):
+    # a product with N = 0: an empty (n_rows, 0) result, as sparse_tpu returns
+    import sparse_tpu as jsp
+    import sparse_tpu_torch as st
+
+    x = (np.eye(4)[:, :3] * 2.0).astype(dtype)
+    b = np.zeros((3, 0), dtype=dtype)
+    want = np.asarray(jsp.COO.from_numpy(x) @ b)
+    got = st.COO.from_numpy(x, device=CPU) @ b
+    assert got.shape == want.shape == (4, 0) and got.dtype == torch_dtype(want.dtype)
+    t = tre.build_row_ell(*np.nonzero(x), x[np.nonzero(x)], 4, 3, group=group, device=CPU)
+    out = tre.row_ell_spmm(t, torch.as_tensor(b))
+    assert out.shape == (4, 0) and out.dtype == torch_dtype(dtype)
+
+
 def test_mixed_dtypes_promote():
     rows, cols, data = _problem((64, 512), 0.05, False)
     t32 = tre.build_row_ell(rows, cols, data.astype(np.float32), 64, 512, device=CPU)
