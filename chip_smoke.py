@@ -8,13 +8,14 @@ source under sparse_tpu_torch/kernels/csrc/, all started together) and
 drives the port's two paths on the card:
 
 - the sparse × dense main path: holds the row-ELL kernels against their
-  plain PyTorch versions, drives ``COO`` → ``a @ B`` / ``a @ x`` /
+  plain PyTorch versions (the SpMM's staged kernel also against its
+  one-warp-per-position kernel, bit for bit), drives ``COO`` → ``a @ B`` / ``a @ x`` /
   ``matvec_add`` at the benchmark shape (65,536², 2^21 entry draws, N = 128,
   float32) and the spmv_add shape (99,990 × 100,000 at density 1e-6), and
   checks the outputs against a float64 scipy oracle;
-- the block-sparse layer: holds the BSR kernels (the SpMM and the block
-  SDDMM on the tensor cores for float32 (3xTF32) and bfloat16 and on the
-  CUDA cores for float64, the SpMM's two-block form) against their plain
+- the block-sparse layer: holds the BSR kernels (the SpMM, its two-block
+  form and the block SDDMM on the tensor cores for float32 (3xTF32) and
+  bfloat16 and on the CUDA cores for float64) against their plain
   versions in float32, float64 and bfloat16, on the layer's forward, dgrad
   and wgrad operands too (the wgrad's MN-major operands and K-major copies
   of them), then trains ``BlockSparseLinear(8192, 8192,
@@ -86,7 +87,7 @@ SOURCE = {
     "row_ell_spmv": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
     "row_ell_spmm": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
     "bsr_spmm": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
-    "bsr_spmm2": "sparse_tpu_torch/kernels/csrc/bsr.cu",
+    "bsr_spmm2": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
     "bsr_sddmm": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
     "ell_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
     "coo_mttkrp": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
@@ -209,8 +210,9 @@ def check_close(name, got, want, tol):
 
 
 def phase_kernels_vs_plain(dev):
-    """K1 and K2 against their plain versions on the card, f32 and f64."""
-    from sparse_tpu_torch.kernels import row_ell
+    """K1 and K2 against their plain versions on the card, f32 and f64; K2's
+    staged kernel equal bit for bit to its one-warp-per-position kernel."""
+    from sparse_tpu_torch.kernels import _cuda, row_ell
 
     rng = np.random.default_rng(1)
     errs = {"row_ell_spmv": 0.0, "row_ell_spmm": 0.0}
@@ -224,9 +226,12 @@ def phase_kernels_vs_plain(dev):
             widths = [N, 37] if case != "bench" else [N]  # 37: ragged N, one value per lane
             for n in widths:
                 b = torch.as_tensor(rng.random((k, n)), dtype=dt, device=dev)
-                e = check_close(
-                    f"spmm {case} {dt} N={n}", row_ell.row_ell_spmm(re, b), row_ell._spmm_plain(re, b), TOL[dt]
-                )
+                got = row_ell.row_ell_spmm(re, b)
+                e = check_close(f"spmm {case} {dt} N={n}", got, row_ell._spmm_plain(re, b), TOL[dt])
+                if _cuda.row_ell_staged_layout(re):
+                    outs = [_cuda.spmm(re, b, torch.empty_like(got), kernel=kn) for kn in ("staged", "warp")]
+                    if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], got)):
+                        raise AssertionError(f"spmm {case} {dt} N={n}: the staged and warp kernels differ")
                 if case == "bench" and dt == torch.float32:
                     errs["row_ell_spmm"] = e
             x = torch.as_tensor(rng.random(k), dtype=dt, device=dev)
@@ -343,11 +348,14 @@ def time_eager(fn, reps=20):
 
 def time_cold(fn, reps=20):
     """Median device ms of one call of ``fn`` after a 256 MB write has
-    flushed the 50 MB L2 (events around the call alone)."""
+    flushed the 50 MB L2 (events around the call alone). A spin of about a
+    millisecond after the flush keeps the card busy while the host enqueues
+    the call, so the host's time to launch stays out of the reading."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -355,6 +363,13 @@ def time_cold(fn, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def gathered_rows(re):
+    """Rows of B that K2 gathers: its tier's width for every position that
+    is not group padding."""
+    table = re.tier_table.cpu().tolist()
+    return sum(int((re.row_of_pos[p0:nxt[0]] >= 0).sum()) * w for (p0, w, _, _), nxt in zip(table, table[1:]))
 
 
 def phase_times(a, re, b, x, launches, errs, card):
@@ -388,6 +403,30 @@ def phase_times(a, re, b, x, launches, errs, card):
             2 * nnz,
         ),
     ]
+    # K2's staged kernel beside its warp kernel, in turns, float32 and float64
+    b64, out64 = b.double(), out_m.double()
+    re64 = re._replace(flat_data=re.flat_data.double())
+    k2_runs = {
+        f"{kn}_{tag}": (lambda kn=kn, r=r, bb=bb, o=o: _cuda.spmm(r, bb, o, kernel=kn))
+        for tag, r, bb, o in (("f32", re, b, out_m), ("f64", re64, b64, out64))
+        for kn in ("staged", "warp")
+    }
+    k2_ms = {}
+    for order in (list(k2_runs), list(k2_runs)[::-1]):
+        for key in order:
+            k2_ms[key] = min(time_graph(k2_runs[key]), k2_ms.get(key, float("inf")))
+    rows_gathered = gathered_rows(re)
+    plan = _cuda.row_ell_plan(re, N, 4, torch.float32)
+    k2_extra = {
+        "gathered_bytes": rows_gathered * N * 4,
+        "kernel_ms_by_kernel": k2_ms,
+        "plan": plan._asdict(),
+        "gathered_tb_per_s_by_kernel": {
+            k: rows_gathered * N * (8 if k.endswith("f64") else 4) / (v * 1e-3) / 1e12 for k, v in k2_ms.items()
+        },
+    }
+    del b64, out64, re64
+
     for name, launch, wrapper, plain, library, nbytes, flops in specs:
         torch.cuda.reset_peak_memory_stats()
         ms = time_graph(launch)
@@ -415,6 +454,9 @@ def phase_times(a, re, b, x, launches, errs, card):
             "library_ms": library_ms,
         }
         lines.append(line)
+        extra = {}
+        if name == "row_ell_spmm":
+            extra = {**k2_extra, "gathered_tb_per_s": k2_extra["gathered_bytes"] / (ms * 1e-3) / 1e12}
         log(
             json.dumps(
                 {
@@ -429,6 +471,7 @@ def phase_times(a, re, b, x, launches, errs, card):
                     "peak_memory_bytes_kernel": peak_kernel,
                     "peak_memory_bytes_plain": peak_plain,
                     "shape": {"m": M, "k": K, "n": N if name == "row_ell_spmm" else 1, "nnz": nnz, "dtype": "float32"},
+                    **extra,
                     "card": card,
                 }
             )
@@ -669,12 +712,16 @@ def phase_pairs_path(dev, layer, x):
         reset_launch_counts()
         got = bsr.bsr_spmm_kernel2(p.block_rows, p.block_cols, p.blocks, x.T, n_rows=LAYER_OUT, row_ptr=p.row_ptr).T
         torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+        launches = dict(LAUNCHES)
+        args = (p.block_rows, p.block_cols, p.blocks, x.T)
+        one_block = bsr.bsr_spmm_kernel(*args, n_rows=LAYER_OUT, row_ptr=p.row_ptr).T
     if launches["bsr_spmm2"] == 0:
         raise AssertionError(f"the two-block path never launched bsr_spmm2: {launches}")
     err = normalised_err(got, want.double())
     if not err <= LAYER_ORACLE_TOL:
         raise AssertionError(f"bsr_spmm_kernel2 off the layer's forward by {err}")
+    if not torch.equal(got, one_block):
+        raise AssertionError("bsr_spmm_kernel2 and bsr_spmm_kernel differ on the layer's even-run layout")
     return launches, err
 
 
@@ -788,7 +835,7 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
     fwd = (blocks, cols, p.row_ptr, xt, LAYER_OUT)
     dgrad = (blocks_t, p.t_block_cols, p.t_row_ptr, g_dgrad, LAYER_IN)
 
-    def tc_launch(operands, piece=_cuda.BSR_PIECE):
+    def tc_launch(operands, piece=_cuda.BSR_PIECE, name="bsr_spmm"):
         """The bare tensor-core launch on ``operands``, its scratch made once."""
         blk, bcols, row_ptr, dense_op, n_rows = operands
         out = torch.empty((n_rows, dense_op.shape[1]), device=dense_op.device)
@@ -796,7 +843,8 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
         _, n_partial, n_tickets = _cuda.bsr_tc_scratch(blk.shape[0], row_ptr.shape[0] - 1, bm, dense_op.shape[1], piece)
         partial = torch.empty(n_partial, device=dense_op.device)
         tickets = _cuda.zeroed_tickets(dense_op.device, n_tickets)
-        return lambda: _cuda.bsr_spmm_tc(blk, bcols, row_ptr, pieces, dense_op, out, partial, tickets, piece=piece)
+        args = (blk, bcols, row_ptr, pieces, dense_op, out, partial, tickets)
+        return lambda: _cuda.bsr_spmm_tc(*args, piece=piece, name=name)
 
     # the run piece L, picked on this card: no split (one CTA per run) against 32, 16 and 8 blocks
     piece_sweep = {
@@ -834,7 +882,7 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
         ),
         (
             "bsr_spmm2",
-            lambda: _cuda.bsr_spmm(blocks, cols, p.row_ptr, xt, out_f, pairs=2),
+            tc_launch(fwd, name="bsr_spmm2"),
             lambda: bsr.bsr_spmm_kernel2(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT, row_ptr=p.row_ptr),
             lambda: bsr.bsr_spmm_plain(p.block_rows, cols, blocks, xt, n_rows=LAYER_OUT),
             bsr_matmul,
@@ -885,6 +933,9 @@ def phase_bsr_times(layer, x, wsum, launches, errs, card):
         extra = {}
         if name == "bsr_spmm":
             extra = {"dgrad_kernel_ms": dgrad_ms, "piece": _cuda.BSR_PIECE, "piece_sweep_ms": piece_sweep}
+        if name == "bsr_spmm2":  # the two-block CUDA-core kernel, float64's route, in float32
+            cuda_core = lambda: _cuda.bsr_spmm(blocks, cols, p.row_ptr, xt, out_f, pairs=2)  # noqa: E731
+            extra = {"cuda_core_ms": time_graph(cuda_core, reps=20)}
         if name == "bsr_sddmm":
             extra = sddmm_extra()
         log(

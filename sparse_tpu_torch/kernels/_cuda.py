@@ -26,6 +26,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -45,7 +46,10 @@ _p, _i64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "row_ell": {
         **{f"st_row_ell_spmv_{dt}": [_p, _p, _p, _p, _p, _p, _i64, _p, _i64, _p] for dt in ("f32", "f64")},
-        **{f"st_row_ell_spmm_{dt}": [_p, _p, _p, _i64, _p, _i64, _p, _i64, _p, _i64, _i64, _p] for dt in ("f32", "f64")},
+        **{
+            f"st_row_ell_spmm_{dt}": [_p, _p, _p, _i64, _p, _i64, _p, _i64, _p, _i64, _i64, _i64, _i64, _p]
+            for dt in ("f32", "f64")
+        },
     },
     "bsr": {
         **{
@@ -242,9 +246,65 @@ def spmv(re, x, y, out):
     return out
 
 
-def spmm(re, dense, out):
+# The staged K2 kernel (csrc/row_ell.cu: kGroup, kStageJ, kStages): a unit
+# is one group of ROW_ELL_GROUP positions (one warp each) x one column tile
+# of 32 * vec columns; a unit's indices are staged ROW_ELL_STAGE_J entries
+# of its positions at a time, in a ring of ROW_ELL_STAGES stages.
+ROW_ELL_GROUP = 16
+ROW_ELL_STAGE_J = 64
+ROW_ELL_STAGES = 2
+SPMM_KERNELS = {"warp": 0, "staged": 1}
+
+
+class RowEllPlan(NamedTuple):
+    """How the staged K2 kernel walks a layout for ``N`` columns."""
+
+    groups: int  # groups of ROW_ELL_GROUP positions in the tiers with entries
+    col_tiles: int
+    units: int  # groups x column tiles
+    chunks: int  # index stages over all units
+    zero_positions: int  # positions of the rows without entries
+    stage_bytes: int  # shared memory of one stage
+
+
+def row_ell_stage_bytes(dtype):
+    """Bytes of one index stage: cols, values and the group's row_of_pos."""
+    return ROW_ELL_STAGE_J * ROW_ELL_GROUP * (4 + dtype.itemsize) + ROW_ELL_GROUP * 4
+
+
+def row_ell_chunks(width):
+    """Index stages one unit of a tier of ``width`` entries takes."""
+    return -(-width // ROW_ELL_STAGE_J)
+
+
+def row_ell_staged_layout(re):
+    """True when the staged kernel takes the layout: tiers, all grouped with
+    G = ROW_ELL_GROUP and of width >= 1 (build_row_ell's default)."""
+    return bool(re.tiers) and all(c.ndim == 3 and c.shape[2] == ROW_ELL_GROUP and c.shape[1] > 0 for c, _ in re.tiers)
+
+
+def _row_ell_groups(re):
+    return sum(c.shape[0] for c, _ in re.tiers)
+
+
+def row_ell_plan(re, n, vec, dtype):
+    """The :class:`RowEllPlan` of a layout that :func:`row_ell_staged_layout`
+    takes, for ``n`` columns read ``vec`` values a lane."""
+    col_tiles = -(-n // (32 * vec))
+    groups = _row_ell_groups(re)
+    chunks = col_tiles * sum(c.shape[0] * row_ell_chunks(c.shape[1]) for c, _ in re.tiers)
+    zero = re.row_of_pos.shape[0] - groups * ROW_ELL_GROUP
+    return RowEllPlan(groups, col_tiles, groups * col_tiles, chunks, zero, row_ell_stage_bytes(dtype))
+
+
+def spmm(re, dense, out, kernel=None):
     """Launch K2: ``out = A @ dense`` on the layout ``re``; ``re.flat_data``,
-    ``dense`` and ``out`` share one float dtype."""
+    ``dense`` and ``out`` share one float dtype. ``kernel``: ``"staged"``
+    (indices staged by bulk copy, persistent grid; grouped layouts with G =
+    16, whose ``flat_cols``, ``flat_data`` and ``row_of_pos`` start on 16
+    bytes) or ``"warp"`` (one warp per position, any layout). By default the
+    staged kernel where the layout allows it and B's rows are read 16 bytes
+    a lane, else the warp kernel. Both give the same bits."""
     dtype, device = dense.dtype, dense.device
     _check_layout(re, dtype, device)
     _check("dense", dense, dtype, device)
@@ -252,12 +312,25 @@ def spmm(re, dense, out):
     n = dense.shape[1]
     if dense.shape[0] != re.n_cols or out.shape != (re.n_rows, n):
         raise ValueError("row_ell_spmm: operand shapes do not match the layout")
+    if kernel not in (None, *SPMM_KERNELS):
+        raise ValueError(f"row_ell_spmm: kernel must be one of {tuple(SPMM_KERNELS)}, not {kernel!r}")
     n_pos = re.row_of_pos.shape[0]
     if n_pos == 0 or n == 0:
         return out
     wide = _WIDE[dtype]
     vec = wide if n % wide == 0 and dense.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
-    if -(-n // (32 * vec)) > 65535:
+    staged = row_ell_staged_layout(re)
+    if kernel is None:
+        kernel = "staged" if staged and vec == wide else "warp"
+    n_groups = 0
+    if kernel == "staged":
+        if not staged:
+            raise ValueError(f"row_ell_spmm: the staged kernel takes grouped layouts with G = {ROW_ELL_GROUP}")
+        for name in ("flat_cols", "flat_data", "row_of_pos"):
+            if getattr(re, name).data_ptr() % 16:
+                raise ValueError(f"row_ell_spmm: {name} must start on 16 bytes for the staged kernel's bulk copies")
+        n_groups = _row_ell_groups(re)
+    elif -(-n // (32 * vec)) > 65535:
         raise ValueError(f"row_ell_spmm: N = {n} needs more than 65535 column tiles")
     fn = getattr(load("row_ell"), f"st_row_ell_spmm_{_SUFFIX[dtype]}")
     err = fn(
@@ -272,6 +345,8 @@ def spmm(re, dense, out):
         re.row_of_pos.data_ptr(),
         n_pos,
         vec,
+        SPMM_KERNELS[kernel],
+        n_groups,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on(err, "row_ell_spmm")
@@ -290,8 +365,9 @@ def check_bsr_dtype(dtype):
 
 def bsr_spmm(blocks, block_cols, row_ptr, dense, out, pairs=1):
     """Launch the BSR SpMM of ``csrc/bsr.cu`` on the CUDA cores (P2 in
-    float64 with ``pairs=1``, its two-block form P3 in every dtype with
-    ``pairs=2``; float32 and bfloat16 P2 is :func:`bsr_spmm_tc`): ``out =
+    float64 with ``pairs=1``, its two-block form P3 with ``pairs=2``, which
+    the wrappers run in float64 only; float32 and bfloat16 P2 and P3 are
+    :func:`bsr_spmm_tc`): ``out =
     A @ dense`` with ``A``'s block-row ``r`` the run ``row_ptr[r]:row_ptr[r+1]``
     of ``blocks`` (any strides) and ``block_cols`` (int32), ``dense`` of any
     strides, ``out`` contiguous ``(n_rows, N)``. With ``pairs=2`` every run
@@ -461,7 +537,7 @@ def _tc_ready(t, k_dim):
     )
 
 
-def bsr_spmm_tc(blocks, block_cols, row_ptr, pieces, dense, out, partial, tickets, piece=None):
+def bsr_spmm_tc(blocks, block_cols, row_ptr, pieces, dense, out, partial, tickets, piece=None, name="bsr_spmm"):
     """Launch P2 on the tensor cores (float32 as 3xTF32, bfloat16): ``out =
     A @ dense`` with ``A``'s block-row ``r`` the run ``row_ptr[r]:row_ptr[r +
     1]`` of ``blocks`` and ``block_cols`` (int32). Both operands K-major
@@ -471,7 +547,11 @@ def bsr_spmm_tc(blocks, block_cols, row_ptr, pieces, dense, out, partial, ticket
     than ``piece`` blocks (:data:`BSR_PIECE`) are split: ``pieces`` is
     ``run_pieces(row_ptr, piece)``, ``partial`` (float32) and ``tickets``
     (:func:`zeroed_tickets`) are sized by :func:`bsr_tc_scratch`. Counted
-    as ``bsr_spmm``."""
+    as ``name``: ``bsr_spmm`` (P2) or ``bsr_spmm2`` (P3, whose block pairs
+    were a TPU pipeline step: the stage ring walks a run block by block
+    either way)."""
+    if name not in ("bsr_spmm", "bsr_spmm2"):
+        raise ValueError(f"bsr_spmm_tc counts as bsr_spmm or bsr_spmm2, not {name!r}")
     piece = BSR_PIECE if piece is None else int(piece)
     dtype, device = dense.dtype, dense.device
     if dtype not in TC_DTYPES:
@@ -532,8 +612,8 @@ def bsr_spmm_tc(blocks, block_cols, row_ptr, pieces, dense, out, partial, ticket
         tickets.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
-    _raise_on(err, "bsr_spmm")
-    LAUNCHES["bsr_spmm"] += 1
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
 
 

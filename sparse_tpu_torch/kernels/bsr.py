@@ -350,14 +350,15 @@ def _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, p
         return bsr_spmm_plain(block_rows, block_cols, blocks, dense, n_rows=n_rows)
     out = torch.empty((n_rows, dense.shape[1]), dtype=dense.dtype, device=device)
     cols = block_cols.to(torch.int32).contiguous()
-    if pairs == 2 or dense.dtype not in _cuda.TC_DTYPES:
+    if dense.dtype not in _cuda.TC_DTYPES:
         return _cuda.bsr_spmm(blocks, cols, row_ptr, dense, out, pairs=pairs)
     blocks, dense = _tc_operands(blocks, dense)
     n_front, n_partial, n_tickets = _cuda.bsr_tc_scratch(blocks.shape[0], row_ptr.shape[0] - 1, blocks.shape[1], dense.shape[1])
     partial = torch.empty(n_partial, dtype=torch.float32, device=device)
     tickets = _cuda.zeroed_tickets(device, n_tickets)
     pieces = _cuda.run_pieces(row_ptr, _cuda.BSR_PIECE)
-    return _cuda.bsr_spmm_tc(blocks, cols, row_ptr, pieces, dense, out, partial, tickets)
+    name = "bsr_spmm" if pairs == 1 else "bsr_spmm2"
+    return _cuda.bsr_spmm_tc(blocks, cols, row_ptr, pieces, dense, out, partial, tickets, name=name)
 
 
 def bsr_spmm_kernel(block_rows, block_cols, blocks, dense, *, n_rows, block_shape=None, row_ptr=None):
@@ -379,11 +380,15 @@ def bsr_spmm_kernel(block_rows, block_cols, blocks, dense, *, n_rows, block_shap
 
 
 def bsr_spmm_kernel2(block_rows, block_cols, blocks, dense, *, n_rows, block_shape=None, row_ptr=None):
-    """:func:`bsr_spmm_kernel` taking TWO stored blocks per step (P3, the
-    counterpart of ``bsr_spmm_pallas2``). Every block-row's run must have
-    even length (``build_bsr(..., pad_run_multiple=2)``), else
-    ``ValueError``: the JAX package checks only an even total. The check
-    reads the run lengths back from the device on every call."""
+    """The two-block SpMM (P3, the counterpart of ``bsr_spmm_pallas2``).
+    Every block-row's run must have even length (``build_bsr(...,
+    pad_run_multiple=2)``), else ``ValueError``: the JAX package checks only
+    an even total. The check reads the run lengths back from the device on
+    every call. float32 and bfloat16 run on :func:`bsr_spmm_kernel`'s
+    tensor-core kernel, whose stage ring walks a run block by block, so the
+    pair step of the TPU pipeline buys nothing there: the same bits as
+    :func:`bsr_spmm_kernel`, counted as ``bsr_spmm2``. float64 takes two
+    blocks per step on the CUDA cores (``csrc/bsr.cu``)."""
     return _spmm(block_rows, block_cols, blocks, dense, n_rows, block_shape, row_ptr, pairs=2)
 
 

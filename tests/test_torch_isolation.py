@@ -37,7 +37,10 @@ def test_import_loads_no_jax_and_no_sparse_tpu():
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|sparse_tpu|experiments)\b", re.M)
 
 
-@pytest.mark.parametrize("path", sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*.py")))
+# the package and the scripts that run it on the card
+@pytest.mark.parametrize(
+    "path", sorted(p.relative_to(REPO).as_posix() for p in (*PKG.rglob("*.py"), *REPO.glob("chip_*.py")))
+)
 def test_source_imports_no_jax_and_no_sparse_tpu(path):
     assert not _FORBIDDEN.findall((REPO / path).read_text())
 

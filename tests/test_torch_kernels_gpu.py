@@ -135,6 +135,101 @@ def test_wrapper_refuses_mismatched_inputs(cuda):
         _cuda.spmm(re, torch.rand((4, k), device=cuda).T, torch.empty((m, 4), device=cuda))
 
 
+# ---------------------------------------------------------------- K2's staged kernel
+SMOKE_CASES = ["zipf", "empty", "k_ragged", "zero_rows", "hub", "bench"]
+
+
+def _smoke_layout(case, dt, cuda):
+    """chip_smoke.py's matrices (its ``problem``), bench included, with
+    positive values."""
+    from chip_smoke import problem
+
+    rng = np.random.default_rng(SMOKE_CASES.index(case))
+    rows, cols, m, k = problem(case, rng)
+    vals = rng.random(rows.size).astype(np.float32 if dt == torch.float32 else np.float64)
+    return row_ell.build_row_ell(rows, cols, vals, m, k, device=cuda), m, k
+
+
+def _both_kernels(re, b):
+    out = [_cuda.spmm(re, b, b.new_empty((re.n_rows, b.shape[1])), kernel=kn) for kn in ("staged", "warp")]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("case", SMOKE_CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("n", [128, 37])
+def test_spmm_staged_kernel_equals_warp_kernel(cuda, case, dt, n):
+    re, m, k = _smoke_layout(case, dt, cuda)
+    b = torch.rand((k, n), dtype=dt, device=cuda)
+    if case == "empty":  # no tiers: the warp kernel's, and the staged one refuses it
+        assert not _cuda.row_ell_staged_layout(re)
+        with pytest.raises(ValueError, match="grouped"):
+            _cuda.spmm(re, b, torch.empty((m, n), dtype=dt, device=cuda), kernel="staged")
+        assert not row_ell.row_ell_spmm(re, b).any()
+        return
+    staged, warp = _both_kernels(re, b)
+    assert torch.equal(staged, warp)
+    torch.testing.assert_close(staged, row_ell._spmm_plain(re, b), **TOL[dt])
+    _cuda.reset_launch_counts()
+    assert torch.equal(row_ell.row_ell_spmm(re, b), staged)
+    assert _cuda.LAUNCHES["row_ell_spmm"] == 1
+
+
+@pytest.mark.parametrize("width", [64, 65, 130, 1000])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_spmm_staged_rows_wider_than_a_stage(cuda, width, dt):
+    # row 3 holds `width` entries (one or several stages), the others a few
+    rng = np.random.default_rng(width)
+    m, k = 300, 2000
+    lin = np.unique(np.concatenate([3 * k + rng.choice(k, width, replace=False), rng.integers(0, m * k, 900)]))
+    vals = rng.random(lin.size).astype(np.float32 if dt == torch.float32 else np.float64)
+    re = row_ell.build_row_ell(lin // k, lin % k, vals, m, k, device=cuda)
+    plan = _cuda.row_ell_plan(re, 64, _cuda._WIDE[dt], dt)
+    assert max(c.shape[1] for c, _ in re.tiers) >= width and plan.chunks > plan.units
+    b = torch.rand((k, 64), dtype=dt, device=cuda)
+    staged, warp = _both_kernels(re, b)
+    assert torch.equal(staged, warp)
+    torch.testing.assert_close(staged, row_ell._spmm_plain(re, b), **TOL[dt])
+
+
+def test_spmm_staged_layout_with_fewer_units_than_ctas(cuda):
+    # 40 rows with entries (3 groups), 5,000 rows without: the grid is the
+    # zero rows' CTAs, most of which get no unit
+    rng = np.random.default_rng(5)
+    m, k = 5040, 300
+    rows = np.repeat(np.arange(40) * 126, 5)
+    cols = rng.integers(0, k, rows.size)
+    lin = np.unique(rows * k + cols)
+    re = row_ell.build_row_ell(lin // k, lin % k, rng.random(lin.size).astype(np.float32), m, k, device=cuda)
+    plan = _cuda.row_ell_plan(re, 128, 4, torch.float32)
+    assert plan.units < torch.cuda.get_device_properties(cuda).multi_processor_count and plan.zero_positions == m - 40
+    b = torch.rand((k, 128), device=cuda)
+    staged, warp = _both_kernels(re, b)
+    assert torch.equal(staged, warp)
+    torch.testing.assert_close(staged, row_ell._spmm_plain(re, b), **TOL[torch.float32])
+
+
+def test_spmm_staged_kernel_refuses_misaligned_indices(cuda):
+    re, m, k = _layout("zipf", torch.float32, cuda)
+    b = torch.rand((k, 128), device=cuda)
+    n_cols = re.flat_cols.numel()
+    buf = torch.empty(n_cols + 1, dtype=torch.int32, device=cuda)
+    buf[1:] = re.flat_cols
+    shifted = re._replace(flat_cols=buf[1:])  # the same indices, 4 bytes off a 16-byte boundary
+    with pytest.raises(ValueError, match="16 bytes"):
+        row_ell.row_ell_spmm(shifted, b)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _cuda.spmm(shifted, b, torch.empty((m, 128), device=cuda), kernel="staged")
+    got = _cuda.spmm(shifted, b, torch.empty((m, 128), device=cuda), kernel="warp")
+    torch.testing.assert_close(got, row_ell._spmm_plain(re, b), **TOL[torch.float32])
+    legacy, _, _ = _layout("zipf", torch.float32, cuda, group=0)
+    with pytest.raises(ValueError, match="grouped"):
+        _cuda.spmm(legacy, b, torch.empty((m, 128), device=cuda), kernel="staged")
+    with pytest.raises(ValueError, match="kernel must be"):
+        _cuda.spmm(re, b, torch.empty((m, 128), device=cuda), kernel="fast")
+
+
 BSR_TOL = {
     torch.float32: dict(rtol=1e-4, atol=1e-4),
     torch.float64: dict(rtol=1e-10, atol=1e-12),
@@ -319,6 +414,37 @@ def test_bsr_launchers_refuse_mismatched_inputs(cuda):
     bc = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="even length"):
         bsr.bsr_spmm_kernel2(br, bc, torch.ones((4, 2, 2), device=cuda), torch.ones((6, 1), device=cuda), n_rows=4)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["pad2", "long_run"])
+def test_bsr_spmm_kernel2_equals_kernel_on_the_tensor_cores(cuda, dt, case):
+    if case == "pad2":
+        a, m, k = _bsr("pad2", dt, cuda)
+    else:  # block-row 0 a run of 100 blocks (4 pieces), block-row 1 of 2
+        rng = np.random.default_rng(32)
+        m, k = 2 * 128, 100 * 128
+        brow = np.concatenate([np.zeros(100, np.int64), [1, 1]])
+        bcol = np.concatenate([np.arange(100), np.sort(rng.choice(100, 2, replace=False))])
+        blocks = torch.as_tensor(rng.standard_normal((102, 128, 128)), device=cuda).to(dt)
+        a = bsr.bsr_from_numpy(blocks, brow, bcol, (m, k), (128, 128), device=cuda)
+    assert not bool((torch.diff(a.row_ptr) % 2).any())
+    dense = torch.randn((200, k), device=cuda).to(dt).T
+    _cuda.reset_launch_counts()
+    two = bsr.bsr_spmm_kernel2(a.block_rows, a.block_cols, a.blocks, dense, n_rows=m, row_ptr=a.row_ptr)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == {**{k: 0 for k in _cuda.LAUNCHES}, "bsr_spmm2": 1}
+    one = bsr.bsr_spmm_kernel(a.block_rows, a.block_cols, a.blocks, dense, n_rows=m, row_ptr=a.row_ptr)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["bsr_spmm"] == 1
+    assert torch.equal(two, one)
+    want = bsr.bsr_spmm_plain(a.block_rows, a.block_cols, a.blocks, dense, n_rows=m)
+    tol = dict(rtol=1e-4, atol=1e-3) if (dt == torch.float32 and case == "long_run") else BSR_TOL[dt]
+    torch.testing.assert_close(two, want, **tol)
+    pieces = _cuda.run_pieces(a.row_ptr, _cuda.BSR_PIECE)
+    scratch = (torch.empty_like(two), two.float(), _cuda.zeroed_tickets(cuda, 1))
+    with pytest.raises(ValueError, match="bsr_spmm or bsr_spmm2"):
+        _cuda.bsr_spmm_tc(a.blocks, a.block_cols, a.row_ptr, pieces, dense, *scratch, name="bsr_sddmm")
 
 
 # (I, J, K, draws): a ragged I (three blocks and 44 rows), rows without

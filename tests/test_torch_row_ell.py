@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from sparse_tpu.kernels import row_ell as jre
 from sparse_tpu_torch._utils import torch_dtype
 from sparse_tpu_torch.interop import row_ell_from_arrays
+from sparse_tpu_torch.kernels import _cuda
 from sparse_tpu_torch.kernels import row_ell as tre
 
 CPU = "cpu"
@@ -208,3 +209,68 @@ def test_program_is_memoized_per_layout():
     assert tre.row_ell_spmm_program(t) is tre.row_ell_spmm_program(t)
     t2 = tre.build_row_ell(rows, cols, data, 300, 200, device=CPU)
     assert tre.row_ell_spmm_program(t2) is not tre.row_ell_spmm_program(t)
+
+
+# ---------------------------------------------------------------- the staged K2 kernel's plan
+def _brute_plan(t, n, vec):
+    """Units, chunks and zero positions of the staged kernel by walking the
+    layout's positions one at a time."""
+    groups = chunks = 0
+    for c, _ in t.tiers:
+        for _g in range(c.shape[0]):
+            groups += 1
+            j0 = 0
+            while j0 < c.shape[1]:
+                chunks += 1
+                j0 += _cuda.ROW_ELL_STAGE_J
+    tiles = -(-n // (32 * vec))
+    return groups * tiles, chunks * tiles, t.row_of_pos.numel() - _cuda.ROW_ELL_GROUP * groups
+
+
+@pytest.mark.parametrize("layout", range(len(LAYOUTS)))
+@pytest.mark.parametrize("shape,density", SHAPES)
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("n,vec", [(128, 4), (37, 1), (300, 2)])
+def test_staged_plan_walks_every_position(shape, density, skew, layout, n, vec):
+    kw = LAYOUTS[layout]
+    rows, cols, data = _problem(shape, density, skew)
+    t = tre.build_row_ell(rows, cols, data, *shape, device=CPU, **kw)
+    staged = _cuda.row_ell_staged_layout(t)
+    assert staged == (kw.get("group", 16) == _cuda.ROW_ELL_GROUP)
+    if not staged:
+        return
+    plan = _cuda.row_ell_plan(t, n, vec, torch.float64)
+    assert (plan.units, plan.chunks, plan.zero_positions) == _brute_plan(t, n, vec)
+    assert plan.col_tiles == -(-n // (32 * vec)) and plan.groups * _cuda.ROW_ELL_GROUP == t.tier_table[-1, 0]
+    # every unit's index block starts on 16 entries: the bulk copies' 16-byte alignment
+    assert all(int(off) % _cuda.ROW_ELL_GROUP == 0 for off in t.tier_table[:, 3])
+
+
+@pytest.mark.parametrize("width,chunks", [(1, 1), (18, 1), (63, 1), (64, 1), (65, 2), (128, 2), (129, 3), (1500, 24)])
+def test_staged_chunks_per_width(width, chunks):
+    assert _cuda.row_ell_chunks(width) == chunks
+
+
+@pytest.mark.parametrize("dtype,nbytes", [(torch.float32, 64 * 16 * 8 + 64), (torch.float64, 64 * 16 * 12 + 64)])
+def test_staged_stage_bytes(dtype, nbytes):
+    assert _cuda.row_ell_stage_bytes(dtype) == nbytes and nbytes % 16 == 0
+
+
+def test_staged_plan_of_the_bench_layout():
+    # bench.py's matrix as chip_smoke.py draws it: 65,536², 2^21 draws of
+    # default_rng(0), duplicates summed; 32 tiers of widths 18-59, one stage
+    # a unit
+    m = k = 1 << 16
+    rng = np.random.default_rng(0)
+    lin = np.unique(rng.integers(0, m * k, size=1 << 21, dtype=np.int64))
+    t = tre.build_row_ell(lin // k, lin % k, np.ones(lin.size, np.float32), m, k, device=CPU)
+    widths = [c.shape[1] for c, _ in t.tiers]
+    assert len(widths) == 32 and (min(widths), max(widths)) == (18, 59)
+    assert lin.size == 2_096_628 and t.flat_cols.numel() == 2_105_696
+    # 65,536 rows in 4,111 groups of 16: each tier pads its rows up to whole
+    # groups (240 padding positions), no row without entries
+    plan = _cuda.row_ell_plan(t, 128, 4, torch.float32)
+    assert plan == _cuda.RowEllPlan(
+        groups=4111, col_tiles=1, units=4111, chunks=4111, zero_positions=0, stage_bytes=8256
+    )
+    assert int((t.row_of_pos < 0).sum()) == 4111 * 16 - m
