@@ -9,10 +9,14 @@ drives the port's two paths on the card:
 
 - the sparse × dense main path: holds the row-ELL kernels against their
   plain PyTorch versions (the SpMM's staged kernel also against its
-  one-warp-per-position kernel, bit for bit), drives ``COO`` → ``a @ B`` / ``a @ x`` /
+  one-warp-per-position kernel, and the SpMV's cluster kernel against its
+  thread kernel, bit for bit), drives ``COO`` → ``a @ B`` / ``a @ x`` /
   ``matvec_add`` at the benchmark shape (65,536², 2^21 entry draws, N = 128,
   float32) and the spmv_add shape (99,990 × 100,000 at density 1e-6), and
-  checks the outputs against a float64 scipy oracle;
+  checks the outputs against a float64 scipy oracle; then runs both SpMV
+  kernels at both shapes in float32 and float64, with and without y, bit
+  for bit alike and against the oracle, with the entry point's default and their
+  warm and L2-flushed times;
 - the block-sparse layer: holds the BSR kernels (the SpMM, its two-block
   form and the block SDDMM on the tensor cores for float32 (3xTF32) and
   bfloat16 and on the CUDA cores for float64) against their plain
@@ -85,6 +89,7 @@ ORACLE_TOL = dict(rtol=1e-3, atol=1e-5)
 
 SOURCE = {
     "row_ell_spmv": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
+    "row_ell_spmv_cluster": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
     "row_ell_spmm": "sparse_tpu_torch/kernels/csrc/row_ell.cu",
     "bsr_spmm": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
     "bsr_spmm2": "sparse_tpu_torch/kernels/csrc/bsr_tc.cu",  # float32 and bfloat16; float64 stays in bsr.cu
@@ -107,6 +112,7 @@ SOURCE = {
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
+    "row_ell_spmv_cluster": "sparse_tpu/kernels/row_ell.py:231",  # the same, x in a cluster's shared memory
     "row_ell_spmm": "sparse_tpu/kernels/row_ell.py:198",  # _spmm (XLA)
     "bsr_spmm": "sparse_tpu/kernels/bsr.py:168",  # bsr_spmm_pallas (Pallas P2)
     "bsr_spmm2": "sparse_tpu/kernels/bsr.py:235",  # bsr_spmm_pallas2 (Pallas P3)
@@ -211,11 +217,12 @@ def check_close(name, got, want, tol):
 
 def phase_kernels_vs_plain(dev):
     """K1 and K2 against their plain versions on the card, f32 and f64; K2's
-    staged kernel equal bit for bit to its one-warp-per-position kernel."""
+    staged kernel equal bit for bit to its one-warp-per-position kernel, K1's
+    cluster kernel to its thread kernel."""
     from sparse_tpu_torch.kernels import _cuda, row_ell
 
     rng = np.random.default_rng(1)
-    errs = {"row_ell_spmv": 0.0, "row_ell_spmm": 0.0}
+    errs = {"row_ell_spmv": 0.0, "row_ell_spmv_cluster": 0.0, "row_ell_spmm": 0.0}
     for case in ("zipf", "empty", "k_ragged", "zero_rows", "hub", "bench"):
         rows, cols, m, k = problem(case, rng)
         # positive values: no cancellation, so the relative tolerance holds
@@ -240,8 +247,17 @@ def phase_kernels_vs_plain(dev):
             e_y = check_close(
                 f"spmv+y {case} {dt}", row_ell.row_ell_spmv(re, x, y=y), row_ell._spmv_plain(re, x, y), TOL[dt]
             )
+            k1 = {}
+            for yy in (None, y):
+                k1[yy is None] = [_cuda.spmv(re, x, yy, torch.empty(m, dtype=dt, device=dev), kernel=kn) for kn in ("thread", "cluster")]
+                if not torch.equal(*k1[yy is None]):
+                    raise AssertionError(f"spmv {case} {dt} y={yy is not None}: the cluster and thread kernels differ")
             if case == "bench" and dt == torch.float32:
                 errs["row_ell_spmv"] = max(e, e_y)
+                errs["row_ell_spmv_cluster"] = max(
+                    check_close("spmv cluster", k1[True][1], row_ell._spmv_plain(re, x), TOL[dt]),
+                    check_close("spmv+y cluster", k1[False][1], row_ell._spmv_plain(re, x, y), TOL[dt]),
+                )
             torch.cuda.synchronize()
         log(f"kernel_vs_plain {case}: m={m} k={k} nnz={rows.size} ok")
     return errs
@@ -332,6 +348,85 @@ def phase_main_path(dev):
     return a, layout, b, x, launches
 
 
+def phase_k1(dev, card):
+    """K1's two kernels at the bench shape and the spmv_add shape, float32 and
+    float64, with and without y, through ``_cuda.spmv(kernel=...)``: equal bit
+    for bit, each within the float64 oracle's rtol (bench.py:53), the kernel
+    that ``row_ell_spmv`` launches by default, and each kernel's time warm
+    (CUDA graph, in turns) and after an L2 flush. One JSON line each shape and
+    dtype. Returns the launches of this path (the counts are set to 0 before
+    each shape and dtype's calls and read after them, before the timing):
+    both kernels must have run."""
+    from sparse_tpu_torch.kernels import LAUNCHES, _cuda, reset_launch_counts, row_ell
+
+    counted = dict.fromkeys(LAUNCHES, 0)
+    rng = np.random.default_rng(3)
+    m2, k2 = SPMV_ADD_SHAPE
+    shapes = {"bench": (M, K, NNZ_DRAWS), "spmv_add": (m2, k2, round(m2 * k2 * SPMV_ADD_DENSITY))}
+    for shape, (m, k, draws) in shapes.items():
+        lin = np.unique(rng.integers(0, m * k, size=draws, dtype=np.int64))
+        rows, cols = lin // k, lin % k
+        vals, x_np, y_np = rng.random(lin.size), rng.random(k), rng.random(m)
+        for dt, np_dt in ((torch.float32, np.float32), (torch.float64, np.float64)):
+            ref = oracle_csr(rows, cols, vals.astype(np_dt), (m, k))
+            want = ref @ x_np.astype(np_dt).astype(np.float64)
+            re = row_ell.build_row_ell(rows, cols, vals.astype(np_dt), m, k, device=dev)
+            x = torch.as_tensor(x_np, dtype=dt, device=dev)
+            y = torch.as_tensor(y_np, dtype=dt, device=dev)
+            rel, outs = {}, {}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            for yy, w in ((None, want), (y, want + y_np.astype(np_dt))):
+                pair = [_cuda.spmv(re, x, yy, torch.empty(m, dtype=dt, device=dev), kernel=kn) for kn in ("thread", "cluster")]
+                if not torch.equal(*pair):
+                    raise AssertionError(f"K1 {shape} {dt} y={yy is not None}: the cluster and thread kernels differ")
+                got = pair[1].cpu().numpy().astype(np.float64)
+                np.testing.assert_allclose(got, w, **ORACLE_TOL, err_msg=f"K1 {shape} {dt}")
+                outs[yy is None] = pair[0]
+                rel["y" if yy is not None else "no_y"] = float(np.abs(got - w).max() / max(np.abs(w).max(), 1e-300))
+            # the kernel the entry point launches by default, read from the counters
+            before = dict(LAUNCHES)
+            if not torch.equal(row_ell.row_ell_spmv(re, x), outs[True]):
+                raise AssertionError(f"K1 {shape} {dt}: row_ell_spmv differs from the thread kernel")
+            default = [kn for kn in ("row_ell_spmv", "row_ell_spmv_cluster") if LAUNCHES[kn] > before[kn]]
+            torch.cuda.synchronize()
+            counted = {kn: counted[kn] + LAUNCHES[kn] for kn in counted}
+            out = torch.empty(m, dtype=dt, device=dev)
+            runs = {kn: (lambda kn=kn: _cuda.spmv(re, x, None, out, kernel=kn)) for kn in ("thread", "cluster")}
+            ms = {}
+            for order in (list(runs), list(runs)[::-1]):
+                for kn in order:
+                    ms[kn] = min(time_graph(runs[kn]), ms.get(kn, float("inf")))
+            cold = {kn: time_cold(fn) for kn, fn in runs.items()}
+            # cols + values read, touched values of x read, out written
+            nbytes = (lin.size * (4 + dt.itemsize) + np.unique(cols).size * dt.itemsize + m * dt.itemsize)
+            log(
+                json.dumps(
+                    {
+                        "k1": shape,
+                        "dtype": str(dt).replace("torch.", ""),
+                        "nnz": int(lin.size),
+                        "default": default,
+                        "plan": _cuda.row_ell_spmv_plan(re, dt)._asdict(),
+                        "equal_bit_for_bit": True,
+                        "max_rel_err_vs_f64_oracle": rel,
+                        "kernel_ms": ms,
+                        "kernel_ms_l2_flushed": cold,
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "bound_share": {kn: nbytes / HBM_BYTES_PER_S * 1e3 / v for kn, v in ms.items()},
+                        "card": card,
+                    }
+                )
+            )
+            del re, x, y, out
+        torch.cuda.empty_cache()
+    for name in ("row_ell_spmv", "row_ell_spmv_cluster"):
+        if counted[name] == 0:
+            raise AssertionError(f"the K1 phase never launched {name}: {counted}")
+    log(json.dumps({"k1_path": "ok", "launches": counted}))
+    return counted
+
+
 def time_eager(fn, reps=20):
     """ms per call of ``fn`` from CUDA events around ``reps`` back-to-back calls."""
     for _ in range(3):
@@ -397,6 +492,16 @@ def phase_times(a, re, b, x, launches, errs, card):
             "row_ell_spmv",
             lambda: _cuda.spmv(re, x, None, out_v),
             lambda: row_ell.row_ell_spmv(re, x),
+            lambda: row_ell._spmv_plain(re, x),
+            lambda: torch.mv(csr, x),
+            nnz * 8 + touched * 4 + M * 4,
+            2 * nnz,
+        ),
+        (
+            "row_ell_spmv_cluster",
+            lambda: _cuda.spmv(re, x, None, out_v, kernel="cluster"),
+            # the entry point that asks for the cluster kernel
+            lambda: _cuda.spmv(re, x, None, torch.empty_like(out_v), kernel="cluster"),
             lambda: row_ell._spmv_plain(re, x),
             lambda: torch.mv(csr, x),
             nnz * 8 + touched * 4 + M * 4,
@@ -471,6 +576,7 @@ def phase_times(a, re, b, x, launches, errs, card):
                     "peak_memory_bytes_kernel": peak_kernel,
                     "peak_memory_bytes_plain": peak_plain,
                     "shape": {"m": M, "k": K, "n": N if name == "row_ell_spmm" else 1, "nnz": nnz, "dtype": "float32"},
+                    **({"plan": _cuda.row_ell_spmv_plan(re, torch.float32)._asdict()} if name == "row_ell_spmv_cluster" else {}),
                     **extra,
                     "card": card,
                 }
@@ -1363,10 +1469,13 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
 
     specs = []
 
-    def add(name, run, plain, library, note, tensors, whole_rows=False):
-        """``tensors``: the inputs and outputs, each counted once in the bound;
-        ``whole_rows``: the run picks n 512-byte table rows through L2."""
-        specs.append((name, run, plain, library, note, nbytes(*tensors), run.n * L2_ROW_BYTES if whole_rows else None))
+    def add(name, run, plain, library, note, tensors, whole_rows=False, more_bytes=0):
+        """``tensors``: the inputs and outputs, each counted once in the bound,
+        with ``more_bytes``; ``whole_rows``: the run picks n 512-byte table
+        rows through L2."""
+        specs.append(
+            (name, run, plain, library, note, nbytes(*tensors) + more_bytes, run.n * L2_ROW_BYTES if whole_rows else None)
+        )
 
     add("spmv_products", e1_run, lambda: e1.products_plain(x2h, fc, fd), None,
         "none: no single PyTorch call picks from a hi|lo bf16 table", (fc, fd, x2h, out))
@@ -1409,10 +1518,12 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
         return t.view(n_cells, 64, 128, w)[:, :, :8, :].permute(0, 2, 1, 3).reshape(n_cells * 8, 64 * w).contiguous()
 
     bags3, weights3 = regroup(cols2.long()), regroup(data2)
+    # the bound counts the work the output keeps: the table, the out rows and
+    # the indices and weights of the run.n picks the 8 kept rows of a cell add
     add("pick_scale_wsum", r, lambda: v2.pick_scale_wsum_plain(table3, cols2, data2),
         lambda: F.embedding_bag(bags3, table3, mode="sum", per_sample_weights=weights3),
         "F.embedding_bag(mode='sum', per_sample_weights) over the 1/16 of the picks that the 8 kept rows of each "
-        "cell add, regrouped beforehand", (table3, cols2, data2, r.outputs[0]), whole_rows=True)
+        "cell add, regrouped beforehand", (table3, r.outputs[0]), whole_rows=True, more_bytes=r.n * 8)
 
     rows, seen = [], set()
     for name, run, plain, library, note, nb, l2 in specs:
@@ -1485,6 +1596,9 @@ def main():
     errs = phase_kernels_vs_plain(dev)
     log(json.dumps({"kernel_vs_plain": "ok", "bench_max_abs_err_f32": errs}))
     a, re, b, x, launches = phase_main_path(dev)
+    k1_launches = phase_k1(dev, card)
+    # the cluster SpMV is no default (PERF.md): its launches are the K1 path's
+    launches = {**launches, "row_ell_spmv_cluster": k1_launches["row_ell_spmv_cluster"]}
     lines = phase_times(a, re, b, x, launches, errs, card)
     del a, re, b, x
     torch.cuda.empty_cache()

@@ -161,7 +161,9 @@ def pick_scale_wsum(table, cols2, data2):
 def g3(T=8192, W=4, n_cells=285, label="g3", device=None):
     """Row pick + scale + W-accumulate, the SpMM cell's inner loop: n_cells
     // W cells of T × W weighted picks from a (T, 128) table, timed on the
-    card (M rows/s). T must be 8192, as the Pallas kernel's fold demands."""
+    card (M rows/s). T must be 8192, as the Pallas kernel's fold demands.
+    The rate counts the picks the output needs: the 8 kept rows of each
+    cell's fold add 64 · W picks each, 1/16 of the cell's T · W."""
     if T != _cuda.G3_T:
         raise ValueError(f"g3 takes T = {_cuda.G3_T} only: its fold acc.reshape(64, 128, 128) fixes T (got {T})")
     dev = resolve_device(device)
@@ -177,7 +179,7 @@ def g3(T=8192, W=4, n_cells=285, label="g3", device=None):
         acc += tb[cb[:, w]] * db[:, w][:, None]
     np.testing.assert_allclose(out[:8].cpu().numpy(), acc.reshape(64, 128, 128).sum(axis=0)[:8], rtol=1e-3, err_msg=label)
     ms = time_on_card(dev, lambda: _cuda.pick_scale_wsum(table, cols2, data2, out))
-    n = (n_cells // W) * T * W
+    n = (n_cells // W) * _cuda.G3_KEEP * _cuda.G3_FOLD * W
     return Run(label, {"table": table, "cols2": cols2, "data2": data2}, (out,), n, "M rows/s", ms)
 
 

@@ -45,7 +45,10 @@ _p, _i64 = ctypes.c_void_p, ctypes.c_int64
 # argtypes of each C entry point, by source; every one returns a CUDA error code
 _SIGNATURES = {
     "row_ell": {
-        **{f"st_row_ell_spmv_{dt}": [_p, _p, _p, _p, _p, _p, _i64, _p, _i64, _p] for dt in ("f32", "f64")},
+        **{
+            f"st_row_ell_spmv_{dt}": [_p, _p, _p, _i64, _p, _p, _p, _i64, _p, _i64, _i64, _i64, _i64, _p]
+            for dt in ("f32", "f64")
+        },
         **{
             f"st_row_ell_spmm_{dt}": [_p, _p, _p, _i64, _p, _i64, _p, _i64, _p, _i64, _i64, _i64, _i64, _p]
             for dt in ("f32", "f64")
@@ -83,6 +86,7 @@ _SIGNATURES = {
 
 LAUNCHES = {
     "row_ell_spmv": 0,
+    "row_ell_spmv_cluster": 0,
     "row_ell_spmm": 0,
     "bsr_spmm": 0,
     "bsr_spmm2": 0,
@@ -214,10 +218,52 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: {_KERNEL_ERRORS.get(err, f'CUDA error {err}')}")
 
 
-def spmv(re, x, y, out):
+# K1's two kernels (csrc/row_ell.cu): "thread", one thread per position
+# gathering x through L1/L2 (row_ell_spmv_kernel), the default, and
+# "cluster", x held in the shared memory of a thread-block cluster
+# (row_ell_spmv_cluster_kernel), launched only when asked for. On an H100 the
+# cluster kernel lost to the thread kernel at every size measured, 8,192 to
+# 2.1M entries at 65,536 columns, in float32 and float64: its gathers from
+# another CTA's shared memory run slower than the thread kernel's through L2,
+# and every launch first fills the cluster's slices (chip_row_ell_ablation.py;
+# PERF.md). Its CTAs hold x in slices of at most SPMV_SLICE_BYTES (2^15
+# float32 or 2^14 float64 values), at most SPMV_MAX_CLUSTER of them (the
+# portable cluster size).
+SPMV_KERNELS = ("thread", "cluster")
+SPMV_SLICE_BYTES = 128 << 10
+SPMV_MAX_CLUSTER = 8
+
+
+class SpmvPlan(NamedTuple):
+    """The cluster kernel's shape on a layout."""
+
+    cluster: int  # CTAs a cluster, each holding one slice of x
+    slice_log2: int  # a slice holds 2^slice_log2 values
+    fits: bool  # x fits in SPMV_MAX_CLUSTER slices
+
+
+def row_ell_spmv_plan(re, dtype):
+    """The :class:`SpmvPlan` of layout ``re`` for an ``x`` of ``dtype``
+    (float32 or float64). A slice holds the fewest values, a power of two of
+    at least 16 and at most ``SPMV_SLICE_BYTES``, that ``ceil(n_cols / slice)``
+    CTAs need; the cluster kernel runs where that is at most
+    ``SPMV_MAX_CLUSTER``. x's alignment is no part of it: the kernel copies a
+    slice's ragged 16-byte head and tail with plain loads."""
+    max_log2 = (SPMV_SLICE_BYTES // dtype.itemsize).bit_length() - 1
+    slice_log2 = min(max_log2, max(4, (max(re.n_cols, 1) - 1).bit_length()))
+    cluster = max(1, -(-re.n_cols >> slice_log2))
+    return SpmvPlan(cluster, slice_log2, cluster <= SPMV_MAX_CLUSTER)
+
+
+def spmv(re, x, y, out, kernel="thread"):
     """Launch K1: ``out = A @ x (+ y)`` on the layout ``re``; ``re.flat_data``,
-    ``x``, ``y`` and ``out`` share one float dtype."""
+    ``x``, ``y`` and ``out`` share one float dtype. ``kernel``: ``"thread"``
+    (the default) or ``"cluster"`` (x fits in ``SPMV_MAX_CLUSTER`` slices of
+    :func:`row_ell_spmv_plan`). Both give the same bits. Counted as
+    ``row_ell_spmv`` (thread) or ``row_ell_spmv_cluster``."""
     dtype, device = x.dtype, x.device
+    if kernel not in SPMV_KERNELS:
+        raise ValueError(f"row_ell_spmv: kernel must be one of {SPMV_KERNELS}, not {kernel!r}")
     _check_layout(re, dtype, device)
     _check("x", x, dtype, device)
     _check("out", out, dtype, device)
@@ -225,6 +271,14 @@ def spmv(re, x, y, out):
         _check("y", y, dtype, device)
     if x.shape != (re.n_cols,) or out.shape != (re.n_rows,) or (y is not None and y.shape != out.shape):
         raise ValueError("row_ell_spmv: operand shapes do not match the layout")
+    cluster = slice_log2 = 0  # the thread kernel takes neither
+    if kernel == "cluster":
+        cluster, slice_log2, fits = row_ell_spmv_plan(re, dtype)
+        if not fits:
+            raise ValueError(
+                f"row_ell_spmv: x of {re.n_cols} values needs {cluster} slices of 2^{slice_log2}, "
+                f"more than the cluster kernel's {SPMV_MAX_CLUSTER}"
+            )
     n_pos = re.row_of_pos.shape[0]
     if n_pos == 0:
         return out
@@ -233,16 +287,21 @@ def spmv(re, x, y, out):
         re.flat_cols.data_ptr(),
         re.flat_data.data_ptr(),
         x.data_ptr(),
+        re.n_cols,
         None if y is None else y.data_ptr(),
         out.data_ptr(),
         re.tier_table.data_ptr(),
         re.tier_table.shape[0],
         re.row_of_pos.data_ptr(),
         n_pos,
+        SPMV_KERNELS.index(kernel),
+        cluster,
+        slice_log2,
         torch.cuda.current_stream(device).cuda_stream,
     )
-    _raise_on(err, "row_ell_spmv")
-    LAUNCHES["row_ell_spmv"] += 1
+    name = "row_ell_spmv" if kernel == "thread" else "row_ell_spmv_cluster"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -963,8 +1022,8 @@ def pick_scale_wsum(table, cols2, data2, out):
     Σ_{w < W} data2[i, t, w] · table[cols2[i, t, w], :]`` for ``t < 8192``,
     then ``out[8i + r] = Σ_{g < 64} acc[128g + r]`` for ``r < 8``. ``cols2``
     int32 and ``data2`` float32 ``(n_cells, 8192, W)``, ``out`` float32
-    ``(n_cells · 8, 128)``. The kernel computes all 128 rows of each cell's
-    fold, as the Pallas kernel does, and stores the first 8."""
+    ``(n_cells · 8, 128)``. The kernel computes only the 8 kept rows of each
+    cell's fold (64 · W weighted picks each), over the 8 warps of a CTA."""
     if cols2.ndim != 3 or cols2.shape[1] != G3_T:
         raise ValueError(f"pick_scale_wsum: cols2 of shape {tuple(cols2.shape)}, expected (n_cells, {G3_T}, W)")
     n_cells, _, w = cols2.shape
@@ -975,8 +1034,8 @@ def pick_scale_wsum(table, cols2, data2, out):
         data2,
         out,
         (n_cells * G3_KEEP, PROBE_LANES),
-        n_seg=n_cells * G3_ROWS,
-        seg_per_group=G3_ROWS,
+        n_seg=n_cells * G3_KEEP,
+        seg_per_group=G3_KEEP,
         group_stride=G3_T * w,
         r_stride=w,
         n_g=G3_FOLD,

@@ -21,7 +21,7 @@
 //
 // Bound on this card: bytes. Each function reads its indices (and values)
 // once and writes its output once; the table's bytes come from L2 many times
-// over (p2, g2 and g3 read 512-byte rows: 67 MB, 1.2 GB and 1.2 GB a call).
+// over (p2, g2 and g3 read 512-byte rows: 67 MB, 1.2 GB and 74 MB a call).
 // That L2 traffic is the rate these probes exist to measure.
 //
 // No sum uses atomics. A long segment is cut over the warps of one CTA (row
@@ -146,11 +146,12 @@ __global__ void __launch_bounds__(kThreads)
 //   p2: segments of per_step consecutive indices         (seg_per_group 1, n_g per_step, keep 1, copies 1)
 //   p3: one index per segment, the table rounded to bf16 (n_g 1)
 //   g2: segments of T consecutive indices, 8 copies      (n_g T, copies 8)
-//   g3: cell i, place r < 128: the picks t = 128 g' + r, w < W of the cell's
-//       (T, W) weighted layout, which acc.reshape(64, 128, 128).sum(0) adds
-//       into row r; rows r < 8 are stored       (seg_per_group 128, n_g 64, n_w W, keep 8)
-//       All 128 places are computed, as the Pallas kernel computes its whole
-//       (T, 128) accumulator: the probe's work is the SpMM cell's T * W picks.
+//   g3: cell i, place r < 8: the picks t = 128 g' + r, w < W of the cell's
+//       (T, W) weighted layout, which acc.reshape(64, 128, 128).sum(0)[:8]
+//       adds into kept row r                    (seg_per_group 8, n_g 64, n_w W, keep 8)
+//       Only the 8 kept places of each cell are computed: the Pallas kernel
+//       computed its whole (T, 128) accumulator because that was its tile,
+//       but the other 120 places of the fold feed no output.
 struct Segments {
   long long n_seg, seg_per_group, group_stride, r_stride, n_g, g_stride, n_w, keep, copies;
 };
@@ -162,7 +163,9 @@ __device__ __forceinline__ float4 round_bf16(float4 v) {
 
 // A warp picks whole 512-byte rows: lane l holds columns 4l..4l+3 as one
 // float4, so each pick is one coalesced row read from L2. `wps` warps share a
-// segment (8 for segments of 1024 elements or more, else 1); each walks every
+// segment (8 for segments of 1024 elements or more and for every weighted
+// segment, else 1: g3 keeps 8 rows a cell, 568 segments of 256 picks at its
+// defaults, which one warp each would spread over 71 CTAs); each walks every
 // wps-th element, 32 at a time: every lane loads one element's index (and
 // weight), then the warp broadcasts them with shuffles, so up to 32 row reads
 // are in flight without a dependent index load before each. The wps partial
@@ -271,7 +274,7 @@ int launch_spmv_products(const void* x2, long long n_tab_rows, const void* cols,
 template <bool ROUND, bool WEIGHTED>
 int launch_row_gather(const void* table, const void* idx, const void* weights, const Segments& sg, void* out,
                       void* stream) {
-  const int wps = sg.n_g * sg.n_w >= 1024 ? kWarps : 1;
+  const int wps = (WEIGHTED || sg.n_g * sg.n_w >= 1024) ? kWarps : 1;
   const long long per_cta = kWarps / wps;
   const long long blocks = (sg.n_seg + per_cta - 1) / per_cta;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

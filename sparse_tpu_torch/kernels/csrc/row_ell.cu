@@ -15,7 +15,9 @@
 // is fused into the store and every output row is written exactly once:
 // outputs need no memset.
 //
-// Both kernels accumulate in the data type (f32 for f32, f64 for f64).
+// K1 has two kernels (one thread per position; x in a thread-block
+// cluster's shared memory), K2 two (one warp per position; staged indices).
+// Every kernel accumulates in the data type (f32 for f32, f64 for f64).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,7 +63,9 @@ __device__ __forceinline__ long long first_entry(const Tier& t, long long p) {
 // thread per padded position; the 16 threads of a group read 16 consecutive
 // cols/data words for each j, so the index and value streams coalesce as
 // stored. All tiers run in one launch (the tier is found per thread), and
-// the optional y makes A @ x + y one pass.
+// the optional y makes A @ x + y one pass. The gathers of x go through L1
+// and L2 one 4- or 8-byte request each, which bounds this kernel at the
+// benchmark shape (the cluster form below takes them into shared memory).
 template <typename T>
 __global__ void __launch_bounds__(256) row_ell_spmv_kernel(const int* __restrict__ cols, const T* __restrict__ data,
                                                            const T* __restrict__ x, const T* __restrict__ y,
@@ -517,16 +521,230 @@ __global__ void __launch_bounds__(kGroup * 32, ROW_ELL_MIN_BLOCKS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1, cluster form: out[row(p)] = (y ? y[row(p)] : 0) + sum_j data[p, j] *
+// x[cols[p, j]], x held in the distributed shared memory of a thread-block
+// cluster.
+//
+// Bound: bytes (the index and value streams, 8 or 12 bytes an entry, from
+// HBM). The thread kernel's 4-byte gathers of x through L1/L2 run at the
+// card's lane-gather rate (112-150 G/s on an H100), not at HBM's; x (256 KB
+// in float32 at 65,536 columns) does not fit one CTA's 227 KB, but it fits a
+// cluster's. Design:
+// - A cluster of C CTAs (C from the launch, at most the portable 8) holds x
+//   in slices of S = 2^slice_log2 values: rank k copies x[kS, (k+1)S) into
+//   its dynamic shared memory with one cp.async.bulk on an mbarrier (a
+//   ragged head before the first 16-byte boundary of x and the tail after the
+//   last are plain loads; the slice is stored shifted by x's offset within 16
+//   bytes, so the bulk copy's two ends are both aligned). A gather of x[c]
+//   reads rank c >> slice_log2 at offset c & (S - 1): mapa and
+//   ld.shared::cluster, local or on the neighbour SM.
+// - A cluster barrier comes after the fill, before the first remote read,
+//   and another before any CTA exits, so no CTA leaves while another still
+//   reads its slice. A CTA without work fills its slice and meets both.
+// - The grid is persistent (the clusters the card holds at once, or fewer)
+//   and deals tiles of `tile` consecutive positions (at most kK1Threads), one
+//   a thread, in position order: the layout is degree-sorted, so the widest
+//   rows start first. The launcher sizes the tiles so that one wave of the
+//   resident CTAs covers every position (a row's sum is one thread's chain,
+//   so the positions are all the parallelism there is).
+// - Each thread finds its tier as the thread kernel does and reads its
+//   cols/values from global memory (any layout), kK1Depth entries at a time:
+//   the index and value loads of a batch, then its gathers, are all in
+//   flight before its sums. Indices staged by bulk copy, as K2's staged
+//   kernel stages them, measured slower on an H100.
+// Each position sums data * x in j order with the same fused multiply-adds
+// as the thread kernel and adds y[row] at the store: the two kernels give the
+// same bits. Group padding writes nothing; every output row is written once.
+// Measured on an H100 (chip_row_ell_ablation.py): slower than the thread
+// kernel at every size, because random 4- and 8-byte reads of another SM's
+// shared memory run below the thread kernel's gather rate through L2, and
+// every launch first fills 128 KB a CTA. The entry points launch it only
+// when asked (kernel="cluster").
+constexpr int kK1Threads = 512;  // the most positions a tile, one CTA an SM
+constexpr int kK1Depth = 4;      // entries of a position in flight
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+template <typename T>
+__device__ __forceinline__ T ld_cluster(uint32_t addr);
+template <>
+__device__ __forceinline__ float ld_cluster<float>(uint32_t addr) {
+  float v;
+  asm("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+template <>
+__device__ __forceinline__ double ld_cluster<double>(uint32_t addr) {
+  double v;
+  asm("ld.shared::cluster.f64 %0, [%1];\n" : "=d"(v) : "r"(addr));
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kK1Threads, 1)
+    row_ell_spmv_cluster_kernel(const int* __restrict__ cols, const T* __restrict__ data, const T* __restrict__ x,
+                                long long n_cols, const T* __restrict__ y, T* __restrict__ out,
+                                const long long* __restrict__ table, int n_tiers, const int* __restrict__ row_of_pos,
+                                long long n_pos, int slice_log2, long long n_tiles, int tile) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t xbar;
+
+  // this rank's slice [lo, lo + n_k) of x, value i at xs[i]
+  const int shift = (int)((reinterpret_cast<uintptr_t>(x) & 15) / sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem) + shift;
+  const long long lo = (long long)cluster_rank() << slice_log2;
+  long long n_k = n_cols - lo;
+  n_k = n_k < 0 ? 0 : (n_k > (1LL << slice_log2) ? (1LL << slice_log2) : n_k);
+  long long head = shift ? 16 / (long long)sizeof(T) - shift : 0;
+  head = head < n_k ? head : n_k;
+  const long long body = ((n_k - head) * (long long)sizeof(T) / 16) * 16 / (long long)sizeof(T);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (body > 0) {
+      mbar_expect_tx(&xbar, (uint32_t)(body * (long long)sizeof(T)));
+      bulk_load<false>(xs + head, x + lo + head, (uint32_t)(body * (long long)sizeof(T)), &xbar, 0);
+    } else {
+      mbar_arrive(&xbar);
+    }
+  }
+  for (long long i = threadIdx.x; i < n_k - body; i += blockDim.x) {  // the ragged head and tail
+    const long long v = i < head ? i : i + body;
+    xs[v] = x[lo + v];
+  }
+  mbar_wait(&xbar, 0);
+  cluster_sync();  // every slice of the cluster is in place
+  const uint32_t xs_addr = smem_u32(xs);
+  const uint32_t off_mask = (1u << slice_log2) - 1u;
+
+  for (long long u = blockIdx.x; u < n_tiles; u += gridDim.x) {
+    const long long p = u * tile + threadIdx.x;
+    if ((int)threadIdx.x < tile && p < n_pos) {
+      const int row = row_of_pos[p];
+      if (row >= 0) {
+        const Tier t = find_tier(table, n_tiers, p);
+        const long long base = first_entry(t, p);
+        T acc = T(0);
+        for (long long j0 = 0; j0 < t.width; j0 += kK1Depth) {
+          // kK1Depth index and value loads, then as many gathers, in flight before the sums
+          int c[kK1Depth];
+          T d[kK1Depth], v[kK1Depth];
+#pragma unroll
+          for (int i = 0; i < kK1Depth; ++i) {
+            if (j0 + i < t.width) {
+              const long long e = base + (j0 + i) * t.group;
+              c[i] = cols[e];
+              d[i] = data[e];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kK1Depth; ++i) {
+            if (j0 + i < t.width) {
+              const uint32_t off = (uint32_t)c[i] & off_mask;
+              v[i] = ld_cluster<T>(map_rank(xs_addr + off * (uint32_t)sizeof(T), (uint32_t)c[i] >> slice_log2));
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kK1Depth; ++i) {
+            if (j0 + i < t.width) acc += d[i] * v[i];
+          }
+        }
+        out[row] = (y != nullptr ? y[row] : T(0)) + acc;
+      }
+    }
+  }
+  cluster_sync();  // no CTA leaves while another may still read its slice
+}
+
 constexpr int kThreads = 256;
 
 template <typename T>
-int launch_spmv(const void* cols, const void* data, const void* x, const void* y, void* out, const void* table,
-                long long n_tiers, const void* row_of_pos, long long n_pos, void* stream) {
+int launch_spmv_thread(const void* cols, const void* data, const void* x, const void* y, void* out, const void* table,
+                       long long n_tiers, const void* row_of_pos, long long n_pos, void* stream) {
   const long long blocks = (n_pos + kThreads - 1) / kThreads;
   row_ell_spmv_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)cols, (const T*)data, (const T*)x, (const T*)y, (T*)out, (const long long*)table, (int)n_tiers,
       (const int*)row_of_pos, n_pos);
   return (int)cudaGetLastError();
+}
+
+// the cluster form on a persistent grid of clusters of `cluster` CTAs, each
+// holding 2^slice_log2 values of x, over tiles that one wave covers
+template <typename T>
+int launch_spmv_cluster(const void* cols, const void* data, const void* x, long long n_cols, const void* y, void* out,
+                        const void* table, long long n_tiers, const void* row_of_pos, long long n_pos,
+                        long long cluster, long long slice_log2, void* stream) {
+  auto kernel = row_ell_spmv_cluster_kernel<T>;
+  if (cluster < 1 || cluster > 8 || slice_log2 < 4 || slice_log2 > 24 || (cluster << slice_log2) < n_cols ||
+      n_tiers < 1 || (reinterpret_cast<uintptr_t>(x) % sizeof(T)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long smem = (((1LL << slice_log2) + 16 / (long long)sizeof(T)) * (long long)sizeof(T) + 127) / 128 * 128;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3(kK1Threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int resident = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg)) != cudaSuccess) return (int)err;
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  // one wave of the resident CTAs over every position, tiles of whole warps
+  const long long ctas = (long long)resident * cluster;
+  int tile = (int)(((n_pos + ctas - 1) / ctas + 31) / 32 * 32);
+  tile = tile < 32 ? 32 : (tile > kK1Threads ? kK1Threads : tile);
+  const long long n_tiles = (n_pos + tile - 1) / tile;
+  const long long want = n_tiles > cluster ? (n_tiles + cluster - 1) / cluster : 1;
+  const long long clusters = want < resident ? want : resident;
+  cfg.gridDim = dim3((unsigned)(clusters * cluster));
+  err = cudaLaunchKernelEx(&cfg, kernel, (const int*)cols, (const T*)data, (const T*)x, n_cols, (const T*)y, (T*)out,
+                           (const long long*)table, (int)n_tiers, (const int*)row_of_pos, n_pos, (int)slice_log2,
+                           n_tiles, tile);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// kernel 0: the thread kernel; 1: the cluster form (cluster and slice_log2
+// serve it only). Both take any layout.
+template <typename T>
+int launch_spmv(const void* cols, const void* data, const void* x, long long n_cols, const void* y, void* out,
+                const void* table, long long n_tiers, const void* row_of_pos, long long n_pos, long long kernel,
+                long long cluster, long long slice_log2, void* stream) {
+  switch (kernel) {
+    case 0:
+      return launch_spmv_thread<T>(cols, data, x, y, out, table, n_tiers, row_of_pos, n_pos, stream);
+    case 1:
+      return launch_spmv_cluster<T>(cols, data, x, n_cols, y, out, table, n_tiers, row_of_pos, n_pos, cluster,
+                                    slice_log2, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int VEC>
@@ -600,16 +818,18 @@ int launch_spmm(const void* cols, const void* data, const void* B, long long ldb
 
 extern "C" {
 
-int st_row_ell_spmv_f32(const void* cols, const void* data, const void* x, const void* y, void* out,
-                        const void* table, long long n_tiers, const void* row_of_pos, long long n_pos,
-                        void* stream) {
-  return launch_spmv<float>(cols, data, x, y, out, table, n_tiers, row_of_pos, n_pos, stream);
+int st_row_ell_spmv_f32(const void* cols, const void* data, const void* x, long long n_cols, const void* y, void* out,
+                        const void* table, long long n_tiers, const void* row_of_pos, long long n_pos, long long kernel,
+                        long long cluster, long long slice_log2, void* stream) {
+  return launch_spmv<float>(cols, data, x, n_cols, y, out, table, n_tiers, row_of_pos, n_pos, kernel, cluster,
+                            slice_log2, stream);
 }
 
-int st_row_ell_spmv_f64(const void* cols, const void* data, const void* x, const void* y, void* out,
-                        const void* table, long long n_tiers, const void* row_of_pos, long long n_pos,
-                        void* stream) {
-  return launch_spmv<double>(cols, data, x, y, out, table, n_tiers, row_of_pos, n_pos, stream);
+int st_row_ell_spmv_f64(const void* cols, const void* data, const void* x, long long n_cols, const void* y, void* out,
+                        const void* table, long long n_tiers, const void* row_of_pos, long long n_pos, long long kernel,
+                        long long cluster, long long slice_log2, void* stream) {
+  return launch_spmv<double>(cols, data, x, n_cols, y, out, table, n_tiers, row_of_pos, n_pos, kernel, cluster,
+                             slice_log2, stream);
 }
 
 int st_row_ell_spmm_f32(const void* cols, const void* data, const void* B, long long ldb, void* out, long long n,

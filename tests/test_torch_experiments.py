@@ -241,7 +241,8 @@ def test_g3_matches_the_pallas_probe(monkeypatch):
     mod, outputs = _load(monkeypatch, "pallas_vmem2")
     mod.g3(8192, 4, 4)
     run = t_vmem2.g3(8192, 4, 4, device=CPU)
-    assert run.outputs[0].shape == (8, 128) and run.n == 8192 * 4
+    # the rate counts the picks the 8 kept rows need: 8 rows x 64 folds x W
+    assert run.outputs[0].shape == (8, 128) and run.n == 8 * 64 * 4
     torch.testing.assert_close(run.outputs[0], _t(outputs[0]), **SUMS)
 
 

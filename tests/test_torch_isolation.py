@@ -121,6 +121,7 @@ def test_launch_counters_start_and_reset():
     _cuda.reset_launch_counts()
     assert _cuda.LAUNCHES == {
         "row_ell_spmv": 0,
+        "row_ell_spmv_cluster": 0,
         "row_ell_spmm": 0,
         "bsr_spmm": 0,
         "bsr_spmm2": 0,

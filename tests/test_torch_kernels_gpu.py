@@ -230,6 +230,124 @@ def test_spmm_staged_kernel_refuses_misaligned_indices(cuda):
         _cuda.spmm(re, b, torch.empty((m, 128), device=cuda), kernel="fast")
 
 
+# ---------------------------------------------------------------- K1's cluster kernel
+def _both_spmv(re, x, y=None):
+    """K1's cluster and thread kernels on the same operands, each counted once."""
+    _cuda.reset_launch_counts()
+    out = [_cuda.spmv(re, x, y, x.new_empty(re.n_rows), kernel=kn) for kn in ("cluster", "thread")]
+    torch.cuda.synchronize()
+    launched = re.row_of_pos.numel() > 0
+    assert _cuda.LAUNCHES["row_ell_spmv_cluster"] == _cuda.LAUNCHES["row_ell_spmv"] == int(launched)
+    return out
+
+
+def _check_cluster(re, x, y=None):
+    cluster, thread = _both_spmv(re, x, y)
+    assert torch.equal(cluster, thread)
+    torch.testing.assert_close(cluster, row_ell._spmv_plain(re, x, y), **TOL[x.dtype])
+    return cluster
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("with_y", [False, True])
+def test_spmv_cluster_kernel_equals_thread_kernel(cuda, case, dt, with_y):
+    re, m, k = _layout(case, dt, cuda)
+    x = torch.rand(k, dtype=dt, device=cuda)
+    y = torch.rand(m, dtype=dt, device=cuda) if with_y else None
+    _check_cluster(re, x, y)
+
+
+def _random_layout(m, k, nnz, dt, cuda, seed, group=16):
+    rng = np.random.default_rng(seed)
+    lin = np.unique(rng.integers(0, m * k, size=nnz, dtype=np.int64))
+    vals = rng.random(lin.size).astype(np.float32 if dt == torch.float32 else np.float64)
+    return row_ell.build_row_ell(lin // k, lin % k, vals, m, k, group=group, device=cuda)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("k", [100_003, 65_537, 17])
+def test_spmv_cluster_kernel_ragged_columns(cuda, dt, k):
+    # n_cols not a multiple of the slice: the last rank holds a ragged slice
+    re = _random_layout(3000, k, 40_000, dt, cuda, k)
+    plan = _cuda.row_ell_spmv_plan(re, dt)
+    assert k % (1 << plan.slice_log2) and plan.fits
+    x = torch.rand(k, dtype=dt, device=cuda)
+    _check_cluster(re, x, torch.rand(3000, dtype=dt, device=cuda))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("offset", [1, 3])
+def test_spmv_cluster_kernel_x_off_16_bytes(cuda, dt, offset):
+    # x a few values past a 16-byte boundary: the slices' ragged heads and tails
+    k = 70_001
+    re = _random_layout(2000, k, 30_000, dt, cuda, offset)
+    base = torch.rand(k + offset, dtype=dt, device=cuda)
+    x = base[offset:]
+    assert x.data_ptr() % 16
+    _check_cluster(re, x)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_spmv_cluster_kernel_at_its_largest_width(cuda, dt):
+    # the widest x the cluster kernel holds, and one column more (refused)
+    k_max = _cuda.SPMV_MAX_CLUSTER * _cuda.SPMV_SLICE_BYTES // dt.itemsize
+    re = _random_layout(1000, k_max, 20_000, dt, cuda, k_max)
+    assert _cuda.row_ell_spmv_plan(re, dt).cluster == _cuda.SPMV_MAX_CLUSTER
+    _check_cluster(re, torch.rand(k_max, dtype=dt, device=cuda))
+    wide = _random_layout(1000, k_max + 1, 20_000, dt, cuda, k_max + 1)
+    x = torch.rand(k_max + 1, dtype=dt, device=cuda)
+    assert not _cuda.row_ell_spmv_plan(wide, dt).fits
+    with pytest.raises(ValueError, match="slices"):
+        _cuda.spmv(wide, x, None, torch.empty(1000, dtype=dt, device=cuda), kernel="cluster")
+    torch.testing.assert_close(row_ell.row_ell_spmv(wide, x), row_ell._spmv_plain(wide, x), **TOL[dt])
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("group", [0, 8])
+def test_spmv_cluster_kernel_other_layouts(cuda, dt, group):
+    # legacy (G = 1) and G = 8 layouts
+    re = _random_layout(3000, 65_536, 40_000, dt, cuda, group, group=group)
+    _check_cluster(re, torch.rand(65_536, dtype=dt, device=cuda))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("m", [20, 5040])
+def test_spmv_cluster_kernel_fewer_tiles_than_clusters(cuda, dt, m):
+    # m = 20: one tile of 32 positions, so one cluster whose other ranks get
+    # no work; m = 5,040 (40 rows with entries): fewer tiles than the card
+    # holds CTAs. Idle CTAs still fill their slices and meet both barriers.
+    rng = np.random.default_rng(7)
+    k = 65_536
+    rows = np.repeat(np.linspace(0, m - 1, min(m, 40)).astype(np.int64), 5)
+    lin = np.unique(rows * k + rng.integers(0, k, rows.size))
+    vals = rng.random(lin.size).astype(np.float32 if dt == torch.float32 else np.float64)
+    re = row_ell.build_row_ell(lin // k, lin % k, vals, m, k, device=cuda)
+    assert _cuda.row_ell_spmv_plan(re, dt).cluster >= 2
+    _check_cluster(re, torch.rand(k, dtype=dt, device=cuda), torch.rand(m, dtype=dt, device=cuda))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("with_y", [False, True])
+def test_spmv_cluster_kernel_bench_like_matrix(cuda, dt, with_y):
+    # 8,192², 2^18 draws; the entry point launches the thread kernel, the default
+    re = _random_layout(8192, 8192, 1 << 18, dt, cuda, 18)
+    x = torch.rand(8192, dtype=dt, device=cuda)
+    y = torch.rand(8192, dtype=dt, device=cuda) if with_y else None
+    cluster = _check_cluster(re, x, y)
+    _cuda.reset_launch_counts()
+    got = row_ell.row_ell_spmv(re, x, y=y)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["row_ell_spmv"] == 1 and _cuda.LAUNCHES["row_ell_spmv_cluster"] == 0
+    assert torch.equal(got, cluster)
+
+
+def test_spmv_refuses_an_unknown_kernel(cuda):
+    re, m, k = _layout("zipf", torch.float32, cuda)
+    with pytest.raises(ValueError, match="kernel must be"):
+        _cuda.spmv(re, torch.rand(k, device=cuda), None, torch.empty(m, device=cuda), kernel="fast")
+
+
 BSR_TOL = {
     torch.float32: dict(rtol=1e-4, atol=1e-4),
     torch.float64: dict(rtol=1e-10, atol=1e-12),
@@ -796,7 +914,7 @@ def test_row_pick_blocksum_kernel_matches_plain(cuda, T, n_blocks):
     torch.testing.assert_close(got, v2.row_pick_blocksum_plain(table, cols, T), **PROBE_SUMS)
 
 
-@pytest.mark.parametrize("n_cells,W,table_h", [(2, 4, 8192), (1, 3, 500), (3, 1, 8192)])
+@pytest.mark.parametrize("n_cells,W,table_h", [(2, 4, 8192), (1, 3, 500), (3, 1, 8192), (1, 4, 8192), (1, 1, 64), (71, 4, 8192)])
 def test_pick_scale_wsum_kernel_matches_plain(cuda, n_cells, W, table_h):
     from sparse_tpu_torch.experiments import pallas_vmem2 as v2
 

@@ -112,10 +112,10 @@ def test_layout_from_sparse_tpu_arrays_reproduces_its_products(layout):
 
 
 @pytest.mark.parametrize("strategy", ["onehot", "onehot3"])
-def test_spmv_vs_sparse_tpu_onehot_interpret(strategy):
+@pytest.mark.parametrize("m,k,density", [(150, 300, 0.05), (96, 8192, 0.004)])
+def test_spmv_vs_sparse_tpu_onehot_interpret(strategy, m, k, density):
     rng = np.random.default_rng(11)
-    m, k = 150, 300
-    dense = (rng.random((m, k)) * (rng.random((m, k)) < 0.05)).astype(np.float32)
+    dense = (rng.random((m, k)) * (rng.random((m, k)) < density)).astype(np.float32)
     r, c = np.nonzero(dense)
     args = (r.astype(np.int32), c.astype(np.int32), dense[r, c], m, k)
     x = rng.random(k, dtype=np.float32)
@@ -274,3 +274,60 @@ def test_staged_plan_of_the_bench_layout():
         groups=4111, col_tiles=1, units=4111, chunks=4111, zero_positions=0, stage_bytes=8256
     )
     assert int((t.row_of_pos < 0).sum()) == 4111 * 16 - m
+
+
+# ---------------------------------------------------------------- K1's cluster plan
+def _layout_of(m, k, nnz, seed, dtype=np.float32, **kw):
+    rng = np.random.default_rng(seed)
+    lin = np.unique(rng.integers(0, m * k, size=nnz, dtype=np.int64))
+    return tre.build_row_ell(lin // k, lin % k, rng.random(lin.size).astype(dtype), m, k, device=CPU, **kw)
+
+
+@pytest.mark.parametrize(
+    "dtype,n_cols,cluster,slice_log2",
+    [
+        (torch.float32, 65_536, 2, 15),  # the bench shape: two slices of 128 KB
+        (torch.float64, 65_536, 4, 14),
+        (torch.float32, 65_537, 3, 15),  # one column past two slices
+        (torch.float64, 100_000, 7, 14),  # the spmv_add shape
+        (torch.float32, 262_144, 8, 15),  # the widest x the cluster kernel holds
+        (torch.float32, 262_145, 9, 15),
+        (torch.float64, 131_072, 8, 14),
+        (torch.float64, 131_073, 9, 14),
+        (torch.float32, 1000, 1, 10),  # a small x: one CTA, the least power of two that holds it
+        (torch.float64, 16, 1, 4),
+        (torch.float32, 3, 1, 4),  # slices of at least 16 values
+    ],
+)
+def test_spmv_plan_cluster_and_slice(dtype, n_cols, cluster, slice_log2):
+    t = _layout_of(50, n_cols, 200, n_cols)
+    plan = _cuda.row_ell_spmv_plan(t, dtype)
+    assert (plan.cluster, plan.slice_log2) == (cluster, slice_log2)
+    assert plan.fits == (cluster <= _cuda.SPMV_MAX_CLUSTER)
+    assert (1 << slice_log2) * dtype.itemsize <= _cuda.SPMV_SLICE_BYTES
+    assert cluster << slice_log2 >= n_cols > (cluster - 1) << slice_log2 or n_cols <= 16
+
+
+def test_spmv_plan_of_the_spmv_add_shape():
+    # sparse_tpu/ops/dot.py:580: 99,990 x 100,000 at density 1e-6, float64
+    t = _layout_of(99_990, 100_000, 9_999, 3, dtype=np.float64)
+    assert _cuda.row_ell_spmv_plan(t, torch.float64) == _cuda.SpmvPlan(cluster=7, slice_log2=14, fits=True)
+
+
+def test_spmv_plan_of_the_bench_layout():
+    m = k = 1 << 16
+    rng = np.random.default_rng(0)
+    lin = np.unique(rng.integers(0, m * k, size=1 << 21, dtype=np.int64))
+    t = tre.build_row_ell(lin // k, lin % k, np.ones(lin.size, np.float32), m, k, device=CPU)
+    assert t.flat_cols.numel() == 2_105_696
+    for dtype, cluster, slice_log2 in ((torch.float32, 2, 15), (torch.float64, 4, 14)):
+        assert _cuda.row_ell_spmv_plan(t, dtype) == _cuda.SpmvPlan(cluster, slice_log2, True)
+
+
+def test_spmv_refuses_an_unknown_kernel_name():
+    t = _layout_of(20, 30, 50, 5)
+    for kernel in ("fast", None):
+        with pytest.raises(ValueError, match="kernel must be one of"):
+            _cuda.spmv(t, torch.ones(30), None, torch.empty(20), kernel=kernel)
+    with pytest.raises(ValueError, match="run on a CUDA device"):
+        _cuda.spmv(t, torch.ones(30), None, torch.empty(20), kernel="cluster")
