@@ -1,0 +1,264 @@
+#!/usr/bin/env python3
+"""Where the time of the bf16 row pick (E5, p3) and the row-pick block sum
+(E8, g2) goes, on one NVIDIA GPU (H100).
+
+    python3 chip_probes_ablation.py [p3|g2|all]
+
+Builds variants of ``sparse_tpu_torch/kernels/csrc/probes.cu`` side by side
+(one ``nvcc`` each, started together, into ``build/probes_ablation/``), each
+with other values of its ``PICK_*`` or ``SLICE_*`` macros, and times them at
+the probes' own sizes (``pallas_vmem.py:p3`` and ``pallas_vmem2.py:g2``
+defaults, their seeds):
+
+- p3, a (512, 128) strip, 2^21 picks, 1.07 GB written: ``bulk`` (the strip
+  in shared memory, 64-pick tiles stored by ``cp.async.bulk`` out of a ring
+  of 3, as the entry point launches it); ``bulk_l2_strip`` (the same write
+  path, the rows read through L2 and rounded per pick, as for a strip too
+  tall for shared memory); ``tile32``, ``stages2``, ``tile32_stages4``
+  (other tiles and rings); beside them ``out.zero_()`` on an output
+  of the same size, the card's write ceiling, and ``torch.index_select`` of
+  the strip rounded beforehand. Every variant equal to the plain version
+  bit for bit.
+- g2, a (8192, 128) table, 285 blocks of 8192 picks: ``counts`` (the table
+  in 21 slices in shared memory, each block's picks of a slice counted and
+  the counts multiplied with it, four index steps in flight a warp, as the
+  entry point launches it); ``counts_depth_8`` (eight steps); ``rows``
+  (the first port: every pick a 512-byte row through L2); beside them
+  ``F.embedding_bag``. Every variant against the plain version at
+  rtol=1e-4, atol=1e-3; the count forms twice, bit for bit. Then what sets
+  the count form's time: ``counts`` again on indices that all fall in the
+  table's first half (the same index scan, half the slices' rows read:
+  ``half_rows_read``), and on a plan of twice the slices of half the
+  height (twice the index scan, the same rows read: ``twice_the_scan``).
+
+Each variant is timed from a CUDA graph of 50 launches, L2 warm, in turns
+(forward, then backward), best of the two passes; then once after a 256 MB
+write has flushed L2 (median of 10). Prints one JSON line per variant (ms,
+the rate that bounds it, the kernel's registers from ``-Xptxas -v``), then
+the card's ``name, power.limit``. Imports nothing of JAX or sparse_tpu.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from chip_row_ell_ablation import card_name_power, checked, registers, timed_in_turns
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "probes_ablation"
+HBM_BYTES_PER_S = 3.35e12
+ROW_BYTES = 512
+PROBE_TOL = dict(rtol=1e-4, atol=1e-3)
+
+# library name -> macro values (the defaults: PICK_TILE=64, PICK_STAGES=3,
+# COUNT_DEPTH=4)
+BUILDS = {
+    "default": {},
+    "tile32": {"PICK_TILE": "32"},
+    "stages2": {"PICK_STAGES": "2"},
+    "tile32_stages4": {"PICK_TILE": "32", "PICK_STAGES": "4"},
+    "counts_depth_8": {"COUNT_DEPTH": "8"},
+}
+# p3 variant -> (library, resident)
+P3_VARIANTS = {
+    "bulk": ("default", 1),
+    "bulk_l2_strip": ("default", 0),
+    "tile32": ("tile32", 1),
+    "stages2": ("stages2", 1),
+    "tile32_stages4": ("tile32_stages4", 1),
+}
+# g2 variant -> library; "rows" is the row gather
+G2_VARIANTS = {"counts": "default", "counts_depth_8": "counts_depth_8", "rows": "default"}
+
+
+def build(name):
+    from sparse_tpu_torch.kernels import _cuda
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    so = OUT / f"{name}.so"
+    macros = [f"-D{k}={v}" for k, v in BUILDS[name].items()]
+    cmd = [_cuda._nvcc(), *_cuda._NVCC_FLAGS, *macros, "-Xptxas", "-v", "-o", str(so), str(_cuda.SOURCES["probes"])]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in _cuda._SIGNATURES["probes"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return name, (lib, res.stderr + res.stdout)
+
+
+def stream():
+    """The current stream, read at each launch: a graph captures on its own."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def row_gather(lib, table, idx, out, n_seg, seg_len, copies):
+    """A launch of the row gather (``st_row_gather``) over segments of ``seg_len`` consecutive indices."""
+    return lambda: lib.st_row_gather(table.data_ptr(), idx.data_ptr(), None, n_seg, 1, seg_len, 0, seg_len, 1, 1, 1,
+                                     copies, out.data_ptr(), stream())
+
+
+def p3_section(libs, dev, flush):
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+
+    rng = np.random.default_rng(2)  # p3's draws
+    strip = torch.as_tensor(rng.random((512, 128), dtype=np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, 512, size=(1 << 21,), dtype=np.int32), device=dev)
+    n = idx.numel()
+    want = v.row_pick_bf16_plain(strip, idx)
+    launchers, outs = {}, {}
+    for name, (lib_name, resident) in P3_VARIANTS.items():
+        lib = libs[lib_name][0]
+        out = torch.empty((n, 128), device=dev)
+        go = lambda lib=lib, out=out, resident=resident: lib.st_row_pick_bf16(  # noqa: E731
+            strip.data_ptr(), 512, idx.data_ptr(), n, resident, out.data_ptr(), stream())
+        launchers[name], outs[name] = checked(go, f"p3 {name}"), out
+        launchers[name]()
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        if not torch.equal(out, want):
+            raise AssertionError(f"p3 {name}: differs from the plain version")
+    del want
+    ceiling = torch.empty((n, 128), device=dev)
+    rounded, i64 = strip.to(torch.bfloat16).float(), idx.long()
+    launchers["zero_"] = ceiling.zero_
+    launchers["index_select"] = lambda: torch.index_select(rounded, 0, i64)
+    rows = timed_in_turns(launchers, flush)
+    written = n * ROW_BYTES
+    bound_ms = (strip.numel() * 4 + n * 4 + written) / HBM_BYTES_PER_S * 1e3
+    for name, row in rows.items():
+        lib = P3_VARIANTS.get(name, (None,))[0]
+        print(json.dumps({
+            "p3_variant": name,
+            **row,
+            "write_tb_per_s": written / (row["ms"] * 1e-3) / 1e12,
+            "bound_ms": bound_ms,
+            "bound_share": bound_ms / row["ms"],
+            "vs_zero_": row["ms"] / rows["zero_"]["ms"],
+            "macros": BUILDS[lib] if lib else None,
+            "registers": registers(libs[lib][1], "row_pick_bf16") if lib else None,
+        }), flush=True)
+
+
+def g2_section(libs, dev, flush):
+    import torch.nn.functional as F
+
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+    from sparse_tpu_torch.kernels import _cuda
+
+    T, n_blocks = 8192, 285
+    rng = np.random.default_rng(1)  # g2's draws
+    table = torch.as_tensor(rng.random((T, 128), dtype=np.float32), device=dev)
+    cols = torch.as_tensor(rng.integers(0, T, size=(n_blocks * T,), dtype=np.int32), device=dev)
+    want = v2.row_pick_blocksum_plain(table, cols, T)
+    launchers, outs = {}, {}
+    plan = _cuda.row_pick_count_plan(T)
+    for name, lib_name in G2_VARIANTS.items():
+        lib = libs[lib_name][0]
+        out = torch.empty((n_blocks * 8, 128), device=dev)
+        if name == "rows":
+            go = row_gather(lib, table, cols, out, n_blocks, T, 8)
+        else:
+            partial = torch.empty((n_blocks, plan.n_slices, 128), device=dev)
+            tickets = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+            go = lambda lib=lib, out=out, partial=partial, tickets=tickets: lib.st_row_pick_counts(  # noqa: E731
+                table.data_ptr(), T, cols.data_ptr(), T, n_blocks, plan.height, plan.n_slices, out.data_ptr(),
+                partial.data_ptr(), tickets.data_ptr(), stream())
+        launchers[name], outs[name] = checked(go, f"g2 {name}"), out
+        launchers[name]()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, **PROBE_TOL, msg=lambda m, name=name: f"g2 {name}: {m}")
+        if name != "rows":
+            first = out.clone()
+            launchers[name]()
+            torch.cuda.synchronize()
+            if not torch.equal(out, first):
+                raise AssertionError(f"g2 {name}: two launches differ")
+    bags = cols.long().view(n_blocks, T)
+    launchers["embedding_bag"] = lambda: F.embedding_bag(bags, table, mode="sum")
+    rows = timed_in_turns(launchers, flush)
+    picks = n_blocks * T
+    bound_ms = (table.numel() * 4 + cols.numel() * 4 + n_blocks * 8 * ROW_BYTES) / HBM_BYTES_PER_S * 1e3
+    for name, row in rows.items():
+        lib = G2_VARIANTS.get(name)
+        counts = name.startswith("counts")
+        print(json.dumps({
+            "g2_variant": name,
+            **row,
+            "picked_bytes": picks * ROW_BYTES,
+            # the count form reads its rows from shared memory, the row gather through L2
+            ("smem_pick_tb_per_s" if counts else "l2_row_tb_per_s"): picks * ROW_BYTES / (row["ms"] * 1e-3) / 1e12,
+            "l2_index_bytes": plan.n_slices * cols.numel() * 4 if counts else None,
+            "plan": plan._asdict() if counts else None,
+            "bound_ms": bound_ms,
+            "bound_share": bound_ms / row["ms"],
+            "macros": BUILDS[lib] if lib else None,
+            "registers": registers(libs[lib][1], "row_pick_counts" if counts else "row_gather") if lib else None,
+        }), flush=True)
+
+    # what sets the count form's time: half the rows read (every index in
+    # the table's first half: the same scan) against twice the scan (twice
+    # the slices, of half the height: the same rows read)
+    lib = libs["default"][0]
+
+    def count_launch(idx, height, n_slices):
+        out = torch.empty((n_blocks * 8, 128), device=dev)
+        partial = torch.empty((n_blocks, n_slices, 128), device=dev)
+        tickets = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+        go = checked(lambda: lib.st_row_pick_counts(table.data_ptr(), T, idx.data_ptr(), T, n_blocks, height, n_slices,
+                                                    out.data_ptr(), partial.data_ptr(), tickets.data_ptr(), stream()),
+                     "g2 counts")
+        go()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, v2.row_pick_blocksum_plain(table, idx, T), **PROBE_TOL)
+        return go
+
+    low = cols % (T // 2)
+    half = -(-plan.height // 2)
+    diag = {
+        "counts": count_launch(cols, plan.height, plan.n_slices),
+        "half_rows_read": count_launch(low, plan.height, plan.n_slices),
+        "twice_the_scan": count_launch(cols, half, -(-T // half)),
+    }
+    times = timed_in_turns(diag, flush)
+    for name, row in times.items():
+        print(json.dumps({"g2_diagnostic": name, **row, "vs_counts": row["ms"] / times["counts"]["ms"],
+                          "slices": -(-T // half) if name == "twice_the_scan" else plan.n_slices}), flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_probes_ablation: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which not in ("p3", "g2", "all"):
+        print(f"chip_probes_ablation: unknown section {which!r}; p3, g2 or all", file=sys.stderr)
+        return 2
+    names = {
+        "p3": {lib for lib, _ in P3_VARIANTS.values()},
+        "g2": set(G2_VARIANTS.values()),
+        "all": set(BUILDS),
+    }[which]
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(pool.map(build, sorted(names)))
+    dev = torch.device("cuda")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    if which in ("p3", "all"):
+        p3_section(libs, dev, flush)
+    if which in ("g2", "all"):
+        g2_section(libs, dev, flush)
+    print(card_name_power())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

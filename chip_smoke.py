@@ -43,7 +43,10 @@ drives the port's two paths on the card:
   shape through the row-ELL layout (hi|lo and bf16 tables, blocks of 2048
   and 4096 slots) against a float64 oracle and beside K1, and the VMEM
   gather probes p1-p4 and g1-g3 at their own full sizes; each of the eight
-  kernels held against its plain version, and the card's gather rates.
+  kernels held against its plain version (g2's twice, bit for bit), and
+  the card's gather rates: p3's write rate beside ``out.zero_()`` on an
+  output of its size (the write ceiling), g2's shared-memory pick rate
+  beside its first route's whole-row L2 rate, both timed in this run.
 
 The launch counters show that each path ran its kernels; each kernel is
 timed beside its plain version, one library call on the same inputs
@@ -1433,8 +1436,13 @@ def phase_experiments_vs_plain(spmv, runs):
         want = v2.lane_gather_blocksum_plain(r.inputs["table"], r.inputs["idx"], T)
         errs[r.label] = check_close(f"lane_gather_blocksum {r.label}", r.outputs[0], want, PROBE_TOL)
     r = runs["g2"]
-    want = v2.row_pick_blocksum_plain(r.inputs["table"], r.inputs["cols"], r.inputs["table"].shape[0])
+    table, cols = r.inputs["table"], r.inputs["cols"]
+    want = v2.row_pick_blocksum_plain(table, cols, table.shape[0])
     errs["g2"] = check_close("row_pick_blocksum", r.outputs[0], want, PROBE_TOL)
+    again = v2.row_pick_blocksum(table, cols, table.shape[0])  # its sums in a fixed order: the same bits every launch
+    torch.cuda.synchronize()
+    if not torch.equal(again, r.outputs[0]):
+        raise AssertionError("row_pick_blocksum: two launches differ")
     r = runs["g3"]
     want = v2.pick_scale_wsum_plain(r.inputs["table"], r.inputs["cols2"], r.inputs["data2"])
     errs["g3"] = check_close("pick_scale_wsum", r.outputs[0], want, PROBE_TOL)
@@ -1469,12 +1477,14 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
 
     specs = []
 
-    def add(name, run, plain, library, note, tensors, whole_rows=False, more_bytes=0):
+    def add(name, run, plain, library, note, tensors, whole_rows=False, more_bytes=0, extra=None):
         """``tensors``: the inputs and outputs, each counted once in the bound,
         with ``more_bytes``; ``whole_rows``: the run picks n 512-byte table
-        rows through L2."""
+        rows through L2; ``extra``: a function of the kernel's ms giving more
+        fields of the run's line."""
         specs.append(
-            (name, run, plain, library, note, nbytes(*tensors) + more_bytes, run.n * L2_ROW_BYTES if whole_rows else None)
+            (name, run, plain, library, note, nbytes(*tensors) + more_bytes,
+             run.n * L2_ROW_BYTES if whole_rows else None, extra)
         )
 
     add("spmv_products", e1_run, lambda: e1.products_plain(x2h, fc, fd), None,
@@ -1492,8 +1502,23 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
     r = runs["p3"]
     strip3, idx3 = r.inputs["strip"], r.inputs["idx"]
     rounded, i3 = strip3.to(torch.bfloat16).float(), idx3.long()
+    # the card's write ceiling: out.zero_() on an output of p3's size
+    blank = torch.empty_like(r.outputs[0])
+    zero_ms = time_graph(blank.zero_)
+    del blank
+    written = r.outputs[0].numel() * 4
+
+    def p3_extra(ms):
+        return {
+            "write_tb_per_s": written / (ms * 1e-3) / 1e12,
+            "zero_ms": zero_ms,
+            "zero_write_tb_per_s": written / (zero_ms * 1e-3) / 1e12,
+            "ms_over_zero_ms": ms / zero_ms,
+            "strip_in_shared_memory": _cuda.row_pick_bf16_resident(strip3.shape[0]),
+        }
+
     add("row_pick_bf16", r, lambda: v.row_pick_bf16_plain(strip3, idx3), lambda: torch.index_select(rounded, 0, i3),
-        "torch.index_select on the strip rounded to bf16 beforehand", (strip3, idx3, r.outputs[0]))
+        "torch.index_select on the strip rounded to bf16 beforehand", (strip3, idx3, r.outputs[0]), extra=p3_extra)
     r = runs["p4"]
     xs, qi, qj = r.inputs["x"], r.inputs["qi"], r.inputs["qj"]
     flat = (qi.long() * xs.shape[1] + qj.long()).view(-1, 1024)
@@ -1506,10 +1531,29 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
             "none: no single PyTorch call gathers per lane and sums blocks", (table, idx, r.outputs[0]))
     r = runs["g2"]
     table2, cols = r.inputs["table"], r.inputs["cols"]
-    bags2 = cols.long().view(-1, table2.shape[0])
-    add("row_pick_blocksum", r, lambda: v2.row_pick_blocksum_plain(table2, cols, table2.shape[0]),
+    T2 = table2.shape[0]
+    bags2 = cols.long().view(-1, T2)
+    # the first port's route, every pick a 512-byte row read through L2 (E4's
+    # row gather): the card's whole-row L2 rate, beside the rate of picks served from shared memory
+    rows_out = torch.empty_like(r.outputs[0])
+    rows_ms = time_graph(lambda: _cuda.row_pick_blocksum(table2, cols, rows_out, T2, route="rows"))
+    check_close("row_pick_blocksum rows route", rows_out, v2.row_pick_blocksum_plain(table2, cols, T2), PROBE_TOL)
+    plan2 = _cuda.row_pick_count_plan(T2)
+    picked = r.n * L2_ROW_BYTES
+
+    def g2_extra(ms):
+        return {
+            "smem_pick_tb_per_s": picked / (ms * 1e-3) / 1e12,
+            "picked_bytes": picked,
+            "l2_index_bytes": plan2.n_slices * nbytes(cols),
+            "slice_plan": plan2._asdict(),
+            "rows_route_ms": rows_ms,
+            "rows_route_l2_tb_per_s": picked / (rows_ms * 1e-3) / 1e12,
+        }
+
+    add("row_pick_blocksum", r, lambda: v2.row_pick_blocksum_plain(table2, cols, T2),
         lambda: F.embedding_bag(bags2, table2, mode="sum"),
-        "F.embedding_bag(cols.view(285, 8192), table, mode='sum')", (table2, cols, r.outputs[0]), whole_rows=True)
+        "F.embedding_bag(cols.view(285, 8192), table, mode='sum')", (table2, cols, r.outputs[0]), extra=g2_extra)
     r = runs["g3"]
     table3, cols2, data2 = r.inputs["table"], r.inputs["cols2"], r.inputs["data2"]
     n_cells, _, w = cols2.shape
@@ -1526,7 +1570,7 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
         "cell add, regrouped beforehand", (table3, r.outputs[0]), whole_rows=True, more_bytes=r.n * 8)
 
     rows, seen = [], set()
-    for name, run, plain, library, note, nb, l2 in specs:
+    for name, run, plain, library, note, nb, l2, extra in specs:
         plain_ms = time_eager(plain, reps=3)
         library_ms = None if library is None else time_eager(library, reps=10)
         bound_ms = nb / HBM_BYTES_PER_S * 1e3
@@ -1557,6 +1601,7 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
                     "l2_tb_per_s": None if l2 is None else l2 / (run.ms * 1e-3) / 1e12,
                     "library_note": note,
                     **({"kernel_ms_bf16_table": e1_ms["bf16"]} if name == "spmv_products" else {}),
+                    **(extra(run.ms) if extra else {}),
                     "card": card,
                 }
             )

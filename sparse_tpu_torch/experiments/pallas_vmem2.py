@@ -9,7 +9,10 @@ as ``acc.reshape(64, 128, 128).sum(0)[:8]``. Each Pallas kernel stores its
 block's result in one (8, 128) output tile, g1 and g2 as 8 identical rows;
 the port keeps those shapes. Each function launches its CUDA kernel
 (``kernels/csrc/probes.cu``) for CUDA tensors and runs its plain PyTorch
-version for CPU tensors.
+version for CPU tensors. g1 and g3 read the table through L2; g2 reads it
+from slices held in shared memory, one a CTA, as the Pallas kernel picks
+from its VMEM-resident table: each block's picks of a slice's rows are
+counted, and the counts multiplied with the slice.
 
 Each runner keeps the probe's parameters and defaults, draws its inputs from
 the same seeds in the same order, runs the probe's own spot check (a failure
@@ -123,7 +126,12 @@ def g2(T=8192, n_blocks=285, label="g2", device=None):
     out = row_pick_blocksum(table, cols, T)
     exp = table.cpu().numpy()[cols[:T].cpu().numpy()].sum(axis=0)
     np.testing.assert_allclose(out[0].cpu().numpy(), exp, rtol=1e-4, err_msg=label)
-    ms = time_on_card(dev, lambda: _cuda.row_pick_blocksum(table, cols, out, T))
+    ms = None
+    if dev.type == "cuda":
+        n_slices = _cuda.row_pick_count_plan(T).n_slices
+        partial = torch.empty((n_blocks, n_slices, _cuda.PROBE_LANES), dtype=torch.float32, device=dev)
+        tickets = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+        ms = time_on_card(dev, lambda: _cuda.row_pick_blocksum(table, cols, out, T, partial, tickets))
     return Run(label, {"table": table, "cols": cols}, (out,), n_blocks * T, "M rows/s", ms)
 
 

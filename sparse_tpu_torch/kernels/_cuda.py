@@ -79,8 +79,10 @@ _SIGNATURES = {
         **{f"st_spmv_products_{t}": [_p, _i64, _p, _p, _i64, _p, _p] for t in ("hilo", "bf16")},
         "st_lane_gather": [_p, _p, _i64, _p, _p],
         "st_lane_gather_blocksum": [_p, _p, _i64, _i64, _p, _p, _p, _p],
-        "st_row_gather": [_p, _p, _p, *[_i64] * 10, _p, _p],
+        "st_row_gather": [_p, _p, _p, *[_i64] * 9, _p, _p],
         "st_scalar_gather_sum": [_p, _i64, _p, _p, _i64, _i64, _p, _p],
+        "st_row_pick_bf16": [_p, _i64, _p, _i64, _i64, _p, _p],
+        "st_row_pick_counts": [_p, _i64, _p, *[_i64] * 4, _p, _p, _p, _p],
     },
 }
 
@@ -927,9 +929,9 @@ def lane_gather_blocksum(table, idx, rows_per_block, out, partial, tickets):
 
 
 def _row_gather(name, table, idx, weights, out, out_shape, *, n_seg, seg_per_group=1, group_stride, r_stride=0,
-                n_g, g_stride=1, n_w=1, keep=1, copies=1, round_bf16=False):
-    """Launch the row gather of ``csrc/probes.cu`` for one of its four
-    functions (segment ``s``: group ``s // seg_per_group``, place ``r``; its
+                n_g, g_stride=1, n_w=1, keep=1, copies=1):
+    """Launch the row gather of ``csrc/probes.cu`` for p2, g3 or g2's first
+    route (segment ``s``: group ``s // seg_per_group``, place ``r``; its
     picked rows summed, stored ``copies`` times at ``(g · keep + r) · copies``
     when ``r < keep``), counted under ``name``."""
     device = idx.device
@@ -957,7 +959,6 @@ def _row_gather(name, table, idx, weights, out, out_shape, *, n_seg, seg_per_gro
         n_w,
         keep,
         copies,
-        int(round_bf16),
         out.data_ptr(),
         _stream(device),
     )
@@ -982,33 +983,151 @@ def row_gather_sum(strip, idx, out, seg_len):
     )
 
 
+# Shared memory one CTA of an H100 may take (the opt-in maximum), less a
+# reserve for the kernels' static shared memory: the budget of the two
+# probe kernels that hold their table there (csrc/probes.cu).
+SMEM_BLOCK_BYTES = 232_448 - 1024
+PROBE_ROW_BYTES = PROBE_LANES * 4
+# E5 (row_pick_bf16_kernel): chunks of PICK_TILE picks, stored out of a ring
+# of PICK_STAGES tiles; the strip is held as bf16 (256 bytes a row) when it
+# fits beside the ring (520 rows)
+PICK_TILE, PICK_STAGES = 64, 3
+
+
+def row_pick_bf16_resident(rows):
+    """True when E5's strip of ``rows`` rows, rounded to bf16, fits in one
+    CTA's shared memory beside the ring of output tiles."""
+    return rows * PROBE_ROW_BYTES // 2 + PICK_STAGES * PICK_TILE * PROBE_ROW_BYTES <= SMEM_BLOCK_BYTES
+
+
+class SlicePlan(NamedTuple):
+    height: int  # rows of every slice but the last
+    n_slices: int
+    smem_bytes: int  # dynamic shared memory of a CTA
+
+
+# E8 (row_pick_counts_kernel): per CTA a slice of the table and a row of
+# counts per warp (COUNT_WARPS warps, one block each), padded to 4 counts
+COUNT_WARPS = 16
+
+
+def _count_smem(height):
+    return height * PROBE_ROW_BYTES + COUNT_WARPS * -(-height // 4) * 16
+
+
+def row_pick_count_plan(rows):
+    """E8's slices of a table of ``rows`` rows: as few as fit one CTA's
+    shared memory each beside the counts, of even height (slice ``s`` holds
+    rows ``[s · height, min((s + 1) · height, rows))``)."""
+    if rows <= 0:
+        raise ValueError(f"row_pick_blocksum: a table of {rows} rows")
+    max_rows = SMEM_BLOCK_BYTES // (PROBE_ROW_BYTES + COUNT_WARPS * 4)
+    while _count_smem(max_rows) > SMEM_BLOCK_BYTES:
+        max_rows -= 1
+    n_slices = -(-rows // max_rows)
+    height = -(-rows // n_slices)
+    return SlicePlan(height, n_slices, _count_smem(height))
+
+
+def count_units(n_slices, n_blocks, grid):
+    """The (slice, block) pairs each CTA of E8's persistent grid of ``grid``
+    CTAs takes, as the kernel deals them: units ``u = s · n_groups + g``
+    (slice-major) of ``COUNT_WARPS`` blocks each, CTA ``i`` the units ``[i
+    U / grid, (i + 1) U / grid)``."""
+    n_groups = -(-n_blocks // COUNT_WARPS)
+    n_units = n_slices * n_groups
+    return [
+        [
+            (u // n_groups, b)
+            for u in range(n_units * i // grid, n_units * (i + 1) // grid)
+            for b in range(u % n_groups * COUNT_WARPS, min((u % n_groups + 1) * COUNT_WARPS, n_blocks))
+        ]
+        for i in range(grid)
+    ]
+
+
 def row_pick_bf16(strip, idx, out):
     """Launch E5 (``pallas_vmem.py:p3``): ``out[e] = f32(bf16(strip))[idx[e],
     :]``; ``strip`` float32 ``(rows, 128)``, ``idx`` int32 ``(n,)``, ``out``
-    float32 ``(n, 128)``."""
+    float32 ``(n, 128)``. The caller guarantees every index in range."""
+    device = idx.device
+    require_cuda(device, "probe")
+    _check_probe_table("strip", strip, device)
+    _check("idx", idx, torch.int32, device)
+    _check("out", out, torch.float32, device)
     n = _segments_of("row_pick_bf16", idx, 1)
-    return _row_gather(
-        "row_pick_bf16", strip, idx, None, out, (n, PROBE_LANES), n_seg=n, group_stride=1, n_g=1, round_bf16=True
+    if out.shape != (n, PROBE_LANES):
+        raise ValueError(f"row_pick_bf16: out of shape {tuple(out.shape)}, expected {(n, PROBE_LANES)}")
+    _check_aligned(strip=strip, out=out)
+    if n == 0:
+        return out
+    resident = row_pick_bf16_resident(strip.shape[0])
+    err = load("probes").st_row_pick_bf16(
+        strip.data_ptr(), strip.shape[0], idx.data_ptr(), n, int(resident), out.data_ptr(), _stream(device)
     )
+    _raise_on(err, "row_pick_bf16")
+    LAUNCHES["row_pick_bf16"] += 1
+    return out
 
 
-def row_pick_blocksum(table, cols, out, rows_per_block):
+def row_pick_blocksum(table, cols, out, rows_per_block, partial=None, tickets=None, route="counts"):
     """Launch E8 (``pallas_vmem2.py:g2``): ``out[8b + c] = Σ_{t < T}
     table[cols[bT + t], :]`` for ``c < 8``, ``T = rows_per_block``; ``out``
-    float32 ``(n_blocks · 8, 128)``."""
+    float32 ``(n_blocks · 8, 128)``. The caller guarantees every index in
+    range.
+
+    ``route="counts"``: from table slices in shared memory, each block's
+    picks counted and the counts multiplied with the slice
+    (``row_pick_counts_kernel``), with scratch ``partial`` float32
+    ``(n_blocks, n_slices, 128)`` and ``tickets`` int32 ``(n_blocks,)``, zero
+    before the launch (each launch leaves it zero); both are made here when
+    not given. ``route="rows"``: the first port, every pick a row read
+    through L2 (E4's row gather, counted under ``row_gather_sum``), kept to
+    measure the card's whole-row L2 rate beside the slices'."""
     n_blocks = _segments_of("row_pick_blocksum", cols, rows_per_block)
-    return _row_gather(
-        "row_pick_blocksum",
-        table,
-        cols,
-        None,
-        out,
-        (n_blocks * 8, PROBE_LANES),
-        n_seg=n_blocks,
-        group_stride=rows_per_block,
-        n_g=rows_per_block,
-        copies=8,
+    out_shape = (n_blocks * 8, PROBE_LANES)
+    if route == "rows":
+        return _row_gather(
+            "row_gather_sum", table, cols, None, out, out_shape, n_seg=n_blocks, group_stride=rows_per_block,
+            n_g=rows_per_block, copies=8,
+        )
+    if route != "counts":
+        raise ValueError(f"row_pick_blocksum: route {route!r}, expected 'counts' or 'rows'")
+    device = cols.device
+    require_cuda(device, "probe")
+    _check_probe_table("table", table, device)
+    _check("cols", cols, torch.int32, device)
+    _check("out", out, torch.float32, device)
+    if out.shape != out_shape:
+        raise ValueError(f"row_pick_blocksum: out of shape {tuple(out.shape)}, expected {out_shape}")
+    if n_blocks == 0:
+        return out
+    plan = row_pick_count_plan(table.shape[0])
+    if partial is None:
+        partial = torch.empty((n_blocks, plan.n_slices, PROBE_LANES), dtype=torch.float32, device=device)
+    if tickets is None:
+        tickets = zeroed_tickets(device, n_blocks)
+    _check("partial", partial, torch.float32, device)
+    _check("tickets", tickets, torch.int32, device)
+    if partial.shape != (n_blocks, plan.n_slices, PROBE_LANES) or tickets.numel() < n_blocks:
+        raise ValueError("row_pick_blocksum: partial or tickets do not match the blocks and the slices")
+    _check_aligned(table=table, out=out, partial=partial)
+    err = load("probes").st_row_pick_counts(
+        table.data_ptr(),
+        table.shape[0],
+        cols.data_ptr(),
+        rows_per_block,
+        n_blocks,
+        plan.height,
+        plan.n_slices,
+        out.data_ptr(),
+        partial.data_ptr(),
+        tickets.data_ptr(),
+        _stream(device),
     )
+    _raise_on(err, "row_pick_blocksum")
+    LAUNCHES["row_pick_blocksum"] += 1
+    return out
 
 
 # pallas_vmem2.py:g3 folds each cell's (T, 128) accumulator as

@@ -2,31 +2,34 @@
 // plain C interface for ctypes. Built by sparse_tpu_torch/kernels/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 //
-// Four kernels serve the eight Pallas functions they replace:
+// Six kernels serve the eight Pallas functions they replace:
 // 1. spmv_products_kernel<HILO>      experiments/pallas_spmv_onehot.py:products_kernel (E1)
 // 2. lane_gather_kernel<BLOCKSUM>    experiments/pallas_vmem.py:p1 (E3), pallas_vmem2.py:g1 (E7)
-// 3. row_gather_kernel<ROUND, WEIGHTED>
-//                                    pallas_vmem.py:p2 (E4), p3 (E5), pallas_vmem2.py:g2 (E8), g3 (E9)
+// 3. row_gather_kernel<WEIGHTED>     pallas_vmem.py:p2 (E4), pallas_vmem2.py:g3 (E9); g2's first route
 // 4. scalar_gather_sum_kernel        pallas_vmem.py:p4 (E6)
+// 5. row_pick_bf16_kernel<RESIDENT>  pallas_vmem.py:p3 (E5)
+// 6. row_pick_counts_kernel<ALIGNED> pallas_vmem2.py:g2 (E8)
 //
 // On the TPU each function keeps its table resident in VMEM (the 512 x 128
 // f32 table and E1's 512 x 256 bf16 hi|lo table are 256 KB, the 8192 x 128
 // strip 4 MB) and picks from it with a one-hot MXU product, Mosaic's sublane
 // gather or scalar loads. A block of this card has at most 227 KB of shared
-// memory, so these kernels read the table from global memory, where it stays
+// memory, so kernels 1-4 read the table from global memory, where it stays
 // in the 50 MB L2 between picks: what they measure is the card's L2 gather
-// rate. A one-hot pick is exact (one 1 in the row, the rest adds zeros), so
-// every pick here is a direct load, and E1 and p3 give the TPU function's
-// values bit for bit.
+// rate. Kernels 5 and 6 hold the table in shared memory: p3's strip rounded
+// to bf16 (128 KB) whole, g2's table in row slices, one a CTA. A one-hot
+// pick is exact (one 1 in the row, the rest adds zeros), so every pick here
+// is a direct load, and E1 and p3 give the TPU function's values bit for bit.
 //
 // Bound on this card: bytes. Each function reads its indices (and values)
-// once and writes its output once; the table's bytes come from L2 many times
-// over (p2, g2 and g3 read 512-byte rows: 67 MB, 1.2 GB and 74 MB a call).
-// That L2 traffic is the rate these probes exist to measure.
+// once and writes its output once; the table's bytes come from L2 (or
+// shared memory) many times over (p2, g2 and g3 read 512-byte rows: 67 MB,
+// 1.2 GB and 74 MB a call). That traffic is the rate these probes measure.
 //
 // No sum uses atomics. A long segment is cut over the warps of one CTA (row
-// gather) or over CTAs whose partial sums the last CTA of the block adds in
-// order (lane gather block sum), so every result is deterministic.
+// gather) or over CTAs whose partial sums the CTA that takes the block's
+// last ticket adds in order (lane gather block sum, g2's count form), so
+// every result is deterministic.
 //
 // Every table is (rows, 128) f32, the TPU's lane width, except E1's bf16
 // table. The launchers in _cuda.py check shapes, dtypes, contiguity and the
@@ -35,6 +38,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -144,8 +149,8 @@ __global__ void __launch_bounds__(kThreads)
 // rows is stored, in `copies` identical rows, at output row
 // (g * keep + r) * copies when r < keep.
 //   p2: segments of per_step consecutive indices         (seg_per_group 1, n_g per_step, keep 1, copies 1)
-//   p3: one index per segment, the table rounded to bf16 (n_g 1)
-//   g2: segments of T consecutive indices, 8 copies      (n_g T, copies 8)
+//   g2: segments of T consecutive indices, 8 copies      (n_g T, copies 8; its first
+//       route, kept to measure the whole-row L2 rate beside the slices)
 //   g3: cell i, place r < 8: the picks t = 128 g' + r, w < W of the cell's
 //       (T, W) weighted layout, which acc.reshape(64, 128, 128).sum(0)[:8]
 //       adds into kept row r                    (seg_per_group 8, n_g 64, n_w W, keep 8)
@@ -170,7 +175,7 @@ __device__ __forceinline__ float4 round_bf16(float4 v) {
 // weight), then the warp broadcasts them with shuffles, so up to 32 row reads
 // are in flight without a dependent index load before each. The wps partial
 // rows are added in warp order through shared memory.
-template <bool ROUND, bool WEIGHTED>
+template <bool WEIGHTED>
 __global__ void __launch_bounds__(kThreads)
     row_gather_kernel(const float* __restrict__ table, const int* __restrict__ idx, const float* __restrict__ weights,
                       Segments sg, int wps, float* __restrict__ out) {
@@ -201,8 +206,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 8
       for (int t = 0; t < n; ++t) {
         const long long rt = __shfl_sync(0xffffffffu, row, t);
-        float4 v = __ldg(&tab[rt * (kLanes / 4) + lane]);
-        if (ROUND) v = round_bf16(v);
+        const float4 v = __ldg(&tab[rt * (kLanes / 4) + lane]);
         if (WEIGHTED) {
           const float st = __shfl_sync(0xffffffffu, wt, t);
           acc.x = fmaf(st, v.x, acc.x);
@@ -262,6 +266,299 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Bulk stores from shared memory (E5).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// this thread's generic-proxy writes to shared memory, ordered before the
+// async proxy's reads of them (a bulk store issued after a barrier)
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// at most N of this thread's bulk groups still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------------------
+// E5 (p3): out[e, :] = f32(bf16(strip))[idx[e], :].
+//
+// Bound: bytes, nearly all of them the output (2^21 picks x 512 bytes =
+// 1.07 GB written at the probe's size, against 8 MB of indices). The first
+// port (the row gather, one pick a warp, 262,144 short-lived CTAs) wrote
+// 512-byte pieces with little in flight and reached 1.40 TB/s. Here:
+// - A persistent grid (the CTAs the card holds at once: one an SM when the
+//   strip is resident) walks chunks of kPickTile consecutive picks, chunk c
+//   = blockIdx.x + k * gridDim.x.
+// - RESIDENT: each CTA rounds the strip to bf16 once and holds it in shared
+//   memory (rows x 256 bytes: 128 KB at 512 rows), 4 bf16 a lane; a pick
+//   widens them back to float32 (exact: a 16-bit shift). Otherwise (a strip
+//   too tall for shared memory beside the ring) each pick reads its float32
+//   row from global memory (L2) and rounds it, on the same write path.
+// - Each warp takes kPickTile / 8 picks of a chunk: its lanes 0-7 load the
+//   indices one chunk ahead, a shuffle hands each to the warp, whose 32
+//   lanes write the row's 512 bytes into the chunk's tile in shared memory.
+// - One thread stores the whole tile (kPickTile x 512 bytes: 32 KB) with one
+//   cp.async.bulk store, out of a ring of kPickStages tiles. Before the
+//   barrier that ends a chunk it waits (wait_group.read) until the store that
+//   last used the next tile has read it, so while the warps fill a tile up
+//   to kPickStages - 1 whole, contiguous tile stores are in flight.
+// On an H100 this writes at 1.12 x the time of out.zero_() on the same
+// output; the strip through L2 costs 1.5 %, direct st.global.cs stores from
+// registers 4.6 %, 32-pick tiles 9 %, a ring of 2 nothing
+// (chip_probes_ablation.py builds the PICK_* macros; PERF.md).
+
+#ifndef PICK_TILE
+#define PICK_TILE 64
+#endif
+#ifndef PICK_STAGES
+#define PICK_STAGES 3
+#endif
+
+constexpr int kPickTile = PICK_TILE;  // picks a chunk
+constexpr int kPickStages = PICK_STAGES;
+constexpr int kPickPerWarp = kPickTile / kWarps;
+constexpr int kRowBytes = kLanes * 4;
+static_assert(kPickTile % kWarps == 0 && kPickPerWarp <= 32, "a warp's picks are held by its lanes");
+static_assert(kPickStages >= 2, "the ring needs two tiles");
+
+// four float32 values rounded to bf16 (to nearest even), two a word
+__device__ __forceinline__ uint2 pack_bf16(float4 v) {
+  const __nv_bfloat162 lo = __float22bfloat162_rn(make_float2(v.x, v.y));
+  const __nv_bfloat162 hi = __float22bfloat162_rn(make_float2(v.z, v.w));
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+__device__ __forceinline__ float4 unpack_bf16(uint2 p) {
+  return make_float4(__uint_as_float(p.x << 16), __uint_as_float(p.x & 0xffff0000u), __uint_as_float(p.y << 16),
+                     __uint_as_float(p.y & 0xffff0000u));
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(kThreads, 1)
+    row_pick_bf16_kernel(const float* __restrict__ strip, long long n_tab_rows, const int* __restrict__ idx,
+                         long long n, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint2* table = reinterpret_cast<uint2*>(smem);  // RESIDENT: row r, lane l at r * 32 + l
+  float4* ring = reinterpret_cast<float4*>(smem + (RESIDENT ? n_tab_rows * (kRowBytes / 2) : 0));
+  const float4* strip4 = reinterpret_cast<const float4*>(strip);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (RESIDENT) {
+    for (long long i = threadIdx.x; i < n_tab_rows * 32; i += kThreads) table[i] = pack_bf16(__ldg(&strip4[i]));
+    __syncthreads();
+  }
+  const long long n_chunks = (n + kPickTile - 1) / kPickTile;
+  auto chunk_indices = [&](long long c) {  // lanes 0 .. kPickPerWarp - 1: this warp's picks of chunk c
+    const long long e = c * kPickTile + warp * kPickPerWarp + lane;
+    return (c < n_chunks && lane < kPickPerWarp && e < n) ? __ldg(&idx[e]) : 0;
+  };
+  int next = chunk_indices(blockIdx.x);
+  int it = 0;
+  for (long long c = blockIdx.x; c < n_chunks; c += gridDim.x, ++it) {
+    const int mine = next;
+    next = chunk_indices(c + gridDim.x);
+    const long long e0 = c * kPickTile;
+    const int picks = n - e0 < kPickTile ? (int)(n - e0) : kPickTile;
+    float4* tile = ring + (it % kPickStages) * (kPickTile * 32);
+#pragma unroll
+    for (int i = 0; i < kPickPerWarp; ++i) {
+      const int p = warp * kPickPerWarp + i;
+      const long long r = __shfl_sync(0xffffffffu, mine, i);
+      if (p < picks) {
+        const float4 v = RESIDENT ? unpack_bf16(table[r * 32 + lane]) : round_bf16(__ldg(&strip4[r * 32 + lane]));
+        tile[p * 32 + lane] = v;
+      }
+    }
+    fence_async_shared();
+    if (threadIdx.x == 0) bulk_wait_read<kPickStages - 2>();  // the tile the next chunk fills is read out
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      bulk_store(out4 + e0 * 32, tile, (uint32_t)picks * kRowBytes);
+      bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------------------
+// E8 (g2): out[8b + c, :] = sum over t < T of table[cols[b T + t], :], c < 8.
+//
+// Bound: bytes (the table, the indices and the output once: 13.7 MB at the
+// probe's size). The first port (the row gather) picked every row through
+// L2: 1.2 GB a call at the card's whole-row rate, about 7 TB/s. Within a
+// block each row is picked about once, so a block reuses nothing; across
+// blocks each row is picked 285 times. So the table is cut into n_slices
+// slices of `height` rows that fit one CTA's shared memory beside the
+// counts below (_cuda.row_pick_count_plan: 391 rows, 196 KB, 21 slices at
+// T = 8192), and the rows are read from there:
+// - Units (slice s, group g of kCountWarps blocks), u = s * n_groups + g
+//   (slice-major). A persistent grid (one CTA an SM) gives CTA i the units
+//   [i U / G, (i + 1) U / G), so it loads one or two slices.
+// - In a unit, warp w takes block g * kCountWarps + w alone. It streams the
+//   block's indices into registers (an int4 a lane, four scalar loads where
+//   T is no multiple of 4), kCountDepth steps ahead across units, and counts
+//   how often each row of the slice is picked: a histogram in shared memory
+//   (integer atomics, so exact in any order). Then it forms sum over rows r
+//   of count[r] * slice[r] in row order, a hand-written float32 product of
+//   the counts with the slice (a lane holds 4 columns), and stores it as
+//   partial[b, s]. The warp that takes block b's last ticket adds the
+//   n_slices partials in slice order, stores the 8 copies and sets the
+//   ticket back to 0. One launch, the same bits every launch; the warps
+//   share nothing but the slice and meet only where the CTA changes slices.
+// L2 carries n_slices x the indices (196 MB at the probe's size) and each
+// CTA's slices once, instead of 1.2 GB of rows. A first form (the same
+// slices; per index that hit the slice, a shuffle, then the whole warp's
+// row load and add) ran 1.5 x slower on an H100: each such pick was a chain
+// of latencies that no loop could overlap (PERF.md).
+
+#ifndef COUNT_DEPTH
+#define COUNT_DEPTH 4
+#endif
+constexpr int kCountWarps = 16;  // blocks a unit: one a warp
+constexpr int kCountThreads = kCountWarps * 32;
+constexpr int kCountDepth = COUNT_DEPTH;  // index steps in flight a warp
+constexpr int kScanStep = 128;            // indices a warp takes a step: an int4 a lane
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+template <bool ALIGNED>
+__global__ void __launch_bounds__(kCountThreads, 1)
+    row_pick_counts_kernel(const float* __restrict__ table, long long n_tab_rows, const int* __restrict__ cols,
+                           long long T, long long n_blocks, int height, int n_slices, float* __restrict__ out,
+                           float* __restrict__ partial, int* __restrict__ tickets) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = (height + 3) & ~3;  // counts a warp, 16-byte rows
+  float4* slice = reinterpret_cast<float4*>(smem);
+  unsigned* counts = reinterpret_cast<unsigned*>(smem + (size_t)height * kRowBytes) + warp * stride;
+  const long long n_groups = (n_blocks + kCountWarps - 1) / kCountWarps;
+  const long long n_units = (long long)n_slices * n_groups;
+  const long long u0 = n_units * blockIdx.x / gridDim.x, u1 = n_units * (blockIdx.x + 1) / gridDim.x;
+  const int Ti = (int)T;
+  const int steps = (Ti + kScanStep - 1) / kScanStep;  // a warp's steps a unit
+  long long fg = u0 % n_groups, f_left = (u1 - u0) * steps;  // the fetch cursor, kCountDepth steps ahead
+  int fk = 0;
+  auto fetch = [&]() {
+    int4 c4 = make_int4(0, 0, 0, 0);
+    if (f_left > 0) {
+      const long long b = fg * kCountWarps + warp;
+      const int i = fk * kScanStep + 4 * lane;
+      if (b < n_blocks) {
+        const int* src = cols + b * T + i;
+        if (ALIGNED) {
+          if (i < Ti) c4 = __ldg(reinterpret_cast<const int4*>(src));
+        } else {
+          if (i < Ti) c4.x = __ldg(src);
+          if (i + 1 < Ti) c4.y = __ldg(src + 1);
+          if (i + 2 < Ti) c4.z = __ldg(src + 2);
+          if (i + 3 < Ti) c4.w = __ldg(src + 3);
+        }
+      }
+      --f_left;
+      if (++fk == steps) {
+        fk = 0;
+        if (++fg == n_groups) fg = 0;
+      }
+    }
+    return c4;
+  };
+  int4 ring[kCountDepth];
+#pragma unroll
+  for (int d = 0; d < kCountDepth; ++d) ring[d] = fetch();
+  const float4* table4 = reinterpret_cast<const float4*>(table);
+  const float4* p4 = reinterpret_cast<const float4*>(partial);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  long long s = u0 / n_groups, g = u0 - s * n_groups, held = -1;  // the unit's slice and group; the slice held
+  int lo = 0, h = 0;
+  for (long long j = 0; u0 + j < u1; ++j) {
+    if (s != held) {
+      __syncthreads();  // every warp is done with the old slice
+      lo = (int)(s * height);
+      h = n_tab_rows - lo < height ? (int)(n_tab_rows - lo) : height;
+      const float4* src = table4 + (long long)lo * 32;
+#pragma unroll 8
+      for (int q = threadIdx.x; q < h * 32; q += kCountThreads) slice[q] = __ldg(&src[q]);
+      __syncthreads();
+      held = s;
+    }
+    const long long b = g * kCountWarps + warp;
+    const bool live = b < n_blocks;  // alike in the warp
+    for (int q = lane; q < stride; q += 32) counts[q] = 0;
+    __syncwarp();
+    for (int k = 0; k < steps; ++k) {
+      const int4 c4 = ring[0];
+#pragma unroll
+      for (int d = 0; d + 1 < kCountDepth; ++d) ring[d] = ring[d + 1];
+      ring[kCountDepth - 1] = fetch();
+      const int i = k * kScanStep + 4 * lane;
+      const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned rel = (unsigned)(cs[q] - lo);
+        if (live && i + q < Ti && rel < (unsigned)h) atomicAdd(&counts[rel], 1u);
+      }
+    }
+    __syncwarp();
+    if (live) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int r0 = 0; r0 < h; r0 += 4) {
+        const uint4 c4 = *reinterpret_cast<const uint4*>(counts + r0);  // rows past h count 0
+        const unsigned cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (cs[q]) {  // alike in the warp
+            const float c = (float)cs[q];
+            const float4 v = slice[(r0 + q) * 32 + lane];
+            acc.x = fmaf(c, v.x, acc.x);
+            acc.y = fmaf(c, v.y, acc.y);
+            acc.z = fmaf(c, v.z, acc.z);
+            acc.w = fmaf(c, v.w, acc.w);
+          }
+        }
+      }
+      reinterpret_cast<float4*>(partial)[(b * n_slices + s) * 32 + lane] = acc;
+      __threadfence();  // the partial is visible to the block's last warp before this one's ticket
+      __syncwarp();
+      int last = 0;
+      if (lane == 0) last = atomicAdd(&tickets[b], 1) == n_slices - 1;
+      if (__shfl_sync(0xffffffffu, last, 0)) {
+        __threadfence();
+        const float4* pb = p4 + b * n_slices * 32 + lane;
+        float4 tot = __ldcg(pb);
+        int k = 1;
+        for (; k + 4 <= n_slices; k += 4) {  // four loads in flight, added in slice order
+          const float4 a = __ldcg(pb + k * 32), c = __ldcg(pb + (k + 1) * 32), d = __ldcg(pb + (k + 2) * 32),
+                       e = __ldcg(pb + (k + 3) * 32);
+          add4(tot, a);
+          add4(tot, c);
+          add4(tot, d);
+          add4(tot, e);
+        }
+        for (; k < n_slices; ++k) add4(tot, __ldcg(pb + k * 32));
+#pragma unroll
+        for (int c = 0; c < 8; ++c) out4[(b * 8 + c) * 32 + lane] = tot;
+        if (lane == 0) tickets[b] = 0;
+      }
+    }
+    if (++g == n_groups) {
+      g = 0;
+      ++s;
+    }
+  }
+}
+
 template <bool HILO>
 int launch_spmv_products(const void* x2, long long n_tab_rows, const void* cols, const void* data, long long n,
                          void* out, void* stream) {
@@ -271,16 +568,32 @@ int launch_spmv_products(const void* x2, long long n_tab_rows, const void* cols,
   return (int)cudaGetLastError();
 }
 
-template <bool ROUND, bool WEIGHTED>
+template <bool WEIGHTED>
 int launch_row_gather(const void* table, const void* idx, const void* weights, const Segments& sg, void* out,
                       void* stream) {
   const int wps = (WEIGHTED || sg.n_g * sg.n_w >= 1024) ? kWarps : 1;
   const long long per_cta = kWarps / wps;
   const long long blocks = (sg.n_seg + per_cta - 1) / per_cta;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  row_gather_kernel<ROUND, WEIGHTED><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  row_gather_kernel<WEIGHTED><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int*)idx, (const float*)weights, sg, wps, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// A persistent grid of `kernel`: the CTAs the card holds at once with
+// `threads` threads and `smem` bytes of dynamic shared memory, at most `want`.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, long long want, long long* grid) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long cap = (long long)sms * per_sm;
+  *grid = want < cap ? want : cap;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -318,15 +631,11 @@ int st_lane_gather_blocksum(const void* table, const void* idx, long long n_bloc
 
 int st_row_gather(const void* table, const void* idx, const void* weights, long long n_seg, long long seg_per_group,
                   long long group_stride, long long r_stride, long long n_g, long long g_stride, long long n_w,
-                  long long keep, long long copies, long long round_bf16, void* out, void* stream) {
+                  long long keep, long long copies, void* out, void* stream) {
   if (n_seg == 0) return 0;
   const Segments sg{n_seg, seg_per_group, group_stride, r_stride, n_g, g_stride, n_w, keep, copies};
-  if (weights != nullptr) {
-    return round_bf16 ? launch_row_gather<true, true>(table, idx, weights, sg, out, stream)
-                      : launch_row_gather<false, true>(table, idx, weights, sg, out, stream);
-  }
-  return round_bf16 ? launch_row_gather<true, false>(table, idx, weights, sg, out, stream)
-                    : launch_row_gather<false, false>(table, idx, weights, sg, out, stream);
+  return weights != nullptr ? launch_row_gather<true>(table, idx, weights, sg, out, stream)
+                            : launch_row_gather<false>(table, idx, weights, sg, out, stream);
 }
 
 int st_scalar_gather_sum(const void* x, long long n_x_cols, const void* qi, const void* qj, long long n_seg,
@@ -335,6 +644,44 @@ int st_scalar_gather_sum(const void* x, long long n_x_cols, const void* qi, cons
   if (n_seg > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   scalar_gather_sum_kernel<<<(unsigned)n_seg, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, n_x_cols, (const int*)qi, (const int*)qj, seg_len, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// E5: the strip held in shared memory (resident != 0; the launcher's plan,
+// _cuda.row_pick_bf16_resident) or read from L2.
+int st_row_pick_bf16(const void* strip, long long n_tab_rows, const void* idx, long long n, long long resident,
+                     void* out, void* stream) {
+  if (n == 0) return 0;
+  const size_t ring = (size_t)kPickStages * kPickTile * kRowBytes;
+  const size_t smem = ring + (resident ? (size_t)n_tab_rows * (kRowBytes / 2) : 0);
+  auto kernel = resident ? row_pick_bf16_kernel<true> : row_pick_bf16_kernel<false>;
+  long long grid = 0;
+  cudaError_t err = persistent_grid(kernel, kThreads, smem, (n + kPickTile - 1) / kPickTile, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)grid, kThreads, smem, (cudaStream_t)stream>>>((const float*)strip, n_tab_rows, (const int*)idx,
+                                                                   n, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// E8: slices of `height` rows (the last may be shorter), n_slices of them
+// (_cuda.row_pick_count_plan); partial (n_blocks, n_slices, 128) scratch,
+// tickets (n_blocks,) zero before and after.
+int st_row_pick_counts(const void* table, long long n_tab_rows, const void* cols, long long T, long long n_blocks,
+                       long long height, long long n_slices, void* out, void* partial, void* tickets, void* stream) {
+  if (n_blocks == 0) return 0;
+  if (height <= 0 || n_slices <= 0 || T <= 0 || (n_slices - 1) * height >= n_tab_rows ||
+      n_slices * height < n_tab_rows || n_tab_rows > 0x7fffffffLL || T > 0x7fffffffLL - kScanStep)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)height * kRowBytes + (size_t)kCountWarps * ((height + 3) & ~3LL) * 4;
+  const bool aligned = T % 4 == 0 && (reinterpret_cast<uintptr_t>(cols) & 15) == 0;
+  auto kernel = aligned ? row_pick_counts_kernel<true> : row_pick_counts_kernel<false>;
+  const long long n_units = n_slices * ((n_blocks + kCountWarps - 1) / kCountWarps);
+  long long grid = 0;
+  cudaError_t err = persistent_grid(kernel, kCountThreads, smem, n_units, &grid);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)grid, kCountThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)table, n_tab_rows, (const int*)cols, T, n_blocks, (int)height, (int)n_slices, (float*)out,
+      (float*)partial, (int*)tickets);
   return (int)cudaGetLastError();
 }
 

@@ -327,3 +327,48 @@ def test_run_rate_in_the_probes_units():
     assert common.Run("p", {}, (), 2_000_000_000, "G gathers/s", 1.0).rate == pytest.approx(2000.0)
     assert common.Run("p", {}, (), 1, "M loads/s", None).rate is None
     assert common.time_on_card(torch.device(CPU), lambda: None) is None
+
+
+# ------------------------------------------------------------------ E5 and E8 plans
+@pytest.mark.parametrize("rows", [1, 37, 391, 401, 402, 2000, 8192, 100_000])
+def test_row_pick_count_plan_covers_the_table_once_within_shared_memory(rows):
+    plan = _cuda.row_pick_count_plan(rows)
+    bounds = [(s * plan.height, min((s + 1) * plan.height, rows)) for s in range(plan.n_slices)]
+    assert all(hi > lo for lo, hi in bounds)  # no slice is empty
+    held = np.concatenate([np.arange(lo, hi) for lo, hi in bounds])
+    assert np.array_equal(held, np.arange(rows))  # every row in exactly one slice
+    # the slice and a row of counts a warp, padded to 16 bytes
+    counts = _cuda.COUNT_WARPS * -(-plan.height // 4) * 16
+    assert plan.smem_bytes == plan.height * _cuda.PROBE_ROW_BYTES + counts <= _cuda.SMEM_BLOCK_BYTES
+    # as few slices as fit: 401 rows do, 402 do not
+    assert plan.n_slices == -(-rows // 401)
+
+
+@pytest.mark.parametrize("n_slices,n_blocks,grid", [(21, 285, 132), (250, 3, 132), (1, 1, 1), (21, 1, 21), (3, 40, 7)])
+def test_count_units_cover_every_slice_and_block_once(n_slices, n_blocks, grid):
+    units = _cuda.count_units(n_slices, n_blocks, grid)
+    flat = [u for cta in units for u in cta]
+    assert sorted(flat) == [(s, b) for s in range(n_slices) for b in range(n_blocks)]
+    assert len(flat) == len(set(flat))
+    groups = [len({(s, b // _cuda.COUNT_WARPS) for s, b in cta}) for cta in units]
+    assert max(groups) - min(groups) <= 1  # units of COUNT_WARPS blocks, balanced
+    # a CTA's units are slice-major, so it holds each of its slices once
+    for cta in units:
+        slices = [s for s, _ in cta]
+        assert slices == sorted(slices)
+
+
+def test_row_pick_bf16_strip_resident_up_to_the_budget():
+    assert _cuda.row_pick_bf16_resident(512)  # the probe's strip
+    assert _cuda.row_pick_bf16_resident(520) and not _cuda.row_pick_bf16_resident(521)
+    assert not _cuda.row_pick_bf16_resident(8192)
+    ring = _cuda.PICK_STAGES * _cuda.PICK_TILE * _cuda.PROBE_ROW_BYTES
+    assert 520 * _cuda.PROBE_ROW_BYTES // 2 + ring <= _cuda.SMEM_BLOCK_BYTES
+
+
+def test_row_pick_blocksum_launcher_takes_only_its_routes():
+    table, cols = torch.zeros((8, 128)), torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="route"):
+        _cuda.row_pick_blocksum(table, cols, torch.empty((16, 128)), 8, route="slices")
+    with pytest.raises(ValueError, match="CUDA device"):
+        _cuda.row_pick_blocksum(table, cols, torch.empty((16, 128)), 8)

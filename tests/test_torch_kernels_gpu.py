@@ -891,27 +891,55 @@ def test_row_gather_sum_kernel_matches_plain(cuda, strip_h, n_seg, per_step):
     torch.testing.assert_close(got, v.row_gather_sum_plain(strip, idx, per_step), **PROBE_SUMS)
 
 
-@pytest.mark.parametrize("strip_h,n", [(512, 4096), (8192, 37), (3, 1)])
+# strips held in shared memory (up to 520 rows) with n off the 64-pick tile,
+# over many chunks a CTA, and none; strips read through L2 (521, 8192 rows)
+@pytest.mark.parametrize(
+    "strip_h,n",
+    [(512, 4096), (8192, 37), (3, 1), (512, 37), (512, 1), (512, 0), (520, 132 * 64 * 3 + 5), (521, 1000), (8192, 0)],
+)
 def test_row_pick_bf16_kernel_equals_plain(cuda, strip_h, n):
     from sparse_tpu_torch.experiments import pallas_vmem as v
 
     rng = _probe_gen(n)
     strip = torch.as_tensor(rng.standard_normal((strip_h, 128), dtype=np.float32), device=cuda)
     idx = _ints(rng, strip_h, n, cuda)
+    _cuda.reset_launch_counts()
     got = v.row_pick_bf16(strip, idx)
     torch.cuda.synchronize()
-    assert torch.equal(got, v.row_pick_bf16_plain(strip, idx))
+    assert _cuda.LAUNCHES["row_pick_bf16"] == (n > 0)
+    assert _cuda.row_pick_bf16_resident(strip_h) == (strip_h <= 520)
+    assert got.shape == (n, 128) and torch.equal(got, v.row_pick_bf16_plain(strip, idx))
 
 
-@pytest.mark.parametrize("T,n_blocks", [(8192, 3), (2000, 2), (37, 5)])
-def test_row_pick_blocksum_kernel_matches_plain(cuda, T, n_blocks):
+# T off 32 and off the slice height; a table of 250 slices, more than one
+# wave of CTAs; a single block
+@pytest.mark.parametrize(
+    "T,n_blocks,table_h",
+    [(8192, 3, 8192), (2000, 2, 2000), (37, 5, 37), (37, 7, 2000), (64, 3, 100_000), (8192, 1, 8192), (5, 1, 3)],
+)
+def test_row_pick_blocksum_kernel_matches_plain(cuda, T, n_blocks, table_h):
     from sparse_tpu_torch.experiments import pallas_vmem2 as v2
 
     rng = _probe_gen(T)
-    table, cols = _rand(rng, (T, 128), cuda), _ints(rng, T, n_blocks * T, cuda)
+    table, cols = _rand(rng, (table_h, 128), cuda), _ints(rng, table_h, n_blocks * T, cuda)
+    _cuda.reset_launch_counts()
     got = v2.row_pick_blocksum(table, cols, T)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, v2.row_pick_blocksum_plain(table, cols, T), **PROBE_SUMS)
+    assert _cuda.LAUNCHES["row_pick_blocksum"] == 1
+    want = v2.row_pick_blocksum_plain(table, cols, T)
+    torch.testing.assert_close(got, want, **PROBE_SUMS)
+    # the old route (E4's row gather) gives the same sums at the same tolerance
+    rows = _cuda.row_pick_blocksum(table, cols, torch.empty_like(got), T, route="rows")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rows, want, **PROBE_SUMS)
+    # two launches on one scratch give the same bits and leave the tickets zero
+    plan = _cuda.row_pick_count_plan(table_h)
+    partial = torch.empty((n_blocks, plan.n_slices, 128), device=cuda)
+    tickets = torch.zeros(n_blocks + 3, dtype=torch.int32, device=cuda)
+    for _ in range(2):
+        out = _cuda.row_pick_blocksum(table, cols, torch.empty_like(got), T, partial, tickets)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got) and not tickets.any()
 
 
 @pytest.mark.parametrize("n_cells,W,table_h", [(2, 4, 8192), (1, 3, 500), (3, 1, 8192), (1, 4, 8192), (1, 1, 64), (71, 4, 8192)])
