@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the bf16 row pick (E5, p3) and the row-pick block sum
-(E8, g2) goes, on one NVIDIA GPU (H100).
+"""Where the time of the bf16 row pick (E5, p3), the row-pick block sum
+(E8, g2), the one-hot SpMV products (E1) and the lane-gather block sum (E7,
+g1) goes, on one NVIDIA GPU (H100).
 
-    python3 chip_probes_ablation.py [p3|g2|all]
+    python3 chip_probes_ablation.py [p3] [g2] [e1] [g1] [all]
 
 Builds variants of ``sparse_tpu_torch/kernels/csrc/probes.cu`` side by side
 (one ``nvcc`` each, started together, into ``build/probes_ablation/``), each
-with other values of its ``PICK_*`` or ``SLICE_*`` macros, and times them at
-the probes' own sizes (``pallas_vmem.py:p3`` and ``pallas_vmem2.py:g2``
-defaults, their seeds):
+with other values of its ``PICK_*``, ``COUNT_*``, ``E1_*`` or ``LANE_*``
+macros, and times them at the probes' own sizes (the defaults of
+``pallas_vmem.py:p3``, ``pallas_vmem2.py:g2`` and ``g1``, and E1's products
+stream at the benchmark shape; their seeds):
 
 - p3, a (512, 128) strip, 2^21 picks, 1.07 GB written: ``bulk`` (the strip
   in shared memory, 64-pick tiles stored by ``cp.async.bulk`` out of a ring
@@ -30,6 +32,20 @@ defaults, their seeds):
   table's first half (the same index scan, half the slices' rows read:
   ``half_rows_read``), and on a plan of twice the slices of half the
   height (twice the index scan, the same rows read: ``twice_the_scan``).
+- e1, the products stream of E1's full SpMV at the benchmark shape
+  (2,107,392 slots in blocks of 2048), both tables (hi|lo (512, 256) and
+  bf16 (512, 128)): ``l2`` (the table read through L1/L2, the route of a
+  table too tall for shared memory), ``smem_pairs`` / ``smem`` (the table
+  in shared memory, as the entry point launches it: hi|lo half a CTA in
+  pairs, bf16 whole), and the same with 512 threads a CTA instead of
+  1,024. Every variant equal to the plain version bit for bit.
+- g1, a (512, 128) table and 36 blocks of 512 index rows, and g1b, an
+  (8192, 128) table and 4 blocks of 8192: ``l2`` (every pick a 4-byte load
+  through L1/L2, g1b's route), ``slices`` (32-lane column slices in shared
+  memory, a CTA a slice and block, two CTAs an SM, as the entry point
+  launches it) and ``slices_1_per_sm``. Every variant against the plain
+  version at rtol=1e-4, atol=1e-3 and twice, bit for bit; the two slice
+  variants equal bit for bit.
 
 Each variant is timed from a CUDA graph of 50 launches, L2 warm, in turns
 (forward, then backward), best of the two passes; then once after a 256 MB
@@ -59,13 +75,15 @@ ROW_BYTES = 512
 PROBE_TOL = dict(rtol=1e-4, atol=1e-3)
 
 # library name -> macro values (the defaults: PICK_TILE=64, PICK_STAGES=3,
-# COUNT_DEPTH=4)
+# COUNT_DEPTH=4, E1_THREADS=1024, LANE_CTAS_PER_SM=2)
 BUILDS = {
     "default": {},
     "tile32": {"PICK_TILE": "32"},
     "stages2": {"PICK_STAGES": "2"},
     "tile32_stages4": {"PICK_TILE": "32", "PICK_STAGES": "4"},
     "counts_depth_8": {"COUNT_DEPTH": "8"},
+    "e1_threads_512": {"E1_THREADS": "512"},
+    "lane_1_per_sm": {"LANE_CTAS_PER_SM": "1"},
 }
 # p3 variant -> (library, resident)
 P3_VARIANTS = {
@@ -77,6 +95,22 @@ P3_VARIANTS = {
 }
 # g2 variant -> library; "rows" is the row gather
 G2_VARIANTS = {"counts": "default", "counts_depth_8": "counts_depth_8", "rows": "default"}
+# E1 variant -> (table, library, resident)
+E1_VARIANTS = {
+    "hilo l2": ("hilo", "default", 0),
+    "hilo smem_pairs": ("hilo", "default", 1),
+    "hilo smem_pairs_512_threads": ("hilo", "e1_threads_512", 1),
+    "bf16 l2": ("bf16", "default", 0),
+    "bf16 smem": ("bf16", "default", 1),
+    "bf16 smem_512_threads": ("bf16", "e1_threads_512", 1),
+}
+# g1 variant -> (T, library, resident): resident 0 the L2 route
+G1_VARIANTS = {
+    "g1 l2": (512, "default", 0),
+    "g1 slices": (512, "default", 1),
+    "g1 slices_1_per_sm": (512, "lane_1_per_sm", 1),
+    "g1b l2": (8192, "default", 0),
+}
 
 
 def build(name):
@@ -235,27 +269,132 @@ def g2_section(libs, dev, flush):
                           "slices": -(-T // half) if name == "twice_the_scan" else plan.n_slices}), flush=True)
 
 
+def e1_section(libs, dev, flush):
+    from sparse_tpu_torch.experiments import pallas_spmv_onehot as e1
+    from sparse_tpu_torch.kernels import _cuda
+    from sparse_tpu_torch.kernels.row_ell import build_row_ell
+
+    rows, cols, data, x = e1.bench_matrix()
+    re = build_row_ell(rows, cols, data, e1.M, e1.K, device=dev)
+    fc, fd = e1.flatten_tiers(re, 2048)
+    del re
+    n = fc.numel()
+    xt = torch.as_tensor(x, device=dev)
+    tables = {"hilo": e1.make_table(xt, True), "bf16": e1.make_table(xt, False)}
+    launchers, outs = {}, {}
+    for name, (table, lib_name, resident) in E1_VARIANTS.items():
+        fn, x2 = getattr(libs[lib_name][0], f"st_spmv_products_{table}"), tables[table]
+        out = torch.empty((n, 1), device=dev)
+        go = lambda fn=fn, x2=x2, out=out, resident=resident: fn(  # noqa: E731
+            x2.data_ptr(), x2.shape[0], fc.data_ptr(), fd.data_ptr(), n, resident, out.data_ptr(), stream())
+        launchers[name], outs[name] = checked(go, f"e1 {name}"), out
+        launchers[name]()
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        if not torch.equal(out, e1.products_plain(tables[E1_VARIANTS[name][0]], fc, fd)):
+            raise AssertionError(f"e1 {name}: differs from the plain version")
+    rows_ = timed_in_turns(launchers, flush)
+    for name, row in rows_.items():
+        table, lib, _ = E1_VARIANTS[name]
+        bound_ms = (fc.numel() * 4 * 3 + tables[table].numel() * 2) / HBM_BYTES_PER_S * 1e3
+        print(json.dumps({
+            "e1_variant": name,
+            **row,
+            "slots": n,
+            "g_slots_per_s": n / (row["ms"] * 1e-3) / 1e9,
+            "bound_ms": bound_ms,
+            "bound_share": bound_ms / row["ms"],
+            "vs_l2": row["ms"] / rows_[f"{table} l2"]["ms"],
+            "design": _cuda.spmv_products_design(512, table == "hilo") if E1_VARIANTS[name][2] else "l2",
+            "macros": BUILDS[lib],
+            "registers": registers(libs[lib][1], "spmv_products"),
+        }), flush=True)
+
+
+def g1_section(libs, dev, flush):
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+    from sparse_tpu_torch.kernels import _cuda
+
+    inputs = {}
+    for T, n_blocks in ((512, 36), (8192, 4)):  # g1 and g1b, their draws
+        rng = np.random.default_rng(0)
+        table = torch.as_tensor(rng.random((T, 128), dtype=np.float32), device=dev)
+        idx = torch.as_tensor(rng.integers(0, T, size=(n_blocks * T, 128), dtype=np.int32), device=dev)
+        inputs[T] = (table, idx, n_blocks, v2.lane_gather_blocksum_plain(table, idx, T))
+    launchers, outs = {}, {}
+    for name, (T, lib_name, resident) in G1_VARIANTS.items():
+        lib = libs[lib_name][0]
+        table, idx, n_blocks, want = inputs[T]
+        out = torch.empty((n_blocks * 8, 128), device=dev)
+        partial, tickets = None, None
+        if not resident:  # the L2 route's scratch, at g1's T too
+            partial = torch.empty((n_blocks, -(-T // _cuda.LANE_SPLIT_ROWS), 128), device=dev)
+            tickets = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+        go = lambda lib=lib, table=table, idx=idx, T=T, n_blocks=n_blocks, resident=resident, out=out, \
+            partial=partial, tickets=tickets: lib.st_lane_gather_blocksum(  # noqa: E731
+                table.data_ptr(), T, idx.data_ptr(), n_blocks, T, resident, out.data_ptr(),
+                None if partial is None else partial.data_ptr(), None if tickets is None else tickets.data_ptr(),
+                stream())
+        launchers[name], outs[name] = checked(go, f"g1 {name}"), out
+        launchers[name]()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, **PROBE_TOL, msg=lambda m, name=name: f"{name}: {m}")
+        first = out.clone()
+        launchers[name]()
+        torch.cuda.synchronize()
+        if not torch.equal(out, first) or (tickets is not None and tickets.any()):
+            raise AssertionError(f"{name}: two launches differ or leave a ticket set")
+    if not torch.equal(outs["g1 slices"], outs["g1 slices_1_per_sm"]):  # one order of every sum, whatever the grid
+        raise AssertionError("g1: the slice variants differ in their bits")
+    rows = timed_in_turns(launchers, flush)
+    for name, row in rows.items():
+        T, lib, resident = G1_VARIANTS[name]
+        table, idx, n_blocks, _ = inputs[T]
+        bound_ms = (table.numel() * 4 + idx.numel() * 4 + n_blocks * 8 * ROW_BYTES) / HBM_BYTES_PER_S * 1e3
+        print(json.dumps({
+            "g1_variant": name,
+            **row,
+            "T": T,
+            "gathers": idx.numel(),
+            "g_gathers_per_s": idx.numel() / (row["ms"] * 1e-3) / 1e9,
+            "bound_ms": bound_ms,
+            "bound_share": bound_ms / row["ms"],
+            "vs_l2": row["ms"] / rows[name.split()[0] + " l2"]["ms"],
+            "macros": BUILDS[lib],
+            "registers": registers(libs[lib][1], "lane_slice" if resident else "lane_gather"),
+        }), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_probes_ablation: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 2
-    which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("p3", "g2", "all"):
-        print(f"chip_probes_ablation: unknown section {which!r}; p3, g2 or all", file=sys.stderr)
-        return 2
-    names = {
+    which = sys.argv[1:] or ["all"]
+    sections = {
         "p3": {lib for lib, _ in P3_VARIANTS.values()},
         "g2": set(G2_VARIANTS.values()),
+        "e1": {lib for _, lib, _ in E1_VARIANTS.values()},
+        "g1": {lib for _, lib, _ in G1_VARIANTS.values()},
         "all": set(BUILDS),
-    }[which]
+    }
+    if not set(which) <= set(sections):
+        print(f"chip_probes_ablation: unknown section in {which}; {', '.join(sections)}", file=sys.stderr)
+        return 2
+    if "all" in which:
+        which = list(sections)
+    names = set().union(*(sections[w] for w in which))
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(pool.map(build, sorted(names)))
     dev = torch.device("cuda")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    if which in ("p3", "all"):
+    if "p3" in which:
         p3_section(libs, dev, flush)
-    if which in ("g2", "all"):
+    if "g2" in which:
         g2_section(libs, dev, flush)
+    if "e1" in which:
+        e1_section(libs, dev, flush)
+    if "g1" in which:
+        g1_section(libs, dev, flush)
     print(card_name_power())
     return 0
 

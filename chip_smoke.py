@@ -43,7 +43,10 @@ drives the port's two paths on the card:
   shape through the row-ELL layout (hi|lo and bf16 tables, blocks of 2048
   and 4096 slots) against a float64 oracle and beside K1, and the VMEM
   gather probes p1-p4 and g1-g3 at their own full sizes; each of the eight
-  kernels held against its plain version (g2's twice, bit for bit), and
+  kernels held against its plain version (E1 on both tables and, with a
+  table too tall for shared memory, on its L2 route; g1, g1b and g2 twice,
+  bit for bit), E1's line with both tables' times and designs, g1's and
+  g1b's with their route (column slices in shared memory, or L2), and
   the card's gather rates: p3's write rate beside ``out.zero_()`` on an
   output of its size (the write ceiling), g2's shared-memory pick rate
   beside its first route's whole-row L2 rate, both timed in this run.
@@ -1416,6 +1419,11 @@ def phase_experiments_vs_plain(spmv, runs):
     for hilo in (True, False):
         x2 = e1.make_table(x, hilo)
         errs[f"E1 {'hilo' if hilo else 'bf16'} blk=2048"] = exact("spmv_products", e1.products(x2, fc, fd), e1.products_plain(x2, fc, fd))
+        # a table too tall for shared memory (1,024 rows) takes the L2 route; half the picks in its second half
+        tall = e1.make_table(torch.cat([x, x.flip(0)]), hilo)
+        c2 = fc.clone()
+        c2[1::2] += x.numel()
+        exact("spmv_products l2 route", e1.products(tall, c2, fd), e1.products_plain(tall, c2, fd))
     for key in ("p1", "p1b"):
         r = runs[key]
         table, idx = r.inputs["table"], r.inputs["idx"]
@@ -1435,6 +1443,10 @@ def phase_experiments_vs_plain(spmv, runs):
         T = r.inputs["table"].shape[0]
         want = v2.lane_gather_blocksum_plain(r.inputs["table"], r.inputs["idx"], T)
         errs[r.label] = check_close(f"lane_gather_blocksum {r.label}", r.outputs[0], want, PROBE_TOL)
+        again = v2.lane_gather_blocksum(r.inputs["table"], r.inputs["idx"], T)  # sums in a fixed order
+        torch.cuda.synchronize()
+        if not torch.equal(again, r.outputs[0]):
+            raise AssertionError(f"lane_gather_blocksum {r.label}: two launches differ")
     r = runs["g2"]
     table, cols = r.inputs["table"], r.inputs["cols"]
     want = v2.row_pick_blocksum_plain(table, cols, table.shape[0])
@@ -1474,6 +1486,12 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
     out = torch.empty((fc.numel(), 1), device=fc.device)
     e1_ms = {t: time_graph(lambda x2=x2: _cuda.spmv_products(x2, fc, fd, out)) for t, x2 in (("hilo", x2h), ("bf16", x2b))}
     e1_run = Run("E1 hilo blk=2048", {}, (out,), spmv["nnz"], "M nnz/s", e1_ms["hilo"])
+    e1_fields = {
+        "kernel_ms_hilo_table": e1_ms["hilo"],
+        "kernel_ms_bf16_table": e1_ms["bf16"],
+        "design": {t: _cuda.spmv_products_design(x2.shape[0], t == "hilo") for t, x2 in (("hilo", x2h), ("bf16", x2b))},
+        "bound_ms_bf16_table": nbytes(fc, fd, x2b, out) / HBM_BYTES_PER_S * 1e3,
+    }
 
     specs = []
 
@@ -1527,8 +1545,10 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
         "F.embedding_bag(flat indices (64, 1024), x.view(-1, 1), mode='sum')", (xs, qi, qj, r.outputs[0]))
     for r in (runs["g1"], runs["g1b"]):
         table, idx = r.inputs["table"], r.inputs["idx"]
+        route = "slices" if _cuda.lane_slice_resident(table.shape[0]) else "l2"
         add("lane_gather_blocksum", r, lambda t=table, i=idx: v2.lane_gather_blocksum_plain(t, i, t.shape[0]), None,
-            "none: no single PyTorch call gathers per lane and sums blocks", (table, idx, r.outputs[0]))
+            "none: no single PyTorch call gathers per lane and sums blocks", (table, idx, r.outputs[0]),
+            extra=lambda ms, route=route: {"table_route": route})
     r = runs["g2"]
     table2, cols = r.inputs["table"], r.inputs["cols"]
     T2 = table2.shape[0]
@@ -1600,7 +1620,7 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
                     "l2_bytes": l2,
                     "l2_tb_per_s": None if l2 is None else l2 / (run.ms * 1e-3) / 1e12,
                     "library_note": note,
-                    **({"kernel_ms_bf16_table": e1_ms["bf16"]} if name == "spmv_products" else {}),
+                    **(e1_fields if name == "spmv_products" else {}),
                     **(extra(run.ms) if extra else {}),
                     "card": card,
                 }

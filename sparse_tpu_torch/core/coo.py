@@ -256,7 +256,12 @@ class COO(SparseArray):
         if uniq.numel() == lin.numel():
             return
         starts = torch.cumsum(counts, 0) - counts
-        sums = torch.zeros(uniq.numel(), dtype=self.data.dtype, device=lin.device)
+        # float and complex sums start from -0.0 (in both parts), the identity
+        # that keeps the sign of every zero (-0.0 + -0.0 is -0.0), as a run
+        # summed from its first value does
+        dt = self.data.dtype
+        seed = complex(-0.0, -0.0) if dt.is_complex else (-0.0 if dt.is_floating_point else 0)
+        sums = torch.full((uniq.numel(),), seed, dtype=dt, device=lin.device)
         signed_view(sums).index_add_(0, inverse, signed_view(self.data))  # booleans add as "or"
         self.data = sums
         self.coords = self.coords[:, starts]

@@ -12,9 +12,11 @@ resident in VMEM, and leaves the per-row segment sums to XLA:
 
 Two table precisions: ``hilo``, x2 = [bf16(x) | bf16(x - bf16(x))], relative
 error ~1e-5; ``bf16``, x2 = bf16(x), ~2e-3. Here :func:`products` launches
-the products kernel (``kernels/csrc/probes.cu``, counter ``spmv_products``)
-for CUDA tensors and :func:`products_plain` runs for CPU tensors; the
-segment sums over the port's row-ELL tiers are torch ops, as they were XLA.
+the products kernel (``kernels/csrc/probes.cu``, counter ``spmv_products``;
+the table in shared memory when it fits, as the benchmark shape's 512 rows
+do: ``_cuda.spmv_products_design``) for CUDA tensors and
+:func:`products_plain` runs for CPU tensors; the segment sums over the
+port's row-ELL tiers are torch ops, as they were XLA.
 :func:`main` runs the prototype's SpMV at the benchmark shape (65,536², 2^21
 entry draws) against a float64 oracle and times it beside K1.
 

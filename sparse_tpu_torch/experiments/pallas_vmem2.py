@@ -9,10 +9,12 @@ as ``acc.reshape(64, 128, 128).sum(0)[:8]``. Each Pallas kernel stores its
 block's result in one (8, 128) output tile, g1 and g2 as 8 identical rows;
 the port keeps those shapes. Each function launches its CUDA kernel
 (``kernels/csrc/probes.cu``) for CUDA tensors and runs its plain PyTorch
-version for CPU tensors. g1 and g3 read the table through L2; g2 reads it
-from slices held in shared memory, one a CTA, as the Pallas kernel picks
-from its VMEM-resident table: each block's picks of a slice's rows are
-counted, and the counts multiplied with the slice.
+version for CPU tensors. g1 reads its table from 32-lane column slices
+held in shared memory, one a CTA (a table of up to 1,792 rows; a taller one,
+g1b's, through L2); g3 reads the table through L2; g2 reads it from row
+slices held in shared memory, one a CTA, as the Pallas kernel picks from its
+VMEM-resident table: each block's picks of a slice's rows are counted, and
+the counts multiplied with the slice.
 
 Each runner keeps the probe's parameters and defaults, draws its inputs from
 the same seeds in the same order, runs the probe's own spot check (a failure
@@ -59,18 +61,16 @@ def lane_gather_blocksum(table, idx, T):
     if idx.device.type == "cpu":
         return lane_gather_blocksum_plain(table, idx, T)
     table, idx = table.contiguous(), idx.contiguous()
-    out, partial, tickets = _blocksum_buffers(n_blocks, T, idx.device)
+    out, partial, tickets = _blocksum_buffers(n_blocks, T, table.shape[0], idx.device)
     return _cuda.lane_gather_blocksum(table, idx, T, out, partial, tickets)
 
 
-def _blocksum_buffers(n_blocks, T, device):
-    """The output and the kernel's scratch: per-CTA partial rows and one
-    zeroed ticket per block (each launch leaves them zero)."""
-    n_splits = -(-T // _cuda.LANE_SPLIT_ROWS)
+def _blocksum_buffers(n_blocks, T, rows, device):
+    """The output and the kernel's scratch for a table of ``rows`` rows
+    (partial rows and zeroed tickets on the L2 route, none on the slice
+    route: ``_cuda.lane_blocksum_scratch``)."""
     out = torch.empty((n_blocks * 8, _cuda.PROBE_LANES), dtype=torch.float32, device=device)
-    partial = torch.empty((n_blocks, n_splits, _cuda.PROBE_LANES), dtype=torch.float32, device=device)
-    tickets = torch.zeros(n_blocks, dtype=torch.int32, device=device)
-    return out, partial, tickets
+    return (out, *_cuda.lane_blocksum_scratch(rows, n_blocks, T, device))
 
 
 def g1(T=512, n_blocks=36, label="g1", device=None):
@@ -86,7 +86,7 @@ def g1(T=512, n_blocks=36, label="g1", device=None):
     np.testing.assert_allclose(out[0].cpu().numpy(), tb[ib, np.arange(128)[None, :]].sum(axis=0), rtol=1e-4, err_msg=label)
     ms = None
     if dev.type == "cuda":
-        _, partial, tickets = _blocksum_buffers(n_blocks, T, dev)
+        _, partial, tickets = _blocksum_buffers(n_blocks, T, T, dev)
         ms = time_on_card(dev, lambda: _cuda.lane_gather_blocksum(table, idx, T, out, partial, tickets))
     return Run(label, {"table": table, "idx": idx}, (out,), n_blocks * T * 128, "G gathers/s", ms)
 

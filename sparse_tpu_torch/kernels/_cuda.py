@@ -76,9 +76,9 @@ _SIGNATURES = {
         for dt in ("f32", "f64", "bf16_f32", "bf16_f64")
     },
     "probes": {
-        **{f"st_spmv_products_{t}": [_p, _i64, _p, _p, _i64, _p, _p] for t in ("hilo", "bf16")},
+        **{f"st_spmv_products_{t}": [_p, _i64, _p, _p, _i64, _i64, _p, _p] for t in ("hilo", "bf16")},
         "st_lane_gather": [_p, _p, _i64, _p, _p],
-        "st_lane_gather_blocksum": [_p, _p, _i64, _i64, _p, _p, _p, _p],
+        "st_lane_gather_blocksum": [_p, _i64, _p, *[_i64] * 3, _p, _p, _p, _p],
         "st_row_gather": [_p, _p, _p, *[_i64] * 9, _p, _p],
         "st_scalar_gather_sum": [_p, _i64, _p, _p, _i64, _i64, _p, _p],
         "st_row_pick_bf16": [_p, _i64, _p, _i64, _i64, _p, _p],
@@ -825,10 +825,13 @@ def mttkrp(row_ptr, pieces, order, cj, ck, v, c, d, out, partial, tickets, piece
     return out
 
 
-# the width of every probe table (csrc/probes.cu: kLanes) and the rows of a
-# block that one CTA of the lane-gather block sum takes (kSplitRows)
+# the width of every probe table (csrc/probes.cu: kLanes)
 PROBE_LANES = 128
-LANE_SPLIT_ROWS = 64
+# Shared memory one CTA of an H100 may take (the opt-in maximum), less a
+# reserve for the kernels' static shared memory: the budget of the probe
+# kernels that hold their table there (csrc/probes.cu).
+SMEM_BLOCK_BYTES = 232_448 - 1024
+PROBE_ROW_BYTES = PROBE_LANES * 4
 
 
 def _check_probe_table(name, t, device):
@@ -847,12 +850,33 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def spmv_products_resident(rows, hilo):
+    """True when E1's table of ``rows`` rows fits one CTA's shared memory:
+    the bf16 table whole (256 bytes a row), the hi|lo table half (a CTA
+    holds ``⌈rows / 2⌉`` rows of 512 bytes); 904 rows either way."""
+    held = -(-rows // 2) * PROBE_ROW_BYTES if hilo else rows * PROBE_ROW_BYTES // 2
+    return rows > 0 and held <= SMEM_BLOCK_BYTES
+
+
+def spmv_products_design(rows, hilo):
+    """The design E1's launcher (csrc/probes.cu) runs for a table of ``rows``
+    rows: with the table in shared memory (spmv_products_smem_kernel), the
+    hi|lo table in CTA pairs, each CTA holding half its rows
+    (``"smem_pairs"``), the bf16 table whole in every CTA (``"smem"``); a
+    taller table read through L1/L2 (spmv_products_kernel, ``"l2"``)."""
+    if not spmv_products_resident(rows, hilo):
+        return "l2"
+    return "smem_pairs" if hilo else "smem"
+
+
 def spmv_products(x2, cols, data, out):
     """Launch E1: ``out[e, 0] = (x2[q, m] + x2[q, 128 + m]) · data[e]`` with a
     hi|lo table ``x2`` of shape ``(rows, 256)``, or ``x2[q, m] · data[e]``
     with a bf16 table ``(rows, 128)``, where ``q, m = divmod(cols[e], 128)``;
-    0 where ``q`` is outside the table. ``x2`` bfloat16, ``cols`` int32 and
-    ``data`` float32 of shape ``(n,)``, ``out`` float32 ``(n, 1)``."""
+    0 where ``q`` is outside the table. ``x2`` bfloat16 (16-byte aligned when
+    it fits shared memory: :func:`spmv_products_resident`), ``cols`` int32
+    and ``data`` float32 of shape ``(n,)``, ``out`` float32 ``(n, 1)``. The
+    design by table: :func:`spmv_products_design`."""
     device = cols.device
     require_cuda(device, "probe")
     _check("x2", x2, torch.bfloat16, device)
@@ -864,9 +888,15 @@ def spmv_products(x2, cols, data, out):
         raise ValueError(f"spmv_products: x2 of shape {tuple(x2.shape)}, expected (rows, 128) or (rows, 256)")
     if cols.ndim != 1 or data.shape != (n,) or out.shape != (n, 1):
         raise ValueError("spmv_products: cols, data and out must be (n,), (n,) and (n, 1)")
+    if n == 0:
+        return out
     hilo = x2.shape[1] == 2 * PROBE_LANES
+    resident = spmv_products_resident(x2.shape[0], hilo)
+    if resident:
+        _check_aligned(x2=x2)
     fn = getattr(load("probes"), "st_spmv_products_hilo" if hilo else "st_spmv_products_bf16")
-    err = fn(x2.data_ptr(), x2.shape[0], cols.data_ptr(), data.data_ptr(), n, out.data_ptr(), _stream(device))
+    err = fn(x2.data_ptr(), x2.shape[0], cols.data_ptr(), data.data_ptr(), n, int(resident), out.data_ptr(),
+             _stream(device))
     _raise_on(err, "spmv_products")
     LAUNCHES["spmv_products"] += 1
     return out
@@ -891,36 +921,76 @@ def lane_gather(table, idx, out):
     return out
 
 
-def lane_gather_blocksum(table, idx, rows_per_block, out, partial, tickets):
+# E7's routes (csrc/probes.cu): a table whose 32-lane column slices fit one
+# CTA's shared memory beside its 16 warps' sums (rows x 128 bytes + 2 KB:
+# 1,792 rows) takes the slice route
+# (lane_slice_blocksum_kernel: a CTA a lane slice and block, no scratch), a
+# taller one the L2 route (lane_gather_kernel<true>: LANE_SPLIT_ROWS rows of
+# a block a CTA, their partial rows added by the block's last CTA)
+SLICE_LANES, SLICE_WARPS = 32, 16
+LANE_SPLIT_ROWS = 64
+
+
+def lane_slice_resident(rows):
+    """True when a 32-lane column slice of E7's table of ``rows`` rows fits
+    one CTA's shared memory beside the warps' sums: the slice route."""
+    return rows > 0 and (rows + SLICE_WARPS) * SLICE_LANES * 4 <= SMEM_BLOCK_BYTES
+
+
+def lane_blocksum_scratch(rows, n_blocks, T, device):
+    """The scratch of E7's route for a table of ``rows`` rows: none on the
+    slice route; on the L2 route ``partial`` float32 ``(n_blocks, ⌈T / 64⌉,
+    128)`` and ``tickets`` int32 ``(n_blocks,)`` of zeros."""
+    if lane_slice_resident(rows):
+        return None, None
+    partial = torch.empty((n_blocks, -(-T // LANE_SPLIT_ROWS), PROBE_LANES), dtype=torch.float32, device=device)
+    return partial, torch.zeros(n_blocks, dtype=torch.int32, device=device)
+
+
+def lane_gather_blocksum(table, idx, rows_per_block, out, partial=None, tickets=None):
     """Launch E7 (``pallas_vmem2.py:g1``): ``out[8b + c, l] = Σ_{t < T}
     table[idx[bT + t, l], l]`` for ``c < 8``, ``T = rows_per_block``;
-    ``idx`` int32 ``(n_blocks · T, 128)``, ``out`` float32 ``(n_blocks · 8,
-    128)``, scratch ``partial`` float32 ``(n_blocks, ⌈T / 64⌉, 128)`` and
-    ``tickets`` int32 ``(n_blocks,)``, zero before the first launch (each
-    launch leaves it zero). The caller guarantees every index in range."""
+    ``table`` float32 ``(rows, 128)``, ``idx`` int32 ``(n_blocks · T,
+    128)``, ``out`` float32 ``(n_blocks · 8, 128)``. The route:
+    :func:`lane_slice_resident`; the slice route takes ``table`` 16-byte
+    aligned, the L2 route the scratch of :func:`lane_blocksum_scratch`
+    (``tickets`` zero before the first launch; each launch leaves it zero).
+    The caller guarantees every index in range."""
     device = idx.device
     require_cuda(device, "probe")
     _check_probe_table("table", table, device)
     _check("idx", idx, torch.int32, device)
     _check("out", out, torch.float32, device)
-    _check("partial", partial, torch.float32, device)
-    _check("tickets", tickets, torch.int32, device)
     if rows_per_block <= 0 or idx.ndim != 2 or idx.shape[1] != PROBE_LANES or idx.shape[0] % rows_per_block:
         raise ValueError(f"lane_gather_blocksum: idx must be (n_blocks * {rows_per_block}, {PROBE_LANES})")
     n_blocks = idx.shape[0] // rows_per_block
-    n_splits = -(-rows_per_block // LANE_SPLIT_ROWS)
-    if out.shape != (n_blocks * 8, PROBE_LANES) or partial.shape != (n_blocks, n_splits, PROBE_LANES) or tickets.shape != (n_blocks,):
-        raise ValueError("lane_gather_blocksum: out, partial or tickets do not match idx")
-    if n_blocks > 65535:
-        raise ValueError(f"lane_gather_blocksum: {n_blocks} blocks, at most 65535")
+    if out.shape != (n_blocks * 8, PROBE_LANES):
+        raise ValueError("lane_gather_blocksum: out does not match idx")
+    rows = table.shape[0]
+    resident = lane_slice_resident(rows)
+    if resident:
+        _check_aligned(table=table)
+    else:
+        if partial is None or tickets is None:
+            raise ValueError("lane_gather_blocksum: the L2 route takes partial and tickets (lane_blocksum_scratch)")
+        _check("partial", partial, torch.float32, device)
+        _check("tickets", tickets, torch.int32, device)
+        if partial.shape != (n_blocks, -(-rows_per_block // LANE_SPLIT_ROWS), PROBE_LANES) or tickets.shape != (n_blocks,):
+            raise ValueError("lane_gather_blocksum: partial or tickets do not match idx")
+        if n_blocks > 65535:
+            raise ValueError(f"lane_gather_blocksum: {n_blocks} blocks, at most 65535 on the L2 route")
+    if n_blocks == 0:
+        return out
     err = load("probes").st_lane_gather_blocksum(
         table.data_ptr(),
+        rows,
         idx.data_ptr(),
         n_blocks,
         rows_per_block,
+        int(resident),
         out.data_ptr(),
-        partial.data_ptr(),
-        tickets.data_ptr(),
+        None if resident else partial.data_ptr(),
+        None if resident else tickets.data_ptr(),
         _stream(device),
     )
     _raise_on(err, "lane_gather_blocksum")
@@ -983,11 +1053,6 @@ def row_gather_sum(strip, idx, out, seg_len):
     )
 
 
-# Shared memory one CTA of an H100 may take (the opt-in maximum), less a
-# reserve for the kernels' static shared memory: the budget of the two
-# probe kernels that hold their table there (csrc/probes.cu).
-SMEM_BLOCK_BYTES = 232_448 - 1024
-PROBE_ROW_BYTES = PROBE_LANES * 4
 # E5 (row_pick_bf16_kernel): chunks of PICK_TILE picks, stored out of a ring
 # of PICK_STAGES tiles; the strip is held as bf16 (256 bytes a row) when it
 # fits beside the ring (520 rows)

@@ -2,24 +2,28 @@
 // plain C interface for ctypes. Built by sparse_tpu_torch/kernels/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 //
-// Six kernels serve the eight Pallas functions they replace:
-// 1. spmv_products_kernel<HILO>      experiments/pallas_spmv_onehot.py:products_kernel (E1)
-// 2. lane_gather_kernel<BLOCKSUM>    experiments/pallas_vmem.py:p1 (E3), pallas_vmem2.py:g1 (E7)
-// 3. row_gather_kernel<WEIGHTED>     pallas_vmem.py:p2 (E4), pallas_vmem2.py:g3 (E9); g2's first route
-// 4. scalar_gather_sum_kernel        pallas_vmem.py:p4 (E6)
-// 5. row_pick_bf16_kernel<RESIDENT>  pallas_vmem.py:p3 (E5)
-// 6. row_pick_counts_kernel<ALIGNED> pallas_vmem2.py:g2 (E8)
+// Eight kernels serve the eight Pallas functions they replace:
+// 1. spmv_products_smem_kernel<HILO> experiments/pallas_spmv_onehot.py:products_kernel (E1);
+//    spmv_products_kernel<HILO>      its route for a table too tall for shared memory
+// 2. lane_gather_kernel<BLOCKSUM>    experiments/pallas_vmem.py:p1 (E3); g1's route for a tall table
+// 3. lane_slice_blocksum_kernel      pallas_vmem2.py:g1 (E7)
+// 4. row_gather_kernel<WEIGHTED>     pallas_vmem.py:p2 (E4), pallas_vmem2.py:g3 (E9); g2's first route
+// 5. scalar_gather_sum_kernel        pallas_vmem.py:p4 (E6)
+// 6. row_pick_bf16_kernel<RESIDENT>  pallas_vmem.py:p3 (E5)
+// 7. row_pick_counts_kernel<ALIGNED> pallas_vmem2.py:g2 (E8)
 //
 // On the TPU each function keeps its table resident in VMEM (the 512 x 128
 // f32 table and E1's 512 x 256 bf16 hi|lo table are 256 KB, the 8192 x 128
 // strip 4 MB) and picks from it with a one-hot MXU product, Mosaic's sublane
 // gather or scalar loads. A block of this card has at most 227 KB of shared
-// memory, so kernels 1-4 read the table from global memory, where it stays
-// in the 50 MB L2 between picks: what they measure is the card's L2 gather
-// rate. Kernels 5 and 6 hold the table in shared memory: p3's strip rounded
-// to bf16 (128 KB) whole, g2's table in row slices, one a CTA. A one-hot
-// pick is exact (one 1 in the row, the rest adds zeros), so every pick here
-// is a direct load, and E1 and p3 give the TPU function's values bit for bit.
+// memory. The kernels of p1, p2, p4 and g3 read the table from global
+// memory, where it stays in the 50 MB L2 between picks: what they measure
+// is the card's L2 gather rate. The others hold the table, or the part of
+// it a CTA reads, in shared memory: E1's bf16 table whole and its hi|lo
+// table half a CTA, p3's strip rounded to bf16 (128 KB) whole, g1's table
+// in 32-lane column slices, g2's in row slices. A one-hot pick is exact
+// (one 1 in the row, the rest adds zeros), so every pick here is a direct
+// load, and E1 and p3 give the TPU function's values bit for bit.
 //
 // Bound on this card: bytes. Each function reads its indices (and values)
 // once and writes its output once; the table's bytes come from L2 (or
@@ -27,14 +31,15 @@
 // 1.2 GB and 74 MB a call). That traffic is the rate these probes measure.
 //
 // No sum uses atomics. A long segment is cut over the warps of one CTA (row
-// gather) or over CTAs whose partial sums the CTA that takes the block's
-// last ticket adds in order (lane gather block sum, g2's count form), so
-// every result is deterministic.
+// gather) or over CTAs or warps whose partial sums the one that takes the
+// block's last ticket adds in order (lane gather block sums, g2's count
+// form), so every result is deterministic.
 //
 // Every table is (rows, 128) f32, the TPU's lane width, except E1's bf16
 // table. The launchers in _cuda.py check shapes, dtypes, contiguity and the
-// 16-byte alignment of the float4/int4 operands; the callers guarantee every
-// index in range (E1 alone defines an index outside its table: it picks 0).
+// 16-byte alignment of the vector and bulk-copy operands; the callers
+// guarantee every index in range (E1 alone defines an index outside its
+// table: it picks 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +57,43 @@ constexpr long long kMaxGrid = 132LL * 32;  // grid-stride kernels: 32 CTAs per 
 long long grid_for(long long n) {
   const long long g = (n + kThreads - 1) / kThreads;
   return g < kMaxGrid ? g : kMaxGrid;
+}
+
+// ---------------------------------------------------------------------------
+// Shared memory, mbarriers and bulk copies (E1, E5).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// this thread's arrival, expecting `bytes` more of bulk copies before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// global -> this CTA's shared memory, the barrier told of the bytes;
+// 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
 // E1: out[e] = (f32(x2[q, m]) + f32(x2[q, 128 + m])) * data[e] with the hi|lo
@@ -78,6 +120,105 @@ __global__ void __launch_bounds__(kThreads)
       if (HILO) v = __fadd_rn(v, __bfloat162float(row[kLanes + m]));
     }
     out[e] = __fmul_rn(v, data[e]);
+  }
+}
+
+// E1 with the table in shared memory (a table of at most 904 rows:
+// _cuda.spmv_products_resident). The kernel above gathers through L1/L2 and
+// stops at the card's scattered-load rate (97 G slots/s on an H100, two
+// 2-byte loads a slot with the hi|lo table); HBM would stream cols, data and
+// out three times faster. Here a pick is a 2-byte load from shared memory:
+// - bf16 table (rows x 256 bytes: 128 KB at 512 rows): every CTA holds all
+//   of it, copied in by cp.async.bulk.
+// - hi|lo table (rows x 512 bytes, more than a CTA holds): CTAs in pairs,
+//   CTA 2p + h holding rows [h H, h H + H), H = ceil(rows / 2), by the same
+//   bulk copy. Both CTAs of a pair walk the same chunks of slots (the
+//   partner's cols and data come from L2); each computes and writes only
+//   the slots whose q is in its half, CTA 0 also the zeros of a q outside
+//   the table. No CTA reads another's shared memory.
+// A persistent grid (one CTA an SM) walks chunks of kE1Chunk slots (chunk c
+// by CTA or pair c mod walkers); each thread loads its kE1Per slots of the
+// next chunk while it computes this one's, and its first chunk's while the
+// table lands. The arithmetic is the kernel above's, so the bits are too.
+// On an H100 (chip_probes_ablation.py e1; PERF.md) 1,024 threads beat 512
+// by 12-15 %; 8 slots a thread bought nothing; hi and lo interleaved into
+// one word by the threads (one shared load a pick) lost 7 %, the bf16
+// table multicast over clusters of 2 lost 29 %.
+#ifndef E1_THREADS
+#define E1_THREADS 1024
+#endif
+constexpr int kE1Threads = E1_THREADS;
+constexpr int kE1Per = 4;  // slots a thread takes a chunk, kE1Threads apart
+constexpr long long kE1Chunk = (long long)kE1Threads * kE1Per;
+
+__device__ __forceinline__ float bf16_bits(uint32_t b) { return __uint_as_float(b << 16); }
+
+template <bool HILO>
+__global__ void __launch_bounds__(kE1Threads, 1)
+    spmv_products_smem_kernel(const __nv_bfloat16* __restrict__ x2, int n_tab_rows, const int* __restrict__ cols,
+                              const float* __restrict__ data, long long n, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  constexpr int kTabRowBytes = HILO ? 4 * kLanes : 2 * kLanes;
+  const int half = HILO ? (int)(blockIdx.x & 1) : 0;
+  const int held = HILO ? (n_tab_rows + 1) >> 1 : n_tab_rows;
+  const int lo = half * held;                                         // this CTA's rows [lo, lo + rows)
+  const int rows = n_tab_rows - lo < held ? n_tab_rows - lo : held;  // (0 for the second half of one row)
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_expect_tx(&bar, (uint32_t)rows * kTabRowBytes);
+    constexpr int kPieceRows = 16384 / kTabRowBytes;  // 16 KB a copy
+    for (int r = 0; r < rows; r += kPieceRows) {
+      const int nr = rows - r < kPieceRows ? rows - r : kPieceRows;
+      bulk_load(smem + (size_t)r * kTabRowBytes, reinterpret_cast<const unsigned char*>(x2) + ((size_t)lo + r) * kTabRowBytes,
+                (uint32_t)nr * kTabRowBytes, &bar);
+    }
+  }
+
+  const long long walker = HILO ? blockIdx.x >> 1 : blockIdx.x;
+  const long long walkers = HILO ? gridDim.x >> 1 : gridDim.x;
+  const long long n_chunks = (n + kE1Chunk - 1) / kE1Chunk;
+  int c_next[kE1Per];
+  float d_next[kE1Per];
+  auto fetch = [&](long long ch) {
+#pragma unroll
+    for (int k = 0; k < kE1Per; ++k) {
+      const long long e = ch * kE1Chunk + k * kE1Threads + threadIdx.x;
+      const bool live = ch < n_chunks && e < n;
+      c_next[k] = live ? __ldg(cols + e) : 0;
+      d_next[k] = live ? __ldg(data + e) : 0.0f;
+    }
+  };
+  fetch(walker);
+  __syncthreads();  // the barrier is initialised
+  mbar_wait(&bar, 0);
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
+  for (long long ch = walker; ch < n_chunks; ch += walkers) {
+    int c[kE1Per];
+    float d[kE1Per];
+#pragma unroll
+    for (int k = 0; k < kE1Per; ++k) {
+      c[k] = c_next[k];
+      d[k] = d_next[k];
+    }
+    fetch(ch + walkers);
+#pragma unroll
+    for (int k = 0; k < kE1Per; ++k) {
+      const long long e = ch * kE1Chunk + k * kE1Threads + threadIdx.x;
+      const int q = c[k] >> 7;  // floor(c / 128), as c // 128
+      const int m = c[k] & (kLanes - 1);
+      const int r = q - lo;
+      const bool mine = (unsigned)r < (unsigned)rows;
+      const bool own = !HILO || mine || (half == 0 && (unsigned)q >= (unsigned)n_tab_rows);
+      if (e < n && own) {
+        float v = 0.0f;
+        if (mine) {
+          v = HILO ? __fadd_rn(bf16_bits(tab[r * 2 * kLanes + m]), bf16_bits(tab[r * 2 * kLanes + kLanes + m]))
+                   : bf16_bits(tab[r * kLanes + m]);
+        }
+        out[e] = __fmul_rn(v, d[k]);
+      }
+    }
   }
 }
 
@@ -141,6 +282,89 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int c = 0; c < 8; ++c) o[c * kLanes] = sum;
   if (lane == 0) tickets[b] = 0;
+}
+
+// g1 from column slices in shared memory (a table of at most 1,792 rows:
+// _cuda.lane_slice_resident; taller tables take lane_gather_kernel<true>,
+// the L2 route). The L2 route's picks are 4-byte loads of table[idx * 128 +
+// l] through L1/L2, at the card's lane-gather rate (141 G/s at T = 512 on an
+// H100), while the bound is the idx stream. But lane l only ever reads
+// column l, and the lanes [32 s, 32 s + 32) of a block's sums depend on
+// nothing else: a CTA serving lane slice s needs only that slice of the
+// table, rows x 128 bytes (64 KB at 512 rows), stored with a row stride of
+// 32 words. A warp then reads its 32 lanes of one idx row (one 128-byte
+// line) and picks slice[idx * 32 + lane]: lane j from bank j, whatever the
+// indices, so no pick waits on a bank conflict.
+// - A persistent grid (two CTAs an SM): CTA i serves lane slice i mod 4 and
+//   the blocks i / 4, i / 4 + G / 4, ... (G CTAs). It loads its slice once
+//   with plain 16-byte loads, while each warp's first idx rows are already
+//   in flight.
+// - Warp w sums the block's rows [w T / 16, (w + 1) T / 16) in row order,
+//   kBatch idx lines in flight; warp 0 adds the 16 warps' sums in warp
+//   order and stores the 8 rows of its 32 lanes. One fixed order: the same
+//   bits every launch, and no partials, tickets or fences between CTAs.
+// On an H100 (chip_probes_ablation.py g1; PERF.md) partial rows of 16-64
+// rows a warp, added by the block's last warp through tickets, took 1.2-2.9x
+// as long (a fence, a ticket and the partials' loads on every block's
+// path); the slice copied in by cp.async.bulk, a row a copy, lost 5-8 % to
+// plain loads, and clusters of 2 or 4 CTAs sharing it by multicast 20-26 %.
+constexpr int kSliceLanes = 32;
+constexpr int kLaneSlices = kLanes / kSliceLanes;
+constexpr int kSliceThreads = 512;
+constexpr int kSliceWarps = kSliceThreads / 32;
+constexpr int kBatch = 32;  // idx lines in flight a warp
+#ifndef LANE_CTAS_PER_SM
+#define LANE_CTAS_PER_SM 2
+#endif
+
+__global__ void __launch_bounds__(kSliceThreads, LANE_CTAS_PER_SM)
+    lane_slice_blocksum_kernel(const float* __restrict__ table, int n_tab_rows, const int* __restrict__ idx,
+                               long long T, long long n_blocks, float* __restrict__ out) {
+  extern __shared__ __align__(128) float slice[];  // row t, lane 32 s + j at t * 32 + j; then the warps' sums
+  float(*sums)[kSliceLanes] = reinterpret_cast<float(*)[kSliceLanes]>(slice + (size_t)n_tab_rows * kSliceLanes);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = (int)(blockIdx.x % kLaneSlices);
+  const long long stride = gridDim.x / kLaneSlices;  // the grid is a multiple of 4
+  const long long t0 = T * warp / kSliceWarps, t1 = T * (warp + 1) / kSliceWarps;  // this warp's rows of a block
+
+  int v[kBatch];
+  auto fetch = [&](long long b, long long t) {  // the idx lines of rows [t, t + kBatch) of block b, up to t1
+    const int* ib = idx + (b * T + t) * kLanes + s * kSliceLanes + lane;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) v[i] = t + i < t1 ? __ldg(ib + (long long)i * kLanes) : 0;
+  };
+  long long b = blockIdx.x / kLaneSlices;
+  if (b < n_blocks) fetch(b, t0);
+
+  const float4* src = reinterpret_cast<const float4*>(table) + s * (kSliceLanes / 4);
+  float4* dst = reinterpret_cast<float4*>(slice);
+#pragma unroll 8
+  for (int i = threadIdx.x; i < n_tab_rows * (kSliceLanes / 4); i += kSliceThreads)
+    dst[i] = __ldg(src + (long long)(i / (kSliceLanes / 4)) * (kLanes / 4) + i % (kSliceLanes / 4));
+  __syncthreads();
+
+  for (; b < n_blocks; b += stride) {
+    float acc = 0.0f;
+    for (long long t = t0; t < t1; t += kBatch) {
+      if (t > t0) fetch(b, t);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (t + i < t1) acc += slice[v[i] * kSliceLanes + lane];
+      }
+    }
+    sums[warp][lane] = acc;
+    __syncthreads();
+    if (b + stride < n_blocks) fetch(b + stride, t0);  // the next block's first rows in flight
+    if (warp == 0) {
+      float tot = sums[0][lane];
+#pragma unroll
+      for (int w = 1; w < kSliceWarps; ++w) tot += sums[w][lane];
+      float* o = out + b * 8 * kLanes + s * kSliceLanes + lane;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[c * kLanes] = tot;
+    }
+    __syncthreads();  // sums is read before the next block writes it
+  }
 }
 
 // Segment s of the row gather: its group g = s / seg_per_group and place
@@ -268,8 +492,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------------------
 // Bulk stores from shared memory (E5).
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 
 // this thread's generic-proxy writes to shared memory, ordered before the
 // async proxy's reads of them (a bulk store issued after a barrier)
@@ -559,15 +781,6 @@ __global__ void __launch_bounds__(kCountThreads, 1)
   }
 }
 
-template <bool HILO>
-int launch_spmv_products(const void* x2, long long n_tab_rows, const void* cols, const void* data, long long n,
-                         void* out, void* stream) {
-  if (n == 0) return 0;
-  spmv_products_kernel<HILO><<<(unsigned)grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x2, n_tab_rows, (const int*)cols, (const float*)data, n, (float*)out);
-  return (int)cudaGetLastError();
-}
-
 template <bool WEIGHTED>
 int launch_row_gather(const void* table, const void* idx, const void* weights, const Segments& sg, void* out,
                       void* stream) {
@@ -596,18 +809,61 @@ cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, long long w
   return cudaSuccess;
 }
 
+// Launch `kernel` on a persistent grid: as many CTAs as the card holds at
+// once, at most max_per_sm an SM, rounded down to a multiple of `multiple`,
+// at most `want` (rounded up to a multiple of `multiple`).
+template <typename... KArgs, typename... Args>
+int launch_persistent(void (*kernel)(KArgs...), int threads, size_t smem, int max_per_sm, long long want,
+                      long long multiple, void* stream, Args&&... args) {
+  long long grid = 0;
+  cudaError_t err = persistent_grid(kernel, threads, smem, 1LL << 62, &grid);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  grid = grid < (long long)sms * max_per_sm ? grid : (long long)sms * max_per_sm;
+  grid -= grid % multiple;
+  want = (want + multiple - 1) / multiple * multiple;
+  if (grid < multiple) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)(want < grid ? want : grid), threads, smem, (cudaStream_t)stream>>>(static_cast<Args&&>(args)...);
+  return (int)cudaGetLastError();
+}
+
+// E1: the table in shared memory (resident != 0; the launcher's plan,
+// _cuda.spmv_products_resident) or read through L2 (spmv_products_kernel)
+constexpr int kE1MaxRows = 904;  // 904 x 256 bytes, 452 x 512: at most 232,448 - 1,024
+
+template <bool HILO>
+int launch_spmv_products(const void* x2, long long n_tab_rows, const void* cols, const void* data, long long n,
+                         long long resident, void* out, void* stream) {
+  if (n == 0) return 0;
+  if (!resident) {
+    spmv_products_kernel<HILO><<<(unsigned)grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x2, n_tab_rows, (const int*)cols, (const float*)data, n, (float*)out);
+    return (int)cudaGetLastError();
+  }
+  if (n_tab_rows < 1 || n_tab_rows > kE1MaxRows || (reinterpret_cast<uintptr_t>(x2) & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (n + kE1Chunk - 1) / kE1Chunk;
+  const int rows = (int)n_tab_rows;
+  const size_t smem = HILO ? (size_t)((rows + 1) / 2) * 4 * kLanes : (size_t)rows * 2 * kLanes;
+  return launch_persistent(spmv_products_smem_kernel<HILO>, kE1Threads, smem, 1, HILO ? 2 * n_chunks : n_chunks,
+                           HILO ? 2 : 1, stream, (const __nv_bfloat16*)x2, rows, (const int*)cols, (const float*)data, n,
+                           (float*)out);
+}
+
 }  // namespace
 
 extern "C" {
 
 int st_spmv_products_hilo(const void* x2, long long n_tab_rows, const void* cols, const void* data, long long n,
-                          void* out, void* stream) {
-  return launch_spmv_products<true>(x2, n_tab_rows, cols, data, n, out, stream);
+                          long long resident, void* out, void* stream) {
+  return launch_spmv_products<true>(x2, n_tab_rows, cols, data, n, resident, out, stream);
 }
 
 int st_spmv_products_bf16(const void* x2, long long n_tab_rows, const void* cols, const void* data, long long n,
-                          void* out, void* stream) {
-  return launch_spmv_products<false>(x2, n_tab_rows, cols, data, n, out, stream);
+                          long long resident, void* out, void* stream) {
+  return launch_spmv_products<false>(x2, n_tab_rows, cols, data, n, resident, out, stream);
 }
 
 int st_lane_gather(const void* table, const void* idx, long long n_rows, void* out, void* stream) {
@@ -617,16 +873,28 @@ int st_lane_gather(const void* table, const void* idx, long long n_rows, void* o
   return (int)cudaGetLastError();
 }
 
-int st_lane_gather_blocksum(const void* table, const void* idx, long long n_blocks, long long rows_per_block,
-                            void* out, void* partial, void* tickets, void* stream) {
+// E7: resident != 0, the slice route (_cuda.lane_slice_resident; partial
+// and tickets unused), else the L2 route (lane_gather_kernel<true>: partial
+// (n_blocks, ceil(T / 64), 128), tickets (n_blocks,) zero before and after).
+int st_lane_gather_blocksum(const void* table, long long n_tab_rows, const void* idx, long long n_blocks,
+                            long long rows_per_block, long long resident, void* out, void* partial, void* tickets,
+                            void* stream) {
   if (n_blocks == 0) return 0;
-  const long long n_splits = (rows_per_block + kSplitRows - 1) / kSplitRows;
-  if (n_splits == 0 || n_splits > 0x7fffffffLL || n_blocks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)n_splits, (unsigned)n_blocks);
-  lane_gather_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const int*)idx, n_blocks * rows_per_block, rows_per_block, (float*)out, (float*)partial,
-      (int*)tickets);
-  return (int)cudaGetLastError();
+  const long long T = rows_per_block;
+  if (!resident) {
+    const long long n_splits = (T + kSplitRows - 1) / kSplitRows;
+    if (n_splits == 0 || n_splits > 0x7fffffffLL || n_blocks > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)n_splits, (unsigned)n_blocks);
+    lane_gather_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)table, (const int*)idx, n_blocks * T, T, (float*)out, (float*)partial, (int*)tickets);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = ((size_t)n_tab_rows + kSliceWarps) * kSliceLanes * 4;
+  if (T < 1 || n_tab_rows < 1 || smem > 232448 - 1024 || (reinterpret_cast<uintptr_t>(table) & 15))
+    return (int)cudaErrorInvalidValue;
+  return launch_persistent(lane_slice_blocksum_kernel, kSliceThreads, smem, LANE_CTAS_PER_SM, n_blocks * kLaneSlices,
+                           kLaneSlices, stream, (const float*)table, (int)n_tab_rows, (const int*)idx, T, n_blocks,
+                           (float*)out);
 }
 
 int st_row_gather(const void* table, const void* idx, const void* weights, long long n_seg, long long seg_per_group,

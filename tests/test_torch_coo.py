@@ -92,6 +92,45 @@ def test_already_sorted_input_is_kept():
     _assert_same(t, j)
 
 
+# signed zeros through the duplicate sums: -0.0 singletons beside a
+# duplicated coordinate, runs made only of -0.0, a run of -0.0 and +0.0 (+0.0)
+SIGNED_ZERO_CASES = {
+    "singletons_beside_a_run": ([[0, 1, 1, 2]], [-0.0, 3.0, 4.0, -0.0]),
+    "runs_of_minus_zero": ([[3, 0, 3, 1, 0, 3, 2]], [-0.0, -0.0, -0.0, 5.0, -0.0, -0.0, -0.0]),
+    "mixed_zero_run": ([[1, 0, 1, 2, 2]], [-0.0, -0.0, 0.0, -0.0, 2.5]),
+    "two_d": ([[0, 0, 1, 1, 0], [2, 2, 0, 1, 1]], [-0.0, -0.0, -0.0, 1.0, -0.0]),
+}
+
+
+def _bits(a):
+    a = np.asarray(a)
+    parts = (a.real, a.imag) if np.iscomplexobj(a) else (a,)
+    return [(p.tobytes(), np.signbit(p).tolist()) for p in parts]
+
+
+@pytest.mark.parametrize("case", sorted(SIGNED_ZERO_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex128])
+@pytest.mark.parametrize("prune", [False, True])
+def test_duplicate_sums_keep_the_sign_of_zero(case, dtype, prune):
+    coords, vals = SIGNED_ZERO_CASES[case]
+    coords = np.array(coords)
+    data = np.array(vals, dtype=dtype)
+    if np.iscomplexobj(data):  # signed zeros in the imaginary parts too
+        data = data + np.array([complex(0.0, -0.0) if v == 0 else 1j for v in vals])
+    shape = tuple(int(c.max()) + 1 for c in coords)
+    t = st.COO(coords, data, shape=shape, prune=prune, device=CPU)
+    j = jsp.COO(coords, data, shape=shape, prune=prune)
+    np.testing.assert_array_equal(t.coords.numpy(), np.asarray(j.coords))
+    assert _bits(t.data.numpy()) == _bits(j.data)
+    assert _bits(t.todense().numpy()) == _bits(j.todense())
+
+
+def test_duplicate_sums_keep_minus_zero_in_the_repro():
+    t = st.COO([[0, 1, 1, 2]], [-0.0, 3.0, 4.0, -0.0], shape=(3,), prune=True, device=CPU)
+    assert t.coords.tolist() == [[0, 1, 2]]
+    assert t.data.tolist() == [0.0, 7.0, 0.0] and torch.signbit(t.data).tolist() == [True, False, True]
+
+
 @pytest.mark.parametrize(
     "x,fill",
     [

@@ -372,3 +372,34 @@ def test_row_pick_blocksum_launcher_takes_only_its_routes():
         _cuda.row_pick_blocksum(table, cols, torch.empty((16, 128)), 8, route="slices")
     with pytest.raises(ValueError, match="CUDA device"):
         _cuda.row_pick_blocksum(table, cols, torch.empty((16, 128)), 8)
+
+
+# ------------------------------------------------------------------ E1 and E7 routes
+@pytest.mark.parametrize("hilo", [True, False])
+def test_spmv_products_table_resident_up_to_the_budget(hilo):
+    assert _cuda.spmv_products_resident(512, hilo)  # the benchmark's table: x of 65,536
+    assert _cuda.spmv_products_resident(904, hilo) and not _cuda.spmv_products_resident(905, hilo)
+    assert not _cuda.spmv_products_resident(0, hilo)
+    # bf16: every CTA holds the table; hi|lo: each CTA of a pair half its rows
+    held = -(-904 // 2) * 2 * 128 * 2 if hilo else 904 * 128 * 2
+    assert held <= _cuda.SMEM_BLOCK_BYTES < held + (1024 if hilo else 256)
+    assert _cuda.spmv_products_design(512, hilo) == ("smem_pairs" if hilo else "smem")
+    assert _cuda.spmv_products_design(905, hilo) == "l2"
+
+
+def test_lane_slice_resident_up_to_the_budget():
+    assert _cuda.lane_slice_resident(512)  # g1's table: 64 KB a 32-lane slice
+    assert _cuda.lane_slice_resident(1792) and not _cuda.lane_slice_resident(1793)
+    assert not _cuda.lane_slice_resident(8192) and not _cuda.lane_slice_resident(0)  # g1b's: 1 MB a slice
+    sums = _cuda.SLICE_WARPS * _cuda.SLICE_LANES * 4  # beside each warp's 32 sums
+    assert 1792 * _cuda.SLICE_LANES * 4 + sums <= _cuda.SMEM_BLOCK_BYTES < 1793 * _cuda.SLICE_LANES * 4 + sums
+
+
+@pytest.mark.parametrize("rows,T,splits", [(512, 512, None), (8192, 8192, 128), (200, 200, None), (1793, 64, 1), (1793, 65, 2)])
+def test_lane_blocksum_scratch_follows_the_route(rows, T, splits):
+    out, partial, tickets = t_vmem2._blocksum_buffers(3, T, rows, CPU)
+    assert out.shape == (24, 128)
+    if splits is None:  # the slice route: a CTA a lane slice and block, no scratch
+        assert partial is None and tickets is None
+    else:
+        assert partial.shape == (3, splits, 128) and tickets.shape == (3,) and not tickets.any()

@@ -10,7 +10,7 @@ at rtol=1e-10, atol=1e-12, bfloat16 (one final rounding each side) at
 rtol=atol=2e-2; MTTKRP on positive values at the row-ELL tolerances, for
 every table type (the bf16 tables' products are exact in float32 on both
 sides, so only the order of the row sum differs). The probe kernels
-(csrc/probes.cu): the picks (E1, p1, p3) exactly; the sums (p2, p4, g1-g3)
+(csrc/probes.cu): the picks (E1 on each design, p1, p3) exactly; the sums (p2, p4, g1-g3)
 of positive values at rtol=1e-4, atol=1e-3, as chip_smoke.py holds them.
 The SDDMM at max|got - want| / max|want| <= 1e-5 in float32 (3xTF32) and
 1e-10 in float64, bfloat16 at the BSR tolerance.
@@ -852,6 +852,35 @@ def test_spmv_products_kernel_equals_plain(cuda, hilo, n):
     assert torch.equal(got, e1.products_plain(x2, cols, data))
 
 
+# E1's tables: rows 512 (the benchmark's), odd, at the shared-memory limit
+# and one past it (the L2 route); n off the chunk, over more chunks than the
+# grid walks at once, and none; every q in one half of the table; q below 0
+# and at least the table's rows
+@pytest.mark.parametrize("hilo", [True, False])
+@pytest.mark.parametrize(
+    "n,rows,spread",
+    [(4096, 512, "all"), (2048 * 132 * 3 + 5, 512, "all"), (0, 512, "all"), (5000, 512, "low"), (5000, 512, "high"),
+     (3001, 3, "all"), (3001, 1, "all"), (7777, 904, "all"), (7777, 905, "all"), (7777, 1024, "high")],
+)
+def test_spmv_products_designs_equal_plain(cuda, hilo, n, rows, spread):
+    from sparse_tpu_torch.experiments import pallas_spmv_onehot as e1
+
+    rng = _probe_gen(n + rows)
+    x2 = e1.make_table(_rand(rng, rows * 128, cuda), hilo)
+    held = -(-rows // 2) * 128
+    lo, hi = {"all": (0, rows * 128), "low": (0, held), "high": (held, rows * 128)}[spread]
+    cols = torch.as_tensor(rng.integers(lo, hi, size=n, dtype=np.int32), device=cuda)
+    cols[: min(n, 4)] = torch.tensor([-5, rows * 128, -129, 1 << 30][: min(n, 4)], dtype=torch.int32, device=cuda)
+    data = torch.as_tensor(rng.standard_normal(n, dtype=np.float32), device=cuda)
+    _cuda.reset_launch_counts()
+    got = e1.products(x2, cols, data)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["spmv_products"] == (n > 0)
+    assert _cuda.spmv_products_design(rows, hilo) == (("smem_pairs" if hilo else "smem") if rows <= 904 else "l2")
+    assert got.shape == (n, 1) and torch.equal(got, e1.products_plain(x2, cols, data))
+    assert torch.equal(e1.products(x2, cols, data), got)
+
+
 @pytest.mark.parametrize("table_h,rows", [(512, 18432 // 16), (8192, 37), (300, 1)])
 def test_lane_gather_kernel_equals_plain(cuda, table_h, rows):
     from sparse_tpu_torch.experiments import pallas_vmem as v
@@ -873,11 +902,48 @@ def test_lane_gather_blocksum_kernel_matches_plain(cuda, T, n_blocks):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, v2.lane_gather_blocksum_plain(table, idx, T), **PROBE_SUMS)
     # the tickets return to zero: a second launch on the same scratch gives the same bits
-    out, partial, tickets = v2._blocksum_buffers(n_blocks, T, cuda)
+    out, partial, tickets = v2._blocksum_buffers(n_blocks, T, T, cuda)
     for _ in range(3):
         _cuda.lane_gather_blocksum(table, idx, T, out, partial, tickets)
         torch.cuda.synchronize()
-        assert torch.equal(out, got) and not tickets.any()
+        assert torch.equal(out, got) and (tickets is None or not tickets.any())
+
+
+# E7's two routes: T = 512 and 8192 (g1, g1b), T off the unit of 32 rows
+# (33, 31, 200), one block, more units than the grid's warps, tables other
+# than T rows (the slice route up to 1,792 rows, the L2 route past it)
+@pytest.mark.parametrize(
+    "T,n_blocks,table_h",
+    [(512, 36, 512), (8192, 4, 8192), (33, 5, 33), (31, 3, 500), (200, 1, 200), (512, 1, 512), (64, 300, 1792),
+     (64, 3, 1793), (1, 9, 7)],
+)
+def test_lane_gather_blocksum_routes_match_plain(cuda, T, n_blocks, table_h):
+    from sparse_tpu_torch.experiments import pallas_vmem2 as v2
+
+    rng = _probe_gen(T + table_h)
+    table, idx = _rand(rng, (table_h, 128), cuda), _ints(rng, table_h, (n_blocks * T, 128), cuda)
+    assert _cuda.lane_slice_resident(table_h) == (table_h <= 1792)
+    _cuda.reset_launch_counts()
+    got = v2.lane_gather_blocksum(table, idx, T)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["lane_gather_blocksum"] == 1
+    torch.testing.assert_close(got, v2.lane_gather_blocksum_plain(table, idx, T), **PROBE_SUMS)
+    out, partial, tickets = v2._blocksum_buffers(n_blocks, T, table_h, cuda)
+    assert (partial is None) == (table_h <= 1792)
+    for _ in range(2):  # the same bits every launch, the tickets left at zero
+        _cuda.lane_gather_blocksum(table, idx, T, out, partial, tickets)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got) and (tickets is None or not tickets.any())
+
+
+def test_lane_gather_blocksum_refuses_what_its_routes_do_not_take(cuda):
+    base = torch.rand(64 * 128 + 1, device=cuda)
+    table, idx = base[1:].view(64, 128), torch.zeros((64, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        _cuda.lane_gather_blocksum(table, idx, 64, torch.empty((8, 128), device=cuda))
+    tall = torch.rand((2000, 128), device=cuda)
+    with pytest.raises(ValueError, match="partial"):
+        _cuda.lane_gather_blocksum(tall, idx, 64, torch.empty((8, 128), device=cuda))
 
 
 @pytest.mark.parametrize("strip_h,n_seg,per_step", [(8192, 9, 1024), (256, 5, 37), (100, 7, 1), (512, 2, 5000)])
