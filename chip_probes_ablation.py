@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the bf16 row pick (E5, p3), the row-pick block sum
-(E8, g2), the one-hot SpMV products (E1) and the lane-gather block sum (E7,
-g1) goes, on one NVIDIA GPU (H100).
+(E8, g2), the one-hot SpMV products (E1), the lane-gather block sum (E7,
+g1), the lane gather (E3, p1) and the row gather-sum (E4, p2) goes, on one
+NVIDIA GPU (H100).
 
-    python3 chip_probes_ablation.py [p3] [g2] [e1] [g1] [all]
+    python3 chip_probes_ablation.py [p3] [g2] [e1] [g1] [p1] [p2] [all]
 
 Builds variants of ``sparse_tpu_torch/kernels/csrc/probes.cu`` side by side
 (one ``nvcc`` each, started together, into ``build/probes_ablation/``), each
-with other values of its ``PICK_*``, ``COUNT_*``, ``E1_*`` or ``LANE_*``
-macros, and times them at the probes' own sizes (the defaults of
-``pallas_vmem.py:p3``, ``pallas_vmem2.py:g2`` and ``g1``, and E1's products
-stream at the benchmark shape; their seeds):
+with other values of its ``PICK_*``, ``COUNT_*``, ``E1_*``, ``LANE_*`` or
+``ROW_SUM_*`` macros, and times them at the probes' own sizes (the defaults
+of ``pallas_vmem.py:p1``, ``p2``, ``p3``, ``pallas_vmem2.py:g2`` and
+``g1``, and E1's products stream at the benchmark shape; their seeds):
 
 - p3, a (512, 128) strip, 2^21 picks, 1.07 GB written: ``bulk`` (the strip
   in shared memory, 64-pick tiles stored by ``cp.async.bulk`` out of a ring
@@ -46,6 +47,20 @@ stream at the benchmark shape; their seeds):
   launches it) and ``slices_1_per_sm``. Every variant against the plain
   version at rtol=1e-4, atol=1e-3 and twice, bit for bit; the two slice
   variants equal bit for bit.
+- p1, a (512, 128) table and 18,432 index rows, and p1b, an (8192, 128)
+  table: ``slices`` (32-lane column slices in shared memory, the rows split
+  evenly over the grid's warps, one CTA an SM, 24 idx lines in flight a
+  warp, as the entry point launches it), ``slices_batch_32``,
+  ``slices_batch_12``, ``slices_2_per_sm``, ``slices_3_per_sm`` (16 lines),
+  ``l2`` (every pick a 4-byte load through L1/L2: the first port, and
+  p1b's route); beside them ``torch.gather``. Every variant equal to the
+  plain version bit for bit.
+- p2, an (8192, 128) strip and 128 segments of 1,024 picks: ``warps`` (a
+  CTA of 32 warps a segment, 8 row reads in flight a lane, as the entry
+  point launches it), ``warps_depth_4``, ``warps_depth_16`` (it spills),
+  ``first_port`` (row_gather_kernel, 8 warps a segment); beside them
+  ``F.embedding_bag``. Every variant against the plain version at
+  rtol=1e-4, atol=1e-3 and twice, bit for bit.
 
 Each variant is timed from a CUDA graph of 50 launches, L2 warm, in turns
 (forward, then backward), best of the two passes; then once after a 256 MB
@@ -75,7 +90,8 @@ ROW_BYTES = 512
 PROBE_TOL = dict(rtol=1e-4, atol=1e-3)
 
 # library name -> macro values (the defaults: PICK_TILE=64, PICK_STAGES=3,
-# COUNT_DEPTH=4, E1_THREADS=1024, LANE_CTAS_PER_SM=2)
+# COUNT_DEPTH=4, E1_THREADS=1024, LANE_CTAS_PER_SM=2,
+# LANE_GATHER_CTAS_PER_SM=1, LANE_GATHER_BATCH=24, ROW_SUM_DEPTH=8)
 BUILDS = {
     "default": {},
     "tile32": {"PICK_TILE": "32"},
@@ -84,6 +100,12 @@ BUILDS = {
     "counts_depth_8": {"COUNT_DEPTH": "8"},
     "e1_threads_512": {"E1_THREADS": "512"},
     "lane_1_per_sm": {"LANE_CTAS_PER_SM": "1"},
+    "lane_gather_batch_32": {"LANE_GATHER_BATCH": "32"},
+    "lane_gather_batch_12": {"LANE_GATHER_BATCH": "12"},
+    "lane_gather_2_per_sm": {"LANE_GATHER_CTAS_PER_SM": "2"},
+    "lane_gather_3_per_sm": {"LANE_GATHER_CTAS_PER_SM": "3", "LANE_GATHER_BATCH": "16"},
+    "row_sum_depth_4": {"ROW_SUM_DEPTH": "4"},
+    "row_sum_depth_16": {"ROW_SUM_DEPTH": "16"},
 }
 # p3 variant -> (library, resident)
 P3_VARIANTS = {
@@ -111,6 +133,25 @@ G1_VARIANTS = {
     "g1 slices_1_per_sm": (512, "lane_1_per_sm", 1),
     "g1b l2": (8192, "default", 0),
 }
+
+# p1 variant -> (table rows, library, resident): resident 0 the L2 route
+P1_VARIANTS = {
+    "p1 slices": (512, "default", 1),
+    "p1 slices_batch_32": (512, "lane_gather_batch_32", 1),
+    "p1 slices_batch_12": (512, "lane_gather_batch_12", 1),
+    "p1 slices_2_per_sm": (512, "lane_gather_2_per_sm", 1),
+    "p1 slices_3_per_sm": (512, "lane_gather_3_per_sm", 1),
+    "p1 l2": (512, "default", 0),
+    "p1b l2": (8192, "default", 0),
+}
+# p2 variant -> library; "first_port" is the row gather
+P2_VARIANTS = {
+    "warps": "default",
+    "warps_depth_4": "row_sum_depth_4",
+    "warps_depth_16": "row_sum_depth_16",
+    "first_port": "default",
+}
+L2_ROW_BYTES_PER_S = 7.3e12  # the card's whole-row L2 rate (PERF.md §5)
 
 
 def build(name):
@@ -365,6 +406,103 @@ def g1_section(libs, dev, flush):
         }), flush=True)
 
 
+def p1_section(libs, dev, flush):
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+
+    inputs = {}
+    for h in (512, 8192):  # p1's and p1b's draws
+        rng = np.random.default_rng(0)
+        table = torch.as_tensor(rng.random((h, 128), dtype=np.float32), device=dev)
+        idx = torch.as_tensor(rng.integers(0, h, size=(18432, 128), dtype=np.int32), device=dev)
+        inputs[h] = (table, idx, v.lane_gather_plain(table, idx))
+    launchers = {}
+    for name, (h, lib_name, resident) in P1_VARIANTS.items():
+        lib = libs[lib_name][0]
+        table, idx, want = inputs[h]
+        out = torch.empty_like(want)
+        go = lambda lib=lib, table=table, idx=idx, h=h, resident=resident, out=out: lib.st_lane_gather(  # noqa: E731
+            table.data_ptr(), h, idx.data_ptr(), idx.shape[0], resident, out.data_ptr(), stream())
+        launchers[name] = checked(go, name)
+        launchers[name]()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name}: differs from the plain version")
+    table, idx, _ = inputs[512]
+    i64 = idx.long()
+    launchers["p1 torch.gather"] = lambda: torch.gather(table, 0, i64)
+    rows = timed_in_turns(launchers, flush)
+    for name, row in rows.items():
+        h, lib, resident = P1_VARIANTS.get(name, (512, None, None))
+        table, idx, want = inputs[h]
+        bound_ms = (table.numel() + idx.numel() + want.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+        print(json.dumps({
+            "p1_variant": name,
+            **row,
+            "table_rows": h,
+            "gathers": idx.numel(),
+            "g_gathers_per_s": idx.numel() / (row["ms"] * 1e-3) / 1e9,
+            "bound_ms": bound_ms,
+            "bound_share": bound_ms / row["ms"],
+            "vs_l2": row["ms"] / rows[name.split()[0] + " l2"]["ms"],
+            "macros": BUILDS[lib] if lib else None,
+            "registers": (registers(libs[lib][1], "lane_slice" if resident else "lane_gather") if lib else None),
+        }), flush=True)
+
+
+def p2_section(libs, dev, flush):
+    import torch.nn.functional as F
+
+    from sparse_tpu_torch.experiments import pallas_vmem as v
+    from sparse_tpu_torch.kernels import _cuda
+
+    strip_h, n_seg, L = 8192, 128, 1024
+    rng = np.random.default_rng(1)  # p2's draws
+    strip = torch.as_tensor(rng.random((strip_h, 128), dtype=np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, strip_h, size=(n_seg * L,), dtype=np.int32), device=dev)
+    want = v.row_gather_sum_plain(strip, idx, L)
+    plan = _cuda.row_gather_sum_plan(L, n_seg, torch.cuda.get_device_properties(dev).multi_processor_count)
+    launchers = {}
+    for name, lib_name in P2_VARIANTS.items():
+        lib = libs[lib_name][0]
+        out = torch.empty_like(want)
+        if name == "first_port":
+            go = row_gather(lib, strip, idx, out, n_seg, L, 1)
+        else:
+            go = lambda lib=lib, out=out: lib.st_row_gather_sum(  # noqa: E731
+                strip.data_ptr(), idx.data_ptr(), n_seg, L, plan.warps_per_segment, plan.segments_per_cta,
+                out.data_ptr(), stream())
+        launchers[name] = checked(go, f"p2 {name}")
+        launchers[name]()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, **PROBE_TOL, msg=lambda m, name=name: f"p2 {name}: {m}")
+        first = out.clone()
+        launchers[name]()
+        torch.cuda.synchronize()
+        if not torch.equal(out, first):
+            raise AssertionError(f"p2 {name}: two launches differ")
+    bags = idx.long().view(n_seg, L)
+    launchers["embedding_bag"] = lambda: F.embedding_bag(bags, strip, mode="sum")
+    rows = timed_in_turns(launchers, flush)
+    picked = idx.numel() * ROW_BYTES
+    bound_ms = (strip.numel() + idx.numel() + want.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    for name, row in rows.items():
+        lib = P2_VARIANTS.get(name)
+        print(json.dumps({
+            "p2_variant": name,
+            **row,
+            "picked_bytes": picked,
+            "l2_row_tb_per_s": picked / (row["ms"] * 1e-3) / 1e12,
+            "l2_floor_ms": picked / L2_ROW_BYTES_PER_S * 1e3,
+            "bound_ms": bound_ms,
+            "bound_share": bound_ms / row["ms"],
+            "vs_first_port": row["ms"] / rows["first_port"]["ms"],
+            "plan": plan._asdict() if lib and name != "first_port" else None,
+            "macros": BUILDS[lib] if lib else None,
+            "registers": (registers(libs[lib][1], "row_gather_kernel" if name == "first_port" else "row_gather_sum")
+                          if lib else None),
+        }), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_probes_ablation: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -375,6 +513,8 @@ def main():
         "g2": set(G2_VARIANTS.values()),
         "e1": {lib for _, lib, _ in E1_VARIANTS.values()},
         "g1": {lib for _, lib, _ in G1_VARIANTS.values()},
+        "p1": {lib for _, lib, _ in P1_VARIANTS.values()},
+        "p2": set(P2_VARIANTS.values()),
         "all": set(BUILDS),
     }
     if not set(which) <= set(sections):
@@ -395,6 +535,10 @@ def main():
         e1_section(libs, dev, flush)
     if "g1" in which:
         g1_section(libs, dev, flush)
+    if "p1" in which:
+        p1_section(libs, dev, flush)
+    if "p2" in which:
+        p2_section(libs, dev, flush)
     print(card_name_power())
     return 0
 

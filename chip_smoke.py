@@ -44,9 +44,10 @@ drives the port's two paths on the card:
   and 4096 slots) against a float64 oracle and beside K1, and the VMEM
   gather probes p1-p4 and g1-g3 at their own full sizes; each of the eight
   kernels held against its plain version (E1 on both tables and, with a
-  table too tall for shared memory, on its L2 route; g1, g1b and g2 twice,
-  bit for bit), E1's line with both tables' times and designs, g1's and
-  g1b's with their route (column slices in shared memory, or L2), and
+  table too tall for shared memory, on its L2 route; g1, g1b, g2 and p2
+  twice, bit for bit), E1's line with both tables' times and designs, g1's,
+  g1b's, p1's and p1b's with their route (column slices in shared memory,
+  or L2), p2's with its launch plan and L2 floor, and
   the card's gather rates: p3's write rate beside ``out.zero_()`` on an
   output of its size (the write ceiling), g2's shared-memory pick rate
   beside its first route's whole-row L2 rate, both timed in this run.
@@ -170,6 +171,7 @@ E1_ORACLE_TOL = {"hilo": 1e-4, "bf16": 1e-2}
 # 4e3 at most, added in another order
 PROBE_TOL = dict(rtol=1e-4, atol=1e-3)
 L2_ROW_BYTES = 128 * 4  # one picked f32 table row
+L2_ROW_BYTES_PER_S = 7.3e12  # the card's whole-row L2 rate (PERF.md §5), E4's floor
 
 
 def log(*parts):
@@ -1432,6 +1434,10 @@ def phase_experiments_vs_plain(spmv, runs):
         errs[r.label] = exact(f"lane_gather {r.label}", r.outputs[1], v.lane_gather_plain(table, idx))
     r = runs["p2"]
     errs["p2"] = check_close("row_gather_sum", r.outputs[0], v.row_gather_sum_plain(r.inputs["strip"], r.inputs["idx"], 1024), PROBE_TOL)
+    again = v.row_gather_sum(r.inputs["strip"], r.inputs["idx"], 1024)  # sums in the plan's fixed order
+    torch.cuda.synchronize()
+    if not torch.equal(again, r.outputs[0]):
+        raise AssertionError("row_gather_sum: two launches differ")
     r = runs["p3"]
     errs["p3"] = exact("row_pick_bf16", r.outputs[0], v.row_pick_bf16_plain(r.inputs["strip"], r.inputs["idx"]))
     r = runs["p4"]
@@ -1495,28 +1501,34 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
 
     specs = []
 
-    def add(name, run, plain, library, note, tensors, whole_rows=False, more_bytes=0, extra=None):
+    def add(name, run, plain, library, note, tensors, whole_rows=False, more_bytes=0, extra=None, fields=None):
         """``tensors``: the inputs and outputs, each counted once in the bound,
         with ``more_bytes``; ``whole_rows``: the run picks n 512-byte table
         rows through L2; ``extra``: a function of the kernel's ms giving more
-        fields of the run's line."""
+        fields of the run's line; ``fields``: more fields of the kernel's row."""
         specs.append(
             (name, run, plain, library, note, nbytes(*tensors) + more_bytes,
-             run.n * L2_ROW_BYTES if whole_rows else None, extra)
+             run.n * L2_ROW_BYTES if whole_rows else None, extra, fields or {})
         )
 
     add("spmv_products", e1_run, lambda: e1.products_plain(x2h, fc, fd), None,
         "none: no single PyTorch call picks from a hi|lo bf16 table", (fc, fd, x2h, out))
+    # the route of each lane-gather run, by its table (column slices in shared memory, or L2)
+    p1_designs = {r.label: _cuda.lane_gather_design(r.inputs["table"].shape[0]) for r in (runs["p1"], runs["p1b"])}
     for r in (runs["p1"], runs["p1b"]):
         table, idx = r.inputs["table"], r.inputs["idx"]
         i64 = idx.long()
         add("lane_gather", r, lambda t=table, i=idx: v.lane_gather_plain(t, i), lambda t=table, i=i64: torch.gather(t, 0, i),
-            "torch.gather(table, 0, idx), idx int64 beforehand", (table, idx, r.outputs[1]))
+            "torch.gather(table, 0, idx), idx int64 beforehand", (table, idx, r.outputs[1]),
+            fields={"design": p1_designs[r.label], "designs": p1_designs})
     r = runs["p2"]
     strip, idx = r.inputs["strip"], r.inputs["idx"]
     bags = idx.long().view(-1, 1024)
+    p2_plan = _cuda.row_gather_sum_plan(1024, bags.shape[0], torch.cuda.get_device_properties(idx.device).multi_processor_count)
     add("row_gather_sum", r, lambda: v.row_gather_sum_plain(strip, idx, 1024), lambda: F.embedding_bag(bags, strip, mode="sum"),
-        "F.embedding_bag(idx.view(128, 1024), strip, mode='sum')", (strip, idx, r.outputs[0]), whole_rows=True)
+        "F.embedding_bag(idx.view(128, 1024), strip, mode='sum')", (strip, idx, r.outputs[0]), whole_rows=True,
+        extra=lambda ms, n=r.n: {"l2_floor_ms": n * L2_ROW_BYTES / L2_ROW_BYTES_PER_S * 1e3},
+        fields={"plan": p2_plan._asdict(), "two_launches_equal": True})
     r = runs["p3"]
     strip3, idx3 = r.inputs["strip"], r.inputs["idx"]
     rounded, i3 = strip3.to(torch.bfloat16).float(), idx3.long()
@@ -1590,7 +1602,7 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
         "cell add, regrouped beforehand", (table3, r.outputs[0]), whole_rows=True, more_bytes=r.n * 8)
 
     rows, seen = [], set()
-    for name, run, plain, library, note, nb, l2, extra in specs:
+    for name, run, plain, library, note, nb, l2, extra, fields in specs:
         plain_ms = time_eager(plain, reps=3)
         library_ms = None if library is None else time_eager(library, reps=10)
         bound_ms = nb / HBM_BYTES_PER_S * 1e3
@@ -1606,6 +1618,7 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
             "bound_ms": bound_ms,
             "bound_by": "bytes",
             "library_ms": library_ms,
+            **fields,
         }
         log(
             json.dumps(

@@ -6,10 +6,11 @@ per-row dynamic loads summed per segment (E4), p3 the one-hot MXU row pick
 with bf16 operands (E5), p4 a loop of scalar loads at SMEM-held indices
 summed per segment (E6). Here each function launches its CUDA kernel
 (``kernels/csrc/probes.cu``) for CUDA tensors and runs its plain PyTorch
-version for CPU tensors. p1, p2 and p4 read their table from global memory,
+version for CPU tensors. p2 and p4 read their table from global memory,
 where it stays in the card's L2, so their runners measure the L2 gather
-rates; p3 holds its strip, rounded to bf16, in each CTA's shared memory when
-it fits, and its runner measures the card's write path.
+rates; p1 holds 32-lane column slices of its table in shared memory when
+they fit (its 512 rows do, p1b's 8192 do not), p3 its strip, rounded to
+bf16, and its runner measures the card's write path.
 
 Each runner keeps the probe's parameters and defaults, draws its inputs from
 the same seeds in the same order, runs the probe's own spot check (a failure

@@ -77,9 +77,10 @@ _SIGNATURES = {
     },
     "probes": {
         **{f"st_spmv_products_{t}": [_p, _i64, _p, _p, _i64, _i64, _p, _p] for t in ("hilo", "bf16")},
-        "st_lane_gather": [_p, _p, _i64, _p, _p],
+        "st_lane_gather": [_p, _i64, _p, _i64, _i64, _p, _p],
         "st_lane_gather_blocksum": [_p, _i64, _p, *[_i64] * 3, _p, _p, _p, _p],
         "st_row_gather": [_p, _p, _p, *[_i64] * 9, _p, _p],
+        "st_row_gather_sum": [_p, _p, *[_i64] * 4, _p, _p],
         "st_scalar_gather_sum": [_p, _i64, _p, _p, _i64, _i64, _p, _p],
         "st_row_pick_bf16": [_p, _i64, _p, _i64, _i64, _p, _p],
         "st_row_pick_counts": [_p, _i64, _p, *[_i64] * 4, _p, _p, _p, _p],
@@ -902,11 +903,27 @@ def spmv_products(x2, cols, data, out):
     return out
 
 
+# E3's routes (csrc/probes.cu): a table whose 32-lane column slices fit one
+# CTA's shared memory (rows x 128 bytes: 1,808 rows) takes the slice route
+# (lane_slice_kernel<false>: a CTA a lane slice, the rows split evenly over
+# the grid's warps), a taller one the L2 route (lane_gather_kernel<false>:
+# every pick a 4-byte load through L1/L2)
+SLICE_LANES = 32
+
+
+def lane_gather_design(rows):
+    """The route E3's launcher takes for a table of ``rows`` rows:
+    ``"slices"`` when a 32-lane column slice of it fits one CTA's shared
+    memory, else ``"l2"``."""
+    return "slices" if 0 < rows * SLICE_LANES * 4 <= SMEM_BLOCK_BYTES else "l2"
+
+
 def lane_gather(table, idx, out):
     """Launch E3 (``pallas_vmem.py:p1``): ``out[i, l] = table[idx[i, l], l]``;
     ``table`` float32 ``(rows, 128)``, ``idx`` int32 and ``out`` float32
-    ``(n, 128)``, both 16-byte aligned. The caller guarantees every index in
-    range."""
+    ``(n, 128)``, both 16-byte aligned. The route:
+    :func:`lane_gather_design`; the slice route takes ``table`` 16-byte
+    aligned too. The caller guarantees every index in range."""
     device = idx.device
     require_cuda(device, "probe")
     _check_probe_table("table", table, device)
@@ -915,7 +932,15 @@ def lane_gather(table, idx, out):
     if idx.ndim != 2 or idx.shape[1] != PROBE_LANES or out.shape != idx.shape:
         raise ValueError(f"lane_gather: idx and out must both be (n, {PROBE_LANES})")
     _check_aligned(idx=idx, out=out)
-    err = load("probes").st_lane_gather(table.data_ptr(), idx.data_ptr(), idx.shape[0], out.data_ptr(), _stream(device))
+    rows = table.shape[0]
+    slices = lane_gather_design(rows) == "slices"
+    if slices:
+        _check_aligned(table=table)
+    if idx.shape[0] == 0:
+        return out
+    err = load("probes").st_lane_gather(
+        table.data_ptr(), rows, idx.data_ptr(), idx.shape[0], int(slices), out.data_ptr(), _stream(device)
+    )
     _raise_on(err, "lane_gather")
     LAUNCHES["lane_gather"] += 1
     return out
@@ -924,10 +949,10 @@ def lane_gather(table, idx, out):
 # E7's routes (csrc/probes.cu): a table whose 32-lane column slices fit one
 # CTA's shared memory beside its 16 warps' sums (rows x 128 bytes + 2 KB:
 # 1,792 rows) takes the slice route
-# (lane_slice_blocksum_kernel: a CTA a lane slice and block, no scratch), a
+# (lane_slice_kernel<true>: a CTA a lane slice and block, no scratch), a
 # taller one the L2 route (lane_gather_kernel<true>: LANE_SPLIT_ROWS rows of
 # a block a CTA, their partial rows added by the block's last CTA)
-SLICE_LANES, SLICE_WARPS = 32, 16
+SLICE_WARPS = 16
 LANE_SPLIT_ROWS = 64
 
 
@@ -1000,7 +1025,7 @@ def lane_gather_blocksum(table, idx, rows_per_block, out, partial=None, tickets=
 
 def _row_gather(name, table, idx, weights, out, out_shape, *, n_seg, seg_per_group=1, group_stride, r_stride=0,
                 n_g, g_stride=1, n_w=1, keep=1, copies=1):
-    """Launch the row gather of ``csrc/probes.cu`` for p2, g3 or g2's first
+    """Launch the row gather of ``csrc/probes.cu`` for g3 or g2's first
     route (segment ``s``: group ``s // seg_per_group``, place ``r``; its
     picked rows summed, stored ``copies`` times at ``(g · keep + r) · copies``
     when ``r < keep``), counted under ``name``."""
@@ -1043,14 +1068,55 @@ def _segments_of(name, idx, seg_len):
     return idx.shape[0] // seg_len
 
 
+class RowSumPlan(NamedTuple):
+    warps_per_segment: int
+    segments_per_cta: int
+    ctas: int
+
+
+# E4 (row_gather_sum_kernel): a warp for each 32 picks of a segment (one
+# index line a round), at most ROW_SUM_WARPS (a CTA of 1,024 threads);
+# short segments share a CTA of at most ROW_SUM_SHARED_WARPS warps
+ROW_SUM_WARPS, ROW_SUM_SHARED_WARPS = 32, 8
+
+
+def row_gather_sum_plan(seg_len, n_seg, sms):
+    """E4's launch plan for ``n_seg`` segments of ``seg_len`` picks on a card
+    of ``sms`` SMs: the warps of a segment, the segments of a CTA (more than
+    one only when every SM still gets a CTA) and the CTAs. The sums' order,
+    and so their bits, follow from ``seg_len`` and the plan."""
+    if seg_len <= 0 or n_seg < 0 or sms <= 0:
+        raise ValueError(f"row_gather_sum: {n_seg} segments of {seg_len} on {sms} SMs")
+    wps = min(ROW_SUM_WARPS, -(-seg_len // 32))
+    spc = max(1, min(ROW_SUM_SHARED_WARPS // wps, n_seg // sms))
+    return RowSumPlan(wps, spc, -(-n_seg // spc))
+
+
 def row_gather_sum(strip, idx, out, seg_len):
     """Launch E4 (``pallas_vmem.py:p2``): ``out[g] = Σ_{w < L}
     strip[idx[gL + w], :]``, ``L = seg_len``; ``strip`` float32 ``(rows,
-    128)``, ``idx`` int32 ``(n_seg · L,)``, ``out`` float32 ``(n_seg, 128)``."""
+    128)``, ``idx`` int32 ``(n_seg · L,)``, ``out`` float32 ``(n_seg, 128)``,
+    on the plan :func:`row_gather_sum_plan` for this card. The caller
+    guarantees every index in range."""
     n_seg = _segments_of("row_gather_sum", idx, seg_len)
-    return _row_gather(
-        "row_gather_sum", strip, idx, None, out, (n_seg, PROBE_LANES), n_seg=n_seg, group_stride=seg_len, n_g=seg_len
+    device = idx.device
+    require_cuda(device, "probe")
+    _check_probe_table("strip", strip, device)
+    _check("idx", idx, torch.int32, device)
+    _check("out", out, torch.float32, device)
+    if out.shape != (n_seg, PROBE_LANES):
+        raise ValueError(f"row_gather_sum: out of shape {tuple(out.shape)}, expected {(n_seg, PROBE_LANES)}")
+    _check_aligned(strip=strip, out=out)
+    if n_seg == 0:
+        return out
+    plan = row_gather_sum_plan(seg_len, n_seg, torch.cuda.get_device_properties(device).multi_processor_count)
+    err = load("probes").st_row_gather_sum(
+        strip.data_ptr(), idx.data_ptr(), n_seg, seg_len, plan.warps_per_segment, plan.segments_per_cta,
+        out.data_ptr(), _stream(device)
     )
+    _raise_on(err, "row_gather_sum")
+    LAUNCHES["row_gather_sum"] += 1
+    return out
 
 
 # E5 (row_pick_bf16_kernel): chunks of PICK_TILE picks, stored out of a ring

@@ -2,12 +2,13 @@
 // plain C interface for ctypes. Built by sparse_tpu_torch/kernels/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 //
-// Eight kernels serve the eight Pallas functions they replace:
+// Nine kernels serve the eight Pallas functions they replace:
 // 1. spmv_products_smem_kernel<HILO> experiments/pallas_spmv_onehot.py:products_kernel (E1);
 //    spmv_products_kernel<HILO>      its route for a table too tall for shared memory
-// 2. lane_gather_kernel<BLOCKSUM>    experiments/pallas_vmem.py:p1 (E3); g1's route for a tall table
-// 3. lane_slice_blocksum_kernel      pallas_vmem2.py:g1 (E7)
-// 4. row_gather_kernel<WEIGHTED>     pallas_vmem.py:p2 (E4), pallas_vmem2.py:g3 (E9); g2's first route
+// 2. lane_slice_kernel<BLOCKSUM>     experiments/pallas_vmem.py:p1 (E3), pallas_vmem2.py:g1 (E7)
+//    lane_gather_kernel<BLOCKSUM>    their route for a table too tall for shared memory
+// 3. row_gather_sum_kernel           pallas_vmem.py:p2 (E4)
+// 4. row_gather_kernel<WEIGHTED>     pallas_vmem2.py:g3 (E9); g2's first route
 // 5. scalar_gather_sum_kernel        pallas_vmem.py:p4 (E6)
 // 6. row_pick_bf16_kernel<RESIDENT>  pallas_vmem.py:p3 (E5)
 // 7. row_pick_counts_kernel<ALIGNED> pallas_vmem2.py:g2 (E8)
@@ -16,14 +17,14 @@
 // f32 table and E1's 512 x 256 bf16 hi|lo table are 256 KB, the 8192 x 128
 // strip 4 MB) and picks from it with a one-hot MXU product, Mosaic's sublane
 // gather or scalar loads. A block of this card has at most 227 KB of shared
-// memory. The kernels of p1, p2, p4 and g3 read the table from global
-// memory, where it stays in the 50 MB L2 between picks: what they measure
-// is the card's L2 gather rate. The others hold the table, or the part of
-// it a CTA reads, in shared memory: E1's bf16 table whole and its hi|lo
-// table half a CTA, p3's strip rounded to bf16 (128 KB) whole, g1's table
-// in 32-lane column slices, g2's in row slices. A one-hot pick is exact
-// (one 1 in the row, the rest adds zeros), so every pick here is a direct
-// load, and E1 and p3 give the TPU function's values bit for bit.
+// memory. The kernels of p2, p4 and g3 read the table from global memory,
+// where it stays in the 50 MB L2 between picks: what they measure is the
+// card's L2 gather rate. The others hold the table, or the part of it a CTA
+// reads, in shared memory: E1's bf16 table whole and its hi|lo table half a
+// CTA, p3's strip rounded to bf16 (128 KB) whole, p1's and g1's table in
+// 32-lane column slices, g2's in row slices. A one-hot pick is exact (one
+// 1 in the row, the rest adds zeros), so every pick here is a direct load,
+// and E1 and p3 give the TPU function's values bit for bit.
 //
 // Bound on this card: bytes. Each function reads its indices (and values)
 // once and writes its output once; the table's bytes come from L2 (or
@@ -31,9 +32,9 @@
 // 1.2 GB and 74 MB a call). That traffic is the rate these probes measure.
 //
 // No sum uses atomics. A long segment is cut over the warps of one CTA (row
-// gather) or over CTAs or warps whose partial sums the one that takes the
-// block's last ticket adds in order (lane gather block sums, g2's count
-// form), so every result is deterministic.
+// gathers, g1's slices) or over CTAs or warps whose partial sums the one
+// that takes the block's last ticket adds in order (g1's L2 route, g2's
+// count form), so every result is deterministic.
 //
 // Every table is (rows, 128) f32, the TPU's lane width, except E1's bf16
 // table. The launchers in _cuda.py check shapes, dtypes, contiguity and the
@@ -284,30 +285,43 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) tickets[b] = 0;
 }
 
-// g1 from column slices in shared memory (a table of at most 1,792 rows:
-// _cuda.lane_slice_resident; taller tables take lane_gather_kernel<true>,
-// the L2 route). The L2 route's picks are 4-byte loads of table[idx * 128 +
-// l] through L1/L2, at the card's lane-gather rate (141 G/s at T = 512 on an
-// H100), while the bound is the idx stream. But lane l only ever reads
-// column l, and the lanes [32 s, 32 s + 32) of a block's sums depend on
-// nothing else: a CTA serving lane slice s needs only that slice of the
-// table, rows x 128 bytes (64 KB at 512 rows), stored with a row stride of
-// 32 words. A warp then reads its 32 lanes of one idx row (one 128-byte
-// line) and picks slice[idx * 32 + lane]: lane j from bank j, whatever the
-// indices, so no pick waits on a bank conflict.
-// - A persistent grid (two CTAs an SM): CTA i serves lane slice i mod 4 and
-//   the blocks i / 4, i / 4 + G / 4, ... (G CTAs). It loads its slice once
-//   with plain 16-byte loads, while each warp's first idx rows are already
-//   in flight.
-// - Warp w sums the block's rows [w T / 16, (w + 1) T / 16) in row order,
-//   kBatch idx lines in flight; warp 0 adds the 16 warps' sums in warp
-//   order and stores the 8 rows of its 32 lanes. One fixed order: the same
-//   bits every launch, and no partials, tickets or fences between CTAs.
-// On an H100 (chip_probes_ablation.py g1; PERF.md) partial rows of 16-64
-// rows a warp, added by the block's last warp through tickets, took 1.2-2.9x
-// as long (a fence, a ticket and the partials' loads on every block's
-// path); the slice copied in by cp.async.bulk, a row a copy, lost 5-8 % to
-// plain loads, and clusters of 2 or 4 CTAs sharing it by multicast 20-26 %.
+// p1 and g1 from column slices in shared memory (lane_slice_kernel<false>:
+// a table of at most 1,808 rows, _cuda.lane_gather_design;
+// lane_slice_kernel<true>: at most 1,792 rows beside the warps' sums,
+// _cuda.lane_slice_resident; taller tables take lane_gather_kernel, the L2
+// route). The L2 route's picks are 4-byte loads of table[idx * 128 + l]
+// through L1/L2, at the card's lane-gather rate (141-150 G/s on an H100),
+// while the bound is the idx stream (and p1's output). But lane l only ever
+// reads column l, and the lanes [32 s, 32 s + 32) of an output row or a
+// block's sums depend on nothing else: a CTA serving lane slice s needs only
+// that slice of the table, rows x 128 bytes (64 KB at 512 rows), stored with
+// a row stride of 32 words. A warp then reads its 32 lanes of one idx row
+// (one 128-byte line) and picks slice[idx * 32 + lane]: lane j from bank j,
+// whatever the indices, so no pick waits on a bank conflict.
+// - A persistent grid: CTA i serves lane slice i mod 4. It loads its slice
+//   once with plain 16-byte loads, while each warp's first idx rows are
+//   already in flight.
+// - g1 (BLOCKSUM, two CTAs an SM, kBatch idx lines in flight a warp): CTA
+//   i takes the blocks i / 4, i / 4 + G / 4, ... (G CTAs). Warp w sums the
+//   block's rows [w T / 16, (w + 1) T / 16) in row order; warp 0 adds the
+//   16 warps' sums in warp order and stores the 8 rows of its 32 lanes. One
+//   fixed order: the same bits every launch, and no partials, tickets or
+//   fences between CTAs.
+// - p1 (no BLOCKSUM, one CTA an SM, kGatherBatch idx lines in flight a
+//   warp): the n idx rows are one block, split evenly over the grid's warps
+//   of each slice (warp w of CTA i: part (i / 4) * 16 + w of 16 G / 4). A
+//   warp stores each pick at once: one 128-byte output line a row. Every
+//   pick is a load, so the output is the L2 route's bit for bit.
+// On an H100 (chip_probes_ablation.py g1, p1; PERF.md) g1's partial rows of
+// 16-64 rows a warp, added by the block's last warp through tickets, took
+// 1.2-2.9x as long (a fence, a ticket and the partials' loads on every
+// block's path); the slice copied in by cp.async.bulk, a row a copy, lost
+// 5-8 % to plain loads, and clusters of 2 or 4 CTAs sharing it by multicast
+// 20-26 %. p1 (34-35 rows a warp) takes 0.0058-0.0059 ms with 24 lines;
+// 32 lines 0.0066 (a second round of 2-3 rows costs a whole L2 latency),
+// 48 lines 0.0063-0.0065 (one round: no idx read overlaps the stores), two
+// or three CTAs an SM 0.0064-0.0070; 12 or 20 lines, or a second idx buffer
+// (the next round in flight during this one's stores), gained nothing.
 constexpr int kSliceLanes = 32;
 constexpr int kLaneSlices = kLanes / kSliceLanes;
 constexpr int kSliceThreads = 512;
@@ -316,24 +330,37 @@ constexpr int kBatch = 32;  // idx lines in flight a warp
 #ifndef LANE_CTAS_PER_SM
 #define LANE_CTAS_PER_SM 2
 #endif
+#ifndef LANE_GATHER_CTAS_PER_SM
+#define LANE_GATHER_CTAS_PER_SM 1
+#endif
+#ifndef LANE_GATHER_BATCH
+#define LANE_GATHER_BATCH 24
+#endif
+constexpr int kGatherBatch = LANE_GATHER_BATCH;  // p1's idx lines in flight a warp
+constexpr long long kGatherMinRows = kSliceWarps * 8;  // idx rows a CTA at least: its slice load costs a few rows' time
 
-__global__ void __launch_bounds__(kSliceThreads, LANE_CTAS_PER_SM)
-    lane_slice_blocksum_kernel(const float* __restrict__ table, int n_tab_rows, const int* __restrict__ idx,
-                               long long T, long long n_blocks, float* __restrict__ out) {
+template <bool BLOCKSUM>
+__global__ void __launch_bounds__(kSliceThreads, BLOCKSUM ? LANE_CTAS_PER_SM : LANE_GATHER_CTAS_PER_SM)
+    lane_slice_kernel(const float* __restrict__ table, int n_tab_rows, const int* __restrict__ idx, long long T,
+                      long long n_blocks, float* __restrict__ out) {
+  constexpr int kB = BLOCKSUM ? kBatch : kGatherBatch;
   extern __shared__ __align__(128) float slice[];  // row t, lane 32 s + j at t * 32 + j; then the warps' sums
   float(*sums)[kSliceLanes] = reinterpret_cast<float(*)[kSliceLanes]>(slice + (size_t)n_tab_rows * kSliceLanes);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int s = (int)(blockIdx.x % kLaneSlices);
   const long long stride = gridDim.x / kLaneSlices;  // the grid is a multiple of 4
-  const long long t0 = T * warp / kSliceWarps, t1 = T * (warp + 1) / kSliceWarps;  // this warp's rows of a block
+  // this warp's rows of a block: one of 16 parts (g1), one of the slice's 16 G / 4 parts of the one block (p1)
+  const long long parts = BLOCKSUM ? kSliceWarps : kSliceWarps * stride;
+  const long long part = BLOCKSUM ? warp : blockIdx.x / kLaneSlices * kSliceWarps + warp;
+  const long long t0 = T * part / parts, t1 = T * (part + 1) / parts;
 
-  int v[kBatch];
-  auto fetch = [&](long long b, long long t) {  // the idx lines of rows [t, t + kBatch) of block b, up to t1
+  int v[kB];
+  auto fetch = [&](long long b, long long t) {  // the idx lines of rows [t, t + kB) of block b, up to t1
     const int* ib = idx + (b * T + t) * kLanes + s * kSliceLanes + lane;
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) v[i] = t + i < t1 ? __ldg(ib + (long long)i * kLanes) : 0;
+    for (int i = 0; i < kB; ++i) v[i] = t + i < t1 ? __ldg(ib + (long long)i * kLanes) : 0;
   };
-  long long b = blockIdx.x / kLaneSlices;
+  long long b = BLOCKSUM ? blockIdx.x / kLaneSlices : 0;
   if (b < n_blocks) fetch(b, t0);
 
   const float4* src = reinterpret_cast<const float4*>(table) + s * (kSliceLanes / 4);
@@ -345,13 +372,20 @@ __global__ void __launch_bounds__(kSliceThreads, LANE_CTAS_PER_SM)
 
   for (; b < n_blocks; b += stride) {
     float acc = 0.0f;
-    for (long long t = t0; t < t1; t += kBatch) {
+    for (long long t = t0; t < t1; t += kB) {
       if (t > t0) fetch(b, t);
 #pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        if (t + i < t1) acc += slice[v[i] * kSliceLanes + lane];
+      for (int i = 0; i < kB; ++i) {
+        if (t + i < t1) {
+          const float p = slice[v[i] * kSliceLanes + lane];
+          if (BLOCKSUM)
+            acc += p;
+          else
+            out[(t + i) * kLanes + s * kSliceLanes + lane] = p;
+        }
       }
     }
+    if (!BLOCKSUM) return;
     sums[warp][lane] = acc;
     __syncthreads();
     if (b + stride < n_blocks) fetch(b + stride, t0);  // the next block's first rows in flight
@@ -372,7 +406,8 @@ __global__ void __launch_bounds__(kSliceThreads, LANE_CTAS_PER_SM)
 // (k / n_w) * g_stride + k % n_w for k < n_g * n_w. The sum of its picked
 // rows is stored, in `copies` identical rows, at output row
 // (g * keep + r) * copies when r < keep.
-//   p2: segments of per_step consecutive indices         (seg_per_group 1, n_g per_step, keep 1, copies 1)
+//   p2: segments of per_step consecutive indices         (seg_per_group 1, n_g per_step, keep 1, copies 1;
+//       p2's first port, launched now only by chip_probes_ablation.py p2)
 //   g2: segments of T consecutive indices, 8 copies      (n_g T, copies 8; its first
 //       route, kept to measure the whole-row L2 rate beside the slices)
 //   g3: cell i, place r < 8: the picks t = 128 g' + r, w < W of the cell's
@@ -388,6 +423,13 @@ struct Segments {
 __device__ __forceinline__ float4 round_bf16(float4 v) {
   return make_float4(__bfloat162float(__float2bfloat16_rn(v.x)), __bfloat162float(__float2bfloat16_rn(v.y)),
                      __bfloat162float(__float2bfloat16_rn(v.z)), __bfloat162float(__float2bfloat16_rn(v.w)));
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
 }
 
 // A warp picks whole 512-byte rows: lane l holds columns 4l..4l+3 as one
@@ -461,6 +503,74 @@ __global__ void __launch_bounds__(kThreads)
   if (!live || r >= sg.keep) return;
   float4* o = reinterpret_cast<float4*>(out) + (group * sg.keep + r) * sg.copies * (kLanes / 4) + lane;
   for (long long c = 0; c < sg.copies; ++c) o[c * (kLanes / 4)] = acc;
+}
+
+// p2 (E4): out[g] = sum over w < L of strip[idx[g L + w], :], with the
+// launch plan _cuda.row_gather_sum_plan (warps a segment, segments a CTA).
+// Bound: bytes of HBM (the strip, idx and out once: 0.0014 ms at p2's
+// size), but every pick reads a 512-byte row from L2: 67.1 MB at p2's size,
+// 0.0092 ms at the card's whole-row L2 rate (7.3 TB/s). row_gather_kernel
+// gave a segment of 1,024 picks 8 warps, one CTA an SM, each warp a
+// dependent index load and then about 8 row reads in flight: 3.49 TB/s,
+// bound by the reads in flight an SM, not by L2. Here:
+// - A warp for each 32 picks of a segment, at most 32 (one CTA of 1,024
+//   threads for a segment of 1,024 picks or more: 4x the warps an SM).
+//   Warp w takes the contiguous picks [w c, (w + 1) c), c = ceil(L / wps),
+//   32 at a time: one coalesced index line, broadcast by shuffles, then the
+//   rows in batches of kRowSumDepth float4 loads in flight a lane.
+// - Short segments get fewer warps and share a CTA (at most 8 warps, and
+//   only once there are more segments than SMs).
+// - The sum order is fixed by (L, plan): picks in order within a warp, then
+//   the segment's first warp adds the others' rows in warp order through
+//   shared memory. The same bits every launch.
+// On an H100 (chip_probes_ablation.py p2; PERF.md) p2 takes 0.0110 ms, 6.1
+// TB/s of rows on 128 of the 132 SMs (the first kernel 0.0191); 4 or 6
+// reads in flight 0.0115 / 0.0113; 12 or 16 spill at 64 registers, 0.0148 /
+// 0.0203; clusters of 2 or 4 CTAs a segment (16 or 8 warps each), rank 0
+// adding the ranks' rows through distributed shared memory, 0.0119 /
+// 0.0162.
+#ifndef ROW_SUM_DEPTH
+#define ROW_SUM_DEPTH 8
+#endif
+constexpr int kRowSumThreads = 1024;
+constexpr int kRowSumDepth = ROW_SUM_DEPTH;  // row reads in flight a lane
+
+__global__ void __launch_bounds__(kRowSumThreads)
+    row_gather_sum_kernel(const float* __restrict__ table, const int* __restrict__ idx, long long n_seg, long long L,
+                          int wps, float* __restrict__ out) {
+  __shared__ float4 part[kRowSumThreads / 32][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int spc = (int)(blockDim.x >> 5) / wps;
+  const long long seg = (long long)blockIdx.x * spc + warp / wps;
+  const int sub = warp % wps;
+  const long long per = (L + wps - 1) / wps;
+  const long long k0 = sub * per < L ? sub * per : L, k1 = k0 + per < L ? k0 + per : L;
+  const float4* tab = reinterpret_cast<const float4*>(table);
+  const int* ix = idx + seg * L;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (long long k = k0; seg < n_seg && k < k1; k += 32) {
+    const int row = k + lane < k1 ? __ldg(ix + k + lane) : 0;  // one index line, broadcast below
+    const int n = k1 - k < 32 ? (int)(k1 - k) : 32;
+    for (int t0 = 0; t0 < n; t0 += kRowSumDepth) {
+      float4 v[kRowSumDepth];
+#pragma unroll
+      for (int i = 0; i < kRowSumDepth; ++i) {
+        const long long r = __shfl_sync(0xffffffffu, row, (t0 + i) & 31);
+        if (t0 + i < n) v[i] = __ldg(&tab[r * (kLanes / 4) + lane]);
+      }
+#pragma unroll
+      for (int i = 0; i < kRowSumDepth; ++i) {
+        if (t0 + i < n) add4(acc, v[i]);
+      }
+    }
+  }
+  if (wps > 1) {
+    part[warp][lane] = acc;
+    __syncthreads();
+    if (sub != 0) return;
+    for (int k = 1; k < wps; ++k) add4(acc, part[warp + k][lane]);
+  }
+  if (seg < n_seg) reinterpret_cast<float4*>(out)[seg * (kLanes / 4) + lane] = acc;
 }
 
 // p4: out[s] = sum over w < seg_len of x[qi[s L + w], qj[s L + w]], L =
@@ -647,13 +757,6 @@ constexpr int kCountWarps = 16;  // blocks a unit: one a warp
 constexpr int kCountThreads = kCountWarps * 32;
 constexpr int kCountDepth = COUNT_DEPTH;  // index steps in flight a warp
 constexpr int kScanStep = 128;            // indices a warp takes a step: an int4 a lane
-
-__device__ __forceinline__ void add4(float4& a, const float4& b) {
-  a.x += b.x;
-  a.y += b.y;
-  a.z += b.z;
-  a.w += b.w;
-}
 
 template <bool ALIGNED>
 __global__ void __launch_bounds__(kCountThreads, 1)
@@ -866,11 +969,22 @@ int st_spmv_products_bf16(const void* x2, long long n_tab_rows, const void* cols
   return launch_spmv_products<false>(x2, n_tab_rows, cols, data, n, resident, out, stream);
 }
 
-int st_lane_gather(const void* table, const void* idx, long long n_rows, void* out, void* stream) {
+// E3: resident != 0, the slice route (_cuda.lane_gather_design), else the
+// L2 route (lane_gather_kernel<false>)
+int st_lane_gather(const void* table, long long n_tab_rows, const void* idx, long long n_rows, long long resident,
+                   void* out, void* stream) {
   if (n_rows == 0) return 0;
-  lane_gather_kernel<false><<<(unsigned)grid_for(n_rows * (kLanes / 4)), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const int*)idx, n_rows, 0, (float*)out, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  if (!resident) {
+    lane_gather_kernel<false><<<(unsigned)grid_for(n_rows * (kLanes / 4)), kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)table, (const int*)idx, n_rows, 0, (float*)out, nullptr, nullptr);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)n_tab_rows * kSliceLanes * 4;
+  if (n_tab_rows < 1 || smem > 232448 - 1024 || (reinterpret_cast<uintptr_t>(table) & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long want = kLaneSlices * ((n_rows + kGatherMinRows - 1) / kGatherMinRows);
+  return launch_persistent(lane_slice_kernel<false>, kSliceThreads, smem, LANE_GATHER_CTAS_PER_SM, want, kLaneSlices,
+                           stream, (const float*)table, (int)n_tab_rows, (const int*)idx, n_rows, 1LL, (float*)out);
 }
 
 // E7: resident != 0, the slice route (_cuda.lane_slice_resident; partial
@@ -892,7 +1006,7 @@ int st_lane_gather_blocksum(const void* table, long long n_tab_rows, const void*
   const size_t smem = ((size_t)n_tab_rows + kSliceWarps) * kSliceLanes * 4;
   if (T < 1 || n_tab_rows < 1 || smem > 232448 - 1024 || (reinterpret_cast<uintptr_t>(table) & 15))
     return (int)cudaErrorInvalidValue;
-  return launch_persistent(lane_slice_blocksum_kernel, kSliceThreads, smem, LANE_CTAS_PER_SM, n_blocks * kLaneSlices,
+  return launch_persistent(lane_slice_kernel<true>, kSliceThreads, smem, LANE_CTAS_PER_SM, n_blocks * kLaneSlices,
                            kLaneSlices, stream, (const float*)table, (int)n_tab_rows, (const int*)idx, T, n_blocks,
                            (float*)out);
 }
@@ -904,6 +1018,20 @@ int st_row_gather(const void* table, const void* idx, const void* weights, long 
   const Segments sg{n_seg, seg_per_group, group_stride, r_stride, n_g, g_stride, n_w, keep, copies};
   return weights != nullptr ? launch_row_gather<true>(table, idx, weights, sg, out, stream)
                             : launch_row_gather<false>(table, idx, weights, sg, out, stream);
+}
+
+// E4: segments of L consecutive indices, wps warps a segment and
+// segments_per_cta of them a CTA (_cuda.row_gather_sum_plan)
+int st_row_gather_sum(const void* table, const void* idx, long long n_seg, long long L, long long wps,
+                      long long segments_per_cta, void* out, void* stream) {
+  if (n_seg == 0) return 0;
+  if (L < 1 || wps < 1 || segments_per_cta < 1 || wps * segments_per_cta * 32 > kRowSumThreads)
+    return (int)cudaErrorInvalidValue;
+  const long long ctas = (n_seg + segments_per_cta - 1) / segments_per_cta;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  row_gather_sum_kernel<<<(unsigned)ctas, (unsigned)(wps * segments_per_cta * 32), 0, (cudaStream_t)stream>>>(
+      (const float*)table, (const int*)idx, n_seg, L, (int)wps, (float*)out);
+  return (int)cudaGetLastError();
 }
 
 int st_scalar_gather_sum(const void* x, long long n_x_cols, const void* qi, const void* qj, long long n_seg,

@@ -95,6 +95,25 @@ def test_unsigned_data_products_match_sparse_tpu(a_dt, b_dt, vector):
         _check(st.matvec_add(t, b, y), jsp.matvec_add(j, b, y))
 
 
+@pytest.mark.parametrize("seed", [0, 3, 5, 7, 11])
+def test_float16_products_within_float16_ulps_of_sparse_tpu(seed):
+    # sparse_tpu rounds each add of np.add.at in float16; the port sums in
+    # float32 and rounds once. Measured in ulps of the float16 value of
+    # sum |a||b|, the scale a rounded dot product is judged by: the port
+    # within 1 ulp of the float64 oracle, and within 3 of sparse_tpu.
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((20, 50)) * (rng.random((20, 50)) < 0.4)).astype(np.float16)
+    b = rng.standard_normal((50, 8)).astype(np.float16)
+    t, j = _pair(x)
+    got, want = t @ b, np.asarray(j @ b)
+    assert got.dtype == torch.float16 and want.dtype == np.float16
+    got = got.numpy().astype(np.float64)
+    x64, b64 = x.astype(np.float64), b.astype(np.float64)
+    ulp = np.spacing((np.abs(x64) @ np.abs(b64)).astype(np.float16)).astype(np.float64)
+    assert (np.abs(got - x64 @ b64) / ulp).max() <= 1.0
+    assert (np.abs(got - want.astype(np.float64)) / ulp).max() <= 3.0
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_matvec_add_matches_sparse_tpu(dtype):
     x = _dense_matrix(200, 150, 0.05, seed=9, dtype=dtype)

@@ -179,7 +179,7 @@ def test_e1_main_at_the_bench_shape_on_the_cpu():
 
 
 # ------------------------------------------------------------------ E3-E6
-@pytest.mark.parametrize("table_h", [512, 8192])
+@pytest.mark.parametrize("table_h", [512, 1808, 8192])
 def test_p1_equals_the_pallas_probe(monkeypatch, table_h):
     mod, outputs = _load(monkeypatch, "pallas_vmem")
     mod.p1(table_h, 1024, 512)
@@ -190,11 +190,13 @@ def test_p1_equals_the_pallas_probe(monkeypatch, table_h):
     assert run.n == 1024 * 128 and run.ms is None and run.rate is None
 
 
-def test_p2_matches_the_pallas_probe(monkeypatch):
+@pytest.mark.parametrize("n_loads,per_step", [(2048, 1024), (37 * 6, 37)])
+def test_p2_matches_the_pallas_probe(monkeypatch, n_loads, per_step):
     mod, outputs = _load(monkeypatch, "pallas_vmem")
-    mod.p2(256, 2048, 1024)
-    assert len(outputs) == 2 and outputs[0].shape == (2, 128)  # the check, then the stubbed bench
-    run = t_vmem.p2(256, 2048, 1024, device=CPU)
+    mod.p2(256, n_loads, per_step)
+    n_seg = n_loads // per_step
+    assert len(outputs) == 2 and outputs[0].shape == (n_seg, 128)  # the check, then the stubbed bench
+    run = t_vmem.p2(256, n_loads, per_step, device=CPU)
     torch.testing.assert_close(run.outputs[0], _t(outputs[0]), **SUMS)
 
 
@@ -403,3 +405,37 @@ def test_lane_blocksum_scratch_follows_the_route(rows, T, splits):
         assert partial is None and tickets is None
     else:
         assert partial.shape == (3, splits, 128) and tickets.shape == (3,) and not tickets.any()
+
+
+# ------------------------------------------------------------------ E3 and E4 plans
+@pytest.mark.parametrize("rows,design", [(1, "slices"), (512, "slices"), (1808, "slices"), (1809, "l2"), (8192, "l2")])
+def test_lane_gather_design_takes_slices_up_to_the_budget(rows, design):
+    assert _cuda.lane_gather_design(rows) == design
+    # a 32-lane column slice, 128 bytes a row, and no warp sums beside it
+    assert (rows * _cuda.SLICE_LANES * 4 <= _cuda.SMEM_BLOCK_BYTES) == (design == "slices")
+    assert 1808 * 128 <= _cuda.SMEM_BLOCK_BYTES < 1809 * 128
+
+
+@pytest.mark.parametrize("seg_len", [1, 37, 1024, 5000])
+@pytest.mark.parametrize("n_seg", [1, 128, 300])
+def test_row_gather_sum_plan_keeps_the_sms_busy(seg_len, n_seg):
+    sms = 132
+    plan = _cuda.row_gather_sum_plan(seg_len, n_seg, sms)
+    wps, spc, ctas = plan
+    # a warp for each 32 picks, one CTA of 32 warps for a segment of 1,024 or more
+    assert wps == min(32, -(-seg_len // 32)) and (wps == 32) == (seg_len > 992)
+    assert wps * spc * 32 <= 1024 and (spc == 1 or wps * spc <= _cuda.ROW_SUM_SHARED_WARPS)
+    assert ctas == -(-n_seg // spc) and (ctas - 1) * spc < n_seg <= ctas * spc
+    # segments share a CTA only while every SM still gets one
+    assert spc == 1 or ctas >= sms
+    # p2's defaults: one CTA of 1,024 threads a segment, 128 of the 132 SMs
+    if (seg_len, n_seg) == (1024, 128):
+        assert plan == (32, 1, 128)
+    if seg_len == 1 and n_seg == 300:
+        assert plan == (1, 2, 150)
+
+
+def test_row_gather_sum_plan_refuses_empty_segments():
+    with pytest.raises(ValueError):
+        _cuda.row_gather_sum_plan(0, 4, 132)
+

@@ -881,15 +881,35 @@ def test_spmv_products_designs_equal_plain(cuda, hilo, n, rows, spread):
     assert torch.equal(e1.products(x2, cols, data), got)
 
 
-@pytest.mark.parametrize("table_h,rows", [(512, 18432 // 16), (8192, 37), (300, 1)])
+# E3's slice route up to 1,808 table rows, the L2 route past it (1,809 and
+# p1b's 8,192); no index row, fewer rows than the grid's warps, p1's 18,432
+@pytest.mark.parametrize("table_h", [1, 7, 300, 512, 1808, 1809, 8192])
+@pytest.mark.parametrize("rows", [0, 1, 37, 18432])
 def test_lane_gather_kernel_equals_plain(cuda, table_h, rows):
     from sparse_tpu_torch.experiments import pallas_vmem as v
 
-    rng = _probe_gen(rows)
+    rng = _probe_gen(rows + table_h)
     table, idx = _rand(rng, (table_h, 128), cuda), _ints(rng, table_h, (rows, 128), cuda)
+    design = _cuda.lane_gather_design(table_h)
+    assert design == ("slices" if table_h <= 1808 else "l2")
+    _cuda.reset_launch_counts()
     got = v.lane_gather(table, idx)
     torch.cuda.synchronize()
-    assert torch.equal(got, v.lane_gather_plain(table, idx))
+    assert _cuda.LAUNCHES["lane_gather"] == (rows > 0)
+    assert got.shape == (rows, 128) and torch.equal(got, v.lane_gather_plain(table, idx))
+    # the route that launches is the one the design names: only the slice
+    # route takes the table 16-byte aligned, the L2 route reads it by words
+    base = torch.empty(table_h * 128 + 1, device=cuda)
+    shifted = base[1:].view(table_h, 128)
+    shifted.copy_(table)
+    out = torch.empty_like(got)
+    if design == "slices":
+        with pytest.raises(ValueError, match="aligned"):
+            _cuda.lane_gather(shifted, idx, out)
+    else:
+        _cuda.lane_gather(shifted, idx, out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize("T,n_blocks", [(512, 5), (8192, 2), (200, 3), (65, 1), (1, 4)])
@@ -946,15 +966,28 @@ def test_lane_gather_blocksum_refuses_what_its_routes_do_not_take(cuda):
         _cuda.lane_gather_blocksum(tall, idx, 64, torch.empty((8, 128), device=cuda))
 
 
-@pytest.mark.parametrize("strip_h,n_seg,per_step", [(8192, 9, 1024), (256, 5, 37), (100, 7, 1), (512, 2, 5000)])
+# p2's defaults (128 segments of 1,024), one segment, 300 segments (more
+# than the SMs), segments off the 32-pick index line (37, 5,000), single
+# picks; short segments shared by a CTA (300 of 1 and of 37)
+@pytest.mark.parametrize(
+    "strip_h,n_seg,per_step",
+    [(8192, 9, 1024), (256, 5, 37), (100, 7, 1), (512, 2, 5000), (8192, 128, 1024), (8192, 1, 1024),
+     (8192, 300, 1024), (300, 300, 37), (64, 300, 1), (8192, 1, 37)],
+)
 def test_row_gather_sum_kernel_matches_plain(cuda, strip_h, n_seg, per_step):
     from sparse_tpu_torch.experiments import pallas_vmem as v
 
     rng = _probe_gen(per_step)
     strip, idx = _rand(rng, (strip_h, 128), cuda), _ints(rng, strip_h, n_seg * per_step, cuda)
+    _cuda.reset_launch_counts()
     got = v.row_gather_sum(strip, idx, per_step)
     torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["row_gather_sum"] == 1
     torch.testing.assert_close(got, v.row_gather_sum_plain(strip, idx, per_step), **PROBE_SUMS)
+    for _ in range(3):  # one sum order for the plan: the same bits every launch
+        again = _cuda.row_gather_sum(strip, idx, torch.empty_like(got), per_step)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
 
 
 # strips held in shared memory (up to 520 rows) with n off the 64-pick tile,
