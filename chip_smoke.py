@@ -13,7 +13,11 @@ drives the port's two paths on the card:
   thread kernel, bit for bit), drives ``COO`` → ``a @ B`` / ``a @ x`` /
   ``matvec_add`` at the benchmark shape (65,536², 2^21 entry draws, N = 128,
   float32) and the spmv_add shape (99,990 × 100,000 at density 1e-6), and
-  checks the outputs against a float64 scipy oracle; then runs both SpMV
+  checks the outputs against a float64 scipy oracle; builds ``CSR`` and
+  ``CSC`` arrays of the same matrix on the card and runs their products
+  (``csr @ B``, ``csc @ B``, ``csr @ x``, ``csc @ x``, ``matvec_add``)
+  through the same kernels, each equal bit for bit to the COO's, the second
+  ``csr @ B`` on the held COO's cached layout; then runs both SpMV
   kernels at both shapes in float32 and float64, with and without y, bit
   for bit alike and against the oracle, with the entry point's default and their
   warm and L2-flushed times;
@@ -45,7 +49,8 @@ drives the port's two paths on the card:
   gather probes p1-p4 and g1-g3 at their own full sizes; each of the eight
   kernels held against its plain version (E1 on both tables and, with a
   table too tall for shared memory, on its L2 route; g1, g1b, g2 and p2
-  twice, bit for bit), E1's line with both tables' times and designs, g1's,
+  twice, bit for bit; p4 twice, bit for bit), E1's line with both tables'
+  times and designs, p4's with its launch floor, g1's,
   g1b's, p1's and p1b's with their route (column slices in shared memory,
   or L2), p2's with its launch plan and L2 floor, and
   the card's gather rates: p3's write rate beside ``out.zero_()`` on an
@@ -354,6 +359,87 @@ def phase_main_path(dev):
         )
     )
     return a, layout, b, x, launches
+
+
+def phase_gcxs_path(dev, a, b, x):
+    """CSR and CSC at the benchmark shape through the public entry points,
+    counted: each built from the COO ``a`` on the card (``a.asformat("csr")``,
+    ``CSC(a)``), then ``csr @ B``, ``csc @ B``, ``csr @ x``, ``csc @ x`` and
+    ``matvec_add`` of both, each equal bit for bit to the COO's product and
+    within ORACLE_TOL of a float64 oracle; the second ``csr @ B`` runs on the
+    held COO's cached layout, and ``csr.tocoo()`` and ``csc.tocoo()`` equal
+    ``a``."""
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from sparse_tpu_torch.kernels.row_ell import ROW_ELL_DEFAULT_KEY
+
+    y = torch.as_tensor(np.random.default_rng(5).random(M, dtype=np.float32), device=dev)
+    want = {"B": a @ b, "x": a @ x, "x+y": st.matvec_add(a, x, y)}
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    csr = a.asformat("csr")
+    torch.cuda.synchronize()
+    t_csr = time.perf_counter()
+    csc = st.CSC(a)
+    torch.cuda.synchronize()
+    t_csc = time.perf_counter()
+    outs = {"csr@B": csr @ b}
+    torch.cuda.synchronize()
+    t_first = time.perf_counter()
+    held = csr._product_coo()
+    layout = held.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY)
+    outs["csr@B again"] = csr @ b
+    torch.cuda.synchronize()
+    t_second = time.perf_counter()
+    reused = csr._product_coo() is held and held.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY) is layout
+    if layout is None or not reused:
+        raise AssertionError("the second csr @ B did not reuse the held COO's cached row-ELL layout")
+    outs["csc@B"] = csc @ b
+    torch.cuda.synchronize()
+    t_csc_first = time.perf_counter()
+    outs["csr@x"] = csr @ x
+    outs["csc@x"] = csc @ x
+    outs["matvec_add csr"] = st.matvec_add(csr, x, y)
+    outs["matvec_add csc"] = st.matvec_add(csc, x, y)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = dict(LAUNCHES)
+
+    for name in ("row_ell_spmv", "row_ell_spmm"):
+        if launches[name] == 0:
+            raise AssertionError(f"the GCXS path never launched {name}: {launches}")
+    coords, data = a.coords.cpu().numpy(), a.data.cpu().numpy()
+    ref = oracle_csr(coords[0], coords[1], data, (M, K))
+    oracle = {"B": ref @ b.cpu().numpy().astype(np.float64), "x": ref @ x.cpu().numpy().astype(np.float64)}
+    oracle["x+y"] = oracle["x"] + y.cpu().numpy()
+    for name, got in outs.items():
+        key = "B" if name.endswith(("B", "again")) else ("x+y" if name.startswith("matvec") else "x")
+        if got.device.type != "cuda" or not torch.equal(got, want[key]):
+            raise AssertionError(f"{name}: not equal bit for bit to the COO's product")
+        np.testing.assert_allclose(got.cpu().numpy(), oracle[key], **ORACLE_TOL, err_msg=name)
+    for name, g in (("csr", csr), ("csc", csc)):
+        back = g.tocoo()
+        if not (torch.equal(back.coords, a.coords) and torch.equal(back.data, a.data)):
+            raise AssertionError(f"{name}.tocoo() differs from the COO it was built from")
+    log(
+        json.dumps(
+            {
+                "gcxs_path": "ok",
+                "nnz": csr.nnz,
+                "launches": launches,
+                "csr_build_s": t_csr - t0,
+                "csc_build_s": t_csc - t_csr,
+                "first_csr_matmul_s_incl_layout_build": t_first - t_csc,
+                "second_csr_matmul_s": t_second - t_first,
+                "first_csc_matmul_s_incl_coo_and_layout_build": t_csc_first - t_second,
+                "total_s": t_end - t0,
+                "index_dtypes": {"indices": str(csr.indices.dtype), "indptr": str(csr.indptr.dtype)},
+            }
+        )
+    )
+    return launches
 
 
 def phase_k1(dev, card):
@@ -1441,9 +1527,13 @@ def phase_experiments_vs_plain(spmv, runs):
     r = runs["p3"]
     errs["p3"] = exact("row_pick_bf16", r.outputs[0], v.row_pick_bf16_plain(r.inputs["strip"], r.inputs["idx"]))
     r = runs["p4"]
-    errs["p4"] = check_close(
-        "scalar_gather_sum", r.outputs[0], v.scalar_gather_sum_plain(r.inputs["x"], r.inputs["qi"], r.inputs["qj"], 1024), PROBE_TOL
-    )
+    xs, qi, qj = r.inputs["x"], r.inputs["qi"], r.inputs["qj"]
+    e6_plain = v.scalar_gather_sum_plain(xs, qi, qj, 1024)
+    errs["p4"] = check_close("scalar_gather_sum", r.outputs[0], e6_plain, PROBE_TOL)
+    again = v.scalar_gather_sum(xs, qi, qj, 1024)  # its sums in a fixed order
+    torch.cuda.synchronize()
+    if not torch.equal(again, r.outputs[0]):
+        raise AssertionError("scalar_gather_sum: two launches differ")
     for key in ("g1", "g1b"):
         r = runs[key]
         T = r.inputs["table"].shape[0]
@@ -1552,9 +1642,18 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
     r = runs["p4"]
     xs, qi, qj = r.inputs["x"], r.inputs["qi"], r.inputs["qj"]
     flat = (qi.long() * xs.shape[1] + qj.long()).view(-1, 1024)
+    # E6's kernel cut to the launch alone (the launch floor) and to the index
+    # loads and sums
+    e6_out = torch.empty_like(r.outputs[0])
+    e6_stages = {st_: time_graph(lambda st_=st_: _cuda.scalar_gather_sum_stage(xs, qi, qj, e6_out, 1024, st_))
+                 for st_ in _cuda.SCALAR_GATHER_STAGES}
     add("scalar_gather_sum", r, lambda: v.scalar_gather_sum_plain(xs, qi, qj, 1024),
         lambda: F.embedding_bag(flat, xs.view(-1, 1), mode="sum"),
-        "F.embedding_bag(flat indices (64, 1024), x.view(-1, 1), mode='sum')", (xs, qi, qj, r.outputs[0]))
+        "F.embedding_bag(flat indices (64, 1024), x.view(-1, 1), mode='sum')", (xs, qi, qj, r.outputs[0]),
+        fields={"design": "a CTA of 256 threads a segment, four picks a thread (the first port's; wider CTAs, "
+                          "int2/int4 index loads and a cluster split were slower: PERF.md section 6)",
+                "launch_floor_ms": e6_stages["launch"], "indices_only_ms": e6_stages["indices"],
+                "two_launches_equal": True, "card": card})
     for r in (runs["g1"], runs["g1b"]):
         table, idx = r.inputs["table"], r.inputs["idx"]
         route = "slices" if _cuda.lane_slice_resident(table.shape[0]) else "l2"
@@ -1674,6 +1773,7 @@ def main():
     errs = phase_kernels_vs_plain(dev)
     log(json.dumps({"kernel_vs_plain": "ok", "bench_max_abs_err_f32": errs}))
     a, re, b, x, launches = phase_main_path(dev)
+    phase_gcxs_path(dev, a, b, x)
     k1_launches = phase_k1(dev, card)
     # the cluster SpMV is no default (PERF.md): its launches are the K1 path's
     launches = {**launches, "row_ell_spmv_cluster": k1_launches["row_ell_spmv_cluster"]}

@@ -8,6 +8,8 @@ imports ``jax`` or ``sparse_tpu``.
 
 It holds the sparse × dense main path (a canonical 2-D ``COO``, ``a @ b`` /
 ``matmul`` / ``dot`` on the cached row-ELL layout, the fused ``matvec_add``),
+the compressed formats ``GCXS``, ``CSR`` and ``CSC`` (built, converted and
+restructured on the device; their products on the same path),
 the block-sparse linear layer of ``nn`` (BSR forward, dgrad and wgrad
 kernels), and the MTTKRP of a 3-D tensor (``jitops.mttkrp`` on a ``COO``,
 ``kernels.mttkrp`` and the block-ELL ``kernels.ell_mttkrp``, one CUDA
@@ -17,6 +19,7 @@ kernel).
 from . import jitops, kernels, nn
 from .core.base import SparseArray
 from .core.coo import COO
+from .core.gcxs import CSC, CSR, GCXS
 from .ops.dot import dot, matmul, matvec_add
 
-__all__ = ["COO", "SparseArray", "dot", "jitops", "kernels", "matmul", "matvec_add", "nn"]
+__all__ = ["COO", "CSC", "CSR", "GCXS", "SparseArray", "dot", "jitops", "kernels", "matmul", "matvec_add", "nn"]

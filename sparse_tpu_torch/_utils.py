@@ -3,8 +3,10 @@ equivalence, axis normalization and index-dtype sizing.
 
 Same semantics as ``sparse_tpu._utils`` (``equivalent``, ``zero_of_dtype``,
 ``normalize_axis``, ``can_store``, ``index_dtype_for``, ``get_out_dtype``,
-``check_zero_fill_value``); ``equivalent`` works on torch tensors so that a
-prune runs on the device the data lives on.
+``check_zero_fill_value``, ``check_fill_value``, ``convert_format``);
+``equivalent`` works on torch tensors so that a prune runs on the device the
+data lives on, and ``uncompress_indptr`` expands a compressed format's
+``indptr`` there.
 """
 
 from __future__ import annotations
@@ -183,3 +185,42 @@ def check_zero_fill_value(*args, func_name=""):
                 raise ValueError(
                     f"This operation requires zero fill values, but argument {i:d} had a fill value of {fv!s}."
                 )
+
+
+def check_fill_value(arr, accept_fv, func_name=""):
+    """Raise ``ValueError`` unless ``arr.fill_value`` is loosely equivalent
+    to one of ``accept_fv`` (a scalar or a sequence)."""
+    accept = accept_fv if isinstance(accept_fv, Iterable) and not isinstance(accept_fv, str) else [accept_fv]
+    fv = torch.as_tensor(np.asarray(arr.fill_value))
+    if not any(bool(equivalent(fv, a, loose=True).all()) for a in accept):
+        raise ValueError(f"fill_value={arr.fill_value!r} but should be in {accept}.")
+
+
+def convert_format(format):
+    """A format spec (a class of the package or a string) as its lowercase
+    string name."""
+    from .core.base import SparseArray
+
+    if isinstance(format, type):
+        if not issubclass(format, SparseArray):
+            raise ValueError(f"Invalid format: {format}")
+        return format.__name__.lower()
+    if isinstance(format, str):
+        return format
+    raise ValueError(f"Invalid format: {format}")
+
+
+def not_ported(what):
+    """The error every part of ``sparse_tpu`` that the port lacks raises."""
+    return NotImplementedError(f"{what} is not yet ported to sparse_tpu_torch")
+
+
+def uncompress_indptr(indptr, nnz):
+    """The int64 row of every stored entry of a compressed format, on
+    ``indptr``'s device: row ``r`` repeated ``indptr[r + 1] - indptr[r]``
+    times. ``nnz`` (``indptr[-1]``, known to the caller) sizes the output,
+    so nothing is read back from the device."""
+    indptr = indptr.long()
+    counts = indptr[1:] - indptr[:-1]
+    rows = torch.arange(counts.numel(), dtype=torch.int64, device=indptr.device)
+    return torch.repeat_interleave(rows, counts, output_size=nnz)

@@ -1,4 +1,5 @@
 from .base import SparseArray
 from .coo import COO
+from .gcxs import CSC, CSR, GCXS
 
-__all__ = ["COO", "SparseArray"]
+__all__ = ["COO", "CSC", "CSR", "GCXS", "SparseArray"]

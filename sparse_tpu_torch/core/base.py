@@ -50,6 +50,9 @@ class SparseArray(abc.ABC):
     def todense(self):  # pragma: no cover - abstract
         raise NotImplementedError
 
+    def _make_shallow_copy_of(self, other):
+        self.__dict__ = other.__dict__.copy()
+
     # -- common properties ---------------------------------------------------------
     @property
     def ndim(self):

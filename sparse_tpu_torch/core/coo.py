@@ -358,6 +358,49 @@ class COO(SparseArray):
             out = self.data[-1].reshape(())
         return out
 
+    # -- conversions -----------------------------------------------------------------
+    def tocoo(self):
+        return self
+
+    def asformat(self, format, **kwargs):
+        """This array as ``"coo"`` (itself), ``"gcxs"`` (``GCXS.from_coo``
+        with ``kwargs``), ``"csr"`` or ``"csc"`` (2-D only), built on the
+        array's device."""
+        from .._utils import convert_format, not_ported
+        from .gcxs import CSC, CSR, GCXS
+
+        format = convert_format(format)
+        if format == "coo":
+            return self
+        if format == "gcxs":
+            return GCXS.from_coo(self, **kwargs)
+        if format in ("csr", "csc"):
+            if self.ndim != 2:
+                raise ValueError(f"{format} is only valid for 2-D arrays")
+            cls, compressed_axes = (CSR, (0,)) if format == "csr" else (CSC, (1,))
+            return cls(GCXS.from_coo(self, compressed_axes=compressed_axes))
+        if format == "dok":
+            raise not_ported("the DOK format")
+        raise NotImplementedError(f"The given format {format} is not supported.")
+
+    def _tocsr_csc(self, kind):
+        from .._utils import check_fill_value
+
+        check_fill_value(self, [0], func_name="tocsr" if kind == "csr" else "tocsc")
+        if self.ndim != 2:
+            raise ValueError("Can only convert a 2-dimensional array to a Scipy sparse matrix.")
+        m = self.asformat(kind).to_scipy_sparse()
+        m.has_canonical_format = True
+        return m
+
+    def tocsr(self):
+        """A scipy ``csr_array`` of this 2-D array (zero fill), on the host."""
+        return self._cached("tocsr", None, lambda: self._tocsr_csc("csr"))
+
+    def tocsc(self):
+        """A scipy ``csc_array`` of this 2-D array (zero fill), on the host."""
+        return self._cached("tocsc", None, lambda: self._tocsr_csc("csc"))
+
     # -- kernel layouts --------------------------------------------------------------
     def to_row_ell(self, min_pad=8, max_tiers=None, group=16):
         """Cached degree-sorted per-row ELL layout — the SpMM/SpMV kernels'

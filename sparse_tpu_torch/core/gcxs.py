@@ -1,0 +1,675 @@
+"""GCXS — the generalized compressed sparse format for N dimensions, with
+its 2-D specializations CSR and CSC, on torch tensors.
+
+Layout (as ``sparse_tpu.core.gcxs``): choose a subset ``compressed_axes`` of
+the dimensions; logically transpose the array so that those axes lead;
+flatten it to a matrix of shape ``(row_size, col_size)``; store that matrix
+as CSR: ``data``, ``indices`` (the column of each entry) and ``indptr``
+(where each row's entries start), tensors on one device.
+
+Every conversion runs with torch ops on the array's device: axis groups
+raveled to int64 keys, a stable ``torch.sort`` by the compressed key alone
+(a canonical COO is already in uncompressed order within one key),
+``indptr`` by a binary search of the sorted keys, and the row of each entry
+expanded from ``indptr`` by ``repeat_interleave``. ``_restructure`` (transpose,
+reshape, new compressed axes) computes each entry's new keys with mixed-radix
+integer ops and reorders only as far as the old order does not already give
+the new one.
+
+Products of a 2-D array (``@``, ``matmul``, ``dot``, ``matvec_add``) run on
+its canonical COO, which the array keeps while its buffers stay the same
+ones, and so on that COO's cached row-ELL layout and the CUDA kernels.
+
+Not ported yet (``NotImplementedError``): indexing, reductions,
+``concatenate``/``stack`` of GCXS arrays, ``from_iter`` and the DOK format.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import defaultdict, deque
+from collections.abc import Iterable
+
+import numpy as np
+import torch
+
+from .. import _settings
+from .._utils import (
+    can_store,
+    check_fill_value,
+    convert_format,
+    equivalent,
+    get_out_dtype,
+    index_dtype_for,
+    normalize_axis,
+    not_ported,
+    numpy_dtype,
+    torch_dtype,
+    uncompress_indptr,
+    zero_of_dtype,
+)
+from .base import SparseArray
+from .coo import COO, _as_tensor
+
+
+def _validate_compressed_axes(shape, compressed_axes):
+    ndim = len(shape)
+    if ndim == 0:
+        if compressed_axes is not None and tuple(compressed_axes) != ():
+            raise ValueError("no axes to compress for 0d array")
+        return ()
+    if ndim == 1:
+        if compressed_axes is not None and tuple(compressed_axes) not in ((), (0,)):
+            raise ValueError("compressed_axes must be None for 1-D arrays")
+        return ()
+    if compressed_axes is None:
+        return (int(np.argmin(shape)),)
+    compressed_axes = normalize_axis(tuple(compressed_axes), ndim)
+    if len(compressed_axes) == 0 or len(compressed_axes) >= ndim:
+        raise ValueError("compressed_axes must be a proper non-empty subset of the axes")
+    if len(set(compressed_axes)) != len(compressed_axes):
+        raise ValueError("repeated axis in compressed_axes")
+    return tuple(sorted(compressed_axes))
+
+
+def _ravel(coords, axes, shape, nnz, device):
+    """The int64 C-order key of each entry's coordinates along ``axes``."""
+    key = None
+    for a in axes:
+        c = coords[a].long()
+        key = c if key is None else key * shape[a] + c
+    return torch.zeros(nnz, dtype=torch.int64, device=device) if key is None else key
+
+
+def _unravel(key, dims):
+    """The inverse of ``_ravel``: one int64 tensor per extent in ``dims``."""
+    out = []
+    for d in reversed(dims[1:]):
+        out.append(key % d)
+        key = key // d
+    return [key, *reversed(out)] if dims else []
+
+
+def _build_indptr(rows, row_size):
+    """``indptr`` (int64, ``row_size + 1``) of sorted int64 row ids: where
+    each row's run starts, found by binary search on the device (a CUDA
+    ``bincount`` would read its input's maximum back to the host)."""
+    bounds = torch.arange(row_size + 1, dtype=torch.int64, device=rows.device)
+    return torch.searchsorted(rows, bounds)
+
+
+def _reshape_coo(x, shape):
+    """A canonical COO reshaped in C order (its linear order, and so its
+    canonical order, is kept)."""
+    if x.size != math.prod(shape):
+        raise ValueError(f"cannot reshape array of size {x.size} into shape {shape}")
+    dt = torch_dtype(index_dtype_for(max(shape) if shape else 0))
+    device = x.data.device
+    if shape:
+        coords = torch.stack(_unravel(x.linear_loc(), shape)).to(dt)
+    else:
+        coords = torch.zeros((0, x.nnz), dtype=dt, device=device)
+    return COO._make(coords, x.data, shape, x.fill_value)
+
+
+class GCXS(SparseArray):
+    """Generalized CSR/CSC sparse array on torch tensors.
+
+    Construct from a COO, a GCXS, a NumPy array, a scipy sparse matrix, or
+    the raw ``(data, indices, indptr)`` triple (with ``shape``).
+    ``device``: where the array lives; ``None`` means the GPU for NumPy and
+    scipy input and the inputs' own device for tensors and sparse arrays.
+    """
+
+    def __init__(
+        self, arg, shape=None, compressed_axes=None, prune=False, fill_value=None, idx_dtype=None, device=None
+    ):
+        import scipy.sparse
+
+        if isinstance(arg, SparseArray):
+            if device is not None and _settings.resolve_device(device) != arg.device:
+                raise ValueError(f"array on {arg.device} given for an array on {device}; use .to() first")
+            if isinstance(arg, GCXS):
+                if compressed_axes is not None and tuple(compressed_axes) != arg.compressed_axes:
+                    arg = arg.change_compressed_axes(compressed_axes)
+                self._make_shallow_copy_of(arg)
+                if fill_value is not None:
+                    self.fill_value = np.asarray(fill_value, dtype=numpy_dtype(self.dtype))[()]
+                return
+            gcxs = GCXS.from_coo(arg.tocoo(), compressed_axes=compressed_axes, idx_dtype=idx_dtype)
+            self._make_shallow_copy_of(gcxs)
+            return
+        if isinstance(arg, np.ndarray):
+            coo = COO.from_numpy(arg, fill_value=fill_value, device=device)
+            self._make_shallow_copy_of(GCXS.from_coo(coo, compressed_axes=compressed_axes, idx_dtype=idx_dtype))
+            return
+        if scipy.sparse.issparse(arg):
+            coo = COO.from_scipy_sparse(arg, fill_value=fill_value, device=device)
+            self._make_shallow_copy_of(GCXS.from_coo(coo, compressed_axes=compressed_axes, idx_dtype=idx_dtype))
+            return
+        if isinstance(arg, tuple) and len(arg) == 3:
+            data, indices, indptr = arg
+            if shape is None:
+                raise ValueError("shape must be provided when constructing from (data, indices, indptr)")
+            compressed_axes = _validate_compressed_axes(shape, compressed_axes)
+            if device is None and isinstance(data, torch.Tensor):
+                device = data.device
+            device = _settings.resolve_device(device)
+            self.data = _as_tensor(data, device)
+            self.indices = _as_tensor(indices, device)
+            self.indptr = _as_tensor(indptr, device)
+            self.compressed_axes = compressed_axes
+            super().__init__(shape, fill_value=fill_value)
+            if prune:
+                self._prune()
+            return
+        raise ValueError(f"Invalid inputs to GCXS: {type(arg)}")
+
+    # -- fast internal constructor -------------------------------------------------
+    @classmethod
+    def _make(cls, data, indices, indptr, shape, compressed_axes, fill_value):
+        self = object.__new__(cls)
+        self.data = data
+        self.indices = indices
+        self.indptr = indptr
+        self.shape = tuple(int(s) for s in shape)
+        self.compressed_axes = tuple(compressed_axes)
+        self.fill_value = fill_value
+        return self
+
+    # -- memoization -----------------------------------------------------------------
+    def enable_caching(self):
+        """Memoize derived results (3-deep per op)."""
+        self._cache = defaultdict(lambda: deque(maxlen=3))
+        return self
+
+    def _cached(self, op, key, compute):
+        cache = getattr(self, "_cache", None)
+        if cache is None:
+            return compute()
+        for k, v in cache[op]:
+            if k == key:
+                return v
+        value = compute()
+        cache[op].append((key, value))
+        return value
+
+    def _product_coo(self):
+        """The canonical COO that this array's products run on, with its
+        cached kernel layouts. It is kept while ``data``, ``indices`` and
+        ``indptr`` are the same tensors, and built anew once one of them is
+        replaced (in-place changes stay outside the contract, as for a
+        COO's layouts)."""
+        bufs = (self.data, self.indices, self.indptr)
+        memo = self.__dict__.get("_coo_memo")
+        if memo is None or any(a is not b for a, b in zip(memo[0], bufs)):
+            memo = (bufs, self.tocoo().enable_caching())
+            self._coo_memo = memo
+        return memo[1]
+
+    # caches and the held COO are dropped on pickle
+    def __getstate__(self):
+        return (self.data, self.indices, self.indptr, self.shape, self.compressed_axes, self.fill_value)
+
+    def __setstate__(self, state):
+        self.data, self.indices, self.indptr, self.shape, self.compressed_axes, self.fill_value = state
+
+    # -- axis bookkeeping ------------------------------------------------------------
+    @property
+    def _axis_order(self):
+        """(compressed axes..., uncompressed axes...) permutation."""
+        comp = self.compressed_axes
+        return comp + tuple(a for a in range(self.ndim) if a not in comp)
+
+    @property
+    def _compressed_shape(self):
+        comp = self.compressed_axes
+        row_size = math.prod(self.shape[a] for a in comp)
+        col_size = math.prod(self.shape[a] for a in range(self.ndim) if a not in comp)
+        return (row_size, col_size)
+
+    # -- constructors ------------------------------------------------------------------
+    @classmethod
+    def from_coo(cls, x, compressed_axes=None, idx_dtype=None):
+        """Compress a COO on its device: no copy to the host."""
+        compressed_axes = _validate_compressed_axes(x.shape, compressed_axes)
+        comp = compressed_axes
+        uncomp = tuple(a for a in range(x.ndim) if a not in comp)
+        row_size = math.prod(x.shape[a] for a in comp)
+        col_size = math.prod(x.shape[a] for a in uncomp)
+        data, device, nnz = x.data, x.data.device, x.nnz
+        rows = _ravel(x.coords, comp, x.shape, nnz, device)
+        cols = _ravel(x.coords, uncomp, x.shape, nnz, device)
+
+        limit = max(row_size, col_size, nnz)
+        if idx_dtype is not None:
+            if not can_store(idx_dtype, limit):
+                raise ValueError(
+                    f"cannot store array with the compressed shape {(row_size, col_size)} "
+                    f"and nnz {nnz} with dtype {idx_dtype}."
+                )
+        else:
+            # keep the COO's index dtype when it can address the compressed
+            # layout; minimal upcast otherwise
+            idx_dtype = get_out_dtype(x.coords.dtype, limit)
+        tdt = torch_dtype(idx_dtype)
+
+        # a canonical COO is sorted by (comp, uncomp) when the compressed axes
+        # lead; otherwise its order within one compressed key is already
+        # uncompressed-lex, so a stable sort by that key alone suffices
+        if comp != tuple(range(len(comp))):
+            rows, order = torch.sort(rows, stable=True)
+            cols = cols[order]
+            data = data[order]
+        indptr = _build_indptr(rows, row_size)
+        return cls._make(data, cols.to(tdt), indptr.to(tdt), x.shape, compressed_axes, x.fill_value)
+
+    @classmethod
+    def from_numpy(cls, x, compressed_axes=None, fill_value=None, idx_dtype=None, device=None):
+        coo = COO.from_numpy(x, fill_value=fill_value, device=device)
+        return cls.from_coo(coo, compressed_axes=compressed_axes, idx_dtype=idx_dtype)
+
+    @classmethod
+    def from_scipy_sparse(cls, x, /, *, fill_value=None, device=None):
+        x = x.tocsr()
+        x.sum_duplicates()
+        device = _settings.resolve_device(device)
+        return cls._make(
+            _as_tensor(x.data, device),
+            _as_tensor(x.indices, device),
+            _as_tensor(x.indptr, device),
+            x.shape,
+            (0,),
+            zero_of_dtype(x.dtype) if fill_value is None else np.asarray(fill_value, dtype=x.dtype)[()],
+        )
+
+    @classmethod
+    def from_iter(cls, x, shape, fill_value=None, compressed_axes=None, dtype=None):
+        raise not_ported("GCXS.from_iter")
+
+    # -- properties ---------------------------------------------------------------------
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def nnz(self):
+        return int(self.data.shape[0])
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for t in (self.data, self.indices, self.indptr))
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def to(self, device):
+        """A copy of this array on ``device`` (caches are not carried)."""
+        device = torch.device(device)
+        return type(self)._make(
+            self.data.to(device),
+            self.indices.to(device),
+            self.indptr.to(device),
+            self.shape,
+            self.compressed_axes,
+            self.fill_value,
+        )
+
+    @property
+    def format(self):
+        return "gcxs"
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    @property
+    def mT(self):
+        if self.ndim < 2:
+            raise ValueError("Cannot compute matrix transpose if `ndim < 2`.")
+        axes = list(range(self.ndim))
+        axes[-1], axes[-2] = axes[-2], axes[-1]
+        return self.transpose(tuple(axes))
+
+    def __str__(self):
+        return (
+            f"<GCXS: shape={self.shape}, dtype={self.dtype}, nnz={self.nnz}, fill_value={self.fill_value}, "
+            f"compressed_axes={self.compressed_axes}, device={self.device}>"
+        )
+
+    __repr__ = __str__
+
+    def _prune(self):
+        if bool((~equivalent(self.data, self.fill_value)).all()):
+            return
+        coo = self.tocoo()
+        coo._prune()
+        self._make_shallow_copy_of(GCXS.from_coo(coo, compressed_axes=self.compressed_axes))
+
+    # -- conversions ----------------------------------------------------------------------
+    def tocoo(self):
+        """The canonical COO of the same entries, on the array's device. Its
+        coordinates take the port's COO index dtype (int32 where the shape
+        fits; narrower index dtypes widen, as a COO's do)."""
+        nnz = self.nnz
+        comp = self.compressed_axes
+        uncomp = tuple(a for a in range(self.ndim) if a not in comp)
+        dt = torch_dtype(index_dtype_for(max(self.shape) if self.shape else 0))
+        coords = torch.empty((self.ndim, nnz), dtype=dt, device=self.device)
+        if comp:
+            rows = uncompress_indptr(self.indptr, nnz)
+            for a, c in zip(comp, _unravel(rows, [self.shape[a] for a in comp])):
+                coords[a] = c
+        if uncomp:
+            for a, c in zip(uncomp, _unravel(self.indices.long(), [self.shape[a] for a in uncomp])):
+                coords[a] = c
+        coo = COO._make(coords, self.data, self.shape, self.fill_value)
+        if comp + uncomp != tuple(range(self.ndim)):
+            # the entries lie in the compressed key's order, not row-major:
+            # sorted with no check, which would read a bool back to the host
+            order = torch.sort(coo.linear_loc(), stable=True).indices
+            coo.coords, coo.data = coords[:, order], self.data[order]
+        return coo
+
+    def todense(self):
+        return self.tocoo().todense()
+
+    def to_scipy_sparse(self, /, *, accept_fv=None):
+        """A scipy ``csr_array`` (``compressed_axes == (0,)``) or ``csc_array``
+        of the buffers, copied to the host."""
+        import scipy.sparse
+
+        if accept_fv is None:
+            accept_fv = [0]
+        check_fill_value(self, accept_fv, func_name="to_scipy_sparse")
+        if self.ndim != 2:
+            raise ValueError("Can only convert a 2-dimensional array to a Scipy sparse matrix.")
+        arrays = tuple(t.cpu().numpy() for t in (self.data, self.indices, self.indptr))
+        if self.compressed_axes == (0,):
+            return scipy.sparse.csr_array(arrays, shape=self.shape)
+        return scipy.sparse.csc_array(arrays, shape=self.shape)
+
+    def asformat(self, format, **kwargs):
+        format = convert_format(format)
+        if format == "gcxs":
+            compressed_axes = kwargs.get("compressed_axes")
+            if compressed_axes is not None and tuple(compressed_axes) != self.compressed_axes:
+                return self.change_compressed_axes(compressed_axes)
+            return self
+        if format == "coo":
+            return self.tocoo()
+        if format == "dok":
+            raise not_ported("the DOK format")
+        if format == "csr":
+            return CSR(self.change_compressed_axes((0,))) if self.compressed_axes != (0,) else CSR(self)
+        if format == "csc":
+            return CSC(self.change_compressed_axes((1,))) if self.compressed_axes != (1,) else CSC(self)
+        raise NotImplementedError(f"The given format {format} is not supported.")
+
+    def change_compressed_axes(self, new_compressed_axes):
+        """Re-compress along other axes (new keys, sort, new ``indptr``)."""
+        new_compressed_axes = _validate_compressed_axes(self.shape, new_compressed_axes)
+        if new_compressed_axes == self.compressed_axes:
+            return self
+        return self._restructure(self.shape, compressed_axes=new_compressed_axes)
+
+    def _restructure(self, new_shape, axes=None, compressed_axes=None):
+        """Uncompress, relinearize, sort and rebuild in one pass on the
+        device, never building a COO.
+
+        Applies an optional axis permutation ``axes`` (transpose), then, when
+        ``new_shape`` differs from the permuted shape, a C-order
+        relinearization (reshape), and compresses along ``compressed_axes``
+        of the target shape. Each entry's target keys are sums of
+        mixed-radix terms ``((src // div) % mod) * mul`` over its compressed
+        row id (src 0), its stored index (src 1) or, for a reshape, its
+        C-order linear index (src 2). The sort is the cheapest one the old
+        order allows (``sig`` tracks it)."""
+        comp = self.compressed_axes
+        uncomp = tuple(a for a in range(self.ndim) if a not in comp)
+        comp_shape = tuple(self.shape[a] for a in comp)
+        uncomp_shape = tuple(self.shape[a] for a in uncomp)
+        new_shape = tuple(int(d) for d in new_shape)
+        new_comp = _validate_compressed_axes(new_shape, compressed_axes)
+        new_uncomp = tuple(a for a in range(len(new_shape)) if a not in new_comp)
+        new_row_size = math.prod(new_shape[a] for a in new_comp)
+        new_col_size = math.prod(new_shape[a] for a in new_uncomp)
+
+        data = self.data
+        nnz = self.nnz
+        idx_np = numpy_dtype(self.indices.dtype)
+        if nnz == 0:
+            tdt = torch_dtype(get_out_dtype(idx_np, max(new_row_size, new_col_size)))
+            return GCXS._make(
+                data,
+                torch.zeros(0, dtype=tdt, device=self.device),
+                torch.zeros(new_row_size + 1, dtype=tdt, device=self.device),
+                new_shape,
+                new_comp,
+                self.fill_value,
+            )
+
+        def base_term(a):
+            """(src, div, mod) extracting original axis ``a``'s digit."""
+            if a in comp:
+                i = comp.index(a)
+                return (0, math.prod(comp_shape[i + 1 :]), 0 if i == 0 else self.shape[a])
+            i = uncomp.index(a)
+            return (1, math.prod(uncomp_shape[i + 1 :]), 0 if i == 0 else self.shape[a])
+
+        # ``sig``: the significance sequence (in target axis labels) the
+        # entries are lex-sorted by now
+        if axes is not None:
+            shape_p = tuple(self.shape[a] for a in axes)
+            pos = {a: p for p, a in enumerate(axes)}
+            sig = tuple(pos[a] for a in comp + uncomp)
+            src_axis = list(axes)
+        else:
+            shape_p = self.shape
+            sig = comp + uncomp
+            src_axis = list(range(self.ndim))
+
+        if new_shape != shape_p:
+            # a C-order relinearization keeps the linear order only when the
+            # entries were in C order already
+            if math.prod(new_shape) != self.size:
+                raise ValueError(f"cannot reshape array of size {self.size} into shape {new_shape}")
+            sig = tuple(range(len(new_shape))) if sig == tuple(range(self.ndim)) else None
+            lin_terms = [(*base_term(a), math.prod(shape_p[i + 1 :])) for i, a in enumerate(src_axis)]
+
+            def key_terms(axs):
+                terms = []
+                for i, a in enumerate(axs):
+                    mod = 0 if a == 0 else new_shape[a]
+                    terms.append((2, math.prod(new_shape[a + 1 :]), mod, math.prod(new_shape[b] for b in axs[i + 1 :])))
+                return terms
+
+        else:
+            lin_terms = []
+
+            def key_terms(axs):
+                return [
+                    (*base_term(src_axis[a]), math.prod(new_shape[b] for b in axs[i + 1 :])) for i, a in enumerate(axs)
+                ]
+
+        crow = uncompress_indptr(self.indptr, nnz)
+        idx = self.indices.long()
+
+        def eval_terms(terms, lin):
+            key = torch.zeros(nnz, dtype=torch.int64, device=self.device)
+            for s, d, m, u in terms:
+                v = (crow, idx, lin)[s]
+                if d != 1:
+                    v = v // d
+                if m:
+                    v = v % m
+                key += v * u if u != 1 else v
+            return key
+
+        lin = eval_terms(lin_terms, None) if lin_terms else None
+        new_row = eval_terms(key_terms(new_comp), lin)
+        new_col = eval_terms(key_terms(new_uncomp), lin)
+
+        # reorder: already sorted; one stable sort by the row key (ties are
+        # already in column order); or a sort by the whole key, unique since
+        # no two entries share a position
+        tdt = torch_dtype(get_out_dtype(idx_np, max(new_row_size, new_col_size, nnz)))
+        if sig is not None and sig == new_comp + new_uncomp:
+            data = data.clone()
+        else:
+            if sig is not None and tuple(a for a in sig if a not in new_comp) == new_uncomp:
+                new_row, order = torch.sort(new_row, stable=True)
+            else:
+                _, order = torch.sort(new_row * new_col_size + new_col, stable=True)
+                new_row = new_row[order]
+            new_col = new_col[order]
+            data = data[order]
+        indptr = _build_indptr(new_row, new_row_size)
+        return GCXS._make(data, new_col.to(tdt), indptr.to(tdt), new_shape, new_comp, self.fill_value)
+
+    # -- structural ops ---------------------------------------------------------------------
+    def reshape(self, shape, order="C", compressed_axes=None):
+        shape = tuple(shape) if isinstance(shape, Iterable) else (shape,)
+        if order not in ("C", None):
+            raise NotImplementedError("The `order` parameter is not supported.")
+        if any(d == -1 for d in shape):
+            extra = int(self.size / np.prod([d for d in shape if d != -1], dtype=np.float64))
+            shape = tuple([d if d != -1 else extra for d in shape])
+        if self.shape == shape:
+            return self
+        if len(shape) >= 2 and self.ndim >= 1:
+            return self._restructure(shape, compressed_axes=compressed_axes)
+        coo = _reshape_coo(self.tocoo(), shape)
+        if len(shape) == 1:
+            return GCXS.from_coo(coo)
+        return GCXS.from_coo(coo, compressed_axes=compressed_axes)
+
+    def transpose(self, axes=None, compressed_axes=None):
+        if axes is None:
+            axes = tuple(reversed(range(self.ndim)))
+        axes = normalize_axis(axes, self.ndim)
+        if not isinstance(axes, tuple):
+            axes = (axes,)
+        if axes == tuple(range(self.ndim)):
+            return self
+        if self.ndim == 2 and compressed_axes is None:
+            # O(1): the CSR of A is the CSC of Aᵀ, on the same buffers
+            return GCXS._make(
+                self.data,
+                self.indices,
+                self.indptr,
+                (self.shape[1], self.shape[0]),
+                (1 - self.compressed_axes[0],),
+                self.fill_value,
+            )
+        return self._restructure(tuple(self.shape[a] for a in axes), axes=axes, compressed_axes=compressed_axes)
+
+    def flatten(self, order="C"):
+        return self.reshape(-1, order=order)
+
+    def __getitem__(self, index):
+        raise not_ported("indexing of a GCXS array")
+
+    def _reduce_calc(self, method, axis, keepdims=False, **kwargs):
+        raise not_ported("reductions of a GCXS array")
+
+    def _reduce_return(self, data, arr_attrs, result_fill_value):
+        raise not_ported("reductions of a GCXS array")
+
+    def dot(self, other):
+        from ..ops.dot import dot
+
+        return dot(self, other)
+
+    def copy(self, deep=True):
+        bufs = (self.data, self.indices, self.indptr)
+        if deep:
+            bufs = tuple(t.clone() for t in bufs)
+        return GCXS._make(*bufs, self.shape, self.compressed_axes, self.fill_value)
+
+
+class _Compressed2d(GCXS):
+    def __init__(self, arg, shape=None, prune=False, fill_value=None, device=None, **kwargs):
+        cls_axis = self._cls_compressed_axes
+        ca = kwargs.pop("compressed_axes", None)
+        if ca is not None and tuple(ca) != cls_axis:
+            raise ValueError(f"{type(self).__name__} only accepts compressed_axes={cls_axis} but got: {ca}")
+        if kwargs:
+            raise TypeError(f"unexpected keyword arguments: {sorted(kwargs)}")
+        if not hasattr(arg, "shape") and shape is None and not (isinstance(arg, tuple) and len(arg) == 3):
+            raise ValueError("missing `shape` argument")
+        probe_shape = shape if shape is not None else getattr(arg, "shape", None)
+        if probe_shape is not None and len(probe_shape) != 2:
+            raise ValueError(f"{type(self).__name__} must be 2-d, passed {len(probe_shape)}-d shape.")
+        super().__init__(arg, shape=shape, compressed_axes=cls_axis, prune=prune, fill_value=fill_value, device=device)
+
+    @classmethod
+    def from_numpy(cls, x, fill_value=None, idx_dtype=None, device=None):
+        coo = COO.from_numpy(x, fill_value=fill_value, device=device)
+        return cls(GCXS.from_coo(coo, compressed_axes=cls._cls_compressed_axes, idx_dtype=idx_dtype))
+
+    @classmethod
+    def from_scipy_sparse(cls, x, /, *, fill_value=None, device=None):
+        x = x.tocsr() if cls._cls_compressed_axes == (0,) else x.tocsc()
+        x.sum_duplicates()
+        device = _settings.resolve_device(device)
+        return cls._make(
+            _as_tensor(x.data, device),
+            _as_tensor(x.indices, device),
+            _as_tensor(x.indptr, device),
+            x.shape,
+            cls._cls_compressed_axes,
+            zero_of_dtype(x.dtype) if fill_value is None else np.asarray(fill_value, dtype=x.dtype)[()],
+        )
+
+    def __str__(self):
+        return (
+            f"<{type(self).__name__}: shape={self.shape}, dtype={self.dtype}, nnz={self.nnz}, "
+            f"fill_value={self.fill_value}, device={self.device}>"
+        )
+
+    __repr__ = __str__
+
+    def transpose(self, axes=None, copy=False, compressed_axes=None):
+        """The O(1) transpose: the other class on the same buffers (copies
+        of them with ``copy=True``)."""
+        if axes is not None:
+            ax = tuple(normalize_axis(tuple(axes) if isinstance(axes, Iterable) else (axes,), 2))
+            if ax not in ((0, 1), (1, 0)):
+                raise ValueError(f"Invalid transpose axes: {axes}")
+            if ax == (0, 1):
+                return self.copy() if copy else self
+        bufs = (self.data, self.indices, self.indptr)
+        if copy:
+            bufs = tuple(t.clone() for t in bufs)
+        other = CSC if isinstance(self, CSR) else CSR
+        return other._make(*bufs, (self.shape[1], self.shape[0]), other._cls_compressed_axes, self.fill_value)
+
+
+class CSR(_Compressed2d):
+    """2-D compressed-sparse-row matrix (GCXS with compressed_axes=(0,))."""
+
+    _cls_compressed_axes = (0,)
+
+    @property
+    def format(self):
+        return "csr"
+
+
+class CSC(_Compressed2d):
+    """2-D compressed-sparse-column matrix (GCXS with compressed_axes=(1,))."""
+
+    _cls_compressed_axes = (1,)
+
+    @property
+    def format(self):
+        return "csc"
+
+
+def concatenate_gcxs(arrays, axis=0):
+    raise not_ported("concatenate of GCXS arrays")
+
+
+def stack_gcxs(arrays, axis=0):
+    raise not_ported("stack of GCXS arrays")

@@ -13,6 +13,7 @@ import torch
 from ._settings import resolve_device
 from ._utils import torch_dtype, zero_of_dtype
 from .core.coo import COO, _as_tensor
+from .core.gcxs import GCXS, _validate_compressed_axes
 from .kernels.bsr import bsr_from_numpy
 from .kernels.ell import DEFAULT_BLOCK_ROWS, block_ell_3d_from_numpy
 from .kernels.row_ell import pack_row_ell
@@ -26,6 +27,22 @@ def coo_from_arrays(coords, data, shape, fill_value=None, device=None):
     data = np.asarray(data)
     fv = zero_of_dtype(data.dtype) if fill_value is None else np.asarray(fill_value, dtype=data.dtype)[()]
     return COO._make(_as_tensor(coords, device), _as_tensor(data, device), shape, fv)
+
+
+def gcxs_from_arrays(data, indices, indptr, shape, compressed_axes, fill_value=None, device=None):
+    """A GCXS from a JAX ``GCXS``'s ``data``, ``indices`` and ``indptr``,
+    taken as they are (index dtypes included): no sort, no prune."""
+    device = resolve_device(device)
+    data = np.asarray(data)
+    fv = zero_of_dtype(data.dtype) if fill_value is None else np.asarray(fill_value, dtype=data.dtype)[()]
+    return GCXS._make(
+        _as_tensor(data, device),
+        _as_tensor(indices, device),
+        _as_tensor(indptr, device),
+        shape,
+        _validate_compressed_axes(shape, compressed_axes),
+        fv,
+    )
 
 
 def row_ell_from_arrays(tiers, perm_inv, n_rows, n_cols, nz_rows, device=None):

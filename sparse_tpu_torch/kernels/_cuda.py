@@ -81,7 +81,7 @@ _SIGNATURES = {
         "st_lane_gather_blocksum": [_p, _i64, _p, *[_i64] * 3, _p, _p, _p, _p],
         "st_row_gather": [_p, _p, _p, *[_i64] * 9, _p, _p],
         "st_row_gather_sum": [_p, _p, *[_i64] * 4, _p, _p],
-        "st_scalar_gather_sum": [_p, _i64, _p, _p, _i64, _i64, _p, _p],
+        "st_scalar_gather_sum": [_p, _i64, _p, _p, *[_i64] * 3, _p, _p],
         "st_row_pick_bf16": [_p, _i64, _p, _i64, _i64, _p, _p],
         "st_row_pick_counts": [_p, _i64, _p, *[_i64] * 4, _p, _p, _p, _p],
     },
@@ -1295,11 +1295,11 @@ def pick_scale_wsum(table, cols2, data2, out):
     )
 
 
-def scalar_gather_sum(x, qi, qj, out, seg_len):
-    """Launch E6 (``pallas_vmem.py:p4``): ``out[g, 0] = Σ_{w < L} x[qi[gL +
-    w], qj[gL + w]]``, ``L = seg_len``; ``x`` float32 ``(rows, cols)``,
-    ``qi``/``qj`` int32 ``(n_seg · L,)``, ``out`` float32 ``(n_seg, 1)``. The
-    caller guarantees every index in range."""
+# the parts of E6's kernel that scalar_gather_sum_stage launches alone
+SCALAR_GATHER_STAGES = {"launch": 1, "indices": 2}
+
+
+def _scalar_gather_args(x, qi, qj, out, seg_len):
     device = qi.device
     require_cuda(device, "probe")
     _check("x", x, torch.float32, device)
@@ -1309,9 +1309,31 @@ def scalar_gather_sum(x, qi, qj, out, seg_len):
     n_seg = _segments_of("scalar_gather_sum", qi, seg_len)
     if x.ndim != 2 or qj.shape != qi.shape or out.shape != (n_seg, 1):
         raise ValueError("scalar_gather_sum: x must be 2-D, qi and qj of one shape, out (n_seg, 1)")
-    err = load("probes").st_scalar_gather_sum(
-        x.data_ptr(), x.shape[1], qi.data_ptr(), qj.data_ptr(), n_seg, seg_len, out.data_ptr(), _stream(device)
-    )
+    return (x.data_ptr(), x.shape[1], qi.data_ptr(), qj.data_ptr(), n_seg, seg_len)
+
+
+def scalar_gather_sum(x, qi, qj, out, seg_len):
+    """Launch E6 (``pallas_vmem.py:p4``): ``out[g, 0] = Σ_{w < L} x[qi[gL +
+    w], qj[gL + w]]``, ``L = seg_len``; ``x`` float32 ``(rows, cols)``,
+    ``qi``/``qj`` int32 ``(n_seg · L,)``, ``out`` float32 ``(n_seg, 1)``. The
+    caller guarantees every index in range. The sums run in a fixed order:
+    the same bits on every launch."""
+    args = _scalar_gather_args(x, qi, qj, out, seg_len)
+    err = load("probes").st_scalar_gather_sum(*args, 0, out.data_ptr(), _stream(qi.device))
     _raise_on(err, "scalar_gather_sum")
     LAUNCHES["scalar_gather_sum"] += 1
+    return out
+
+
+def scalar_gather_sum_stage(x, qi, qj, out, seg_len, stage):
+    """Launch E6's kernel cut to a part of it, to time that part:
+    ``stage="launch"`` the grid alone (the kernel returns at once: the
+    launch floor), ``"indices"`` the index loads and the sums without the
+    table reads (``out`` then holds sums of ``qi + qj``). A timing probe,
+    not E6: it counts no launch."""
+    if stage not in SCALAR_GATHER_STAGES:
+        raise ValueError(f"scalar_gather_sum_stage: stage {stage!r}, expected one of {tuple(SCALAR_GATHER_STAGES)}")
+    args = _scalar_gather_args(x, qi, qj, out, seg_len)
+    err = load("probes").st_scalar_gather_sum(*args, SCALAR_GATHER_STAGES[stage], out.data_ptr(), _stream(qi.device))
+    _raise_on(err, "scalar_gather_sum_stage")
     return out

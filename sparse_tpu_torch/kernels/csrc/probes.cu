@@ -577,17 +577,31 @@ __global__ void __launch_bounds__(kRowSumThreads)
 // seg_len. The Pallas kernel walks each segment with scalar SMEM-indexed
 // loads in one sequential loop; here one CTA takes a segment, each thread
 // sums every 256th load, and the CTA adds the threads' sums by shuffles and
-// then across warps in a fixed order.
+// then across warps in a fixed order, so every launch gives the same bits.
+// At L = 1,024 that is one round of index loads and one of table loads.
+// Its time on the card is a chain, not bytes (0.24 µs of them): the launch
+// (about 45 % of it on an H100), the coalesced index round, the table round
+// and the CTA's sum. Wider CTAs, int2/int4 index loads and a segment split
+// over a cluster were all slower (PERF.md §6). STAGE cuts the kernel for
+// timing its parts: the launch alone, or the index loads and sums without
+// the table reads.
+constexpr int kE6Full = 0, kE6LaunchOnly = 1, kE6IndicesOnly = 2;
+
+template <int STAGE>
 __global__ void __launch_bounds__(kThreads)
     scalar_gather_sum_kernel(const float* __restrict__ x, long long n_x_cols, const int* __restrict__ qi,
                              const int* __restrict__ qj, long long seg_len, float* __restrict__ out) {
+  if constexpr (STAGE == kE6LaunchOnly) return;
   __shared__ float warp_sums[kWarps];
   const long long s = blockIdx.x;
   const int* ri = qi + s * seg_len;
   const int* rj = qj + s * seg_len;
   float acc = 0.0f;
 #pragma unroll 4
-  for (long long w = threadIdx.x; w < seg_len; w += kThreads) acc += x[(long long)ri[w] * n_x_cols + rj[w]];
+  for (long long w = threadIdx.x; w < seg_len; w += kThreads) {
+    if constexpr (STAGE == kE6IndicesOnly) acc += (float)(ri[w] + rj[w]);
+    else acc += x[(long long)ri[w] * n_x_cols + rj[w]];
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
@@ -1034,12 +1048,21 @@ int st_row_gather_sum(const void* table, const void* idx, long long n_seg, long 
   return (int)cudaGetLastError();
 }
 
+// E6 cut to `stage`: 0 the whole sum, 1 the launch alone, 2 the index loads
+// and sums
 int st_scalar_gather_sum(const void* x, long long n_x_cols, const void* qi, const void* qj, long long n_seg,
-                         long long seg_len, void* out, void* stream) {
+                         long long seg_len, long long stage, void* out, void* stream) {
   if (n_seg == 0) return 0;
   if (n_seg > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  scalar_gather_sum_kernel<<<(unsigned)n_seg, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, n_x_cols, (const int*)qi, (const int*)qj, seg_len, (float*)out);
+  void (*kernel)(const float*, long long, const int*, const int*, long long, float*);
+  switch (stage) {
+    case kE6Full: kernel = scalar_gather_sum_kernel<kE6Full>; break;
+    case kE6LaunchOnly: kernel = scalar_gather_sum_kernel<kE6LaunchOnly>; break;
+    case kE6IndicesOnly: kernel = scalar_gather_sum_kernel<kE6IndicesOnly>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  kernel<<<(unsigned)n_seg, kThreads, 0, (cudaStream_t)stream>>>((const float*)x, n_x_cols, (const int*)qi,
+                                                                 (const int*)qj, seg_len, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -6,11 +6,12 @@
 - ``matmul`` warns "Nan will not be propagated in matrix multiplication";
 - dtypes promote as NumPy's do (``np.promote_types``).
 
-float32/float64 products run on the array's cached row-ELL layout
-(``kernels.row_ell``: the CUDA kernels on the GPU); other dtypes take the
-COO gather + ``index_add_`` path (``kernels.dot``). Batched (N-D) matmul,
-1-D sparse operands, dense × sparse and sparse × sparse are not ported yet
-and raise ``NotImplementedError``.
+The sparse operand is a 2-D ``COO`` or ``GCXS`` (``CSR``, ``CSC``); a GCXS
+multiplies through the canonical COO it keeps. float32/float64 products run
+on the COO's cached row-ELL layout (``kernels.row_ell``: the CUDA kernels on
+the GPU); other dtypes take the COO gather + ``index_add_`` path
+(``kernels.dot``). Batched (N-D) matmul, 1-D sparse operands, dense × sparse
+and sparse × sparse are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,19 +21,16 @@ import warnings
 import numpy as np
 import torch
 
-from .._utils import check_zero_fill_value, result_dtype, signed_view, torch_dtype
+from .._utils import check_zero_fill_value, not_ported, result_dtype, signed_view, torch_dtype
 from ..core.base import SparseArray
 from ..core.coo import COO
+from ..core.gcxs import GCXS
 from ..kernels import dot as kdot
 from ..kernels.row_ell import row_ell_spmm_program, row_ell_spmv
 
 __all__ = ["matmul", "dot", "matvec_add"]
 
 _ROW_ELL_DTYPES = (torch.float32, torch.float64)
-
-
-def _not_ported(what):
-    return NotImplementedError(f"{what} is not yet ported to sparse_tpu_torch")
 
 
 def _from_scipy_operands(a, b):
@@ -90,15 +88,15 @@ def _warn_nan(*operands, stacklevel):
 def _check_ported(a, b):
     a_sparse, b_sparse = isinstance(a, SparseArray), isinstance(b, SparseArray)
     if a_sparse and b_sparse:
-        raise _not_ported("sparse × sparse matmul")
+        raise not_ported("sparse × sparse matmul")
     if b_sparse:
-        raise _not_ported("dense × sparse matmul")
+        raise not_ported("dense × sparse matmul")
     if not a_sparse:
         raise NotImplementedError("sparse_tpu_torch multiplies sparse arrays; use torch.matmul for dense × dense")
     if a.ndim > 2 or _ndim(b) > 2:
-        raise _not_ported("batched (N-D) matmul")
+        raise not_ported("batched (N-D) matmul")
     if a.ndim == 1:
-        raise _not_ported("a product with a 1-D sparse operand")
+        raise not_ported("a product with a 1-D sparse operand")
 
 
 def matmul(a, b):
@@ -132,8 +130,15 @@ def _dot(a, b):
     return _spmm_dense(a, b)
 
 
+def _product_coo(a):
+    """The COO that a product of ``a`` runs on: ``a`` itself, or the one a
+    GCXS keeps (with its cached layouts)."""
+    return a._product_coo() if isinstance(a, GCXS) else a
+
+
 def _spmm_dense(a, b):
     """sparse ``(M, K)`` × dense ``(K,)`` or ``(K, N)`` → dense tensor."""
+    a = _product_coo(a)
     dt = result_dtype(a.dtype, b.dtype)
     if dt in _ROW_ELL_DTYPES:
         return _spmm_row_ell(a, b.to(dt))
@@ -161,7 +166,7 @@ def matvec_add(a, x, y):
     NaN warning), which is what every other case computes."""
     a, x = _from_scipy_operands(a, x)
     if (
-        isinstance(a, COO)
+        isinstance(a, (COO, GCXS))
         and a.ndim == 2
         and not isinstance(x, SparseArray)
         and _ndim(x) == 1
@@ -175,7 +180,7 @@ def matvec_add(a, x, y):
         if dt in _ROW_ELL_DTYPES:
             check_zero_fill_value(a, x, func_name="matmul")
             _warn_nan(a, x, stacklevel=2)
-            return _spmm_row_ell(a, x.to(dt), y=y.to(dt))
+            return _spmm_row_ell(_product_coo(a), x.to(dt), y=y.to(dt))
     out = matmul(a, x)
     y = _dense_operand(y, out.device)
     dt = result_dtype(out.dtype, y.dtype)

@@ -1053,7 +1053,22 @@ def test_pick_scale_wsum_kernel_matches_plain(cuda, n_cells, W, table_h):
     torch.testing.assert_close(got, v2.pick_scale_wsum_plain(table, cols2, data2), **PROBE_SUMS)
 
 
-@pytest.mark.parametrize("rows,cols,n_seg,per_step", [(512, 128, 3, 1024), (100, 77, 5, 37), (1, 1, 2, 1)])
+# segments below and above 1,024 picks, of lengths that are no multiple of
+# 32, more segments than SMs, and tall tables
+SCALAR_GATHER_CASES = [
+    (512, 128, 3, 1024),
+    (100, 77, 5, 37),
+    (1, 1, 2, 1),
+    (512, 128, 4, 100),
+    (512, 128, 2, 1023),
+    (512, 128, 3, 3001),
+    (512, 128, 133, 1024),
+    (8192, 128, 3, 4096),
+    (65536, 16, 2, 2050),
+]
+
+
+@pytest.mark.parametrize("rows,cols,n_seg,per_step", SCALAR_GATHER_CASES)
 def test_scalar_gather_sum_kernel_matches_plain(cuda, rows, cols, n_seg, per_step):
     from sparse_tpu_torch.experiments import pallas_vmem as v
 
@@ -1063,6 +1078,27 @@ def test_scalar_gather_sum_kernel_matches_plain(cuda, rows, cols, n_seg, per_ste
     got = v.scalar_gather_sum(x, qi, qj, per_step)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, v.scalar_gather_sum_plain(x, qi, qj, per_step), **PROBE_SUMS)
+    again = v.scalar_gather_sum(x, qi, qj, per_step)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)  # the sums in a fixed order
+
+
+def test_scalar_gather_sum_stages_are_its_parts_and_count_nothing(cuda):
+    rng = _probe_gen(7)
+    x = _rand(rng, (512, 128), cuda)
+    qi, qj = _ints(rng, 512, 8 * 1000, cuda), _ints(rng, 128, 8 * 1000, cuda)
+    _cuda.reset_launch_counts()
+    out = torch.full((8, 1), -1.0, device=cuda)
+    _cuda.scalar_gather_sum_stage(x, qi, qj, out, 1000, "launch")
+    torch.cuda.synchronize()
+    assert bool((out == -1.0).all())  # the launch alone writes nothing
+    _cuda.scalar_gather_sum_stage(x, qi, qj, out, 1000, "indices")
+    torch.cuda.synchronize()
+    # sums of integers below 2^24: exact in any order
+    assert torch.equal(out, (qi + qj).float().view(8, 1000).sum(1, keepdim=True))
+    assert _cuda.LAUNCHES["scalar_gather_sum"] == 0
+    with pytest.raises(ValueError):
+        _cuda.scalar_gather_sum_stage(x, qi, qj, out, 1000, "table")
 
 
 def test_probe_runners_run_and_count_on_the_card(cuda):
@@ -1108,3 +1144,45 @@ def test_probe_launchers_refuse_what_their_kernels_do_not_take(cuda):
         _cuda.spmv_products(torch.rand((512, 128), device=cuda), idx.view(-1), torch.rand(1024, device=cuda), torch.empty((1024, 1), device=cuda))
     with pytest.raises(ValueError):
         _cuda.scalar_gather_sum(table, idx.view(-1), idx.view(-1), torch.empty((3, 1), device=cuda), 1000)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("fmt", ["csr", "csc"])
+def test_csr_and_csc_products_equal_the_coos(cuda, dt, fmt):
+    # a mid size: 4,000 x 3,000, about 120,000 entries, on the kernels' path
+    rng = np.random.default_rng(11)
+    m, k = 4000, 3000
+    lin = rng.integers(0, m * k, size=120_000)
+    np_dt = np.float32 if dt == torch.float32 else np.float64
+    a = st.COO(np.stack([lin // k, lin % k]), rng.random(lin.size).astype(np_dt), shape=(m, k), device=cuda)
+    g = a.asformat(fmt) if fmt == "csr" else st.CSC(a)
+    b = torch.as_tensor(rng.random((k, 64)), dtype=dt, device=cuda)
+    x = torch.as_tensor(rng.random(k), dtype=dt, device=cuda)
+    y = torch.as_tensor(rng.random(m), dtype=dt, device=cuda)
+    _cuda.reset_launch_counts()
+    got = {"B": g @ b, "x": g @ x, "x+y": st.matvec_add(g, x, y)}
+    assert _cuda.LAUNCHES["row_ell_spmm"] == 1 and _cuda.LAUNCHES["row_ell_spmv"] == 2
+    want = {"B": a @ b, "x": a @ x, "x+y": st.matvec_add(a, x, y)}
+    torch.cuda.synchronize()
+    for key in got:
+        assert got[key].device.type == "cuda" and torch.equal(got[key], want[key]), key
+    back = g.tocoo()
+    assert torch.equal(back.coords, a.coords) and torch.equal(back.data, a.data)
+
+
+def test_csr_products_reuse_the_held_layout(cuda):
+    from sparse_tpu_torch.kernels.row_ell import ROW_ELL_DEFAULT_KEY
+
+    rng = np.random.default_rng(12)
+    x = rng.random((500, 400)) * (rng.random((500, 400)) < 0.05)
+    csr = st.CSR.from_numpy(x.astype(np.float32), device=cuda)
+    b = torch.rand((400, 16), device=cuda)
+    first = csr @ b
+    held = csr._product_coo()
+    layout = held.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY)
+    assert layout is not None
+    second = csr @ b
+    assert csr._product_coo() is held and held.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY) is layout
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, torch.as_tensor(x, dtype=torch.float32, device=cuda) @ b, **TOL[torch.float32])
