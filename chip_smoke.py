@@ -57,6 +57,16 @@ drives the port's two paths on the card:
   output of its size (the write ceiling), g2's shared-memory pick rate
   beside its first route's whole-row L2 rate, both timed in this run.
 
+- element-wise operations and reductions (BASELINE config 3, the
+  ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
+  sparse column, ufuncs, a cast and the reductions of the bench matrix as
+  COO, CSR and CSC, the MTTKRP tensor's sums, max and a dense scale, and
+  ``var``/``std`` of a 4,096² matrix, each against a float64 scipy or
+  bincount oracle (coordinates exactly, values at rtol 1e-6), the float
+  reductions twice bit for bit, each timed (device ms, median of 5 eager
+  calls) beside torch.sparse where torch has the operation. No kernel of
+  the package runs here: the JAX package leaves this path to XLA.
+
 The launch counters show that each path ran its kernels; each kernel is
 timed beside its plain version, one library call on the same inputs
 (torch.sparse, which reaches cuSPARSE or torch's own kernels; timed here
@@ -1744,6 +1754,244 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# elementwise operations and reductions (BASELINE config 3)
+# ---------------------------------------------------------------------------
+
+ELEM_RTOL = 1e-6  # float32 results against the float64 scipy / bincount oracle
+ELEM_REPS = 5
+R_ROWS = 64  # stored rows of the (65,536, 1) column r
+DENSE_NATURE = (4096, 1e-3)  # var/std shape: a 4,096^2 matrix at density 1e-3
+
+
+def device_ms(fn, reps=ELEM_REPS):
+    """Median device ms of one eager call of ``fn`` (CUDA events around it;
+    the call's reads back to the host included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _bits_equal(x, y):
+    if isinstance(x, torch.Tensor):
+        return torch.equal(x, y) and x.dtype == y.dtype
+    return np.asarray(x).tobytes() == np.asarray(y).tobytes()
+
+
+def check_sparse_2d(name, got, want, dtype, fill=0.0):
+    """A 2-D port result (COO or GCXS, on the card) against a scipy float64
+    oracle: coordinates exactly, values at ELEM_RTOL, dtype and fill."""
+    coo = got.tocoo()
+    if coo.data.device.type != "cuda":
+        raise AssertionError(f"{name}: result on {coo.data.device}")
+    if np.dtype(str(coo.dtype).replace("torch.", "")) != np.dtype(dtype) or float(got.fill_value) != fill:
+        raise AssertionError(f"{name}: dtype {coo.dtype} fill {got.fill_value}, want {np.dtype(dtype)} {fill}")
+    w = want.tocoo()
+    keep = w.data != fill
+    order = np.lexsort((w.col[keep], w.row[keep]))
+    rows, cols, vals = w.row[keep][order], w.col[keep][order], w.data[keep][order]
+    coords = coo.coords.cpu().numpy()
+    if coords.shape[1] != rows.size or not (np.array_equal(coords[0], rows) and np.array_equal(coords[1], cols)):
+        raise AssertionError(f"{name}: {coords.shape[1]} coordinates, the oracle {rows.size}, or they differ")
+    np.testing.assert_allclose(coo.data.cpu().numpy().astype(np.float64), vals.astype(np.float64), rtol=ELEM_RTOL, err_msg=name)
+    return coo.nnz
+
+
+def check_entries(name, got, lin, vals, dtype, fill=0.0):
+    """A port result (on the card) against the oracle's raveled positions
+    ``lin`` and float64 values: positions exactly, values at ELEM_RTOL,
+    dtype and fill value as NumPy's."""
+    coo = got.tocoo()
+    if coo.data.device.type != "cuda":
+        raise AssertionError(f"{name}: result on {coo.data.device}")
+    if np.dtype(str(coo.dtype).replace("torch.", "")) != np.dtype(dtype) or float(got.fill_value) != fill:
+        raise AssertionError(f"{name}: dtype {coo.dtype} fill {got.fill_value}, want {np.dtype(dtype)} {fill}")
+    got_lin = np.ravel_multi_index(tuple(coo.coords.cpu().numpy().astype(np.int64)), coo.shape)
+    if not np.array_equal(got_lin, lin):
+        raise AssertionError(f"{name}: {got_lin.size} entries, the oracle {lin.size}, or their positions differ")
+    np.testing.assert_allclose(coo.data.cpu().numpy().astype(np.float64), vals, rtol=ELEM_RTOL, err_msg=name)
+    return coo.nnz
+
+
+def check_sparse_1d(name, got, want, dtype, fill=0.0):
+    """A 1-D (or kept-axes, raveled) port result against a dense float64
+    oracle vector: the entries where the oracle is not ``fill``."""
+    want = np.asarray(want, dtype=np.float64).reshape(-1)
+    nz = np.flatnonzero(want != fill)
+    return check_entries(name, got, nz, want[nz], dtype, fill)
+
+
+def phase_elemwise_2d(dev, a):
+    """The slice at the bench shape through the public entry points, float32:
+    unions, broadcasting, a dense row, ufuncs, casts and reductions of COO,
+    CSR and CSC arrays, each against a float64 scipy oracle; the float
+    reductions twice, the same bits; each timed (device ms, median of 5)
+    beside torch.sparse where it has the operation."""
+    import scipy.sparse
+
+    import sparse_tpu_torch as st
+
+    rng = np.random.default_rng(7)
+    lin = rng.integers(0, M * K, size=NNZ_DRAWS, dtype=np.int64)
+    b = st.COO(np.stack([lin // K, lin % K]), rng.random(NNZ_DRAWS, dtype=np.float32), shape=(M, K), device=dev)
+    d = torch.as_tensor(rng.random(K, dtype=np.float32), device=dev)
+    r_rows = np.sort(rng.choice(M, size=R_ROWS, replace=False))
+    r_vals = rng.random(R_ROWS, dtype=np.float32)
+    r = st.COO(np.stack([r_rows, np.zeros(R_ROWS, np.int64)]), r_vals, shape=(M, 1), device=dev)
+    a1 = st.COO(a.coords, a.data, shape=(M, K), fill_value=1.0, has_duplicates=False, sorted=True)
+    csr, csc, csr_b = a.asformat("csr"), a.asformat("csc"), b.asformat("csr")
+    torch.cuda.synchronize()
+
+    def host(x):
+        c = x.coords.cpu().numpy()
+        return scipy.sparse.csr_matrix((x.data.cpu().numpy().astype(np.float64), (c[0], c[1])), shape=x.shape)
+
+    A, B = host(a), host(b)
+    R = scipy.sparse.csr_matrix(
+        (np.repeat(r_vals.astype(np.float64), K), (np.repeat(r_rows, K), np.tile(np.arange(K), R_ROWS))), shape=(M, K)
+    )
+    dn = d.cpu().numpy().astype(np.float64)
+    counts_row = np.diff(A.indptr)
+    ops = {
+        "a + b": (lambda: a + b, lambda: A + B, "2d", np.float32, 0.0),
+        "a > b": (lambda: a > b, lambda: (A > B).astype(np.float64), "2d", np.bool_, 0.0),
+        "(a + b) * (a > b)": (lambda: (a + b) * (a > b), lambda: (A + B).multiply(A > B), "2d", np.float32, 0.0),
+        "a * d[None, :]": (lambda: a * d[None, :], lambda: A.multiply(dn[None, :]), "2d", np.float32, 0.0),
+        "a + r": (lambda: a + r, lambda: A + R, "2d", np.float32, 0.0),
+        "sin(a)": (lambda: np.sin(a), lambda: scipy.sparse.csr_matrix((np.sin(A.data), A.indices, A.indptr), shape=A.shape), "2d", np.float32, 0.0),
+        "a.astype(float64)": (lambda: a.astype(np.float64), lambda: A, "2d", np.float64, 0.0),
+        "a.sum()": (lambda: a.sum(), lambda: A.sum(), "0d", np.float32, None),
+        "a.sum(axis=0)": (lambda: a.sum(axis=0), lambda: A.sum(axis=0), "1d", np.float32, 0.0),
+        "a.sum(axis=1)": (lambda: a.sum(axis=1), lambda: A.sum(axis=1), "1d", np.float32, 0.0),
+        "a.max(axis=1)": (lambda: a.max(axis=1), lambda: A.max(axis=1).toarray(), "1d", np.float32, 0.0),
+        "a.min(axis=0)": (lambda: a.min(axis=0), lambda: A.min(axis=0).toarray(), "1d", np.float32, 0.0),
+        "a.mean(axis=1)": (lambda: a.mean(axis=1), lambda: A.sum(axis=1) / K, "1d", np.float32, 0.0),
+        "(a > 0.5).any(axis=0)": (lambda: (a > 0.5).any(axis=0), lambda: ((A > 0.5).sum(axis=0) > 0), "1d", np.bool_, 0.0),
+        "a(fill 1).sum(axis=1)": (
+            lambda: a1.sum(axis=1),
+            lambda: np.where(counts_row > 0, np.asarray(A.sum(axis=1)).ravel() + (K - counts_row), float(K)),
+            "1d",
+            np.float32,
+            float(K),
+        ),
+        "csr.sum(axis=1)": (lambda: csr.sum(axis=1), lambda: A.sum(axis=1), "1d", np.float32, 0.0),
+        "csr.sum(axis=0)": (lambda: csr.sum(axis=0), lambda: A.sum(axis=0), "1d", np.float32, 0.0),
+        "csc.max(axis=0)": (lambda: csc.max(axis=0), lambda: A.max(axis=0).toarray(), "1d", np.float32, 0.0),
+        "csr + csr_b": (lambda: csr + csr_b, lambda: A + B, "2d", np.float32, 0.0),
+    }
+    At = torch.sparse_coo_tensor(a.coords.long(), a.data, (M, K)).coalesce()
+    Bt = torch.sparse_coo_tensor(b.coords.long(), b.data, (M, K)).coalesce()
+    library = {
+        "a + b": lambda: (At + Bt).coalesce(),
+        "a.sum()": lambda: torch.sparse.sum(At),
+        "a.sum(axis=0)": lambda: torch.sparse.sum(At, dim=0),
+        "a.sum(axis=1)": lambda: torch.sparse.sum(At, dim=1),
+    }
+    floats_twice = {"a.sum()", "a.sum(axis=0)", "a.sum(axis=1)", "a.mean(axis=1)", "a(fill 1).sum(axis=1)", "csr.sum(axis=1)", "csr.sum(axis=0)"}
+    rows = {}
+    for name, (run, oracle, kind, dtype, fill) in ops.items():
+        got = run()
+        torch.cuda.synchronize()
+        want = oracle()
+        if kind == "0d":
+            if got.shape != () or got.data.device.type != "cuda":
+                raise AssertionError(f"{name}: shape {got.shape} on {got.data.device}")
+            np.testing.assert_allclose(float(got.fill_value), float(want), rtol=ELEM_RTOL, err_msg=name)
+            nnz = 1
+        elif kind == "1d":
+            nnz = check_sparse_1d(name, got, np.asarray(want, dtype=np.float64), dtype, fill)
+        else:
+            nnz = check_sparse_2d(name, got, want, dtype, fill)
+        if name == "csr + csr_b" and not (isinstance(got, st.GCXS) and got.compressed_axes == (0,)):
+            raise AssertionError(f"csr + csr_b gave {type(got).__name__}, not a GCXS compressed along rows")
+        if name in floats_twice:
+            again = run()
+            if not (_bits_equal(again.fill_value, got.fill_value) and (got.ndim == 0 or _bits_equal(again.tocoo().data, got.tocoo().data))):
+                raise AssertionError(f"{name}: a second call gave other bits")
+        row = {"ms": device_ms(run), "nnz": nnz}
+        if name in library:
+            row["torch_sparse_ms"] = device_ms(library[name])
+        rows[name] = row
+        del got
+    return rows
+
+
+def phase_elemwise_3d(t):
+    """The MTTKRP tensor (100,000 x 2,000 x 2,000, 9,999,883 entries):
+    sums over (1, 2) and over 0 (4M kept positions), a max over axis 2 and a
+    dense (1, 2000, 1) scale, against np.bincount / np.maximum.reduceat in
+    float64; the float reductions twice, the same bits."""
+    coords = t.coords.cpu().numpy().astype(np.int64)
+    vals = t.data.cpu().numpy().astype(np.float64)
+    w = torch.as_tensor(np.random.default_rng(11).random((1, MT_J, 1), dtype=np.float32), device=t.device)
+    wn = w.cpu().numpy().astype(np.float64).reshape(-1)
+    ij = coords[0] * MT_J + coords[1]
+    starts = np.flatnonzero(np.concatenate([[True], ij[1:] != ij[:-1]]))
+    def dense_oracle(want):
+        nz = np.flatnonzero(want)
+        return nz, want[nz]
+
+    ops = {
+        "t.sum(axis=(1, 2))": (lambda: t.sum(axis=(1, 2)), lambda: dense_oracle(np.bincount(coords[0], weights=vals, minlength=MT_I))),
+        "t.sum(axis=0)": (
+            lambda: t.sum(axis=0),
+            lambda: dense_oracle(np.bincount(coords[1] * MT_K + coords[2], weights=vals, minlength=MT_J * MT_K)),
+        ),
+        # entries sorted by (i, j, k): each (i, j) run's maximum, all positive
+        "t.max(axis=2)": (lambda: t.max(axis=2), lambda: (ij[starts], np.maximum.reduceat(vals, starts))),
+    }
+    rows = {}
+    for name, (run, oracle) in ops.items():
+        got = run()
+        nnz = check_entries(name, got, *oracle(), np.float32)
+        again = run()
+        if not _bits_equal(again.data, got.data):
+            raise AssertionError(f"{name}: a second call gave other bits")
+        rows[name] = {"ms": device_ms(run), "nnz": nnz}
+        del got, again
+    got = t * w
+    if got.data.device.type != "cuda" or not torch.equal(got.coords, t.coords):
+        raise AssertionError("t * w: not on the card or not on t's coordinates")
+    np.testing.assert_allclose(got.data.cpu().numpy().astype(np.float64), vals * wn[coords[1]], rtol=ELEM_RTOL, err_msg="t * w")
+    rows["t * w"] = {"ms": device_ms(lambda: t * w), "nnz": got.nnz}
+    return rows
+
+
+def phase_elemwise_dense_by_nature(dev):
+    """``var(axis=0)`` and ``std()`` of a 4,096^2 matrix at density 1e-3:
+    the keepdims mean broadcasts over every reduced position, so the union
+    of ``x - mean`` is dense (16.8M entries), as in sparse_tpu."""
+    import sparse_tpu_torch as st
+
+    n, density = DENSE_NATURE
+    rng = np.random.default_rng(13)
+    lin = np.unique(rng.integers(0, n * n, size=round(n * n * density)))
+    vals = rng.random(lin.size, dtype=np.float32)
+    x = st.COO(np.stack([lin // n, lin % n]), vals, shape=(n, n), device=dev)
+    dense = np.zeros((n, n))
+    dense[lin // n, lin % n] = vals
+    rows = {}
+    got = x.var(axis=0)
+    check_sparse_1d("var(axis=0)", got, dense.var(axis=0), np.float32)
+    if not _bits_equal(x.var(axis=0).data, got.data):
+        raise AssertionError("var(axis=0): a second call gave other bits")
+    rows["var(axis=0)"] = {"ms": device_ms(lambda: x.var(axis=0)), "nnz": got.nnz, "union": n * n}
+    got = x.std()
+    np.testing.assert_allclose(float(got.fill_value), dense.std(), rtol=ELEM_RTOL, err_msg="std()")
+    if not _bits_equal(x.std().fill_value, got.fill_value):
+        raise AssertionError("std(): a second call gave other bits")
+    rows["std()"] = {"ms": device_ms(lambda: x.std()), "nnz": x.nnz}
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -1778,7 +2026,12 @@ def main():
     # the cluster SpMV is no default (PERF.md): its launches are the K1 path's
     launches = {**launches, "row_ell_spmv_cluster": k1_launches["row_ell_spmv_cluster"]}
     lines = phase_times(a, re, b, x, launches, errs, card)
-    del a, re, b, x
+    del re, b, x
+    # elementwise operations and reductions at the bench shape
+    t0 = time.perf_counter()
+    elem = {"bench_shape": phase_elemwise_2d(dev, a)}
+    elem_s = time.perf_counter() - t0
+    del a
     torch.cuda.empty_cache()
 
     # the block-sparse layer (BSR)
@@ -1819,7 +2072,15 @@ def main():
     )
     mt_errs = {"ell_mttkrp": cmp_errs["ell_mttkrp exact torch.float32"], "coo_mttkrp": cmp_errs["coo_mttkrp torch.float32"]}
     lines += phase_mttkrp_times(t, c, d, lay, want, mt_launches, mt_errs, card, build)
-    del t, c, d, lay, ex, want
+    del c, d, lay, ex, want
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    elem["mttkrp_tensor"] = phase_elemwise_3d(t)
+    del t
+    torch.cuda.empty_cache()
+    elem["dense_by_nature"] = phase_elemwise_dense_by_nature(dev)
+    elem_s += time.perf_counter() - t0
+    log(json.dumps({"elemwise_path": "ok", "seconds": elem_s, "ops": elem, "card": card}))
     torch.cuda.empty_cache()
 
     # the experiments: the one-hot SpMV prototype and the VMEM gather probes

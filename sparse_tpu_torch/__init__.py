@@ -9,17 +9,296 @@ imports ``jax`` or ``sparse_tpu``.
 It holds the sparse × dense main path (a canonical 2-D ``COO``, ``a @ b`` /
 ``matmul`` / ``dot`` on the cached row-ELL layout, the fused ``matvec_add``),
 the compressed formats ``GCXS``, ``CSR`` and ``CSC`` (built, converted and
-restructured on the device; their products on the same path),
+restructured on the device; their products on the same path), element-wise
+operations with broadcasting and the fill-value algebra (``elemwise``, the
+NumPy ufuncs and operators on sparse arrays, ``broadcast_to``) and the
+reductions (``sum``, ``max``, ``mean``, ``var``, the nan-reductions, ...)
+of COO and GCXS arrays on their device,
 the block-sparse linear layer of ``nn`` (BSR forward, dgrad and wgrad
 kernels), and the MTTKRP of a 3-D tensor (``jitops.mttkrp`` on a ``COO``,
 ``kernels.mttkrp`` and the block-ELL ``kernels.ell_mttkrp``, one CUDA
 kernel).
+
+The namespace re-exports NumPy's ufuncs under ``sparse_tpu``'s names
+(``sparse_tpu_torch.add is np.add``): called on a sparse array they run on
+its device through ``__array_ufunc__``.
 """
+
+from numpy import (
+    add,
+    bitwise_and,
+    bitwise_not,
+    bitwise_or,
+    bitwise_xor,
+    ceil,
+    complex64,
+    complex128,
+    conj,
+    copysign,
+    cos,
+    cosh,
+    divide,
+    e,
+    exp,
+    expm1,
+    finfo,
+    float16,
+    float32,
+    float64,
+    floor,
+    floor_divide,
+    greater,
+    greater_equal,
+    hypot,
+    iinfo,
+    inf,
+    int8,
+    int16,
+    int32,
+    int64,
+    less,
+    less_equal,
+    log,
+    log1p,
+    log2,
+    log10,
+    logaddexp,
+    logical_and,
+    logical_not,
+    logical_or,
+    logical_xor,
+    maximum,
+    minimum,
+    multiply,
+    nan,
+    negative,
+    newaxis,
+    nextafter,
+    not_equal,
+    pi,
+    positive,
+    reciprocal,
+    remainder,
+    sign,
+    signbit,
+    sin,
+    sinh,
+    sqrt,
+    square,
+    subtract,
+    tan,
+    tanh,
+    trunc,
+    uint8,
+    uint16,
+    uint32,
+    uint64,
+)
+from numpy import arccos as acos
+from numpy import arccosh as acosh
+from numpy import arcsin as asin
+from numpy import arcsinh as asinh
+from numpy import arctan as atan
+from numpy import arctan2 as atan2
+from numpy import arctanh as atanh
+from numpy import bool_ as bool  # noqa: A001
+from numpy import invert as bitwise_invert
+from numpy import left_shift as bitwise_left_shift
+from numpy import power as pow  # noqa: A001
+from numpy import right_shift as bitwise_right_shift
 
 from . import jitops, kernels, nn
 from .core.base import SparseArray
 from .core.coo import COO
 from .core.gcxs import CSC, CSR, GCXS
+from .ops.common import (
+    broadcast_shapes,
+    equal,
+    expand_dims,
+    isfinite,
+    isinf,
+    isnan,
+    isneginf,
+    isposinf,
+    matrix_transpose,
+    moveaxis,
+    nanmax,
+    nanmean,
+    nanmin,
+    nanprod,
+    nanreduce,
+    nansum,
+    result_type,
+    swapaxes,
+    where,
+)
+from .ops.creation import (
+    abs,  # noqa: A004
+    all,  # noqa: A004
+    any,  # noqa: A004
+    astype,
+    broadcast_arrays,
+    imag,
+    max,  # noqa: A004
+    mean,
+    min,  # noqa: A004
+    permute_dims,
+    prod,
+    real,
+    reshape,
+    round,  # noqa: A004
+    squeeze,
+    std,
+    sum,  # noqa: A004
+    transpose,
+    var,
+)
 from .ops.dot import dot, matmul, matvec_add
+from .ops.elemwise import broadcast_to, elemwise
 
-__all__ = ["COO", "CSC", "CSR", "GCXS", "SparseArray", "dot", "jitops", "kernels", "matmul", "matvec_add", "nn"]
+
+def clip(a, min=None, max=None, out=None, *, a_min=None, a_max=None):  # noqa: A002
+    """Clip values to ``[min, max]`` (``a_min``/``a_max`` are NumPy's names)."""
+    if a_min is not None:
+        min = a_min  # noqa: A001
+    if a_max is not None:
+        max = a_max  # noqa: A001
+    return a.clip(min=min, max=max, out=out)
+
+
+__all__ = sorted(
+    [
+        "COO",
+        "CSC",
+        "CSR",
+        "GCXS",
+        "SparseArray",
+        "abs",
+        "acos",
+        "acosh",
+        "add",
+        "all",
+        "any",
+        "asin",
+        "asinh",
+        "astype",
+        "atan",
+        "atan2",
+        "atanh",
+        "bitwise_and",
+        "bitwise_invert",
+        "bitwise_left_shift",
+        "bitwise_not",
+        "bitwise_or",
+        "bitwise_right_shift",
+        "bitwise_xor",
+        "bool",
+        "broadcast_arrays",
+        "broadcast_shapes",
+        "broadcast_to",
+        "ceil",
+        "clip",
+        "complex128",
+        "complex64",
+        "conj",
+        "copysign",
+        "cos",
+        "cosh",
+        "divide",
+        "dot",
+        "e",
+        "elemwise",
+        "equal",
+        "exp",
+        "expand_dims",
+        "expm1",
+        "finfo",
+        "float16",
+        "float32",
+        "float64",
+        "floor",
+        "floor_divide",
+        "greater",
+        "greater_equal",
+        "hypot",
+        "iinfo",
+        "imag",
+        "inf",
+        "int16",
+        "int32",
+        "int64",
+        "int8",
+        "isfinite",
+        "isinf",
+        "isnan",
+        "isneginf",
+        "isposinf",
+        "jitops",
+        "kernels",
+        "less",
+        "less_equal",
+        "log",
+        "log10",
+        "log1p",
+        "log2",
+        "logaddexp",
+        "logical_and",
+        "logical_not",
+        "logical_or",
+        "logical_xor",
+        "matmul",
+        "matrix_transpose",
+        "matvec_add",
+        "max",
+        "maximum",
+        "mean",
+        "min",
+        "minimum",
+        "moveaxis",
+        "multiply",
+        "nan",
+        "nanmax",
+        "nanmean",
+        "nanmin",
+        "nanprod",
+        "nanreduce",
+        "nansum",
+        "negative",
+        "newaxis",
+        "nextafter",
+        "nn",
+        "not_equal",
+        "permute_dims",
+        "pi",
+        "positive",
+        "pow",
+        "prod",
+        "real",
+        "reciprocal",
+        "remainder",
+        "reshape",
+        "result_type",
+        "round",
+        "sign",
+        "signbit",
+        "sin",
+        "sinh",
+        "sqrt",
+        "square",
+        "squeeze",
+        "std",
+        "subtract",
+        "sum",
+        "swapaxes",
+        "tan",
+        "tanh",
+        "transpose",
+        "trunc",
+        "uint16",
+        "uint32",
+        "uint64",
+        "uint8",
+        "var",
+        "where",
+    ]
+)

@@ -55,6 +55,33 @@ def signed_view(t):
     return t if signed is None else t.view(signed)
 
 
+def take(t, index):
+    """``t[index]`` (index tensors or a boolean mask); the unsigned types
+    wider than 8 bits, which CUDA's indexing lacks, through their signed
+    view (the same bits)."""
+    signed = _SIGNED.get(t.dtype)
+    return t[index] if signed is None else t.view(signed)[index].view(t.dtype)
+
+
+def select(cond, a, b):
+    """``torch.where(cond, a, b)`` for tensors of one dtype, the wide
+    unsigned types through their signed view."""
+    signed = _SIGNED.get(a.dtype)
+    if signed is None:
+        return torch.where(cond, a, b)
+    return torch.where(cond, a.view(signed), b.view(signed)).view(a.dtype)
+
+
+def full(shape, value, dtype, device):
+    """``torch.full`` for every dtype: a wide unsigned value is written
+    through the signed view of its bits."""
+    signed = _SIGNED.get(dtype)
+    if signed is None:
+        return torch.full(shape, value, dtype=dtype, device=device)
+    bits = np.asarray(value, dtype=numpy_dtype(dtype)).view(numpy_dtype(signed))[()]
+    return torch.full(shape, int(bits), dtype=signed, device=device).view(dtype)
+
+
 def torch_dtype(dtype):
     """The torch dtype for a NumPy or torch dtype (TypeError if torch has none)."""
     if isinstance(dtype, torch.dtype):
@@ -96,8 +123,8 @@ def equivalent(x, y, /, loose=False):
     compare by ``==`` but NaNs still match (``NaN ≡ NaN``, ``0.0 ≡ -0.0``).
     Non-float dtypes use ``==``. ``y`` may be a scalar; it is placed on ``x``'s
     device."""
-    x = torch.as_tensor(x)
-    y = torch.as_tensor(np.asarray(y) if not isinstance(y, torch.Tensor) else y, device=x.device)
+    x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    y = y.to(x.device) if isinstance(y, torch.Tensor) else torch.from_numpy(np.array(y)).to(x.device)
     dt = result_dtype(x.dtype, y.dtype)
     x = x.to(dt)
     y = y.to(dt)
@@ -224,3 +251,23 @@ def uncompress_indptr(indptr, nnz):
     counts = indptr[1:] - indptr[:-1]
     rows = torch.arange(counts.numel(), dtype=torch.int64, device=indptr.device)
     return torch.repeat_interleave(rows, counts, output_size=nnz)
+
+
+def check_consistent_fill_value(arrays):
+    """Raise ``ValueError`` unless every array has the first one's fill value
+    (bitwise)."""
+    arrays = list(arrays)
+    if not arrays:
+        raise ValueError("At least one array required.")
+    fv = arrays[0].fill_value
+    for i, arr in enumerate(arrays):
+        if not bool(np.all(equivalent(torch.as_tensor(np.asarray(arr.fill_value)), fv))):
+            raise ValueError(
+                f"This operation requires consistent fill-values, but argument {i} has fill value {arr.fill_value!s}"
+                f" while argument 0 has fill value {fv!s}."
+            )
+
+
+def isscalar(x):
+    """A 0-d value that is no sparse array."""
+    return np.ndim(x) == 0 and not hasattr(x, "fill_value")

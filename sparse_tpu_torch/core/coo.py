@@ -14,8 +14,10 @@ Arrays are placed on the GPU unless the caller asks for another device
 
 from __future__ import annotations
 
+import math
 import warnings
 from collections import defaultdict, deque
+from collections.abc import Iterable
 from numbers import Integral
 
 import numpy as np
@@ -26,9 +28,14 @@ from .._utils import (
     can_store,
     check_zero_fill_value,
     equivalent,
+    full,
+    get_out_dtype,
     index_dtype_for,
+    normalize_axis,
+    not_ported,
     numpy_dtype,
     signed_view,
+    take,
     torch_dtype,
     zero_of_dtype,
 )
@@ -246,7 +253,7 @@ class COO(SparseArray):
         if lin.numel() > 1 and not bool((lin[1:] >= lin[:-1]).all()):
             lin, order = torch.sort(lin, stable=True)
             self.coords = self.coords[:, order]
-            self.data = self.data[order]
+            self.data = take(self.data, order)
         return lin
 
     def _sum_duplicates(self, lin):
@@ -270,7 +277,7 @@ class COO(SparseArray):
         mask = ~equivalent(self.data, self.fill_value)
         if not bool(mask.all()):
             self.coords = self.coords[:, mask]
-            self.data = self.data[mask]
+            self.data = take(self.data, mask)
 
     # -- constructors ----------------------------------------------------------------
     @classmethod
@@ -285,10 +292,10 @@ class COO(SparseArray):
         mask = ~equivalent(xt, np.asarray(fill_value, dtype=x.dtype))
         if x.ndim:
             coords = torch.nonzero(mask).T  # row-major order: already canonical
-            data = xt[mask]
+            data = take(xt, mask)
         else:  # a 0-d array stores its value at the empty coordinate
             coords = torch.zeros((0, int(mask)), dtype=torch.int64, device=device)
-            data = xt.reshape(1)[mask.reshape(1)]
+            data = take(xt.reshape(1), mask.reshape(1))
         return cls(
             coords,
             data,
@@ -351,7 +358,7 @@ class COO(SparseArray):
     def todense(self):
         """Dense tensor on the array's device, holding ``fill_value`` where no
         entry is stored."""
-        out = torch.full(self.shape, self.fill_value.item(), dtype=self.dtype, device=self.device)
+        out = full(self.shape, self.fill_value, self.dtype, self.device)
         if self.ndim:
             signed_view(out)[tuple(self.coords.to(torch.int64))] = signed_view(self.data)
         elif self.nnz:
@@ -401,6 +408,202 @@ class COO(SparseArray):
         """A scipy ``csc_array`` of this 2-D array (zero fill), on the host."""
         return self._cached("tocsc", None, lambda: self._tocsr_csc("csc"))
 
+    # -- structural ops ----------------------------------------------------------------
+    @property
+    def format(self):
+        return "coo"
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    @property
+    def mT(self):
+        if self.ndim < 2:
+            raise ValueError("Cannot compute matrix transpose if `ndim < 2`.")
+        axes = list(range(self.ndim))
+        axes[-1], axes[-2] = axes[-2], axes[-1]
+        return self.transpose(tuple(axes))
+
+    def __len__(self):
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __getitem__(self, index):
+        raise not_ported("indexing of a COO array")
+
+    def transpose(self, axes=None):
+        """The axes permuted, on the device: the coordinates' rows permuted and
+        the entries re-sorted by the new linear key (2-D: one stable sort of
+        the new row key, since canonical order already sorts each column's
+        entries by row). Cached as ``sparse_tpu`` caches it."""
+        if axes is None:
+            axes = tuple(reversed(range(self.ndim)))
+        axes = normalize_axis(axes, self.ndim)
+        if not isinstance(axes, tuple):
+            axes = (axes,)
+        if len(set(axes)) != len(axes) or len(axes) != self.ndim:
+            raise ValueError("repeated or incomplete axis in transpose")
+        if axes == tuple(range(self.ndim)):
+            return self
+
+        def compute():
+            shape = tuple(self.shape[ax] for ax in axes)
+            dt = torch_dtype(index_dtype_for(max(shape) if shape else 0))
+            coords = self.coords[list(axes), :]
+            if axes == (1, 0):
+                order = torch.sort(coords[0], stable=True).indices
+            else:
+                order = torch.sort(_linearize(coords, shape), stable=True).indices
+            return COO._make(coords[:, order].to(dt), take(self.data, order), shape, self.fill_value)
+
+        return self._cached("transpose", axes, compute)
+
+    def swapaxes(self, axis1, axis2):
+        axis1 = normalize_axis(axis1, self.ndim)
+        axis2 = normalize_axis(axis2, self.ndim)
+        axes = list(range(self.ndim))
+        axes[axis1], axes[axis2] = axes[axis2], axes[axis1]
+        return self.transpose(tuple(axes))
+
+    def reshape(self, shape, order="C"):
+        """The same entries in ``shape`` (C order), on the device: a 2-D to
+        2-D reshape whose column counts divide is digit arithmetic on the
+        coordinates; any other unravels the linear key. The linear order,
+        and so the canonical order, is kept: nothing is sorted."""
+        shape = tuple(shape) if isinstance(shape, Iterable) else (shape,)
+        if order not in ("C", None):
+            raise NotImplementedError("The `order` parameter is not supported")
+        if any(d == -1 for d in shape):
+            extra = int(self.size / np.prod([d for d in shape if d != -1], dtype=np.float64)) if self.size else 0
+            shape = tuple([d if d != -1 else extra for d in shape])
+        shape = tuple(int(d) for d in shape)
+        if self.shape == shape:
+            return self
+        if self.size != math.prod(shape):
+            raise ValueError(f"cannot reshape array of size {self.size} into shape {shape}")
+
+        def compute():
+            max_extent = max(shape) if shape else 0
+            if self.ndim == 2 and len(shape) == 2 and self.nnz and all(shape):
+                k_old, k_new = self.shape[1], shape[1]
+                dt = torch_dtype(get_out_dtype(numpy_dtype(self.coords.dtype), max_extent))
+                r, c = self.coords[0].to(dt), self.coords[1].to(dt)
+                coords = None
+                if k_old % k_new == 0:
+                    q = k_old // k_new
+                    coords = torch.stack([r * q + c // k_new, c % k_new])
+                elif k_new % k_old == 0:
+                    q = k_new // k_old
+                    coords = torch.stack([r // q, (r % q) * k_old + c])
+                if coords is not None:
+                    return COO._make(coords, self.data, shape, self.fill_value)
+            dt = torch_dtype(index_dtype_for(max_extent))
+            if not shape:
+                return COO._make(torch.zeros((0, self.nnz), dtype=dt, device=self.device), self.data, shape, self.fill_value)
+            lin = self.linear_loc()
+            coords = torch.empty((len(shape), self.nnz), dtype=dt, device=self.device)
+            for d in range(len(shape) - 1, -1, -1):
+                coords[d] = lin % shape[d] if d else lin
+                lin = lin // shape[d]
+            return COO._make(coords, self.data, shape, self.fill_value)
+
+        return self._cached("reshape", shape, compute)
+
+    def squeeze(self, axis=None):
+        if axis is None:
+            axis = tuple(i for i, d in enumerate(self.shape) if d == 1)
+        else:
+            if isinstance(axis, Integral):
+                axis = (int(axis),)
+            elif not isinstance(axis, Iterable):
+                raise ValueError(f"Invalid axis parameter: `{axis}`.")
+            axis = normalize_axis(axis, self.ndim)
+            for ax in axis:
+                if self.shape[ax] != 1:
+                    raise ValueError(f"Specified axis `{ax}` has a size greater than one: {self.shape[ax]}")
+        return self.reshape(tuple(d for i, d in enumerate(self.shape) if i not in axis))
+
+    def flatten(self, order="C"):
+        return self.reshape(-1, order=order)
+
+    def broadcast_to(self, shape):
+        from ..ops.elemwise import broadcast_to
+
+        return broadcast_to(self, shape)
+
+    def copy(self, deep=True):
+        if deep:
+            return COO._make(self.coords.clone(), self.data.clone(), self.shape, self.fill_value)
+        return COO._make(self.coords, self.data, self.shape, self.fill_value)
+
+    # -- reduction plumbing ------------------------------------------------------------
+    def _reduce_calc(self, method, axis, keepdims=False, **kwargs):
+        """The reduction of ``method`` over ``axis`` on the device: over every
+        axis, one reduce of ``data`` (the fill value's share added by the
+        super-ufunc or ``method`` itself), returned as ``(value,)``; over some,
+        each run of entries that share the kept axes' key, returned as
+        ``(data, counts, axis, n_reduced, attrs)`` for ``reduce``."""
+        from ..kernels.segment import reduce_all, reduce_runs
+        from .base import _apply, _fill_tensor, _reduce_super_ufunc
+
+        kw_dtype = kwargs.get("dtype")
+        if set(axis) == set(range(self.ndim)):
+            fv = self.fill_value
+            if self.nnz:
+                result = reduce_all(method, self.data, kw_dtype)
+            else:
+                result = _fill_tensor(fv, self.device)
+            if self.nnz != self.size and (method in (np.add, np.multiply) or equivalent(method(fv, fv), fv)):
+                sup = _reduce_super_ufunc.get(method)
+                if sup is not None:
+                    missing = sup(fv, self.size - self.nnz)
+                    result = _apply(method, result, _fill_tensor(missing, self.device), {}) if self.nnz else _fill_tensor(sup(fv, self.size), self.device)
+                elif self.nnz:
+                    result = _apply(method, result, _fill_tensor(fv, self.device), kwargs)
+                else:
+                    result = _fill_tensor(fv, self.device)
+            result = result.cpu().numpy()
+            if kw_dtype is not None:
+                result = np.asarray(result).astype(kw_dtype)
+            return (np.asarray(result)[()],)
+
+        neg_axis = tuple(ax for ax in range(self.ndim) if ax not in set(axis))
+        neg_shape = tuple(self.shape[ax] for ax in neg_axis)
+        keep = math.prod(neg_shape)
+        red = math.prod(self.shape[ax] for ax in axis)
+        keys = _linearize(self.coords[list(neg_axis)], neg_shape)
+        data = self.data
+        if neg_axis != tuple(range(len(neg_axis))):
+            # the kept axes do not lead: group by a stable sort of their key
+            keys, order = torch.sort(keys, stable=True)
+            data = take(data, order)
+        if self.nnz:
+            keys, counts = torch.unique_consecutive(keys, return_counts=True)
+            offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=self.device)
+            torch.cumsum(counts, 0, out=offsets[1:])
+            result = reduce_runs(method, data, offsets, kw_dtype)
+        else:
+            from ..kernels.segment import result_dtype
+
+            counts = torch.zeros(0, dtype=torch.int64, device=self.device)
+            result = torch.zeros(0, dtype=torch_dtype(result_dtype(method, self.dtype, kw_dtype)), device=self.device)
+        # ``sparse_tpu`` sums zero-fill float32/float64 entries in a fused pass
+        # that drops every sum equal to zero (either sign)
+        drop_zero = (
+            method is np.add
+            and kw_dtype is None
+            and self.nnz > 0
+            and self.dtype in (torch.float32, torch.float64)
+            and bool(np.all(np.asarray(self.fill_value) == 0))
+            and keep <= max(16 * self.nnz, 1 << 22)
+        )
+        return result, counts, axis, red, (neg_shape, keys, drop_zero)
+
+    def _reduce_return(self, data, arr_attrs, result_fill_value):
+        return _kept_result(data, arr_attrs, result_fill_value)
+
     # -- kernel layouts --------------------------------------------------------------
     def to_row_ell(self, min_pad=8, max_tiers=None, group=16):
         """Cached degree-sorted per-row ELL layout — the SpMM/SpMV kernels'
@@ -429,6 +632,28 @@ class COO(SparseArray):
             )
 
         return self._cached_layout("row_ell", row_ell_cache_key(min_pad, max_tiers, group), compute)
+
+
+def _kept_result(data, arr_attrs, result_fill_value):
+    """The COO of a reduction over some axes: one entry per kept key whose
+    value is not the result's fill (sums equal to zero are dropped where
+    ``sparse_tpu``'s fused zero-fill sum drops them), in the kept shape."""
+    neg_shape, keys, drop_zero = arr_attrs
+    keep = math.prod(neg_shape)
+    mask = (data != 0) if drop_zero else ~equivalent(data, result_fill_value)
+    dt = torch_dtype(index_dtype_for(keep))
+    out = COO._make(keys[mask][None, :].to(dt), take(data, mask), (keep,), result_fill_value)
+    return out.reshape(neg_shape)
+
+
+def _linearize(coords, shape):
+    """The int64 row-major key of ``coords`` (one row an axis) in ``shape``."""
+    key = torch.zeros(coords.shape[1], dtype=torch.int64, device=coords.device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        key += coords[d].to(torch.int64) * stride
+        stride *= shape[d]
+    return key
 
 
 def _interpret_single_arg(x, shape, fill_value, device):

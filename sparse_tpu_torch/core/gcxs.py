@@ -20,8 +20,13 @@ Products of a 2-D array (``@``, ``matmul``, ``dot``, ``matvec_add``) run on
 its canonical COO, which the array keeps while its buffers stay the same
 ones, and so on that COO's cached row-ELL layout and the CUDA kernels.
 
-Not ported yet (``NotImplementedError``): indexing, reductions,
-``concatenate``/``stack`` of GCXS arrays, ``from_iter`` and the DOK format.
+Reductions run on the device (``_reduce_calc``): over exactly the
+uncompressed axes one segment reduce with ``indptr`` as its offsets, an add
+over exactly the compressed axes on runs of ``indices``, anything else
+through the COO. Elementwise operations on GCXS operands return a GCXS.
+
+Not ported yet (``NotImplementedError``): indexing, ``concatenate``/``stack``
+of GCXS arrays, ``from_iter`` and the DOK format.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from .._utils import (
     normalize_axis,
     not_ported,
     numpy_dtype,
+    take,
     torch_dtype,
     uncompress_indptr,
     zero_of_dtype,
@@ -260,7 +266,7 @@ class GCXS(SparseArray):
         if comp != tuple(range(len(comp))):
             rows, order = torch.sort(rows, stable=True)
             cols = cols[order]
-            data = data[order]
+            data = take(data, order)
         indptr = _build_indptr(rows, row_size)
         return cls._make(data, cols.to(tdt), indptr.to(tdt), x.shape, compressed_axes, x.fill_value)
 
@@ -369,7 +375,7 @@ class GCXS(SparseArray):
             # the entries lie in the compressed key's order, not row-major:
             # sorted with no check, which would read a bool back to the host
             order = torch.sort(coo.linear_loc(), stable=True).indices
-            coo.coords, coo.data = coords[:, order], self.data[order]
+            coo.coords, coo.data = coords[:, order], take(self.data, order)
         return coo
 
     def todense(self):
@@ -524,7 +530,7 @@ class GCXS(SparseArray):
                 _, order = torch.sort(new_row * new_col_size + new_col, stable=True)
                 new_row = new_row[order]
             new_col = new_col[order]
-            data = data[order]
+            data = take(data, order)
         indptr = _build_indptr(new_row, new_row_size)
         return GCXS._make(data, new_col.to(tdt), indptr.to(tdt), new_shape, new_comp, self.fill_value)
 
@@ -572,10 +578,70 @@ class GCXS(SparseArray):
         raise not_ported("indexing of a GCXS array")
 
     def _reduce_calc(self, method, axis, keepdims=False, **kwargs):
-        raise not_ported("reductions of a GCXS array")
+        """Reductions on the device. Reducing exactly the uncompressed axes
+        reduces each compressed row: one segment reduce with ``indptr`` as its
+        offsets. Add-reducing exactly the compressed axes keeps the
+        uncompressed key, which is ``indices``: runs of a stable sort of it.
+        Anything else goes through the COO."""
+        from ..kernels.segment import reduce_runs
+
+        comp = self.compressed_axes
+        uncomp = tuple(a for a in range(self.ndim) if a not in comp)
+        kw_dtype = kwargs.get("dtype")
+        if self.ndim >= 2 and set(axis) == set(uncomp) and self.nnz:
+            indptr = self.indptr.long()
+            counts_all = indptr[1:] - indptr[:-1]
+            nonempty = torch.nonzero(counts_all).flatten()
+            result = take(reduce_runs(method, self.data, indptr, kw_dtype), nonempty)
+            comp_shape = tuple(self.shape[a] for a in comp)
+            n_cols = math.prod(self.shape[a] for a in uncomp)
+            return result, counts_all[nonempty], axis, n_cols, (("rows", nonempty, comp_shape), comp)
+
+        uncomp_shape = tuple(self.shape[a] for a in uncomp)
+        keep = math.prod(uncomp_shape)
+        if (
+            method is np.add
+            and kw_dtype is None
+            and set(axis) == set(comp)
+            and uncomp
+            and self.nnz
+            and not (self.dtype.is_complex or self.dtype == torch.bool)
+            and keep <= max(16 * self.nnz, 1 << 22)
+        ):
+            keys, order = torch.sort(self.indices.long(), stable=True)
+            keys, counts = torch.unique_consecutive(keys, return_counts=True)
+            offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=self.device)
+            torch.cumsum(counts, 0, out=offsets[1:])
+            sums = reduce_runs(np.add, take(self.data, order), offsets)
+            if sums.dtype.is_floating_point:
+                sums = sums + 0.0  # the sums start from +0.0, as ``sparse_tpu``'s bincount does
+            red = math.prod(self.shape[a] for a in axis)
+            return sums, counts, axis, red, ((uncomp_shape, keys, False), comp)
+
+        out = self.tocoo()._reduce_calc(method, axis, keepdims, **kwargs)
+        if len(out) == 1:
+            return out
+        data, counts, axis, n_cols, attrs = out
+        return data, counts, axis, n_cols, (attrs, comp)
 
     def _reduce_return(self, data, arr_attrs, result_fill_value):
-        raise not_ported("reductions of a GCXS array")
+        from .coo import _kept_result
+
+        attrs, compressed_axes = arr_attrs
+        if attrs[0] == "rows":
+            _, nonempty, comp_shape = attrs
+            size = math.prod(comp_shape)
+            mask = ~equivalent(data, result_fill_value)
+            dt = torch_dtype(index_dtype_for(size))
+            out = COO._make(nonempty[mask][None, :].to(dt), take(data, mask), (size,), result_fill_value)
+            return GCXS.from_coo(out.reshape(comp_shape))
+        out = _kept_result(data, attrs, result_fill_value)
+        if out.ndim < 2:
+            return GCXS.from_coo(out)
+        try:
+            return GCXS.from_coo(out, compressed_axes=tuple(a for a in compressed_axes if a < out.ndim) or None)
+        except ValueError:
+            return GCXS.from_coo(out)
 
     def dot(self, other):
         from ..ops.dot import dot

@@ -5,8 +5,11 @@
 CUDA kernels (``csrc/bsr.cu``) and the differentiable BSR products; ``ell``
 the block-ELL layouts, their SpMM/SpMV and the block-ELL MTTKRP; ``dot`` the
 COO gather + ``index_add_`` products for the dtypes the row-ELL kernels do
-not take and the sorted-COO MTTKRP. Both MTTKRP forms run one CUDA kernel
-(``csrc/mttkrp.cu``). ``_cuda`` builds and launches every kernel.
+not take, the sorted-COO MTTKRP and ``coo_sum_axes_dense``. Both MTTKRP
+forms run one CUDA kernel (``csrc/mttkrp.cu``). ``_cuda`` builds and
+launches every kernel. ``segment`` (segment reductions, the reductions'
+runs) and ``elemwise`` (the traceable union of two COO operands) are torch
+ops: the JAX package leaves their work to XLA.
 """
 
 from ._cuda import LAUNCHES, reset_launch_counts
@@ -23,7 +26,9 @@ from .bsr import (
     build_bsr,
     transpose_bsr_layout,
 )
-from .dot import coo_spmm, coo_spmv, mttkrp, mttkrp_plain
+from .dot import coo_spmm, coo_spmv, coo_sum_axes_dense, mttkrp, mttkrp_plain
+from .elemwise import coo_elemwise_union
+from .segment import segment_reduce, segment_sum_onehot_mm
 from .ell import (
     DEFAULT_BLOCK_ROWS,
     BlockEll,
@@ -66,8 +71,10 @@ __all__ = [
     "build_block_ell_3d",
     "build_bsr",
     "build_row_ell",
+    "coo_elemwise_union",
     "coo_spmm",
     "coo_spmv",
+    "coo_sum_axes_dense",
     "ell_mttkrp",
     "ell_mttkrp_plain",
     "ell_spmm",
@@ -78,5 +85,7 @@ __all__ = [
     "row_ell_spmm",
     "row_ell_spmm_program",
     "row_ell_spmv",
+    "segment_reduce",
+    "segment_sum_onehot_mm",
     "transpose_bsr_layout",
 ]

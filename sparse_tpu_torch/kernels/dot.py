@@ -211,3 +211,27 @@ def mttkrp(coords_i, coords_j, coords_k, data, c, d, *, n_rows):
         row_ptr = torch.searchsorted(ci, torch.arange(n_rows + 1, device=ci.device))
         pieces = _cuda.run_pieces(row_ptr, _cuda.MTTKRP_PIECE)
     return _Mttkrp.apply(coords_i, 0, coords_j, coords_k, data, c, d, n_rows, "exact", row_ptr, None, pieces)
+
+
+def coo_sum_axes_dense(coords, data, *, shape, axes):
+    """``x.sum(axis=axes)`` of a COO's triplet as a dense tensor of the kept
+    shape, with no host read: the kept-axes key sorted (stable) and each run
+    summed by ``torch.segment_reduce`` over offsets from ``searchsorted``
+    (the same bits every call; integers exactly). The dtype stays ``data``'s,
+    as in ``sparse_tpu.kernels.dot.coo_sum_axes_dense``."""
+    from .segment import segment_reduce
+
+    keep = tuple(d for d in range(len(shape)) if d not in set(axes))
+    keep_shape = tuple(shape[d] for d in keep)
+    if not keep:
+        return data.sum(dtype=data.dtype).reshape(())
+    keep_size = 1
+    for s in keep_shape:
+        keep_size *= s
+    lin = torch.zeros(data.shape[0], dtype=torch.int64, device=data.device)
+    stride = 1
+    for d in reversed(keep):
+        lin += coords[d].to(torch.int64) * stride
+        stride *= shape[d]
+    lin, order = torch.sort(lin, stable=True)
+    return segment_reduce(data[order], lin, keep_size, op="sum").reshape(keep_shape)

@@ -1,3 +1,4 @@
 from .dot import dot, matmul, matvec_add
+from .elemwise import broadcast_to, elemwise
 
-__all__ = ["dot", "matmul", "matvec_add"]
+__all__ = ["broadcast_to", "dot", "elemwise", "matmul", "matvec_add"]
