@@ -57,6 +57,19 @@ drives the port's two paths on the card:
   output of its size (the write ceiling), g2's shared-memory pick rate
   beside its first route's whole-row L2 rate, both timed in this run.
 
+- SDDMM (BASELINE config 4, the ``sddmm_path`` line) on the benchmark
+  matrix as the mask, K = 128, float32, ``rhs`` given as a transposed
+  view: ``sparse_tpu_torch.sddmm`` against a float64 oracle (each entry
+  within 1e-5 of |s| · Σ_k |lhs_ik · rhs_kj|), K4 against its plain
+  version (2e-6 of the same scale) and twice bit for bit, the gradient of
+  ``(w · sddmm).sum()`` in s, lhs and rhs against the plain version's; the
+  example's shape (a 10,000^2 float64 dense pair, a 1,000-entry mask)
+  against its oracle at rtol 1e-8, its row-major ``rhs`` copied once to
+  ``rhs.T`` (the copy timed apart); and dense × sparse ``Bt @ a`` (Bt of
+  128 x 65,536) against a float64 oracle and equal bit for bit to ``(a.T
+  @ Bt.T).T``, its route through K2 on the cached transpose; K4 timed at
+  both shapes beside ``torch.sparse.sampled_addmm``;
+
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
   sparse column, ufuncs, a cast and the reductions of the bench matrix as
@@ -131,6 +144,7 @@ SOURCE = {
             "pick_scale_wsum",
         )
     },
+    "sddmm": "sparse_tpu_torch/kernels/csrc/sddmm.cu",
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -149,6 +163,7 @@ REPLACES = {
     "lane_gather_blocksum": "experiments/pallas_vmem2.py:69",  # g1 (E7)
     "row_pick_blocksum": "experiments/pallas_vmem2.py:107",  # g2 (E8)
     "pick_scale_wsum": "experiments/pallas_vmem2.py:146",  # g3 (E9)
+    "sddmm": "sparse_tpu/kernels/dot.py:103",  # sddmm (XLA gather + sum)
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -178,6 +193,19 @@ MT_DRAWS = 10_000_000
 MT_ORACLE_TOL = {"exact": 1e-5, "bf16": 3e-2}
 # the example's shape (examples/mttkrp_example.py:17-41), float64, its own limit
 EX_SHAPE, EX_DENSITY, EX_R, EX_RTOL = (1000, 1000, 100), 1e-4, 25, 1e-8
+
+# SDDMM (BASELINE config 4) on the bench matrix as the mask: lhs (65,536,
+# 128) and rhs (128, 65,536) given as a transposed view, float32, from a
+# seeded torch.Generator (sparse_tpu/kernels/dot.py:91-95's large shape).
+# Against a float64 oracle each entry within SD_ORACLE_TOL · |s| · Σ_k
+# |lhs_ik · rhs_kj|; K4 against its plain version within SD_PLAIN_TOL of the
+# same scale; the gradients of (w · sddmm).sum() against the plain version's
+# at max|got - want| / max|want| <= SD_GRAD_TOL
+SD_K = 128
+SD_ORACLE_TOL, SD_PLAIN_TOL, SD_GRAD_TOL = 1e-5, 2e-6, 1e-5
+# the example's shape (examples/sddmm_example.py): a 10,000^2 float64 dense
+# pair and a mask of 1,000 entries, its own limit
+SD_EX_LEN, SD_EX_NNZ, SD_EX_RTOL = 10_000, 1000, 1e-8
 
 # the one-hot SpMV prototype against the float64 oracle, max|out - oracle| /
 # max|oracle|, by table (the prototype's docstring: ~1e-5 and ~2e-3)
@@ -1758,6 +1786,209 @@ def phase_experiments_times(spmv, runs, launches, errs, card):
 # elementwise operations and reductions (BASELINE config 3)
 # ---------------------------------------------------------------------------
 
+def sddmm_oracle(rows, cols, s, lhs, rhs_t, chunk=1 << 16):
+    """float64 values of an SDDMM and each entry's scale |s| · Σ_k |lhs_ik ·
+    rhs_kj|, in chunks on the card."""
+    want = torch.empty(rows.numel(), dtype=torch.float64, device=rows.device)
+    scale = torch.empty_like(want)
+    for i in range(0, rows.numel(), chunk):
+        prod = lhs[rows[i : i + chunk].long()].double() * rhs_t[cols[i : i + chunk].long()].double()
+        sv = s[i : i + chunk].double()
+        want[i : i + chunk] = sv * prod.sum(-1)
+        scale[i : i + chunk] = sv.abs() * prod.abs().sum(-1)
+    return want, scale
+
+
+def check_sddmm(name, got, want, scale, tol):
+    """Each entry within ``tol · scale`` of ``want``; the worst ratio."""
+    err = (got.double() - want).abs()
+    if bool((err > tol * scale).any()):
+        raise AssertionError(f"{name}: {int((err > tol * scale).sum())} entries beyond {tol} of their scale")
+    return float((err / scale.clamp_min(1e-300)).max()) if err.numel() else 0.0
+
+
+def sddmm_example(dev):
+    """The example's problem (examples/sddmm_example.py): a 10,000^2 float64
+    dense pair and a 1,000-entry mask drawn with numpy from a seed, the mask
+    as a COO on the card, and the oracle at the mask's coordinates."""
+    import sparse_tpu_torch as st
+
+    rng = np.random.default_rng(0)
+    n = SD_EX_LEN
+    lhs, rhs = rng.random((n, n)), rng.random((n, n))
+    lin = np.sort(rng.choice(n * n, size=SD_EX_NNZ, replace=False))
+    r, c, v = lin // n, lin % n, rng.random(SD_EX_NNZ)
+    want = v * np.einsum("ek,ek->e", lhs[r], rhs.T[c])
+    s = st.COO(np.stack([r, c]), v, shape=(n, n), device=dev)
+    return s, torch.as_tensor(lhs, device=dev), torch.as_tensor(rhs, device=dev), want
+
+
+def phase_sddmm_path(dev, a, card):
+    """SDDMM (BASELINE config 4) and dense × sparse through the public entry
+    points, counted: ``sddmm(a, lhs, rhs)`` at the bench shape against a
+    float64 oracle, against the plain version and twice bit for bit, the
+    gradient of ``(w · sddmm).sum()`` against the plain version's; the
+    example's shape against its oracle at rtol 1e-8; ``Bt @ a`` against a
+    float64 oracle and bit for bit equal to ``(a.T @ Bt.T).T`` (its route
+    through K2). Returns the ``kernels`` lines of K4 at both shapes and the
+    launches of the path (counts set to 0 just before it, read just after)."""
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch.kernels import LAUNCHES, _cuda, reset_launch_counts
+    from sparse_tpu_torch.kernels import dot as kdot
+    from sparse_tpu_torch.kernels.row_ell import ROW_ELL_DEFAULT_KEY
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    lhs = torch.randn((M, SD_K), generator=gen, device=dev)
+    rhs = torch.randn((K, SD_K), generator=gen, device=dev).T  # (128, 65,536), rows of rhs.T contiguous
+    w = torch.randn(a.nnz, generator=gen, device=dev)
+    bt = torch.rand((N, M), generator=gen, device=dev)
+    ex_s, ex_lhs, ex_rhs, ex_want = sddmm_example(dev)
+    rows, cols, s = a.coords[0], a.coords[1], a.data
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = st.sddmm(a, lhs, rhs)
+    torch.cuda.synchronize()
+    t_sddmm = time.perf_counter()
+    ins = [t.detach().clone().requires_grad_(True) for t in (s, lhs, rhs)]
+    (w * kdot.sddmm(rows, cols, *ins)).sum().backward()
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter()
+    ex_out = st.sddmm(ex_s, ex_lhs, ex_rhs)
+    torch.cuda.synchronize()
+    t_ex = time.perf_counter()
+    xs = bt @ a
+    torch.cuda.synchronize()
+    t_xs = time.perf_counter()
+    layout = a.T.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY)
+    xs2 = bt @ a
+    torch.cuda.synchronize()
+    t_xs2 = time.perf_counter()
+    launches = dict(LAUNCHES)
+    for name in ("sddmm", "row_ell_spmm"):
+        if launches[name] == 0:
+            raise AssertionError(f"the SDDMM path never launched {name}: {launches}")
+
+    # bench shape: the result's form, the oracle, the plain version, the bits
+    if not isinstance(out, st.COO) or out.dtype != torch.float32 or float(out.fill_value) != 0.0:
+        raise AssertionError(f"sddmm gave {type(out).__name__} {out.dtype} fill {out.fill_value}")
+    if not torch.equal(out.coords, a.coords) or out.coords.data_ptr() == a.coords.data_ptr():
+        raise AssertionError("sddmm: the coordinates are not a copy of the sample's")
+    want, scale = sddmm_oracle(rows, cols, s, lhs, rhs.T)
+    worst = {"oracle": check_sddmm("sddmm vs oracle", out.data, want, scale, SD_ORACLE_TOL)}
+    plain = kdot.sddmm_plain(rows, cols, s, lhs, rhs)
+    worst["plain"] = check_sddmm("K4 vs sddmm_plain", out.data, plain.double(), scale, SD_PLAIN_TOL)
+    if not torch.equal(st.sddmm(a, lhs, rhs).data, out.data):
+        raise AssertionError("sddmm: a second launch gave other bits")
+    ins_p = [t.detach().clone().requires_grad_(True) for t in (s, lhs, rhs)]
+    (w * kdot.sddmm_plain(rows, cols, *ins_p)).sum().backward()
+    grad_err = {n: normalised_err(x.grad, y.grad.double()) for n, x, y in zip(("s", "lhs", "rhs"), ins, ins_p)}
+    if max(grad_err.values()) > SD_GRAD_TOL:
+        raise AssertionError(f"sddmm gradients against the plain version's: {grad_err}")
+    max_abs_err = float((out.data - plain).abs().max())
+    del ins, ins_p, plain, want
+    # the example's shape
+    np.testing.assert_allclose(ex_out.data.cpu().numpy(), ex_want, rtol=SD_EX_RTOL, err_msg="sddmm example shape")
+    ex_plain = kdot.sddmm_plain(ex_s.coords[0], ex_s.coords[1], ex_s.data, ex_lhs, ex_rhs)
+    ex_err = float((ex_out.data - ex_plain).abs().max())
+    # dense x sparse: the oracle, and the route through a's cached transpose
+    oracle = oracle_csr(*a.coords.cpu().numpy(), a.data.cpu().numpy(), (M, K))
+    np.testing.assert_allclose(
+        xs.cpu().numpy(), (oracle.T @ bt.cpu().numpy().T.astype(np.float64)).T, **ORACLE_TOL, err_msg="Bt @ a"
+    )
+    if layout is None or not torch.equal(xs, (a.T @ bt.T).T) or not torch.equal(xs, xs2):
+        raise AssertionError("Bt @ a: not on a's cached transpose, or not equal bit for bit to (a.T @ Bt.T).T")
+    torch.cuda.synchronize()
+
+    lines, timing = [], {}
+    # K4 at the two shapes, its wrapper, the plain version and torch.sparse.sampled_addmm
+    ex_rows_t = ex_rhs.T.contiguous()
+    shapes = {
+        "bench": (rows, cols, s, lhs, rhs, rhs.T, launches["sddmm"], max_abs_err),
+        "example": (ex_s.coords[0], ex_s.coords[1], ex_s.data, ex_lhs, ex_rhs, ex_rows_t, launches["sddmm"], ex_err),
+    }
+    for shape, (r, c, sv, lh, rh, rh_rows, n_launch, err) in shapes.items():
+        o = torch.empty_like(sv)
+        launch = lambda r=r, c=c, sv=sv, lh=lh, rh_rows=rh_rows, o=o: _cuda.sddmm(r, c, sv, lh, rh_rows, o)
+        pattern = torch.sparse_csr_tensor(
+            torch.searchsorted(r.long(), torch.arange(lh.shape[0] + 1, device=dev)), c.long(), sv, (lh.shape[0], rh.shape[1])
+        )
+        library = lambda pattern=pattern, lh=lh, rh=rh, sv=sv: torch.sparse.sampled_addmm(pattern, lh, rh, beta=0.0).values() * sv
+        try:
+            lib_got = library()
+        except RuntimeError:  # cuSPARSE may refuse a transposed view: then on a contiguous copy
+            rh_c = rh.contiguous()
+            library = lambda pattern=pattern, lh=lh, rh_c=rh_c, sv=sv: torch.sparse.sampled_addmm(pattern, lh, rh_c, beta=0.0).values() * sv
+            lib_got = library()
+        lib_err = float((lib_got - launch()).abs().max())
+        item = lh.element_size()
+        nbytes = (int(torch.unique(r).numel()) + int(torch.unique(c).numel())) * lh.shape[1] * item + r.numel() * (4 + 4 + 2 * item)
+        flops = 2 * r.numel() * lh.shape[1]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / (F32_FLOPS_PER_S if item == 4 else F32_FLOPS_PER_S / 2) * 1e3
+        ms = time_graph(launch)
+        line = {
+            "name": "sddmm",
+            "route": "cuda",
+            "source": SOURCE["sddmm"],
+            "replaces": REPLACES["sddmm"],
+            "launches": n_launch,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": time_eager(lambda: kdot.sddmm_plain(r, c, sv, lh, rh), reps=5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_eager(library, reps=5),
+        }
+        if shape == "example":
+            line["shape"] = "example"
+        lines.append(line)
+        gathered = 2 * r.numel() * lh.shape[1] * item
+        timing[shape] = {
+            **line,
+            "kernel_ms_l2_flushed": time_cold(launch),
+            "wrapper_ms_eager": time_eager(lambda: kdot.sddmm(r, c, sv, lh, rh), reps=5),
+            "rhs_t_copied": not _cuda.sddmm_k_major(rh.T),
+            "rhs_t_copy_ms": time_eager(lambda: rh.T.contiguous(), reps=5) if not _cuda.sddmm_k_major(rh.T) else 0.0,
+            "entries_per_warp": _cuda.sddmm_entries_per_warp(r.numel(), torch.cuda.get_device_properties(dev).multi_processor_count),
+            "bound_bytes": nbytes,
+            "bound_share": max(t_bytes, t_ops) / ms,
+            "gathered_bytes": gathered,
+            "gathered_tb_per_s": gathered / (ms * 1e-3) / 1e12,
+            "l2_floor_ms": gathered / L2_ROW_BYTES_PER_S * 1e3,
+            "library_max_abs_diff": lib_err,
+            "shape": {"m": lh.shape[0], "n": rh.shape[1], "k": lh.shape[1], "nnz": r.numel(), "dtype": str(lh.dtype).replace("torch.", "")},
+        }
+        del o, pattern, lib_got
+    log(
+        json.dumps(
+            {
+                "sddmm_path": "ok",
+                "nnz": a.nnz,
+                "k": SD_K,
+                "launches": launches,
+                "sddmm_s": t_sddmm - t0,
+                "sddmm_and_gradient_s": t_grad - t_sddmm,
+                "example_s": t_ex - t_grad,
+                "worst_over_scale": worst,
+                "gradient_err_vs_plain": grad_err,
+                "example": {"len": SD_EX_LEN, "nnz": ex_s.nnz, "rtol": SD_EX_RTOL, "max_abs_err_vs_plain": ex_err},
+                "dense_x_sparse": {
+                    "shape": [N, M],
+                    "first_s_incl_transpose_and_layout": t_xs - t_ex,
+                    "second_s": t_xs2 - t_xs,
+                    "device_ms": device_ms(lambda: bt @ a),
+                    "equal_bit_for_bit_to_aT_BtT": True,
+                },
+                "k4": timing,
+                "card": card,
+            }
+        )
+    )
+    return lines, launches
+
+
 ELEM_RTOL = 1e-6  # float32 results against the float64 scipy / bincount oracle
 ELEM_REPS = 5
 R_ROWS = 64  # stored rows of the (65,536, 1) column r
@@ -2031,6 +2262,9 @@ def main():
     t0 = time.perf_counter()
     elem = {"bench_shape": phase_elemwise_2d(dev, a)}
     elem_s = time.perf_counter() - t0
+    # SDDMM and dense x sparse on the bench matrix
+    sd_lines, _ = phase_sddmm_path(dev, a, card)
+    lines += sd_lines
     del a
     torch.cuda.empty_cache()
 

@@ -15,9 +15,12 @@ NumPy ufuncs and operators on sparse arrays, ``broadcast_to``) and the
 reductions (``sum``, ``max``, ``mean``, ``var``, the nan-reductions, ...)
 of COO and GCXS arrays on their device,
 the block-sparse linear layer of ``nn`` (BSR forward, dgrad and wgrad
-kernels), and the MTTKRP of a 3-D tensor (``jitops.mttkrp`` on a ``COO``,
+kernels), the MTTKRP of a 3-D tensor (``jitops.mttkrp`` on a ``COO``,
 ``kernels.mttkrp`` and the block-ELL ``kernels.ell_mttkrp``, one CUDA
-kernel).
+kernel), the sampled dense-dense matmul ``sddmm`` (one CUDA kernel, with
+its gradient) and the rest of the products with one sparse operand: dense
+× sparse, 1-D and batched ``matmul``/``dot``, ``tensordot`` and
+``vecdot``.
 
 The namespace re-exports NumPy's ufuncs under ``sparse_tpu``'s names
 (``sparse_tpu_torch.add is np.add``): called on a sparse array they run on
@@ -153,7 +156,7 @@ from .ops.creation import (
     transpose,
     var,
 )
-from .ops.dot import dot, matmul, matvec_add
+from .ops.dot import dot, matmul, matvec_add, sddmm, tensordot, vecdot
 from .ops.elemwise import broadcast_to, elemwise
 
 
@@ -279,6 +282,7 @@ __all__ = sorted(
         "reshape",
         "result_type",
         "round",
+        "sddmm",
         "sign",
         "signbit",
         "sin",
@@ -292,6 +296,7 @@ __all__ = sorted(
         "swapaxes",
         "tan",
         "tanh",
+        "tensordot",
         "transpose",
         "trunc",
         "uint16",
@@ -299,6 +304,7 @@ __all__ = sorted(
         "uint64",
         "uint8",
         "var",
+        "vecdot",
         "where",
     ]
 )

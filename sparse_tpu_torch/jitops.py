@@ -1,9 +1,13 @@
 """The static-shape kernel surface of ``sparse_tpu.jitops``, on torch tensors.
 
-It holds ``mttkrp`` (the COO-level entry point of the MTTKRP path),
-``sum_dense`` and ``union_elemwise``: functions with static output sizes
-and no read back to the host, which a later ``torch.compile`` can take. The
-rest of ``sparse_tpu.jitops`` is still to port.
+Functions with static output sizes and no read back to the host, which a
+later ``torch.compile`` can take: the pattern-preserving ``spmm``, ``spmv``,
+``sddmm``, ``mttkrp``, ``sum_dense``, ``scale``, ``map_data``,
+``add_same_pattern``, ``mul_same_pattern`` and ``transpose`` (a
+permutation of the entries), and the capacity-bounded ``union_elemwise``.
+A 2-D CSR/CSC ``GCXS`` gives ``spmm``/``spmv`` its triplet through a
+device ``searchsorted`` of its ``indptr``. ``spgemm`` waits for the port of
+SpGEMM.
 """
 
 from __future__ import annotations
@@ -13,9 +17,56 @@ import math
 import numpy as np
 import torch
 
+from ._utils import numpy_dtype, result_dtype, take, zero_of_dtype
 from .core.coo import COO, _as_tensor, _linearize
+from .core.gcxs import GCXS
 from .kernels import dot as _kdot
 from .kernels.elemwise import coo_elemwise_union
+
+
+def _triplet(a):
+    """``(rows, cols, data)`` of a COO, or of a 2-D CSR/CSC ``GCXS`` (its
+    ``indptr`` expanded to the compressed ids by a device ``searchsorted``
+    over the entries: nnz is static, nothing is read back)."""
+    if isinstance(a, GCXS):
+        if a.ndim != 2 or a.compressed_axes not in ((0,), (1,)):
+            raise ValueError("traceable ops accept 2-D CSR/CSC-form GCXS")
+        idx = a.indices
+        nnz = idx.shape[0]
+        indptr = a.indptr.long()
+        comp_ids = (torch.searchsorted(indptr, torch.arange(nnz, device=idx.device), right=True) - 1).to(idx.dtype)
+        if a.compressed_axes == (0,):
+            return comp_ids, idx, a.data
+        return idx, comp_ids, a.data
+    return a.coords[0], a.coords[1], a.data
+
+
+def spmm(a, dense):
+    """``a @ dense`` → dense ``(a.shape[0], N)`` on ``a``'s device, in the
+    promoted dtype (zero fill assumed). ``a`` is a COO or a 2-D CSR/CSC
+    GCXS; differentiable in its data and in ``dense``."""
+    r, c, d = _triplet(a)
+    dense = _as_tensor(dense, d.device)
+    dt = result_dtype(d.dtype, dense.dtype)
+    return _kdot.coo_spmm(r, c, d.to(dt), dense.to(dt), n_rows=a.shape[0])
+
+
+def spmv(a, x):
+    """``a @ x`` → dense ``(a.shape[0],)``, as :func:`spmm`."""
+    r, c, d = _triplet(a)
+    x = _as_tensor(x, d.device)
+    dt = result_dtype(d.dtype, x.dtype)
+    return _kdot.coo_spmv(r, c, d.to(dt), x.to(dt), n_rows=a.shape[0])
+
+
+def sddmm(s: COO, lhs, rhs):
+    """``s ⊙ (lhs @ rhs)`` at ``s``'s pattern → a COO on ``s``'s coordinates
+    with a zero fill of the result dtype (``kernels.sddmm``: K4 on the GPU)."""
+    if not isinstance(s, COO):
+        raise TypeError(f"jitops.sddmm takes a COO sample, not {type(s).__name__}")
+    r, c, d = _triplet(s)
+    vals = _kdot.sddmm(r, c, d, _as_tensor(lhs, d.device), _as_tensor(rhs, d.device))
+    return COO._make(s.coords, vals, s.shape, zero_of_dtype(numpy_dtype(vals.dtype)))
 
 
 def mttkrp(t: COO, c, d):
@@ -42,6 +93,47 @@ def _unravel(lin, shape, dtype):
         coords.append((rem % s).to(dtype))
         rem = rem // s
     return torch.stack(coords[::-1])
+
+
+def scale(a: COO, scalar):
+    """The stored values times ``scalar`` (a number or a 0-d tensor)."""
+    return COO._make(a.coords, a.data * scalar, a.shape, a.fill_value)
+
+
+def map_data(a: COO, fn):
+    """``fn`` applied to the stored values; ``fn`` must map the fill value to
+    itself for the result to stay consistent (the caller's contract)."""
+    return COO._make(a.coords, fn(a.data), a.shape, a.fill_value)
+
+
+def add_same_pattern(a: COO, b: COO):
+    """``a + b`` for operands on one coordinate pattern (results of
+    ``sddmm``/``map_data`` chains over one mask)."""
+    return COO._make(a.coords, a.data + b.data, a.shape, a.fill_value)
+
+
+def mul_same_pattern(a: COO, b: COO):
+    """``a * b`` for operands on one coordinate pattern."""
+    return COO._make(a.coords, a.data * b.data, a.shape, a.fill_value)
+
+
+def transpose(a: COO, axes=None):
+    """The axes of a canonical COO permuted, with no host read: the
+    coordinates' rows permuted and the entries put in the new row-major
+    order by one stable sort of the new linear key; the same nnz and
+    coordinate dtype."""
+    ndim = a.ndim
+    if axes is None:
+        axes = tuple(range(ndim))[::-1]
+    axes = tuple(int(ax) % ndim for ax in axes)
+    if sorted(axes) != list(range(ndim)):
+        raise ValueError("repeated or incomplete axis in transpose")
+    if axes == tuple(range(ndim)):
+        return a
+    new_shape = tuple(a.shape[ax] for ax in axes)
+    coords = a.coords[list(axes), :]
+    order = torch.sort(_linearize(coords, new_shape), stable=True).indices
+    return COO._make(coords[:, order], take(a.data, order), new_shape, a.fill_value)
 
 
 def union_elemwise(func, a: COO, b: COO):

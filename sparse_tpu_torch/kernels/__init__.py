@@ -5,8 +5,10 @@
 CUDA kernels (``csrc/bsr.cu``) and the differentiable BSR products; ``ell``
 the block-ELL layouts, their SpMM/SpMV and the block-ELL MTTKRP; ``dot`` the
 COO gather + ``index_add_`` products for the dtypes the row-ELL kernels do
-not take, the sorted-COO MTTKRP and ``coo_sum_axes_dense``. Both MTTKRP
-forms run one CUDA kernel (``csrc/mttkrp.cu``). ``_cuda`` builds and
+not take (``dense_coo_matmul`` too), the sorted-COO MTTKRP, the SDDMM
+(``sddmm``, its CUDA kernel in ``csrc/sddmm.cu``, and ``sddmm_plain``) and
+``coo_sum_axes_dense``. Both MTTKRP forms run one CUDA kernel
+(``csrc/mttkrp.cu``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
 runs) and ``elemwise`` (the traceable union of two COO operands) are torch
 ops: the JAX package leaves their work to XLA.
@@ -26,7 +28,7 @@ from .bsr import (
     build_bsr,
     transpose_bsr_layout,
 )
-from .dot import coo_spmm, coo_spmv, coo_sum_axes_dense, mttkrp, mttkrp_plain
+from .dot import coo_spmm, coo_spmv, coo_sum_axes_dense, dense_coo_matmul, mttkrp, mttkrp_plain, sddmm, sddmm_plain
 from .elemwise import coo_elemwise_union
 from .segment import segment_reduce, segment_sum_onehot_mm
 from .ell import (
@@ -75,6 +77,7 @@ __all__ = [
     "coo_spmm",
     "coo_spmv",
     "coo_sum_axes_dense",
+    "dense_coo_matmul",
     "ell_mttkrp",
     "ell_mttkrp_plain",
     "ell_spmm",
@@ -85,6 +88,8 @@ __all__ = [
     "row_ell_spmm",
     "row_ell_spmm_program",
     "row_ell_spmv",
+    "sddmm",
+    "sddmm_plain",
     "segment_reduce",
     "segment_sum_onehot_mm",
     "transpose_bsr_layout",

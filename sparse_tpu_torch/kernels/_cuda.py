@@ -11,7 +11,8 @@ that CUDA refuses (each C entry point returns ``cudaGetLastError()``).
 The launchers take tensors already on the GPU, of the kernel's dtype, check
 that, allocate nothing themselves, launch on the current stream and do not
 synchronize. The row-ELL, MTTKRP and probe launchers take contiguous tensors;
-the BSR launchers read their operands through their strides. ``LAUNCHES``
+the BSR launchers read their operands through their strides, the SDDMM's
+through a row stride with unit stride along K. ``LAUNCHES``
 counts the launches of each kernel; nothing else touches it.
 """
 
@@ -37,6 +38,7 @@ SOURCES = {
     "bsr_tc": _CSRC / "bsr_tc.cu",
     "mttkrp": _CSRC / "mttkrp.cu",
     "probes": _CSRC / "probes.cu",
+    "sddmm": _CSRC / "sddmm.cu",
 }
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparse_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -85,6 +87,11 @@ _SIGNATURES = {
         "st_row_pick_bf16": [_p, _i64, _p, _i64, _i64, _p, _p],
         "st_row_pick_counts": [_p, _i64, _p, *[_i64] * 4, _p, _p, _p, _p],
     },
+    "sddmm": {
+        f"st_sddmm_{dt}_{it}": [_p, _p, _p, _p, _i64, _p, *[_i64] * 6, _p, _p]
+        for dt in ("f32", "f64")
+        for it in ("i32", "i64")
+    },
 }
 
 LAUNCHES = {
@@ -104,6 +111,7 @@ LAUNCHES = {
     "lane_gather_blocksum": 0,
     "row_pick_blocksum": 0,
     "pick_scale_wsum": 0,
+    "sddmm": 0,
 }
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
@@ -1336,4 +1344,86 @@ def scalar_gather_sum_stage(x, qi, qj, out, seg_len, stage):
     args = _scalar_gather_args(x, qi, qj, out, seg_len)
     err = load("probes").st_scalar_gather_sum(*args, SCALAR_GATHER_STAGES[stage], out.data_ptr(), _stream(qi.device))
     _raise_on(err, "scalar_gather_sum_stage")
+    return out
+
+
+# K4, the SDDMM (csrc/sddmm.cu): a warp takes a group of at most 32 entries;
+# the group shrinks (to a power of two, at least 1) until the groups fill
+# SDDMM_WARPS_PER_SM warps on every SM, so a small nnz with a long K (the
+# example's 1,000 entries of K = 10,000) still spreads over the card
+SDDMM_WARPS_PER_SM = 64
+SDDMM_BLOCKS_PER_SM = 8  # CTAs of 8 warps; the grid strides past this
+_SDDMM_ITEM = {torch.float32: "f32", torch.float64: "f64"}
+_SDDMM_INDEX = {torch.int32: "i32", torch.int64: "i64"}
+
+
+def sddmm_entries_per_warp(nnz, sms):
+    """Entries a warp of K4 takes: 32, or the largest power of two that
+    leaves ``SDDMM_WARPS_PER_SM`` groups on each of ``sms`` SMs."""
+    per = nnz // (sms * SDDMM_WARPS_PER_SM)
+    epw = 1
+    while epw * 2 <= min(per, 32):
+        epw *= 2
+    return epw
+
+
+def sddmm_k_major(t):
+    """True when the rows of the 2-D ``t`` (``(rows, K)``) have unit stride
+    along K, as K4 reads them; a size-1 axis takes any stride."""
+    return t.shape[1] <= 1 or t.stride(1) == 1
+
+
+def sddmm(rows, cols, s, lhs_rows, rhs_rows, out):
+    """Launch K4: ``out[e] = s[e] · Σ_k lhs_rows[rows[e], k] · rhs_rows[cols[e], k]``.
+    ``lhs_rows`` ``(M, K)`` and ``rhs_rows`` ``(N, K)`` (that is, ``rhs.T``)
+    of float32 or float64 with unit stride along K (:func:`sddmm_k_major`)
+    and any row stride; ``rows``/``cols`` int32 or int64 and ``s``/``out``
+    of the value dtype, contiguous ``(nnz,)``. The caller guarantees every
+    index in range. Rows 16-byte aligned take 16-byte loads."""
+    dtype, device = lhs_rows.dtype, lhs_rows.device
+    require_cuda(device, "SDDMM")
+    if dtype not in _SDDMM_ITEM:
+        raise TypeError(f"the SDDMM kernel takes float32 or float64, not {dtype}")
+    if rows.dtype not in _SDDMM_INDEX:
+        raise TypeError(f"the SDDMM kernel takes int32 or int64 indices, not {rows.dtype}")
+    _check("rows", rows, rows.dtype, device)
+    _check("cols", cols, rows.dtype, device)
+    _check("s", s, dtype, device)
+    _check("out", out, dtype, device)
+    _check_device(rhs_rows, dtype, device, "rhs_rows")
+    nnz = rows.shape[0]
+    if lhs_rows.ndim != 2 or rhs_rows.ndim != 2 or lhs_rows.shape[1] != rhs_rows.shape[1]:
+        raise ValueError("sddmm: lhs_rows and rhs_rows must be (M, K) and (N, K)")
+    if rows.ndim != 1 or cols.shape != (nnz,) or s.shape != (nnz,) or out.shape != (nnz,):
+        raise ValueError("sddmm: rows, cols, s and out must be 1-D of one length")
+    if not (sddmm_k_major(lhs_rows) and sddmm_k_major(rhs_rows)):
+        raise ValueError("sddmm: lhs_rows and rhs_rows must have unit stride along K")
+    if nnz == 0:
+        return out
+    k = lhs_rows.shape[1]
+    item = lhs_rows.element_size()
+    ldl, ldr = lhs_rows.stride(0), rhs_rows.stride(0)
+    vec = all(
+        t.data_ptr() % 16 == 0 and (t.shape[0] <= 1 or ld * item % 16 == 0) for t, ld in ((lhs_rows, ldl), (rhs_rows, ldr))
+    )
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fn = getattr(load("sddmm"), f"st_sddmm_{_SDDMM_ITEM[dtype]}_{_SDDMM_INDEX[rows.dtype]}")
+    err = fn(
+        rows.data_ptr(),
+        cols.data_ptr(),
+        s.data_ptr(),
+        lhs_rows.data_ptr(),
+        ldl,
+        rhs_rows.data_ptr(),
+        ldr,
+        nnz,
+        k,
+        sddmm_entries_per_warp(nnz, sms),
+        int(vec),
+        sms * SDDMM_BLOCKS_PER_SM,
+        out.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, "sddmm")
+    LAUNCHES["sddmm"] += 1
     return out

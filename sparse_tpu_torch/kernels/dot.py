@@ -12,6 +12,15 @@ the pieces of the long runs by one ``cumsum`` (``_cuda.run_pieces``), both
 on the device; ``mttkrp_plain`` beside it is its plain PyTorch version, taken only
 for tensors on the CPU. The differentiable core (``_Mttkrp``) is shared
 with the block-ELL form, ``ell.ell_mttkrp``.
+
+``sddmm`` is ``sparse_tpu.kernels.dot.sddmm``: for float32/float64 tensors
+on the GPU it runs the hand-written CUDA kernel K4 of ``csrc/sddmm.cu``
+(counted as ``sddmm``) or raises; other dtypes take ``sddmm_plain`` by
+dtype, as ``sparse_tpu`` routes float16 and complex off its kernel. Its
+gradient in the sample values, ``lhs`` and ``rhs`` is a
+``torch.autograd.Function`` whose backward is torch ops (twice
+differentiable). ``dense_coo_matmul`` is dense × COO as gather +
+``index_add_``.
 """
 
 from __future__ import annotations
@@ -28,6 +37,16 @@ def coo_spmm(rows, cols, data, dense, *, n_rows):
     out = torch.zeros((n_rows, dense.shape[1]), dtype=data.dtype, device=data.device)
     signed_view(out).index_add_(0, rows.long(), signed_view(data)[:, None] * signed_view(dense)[cols.long()])
     return out
+
+
+def dense_coo_matmul(dense, rows, cols, data, *, n_out_cols):
+    """``B @ A``: dense ``B (M, K)`` × COO ``A (K, N)`` of ``dense``'s dtype
+    → dense ``(M, N)``, with no host read: the columns ``B[:, rows]`` times
+    ``data``, added into the output columns ``cols``."""
+    out = torch.zeros((n_out_cols, dense.shape[0]), dtype=dense.dtype, device=dense.device)
+    prod = signed_view(dense).T[rows.long()] * signed_view(data)[:, None]  # (nnz, M)
+    signed_view(out).index_add_(0, cols.long(), prod)
+    return out.T
 
 
 def coo_spmv(rows, cols, data, x, *, n_rows):
@@ -235,3 +254,126 @@ def coo_sum_axes_dense(coords, data, *, shape, axes):
         stride *= shape[d]
     lin, order = torch.sort(lin, stable=True)
     return segment_reduce(data[order], lin, keep_size, op="sum").reshape(keep_shape)
+
+
+# ---------------------------------------------------------------------------
+# SDDMM: out[e] = s[e] · (lhs[rows[e], :] · rhs[:, cols[e]])
+# ---------------------------------------------------------------------------
+
+# sparse_tpu's chunking of its XLA form (kernels/dot.py:SDDMM_CHUNK): the plain
+# version keeps it, so its two gathered (chunk, K) blocks bound its memory
+SDDMM_CHUNK = 32768
+SDDMM_CHUNK_MIN_NNZ = 4 * SDDMM_CHUNK
+_HALF = (torch.float16, torch.bfloat16)
+
+
+def _rowdot(rows, cols, sample_data, lhs, rhs_t):
+    lg, rg = lhs[rows.long()], rhs_t[cols.long()]
+    if lhs.dtype in _HALF:  # products and sum in float32, one rounding (NumPy's einsum)
+        return sample_data * (lg.float() * rg.float()).sum(-1).to(lhs.dtype)
+    if lhs.dtype.is_floating_point or lhs.dtype.is_complex:
+        return sample_data * (lg * rg).sum(-1)
+    dot = (signed_view(lg) * signed_view(rg)).sum(-1, dtype=signed_view(lg).dtype)
+    return (signed_view(sample_data) * dot).view(lhs.dtype)
+
+
+def sddmm_plain(rows, cols, sample_data, lhs, rhs):
+    """K4's function in torch ops, on any device: gather ``lhs[rows]`` and
+    ``rhs.T[cols]``, multiply, sum over K, times ``sample_data``; above
+    ``SDDMM_CHUNK_MIN_NNZ`` entries in chunks of ``SDDMM_CHUNK``, as
+    ``sparse_tpu`` scans them. The three operands share one dtype; float16
+    and bfloat16 sum in float32 and round once."""
+    nnz = rows.shape[0]
+    rhs_t = rhs.T
+    if nnz < SDDMM_CHUNK_MIN_NNZ:
+        return _rowdot(rows, cols, sample_data, lhs, rhs_t)
+    out = torch.empty(nnz, dtype=sample_data.dtype, device=sample_data.device)
+    for start in range(0, nnz, SDDMM_CHUNK):
+        sl = slice(start, start + SDDMM_CHUNK)
+        out[sl] = _rowdot(rows[sl], cols[sl], sample_data[sl], lhs, rhs_t)
+    return out
+
+
+def _sddmm_rows(t):
+    """The 2-D ``t`` as K4 reads it (``lhs``, ``rhs.T``): itself when its
+    rows have unit stride along the last axis, else one contiguous copy."""
+    return t if _cuda.sddmm_k_major(t) else t.contiguous()
+
+
+def _sddmm_forward(rows, cols, sample_data, lhs, rhs):
+    if sample_data.device.type == "cpu":
+        return sddmm_plain(rows, cols, sample_data, lhs, rhs)
+    _cuda.require_cuda(sample_data.device, "SDDMM")
+    lhs_rows, rhs_rows = _sddmm_rows(lhs), _sddmm_rows(rhs.T)
+    idx = torch.int64 if torch.int64 in (rows.dtype, cols.dtype) else torch.int32
+    out = torch.empty(rows.shape[0], dtype=sample_data.dtype, device=sample_data.device)
+    return _cuda.sddmm(
+        rows.to(idx).contiguous(), cols.to(idx).contiguous(), sample_data.contiguous(), lhs_rows, rhs_rows, out
+    )
+
+
+class _Sddmm(torch.autograd.Function):
+    """K4 forward (plain on the CPU); backward as torch ops, the VJP that JAX
+    derives: ``d s = sddmm(rows, cols, g, lhs, rhs)`` through this same
+    Function, ``d lhs[rows] += (g·s) · rhs.T[cols]`` and ``d rhs.T[cols] +=
+    (g·s) · lhs[rows]`` by ``index_add``. Every op of the backward is
+    differentiable, so it is too (second order). Forward mode: the sum of
+    the three SDDMMs with one tangent each."""
+
+    @staticmethod
+    def forward(ctx, rows, cols, sample_data, lhs, rhs):
+        ctx.save_for_backward(rows, cols, sample_data, lhs, rhs)
+        ctx.save_for_forward(rows, cols, sample_data, lhs, rhs)
+        return _sddmm_forward(rows, cols, sample_data, lhs, rhs)
+
+    @staticmethod
+    def jvp(ctx, _rows, _cols, d_s, d_lhs, d_rhs):
+        rows, cols, sample_data, lhs, rhs = ctx.saved_tensors
+        out = torch.zeros(rows.shape[0], dtype=sample_data.dtype, device=sample_data.device)
+        for s_, l_, r_ in ((d_s, lhs, rhs), (sample_data, d_lhs, rhs), (sample_data, lhs, d_rhs)):
+            if s_ is not None and l_ is not None and r_ is not None:
+                out = out + _sddmm_forward(rows, cols, s_, l_, r_)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, cols, sample_data, lhs, rhs = ctx.saved_tensors
+        d_s = d_lhs = d_rhs = None
+        if ctx.needs_input_grad[2]:
+            d_s = _Sddmm.apply(rows, cols, g, lhs, rhs)
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            gs = (g * sample_data)[:, None]
+            ri, ci = rows.long(), cols.long()
+            if ctx.needs_input_grad[3]:
+                d_lhs = lhs.new_zeros(lhs.shape).index_add(0, ri, gs * rhs.T[ci])
+            if ctx.needs_input_grad[4]:
+                d_rhs = rhs.new_zeros((rhs.shape[1], rhs.shape[0])).index_add(0, ci, gs * lhs[ri]).T
+        return None, None, d_s, d_lhs, d_rhs
+
+
+def sddmm(rows, cols, sample_data, lhs, rhs):
+    """Sampled dense-dense matmul: ``sample_data[e] · (lhs[rows[e], :] @
+    rhs[:, cols[e]])`` for every stored entry → ``(nnz,)``; ``lhs`` ``(M,
+    K)``, ``rhs`` ``(K, N)``, all on one device, in their promoted dtype.
+    Differentiable in ``sample_data``, ``lhs`` and ``rhs``, to second order.
+
+    float32/float64 on the GPU launch K4 (``csrc/sddmm.cu``; ``lhs`` and
+    ``rhs.T`` read in place when their rows have unit stride along K, else
+    copied once) or raise; on the CPU, and for other dtypes on any device,
+    the plain version runs. Indices are not checked; nnz = 0 returns an
+    empty output without a launch."""
+    for name, t in (("rows", rows), ("cols", cols), ("sample_data", sample_data), ("lhs", lhs), ("rhs", rhs)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"sddmm: {name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != sample_data.device:
+            raise ValueError(f"sddmm: {name} is on {t.device} but sample_data is on {sample_data.device}")
+    nnz = rows.shape[0]
+    if lhs.ndim != 2 or rhs.ndim != 2 or lhs.shape[1] != rhs.shape[0]:
+        raise ValueError(f"sddmm: lhs {tuple(lhs.shape)} and rhs {tuple(rhs.shape)} must be (M, K) and (K, N)")
+    if rows.ndim != 1 or cols.shape != (nnz,) or sample_data.shape != (nnz,):
+        raise ValueError("sddmm: rows, cols and sample_data must be 1-D of one length")
+    dt = result_dtype(sample_data.dtype, lhs.dtype, rhs.dtype)
+    sample_data, lhs, rhs = sample_data.to(dt), lhs.to(dt), rhs.to(dt)
+    if dt in _KERNEL_DTYPES:
+        return _Sddmm.apply(rows, cols, sample_data, lhs, rhs)
+    return sddmm_plain(rows, cols, sample_data, lhs, rhs)

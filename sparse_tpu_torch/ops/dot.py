@@ -1,17 +1,23 @@
-"""Matmul family, sparse × dense: ``matmul``, ``dot`` and the fused
-``matvec_add``, with the semantics of ``sparse_tpu.ops.dot``:
+"""Matmul family with one sparse operand: ``tensordot``, ``matmul``,
+``dot``, ``vecdot``, ``sddmm`` and the fused ``matvec_add``, with the
+semantics of ``sparse_tpu.ops.dot``:
 
-- sparse × dense returns a dense tensor on the sparse operand's device;
+- a product with one dense operand returns a dense tensor on the sparse
+  operand's device (``return_type`` may ask for a COO or GCXS);
 - all operands must have zero fill values (``ValueError`` otherwise);
 - ``matmul`` warns "Nan will not be propagated in matrix multiplication";
 - dtypes promote as NumPy's do (``np.promote_types``).
 
-The sparse operand is a 2-D ``COO`` or ``GCXS`` (``CSR``, ``CSC``); a GCXS
+A 2-D sparse operand is a ``COO`` or ``GCXS`` (``CSR``, ``CSC``); a GCXS
 multiplies through the canonical COO it keeps. float32/float64 products run
 on the COO's cached row-ELL layout (``kernels.row_ell``: the CUDA kernels on
-the GPU); other dtypes take the COO gather + ``index_add_`` path
-(``kernels.dot``). Batched (N-D) matmul, 1-D sparse operands, dense × sparse
-and sparse × sparse are not ported yet and raise ``NotImplementedError``.
+the GPU); dense × sparse runs there too, as ``(bᵀ @ aᵀ)ᵀ`` on the cached
+transpose of ``b``. Other dtypes take the COO gather + ``index_add_`` path
+(``kernels.dot``). ``sddmm`` runs ``kernels.sddmm`` (K4 on the GPU).
+1-D operands, batched (N-D) ``matmul`` and ``tensordot`` reduce to these
+2-D products. sparse × sparse products of 2-D operands (SpGEMM) are not
+ported yet and raise ``NotImplementedError``; sparse 1-D · 1-D runs as
+``(a * b).sum()``.
 """
 
 from __future__ import annotations
@@ -21,16 +27,27 @@ import warnings
 import numpy as np
 import torch
 
-from .._utils import check_zero_fill_value, not_ported, result_dtype, signed_view, torch_dtype
+from .._utils import (
+    check_zero_fill_value,
+    equivalent,
+    not_ported,
+    numpy_dtype,
+    result_dtype,
+    signed_view,
+    take,
+    torch_dtype,
+    zero_of_dtype,
+)
 from ..core.base import SparseArray
 from ..core.coo import COO
 from ..core.gcxs import GCXS
 from ..kernels import dot as kdot
 from ..kernels.row_ell import row_ell_spmm_program, row_ell_spmv
 
-__all__ = ["matmul", "dot", "matvec_add"]
+__all__ = ["tensordot", "matmul", "dot", "vecdot", "matvec_add", "sddmm"]
 
 _ROW_ELL_DTYPES = (torch.float32, torch.float64)
+_DENSE_TYPES = (np.ndarray, torch.Tensor)
 
 
 def _from_scipy_operands(a, b):
@@ -64,6 +81,16 @@ def _dense_operand(x, device):
     return torch.as_tensor(np.ascontiguousarray(x), dtype=torch_dtype(x.dtype), device=device)
 
 
+def _operands(a, b):
+    """``(a, b)`` with the dense one as a tensor on the sparse one's device.
+    Two dense operands raise: the package multiplies sparse arrays."""
+    if isinstance(a, SparseArray):
+        return a, b if isinstance(b, SparseArray) else _dense_operand(b, a.device)
+    if isinstance(b, SparseArray):
+        return _dense_operand(a, b.device), b
+    raise NotImplementedError("sparse_tpu_torch multiplies sparse arrays; use torch.matmul for dense × dense")
+
+
 def _has_nan(x):
     if isinstance(x, SparseArray):
         data = x.data
@@ -86,48 +113,243 @@ def _warn_nan(*operands, stacklevel):
 
 
 def _check_ported(a, b):
-    a_sparse, b_sparse = isinstance(a, SparseArray), isinstance(b, SparseArray)
-    if a_sparse and b_sparse:
-        raise not_ported("sparse × sparse matmul")
-    if b_sparse:
-        raise not_ported("dense × sparse matmul")
-    if not a_sparse:
-        raise NotImplementedError("sparse_tpu_torch multiplies sparse arrays; use torch.matmul for dense × dense")
-    if a.ndim > 2 or _ndim(b) > 2:
-        raise not_ported("batched (N-D) matmul")
-    if a.ndim == 1:
-        raise not_ported("a product with a 1-D sparse operand")
+    """sparse × sparse of 2-D (or batched) operands is SpGEMM, not yet ported."""
+    if isinstance(a, SparseArray) and isinstance(b, SparseArray) and max(a.ndim, b.ndim) > 1:
+        raise not_ported("sparse × sparse matmul (SpGEMM)")
+
+
+# ---------------------------------------------------------------------------
+# tensordot
+# ---------------------------------------------------------------------------
+
+
+def tensordot(a, b, axes=2, *, return_type=None):
+    """Tensor contraction over the given axes (NumPy semantics), with one
+    sparse operand: the contracted axes moved last in ``a`` and first in
+    ``b``, both reshaped to 2-D, multiplied and reshaped back.
+    ``return_type`` ``np.ndarray`` (or ``torch.Tensor``) gives a dense
+    tensor, ``COO``/``GCXS`` a sparse array; by default dense."""
+    a, b = _from_scipy_operands(a, b)
+    check_zero_fill_value(a, b, func_name="tensordot")
+
+    if np.isscalar(a) or np.isscalar(b):
+        raise ValueError("Cannot perform tensordot on scalars")
+    a, b = _operands(a, b)
+
+    try:
+        iter(axes)
+    except TypeError:
+        axes_a = list(range(-axes, 0))
+        axes_b = list(range(axes))
+    else:
+        axes_a, axes_b = axes
+    try:
+        na = len(axes_a)
+        axes_a = list(axes_a)
+    except TypeError:
+        axes_a = [axes_a]
+        na = 1
+    try:
+        nb = len(axes_b)
+        axes_b = list(axes_b)
+    except TypeError:
+        axes_b = [axes_b]
+        nb = 1
+
+    as_, nda = tuple(a.shape), a.ndim
+    bs, ndb = tuple(b.shape), b.ndim
+    if nda == 0 or ndb == 0:
+        raise ValueError(f"Input {int(nda == 0)} operand does not have enough dimensions")
+    equal = na == nb
+    if equal:
+        for k in range(na):
+            if as_[axes_a[k]] != bs[axes_b[k]]:
+                equal = False
+                break
+            if axes_a[k] < 0:
+                axes_a[k] += nda
+            if axes_b[k] < 0:
+                axes_b[k] += ndb
+    if not equal:
+        raise ValueError("shape-mismatch for sum")
+
+    notin = [k for k in range(nda) if k not in axes_a]
+    newaxes_a = notin + axes_a
+    olda = [as_[axis] for axis in notin]
+    notin = [k for k in range(ndb) if k not in axes_b]
+    newaxes_b = axes_b + notin
+    oldb = [bs[axis] for axis in notin]
+    red = int(np.prod([as_[axis] for axis in axes_a], dtype=np.float64))
+
+    if red == 0 or 0 in olda or 0 in oldb:
+        return _empty_result(a, b, olda, oldb, return_type)
+
+    at = _to_2d(a, newaxes_a, _concrete_2d_shape(as_, newaxes_a, nda - na))
+    bt = _to_2d(b, newaxes_b, _concrete_2d_shape_b(bs, newaxes_b, nb))
+    res = _dot(at, bt, return_type)
+    return res.reshape(tuple(olda + oldb))
+
+
+def _to_2d(x, axes, shape):
+    if isinstance(x, SparseArray):
+        return x.transpose(tuple(axes)).reshape(shape)
+    return x.permute(axes).reshape(shape)
+
+
+def _concrete_2d_shape(shape, newaxes, n_keep):
+    keep = int(np.prod([shape[ax] for ax in newaxes[:n_keep]], dtype=np.float64))
+    red = int(np.prod([shape[ax] for ax in newaxes[n_keep:]], dtype=np.float64))
+    return (keep, red)
+
+
+def _concrete_2d_shape_b(shape, newaxes, n_red):
+    red = int(np.prod([shape[ax] for ax in newaxes[:n_red]], dtype=np.float64))
+    keep = int(np.prod([shape[ax] for ax in newaxes[n_red:]], dtype=np.float64))
+    return (red, keep)
+
+
+def _empty_result(a, b, olda, oldb, return_type):
+    shape = tuple(olda + oldb)
+    dt = result_dtype(a.dtype, b.dtype)
+    device = a.device if isinstance(a, SparseArray) else b.device
+    both_sparse = isinstance(a, SparseArray) and isinstance(b, SparseArray)
+    if return_type in _DENSE_TYPES or (return_type is None and not both_sparse):
+        return torch.zeros(shape, dtype=dt, device=device)
+    return COO._make(
+        torch.empty((len(shape), 0), dtype=torch.int64, device=device),
+        torch.empty((0,), dtype=dt, device=device),
+        shape,
+        zero_of_dtype(numpy_dtype(dt)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# matmul, dot, vecdot
+# ---------------------------------------------------------------------------
 
 
 def matmul(a, b):
-    """``a @ b`` for a 2-D sparse ``a`` and a dense 1-D or 2-D ``b``."""
+    """``a @ b`` with NumPy's matmul semantics (1-D promotion, broadcast
+    batch axes), one operand sparse."""
     a, b = _from_scipy_operands(a, b)
     check_zero_fill_value(a, b, func_name="matmul")
     if _ndim(a) == 0 or _ndim(b) == 0:
         raise ValueError("matmul: Input operands do not have enough dimensions")
+    a, b = _operands(a, b)
     _check_ported(a, b)
-    b = _dense_operand(b, a.device)
     _warn_nan(a, b, stacklevel=2)
-    return _dot(a, b)
+
+    if a.ndim <= 2 and b.ndim <= 2:
+        return dot(a, b)
+
+    # batched: broadcast the leading axes, one product a batch
+    a_orig, b_orig = a, b
+    if a.ndim == 1:
+        a = a.reshape((1,) + tuple(a.shape))
+    if b.ndim == 1:
+        b = b.reshape(tuple(b.shape) + (1,))
+    batch = np.broadcast_shapes(tuple(a.shape[:-2]), tuple(b.shape[:-2]))
+    a = _broadcast_batched(a, batch + tuple(a.shape[-2:]))
+    b = _broadcast_batched(b, batch + tuple(b.shape[-2:]))
+    out = torch.stack([matmul(x, y) for x, y in zip(_leading_slices(a), _leading_slices(b))])
+    if a_orig.ndim == 1:
+        out = out[..., 0, :]
+    if b_orig.ndim == 1:
+        out = out[..., 0]
+    return out
+
+
+def _broadcast_batched(x, shape):
+    if tuple(x.shape) == shape:
+        return x
+    if isinstance(x, torch.Tensor):
+        return torch.broadcast_to(x, shape)
+    from .elemwise import broadcast_to
+
+    return broadcast_to(x, shape)
+
+
+def _leading_slices(x):
+    """``[x[0], x[1], ...]`` along the first axis. A sparse array gives
+    canonical COOs: its canonical entries are sorted by the first axis, so
+    ``x[i]`` is the run found by one ``searchsorted`` (one host read for all
+    of them), its coordinates those of the other axes."""
+    if isinstance(x, torch.Tensor):
+        return list(x.unbind(0))
+    x = x if isinstance(x, COO) else x.tocoo()
+    n = x.shape[0]
+    first = x.coords[0].long()
+    offsets = torch.searchsorted(first, torch.arange(n + 1, device=first.device)).tolist()
+    shape = x.shape[1:]
+    return [
+        COO._make(x.coords[1:, lo:hi], x.data[lo:hi], shape, x.fill_value) for lo, hi in zip(offsets, offsets[1:])
+    ]
 
 
 def dot(a, b):
-    """``np.dot`` semantics (last axis of ``a`` with the second-to-last of
-    ``b``), for a 2-D sparse ``a`` and a dense 1-D or 2-D ``b``."""
+    """``np.dot`` semantics (the last axis of ``a`` with the second-to-last of
+    ``b``, or the last of a 1-D ``b``), one operand sparse; two 1-D operands
+    give ``(a * b).sum()`` as a 0-d tensor on the device."""
     a, b = _from_scipy_operands(a, b)
     check_zero_fill_value(a, b, func_name="dot")
     if _ndim(a) == 0 or _ndim(b) == 0:
         raise ValueError("Cannot perform dot product on scalars")
+    a, b = _operands(a, b)
+
+    if a.ndim == 1 and b.ndim == 1:
+        res = (a * b).sum() if isinstance(a, SparseArray) else (b * a).sum()
+        return res.todense()[()] if isinstance(res, SparseArray) else res
+
+    # 2-D fast paths: straight to the 2-D core
+    if a.ndim == 2 and b.ndim in (1, 2) and a.shape[1] == b.shape[0]:
+        if isinstance(a, SparseArray) and not isinstance(b, SparseArray):
+            return _dot(a, b)
+        if isinstance(b, SparseArray) and not isinstance(a, SparseArray) and b.ndim == 2:
+            return _dot(a, b)
+
+    return tensordot(a, b, axes=(-1, -1 if b.ndim == 1 else -2))
+
+
+def vecdot(x1, x2, /, *, axis=-1):
+    """Conjugating vector dot product along ``axis`` (Array API):
+    ``sum(conj(x1) * x2, axis)`` in the promoted dtype, on the element-wise
+    engine (sparse · sparse included)."""
+    ndmin = min(x1.ndim, x2.ndim)
+    if not (-ndmin <= axis < ndmin) or x1.shape[axis] != x2.shape[axis]:
+        raise ValueError("Shapes must match along `axis`.")
+    dt = numpy_dtype(result_dtype(x1.dtype, x2.dtype))
+    if np.issubdtype(numpy_dtype(x1.dtype), np.complexfloating):
+        x1 = np.conjugate(x1) if isinstance(x1, np.ndarray) else x1.conj()
+    prod = x1 * x2
+    if isinstance(prod, torch.Tensor):
+        return prod.sum(dim=axis, dtype=torch_dtype(dt))
+    return prod.sum(axis=axis, dtype=dt)
+
+
+# ---------------------------------------------------------------------------
+# The 2-D core
+# ---------------------------------------------------------------------------
+
+
+def _coo_of_dense(t):
+    """A dense tensor as a canonical COO on its device, every entry that is
+    not bitwise zero stored (``COO.from_numpy``'s rule)."""
+    mask = ~equivalent(t, zero_of_dtype(numpy_dtype(t.dtype)))
+    return COO(torch.nonzero(mask).T, take(t, mask), shape=tuple(t.shape), has_duplicates=False, sorted=True)
+
+
+def _dot(a, b, return_type=None):
+    """The 2-D core of ``sparse_tpu.ops.dot._dot`` with one sparse operand:
+    sparse ``(M, K)`` × dense ``(K,)``/``(K, N)``, or dense ``(M, K)`` ×
+    sparse ``(K, N)``, shapes already matched and the dense one a tensor on
+    the sparse one's device; a dense tensor, or what ``return_type`` names."""
     _check_ported(a, b)
-    return _dot(a, b)
-
-
-def _dot(a, b):
-    """The 2-D sparse × dense branch of ``sparse_tpu.ops.dot._dot``."""
-    b = _dense_operand(b, a.device)
-    if a.shape[1] != b.shape[0]:
-        raise ValueError("shape-mismatch for sum")
-    return _spmm_dense(a, b)
+    res = _spmm_dense(a, b) if isinstance(a, SparseArray) else _dense_spmm(a, b)
+    if return_type is COO:
+        return _coo_of_dense(res)
+    if return_type is GCXS:
+        return _coo_of_dense(res).asformat("gcxs")
+    return res
 
 
 def _product_coo(a):
@@ -146,6 +368,30 @@ def _spmm_dense(a, b):
     data = a.data.to(dt)
     fn = kdot.coo_spmv if b.ndim == 1 else kdot.coo_spmm
     return fn(coords[0], coords[1], data, b.to(dt), n_rows=a.shape[0])
+
+
+def _transposed(b):
+    """``b.T`` of a 2-D COO, cached on ``b`` and rebuilt once ``b``'s buffers
+    are replaced; the row-ELL layout of a product is cached on it in turn."""
+    return b._cached_layout("transposed", None, lambda: b.T)
+
+
+def _dense_spmm(a, b):
+    """dense ``(M, K)`` × sparse ``(K, N)`` → dense ``(M, N)``.
+
+    float32/float64 run ``(a @ b)ᵀ = bᵀ @ aᵀ`` on the row-ELL layout of
+    ``b``'s cached transpose: K2 for a matrix, K1 when ``a`` has one row, as
+    ``sparse_tpu`` takes a gather SpMV for ``m_rows == 1``. So a repeated
+    ``x @ W`` builds ``Wᵀ``'s layout once. Other dtypes take
+    ``kernels.dot.dense_coo_matmul``."""
+    b = _product_coo(b)
+    dt = result_dtype(a.dtype, b.dtype)
+    if dt in _ROW_ELL_DTYPES:
+        bt = _transposed(b)
+        if a.shape[0] == 1:
+            return _spmm_row_ell(bt, a[0].to(dt))[None, :]
+        return _spmm_row_ell(bt, a.T.to(dt)).T.contiguous()
+    return kdot.dense_coo_matmul(a.to(dt), b.coords[0], b.coords[1], b.data.to(dt), n_out_cols=b.shape[1]).contiguous()
 
 
 def _spmm_row_ell(a, b, y=None):
@@ -185,3 +431,25 @@ def matvec_add(a, x, y):
     y = _dense_operand(y, out.device)
     dt = result_dtype(out.dtype, y.dtype)
     return (signed_view(out.to(dt)) + signed_view(y.to(dt))).view(dt)
+
+
+# ---------------------------------------------------------------------------
+# SDDMM
+# ---------------------------------------------------------------------------
+
+def sddmm(s, lhs, rhs):
+    """Sampled dense-dense matmul: ``s * (lhs @ rhs)`` evaluated only at the
+    stored coordinates of the 2-D sparse sample ``s`` (zero fill; a
+    GCXS/CSR/CSC through its COO), never forming ``lhs @ rhs``. Returns a
+    ``COO`` with a copy of ``s``'s coordinates, the promoted dtype of the
+    three and its zero fill, by ``kernels.sddmm``: K4 for float32/float64
+    on the GPU, the plain version in that dtype for the rest (float16 and
+    complex too, where ``sparse_tpu`` takes ``np.einsum``)."""
+    check_zero_fill_value(s, func_name="sddmm")
+    s_coo = s if isinstance(s, COO) else s.tocoo()
+    lhs = _dense_operand(lhs, s_coo.device)
+    rhs = _dense_operand(rhs, s_coo.device)
+    dt = result_dtype(s_coo.dtype, lhs.dtype, rhs.dtype)
+    rows, cols = s_coo.coords[0], s_coo.coords[1]
+    vals = kdot.sddmm(rows, cols, s_coo.data.to(dt), lhs.to(dt), rhs.to(dt))
+    return COO._make(s_coo.coords.clone(), vals, s_coo.shape, zero_of_dtype(numpy_dtype(dt)))

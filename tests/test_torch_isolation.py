@@ -98,13 +98,13 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes"}
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes", "sddmm"}
     for name, path in _cuda.SOURCES.items():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
         for fn in _cuda._SIGNATURES[name]:
-            # an entry point of its own or one stamped out by the BSR source's macro
-            assert f"int {fn}(" in src or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src
+            # an entry point of its own or one stamped out by the BSR or SDDMM source's macro
+            assert f"int {fn}(" in src or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src or f"ST_SDDMM({fn}," in src
     bsr_src = _cuda.SOURCES["bsr"].read_text()
     for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
         assert f"ST_BSR_SPMM_ENTRY_POINT({suffix}, {ctype})" in bsr_src
@@ -136,4 +136,5 @@ def test_launch_counters_start_and_reset():
         "lane_gather_blocksum": 0,
         "row_pick_blocksum": 0,
         "pick_scale_wsum": 0,
+        "sddmm": 0,
     }
