@@ -70,6 +70,20 @@ drives the port's two paths on the card:
   @ Bt.T).T``, its route through K2 on the cached transpose; K4 timed at
   both shapes beside ``torch.sparse.sampled_addmm``;
 
+- sparse × sparse products (SpGEMM, BASELINE config 2's example; the
+  ``spgemm_path`` line): ``a @ a`` of the benchmark matrix (6.7e7 partial
+  products) against scipy's ``csr @ csr`` on the host (coordinates
+  exactly, values at rtol 1e-5 of a float64 oracle), twice bit for bit,
+  its device ms (median of 5 eager calls), peak memory, byte bound and
+  ``torch.profiler``'s top kernels beside cuSPARSE's ``torch.sparse.mm``
+  of the two CSRs; the example's two 100,000² GCXS at density 1e-5
+  (float64) as CSR × CSR and CSC × CSC within 1e-10 of scipy;
+  ``jitops.spgemm`` of two 4,096² matrices at density 5e-4 captured in a
+  CUDA graph and replayed after their values changed, against the eager
+  product; ``einsum("ij,jk->ik", s, s)`` bit for bit ``s @ s``. No kernel
+  of the package runs here: the JAX package leaves SpGEMM to XLA and the
+  host;
+
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
   sparse column, ufuncs, a cast and the reductions of the bench matrix as
@@ -1989,6 +2003,181 @@ def phase_sddmm_path(dev, a, card):
     return lines, launches
 
 
+# SpGEMM (BASELINE config 2's example, examples/matmul_example.py): the
+# bench matrix squared (float32, values against a float64 oracle at
+# SG_RTOL); the example's two 100,000^2 GCXS at density 1e-5 (float64, its
+# own limit |got - scipy| < SG_EX_ATOL); the traceable form at
+# bench_regression.py:248-270's shape (two 4,096^2 at density 5e-4,
+# float32) in a CUDA graph, against the eager product at SG_GRAPH_RTOL
+SG_RTOL, SG_EX_LEN, SG_EX_DENSITY, SG_EX_ATOL = 1e-5, 100_000, 1e-5, 1e-10
+SG_JIT_LEN, SG_JIT_DENSITY, SG_GRAPH_RTOL = 4096, 5e-4, 1e-6
+SG_REPS = 5
+
+
+def _unique_draw(rng, n, density, dtype):
+    """Rows, columns and values of an ``n`` x ``n`` matrix at ``density``:
+    ``n^2 · density`` distinct positions, values uniform in [0, 1)."""
+    lin = np.unique(rng.integers(0, n * n, size=round(n * n * density), dtype=np.int64))
+    while lin.size < round(n * n * density):
+        lin = np.unique(np.concatenate([lin, rng.integers(0, n * n, size=round(n * n * density) - lin.size)]))
+    return lin // n, lin % n, rng.random(lin.size).astype(dtype)
+
+
+def _same_product(name, c1, c2):
+    """Two results of one product: the same coordinates and the same bits."""
+    if not (torch.equal(c1.coords, c2.coords) and torch.equal(c1.data.view(torch.int32), c2.data.view(torch.int32))):
+        raise AssertionError(f"{name}: two calls differ")
+
+
+def phase_spgemm_path(dev, a, card):
+    """Sparse × sparse products through the public entry points, counted
+    (no hand kernel runs: the counts stay 0): ``a @ a`` of the bench matrix
+    against scipy's ``csr @ csr`` on the host (coordinates exactly, values at
+    SG_RTOL of a float64 oracle), twice bit for bit, its device ms, peak
+    memory and byte bound beside cuSPARSE's ``torch.sparse.mm`` of the two
+    CSRs (timed only); the example's GCXS pair (CSR × CSR and CSC × CSC)
+    within SG_EX_ATOL of scipy; ``jitops.spgemm`` captured in a CUDA graph
+    and replayed after the data changed, against the eager product; and
+    ``einsum("ij,jk->ik", s, s)`` bit for bit ``s @ s``. Returns the line's
+    fields."""
+    import scipy.sparse
+
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch.kernels import LAUNCHES, product_count, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    n_products = product_count(a.coords[1], a.coords[0], K)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    c1 = a @ a
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(LAUNCHES)
+    c2 = a @ a
+    _same_product("a @ a", c1, c2)
+    if c1.shape != (M, K) or c1.data.dtype != torch.float32 or c1.data.device.type != "cuda":
+        raise AssertionError(f"a @ a: {c1}")
+    if not bool(torch.isfinite(c1.data).all()):
+        raise AssertionError("a @ a: values not finite")
+    del c2
+    ms = device_ms(lambda: a @ a, reps=SG_REPS)
+    from chip_elemwise_profile import profile
+
+    wall_ms, busy_ms, top = profile(lambda: a @ a)  # torch.profiler: where the call's time goes
+
+    # the oracle: scipy's csr @ csr on the host, in float64
+    t0 = time.perf_counter()
+    coords = a.coords.cpu().numpy()
+    ref = scipy.sparse.csr_matrix((a.data.cpu().numpy().astype(np.float64), (coords[0], coords[1])), shape=(M, K))
+    want = ref @ ref
+    want.sort_indices()
+    want.eliminate_zeros()
+    oracle_s = time.perf_counter() - t0
+    got = c1.coords.cpu().numpy()
+    rows = np.repeat(np.arange(M, dtype=np.int64), np.diff(want.indptr))
+    if got.shape[1] != want.nnz or not (np.array_equal(got[0], rows) and np.array_equal(got[1], want.indices)):
+        raise AssertionError(f"a @ a: {got.shape[1]} coordinates, scipy {want.nnz}, or they differ")
+    np.testing.assert_allclose(c1.data.cpu().numpy().astype(np.float64), want.data, rtol=SG_RTOL, err_msg="a @ a")
+    del rows, got, want
+    nnz_out = c1.nnz
+    idx_bytes = a.coords.element_size() * 2 + a.data.element_size()
+    out_bytes = nnz_out * (c1.coords.element_size() * 2 + c1.data.element_size())
+    bound_ms = (2 * a.nnz * idx_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    del c1
+
+    # cuSPARSE on the same inputs, timed only
+    a_csr = a.asformat("csr")
+    csr = torch.sparse_csr_tensor(a_csr.indptr.long(), a_csr.indices.long(), a_csr.data, size=(M, K))
+    del a_csr
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lib = torch.sparse.mm(csr, csr)
+    torch.cuda.synchronize()
+    lib_peak = torch.cuda.max_memory_allocated() - base
+    lib_nnz = lib._nnz()
+    del lib
+    lib_ms = device_ms(lambda: torch.sparse.mm(csr, csr), reps=SG_REPS)
+    del csr
+    torch.cuda.empty_cache()
+
+    # the example's GCXS pair (examples/matmul_example.py), float64
+    rng = np.random.default_rng(0)
+    ex = {}
+    ea, eb = (_unique_draw(rng, SG_EX_LEN, SG_EX_DENSITY, np.float64) for _ in range(2))
+    sa, sb = (scipy.sparse.csr_matrix((v, (r, c)), shape=(SG_EX_LEN,) * 2) for r, c, v in (ea, eb))
+    want = sa @ sb
+    for fmt, ca in (("gcxs", (0,)), ("csc", (1,))):
+        ga, gb = (st.COO(np.stack([r, c]), v, shape=(SG_EX_LEN,) * 2, device=dev).asformat(fmt) for r, c, v in (ea, eb))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = ga @ gb
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not isinstance(g, st.GCXS) or g.compressed_axes != ca or g.data.device.type != "cuda":
+            raise AssertionError(f"example {fmt}: {g}")
+        err = float(abs(g.to_scipy_sparse().tocsr() - want).max())
+        if not err < SG_EX_ATOL:
+            raise AssertionError(f"example {fmt}: max |got - scipy| {err}")
+        ex[fmt] = {"compressed_axes": list(ca), "nnz": g.nnz, "max_abs_err_vs_scipy": err, "first_s": wall,
+                   "device_ms": device_ms(lambda: ga @ gb, reps=SG_REPS)}
+    ex_products = product_count(torch.as_tensor(ea[1]), torch.as_tensor(eb[0]), SG_EX_LEN)
+
+    # the traceable form in a CUDA graph (bench_regression.py:248-270's shape)
+    rng = np.random.default_rng(2)
+    ja, jb = (st.COO(np.stack([r, c]), v, shape=(SG_JIT_LEN,) * 2, device=dev)
+              for r, c, v in (_unique_draw(rng, SG_JIT_LEN, SG_JIT_DENSITY, np.float32) for _ in range(2)))
+    cap = max(product_count(ja.coords[1], jb.coords[0], SG_JIT_LEN), 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        st.jitops.spgemm(ja, jb, product_capacity=cap)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, nnz = st.jitops.spgemm(ja, jb, product_capacity=cap)
+    # new values in the captured buffers: the replay reads them
+    ja.data.copy_(torch.rand(ja.nnz, device=dev, generator=torch.Generator(device=dev).manual_seed(3)) + 0.5)
+    jb.data.copy_(torch.rand(jb.nnz, device=dev, generator=torch.Generator(device=dev).manual_seed(4)) + 0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = st.COO._make(ja.coords, ja.data, ja.shape, ja.fill_value) @ st.COO._make(jb.coords, jb.data, jb.shape, jb.fill_value)
+    n = int(nnz)
+    if n != eager.nnz or not torch.equal(out.coords[:, :n].long(), eager.coords.long()):
+        raise AssertionError(f"jitops.spgemm in a CUDA graph: {n} entries, eager {eager.nnz}, or coordinates differ")
+    torch.testing.assert_close(out.data[:n], eager.data, rtol=SG_GRAPH_RTOL, atol=0)
+    if bool((out.data[n:] != 0).any()) or bool((out.coords[:, n:] != 0).any()):
+        raise AssertionError("jitops.spgemm: padding is not zero")
+    graph_ms = device_ms(graph.replay, reps=SG_REPS)
+    ein = st.einsum("ij,jk->ik", ja, jb)
+    if not (torch.equal(ein.coords, eager.coords) and torch.equal(ein.data.view(torch.int32), eager.data.view(torch.int32))):
+        raise AssertionError("einsum('ij,jk->ik', s, s) differs from s @ s")
+    jit = {"shape": [SG_JIT_LEN] * 2, "nnz": [ja.nnz, jb.nnz], "product_capacity": cap, "nnz_out": n,
+           "graph_replay_ms": graph_ms, "eager_ms": device_ms(lambda: ja @ jb, reps=SG_REPS), "einsum_bit_for_bit": True}
+    del graph, out, nnz, eager, ein
+    torch.cuda.empty_cache()
+    return {
+        "spgemm_path": "ok",
+        "bench_square": {
+            "shape": [M, K], "nnz_a": a.nnz, "product_count": n_products, "nnz_out": nnz_out,
+            "device_ms": ms, "first_call_s": first_s, "peak_memory_bytes": peak,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
+            "cusparse_ms": lib_ms, "cusparse_peak_memory_bytes": lib_peak, "cusparse_nnz": lib_nnz,
+            "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms, "top5_kernels_ms_count": top},
+            "same_bits_twice": True, "coords_equal_scipy": True, "rtol_vs_f64": SG_RTOL, "scipy_oracle_s": oracle_s,
+        },
+        "example_gcxs": {"len": SG_EX_LEN, "density": SG_EX_DENSITY, "product_count": ex_products, **ex},
+        "jitops_cuda_graph": jit,
+        "launches": launches,
+        "seconds": time.perf_counter() - t_phase,
+        "card": card,
+    }
+
+
 ELEM_RTOL = 1e-6  # float32 results against the float64 scipy / bincount oracle
 ELEM_REPS = 5
 R_ROWS = 64  # stored rows of the (65,536, 1) column r
@@ -2265,6 +2454,9 @@ def main():
     # SDDMM and dense x sparse on the bench matrix
     sd_lines, _ = phase_sddmm_path(dev, a, card)
     lines += sd_lines
+    torch.cuda.empty_cache()
+    # sparse x sparse (SpGEMM) on the bench matrix and the example's shape
+    log(json.dumps(phase_spgemm_path(dev, a, card)))
     del a
     torch.cuda.empty_cache()
 

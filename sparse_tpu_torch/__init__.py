@@ -18,9 +18,15 @@ the block-sparse linear layer of ``nn`` (BSR forward, dgrad and wgrad
 kernels), the MTTKRP of a 3-D tensor (``jitops.mttkrp`` on a ``COO``,
 ``kernels.mttkrp`` and the block-ELL ``kernels.ell_mttkrp``, one CUDA
 kernel), the sampled dense-dense matmul ``sddmm`` (one CUDA kernel, with
-its gradient) and the rest of the products with one sparse operand: dense
-× sparse, 1-D and batched ``matmul``/``dot``, ``tensordot`` and
-``vecdot``.
+its gradient), the rest of the products with one sparse operand (dense ×
+sparse, 1-D and batched ``matmul``/``dot``, ``tensordot`` and ``vecdot``),
+the products of two sparse operands (SpGEMM: ``a @ b``, ``dot``,
+``matmul``, ``tensordot``, and the capacity-bounded ``jitops.spgemm``),
+``einsum``, ``concatenate``/``stack`` and ``diagonal``/``diagonalize``.
+
+``CSR``, ``CSC``, ``jitops``, ``kernels``, ``matvec_add``, ``nn``,
+``sddmm``, ``swapaxes`` and ``transpose`` are attributes, not names of
+``__all__``, which names only what ``sparse_tpu.__all__`` names.
 
 The namespace re-exports NumPy's ufuncs under ``sparse_tpu``'s names
 (``sparse_tpu_torch.add is np.add``): called on a sparse array they run on
@@ -116,6 +122,10 @@ from .core.coo import COO
 from .core.gcxs import CSC, CSR, GCXS
 from .ops.common import (
     broadcast_shapes,
+    concat,
+    concatenate,
+    diagonal,
+    diagonalize,
     equal,
     expand_dims,
     isfinite,
@@ -132,6 +142,7 @@ from .ops.common import (
     nanreduce,
     nansum,
     result_type,
+    stack,
     swapaxes,
     where,
 )
@@ -157,6 +168,7 @@ from .ops.creation import (
     var,
 )
 from .ops.dot import dot, matmul, matvec_add, sddmm, tensordot, vecdot
+from .ops.einsum import einsum
 from .ops.elemwise import broadcast_to, elemwise
 
 
@@ -172,8 +184,6 @@ def clip(a, min=None, max=None, out=None, *, a_min=None, a_max=None):  # noqa: A
 __all__ = sorted(
     [
         "COO",
-        "CSC",
-        "CSR",
         "GCXS",
         "SparseArray",
         "abs",
@@ -203,13 +213,18 @@ __all__ = sorted(
         "clip",
         "complex128",
         "complex64",
+        "concat",
+        "concatenate",
         "conj",
         "copysign",
         "cos",
         "cosh",
+        "diagonal",
+        "diagonalize",
         "divide",
         "dot",
         "e",
+        "einsum",
         "elemwise",
         "equal",
         "exp",
@@ -236,8 +251,6 @@ __all__ = sorted(
         "isnan",
         "isneginf",
         "isposinf",
-        "jitops",
-        "kernels",
         "less",
         "less_equal",
         "log",
@@ -251,7 +264,6 @@ __all__ = sorted(
         "logical_xor",
         "matmul",
         "matrix_transpose",
-        "matvec_add",
         "max",
         "maximum",
         "mean",
@@ -269,7 +281,6 @@ __all__ = sorted(
         "negative",
         "newaxis",
         "nextafter",
-        "nn",
         "not_equal",
         "permute_dims",
         "pi",
@@ -282,7 +293,6 @@ __all__ = sorted(
         "reshape",
         "result_type",
         "round",
-        "sddmm",
         "sign",
         "signbit",
         "sin",
@@ -290,14 +300,13 @@ __all__ = sorted(
         "sqrt",
         "square",
         "squeeze",
+        "stack",
         "std",
         "subtract",
         "sum",
-        "swapaxes",
         "tan",
         "tanh",
         "tensordot",
-        "transpose",
         "trunc",
         "uint16",
         "uint32",

@@ -56,11 +56,46 @@ def signed_view(t):
 
 
 def take(t, index):
-    """``t[index]`` (index tensors or a boolean mask); the unsigned types
-    wider than 8 bits, which CUDA's indexing lacks, through their signed
-    view (the same bits)."""
+    """``t[index]`` (index tensors, a tuple of them or a boolean mask); the
+    unsigned types wider than 8 bits, which CUDA's indexing lacks, through
+    their signed view (the same bits)."""
     signed = _SIGNED.get(t.dtype)
     return t[index] if signed is None else t.view(signed)[index].view(t.dtype)
+
+
+# index dtypes torch cannot index or add with (a uint8 index is even read as
+# a mask), widened where they are used: the stored coordinates keep them
+_WIDE_INDEX = {
+    torch.int8: torch.int32,
+    torch.int16: torch.int32,
+    torch.uint8: torch.int32,
+    torch.uint16: torch.int32,
+    torch.uint32: torch.int64,
+    torch.uint64: torch.int64,
+}
+
+
+def wide_index(t):
+    """The index tensor ``t`` in a dtype torch indexes and computes with:
+    int8/int16/uint8/uint16 as int32, uint32/uint64 as int64, int32 and
+    int64 as they are (no copy)."""
+    wide = _WIDE_INDEX.get(t.dtype)
+    return t if wide is None else t.to(wide)
+
+
+def coords_dtype(given, max_extent):
+    """The index dtype a COO stores for coordinates given in ``given``
+    (NumPy or torch) and an array whose largest extent is ``max_extent``:
+    int32 or int64 (``index_dtype_for``), unless ``given`` is a narrower
+    integer type, which is kept with the least upcast the extent needs
+    (uint8 → uint16), as ``sparse_tpu``'s COO keeps it."""
+    out = index_dtype_for(max_extent)
+    given = numpy_dtype(given)
+    if np.issubdtype(given, np.integer) and given.itemsize < out.itemsize:
+        small = get_out_dtype(given, max_extent)
+        if small.itemsize < out.itemsize:
+            out = small
+    return out
 
 
 def select(cond, a, b):
@@ -261,7 +296,7 @@ def check_consistent_fill_value(arrays):
         raise ValueError("At least one array required.")
     fv = arrays[0].fill_value
     for i, arr in enumerate(arrays):
-        if not bool(np.all(equivalent(torch.as_tensor(np.asarray(arr.fill_value)), fv))):
+        if not bool(equivalent(torch.as_tensor(np.asarray(arr.fill_value)), fv).all()):
             raise ValueError(
                 f"This operation requires consistent fill-values, but argument {i} has fill value {arr.fill_value!s}"
                 f" while argument 0 has fill value {fv!s}."

@@ -29,6 +29,7 @@ from .._utils import (
     check_zero_fill_value,
     equivalent,
     full,
+    coords_dtype,
     get_out_dtype,
     index_dtype_for,
     normalize_axis,
@@ -37,6 +38,7 @@ from .._utils import (
     signed_view,
     take,
     torch_dtype,
+    wide_index,
     zero_of_dtype,
 )
 from .base import SparseArray
@@ -119,7 +121,10 @@ class COO(SparseArray):
         if isinstance(coords, torch.Tensor):
             coords = _as_tensor(coords, device, None if _is_int(coords.dtype) else torch.int64)
         else:
-            coords = _as_tensor(np.asarray(coords).astype(np.int64, copy=False), device)
+            coords = np.asarray(coords)
+            if not np.issubdtype(coords.dtype, np.integer):
+                coords = coords.astype(np.int64)
+            coords = _as_tensor(coords, device)
         data = _as_tensor(data, device)
         if coords.ndim == 1:
             if shape is not None and tuple(np.atleast_1d(shape)) == () and coords.numel() == 0:
@@ -137,8 +142,9 @@ class COO(SparseArray):
 
         if coords.numel():
             # one host read for the inference and the bounds check
-            cmin = int(coords.amin())
-            cmax = coords.amax(dim=1).tolist()
+            wide = wide_index(coords)
+            cmin = int(wide.amin())
+            cmax = wide.amax(dim=1).tolist()
         else:
             cmin, cmax = 0, [-1] * coords.shape[0]
         if shape is None:
@@ -156,7 +162,9 @@ class COO(SparseArray):
             if not can_store(idx_dtype, max_extent):
                 raise ValueError(f"cannot cast array with shape {shape} to dtype {idx_dtype}.")
         else:
-            idx_dtype = index_dtype_for(max_extent)
+            # narrow input coordinates are kept, widened only as far as the
+            # shape needs
+            idx_dtype = coords_dtype(coords.dtype, max_extent)
         self.coords = coords.to(torch_dtype(idx_dtype))
         self.data = data
         super().__init__(shape, fill_value=fill_value)
@@ -252,7 +260,7 @@ class COO(SparseArray):
         keep their input order). Returns the sorted linear keys."""
         if lin.numel() > 1 and not bool((lin[1:] >= lin[:-1]).all()):
             lin, order = torch.sort(lin, stable=True)
-            self.coords = self.coords[:, order]
+            self.coords = take(self.coords, (slice(None), order))
             self.data = take(self.data, order)
         return lin
 
@@ -271,12 +279,12 @@ class COO(SparseArray):
         sums = torch.full((uniq.numel(),), seed, dtype=dt, device=lin.device)
         signed_view(sums).index_add_(0, inverse, signed_view(self.data))  # booleans add as "or"
         self.data = sums
-        self.coords = self.coords[:, starts]
+        self.coords = take(self.coords, (slice(None), starts))
 
     def _prune(self):
         mask = ~equivalent(self.data, self.fill_value)
         if not bool(mask.all()):
-            self.coords = self.coords[:, mask]
+            self.coords = take(self.coords, (slice(None), mask))
             self.data = take(self.data, mask)
 
     # -- constructors ----------------------------------------------------------------
@@ -323,6 +331,28 @@ class COO(SparseArray):
             fill_value=fill_value,
             device=device,
         )
+
+    @classmethod
+    def from_iter(cls, x, shape, fill_value=None, dtype=None, device=None):
+        """A COO from an iterable of ``(coords, value)`` pairs or a dict
+        ``{coords: value}`` (``dtype`` for the values; an empty input holds
+        no entry, float64 unless ``dtype`` says otherwise)."""
+        if isinstance(x, dict):
+            x = list(x.items())
+        x = list(x)
+        if len(x) == 0:
+            return cls(
+                np.empty((len(shape), 0), dtype=np.intp),
+                np.empty((0,), dtype=dtype if dtype is not None else np.float64),
+                shape=shape,
+                fill_value=fill_value,
+                device=device,
+            )
+        if not all(isinstance(item, tuple) and len(item) == 2 for item in x):
+            raise ValueError("Invalid iterable to convert to COO.")
+        coords = np.stack([np.atleast_1d(np.asarray(c)) for c, _ in x], axis=1)
+        data = np.asarray([v for _, v in x], dtype=dtype)
+        return cls(coords, data, shape=shape, fill_value=fill_value, device=device)
 
     # -- properties ------------------------------------------------------------------
     @property
@@ -450,8 +480,8 @@ class COO(SparseArray):
 
         def compute():
             shape = tuple(self.shape[ax] for ax in axes)
-            dt = torch_dtype(index_dtype_for(max(shape) if shape else 0))
-            coords = self.coords[list(axes), :]
+            dt = torch_dtype(coords_dtype(self.coords.dtype, max(shape) if shape else 0))
+            coords = wide_index(self.coords)[list(axes), :]
             if axes == (1, 0):
                 order = torch.sort(coords[0], stable=True).indices
             else:
@@ -489,7 +519,7 @@ class COO(SparseArray):
             if self.ndim == 2 and len(shape) == 2 and self.nnz and all(shape):
                 k_old, k_new = self.shape[1], shape[1]
                 dt = torch_dtype(get_out_dtype(numpy_dtype(self.coords.dtype), max_extent))
-                r, c = self.coords[0].to(dt), self.coords[1].to(dt)
+                r, c = wide_index(self.coords[0]), wide_index(self.coords[1])
                 coords = None
                 if k_old % k_new == 0:
                     q = k_old // k_new
@@ -498,8 +528,8 @@ class COO(SparseArray):
                     q = k_new // k_old
                     coords = torch.stack([r // q, (r % q) * k_old + c])
                 if coords is not None:
-                    return COO._make(coords, self.data, shape, self.fill_value)
-            dt = torch_dtype(index_dtype_for(max_extent))
+                    return COO._make(coords.to(dt), self.data, shape, self.fill_value)
+            dt = torch_dtype(coords_dtype(get_out_dtype(numpy_dtype(self.coords.dtype), max_extent), max_extent))
             if not shape:
                 return COO._make(torch.zeros((0, self.nnz), dtype=dt, device=self.device), self.data, shape, self.fill_value)
             lin = self.linear_loc()
@@ -573,7 +603,7 @@ class COO(SparseArray):
         neg_shape = tuple(self.shape[ax] for ax in neg_axis)
         keep = math.prod(neg_shape)
         red = math.prod(self.shape[ax] for ax in axis)
-        keys = _linearize(self.coords[list(neg_axis)], neg_shape)
+        keys = _linearize(take(self.coords, list(neg_axis)), neg_shape)
         data = self.data
         if neg_axis != tuple(range(len(neg_axis))):
             # the kept axes do not lead: group by a stable sort of their key
@@ -618,7 +648,7 @@ class COO(SparseArray):
         check_zero_fill_value(self, func_name="to_row_ell")
 
         def compute():
-            coords = self.coords.cpu().numpy()
+            coords = wide_index(self.coords).cpu().numpy()
             return build_row_ell(
                 coords[0],
                 coords[1],

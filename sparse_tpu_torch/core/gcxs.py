@@ -25,8 +25,9 @@ uncompressed axes one segment reduce with ``indptr`` as its offsets, an add
 over exactly the compressed axes on runs of ``indices``, anything else
 through the COO. Elementwise operations on GCXS operands return a GCXS.
 
-Not ported yet (``NotImplementedError``): indexing, ``concatenate``/``stack``
-of GCXS arrays, ``from_iter`` and the DOK format.
+``concatenate_gcxs``/``stack_gcxs`` splice the inputs' storage on the device.
+
+Not ported yet (``NotImplementedError``): indexing and the DOK format.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from .._utils import (
     can_store,
     check_fill_value,
     convert_format,
+    coords_dtype,
     equivalent,
     get_out_dtype,
     index_dtype_for,
@@ -290,8 +292,10 @@ class GCXS(SparseArray):
         )
 
     @classmethod
-    def from_iter(cls, x, shape, fill_value=None, compressed_axes=None, dtype=None):
-        raise not_ported("GCXS.from_iter")
+    def from_iter(cls, x, shape, fill_value=None, compressed_axes=None, dtype=None, device=None):
+        """``COO.from_iter`` compressed along ``compressed_axes``."""
+        coo = COO.from_iter(x, shape=shape, fill_value=fill_value, dtype=dtype, device=device)
+        return cls.from_coo(coo, compressed_axes=compressed_axes)
 
     # -- properties ---------------------------------------------------------------------
     @property
@@ -356,12 +360,13 @@ class GCXS(SparseArray):
     # -- conversions ----------------------------------------------------------------------
     def tocoo(self):
         """The canonical COO of the same entries, on the array's device. Its
-        coordinates take the port's COO index dtype (int32 where the shape
-        fits; narrower index dtypes widen, as a COO's do)."""
+        coordinates keep a narrow ``indices`` dtype with the least upcast the
+        shape needs, and are int32/int64 otherwise, as ``sparse_tpu``'s."""
         nnz = self.nnz
         comp = self.compressed_axes
         uncomp = tuple(a for a in range(self.ndim) if a not in comp)
-        dt = torch_dtype(index_dtype_for(max(self.shape) if self.shape else 0))
+        extent = max(self.shape) if self.shape else 0
+        dt = torch_dtype(coords_dtype(get_out_dtype(numpy_dtype(self.indices.dtype), extent), extent))
         coords = torch.empty((self.ndim, nnz), dtype=dt, device=self.device)
         if comp:
             rows = uncompress_indptr(self.indptr, nnz)
@@ -375,7 +380,7 @@ class GCXS(SparseArray):
             # the entries lie in the compressed key's order, not row-major:
             # sorted with no check, which would read a bool back to the host
             order = torch.sort(coo.linear_loc(), stable=True).indices
-            coo.coords, coo.data = coords[:, order], take(self.data, order)
+            coo.coords, coo.data = take(coords, (slice(None), order)), take(self.data, order)
         return coo
 
     def todense(self):
@@ -733,9 +738,87 @@ class CSC(_Compressed2d):
         return "csc"
 
 
+def _check_devices(arrays):
+    devices = {x.device for x in arrays}
+    if len(devices) > 1:
+        raise ValueError(f"arrays lie on different devices: {sorted(map(str, devices))}")
+
+
 def concatenate_gcxs(arrays, axis=0):
-    raise not_ported("concatenate of GCXS arrays")
+    """Concatenate GCXS arrays along ``axis`` by splicing their storage on the
+    device. Compressed along exactly ``(axis,)`` (inputs compressed otherwise
+    are re-compressed first), the flattened matrices stack vertically:
+    ``indices`` and ``data`` concatenate as they are and each later
+    ``indptr`` is shifted by the entries before it. The index dtype is the
+    inputs' with the least upcast the result needs (``get_out_dtype``)."""
+    from .._utils import check_consistent_fill_value, result_dtype
+
+    check_consistent_fill_value(arrays)
+    _check_devices(arrays)
+    ndim = arrays[0].ndim
+    axis = normalize_axis(axis, ndim)
+    shape = list(arrays[0].shape)
+    shape[axis] = sum(int(x.shape[axis]) for x in arrays)
+    for x in arrays:
+        if x.ndim != ndim:
+            raise ValueError("all the input array dimensions must match exactly")
+        for d in range(ndim):
+            if d != axis and x.shape[d] != shape[d]:
+                raise ValueError("all the input array dimensions except for the concatenation axis must match exactly")
+
+    arrays = [x.change_compressed_axes((axis,)) for x in arrays]
+    total_nnz = sum(x.nnz for x in arrays)
+    col_size = arrays[0]._compressed_shape[1]
+    in_idx = np.result_type(*[numpy_dtype(x.indices.dtype) for x in arrays])
+    tdt = torch_dtype(get_out_dtype(in_idx, max(shape[axis], col_size, total_nnz, 1)))
+    device = arrays[0].device
+    parts, nnz_off = [torch.zeros(1, dtype=torch.int64, device=device)], 0
+    for x in arrays:
+        parts.append(x.indptr[1:].long() + nnz_off)
+        nnz_off += x.nnz
+    indptr = torch.cat(parts).to(tdt)
+    indices = torch.cat([x.indices.long() for x in arrays]).to(tdt)
+    dt = result_dtype(*[x.dtype for x in arrays])
+    data = torch.cat([x.data.to(dt) for x in arrays])
+    return GCXS._make(data, indices, indptr, tuple(shape), (axis,), arrays[0].fill_value)
 
 
 def stack_gcxs(arrays, axis=0):
-    raise not_ported("stack of GCXS arrays")
+    """Stack GCXS arrays along a new ``axis`` by splicing their storage on the
+    device. Compressed along ``(axis,)``, the flattened result has one row per
+    input, whose column indices are that input's C-order linear locations:
+    the compressed row and index of each entry when its compressed axes
+    lead (its storage order is C order), else its canonical COO's."""
+    from .._utils import check_consistent_fill_value, result_dtype
+
+    check_consistent_fill_value(arrays)
+    _check_devices(arrays)
+    if len({x.shape for x in arrays}) > 1:
+        raise ValueError("all input arrays must have the same shape")
+    ndim = arrays[0].ndim
+    axis = normalize_axis(axis, ndim + 1)
+    in_shape = arrays[0].shape
+    col_size = math.prod(in_shape)
+    total_nnz = sum(x.nnz for x in arrays)
+    in_idx = np.result_type(*[numpy_dtype(x.indices.dtype) for x in arrays])
+    tdt = torch_dtype(get_out_dtype(in_idx, max(len(arrays), col_size, total_nnz, 1)))
+    dt = result_dtype(*[x.dtype for x in arrays])
+
+    locs, datas = [], []
+    for x in arrays:
+        ca = x.compressed_axes
+        if ca == tuple(range(len(ca))):
+            rows = uncompress_indptr(x.indptr, x.nnz)
+            locs.append(rows * x._compressed_shape[1] + x.indices.long())
+            datas.append(x.data)
+        else:
+            coo = x.tocoo()
+            locs.append(coo.linear_loc())
+            datas.append(coo.data)
+    indices = torch.cat(locs).to(tdt)
+    data = torch.cat([d.to(dt) for d in datas])
+    counts = torch.tensor([0] + [x.nnz for x in arrays], dtype=torch.int64)
+    indptr = torch.cumsum(counts, 0).to(device=arrays[0].device, dtype=tdt)
+    shape = list(in_shape)
+    shape.insert(axis, len(arrays))
+    return GCXS._make(data, indices, indptr, tuple(shape), (axis,), arrays[0].fill_value)

@@ -4,10 +4,11 @@ Functions with static output sizes and no read back to the host, which a
 later ``torch.compile`` can take: the pattern-preserving ``spmm``, ``spmv``,
 ``sddmm``, ``mttkrp``, ``sum_dense``, ``scale``, ``map_data``,
 ``add_same_pattern``, ``mul_same_pattern`` and ``transpose`` (a
-permutation of the entries), and the capacity-bounded ``union_elemwise``.
-A 2-D CSR/CSC ``GCXS`` gives ``spmm``/``spmv`` its triplet through a
-device ``searchsorted`` of its ``indptr``. ``spgemm`` waits for the port of
-SpGEMM.
+permutation of the entries), and the capacity-bounded ``union_elemwise``
+and ``spgemm`` (``kernels.spgemm.esc_spgemm``: it reads nothing back, so it
+can be captured in a CUDA graph). A 2-D CSR/CSC ``GCXS`` gives
+``spmm``/``spmv`` its triplet through a device ``searchsorted`` of its
+``indptr``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .core.coo import COO, _as_tensor, _linearize
 from .core.gcxs import GCXS
 from .kernels import dot as _kdot
 from .kernels.elemwise import coo_elemwise_union
+from .kernels.spgemm import esc_spgemm
 
 
 def _triplet(a):
@@ -131,9 +133,9 @@ def transpose(a: COO, axes=None):
     if axes == tuple(range(ndim)):
         return a
     new_shape = tuple(a.shape[ax] for ax in axes)
-    coords = a.coords[list(axes), :]
+    coords = take(a.coords, list(axes))
     order = torch.sort(_linearize(coords, new_shape), stable=True).indices
-    return COO._make(coords[:, order], take(a.data, order), new_shape, a.fill_value)
+    return COO._make(take(coords, (slice(None), order)), take(a.data, order), new_shape, a.fill_value)
 
 
 def union_elemwise(func, a: COO, b: COO):
@@ -153,3 +155,31 @@ def union_elemwise(func, a: COO, b: COO):
     lin_safe = torch.where(lin_out >= size, torch.zeros_like(lin_out), lin_out)
     coords = _unravel(lin_safe, a.shape, a.coords.dtype)
     return COO._make(coords, data_out, a.shape, fill_out), nnz_out
+
+
+def spgemm(a: COO, b: COO, *, product_capacity, out_capacity=None):
+    """Capacity-bounded ``a @ b`` of two 2-D zero-fill canonical COO arrays,
+    with no read back to the host. ``product_capacity`` must bound the
+    number of partial products (``kernels.spgemm.product_count`` counts
+    them). Returns ``(out, nnz)``: ``out`` holds ``out_capacity`` entries
+    (default ``product_capacity``), those past the 0-d tensor ``nnz`` being
+    padding (coordinates 0, value 0); its coordinates take ``a``'s index
+    dtype. Computed zeros are kept."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError("traceable spgemm supports 2-D operands")
+    if out_capacity is None:
+        out_capacity = product_capacity
+    out_rows, out_cols, out_data, out_nnz = esc_spgemm(
+        *a.coords,
+        a.data,
+        *b.coords,
+        b.data,
+        k=a.shape[1],
+        n=b.shape[1],
+        product_capacity=product_capacity,
+        out_capacity=out_capacity,
+    )
+    rows = torch.where(out_rows == np.iinfo(np.int32).max, 0, out_rows)
+    coords = torch.stack([rows, out_cols]).to(a.coords.dtype)
+    out = COO._make(coords, out_data, (a.shape[0], b.shape[1]), zero_of_dtype(numpy_dtype(out_data.dtype)))
+    return out, out_nnz

@@ -10,8 +10,9 @@ not take (``dense_coo_matmul`` too), the sorted-COO MTTKRP, the SDDMM
 ``coo_sum_axes_dense``. Both MTTKRP forms run one CUDA kernel
 (``csrc/mttkrp.cu``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
-runs) and ``elemwise`` (the traceable union of two COO operands) are torch
-ops: the JAX package leaves their work to XLA.
+runs), ``elemwise`` (the traceable union of two COO operands) and
+``spgemm`` (sparse × sparse, eager and capacity-bounded, with
+``product_count``) are torch ops: the JAX package leaves their work to XLA.
 """
 
 from ._cuda import LAUNCHES, reset_launch_counts
@@ -31,6 +32,7 @@ from .bsr import (
 from .dot import coo_spmm, coo_spmv, coo_sum_axes_dense, dense_coo_matmul, mttkrp, mttkrp_plain, sddmm, sddmm_plain
 from .elemwise import coo_elemwise_union
 from .segment import segment_reduce, segment_sum_onehot_mm
+from .spgemm import esc_spgemm, product_count
 from .ell import (
     DEFAULT_BLOCK_ROWS,
     BlockEll,
@@ -82,8 +84,10 @@ __all__ = [
     "ell_mttkrp_plain",
     "ell_spmm",
     "ell_spmv",
+    "esc_spgemm",
     "mttkrp",
     "mttkrp_plain",
+    "product_count",
     "reset_launch_counts",
     "row_ell_spmm",
     "row_ell_spmm_program",

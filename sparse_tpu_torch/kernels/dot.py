@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from .._utils import result_dtype, signed_view
+from .._utils import result_dtype, signed_view, wide_index
 from . import _cuda
 
 
@@ -215,6 +215,7 @@ def mttkrp(coords_i, coords_j, coords_k, data, c, d, *, n_rows):
     read one flag vector back from the device."""
     tensors = (("coords_i", coords_i), ("coords_j", coords_j), ("coords_k", coords_k), ("data", data))
     check_mttkrp_operands("mttkrp", tensors, c, d)
+    coords_i, coords_j, coords_k = wide_index(coords_i), wide_index(coords_j), wide_index(coords_k)
     if not coords_i.ndim == coords_j.ndim == coords_k.ndim == data.ndim == 1 or not (
         coords_i.shape == coords_j.shape == coords_k.shape == data.shape
     ):
@@ -374,6 +375,7 @@ def sddmm(rows, cols, sample_data, lhs, rhs):
         raise ValueError("sddmm: rows, cols and sample_data must be 1-D of one length")
     dt = result_dtype(sample_data.dtype, lhs.dtype, rhs.dtype)
     sample_data, lhs, rhs = sample_data.to(dt), lhs.to(dt), rhs.to(dt)
+    rows, cols = wide_index(rows), wide_index(cols)
     if dt in _KERNEL_DTYPES:
         return _Sddmm.apply(rows, cols, sample_data, lhs, rhs)
     return sddmm_plain(rows, cols, sample_data, lhs, rhs)

@@ -1,9 +1,10 @@
-"""The parts of ``sparse_tpu.ops.common`` built on elementwise operations and
-reductions: the nan-skipping reductions, ``where``, the float predicates,
-``equal``, ``result_type``, ``expand_dims``, ``matrix_transpose``,
-``broadcast_shapes``, ``moveaxis`` and ``swapaxes``. The rest of the module
-(concatenate/stack, kron, triu/tril, argmax, sort, unique, ...) is not
-ported yet.
+"""The parts of ``sparse_tpu.ops.common`` ported so far: the nan-skipping
+reductions, ``where``, the float predicates, ``equal``, ``result_type``,
+``expand_dims``, ``matrix_transpose``, ``broadcast_shapes``, ``moveaxis``,
+``swapaxes``, ``concatenate``/``concat``/``stack`` (COO on the device;
+all-GCXS inputs by ``concatenate_gcxs``/``stack_gcxs``) and
+``diagonal``/``diagonalize``. The rest of the module (kron, triu/tril,
+argmax, sort, unique, ...) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,12 +16,27 @@ from functools import reduce as _functools_reduce
 import numpy as np
 import torch
 
-from .._utils import check_zero_fill_value, index_dtype_for, normalize_axis, numpy_dtype, torch_dtype
+from .._utils import (
+    check_consistent_fill_value,
+    check_zero_fill_value,
+    get_out_dtype,
+    index_dtype_for,
+    normalize_axis,
+    numpy_dtype,
+    result_dtype,
+    take,
+    torch_dtype,
+    wide_index,
+)
 from ..core.base import SparseArray
 from ..core.coo import COO
 
 __all__ = [
     "broadcast_shapes",
+    "concat",
+    "concatenate",
+    "diagonal",
+    "diagonalize",
     "equal",
     "expand_dims",
     "isfinite",
@@ -37,6 +53,7 @@ __all__ = [
     "nanreduce",
     "nansum",
     "result_type",
+    "stack",
     "swapaxes",
     "where",
 ]
@@ -271,3 +288,146 @@ def moveaxis(a, source, destination):
 
 def swapaxes(a, axis1, axis2):
     return a.swapaxes(axis1, axis2)
+
+
+# ---------------------------------------------------------------------------
+# concatenate / stack
+# ---------------------------------------------------------------------------
+
+
+def _coo_parts(arrays):
+    """The COOs' data in their promoted dtype, their coordinates' promoted
+    dtype and their device."""
+    devices = {x.device for x in arrays}
+    if len(devices) > 1:
+        raise ValueError(f"arrays lie on different devices: {sorted(map(str, devices))}")
+    dt = result_dtype(*[x.dtype for x in arrays])
+    data = torch.cat([x.data.to(dt) for x in arrays])
+    in_idx = np.result_type(*[numpy_dtype(x.coords.dtype) for x in arrays])
+    return data, in_idx, devices.pop()
+
+
+def _per_entry(values, arrays, device):
+    """``values[i]`` repeated for each entry of ``arrays[i]``, built on
+    ``device``."""
+    counts = [x.nnz for x in arrays]
+    return torch.repeat_interleave(
+        torch.as_tensor(values, dtype=torch.int64).to(device), torch.tensor(counts).to(device), output_size=sum(counts)
+    )
+
+
+def concatenate(arrays, axis=0):
+    """Join sparse arrays along an existing ``axis`` (``None``: flattened),
+    on their device: the coordinates concatenated with each input's offset
+    along ``axis``. All-GCXS inputs of two or more dimensions splice their
+    storage (``concatenate_gcxs``); 1-D GCXS inputs give a GCXS too."""
+    from ..core.gcxs import GCXS, concatenate_gcxs
+
+    arrays = list(arrays)
+    all_gcxs = all(isinstance(a, GCXS) for a in arrays)
+    if all_gcxs and axis is not None and arrays and arrays[0].ndim >= 2:
+        return concatenate_gcxs(arrays, axis=axis)
+    arrays = [_validate_coo_input(a) for a in arrays]
+    check_consistent_fill_value(arrays)
+    if axis is None:
+        axis = 0
+        arrays = [a.flatten() for a in arrays]
+    axis = normalize_axis(axis, arrays[0].ndim)
+    shape = list(arrays[0].shape)
+    shape[axis] = sum(x.shape[axis] for x in arrays)
+    for x in arrays:
+        if len(x.shape) != len(shape):
+            raise ValueError("all the input array dimensions must match exactly")
+        for d in range(len(shape)):
+            if d != axis and x.shape[d] != shape[d]:
+                raise ValueError("all the input array dimensions except for the concatenation axis must match exactly")
+
+    data, in_idx, device = _coo_parts(arrays)
+    idx_dtype = torch_dtype(get_out_dtype(in_idx, max(max(shape), 1)))
+    coords = torch.cat([wide_index(x.coords).long() for x in arrays], dim=1)
+    offsets = np.cumsum([0] + [x.shape[axis] for x in arrays[:-1]])
+    coords[axis] += _per_entry(offsets, arrays, device)
+    out = COO(
+        coords.to(idx_dtype),
+        data,
+        shape=tuple(shape),
+        has_duplicates=False,
+        sorted=(axis == 0),
+        fill_value=arrays[0].fill_value,
+    )
+    return out.asformat("gcxs") if all_gcxs else out
+
+
+concat = concatenate
+
+
+def stack(arrays, axis=0):
+    """Join same-shape sparse arrays along a new ``axis``, on their device:
+    each input's coordinates with its position inserted at ``axis``. All-GCXS
+    inputs of two or more dimensions splice their storage (``stack_gcxs``)."""
+    from ..core.gcxs import GCXS, stack_gcxs
+
+    arrays = list(arrays)
+    all_gcxs = all(isinstance(a, GCXS) for a in arrays)
+    if all_gcxs and arrays and arrays[0].ndim >= 2:
+        return stack_gcxs(arrays, axis=axis)
+    arrays = [_validate_coo_input(a) for a in arrays]
+    check_consistent_fill_value(arrays)
+    if len({x.shape for x in arrays}) > 1:
+        raise ValueError("all input arrays must have the same shape")
+    axis = normalize_axis(axis, arrays[0].ndim + 1)
+    shape = list(arrays[0].shape)
+    shape.insert(axis, len(arrays))
+
+    data, in_idx, device = _coo_parts(arrays)
+    idx_dtype = torch_dtype(get_out_dtype(in_idx, max(max(shape), 1)))
+    coords = torch.cat([wide_index(x.coords).long() for x in arrays], dim=1)
+    new_row = _per_entry(np.arange(len(arrays)), arrays, device)
+    coords = torch.cat([coords[:axis], new_row[None, :], coords[axis:]])
+    out = COO(
+        coords.to(idx_dtype),
+        data,
+        shape=tuple(shape),
+        has_duplicates=False,
+        sorted=(axis == 0),
+        fill_value=arrays[0].fill_value,
+    )
+    return out.asformat("gcxs") if all_gcxs else out
+
+
+# ---------------------------------------------------------------------------
+# diagonals
+# ---------------------------------------------------------------------------
+
+
+def diagonal(a, offset=0, axis1=0, axis2=1):
+    """The diagonal of ``a`` over ``axis1`` and ``axis2`` (``offset`` above
+    it), as a COO whose last axis runs along the diagonal, the other axes
+    kept in order: the entries with ``i + offset == j``, selected on the
+    device."""
+    a = _validate_coo_input(a)
+    if a.shape[axis1] != a.shape[axis2]:
+        raise ValueError("a.shape[axis1] != a.shape[axis2]")
+    diag_axes = [axis for axis in range(a.ndim) if axis not in (axis1, axis2)] + [axis1]
+    diag_shape = [a.shape[axis] for axis in diag_axes]
+    diag_shape[-1] -= abs(offset)
+
+    wide = wide_index(a.coords)
+    idx = torch.nonzero(wide[axis1].long() + offset == wide[axis2]).flatten()
+    diag_coords = [take(a.coords[axis], idx) for axis in diag_axes[:-1]]
+    diag_coords.append(take(a.coords[axis1] if offset >= 0 else a.coords[axis2], idx))
+    return COO(torch.stack(diag_coords), take(a.data, idx), shape=tuple(diag_shape), fill_value=a.fill_value)
+
+
+def diagonalize(a, axis=0):
+    """``a`` with a new last axis that repeats ``axis``: entry ``x[..., i,
+    ..., i]`` of the result holds ``a[..., i, ...]``, the rest the fill."""
+    if isinstance(a, SparseArray):
+        a = a.asformat("coo")
+    elif isinstance(a, torch.Tensor):
+        a = COO.from_numpy(a.cpu().numpy(), device=a.device)
+    else:
+        a = COO.from_numpy(np.asarray(a))
+    diag_shape = a.shape + (a.shape[axis],)
+    diag_coords = torch.cat([a.coords, a.coords[axis][None, :]])
+    return COO(diag_coords, a.data, shape=diag_shape, fill_value=a.fill_value)

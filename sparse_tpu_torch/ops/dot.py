@@ -1,9 +1,11 @@
-"""Matmul family with one sparse operand: ``tensordot``, ``matmul``,
-``dot``, ``vecdot``, ``sddmm`` and the fused ``matvec_add``, with the
-semantics of ``sparse_tpu.ops.dot``:
+"""Matmul family: ``tensordot``, ``matmul``, ``dot``, ``vecdot``, ``sddmm``
+and the fused ``matvec_add``, with the semantics of ``sparse_tpu.ops.dot``:
 
 - a product with one dense operand returns a dense tensor on the sparse
   operand's device (``return_type`` may ask for a COO or GCXS);
+- a product of two sparse operands (SpGEMM) returns a COO when both are
+  COO and a GCXS compressed like the first GCXS operand otherwise
+  (``return_type`` ``np.ndarray``/``torch.Tensor`` gives a dense tensor);
 - all operands must have zero fill values (``ValueError`` otherwise);
 - ``matmul`` warns "Nan will not be propagated in matrix multiplication";
 - dtypes promote as NumPy's do (``np.promote_types``).
@@ -15,9 +17,10 @@ the GPU); dense × sparse runs there too, as ``(bᵀ @ aᵀ)ᵀ`` on the cached
 transpose of ``b``. Other dtypes take the COO gather + ``index_add_`` path
 (``kernels.dot``). ``sddmm`` runs ``kernels.sddmm`` (K4 on the GPU).
 1-D operands, batched (N-D) ``matmul`` and ``tensordot`` reduce to these
-2-D products. sparse × sparse products of 2-D operands (SpGEMM) are not
-ported yet and raise ``NotImplementedError``; sparse 1-D · 1-D runs as
-``(a * b).sum()``.
+2-D products; sparse 1-D · 1-D runs as ``(a * b).sum()``. Sparse × sparse
+runs ``kernels.spgemm.spgemm`` on the operands' device (expand, one stable
+sort, run sums in a fixed order, computed zeros dropped); two CSR or two CSC
+operands build the GCXS result straight from the product's rows.
 """
 
 from __future__ import annotations
@@ -30,18 +33,20 @@ import torch
 from .._utils import (
     check_zero_fill_value,
     equivalent,
-    not_ported,
+    index_dtype_for,
     numpy_dtype,
     result_dtype,
     signed_view,
     take,
     torch_dtype,
+    uncompress_indptr,
     zero_of_dtype,
 )
 from ..core.base import SparseArray
 from ..core.coo import COO
 from ..core.gcxs import GCXS
 from ..kernels import dot as kdot
+from ..kernels import spgemm as kspgemm
 from ..kernels.row_ell import row_ell_spmm_program, row_ell_spmv
 
 __all__ = ["tensordot", "matmul", "dot", "vecdot", "matvec_add", "sddmm"]
@@ -82,10 +87,15 @@ def _dense_operand(x, device):
 
 
 def _operands(a, b):
-    """``(a, b)`` with the dense one as a tensor on the sparse one's device.
-    Two dense operands raise: the package multiplies sparse arrays."""
+    """``(a, b)`` with the dense one as a tensor on the sparse one's device;
+    two sparse operands on two devices raise. Two dense operands raise: the
+    package multiplies sparse arrays."""
     if isinstance(a, SparseArray):
-        return a, b if isinstance(b, SparseArray) else _dense_operand(b, a.device)
+        if isinstance(b, SparseArray):
+            if a.device != b.device:
+                raise ValueError(f"sparse operands lie on different devices, {a.device} and {b.device}; move one of them first")
+            return a, b
+        return a, _dense_operand(b, a.device)
     if isinstance(b, SparseArray):
         return _dense_operand(a, b.device), b
     raise NotImplementedError("sparse_tpu_torch multiplies sparse arrays; use torch.matmul for dense × dense")
@@ -110,12 +120,6 @@ def _has_nan(x):
 def _warn_nan(*operands, stacklevel):
     if any(_has_nan(x) for x in operands):
         warnings.warn("Nan will not be propagated in matrix multiplication", RuntimeWarning, stacklevel=stacklevel + 1)
-
-
-def _check_ported(a, b):
-    """sparse × sparse of 2-D (or batched) operands is SpGEMM, not yet ported."""
-    if isinstance(a, SparseArray) and isinstance(b, SparseArray) and max(a.ndim, b.ndim) > 1:
-        raise not_ported("sparse × sparse matmul (SpGEMM)")
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +220,7 @@ def _empty_result(a, b, olda, oldb, return_type):
     if return_type in _DENSE_TYPES or (return_type is None and not both_sparse):
         return torch.zeros(shape, dtype=dt, device=device)
     return COO._make(
-        torch.empty((len(shape), 0), dtype=torch.int64, device=device),
+        torch.empty((len(shape), 0), dtype=torch_dtype(index_dtype_for(max(shape, default=0))), device=device),
         torch.empty((0,), dtype=dt, device=device),
         shape,
         zero_of_dtype(numpy_dtype(dt)),
@@ -236,7 +240,6 @@ def matmul(a, b):
     if _ndim(a) == 0 or _ndim(b) == 0:
         raise ValueError("matmul: Input operands do not have enough dimensions")
     a, b = _operands(a, b)
-    _check_ported(a, b)
     _warn_nan(a, b, stacklevel=2)
 
     if a.ndim <= 2 and b.ndim <= 2:
@@ -251,12 +254,30 @@ def matmul(a, b):
     batch = np.broadcast_shapes(tuple(a.shape[:-2]), tuple(b.shape[:-2]))
     a = _broadcast_batched(a, batch + tuple(a.shape[-2:]))
     b = _broadcast_batched(b, batch + tuple(b.shape[-2:]))
-    out = torch.stack([matmul(x, y) for x, y in zip(_leading_slices(a), _leading_slices(b))])
+    res = [matmul(x, y) for x, y in zip(_leading_slices(a), _leading_slices(b))]
+    if all(isinstance(r, torch.Tensor) for r in res):
+        out = torch.stack(res)
+    else:
+        from .common import stack
+
+        # ``sparse_tpu`` takes GCXS batches of a GCXS operand that needed no
+        # broadcast (a broadcast gives a COO), whose products are GCXS: the
+        # stack is then a GCXS too
+        if isinstance(a, GCXS) or isinstance(b, GCXS):
+            res = [r.asformat("gcxs") for r in res]
+        out = stack(res)
     if a_orig.ndim == 1:
-        out = out[..., 0, :]
+        out = _drop_axis(out, out.ndim - 2)
     if b_orig.ndim == 1:
-        out = out[..., 0]
+        out = _drop_axis(out, out.ndim - 1)
     return out
+
+
+def _drop_axis(x, axis):
+    """``x`` without its length-1 ``axis`` (``x[..., 0, :]``, ``x[..., 0]``)."""
+    if isinstance(x, torch.Tensor):
+        return x.select(axis, 0)
+    return x.reshape(x.shape[:axis] + x.shape[axis + 1 :])
 
 
 def _broadcast_batched(x, shape):
@@ -339,17 +360,86 @@ def _coo_of_dense(t):
 
 
 def _dot(a, b, return_type=None):
-    """The 2-D core of ``sparse_tpu.ops.dot._dot`` with one sparse operand:
-    sparse ``(M, K)`` × dense ``(K,)``/``(K, N)``, or dense ``(M, K)`` ×
-    sparse ``(K, N)``, shapes already matched and the dense one a tensor on
-    the sparse one's device; a dense tensor, or what ``return_type`` names."""
-    _check_ported(a, b)
+    """The 2-D core of ``sparse_tpu.ops.dot._dot``: sparse ``(M, K)`` ×
+    dense ``(K,)``/``(K, N)``, dense ``(M, K)`` × sparse ``(K, N)``, or
+    sparse × sparse, shapes already matched and a dense operand a tensor on
+    the sparse one's device. One dense operand gives a dense tensor, or what
+    ``return_type`` names; two sparse ones give what :func:`_sparse_dot`
+    gives."""
+    if isinstance(a, SparseArray) and isinstance(b, SparseArray):
+        return _sparse_dot(a, b, return_type)
     res = _spmm_dense(a, b) if isinstance(a, SparseArray) else _dense_spmm(a, b)
     if return_type is COO:
         return _coo_of_dense(res)
     if return_type is GCXS:
         return _coo_of_dense(res).asformat("gcxs")
     return res
+
+
+def _sparse_dot(a, b, return_type):
+    """sparse × sparse (SpGEMM), ``sparse_tpu``'s output rule: all-COO
+    operands give a COO; an operand that is a GCXS gives a GCXS compressed
+    like the first GCXS operand (two CSR or two CSC operands straight from
+    the product's rows); ``return_type`` ``COO`` gives a COO and
+    ``np.ndarray``/``torch.Tensor`` a dense tensor."""
+    dense = return_type in _DENSE_TYPES
+    if return_type is not COO and not dense:
+        direct = _spgemm_gcxs_direct(a, b)
+        if direct is not None:
+            return direct
+    res = _spgemm(_product_coo(a), _product_coo(b))
+    if dense:
+        return res.todense()
+    if (isinstance(a, GCXS) or isinstance(b, GCXS)) and return_type is not COO and res.ndim >= 2:
+        ca = a.compressed_axes if isinstance(a, GCXS) else b.compressed_axes
+        ca = tuple(ax for ax in ca if ax < res.ndim) or (0,)
+        return res.asformat("gcxs", compressed_axes=ca)
+    return res
+
+
+def _spgemm(a, b):
+    """COO ``(M, K)`` × COO ``(K, N)`` → canonical COO (``kernels.spgemm``),
+    its coordinates int32/int64 for ``max(M, N)``; 1-D operands as a row or
+    a column."""
+    if a.ndim == 1:
+        res = _spgemm(a.reshape((1, -1)), b)
+        return res.reshape(res.shape[1:]) if res.ndim == 2 else res
+    if b.ndim == 1:
+        res = _spgemm(a, b.reshape((-1, 1)))
+        return res.reshape(res.shape[:-1])
+    (m, k), n = a.shape, b.shape[1]
+    rows, cols, vals = kspgemm.spgemm(*a.coords, a.data, *b.coords, b.data, m=m, k=k, n=n)
+    idx = torch_dtype(index_dtype_for(max(m, n)))
+    return COO._make(torch.stack([rows, cols]).to(idx), vals, (m, n), zero_of_dtype(numpy_dtype(vals.dtype)))
+
+
+def _gcxs_triplet(x):
+    """``(rows, cols, data)`` of a 2-D CSR's buffers (a CSC's give those of
+    its transpose), in canonical order."""
+    return uncompress_indptr(x.indptr, x.nnz), x.indices, x.data
+
+
+def _spgemm_gcxs_direct(a, b):
+    """CSR × CSR → a GCXS compressed on ``(0,)``, or CSC × CSC → one
+    compressed on ``(1,)``, built straight from the product's rows (a
+    CSC's buffers are the CSR buffers of its transpose, so CSC × CSC runs as
+    ``(bᵀ @ aᵀ)ᵀ``); index dtype int32/int64 for ``max(M, N, nnz)``. ``None``
+    for any other pair."""
+    if not (isinstance(a, GCXS) and isinstance(b, GCXS)):
+        return None
+    if a.ndim != 2 or b.ndim != 2 or a.compressed_axes != b.compressed_axes or a.compressed_axes not in ((0,), (1,)):
+        return None
+    csc = a.compressed_axes == (1,)
+    m, n = a.shape[0], b.shape[1]
+    first, second = (b, a) if csc else (a, b)
+    rows, cols, vals = kspgemm.spgemm(
+        *_gcxs_triplet(first), *_gcxs_triplet(second), m=n if csc else m, k=a.shape[1], n=m if csc else n
+    )
+    idx = torch_dtype(index_dtype_for(max(m, n, vals.numel())))
+    indptr = torch.searchsorted(rows, torch.arange((n if csc else m) + 1, device=rows.device))
+    return GCXS._make(
+        vals, cols.to(idx), indptr.to(idx), (m, n), (1,) if csc else (0,), zero_of_dtype(numpy_dtype(vals.dtype))
+    )
 
 
 def _product_coo(a):

@@ -44,7 +44,7 @@ import math
 import numpy as np
 import torch
 
-from .._utils import equivalent, numpy_dtype, select, signed_view, take, torch_dtype
+from .._utils import equivalent, numpy_dtype, select, signed_view, take, torch_dtype, wide_index
 from ..core.base import SparseArray
 from ..core.coo import COO
 
@@ -813,7 +813,7 @@ def _gather_dense(t, union_coords, full_shape):
         return t
     offset = len(full_shape) - t.ndim
     idx = tuple(
-        torch.zeros(union_coords.shape[1], dtype=_I64, device=t.device) if t.shape[d] == 1 else union_coords[offset + d]
+        torch.zeros(union_coords.shape[1], dtype=_I64, device=t.device) if t.shape[d] == 1 else wide_index(union_coords[offset + d])
         for d in range(t.ndim)
     )
     return take(t, idx)
@@ -964,7 +964,7 @@ def elemwise(func, *args, **kwargs):
         if result.ndim == 0:
             result = result.expand(union_coords.shape[1]).clone()
         keep = ~equivalent(result, fill_value)
-        union_coords, result = union_coords[:, keep], take(result, keep)
+        union_coords, result = take(union_coords, (slice(None), keep)), take(result, keep)
         out = COO._make(union_coords, result, full_shape, fill_value)
         return _to_output_format(out, out_format, out_kwargs)
 

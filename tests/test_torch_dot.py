@@ -215,24 +215,27 @@ def test_error_paths():
 @pytest.mark.parametrize(
     "make",
     [
-        # every product of two sparse operands but 1-D · 1-D is SpGEMM, not yet ported
-        lambda t, t3, v: st.matmul(t, t),
-        lambda t, t3, v: t @ t,
-        lambda t, t3, v: st.dot(t, t),
-        lambda t, t3, v: st.tensordot(t, t, axes=1),
-        lambda t, t3, v: st.matmul(t3, t3),  # batched
-        lambda t, t3, v: st.matmul(t3, t),
-        lambda t, t3, v: st.dot(t3, t3),
-        lambda t, t3, v: st.matmul(v, t),  # 1-D sparse × 2-D sparse
-        lambda t, t3, v: st.dot(t, v),
+        # every product of two sparse operands (SpGEMM), against sparse_tpu's
+        lambda p, t, t3, v: p.matmul(t, t),
+        lambda p, t, t3, v: t @ t,
+        lambda p, t, t3, v: p.dot(t, t),
+        lambda p, t, t3, v: p.tensordot(t, t, axes=1),
+        lambda p, t, t3, v: p.matmul(t3, t3),  # batched
+        lambda p, t, t3, v: p.matmul(t3, t),
+        lambda p, t, t3, v: p.dot(t3, t3),
+        lambda p, t, t3, v: p.matmul(v, t),  # 1-D sparse × 2-D sparse
+        lambda p, t, t3, v: p.dot(t, v),
     ],
 )
 def test_unported_operand_kinds_raise(make):
-    t = st.COO.from_numpy(np.eye(3), device=CPU)
-    t3 = st.COO.from_numpy(np.ones((2, 2, 2)), device=CPU)
-    v = st.COO.from_numpy(np.ones(3), device=CPU)
-    with pytest.raises(NotImplementedError, match="not yet ported to sparse_tpu_torch"):
-        make(t, t3, v)
+    operands = (np.eye(3) * 2.0, np.arange(1.0, 19.0).reshape(2, 3, 3), np.arange(1.0, 4.0))
+    ts = [st.COO.from_numpy(x, device=CPU) for x in operands]
+    js = [jsp.COO.from_numpy(x) for x in operands]
+    got, want = make(st, *ts), make(jsp, *js)
+    assert isinstance(got, st.COO) and got.shape == want.shape
+    np.testing.assert_array_equal(got.coords.numpy(), np.asarray(want.coords))
+    assert numpy_dtype(got.coords.dtype) == np.asarray(want.coords).dtype
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data), rtol=1e-12)
 
 
 def test_result_stays_on_the_operand_device_and_layout_is_reused():

@@ -202,9 +202,9 @@ def test_batched_matmul_of_a_gcxs_and_an_empty_batch():
 
 
 def test_batched_sparse_times_sparse_raises():
-    t3, _ = _pair(_dense((2, 3, 3), 0.5, seed=16))
-    with pytest.raises(NotImplementedError, match="SpGEMM"):
-        st.matmul(t3, t3)
+    # batched sparse × sparse runs (SpGEMM) and matches sparse_tpu's
+    t3, j3 = _pair(_dense((2, 3, 3), 0.5, seed=16))
+    _check(st.matmul(t3, t3), jsp.matmul(j3, j3))
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +281,9 @@ def test_tensordot_errors():
         st.tensordot(t, np.ones((4, 2)), axes=1)
     with pytest.raises(ValueError, match="scalars"):
         st.tensordot(t, 2.0)
-    with pytest.raises(NotImplementedError, match="SpGEMM"):
-        st.tensordot(t, t.T, axes=1)
+    with pytest.raises(ValueError, match="shape-mismatch"):
+        st.tensordot(t, t, axes=1)
+    _check(st.tensordot(t, t.T, axes=1), jsp.tensordot(j, j.T, axes=1))  # sparse × sparse
 
 
 # ---------------------------------------------------------------------------

@@ -182,6 +182,14 @@ def test_namespace_reexports_numpys_ufuncs():
     assert set(st.__all__) <= set(dir(st))
 
 
+def test_all_names_only_what_sparse_tpu_names():
+    assert set(st.__all__) <= set(jsp.__all__)
+    for name in ("CSC", "CSR", "jitops", "kernels", "matvec_add", "nn", "sddmm", "swapaxes", "transpose"):
+        assert hasattr(st, name) and name not in st.__all__, name
+    for name in ("einsum", "concat", "concatenate", "stack", "diagonal", "diagonalize"):
+        assert name in st.__all__ and name in jsp.__all__, name
+
+
 def test_array_function_dispatch():
     x = dense(13, (4, 5))
     t, j = both(x)
@@ -192,8 +200,9 @@ def test_array_function_dispatch():
     check(lambda: np.clip(t, -1, 1), lambda: np.clip(j, -1, 1))
     check(lambda: np.real(t), lambda: np.real(j))
     check(lambda: np.squeeze(t), lambda: np.squeeze(j))
+    check(lambda: np.concatenate([t, t]), lambda: np.concatenate([j, j]))
     with pytest.raises(TypeError):
-        np.concatenate([t, t])
+        np.kron(t, t)
 
 
 def test_scalar_conversions_and_0d_results():
