@@ -61,14 +61,21 @@ drives the port's two paths on the card:
   matrix as the mask, K = 128, float32, ``rhs`` given as a transposed
   view: ``sparse_tpu_torch.sddmm`` against a float64 oracle (each entry
   within 1e-5 of |s| · Σ_k |lhs_ik · rhs_kj|), K4 against its plain
-  version (2e-6 of the same scale) and twice bit for bit, the gradient of
-  ``(w · sddmm).sum()`` in s, lhs and rhs against the plain version's; the
-  example's shape (a 10,000^2 float64 dense pair, a 1,000-entry mask)
-  against its oracle at rtol 1e-8, its row-major ``rhs`` copied once to
-  ``rhs.T`` (the copy timed apart); and dense × sparse ``Bt @ a`` (Bt of
-  128 x 65,536) against a float64 oracle and equal bit for bit to ``(a.T
-  @ Bt.T).T``, its route through K2 on the cached transpose; K4 timed at
-  both shapes beside ``torch.sparse.sampled_addmm``;
+  version (2e-6 of the same scale) and twice bit for bit, its kept-row and
+  per-entry routes bit for bit alike, the gradient of ``(w ·
+  sddmm).sum()`` in s, lhs and rhs (K4 and K5, the gradient's row sum)
+  against the plain version's, twice bit for bit, through
+  ``kernels.sddmm`` and the COO entry point alike; the same mask with both
+  operands MN-major (a weight gradient's layout: the copy rule's route
+  and the strided reads it declines, bit for bit alike); the example's
+  shape (a 10,000^2 float64 dense pair, a 1,000-entry mask) against its
+  oracle at rtol 1e-8, its row-major ``rhs`` read in place; and dense ×
+  sparse ``Bt @ a`` (Bt of 128 x 65,536) against a float64 oracle and
+  equal bit for bit to ``(a.T @ Bt.T).T``, its route through K2 on the
+  cached transpose; K4 timed at both shapes beside
+  ``torch.sparse.sampled_addmm``, the backward beside the first port's
+  torch ops (device ms and peak memory), each K5 launch beside
+  ``torch.sparse.mm``;
 
 - sparse × sparse products (SpGEMM, BASELINE config 2's example; the
   ``spgemm_path`` line): ``a @ a`` of the benchmark matrix (6.7e7 partial
@@ -159,6 +166,7 @@ SOURCE = {
         )
     },
     "sddmm": "sparse_tpu_torch/kernels/csrc/sddmm.cu",
+    "sampled_row_sum": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -178,6 +186,7 @@ REPLACES = {
     "row_pick_blocksum": "experiments/pallas_vmem2.py:107",  # g2 (E8)
     "pick_scale_wsum": "experiments/pallas_vmem2.py:146",  # g3 (E9)
     "sddmm": "sparse_tpu/kernels/dot.py:103",  # sddmm (XLA gather + sum)
+    "sampled_row_sum": "sparse_tpu/kernels/dot.py:124",  # the transpose of sddmm's gathers (XLA segment sum)
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -1837,15 +1846,114 @@ def sddmm_example(dev):
     return s, torch.as_tensor(lhs, device=dev), torch.as_tensor(rhs, device=dev), want
 
 
+def host_ahead_ms(fn, reps=20):
+    """Device ms per call of ``fn`` with the host ahead of the card: a spin
+    twice as long as the host takes to enqueue ``reps`` calls keeps the card
+    busy while they are enqueued, then CUDA events around the calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    spin_s = 2 * (time.perf_counter() - t0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * 2e9))  # cycles at about 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def backward_ms_and_peak(fn, rows, cols, s, lhs, rhs, w, reps=5):
+    """The backward of ``(w · fn(rows, cols, s, lhs, rhs)).sum()`` in ``s``,
+    ``lhs`` and ``rhs``: the bytes it allocates beyond what was live before
+    it (the three gradients included); its device ms, a forward and
+    backward less the forward, each with the host ahead
+    (:func:`host_ahead_ms`; each forward builds its pattern anew, so the
+    backward's sorts count); the eager ms of a forward and backward (the
+    host's enqueue included); the gradients of two such calls."""
+    ins = [t.detach().clone().requires_grad_(True) for t in (s, lhs, rhs)]
+    loss = (w * fn(rows, cols, *ins)).sum()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first = torch.autograd.grad(loss, ins)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    step = lambda: torch.autograd.grad((w * fn(rows, cols, *ins)).sum(), ins)  # noqa: E731
+    second = step()
+
+    def forward():
+        with torch.no_grad():
+            return fn(rows, cols, *ins)
+
+    both, fwd = host_ahead_ms(step, reps=reps), host_ahead_ms(forward, reps=reps)
+    timing = {
+        "device_ms": both - fwd,
+        "forward_backward_device_ms": both,
+        "forward_device_ms": fwd,
+        "forward_backward_ms_eager": time_eager(step, reps=reps),
+        "extra_peak_bytes": peak,
+    }
+    return timing, first, second
+
+
+def plain_backward(rows, cols, s, lhs, rhs, w):
+    """The gradients of ``(w · sddmm).sum()`` in s, lhs and rhs as the port
+    first computed them (``d s`` by K4, then two gathered (nnz, K) blocks
+    summed by ``index_add_``, ``sampled_row_sum_plain``)."""
+    from sparse_tpu_torch.kernels import dot as kdot
+
+    gs = w * s
+    return (
+        kdot.sddmm(rows, cols, w, lhs, rhs),
+        kdot.sampled_row_sum_plain(rows, cols, gs, rhs.T, lhs.shape[0]),
+        kdot.sampled_row_sum_plain(cols, rows, gs, lhs, rhs.shape[1]).T,
+    )
+
+
+def plain_backward_ms_and_peak(rows, cols, s, lhs, rhs, w, reps=5):
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = plain_backward(rows, cols, s, lhs, rhs, w)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads
+    call = lambda: plain_backward(rows, cols, s, lhs, rhs, w)  # noqa: E731
+    return {
+        "device_ms": host_ahead_ms(call, reps=reps),
+        "ms_eager": time_eager(call, reps=reps),
+        "extra_peak_bytes": peak,
+    }
+
+
+def kept_row_loads(rows, epw):
+    """The lhs rows K4's kept-row route loads: one at each group's first
+    entry and wherever the row changes."""
+    fresh = torch.ones(rows.numel(), dtype=torch.bool, device=rows.device)
+    fresh[1:] = rows[1:] != rows[:-1]
+    fresh[::epw] = True
+    return int(fresh.sum())
+
+
 def phase_sddmm_path(dev, a, card):
     """SDDMM (BASELINE config 4) and dense × sparse through the public entry
     points, counted: ``sddmm(a, lhs, rhs)`` at the bench shape against a
     float64 oracle, against the plain version and twice bit for bit, the
-    gradient of ``(w · sddmm).sum()`` against the plain version's; the
-    example's shape against its oracle at rtol 1e-8; ``Bt @ a`` against a
-    float64 oracle and bit for bit equal to ``(a.T @ Bt.T).T`` (its route
-    through K2). Returns the ``kernels`` lines of K4 at both shapes and the
-    launches of the path (counts set to 0 just before it, read just after)."""
+    gradient of ``(w · sddmm).sum()`` (K4 and K5) against the plain
+    version's and twice bit for bit, through ``kernels.sddmm`` and through
+    the COO entry point (equal bit for bit); the example's shape against its
+    oracle at rtol 1e-8; ``Bt @ a`` against a float64 oracle and bit for bit
+    equal to ``(a.T @ Bt.T).T`` (its route through K2). Then times K4 (both
+    routes; both operands MN-major, the copy rule's route and the other),
+    the example's call, the backward against the first port's and each K5
+    launch. Returns the ``kernels`` lines of K4 and K5 and the launches of
+    the path (counts set to 0 just before it, read just after)."""
     import sparse_tpu_torch as st
     from sparse_tpu_torch.kernels import LAUNCHES, _cuda, reset_launch_counts
     from sparse_tpu_torch.kernels import dot as kdot
@@ -1869,6 +1977,10 @@ def phase_sddmm_path(dev, a, card):
     (w * kdot.sddmm(rows, cols, *ins)).sum().backward()
     torch.cuda.synchronize()
     t_grad = time.perf_counter()
+    coo_ins = [t.detach().clone().requires_grad_(True) for t in (lhs, rhs)]
+    (w * st.sddmm(a, *coo_ins).data).sum().backward()
+    torch.cuda.synchronize()
+    t_coo_grad = time.perf_counter()
     ex_out = st.sddmm(ex_s, ex_lhs, ex_rhs)
     torch.cuda.synchronize()
     t_ex = time.perf_counter()
@@ -1880,7 +1992,7 @@ def phase_sddmm_path(dev, a, card):
     torch.cuda.synchronize()
     t_xs2 = time.perf_counter()
     launches = dict(LAUNCHES)
-    for name in ("sddmm", "row_ell_spmm"):
+    for name in ("sddmm", "sampled_row_sum", "row_ell_spmm"):
         if launches[name] == 0:
             raise AssertionError(f"the SDDMM path never launched {name}: {launches}")
 
@@ -1900,8 +2012,10 @@ def phase_sddmm_path(dev, a, card):
     grad_err = {n: normalised_err(x.grad, y.grad.double()) for n, x, y in zip(("s", "lhs", "rhs"), ins, ins_p)}
     if max(grad_err.values()) > SD_GRAD_TOL:
         raise AssertionError(f"sddmm gradients against the plain version's: {grad_err}")
+    if not all(torch.equal(x.grad, y.grad) for x, y in zip(ins[1:], coo_ins)):
+        raise AssertionError("sddmm: the COO entry point's gradients differ from kernels.sddmm's")
     max_abs_err = float((out.data - plain).abs().max())
-    del ins, ins_p, plain, want
+    del plain, want, ins_p
     # the example's shape
     np.testing.assert_allclose(ex_out.data.cpu().numpy(), ex_want, rtol=SD_EX_RTOL, err_msg="sddmm example shape")
     ex_plain = kdot.sddmm_plain(ex_s.coords[0], ex_s.coords[1], ex_s.data, ex_lhs, ex_rhs)
@@ -1916,15 +2030,18 @@ def phase_sddmm_path(dev, a, card):
     torch.cuda.synchronize()
 
     lines, timing = [], {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # K4 at the two shapes, its wrapper, the plain version and torch.sparse.sampled_addmm
-    ex_rows_t = ex_rhs.T.contiguous()
     shapes = {
-        "bench": (rows, cols, s, lhs, rhs, rhs.T, launches["sddmm"], max_abs_err),
-        "example": (ex_s.coords[0], ex_s.coords[1], ex_s.data, ex_lhs, ex_rhs, ex_rows_t, launches["sddmm"], ex_err),
+        "bench": (rows, cols, s, lhs, rhs, launches["sddmm"], max_abs_err),
+        "example": (ex_s.coords[0], ex_s.coords[1], ex_s.data, ex_lhs, ex_rhs, launches["sddmm"], ex_err),
     }
-    for shape, (r, c, sv, lh, rh, rh_rows, n_launch, err) in shapes.items():
+    for shape, (r, c, sv, lh, rh, n_launch, err) in shapes.items():
         o = torch.empty_like(sv)
-        launch = lambda r=r, c=c, sv=sv, lh=lh, rh_rows=rh_rows, o=o: _cuda.sddmm(r, c, sv, lh, rh_rows, o)
+        rh_rows = kdot._sddmm_operand(rh.T, r.numel())  # as the wrapper reads it
+        launch = lambda r=r, c=c, sv=sv, lh=lh, rh_rows=rh_rows, o=o, route=None: _cuda.sddmm(  # noqa: E731
+            r, c, sv, lh, rh_rows, o, route=route
+        )
         pattern = torch.sparse_csr_tensor(
             torch.searchsorted(r.long(), torch.arange(lh.shape[0] + 1, device=dev)), c.long(), sv, (lh.shape[0], rh.shape[1])
         )
@@ -1936,11 +2053,14 @@ def phase_sddmm_path(dev, a, card):
             library = lambda pattern=pattern, lh=lh, rh_c=rh_c, sv=sv: torch.sparse.sampled_addmm(pattern, lh, rh_c, beta=0.0).values() * sv
             lib_got = library()
         lib_err = float((lib_got - launch()).abs().max())
-        item = lh.element_size()
-        nbytes = (int(torch.unique(r).numel()) + int(torch.unique(c).numel())) * lh.shape[1] * item + r.numel() * (4 + 4 + 2 * item)
-        flops = 2 * r.numel() * lh.shape[1]
+        item, k_dim, nnz = lh.element_size(), lh.shape[1], r.numel()
+        nbytes = (int(torch.unique(r).numel()) + int(torch.unique(c).numel())) * k_dim * item + nnz * (4 + 4 + 2 * item)
+        flops = 2 * nnz * k_dim
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / (F32_FLOPS_PER_S if item == 4 else F32_FLOPS_PER_S / 2) * 1e3
+        route = _cuda.sddmm_route(k_dim, item, _cuda.sddmm_vec(lh) and _cuda.sddmm_vec(rh_rows))
+        epw = _cuda.sddmm_entries_per_warp(nnz, sms)
+        lhs_loads = kept_row_loads(r, epw) if route == "kept_row" else nnz
         ms = time_graph(launch)
         line = {
             "name": "sddmm",
@@ -1958,23 +2078,137 @@ def phase_sddmm_path(dev, a, card):
         if shape == "example":
             line["shape"] = "example"
         lines.append(line)
-        gathered = 2 * r.numel() * lh.shape[1] * item
+        gathered = (lhs_loads + nnz) * k_dim * item
+        copied = rh_rows.data_ptr() != rh.data_ptr()
         timing[shape] = {
             **line,
+            "k4_route": route,
             "kernel_ms_l2_flushed": time_cold(launch),
             "wrapper_ms_eager": time_eager(lambda: kdot.sddmm(r, c, sv, lh, rh), reps=5),
-            "rhs_t_copied": not _cuda.sddmm_k_major(rh.T),
-            "rhs_t_copy_ms": time_eager(lambda: rh.T.contiguous(), reps=5) if not _cuda.sddmm_k_major(rh.T) else 0.0,
-            "entries_per_warp": _cuda.sddmm_entries_per_warp(r.numel(), torch.cuda.get_device_properties(dev).multi_processor_count),
+            "rhs_t_copied": copied,
+            "rhs_t_copy_ms": time_eager(lambda: rh.T.contiguous(), reps=5) if copied else 0.0,
+            "entries_per_warp": epw,
+            "bound_bytes": nbytes,
+            "bound_share": max(t_bytes, t_ops) / ms,
+            "lhs_row_loads": lhs_loads,
+            "gathered_bytes": gathered,
+            "gathered_tb_per_s": gathered / (ms * 1e-3) / 1e12,
+            "l2_floor_ms": gathered / L2_ROW_BYTES_PER_S * 1e3,
+            "library_max_abs_diff": lib_err,
+            "card": card,
+            "shape": {
+                "m": lh.shape[0], "n": rh.shape[1], "k": k_dim, "nnz": nnz, "dtype": str(lh.dtype).replace("torch.", "")
+            },
+        }
+        if shape == "bench":
+            # both routes on the same operands, bit for bit alike
+            by_route = {rt: launch(route=rt).clone() for rt in _cuda.SDDMM_ROUTES}
+            if not torch.equal(by_route["kept_row"], by_route["per_entry"]):
+                raise AssertionError("K4: the kept-row and per-entry routes gave other bits")
+            timing[shape]["route_ms"] = {rt: time_graph(lambda rt=rt: launch(route=rt)) for rt in _cuda.SDDMM_ROUTES}
+            timing[shape]["per_entry_gathered_bytes"] = 2 * nnz * k_dim * item
+        del o, pattern, lib_got
+
+    # the bench mask with both operands MN-major (a weight gradient's layout): the
+    # copy rule's route (the wrapper, copies included) and the strided reads it declines
+    lhs_mn = torch.randn((SD_K, M), generator=gen, device=dev).T
+    rhs_mn = torch.randn((SD_K, K), generator=gen, device=dev)
+    in_place = [_cuda.sddmm_reads_in_place(tuple(t.shape), t.stride(), 4, a.nnz) for t in (lhs_mn, rhs_mn.T)]
+    o = torch.empty_like(s)
+    strided = lambda: _cuda.sddmm(rows, cols, s, lhs_mn, rhs_mn.T, o)
+    chosen = kdot.sddmm(rows, cols, s, lhs_mn, rhs_mn)
+    if not torch.equal(chosen, strided()):
+        raise AssertionError("K4: MN-major operands read in place gave other bits than their copies")
+    mn_major = {
+        "read_in_place": {"lhs": in_place[0], "rhs_t": in_place[1]},
+        "chosen": "in_place" if all(in_place) else "copy",
+        "chosen_ms_eager": time_eager(lambda: kdot.sddmm(rows, cols, s, lhs_mn, rhs_mn), reps=5),
+        "copies_ms_eager": time_eager(lambda: (lhs_mn.contiguous(), rhs_mn.T.contiguous()), reps=5),
+        "declined_in_place_ms": time_graph(strided, reps=5),
+        "equal_bit_for_bit": True,
+    }
+    del lhs_mn, rhs_mn, o, chosen
+
+    # the backward at the bench shape: the first port's (torch ops) and K5's
+    new_bw, g1, g2 = backward_ms_and_peak(kdot.sddmm, rows, cols, s, lhs, rhs, w, reps=20)
+    if not all(torch.equal(x, y) for x, y in zip(g1, g2)):
+        raise AssertionError("sddmm backward: a second call gave other bits")
+    block = a.nnz * SD_K * 4
+    if new_bw["extra_peak_bytes"] >= block:
+        raise AssertionError(f"sddmm backward allocated {new_bw['extra_peak_bytes']} bytes; an (nnz, K) block: {block}")
+    del g1, g2
+    # the COO entry point's: its rows known sorted and its pattern kept on the array across calls
+    kept = a.peek_layout("sddmm_pattern", (M, K))
+    if kept is None or kept.ordered != (True, False):
+        raise AssertionError("sddmm: the COO entry point kept no pattern of its sorted rows")
+    coo_bw, _, _ = backward_ms_and_peak(
+        lambda r, c, sv, lh, rh: kdot._sddmm(r, c, sv, lh, rh, pattern=kept), rows, cols, s, lhs, rhs, w, reps=20
+    )
+    plain_bw = plain_backward_ms_and_peak(rows, cols, s, lhs, rhs, w)
+    backward = {"plain": plain_bw, "k5": new_bw, "k5_coo_pattern_kept": coo_bw}
+    # each K5 launch of the backward alone: d lhs (rows, in place) and d rhs (columns, through the stable sort)
+    gs = w * s
+    plan = kdot.SddmmPattern(rows, cols, M, K, rows_sorted=True)
+    k5 = {}
+    for of, axis, table, n_out in (("d_lhs", 0, rhs.T, M), ("d_rhs", 1, lhs, K)):
+        ptr, order, pieces, idx = plan.plan(axis)
+        seg = plan.ends[axis]
+        w_seg = gs if order is None else gs[order]
+        n_front = _cuda.front_bound(a.nnz, n_out, _cuda.MTTKRP_PIECE)
+        o = torch.empty((n_out, SD_K), device=dev)
+        partial = torch.empty(n_front * SD_K, device=dev)
+        tickets = _cuda.zeroed_tickets(dev, n_front * _cuda.row_sum_chunks(SD_K, torch.float32))
+        args = (ptr, pieces, idx, w_seg, table, o, partial, tickets)
+        launch = lambda args=args: _cuda.sampled_row_sum(*args)  # noqa: E731
+        got = launch().clone()
+        if not torch.equal(got, launch()):
+            raise AssertionError(f"K5 {of}: a second launch gave other bits")
+        other = plan.ends[1 - axis]
+        want_p = kdot.sampled_row_sum_plain(seg, other, gs, table, n_out)
+        scale_p = kdot.sampled_row_sum_plain(seg, other, gs.abs(), table.abs(), n_out)
+        if bool(((got - want_p).abs() > SD_GRAD_TOL * scale_p + 1e-30).any()):
+            raise AssertionError(f"K5 {of} against sampled_row_sum_plain beyond {SD_GRAD_TOL} of its scale")
+        csr = torch.sparse_csr_tensor(ptr, idx.long(), w_seg, (n_out, table.shape[0]))
+        lib_err = float((torch.sparse.mm(csr, table) - got).abs().max())
+        touched = int(torch.unique(other).numel())
+        nbytes = touched * SD_K * 4 + a.nnz * (4 + 4) + n_out * SD_K * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * a.nnz * SD_K / F32_FLOPS_PER_S * 1e3
+        ms = time_graph(launch)
+        line = {
+            "name": "sampled_row_sum",
+            "route": "cuda",
+            "source": SOURCE["sampled_row_sum"],
+            "replaces": REPLACES["sampled_row_sum"],
+            "launches": launches["sampled_row_sum"],
+            "max_abs_err": float((got - want_p).abs().max()),
+            "ms": ms,
+            "plain_ms": time_eager(lambda: kdot.sampled_row_sum_plain(seg, other, gs, table, n_out), reps=5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_eager(lambda csr=csr, table=table: torch.sparse.mm(csr, table), reps=5),
+            "of": of,
+        }
+        lines.append(line)
+        gathered = a.nnz * SD_K * 4
+        k5[of] = {
+            **line,
             "bound_bytes": nbytes,
             "bound_share": max(t_bytes, t_ops) / ms,
             "gathered_bytes": gathered,
             "gathered_tb_per_s": gathered / (ms * 1e-3) / 1e12,
             "l2_floor_ms": gathered / L2_ROW_BYTES_PER_S * 1e3,
             "library_max_abs_diff": lib_err,
-            "shape": {"m": lh.shape[0], "n": rh.shape[1], "k": lh.shape[1], "nnz": r.numel(), "dtype": str(lh.dtype).replace("torch.", "")},
+            "order": "in place" if order is None else "stable sort",
+            "weights_gather_ms": 0.0 if order is None else time_graph(lambda order=order: gs[order]),
+            "pieces": int(pieces[-1]),
+            "kernel_ms_l2_flushed": time_cold(launch),
+            "card": card,
         }
-        del o, pattern, lib_got
+        del o, partial, got, want_p, scale_p, csr, w_seg
+    plan_ms = time_eager(lambda: kdot.SddmmPattern(rows, cols, M, K).plan(1), reps=5)
+    cols32 = cols.int()
+    sort_ms = time_eager(lambda: torch.sort(cols32, stable=True), reps=20)
     log(
         json.dumps(
             {
@@ -1984,9 +2218,15 @@ def phase_sddmm_path(dev, a, card):
                 "launches": launches,
                 "sddmm_s": t_sddmm - t0,
                 "sddmm_and_gradient_s": t_grad - t_sddmm,
-                "example_s": t_ex - t_grad,
+                "coo_sddmm_and_gradient_s": t_coo_grad - t_grad,
+                "example_s": t_ex - t_coo_grad,
                 "worst_over_scale": worst,
                 "gradient_err_vs_plain": grad_err,
+                "backward": backward,
+                "k5": k5,
+                "column_order_ms_eager": plan_ms,
+                "column_sort_ms": sort_ms,
+                "mn_major": mn_major,
                 "example": {"len": SD_EX_LEN, "nnz": ex_s.nnz, "rtol": SD_EX_RTOL, "max_abs_err_vs_plain": ex_err},
                 "dense_x_sparse": {
                     "shape": [N, M],

@@ -6,9 +6,10 @@ CUDA kernels (``csrc/bsr.cu``) and the differentiable BSR products; ``ell``
 the block-ELL layouts, their SpMM/SpMV and the block-ELL MTTKRP; ``dot`` the
 COO gather + ``index_add_`` products for the dtypes the row-ELL kernels do
 not take (``dense_coo_matmul`` too), the sorted-COO MTTKRP, the SDDMM
-(``sddmm``, its CUDA kernel in ``csrc/sddmm.cu``, and ``sddmm_plain``) and
-``coo_sum_axes_dense``. Both MTTKRP forms run one CUDA kernel
-(``csrc/mttkrp.cu``). ``_cuda`` builds and
+(``sddmm``, its CUDA kernel in ``csrc/sddmm.cu``, and ``sddmm_plain``), its
+gradient's row sum (``sampled_row_sum_plain`` beside its kernel) and
+``coo_sum_axes_dense``. Both MTTKRP forms and the SDDMM gradient's row sum
+run one CUDA kernel (``csrc/mttkrp.cu``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
 runs), ``elemwise`` (the traceable union of two COO operands) and
 ``spgemm`` (sparse × sparse, eager and capacity-bounded, with

@@ -11,8 +11,8 @@ that CUDA refuses (each C entry point returns ``cudaGetLastError()``).
 The launchers take tensors already on the GPU, of the kernel's dtype, check
 that, allocate nothing themselves, launch on the current stream and do not
 synchronize. The row-ELL, MTTKRP and probe launchers take contiguous tensors;
-the BSR launchers read their operands through their strides, the SDDMM's
-through a row stride with unit stride along K. ``LAUNCHES``
+the BSR launchers and the SDDMM's read their operands through their
+strides, K5 its table through a row stride. ``LAUNCHES``
 counts the launches of each kernel; nothing else touches it.
 """
 
@@ -74,8 +74,11 @@ _SIGNATURES = {
         },
     },
     "mttkrp": {
-        f"st_mttkrp_{dt}": [_p, _p, _p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p]
-        for dt in ("f32", "f64", "bf16_f32", "bf16_f64")
+        **{
+            f"st_mttkrp_{dt}": [_p, _p, _p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p]
+            for dt in ("f32", "f64", "bf16_f32", "bf16_f64")
+        },
+        **{f"st_row_sum_{dt}": [_p, _p, *[_i64] * 3, _p, _p, _p, *[_i64] * 3, _p, _p, _p, _p] for dt in ("f32", "f64")},
     },
     "probes": {
         **{f"st_spmv_products_{t}": [_p, _i64, _p, _p, _i64, _i64, _p, _p] for t in ("hilo", "bf16")},
@@ -88,7 +91,7 @@ _SIGNATURES = {
         "st_row_pick_counts": [_p, _i64, _p, *[_i64] * 4, _p, _p, _p, _p],
     },
     "sddmm": {
-        f"st_sddmm_{dt}_{it}": [_p, _p, _p, _p, _i64, _p, *[_i64] * 6, _p, _p]
+        f"st_sddmm_{dt}_{it}": [_p, _p, _p, _p, _i64, _i64, _p, *[_i64] * 8, _p, _p]
         for dt in ("f32", "f64")
         for it in ("i32", "i64")
     },
@@ -112,6 +115,7 @@ LAUNCHES = {
     "row_pick_blocksum": 0,
     "pick_scale_wsum": 0,
     "sddmm": 0,
+    "sampled_row_sum": 0,
 }
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
@@ -1347,12 +1351,19 @@ def scalar_gather_sum_stage(x, qi, qj, out, seg_len, stage):
     return out
 
 
-# K4, the SDDMM (csrc/sddmm.cu): a warp takes a group of at most 32 entries;
-# the group shrinks (to a power of two, at least 1) until the groups fill
-# SDDMM_WARPS_PER_SM warps on every SM, so a small nnz with a long K (the
-# example's 1,000 entries of K = 10,000) still spreads over the card
+# K4, the SDDMM (csrc/sddmm.cu). Both routes take groups of at most 32
+# entries a warp; a group shrinks (to a power of two, at least 1) until the
+# groups fill SDDMM_WARPS_PER_SM warps on every SM, so a small nnz with a
+# long K (the example's 1,000 entries of K = 10,000) still spreads over the
+# card. The kept-row route (rows of at most SDDMM_KEPT_ROW_BYTES, a multiple
+# of 16 bytes, both operands read by 16-byte loads) keeps each lhs row
+# across its run of entries; the per-entry route takes the rest.
 SDDMM_WARPS_PER_SM = 64
 SDDMM_BLOCKS_PER_SM = 8  # CTAs of 8 warps; the grid strides past this
+SDDMM_KEPT_ROW_BYTES = 2048  # 4 vectors of 16 bytes a lane
+SDDMM_ROUTES = ("kept_row", "per_entry")
+# bytes the card moves for one value of an MN-major operand: its own sector
+SECTOR_BYTES = 32
 _SDDMM_ITEM = {torch.float32: "f32", torch.float64: "f64"}
 _SDDMM_INDEX = {torch.int32: "i32", torch.int64: "i64"}
 
@@ -1369,17 +1380,60 @@ def sddmm_entries_per_warp(nnz, sms):
 
 def sddmm_k_major(t):
     """True when the rows of the 2-D ``t`` (``(rows, K)``) have unit stride
-    along K, as K4 reads them; a size-1 axis takes any stride."""
+    along K; a size-1 axis takes any stride."""
     return t.shape[1] <= 1 or t.stride(1) == 1
 
 
-def sddmm(rows, cols, s, lhs_rows, rhs_rows, out):
+def sddmm_mn_major(t):
+    """True when the 2-D ``t`` (``(rows, K)``) has unit stride along its rows."""
+    return t.shape[0] <= 1 or t.stride(0) == 1
+
+
+def sddmm_reads_in_place(shape, strides, itemsize, nnz):
+    """Whether K4 reads an operand of ``shape`` ``(rows, K)`` and
+    ``strides`` in place for ``nnz`` entries, rather than a K-major copy:
+    always when it is K-major; when it is MN-major, if its strided reads
+    (``SECTOR_BYTES`` for each of K values, for each entry) move no more
+    bytes than the copy does (``2 · K · rows · itemsize``, read and write);
+    never when neither axis has unit stride."""
+    rows, k = shape
+    if k <= 1 or strides[1] == 1:
+        return True
+    if rows <= 1 or strides[0] == 1:
+        return SECTOR_BYTES * nnz <= 2 * rows * itemsize
+    return False
+
+
+def sddmm_vec(t):
+    """True when K4 reads the operand ``t`` by 16-byte loads: K-major with
+    16-byte aligned rows."""
+    item = t.element_size()
+    return sddmm_k_major(t) and t.data_ptr() % 16 == 0 and (t.shape[0] <= 1 or t.stride(0) * item % 16 == 0)
+
+
+def sddmm_route(k, itemsize, vec=True):
+    """K4's route for rows of ``k`` values of ``itemsize`` bytes, ``vec``
+    when both operands take 16-byte loads (:func:`sddmm_vec`)."""
+    row = k * itemsize
+    return "kept_row" if vec and row <= SDDMM_KEPT_ROW_BYTES and row % 16 == 0 else "per_entry"
+
+
+def _sddmm_vectors(k, itemsize, route):
+    """The kept-row kernel's 16-byte vectors a lane (1, 2 or 4), 0 for the per-entry kernel."""
+    if route == "per_entry":
+        return 0
+    n = -(-(k * itemsize // 16) // 32)
+    return 1 if n <= 1 else 2 if n == 2 else 4
+
+
+def sddmm(rows, cols, s, lhs_rows, rhs_rows, out, route=None):
     """Launch K4: ``out[e] = s[e] · Σ_k lhs_rows[rows[e], k] · rhs_rows[cols[e], k]``.
     ``lhs_rows`` ``(M, K)`` and ``rhs_rows`` ``(N, K)`` (that is, ``rhs.T``)
-    of float32 or float64 with unit stride along K (:func:`sddmm_k_major`)
-    and any row stride; ``rows``/``cols`` int32 or int64 and ``s``/``out``
-    of the value dtype, contiguous ``(nnz,)``. The caller guarantees every
-    index in range. Rows 16-byte aligned take 16-byte loads."""
+    of float32 or float64, each read in place with unit stride along K or
+    along its rows (a strided value per k); ``rows``/``cols`` int32 or int64
+    and ``s``/``out`` of the value dtype, contiguous ``(nnz,)``. ``route``
+    (:data:`SDDMM_ROUTES`) defaults to :func:`sddmm_route`; both give the
+    same bits. The caller guarantees every index in range."""
     dtype, device = lhs_rows.dtype, lhs_rows.device
     require_cuda(device, "SDDMM")
     if dtype not in _SDDMM_ITEM:
@@ -1396,16 +1450,21 @@ def sddmm(rows, cols, s, lhs_rows, rhs_rows, out):
         raise ValueError("sddmm: lhs_rows and rhs_rows must be (M, K) and (N, K)")
     if rows.ndim != 1 or cols.shape != (nnz,) or s.shape != (nnz,) or out.shape != (nnz,):
         raise ValueError("sddmm: rows, cols, s and out must be 1-D of one length")
-    if not (sddmm_k_major(lhs_rows) and sddmm_k_major(rhs_rows)):
-        raise ValueError("sddmm: lhs_rows and rhs_rows must have unit stride along K")
+    for name, t in (("lhs_rows", lhs_rows), ("rhs_rows", rhs_rows)):
+        if not (sddmm_k_major(t) or sddmm_mn_major(t)):
+            raise ValueError(f"sddmm: {name} has unit stride on neither axis")
+    if max(lhs_rows.shape[0], rhs_rows.shape[0]) >= 2**31:
+        raise ValueError("sddmm: the kernel takes fewer than 2^31 rows of lhs_rows and rhs_rows")
+    k, item = lhs_rows.shape[1], lhs_rows.element_size()
+    vec = sddmm_vec(lhs_rows) and sddmm_vec(rhs_rows)
+    route = sddmm_route(k, item, vec) if route is None else route
+    if route not in SDDMM_ROUTES or (route == "kept_row" and sddmm_route(k, item, vec) != "kept_row"):
+        raise ValueError(
+            f"sddmm: route {route!r} for K = {k}; the routes are {SDDMM_ROUTES}, kept_row for 16-byte loads "
+            f"of rows of at most {SDDMM_KEPT_ROW_BYTES} bytes"
+        )
     if nnz == 0:
         return out
-    k = lhs_rows.shape[1]
-    item = lhs_rows.element_size()
-    ldl, ldr = lhs_rows.stride(0), rhs_rows.stride(0)
-    vec = all(
-        t.data_ptr() % 16 == 0 and (t.shape[0] <= 1 or ld * item % 16 == 0) for t, ld in ((lhs_rows, ldl), (rhs_rows, ldr))
-    )
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     fn = getattr(load("sddmm"), f"st_sddmm_{_SDDMM_ITEM[dtype]}_{_SDDMM_INDEX[rows.dtype]}")
     err = fn(
@@ -1413,17 +1472,93 @@ def sddmm(rows, cols, s, lhs_rows, rhs_rows, out):
         cols.data_ptr(),
         s.data_ptr(),
         lhs_rows.data_ptr(),
-        ldl,
+        lhs_rows.stride(0),
+        lhs_rows.stride(1),
         rhs_rows.data_ptr(),
-        ldr,
+        rhs_rows.stride(0),
+        rhs_rows.stride(1),
         nnz,
         k,
         sddmm_entries_per_warp(nnz, sms),
         int(vec),
+        _sddmm_vectors(k, item, route),
         sms * SDDMM_BLOCKS_PER_SM,
         out.data_ptr(),
         _stream(device),
     )
     _raise_on(err, "sddmm")
     LAUNCHES["sddmm"] += 1
+    return out
+
+
+def row_sum_chunks(k, dtype):
+    """The column chunks of K5 (csrc/mttkrp.cu ``RowSum``): a lane owns 16 bytes of a row."""
+    return -(-k // (32 * (16 // dtype.itemsize)))
+
+
+def sampled_row_sum(ptr, pieces, idx, w, table, out, partial, tickets, piece=None):
+    """Launch K5: ``out[i] = Σ w[e] · table[idx[e]]`` over the entries
+    ``ptr[i] <= e < ptr[i + 1]`` of segment ``i``, summed in that order from
+    0. ``idx`` int32 and ``w`` of the value dtype (float32 or float64), flat,
+    of one length; ``table`` ``(rows, K)`` with unit stride along K and any
+    row stride; ``out`` ``(n_seg, K)``. Segments longer than ``piece``
+    entries (:data:`MTTKRP_PIECE`) are split: ``pieces`` is
+    ``run_pieces(ptr, piece)``, scratch ``partial`` of the value dtype holds
+    at least ``front_bound(n, n_seg, piece) · K`` values and ``tickets``
+    (:func:`zeroed_tickets`) as many as ``front_bound · row_sum_chunks``.
+    The caller guarantees every index in range."""
+    piece = MTTKRP_PIECE if piece is None else int(piece)
+    dtype, device = w.dtype, w.device
+    require_cuda(device, "sampled row sum")
+    if dtype not in _SDDMM_ITEM:
+        raise TypeError(f"the sampled row sum kernel takes float32 or float64, not {dtype}")
+    _check("ptr", ptr, torch.int64, device)
+    _check("pieces", pieces, torch.int64, device)
+    _check("idx", idx, torch.int32, device)
+    _check("w", w, dtype, device)
+    _check_device(table, dtype, device, "table")
+    _check("out", out, dtype, device)
+    _check("partial", partial, dtype, device)
+    _check("tickets", tickets, torch.int32, device)
+    n_seg, k = out.shape
+    n = w.shape[0]
+    n_front = front_bound(n, n_seg, piece)
+    if (
+        idx.shape != (n,)
+        or ptr.ndim != 1
+        or ptr.shape[0] < n_seg + 1
+        or pieces.shape[0] < n_seg + 1
+        or table.ndim != 2
+        or table.shape[1] != k
+        or partial.numel() < n_front * k
+        or tickets.numel() < n_front * row_sum_chunks(k, dtype)
+    ):
+        raise ValueError("sampled_row_sum: operand shapes do not match")
+    if not sddmm_k_major(table):
+        raise ValueError("sampled_row_sum: table must have unit stride along K")
+    if n_seg == 0 or k == 0:
+        return out
+    item = table.element_size()
+    ld = table.stride(0)
+    vec = table.data_ptr() % 16 == 0 and (table.shape[0] <= 1 or ld * item % 16 == 0) and k % (16 // item) == 0
+    fn = getattr(load("mttkrp"), f"st_row_sum_{_SDDMM_ITEM[dtype]}")
+    err = fn(
+        ptr.data_ptr(),
+        pieces.data_ptr(),
+        n_seg,
+        n_front,
+        piece,
+        idx.data_ptr(),
+        w.data_ptr(),
+        table.data_ptr(),
+        ld,
+        int(vec),
+        k,
+        out.data_ptr(),
+        partial.data_ptr(),
+        tickets.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, "sampled_row_sum")
+    LAUNCHES["sampled_row_sum"] += 1
     return out

@@ -18,8 +18,10 @@ on the GPU it runs the hand-written CUDA kernel K4 of ``csrc/sddmm.cu``
 (counted as ``sddmm``) or raises; other dtypes take ``sddmm_plain`` by
 dtype, as ``sparse_tpu`` routes float16 and complex off its kernel. Its
 gradient in the sample values, ``lhs`` and ``rhs`` is a
-``torch.autograd.Function`` whose backward is torch ops (twice
-differentiable). ``dense_coo_matmul`` is dense × COO as gather +
+``torch.autograd.Function`` whose backward runs K4 again and K5, the
+weighted row sum of ``csrc/mttkrp.cu`` (counted as ``sampled_row_sum``;
+``sampled_row_sum_plain`` beside it), in a fixed order and twice
+differentiable. ``dense_coo_matmul`` is dense × COO as gather +
 ``index_add_``.
 """
 
@@ -295,40 +297,137 @@ def sddmm_plain(rows, cols, sample_data, lhs, rhs):
     return out
 
 
-def _sddmm_rows(t):
-    """The 2-D ``t`` as K4 reads it (``lhs``, ``rhs.T``): itself when its
-    rows have unit stride along the last axis, else one contiguous copy."""
-    return t if _cuda.sddmm_k_major(t) else t.contiguous()
+class SddmmPattern:
+    """The entries of an SDDMM in the two orders its gradient sums in: by
+    row (``d lhs``, axis 0) and by column (``d rhs``, axis 1). For each
+    axis, built on the device on its first use and kept, with no host
+    read: the segment pointer (``searchsorted``), the entries' order in it
+    (a stable sort of the segment ids, int32 keys where they fit; None when
+    the ids come sorted, as a canonical COO's rows do), the pieces of the
+    long segments and the other axis's ids in that order. ``T`` is the same
+    pattern with the axes swapped, sharing what was built."""
+
+    def __init__(self, rows, cols, n_rows, n_cols, rows_sorted=False):
+        self.ends = (rows, cols)
+        self.sizes = (n_rows, n_cols)
+        self.ordered = (rows_sorted, False)
+        self._plans = ([], [])
+
+    @property
+    def T(self):
+        t = object.__new__(SddmmPattern)
+        t.ends, t.sizes, t.ordered, t._plans = self.ends[::-1], self.sizes[::-1], self.ordered[::-1], self._plans[::-1]
+        return t
+
+    def plan(self, axis):
+        """``(ptr, order, pieces, idx)`` of K5 summing along ``axis``:
+        ``order`` int64 or None, ``idx`` the other axis's ids in that order,
+        int32."""
+        if not self._plans[axis]:
+            seg, idx = self.ends[axis], self.ends[1 - axis]
+            n = self.sizes[axis]
+            key = torch.int32 if n < 2**31 - 1 else torch.int64
+            seg = seg.to(key)
+            order = None
+            if not self.ordered[axis]:
+                seg, order = torch.sort(seg, stable=True)
+                idx = idx[order]
+            ptr = torch.searchsorted(seg, torch.arange(n + 1, dtype=key, device=seg.device))
+            pieces = _cuda.run_pieces(ptr, _cuda.MTTKRP_PIECE)
+            self._plans[axis].append((ptr, order, pieces, idx.to(torch.int32).contiguous()))
+        return self._plans[axis][0]
+
+
+def sampled_row_sum_plain(seg, idx, w, table, n_out):
+    """K5's function in torch ops, on any device: ``out[i] = Σ w[e] ·
+    table[idx[e]]`` over the entries ``e`` with ``seg[e] == i``, as
+    ``index_add_`` of the gathered rows (on the card its atomics add in
+    no fixed order) → ``(n_out, K)``."""
+    out = torch.zeros((n_out, table.shape[1]), dtype=w.dtype, device=w.device)
+    return out.index_add_(0, seg.long(), w[:, None] * table[idx.long()])
+
+
+def _row_sum_forward(pattern, axis, w, table):
+    n_out = pattern.sizes[axis]
+    if w.device.type == "cpu" or w.dtype not in _KERNEL_DTYPES:
+        return sampled_row_sum_plain(pattern.ends[axis], pattern.ends[1 - axis], w, table, n_out)
+    _cuda.require_cuda(w.device, "sampled row sum")
+    ptr, order, pieces, idx = pattern.plan(axis)
+    w = w if order is None else w[order]
+    k = table.shape[1]
+    out = torch.empty((n_out, k), dtype=w.dtype, device=w.device)
+    n_front = _cuda.front_bound(w.shape[0], n_out, _cuda.MTTKRP_PIECE)
+    partial = torch.empty(n_front * k, dtype=w.dtype, device=w.device)
+    tickets = _cuda.zeroed_tickets(w.device, n_front * _cuda.row_sum_chunks(k, w.dtype))
+    rows = table if _cuda.sddmm_k_major(table) else table.contiguous()
+    return _cuda.sampled_row_sum(ptr, pieces, idx, w.contiguous(), rows, out, partial, tickets)
+
+
+class _SampledRowSum(torch.autograd.Function):
+    """K5 (``csrc/mttkrp.cu``, counted as ``sampled_row_sum``; plain on the
+    CPU): ``out[i] = Σ_e w[e] · table[idx[e]]`` over the entries of segment
+    ``i`` of ``pattern`` along ``axis``, summed in the pattern's order, so
+    the same bits every call. Its derivatives: in ``w`` an SDDMM (K4) of the
+    output's gradient with ``table`` on the same entries, in ``table`` K5
+    over the other axis; twice differentiable through both."""
+
+    @staticmethod
+    def forward(ctx, pattern, axis, w, table):
+        ctx.save_for_backward(w, table)
+        ctx.meta = (pattern, axis)
+        return _row_sum_forward(pattern, axis, w, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, table = ctx.saved_tensors
+        pattern, axis = ctx.meta
+        d_w = d_table = None
+        if ctx.needs_input_grad[2]:
+            along = pattern if axis == 0 else pattern.T
+            d_w = _Sddmm.apply(*along.ends, torch.ones_like(w), g, table.T, along)
+        if ctx.needs_input_grad[3]:
+            d_table = _SampledRowSum.apply(pattern, 1 - axis, w, g)
+        return None, None, d_w, d_table
+
+
+def _sddmm_operand(t, nnz):
+    """The 2-D ``t`` (``lhs`` or ``rhs.T``) as K4 reads it for ``nnz``
+    entries: itself, or one K-major copy where the copy moves fewer bytes
+    than strided reads would (:func:`_cuda.sddmm_reads_in_place`)."""
+    return t if _cuda.sddmm_reads_in_place(tuple(t.shape), t.stride(), t.element_size(), nnz) else t.contiguous()
 
 
 def _sddmm_forward(rows, cols, sample_data, lhs, rhs):
     if sample_data.device.type == "cpu":
         return sddmm_plain(rows, cols, sample_data, lhs, rhs)
     _cuda.require_cuda(sample_data.device, "SDDMM")
-    lhs_rows, rhs_rows = _sddmm_rows(lhs), _sddmm_rows(rhs.T)
+    nnz = rows.shape[0]
+    lhs_rows, rhs_rows = _sddmm_operand(lhs, nnz), _sddmm_operand(rhs.T, nnz)
     idx = torch.int64 if torch.int64 in (rows.dtype, cols.dtype) else torch.int32
-    out = torch.empty(rows.shape[0], dtype=sample_data.dtype, device=sample_data.device)
+    out = torch.empty(nnz, dtype=sample_data.dtype, device=sample_data.device)
     return _cuda.sddmm(
         rows.to(idx).contiguous(), cols.to(idx).contiguous(), sample_data.contiguous(), lhs_rows, rhs_rows, out
     )
 
 
 class _Sddmm(torch.autograd.Function):
-    """K4 forward (plain on the CPU); backward as torch ops, the VJP that JAX
-    derives: ``d s = sddmm(rows, cols, g, lhs, rhs)`` through this same
-    Function, ``d lhs[rows] += (g·s) · rhs.T[cols]`` and ``d rhs.T[cols] +=
-    (g·s) · lhs[rows]`` by ``index_add``. Every op of the backward is
-    differentiable, so it is too (second order). Forward mode: the sum of
-    the three SDDMMs with one tangent each."""
+    """K4 forward (plain on the CPU); its backward is the VJP that JAX
+    derives, with no (nnz, K) block and no atomics: ``d s = sddmm(rows,
+    cols, g, lhs, rhs)`` through this same Function, ``d lhs[i] = Σ_{e in
+    row i} (g·s)[e] · rhs.T[cols[e]]`` and ``d rhs.T[j] = Σ_{e in column j}
+    (g·s)[e] · lhs[rows[e]]`` by K5 over ``pattern``'s two orders. Both
+    Functions are differentiable, so it is too (second order). Forward
+    mode: the sum of the three SDDMMs with one tangent each."""
 
     @staticmethod
-    def forward(ctx, rows, cols, sample_data, lhs, rhs):
+    def forward(ctx, rows, cols, sample_data, lhs, rhs, pattern):
         ctx.save_for_backward(rows, cols, sample_data, lhs, rhs)
         ctx.save_for_forward(rows, cols, sample_data, lhs, rhs)
+        ctx.pattern = pattern
         return _sddmm_forward(rows, cols, sample_data, lhs, rhs)
 
     @staticmethod
-    def jvp(ctx, _rows, _cols, d_s, d_lhs, d_rhs):
+    def jvp(ctx, _rows, _cols, d_s, d_lhs, d_rhs, _pattern):
         rows, cols, sample_data, lhs, rhs = ctx.saved_tensors
         out = torch.zeros(rows.shape[0], dtype=sample_data.dtype, device=sample_data.device)
         for s_, l_, r_ in ((d_s, lhs, rhs), (sample_data, d_lhs, rhs), (sample_data, lhs, d_rhs)):
@@ -339,17 +438,17 @@ class _Sddmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         rows, cols, sample_data, lhs, rhs = ctx.saved_tensors
+        pattern = ctx.pattern
         d_s = d_lhs = d_rhs = None
         if ctx.needs_input_grad[2]:
-            d_s = _Sddmm.apply(rows, cols, g, lhs, rhs)
+            d_s = _Sddmm.apply(rows, cols, g, lhs, rhs, pattern)
         if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
-            gs = (g * sample_data)[:, None]
-            ri, ci = rows.long(), cols.long()
+            gs = g * sample_data
             if ctx.needs_input_grad[3]:
-                d_lhs = lhs.new_zeros(lhs.shape).index_add(0, ri, gs * rhs.T[ci])
+                d_lhs = _SampledRowSum.apply(pattern, 0, gs, rhs.T)
             if ctx.needs_input_grad[4]:
-                d_rhs = rhs.new_zeros((rhs.shape[1], rhs.shape[0])).index_add(0, ci, gs * lhs[ri]).T
-        return None, None, d_s, d_lhs, d_rhs
+                d_rhs = _SampledRowSum.apply(pattern, 1, gs, lhs).T
+        return None, None, d_s, d_lhs, d_rhs, None
 
 
 def sddmm(rows, cols, sample_data, lhs, rhs):
@@ -359,10 +458,19 @@ def sddmm(rows, cols, sample_data, lhs, rhs):
     Differentiable in ``sample_data``, ``lhs`` and ``rhs``, to second order.
 
     float32/float64 on the GPU launch K4 (``csrc/sddmm.cu``; ``lhs`` and
-    ``rhs.T`` read in place when their rows have unit stride along K, else
-    copied once) or raise; on the CPU, and for other dtypes on any device,
-    the plain version runs. Indices are not checked; nnz = 0 returns an
-    empty output without a launch."""
+    ``rhs.T`` read in place, or copied once where a copy moves fewer bytes
+    than strided reads, :func:`_cuda.sddmm_reads_in_place`) or raise, and so
+    does the gradient (K5, ``csrc/mttkrp.cu``); on the CPU, and for other
+    dtypes on any device, the plain versions run. Indices are not checked;
+    nnz = 0 returns an empty output without a launch."""
+    return _sddmm(rows, cols, sample_data, lhs, rhs)
+
+
+def _sddmm(rows, cols, sample_data, lhs, rhs, pattern=None):
+    """:func:`sddmm`, its gradient summed along ``pattern`` (an
+    :class:`SddmmPattern` of these ``rows`` and ``cols``, widened, for ``lhs``
+    and ``rhs``'s sizes; by default a new one that knows nothing of their
+    order)."""
     for name, t in (("rows", rows), ("cols", cols), ("sample_data", sample_data), ("lhs", lhs), ("rhs", rhs)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"sddmm: {name} must be a torch.Tensor, got {type(t).__name__}")
@@ -377,5 +485,7 @@ def sddmm(rows, cols, sample_data, lhs, rhs):
     sample_data, lhs, rhs = sample_data.to(dt), lhs.to(dt), rhs.to(dt)
     rows, cols = wide_index(rows), wide_index(cols)
     if dt in _KERNEL_DTYPES:
-        return _Sddmm.apply(rows, cols, sample_data, lhs, rhs)
+        if pattern is None:
+            pattern = SddmmPattern(rows, cols, lhs.shape[0], rhs.shape[1])
+        return _Sddmm.apply(rows, cols, sample_data, lhs, rhs, pattern)
     return sddmm_plain(rows, cols, sample_data, lhs, rhs)

@@ -40,6 +40,7 @@ from .._utils import (
     take,
     torch_dtype,
     uncompress_indptr,
+    wide_index,
     zero_of_dtype,
 )
 from ..core.base import SparseArray
@@ -534,12 +535,19 @@ def sddmm(s, lhs, rhs):
     ``COO`` with a copy of ``s``'s coordinates, the promoted dtype of the
     three and its zero fill, by ``kernels.sddmm``: K4 for float32/float64
     on the GPU, the plain version in that dtype for the rest (float16 and
-    complex too, where ``sparse_tpu`` takes ``np.einsum``)."""
+    complex too, where ``sparse_tpu`` takes ``np.einsum``). The COO's
+    canonical order sorts its rows, so the gradient in ``lhs`` sums them
+    without a sort, and the array keeps the orders its gradients sum in
+    (``kernels.dot.SddmmPattern``) for the next call."""
     check_zero_fill_value(s, func_name="sddmm")
     s_coo = s if isinstance(s, COO) else s.tocoo()
     lhs = _dense_operand(lhs, s_coo.device)
     rhs = _dense_operand(rhs, s_coo.device)
     dt = result_dtype(s_coo.dtype, lhs.dtype, rhs.dtype)
-    rows, cols = s_coo.coords[0], s_coo.coords[1]
-    vals = kdot.sddmm(rows, cols, s_coo.data.to(dt), lhs.to(dt), rhs.to(dt))
+    rows, cols = wide_index(s_coo.coords[0]), wide_index(s_coo.coords[1])
+    sizes = (lhs.shape[0], rhs.shape[1])
+    pattern = s_coo._cached_layout(
+        "sddmm_pattern", sizes, lambda: kdot.SddmmPattern(rows, cols, *sizes, rows_sorted=True)
+    )
+    vals = kdot._sddmm(rows, cols, s_coo.data.to(dt), lhs.to(dt), rhs.to(dt), pattern=pattern)
     return COO._make(s_coo.coords.clone(), vals, s_coo.shape, zero_of_dtype(numpy_dtype(dt)))

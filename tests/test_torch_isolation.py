@@ -103,8 +103,12 @@ def test_kernel_sources_ship_with_the_package():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
         for fn in _cuda._SIGNATURES[name]:
-            # an entry point of its own or one stamped out by the BSR or SDDMM source's macro
-            assert f"int {fn}(" in src or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src or f"ST_SDDMM({fn}," in src
+            # an entry point of its own or one stamped out by a source's macro (BSR, MTTKRP/K5, SDDMM)
+            assert (
+                f"int {fn}(" in src
+                or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src
+                or any(f"{macro}({fn}," in src for macro in ("ST_SDDMM", "ST_MTTKRP", "ST_ROW_SUM"))
+            )
     bsr_src = _cuda.SOURCES["bsr"].read_text()
     for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
         assert f"ST_BSR_SPMM_ENTRY_POINT({suffix}, {ctype})" in bsr_src
@@ -137,4 +141,5 @@ def test_launch_counters_start_and_reset():
         "row_pick_blocksum": 0,
         "pick_scale_wsum": 0,
         "sddmm": 0,
+        "sampled_row_sum": 0,
     }

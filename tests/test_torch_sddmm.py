@@ -170,6 +170,190 @@ def test_sddmm_second_derivative_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# K4's copy rule and routes; K5 (the gradient's weighted row sum) and its plan
+# ---------------------------------------------------------------------------
+
+
+def _strides(layout, rows, k):
+    return {"k_major": (k, 1), "mn_major": (1, rows), "neither": (2 * k, 2)}[layout]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("rows", [1, 1000, 65536])
+@pytest.mark.parametrize("nnz", [10, 1000, 2_096_628])
+@pytest.mark.parametrize("k", [1, 128, 10_000])
+@pytest.mark.parametrize("layout", ["k_major", "mn_major", "neither"])
+def test_copy_rule_is_a_function_of_shapes_strides_and_nnz(layout, k, nnz, rows, itemsize):
+    # a K-major copy moves 2 · K · rows · item bytes; strided reads 32 bytes a value, K a row read
+    strides = _strides(layout, rows, k)
+    got = tk._cuda.sddmm_reads_in_place((rows, k), strides, itemsize, nnz)
+    k_major = k == 1 or strides[1] == 1
+    mn_major = rows == 1 or strides[0] == 1
+    want = k_major or (mn_major and 32 * k * nnz <= 2 * k * rows * itemsize)
+    assert got == want
+
+
+def test_copy_rule_at_the_example_and_the_bench_mask():
+    # examples/sddmm_example.py: rhs row-major (10,000², float64), 1,000 entries: rhs.T read in place
+    # (meta tensors: shapes and strides without memory)
+    rhs_t = torch.empty((10_000, 10_000), dtype=torch.float64, device="meta").T
+    assert tk._cuda.sddmm_reads_in_place(tuple(rhs_t.shape), rhs_t.stride(), 8, 1000)
+    assert tk.dot._sddmm_operand(rhs_t, 1000) is rhs_t
+    # the bench mask (65,536², 2,096,628 entries, K = 128, float32) with MN-major operands: copied
+    lhs = torch.empty((128, 65536), device="meta").T
+    assert not tk._cuda.sddmm_reads_in_place(tuple(lhs.shape), lhs.stride(), 4, 2_096_628)
+    copy = tk.dot._sddmm_operand(lhs, 2_096_628)
+    assert copy.is_contiguous() and copy.shape == lhs.shape
+    # a K-major operand is read in place whatever its row stride; unit stride on neither axis is copied
+    wide = torch.empty((50, 300), device="meta")[:, 10:138]
+    assert tk.dot._sddmm_operand(wide, 10**9) is wide
+    assert tk.dot._sddmm_operand(torch.empty((50, 256), device="meta")[:, ::2], 1).is_contiguous()
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("k", [1, 7, 128, 130, 256, 512, 513, 10_000])
+def test_k4_route_and_vectors_a_lane(k, itemsize, vec):
+    # the kept-row route: both operands by 16-byte loads, rows of a multiple of 16 bytes up to 2 KB
+    route = tk._cuda.sddmm_route(k, itemsize, vec)
+    assert route == ("kept_row" if vec and k * itemsize <= 2048 and k * itemsize % 16 == 0 else "per_entry")
+    nv = tk._cuda._sddmm_vectors(k, itemsize, route)
+    if route == "per_entry":
+        assert nv == 0
+    else:
+        # every 16-byte vector of the row has a lane: vectors lane + 32 q for q < nv
+        assert nv in (1, 2, 4) and 32 * nv >= k * itemsize // 16 and (nv == 1 or 32 * nv // 2 < k * itemsize // 16)
+
+
+def _segment_problem(case, seed, m=13, n=11, nnz=90):
+    """rows, cols (int64) of a case: canonical order, unsorted rows, empty
+    rows and columns, repeated (i, j) entries."""
+    rng = np.random.default_rng(seed)
+    if case == "empty_rows":  # rows 0, 5-8 and 12, columns 3-6 never sampled
+        rows = rng.choice([1, 2, 3, 4, 9, 10, 11], nnz)
+        cols = rng.choice([0, 1, 2, 7, 8, 9, 10], nnz)
+    else:
+        rows, cols = rng.integers(0, m, nnz), rng.integers(0, n, nnz)
+    if case == "repeated":
+        rows[nnz // 2 :], cols[nnz // 2 :] = rows[: nnz - nnz // 2], cols[: nnz - nnz // 2]
+    if case in ("sorted", "empty_rows", "repeated"):
+        order = np.lexsort((cols, rows))
+        rows, cols = rows[order], cols[order]
+    return rows, cols, m, n
+
+
+CASES = ["sorted", "unsorted", "empty_rows", "repeated"]
+
+
+@pytest.mark.parametrize("wrt", ["lhs", "rhs"])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", CASES)
+def test_sampled_row_sum_matches_jax_vjp(case, dtype, idx_dtype, wrt):
+    rows, cols, m, n = _segment_problem(case, seed=CASES.index(case))
+    rng = np.random.default_rng(21)
+    k, nnz = 6, rows.size
+    s, g = rng.standard_normal(nnz).astype(dtype), rng.standard_normal(nnz).astype(dtype)
+    lhs, rhs = rng.standard_normal((m, k)).astype(dtype), rng.standard_normal((k, n)).astype(dtype)
+    ri, ci = rows.astype(idx_dtype), cols.astype(idx_dtype)
+    _, vjp = jax.vjp(lambda l, r: jk.sddmm(jnp.asarray(ri), jnp.asarray(ci), jnp.asarray(s), l, r), jnp.asarray(lhs), jnp.asarray(rhs))
+    want = np.asarray(vjp(jnp.asarray(g))[0 if wrt == "lhs" else 1])
+    rtol = RTOL[dtype]
+    w = _t(g) * _t(s)
+    sorted_rows = case != "unsorted"
+    pattern = tk.dot.SddmmPattern(_t(ri).long(), _t(ci).long(), m, n, rows_sorted=sorted_rows)
+    if wrt == "lhs":
+        plain = tk.dot.sampled_row_sum_plain(_t(ri), _t(ci), w, _t(rhs).T, m)
+        fn = tk.dot._SampledRowSum.apply(pattern, 0, w, _t(rhs).T)
+    else:
+        plain = tk.dot.sampled_row_sum_plain(_t(ci), _t(ri), w, _t(lhs), n).T
+        fn = tk.dot._SampledRowSum.apply(pattern, 1, w, _t(lhs)).T
+    for got in (plain, fn):
+        assert got.dtype == w.dtype and tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=rtol)
+    # through the entry point's backward, its rows sorted or not
+    ins = [_t(lhs).requires_grad_(True), _t(rhs).requires_grad_(True)]
+    out = tk.dot._sddmm(_t(ri), _t(ci), _t(s), *ins, pattern=pattern)
+    out.backward(_t(g))
+    np.testing.assert_allclose(ins[0 if wrt == "lhs" else 1].grad.numpy(), want, rtol=rtol, atol=rtol)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("case", CASES)
+def test_sampled_row_sum_gradcheck_and_gradgradcheck(case, axis):
+    rows, cols, m, n = _segment_problem(case, seed=7 + CASES.index(case), nnz=25)
+    rng = np.random.default_rng(22)
+    pattern = tk.dot.SddmmPattern(_t(rows), _t(cols), m, n, rows_sorted=case != "unsorted")
+    w = _t(rng.standard_normal(rows.size)).requires_grad_(True)
+    table = _t(rng.standard_normal((n if axis == 0 else m, 3))).requires_grad_(True)
+    f = lambda w_, t_: tk.dot._SampledRowSum.apply(pattern, axis, w_, t_)  # noqa: E731
+    assert torch.autograd.gradcheck(f, (w, table))
+    assert torch.autograd.gradgradcheck(f, (w, table))
+
+
+@pytest.mark.parametrize("piece", [1, 4, 256])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("case", CASES)
+def test_k5_plan_built_by_torch_ops(case, axis, piece, monkeypatch):
+    # the segment pointer, the stable order and the pieces, against NumPy; a
+    # sum that follows the plan (segments, pieces in piece order) against the plain version
+    monkeypatch.setattr(tk._cuda, "MTTKRP_PIECE", piece)
+    rows, cols, m, n = _segment_problem(case, seed=30 + CASES.index(case), nnz=200)
+    seg, idx, n_seg = (rows, cols, m) if axis == 0 else (cols, rows, n)
+    pattern = tk.dot.SddmmPattern(_t(rows), _t(cols), m, n, rows_sorted=case != "unsorted")
+    ptr, order, pieces, idx32 = pattern.plan(axis)
+    assert ptr.dtype == pieces.dtype == torch.int64 and idx32.dtype == torch.int32
+    want_order = np.argsort(seg, kind="stable")
+    if axis == 0 and case != "unsorted":
+        assert order is None
+        want_order = np.arange(seg.size)
+    else:
+        assert order.dtype == torch.int64
+        np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(ptr.numpy(), np.searchsorted(seg[want_order], np.arange(n_seg + 1)))
+    np.testing.assert_array_equal(idx32.numpy(), idx[want_order])
+    lens = np.diff(ptr.numpy())
+    n_pieces = np.where(lens > piece, -(-lens // piece), 0)
+    np.testing.assert_array_equal(pieces.numpy(), np.concatenate([[0], np.cumsum(n_pieces)]))
+    assert int(pieces[-1]) <= tk._cuda.front_bound(seg.size, n_seg, piece)
+    rng = np.random.default_rng(31)
+    w, table = rng.standard_normal(seg.size), rng.standard_normal((int(idx.max()) + 1, 5))
+    out = np.zeros((n_seg, 5))
+    for i in range(n_seg):
+        entries = want_order[ptr[i] : ptr[i + 1]]
+        parts = [entries[p : p + piece] for p in range(0, entries.size, piece)] if entries.size > piece else [entries]
+        for part in parts:
+            acc = np.zeros(5)
+            for e in part:
+                acc += w[e] * table[idx[e]]
+            out[i] += acc
+    plain = tk.dot.sampled_row_sum_plain(_t(seg), _t(idx), _t(w), _t(table), n_seg)
+    np.testing.assert_allclose(plain.numpy(), out, rtol=1e-12, atol=1e-12)
+
+
+def test_coo_entry_point_keeps_its_pattern_and_matches_kernels_sddmm():
+    # a canonical COO's rows are sorted: its pattern needs no row sort and is kept for the next call
+    x = _sample(np.float64, seed=14)
+    t = st.COO.from_numpy(x, device=CPU)
+    rng = np.random.default_rng(15)
+    lhs, rhs, g = rng.standard_normal((40, 5)), rng.standard_normal((5, 30)), rng.standard_normal(t.nnz)
+    grads = []
+    for call in range(2):
+        ins = [_t(lhs).requires_grad_(True), _t(rhs).requires_grad_(True)]
+        st.sddmm(t, *ins).data.backward(_t(g))
+        grads.append([x.grad for x in ins])
+        pattern = t.peek_layout("sddmm_pattern", (40, 30))
+        assert isinstance(pattern, tk.dot.SddmmPattern) and pattern.ordered == (True, False)
+        if call == 0:
+            first = pattern
+    assert pattern is first
+    ins = [_t(lhs).requires_grad_(True), _t(rhs).requires_grad_(True)]
+    tk.sddmm(t.coords[0], t.coords[1], t.data, *ins).backward(_t(g))
+    for got in grads:
+        assert all(torch.equal(a, b.grad) for a, b in zip(got, ins))
+
+
+# ---------------------------------------------------------------------------
 # sddmm, the entry point
 # ---------------------------------------------------------------------------
 
