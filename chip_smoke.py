@@ -91,6 +91,22 @@ drives the port's two paths on the card:
   of the package runs here: the JAX package leaves SpGEMM to XLA and the
   host;
 
+- indexing and the rest of the namespace (the ``indexing_path`` line): a
+  GNN-style minibatch of 4,096 rows picked from the benchmark matrix as a
+  COO (the leading fast path) and a CSR (``indptr`` spliced), equal to
+  scipy's ``A[picks]`` exactly, then ``@ B`` and ``@ x`` on K2 and K1 (their
+  counters advance) against a float64 oracle; 4,096 column picks, a 2-D
+  slice, ``a[::-1, ::2]`` and two scalars exactly against scipy;
+  bench_regression.py's three indexing cases at its 10,000^2 shape;
+  ``sort``, ``argmax``, ``unique_counts``, ``nonzero``, ``triu``, ``roll``
+  and ``eye(65536) @ B`` at the benchmark shape against host oracles built
+  from the stored entries; the npz round trip of the COO and the CSR, bit
+  for bit; a DOK of the regression matrix through 1,000 edits against
+  scipy's ``dok_array``; each operation's eager and device ms and its
+  synchronizing calls, the card's busy share during ``a[picks]``, and
+  ``index_select``/``torch.sort`` beside them (timed only). No kernel of
+  the package is new here: the JAX package leaves this work to the host;
+
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
   sparse column, ufuncs, a cast and the reductions of the bench matrix as
@@ -2651,6 +2667,320 @@ def phase_elemwise_dense_by_nature(dev):
     rows["std()"] = {"ms": device_ms(lambda: x.std()), "nnz": x.nnz}
     return rows
 
+# ---------------------------------------------------------------------------
+# indexing and slicing of COO and GCXS, DOK, npz I/O, creation and the rest
+# of the namespace (no kernel of their own: torch ops on the array's device;
+# the picked rows' products run on K2 and K1)
+# ---------------------------------------------------------------------------
+
+IX_PICKS = 4096  # a GNN-style minibatch: rows (and columns) drawn unsorted, repeats allowed
+IX_SEED = 18
+# bench_regression.py:350-356: a 10,000^2 draw at density 1e-3 (random_state=9),
+# its slice and 500 row picks (drawn here from their own seed)
+IX_REG_SHAPE, IX_REG_DENSITY, IX_REG_STATE, IX_REG_PICKS = (10_000, 10_000), 1e-3, 9, 500
+IX_DOK_EDITS = 1000
+IX_REPS = 5
+IX_SAVE_DIR = "build/indexing_path"  # npz round trips, inside the checkout, removed after
+
+
+def reads_back(fn):
+    """The synchronizing CUDA calls that one call of ``fn`` makes (torch's
+    sync debug mode): its reads back to the host, and its copies from
+    pageable host memory (a NumPy index's copy to the card)."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(str(w.message).startswith("called a synchronizing CUDA operation") for w in caught)
+
+
+def eager_ms(fn, reps=IX_REPS):
+    """Median host ms of one eager call of ``fn``, synchronised after it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def host_entries(x):
+    """A 2-D port array's entries on the host: int64 rows and columns, data."""
+    coo = x.tocoo()
+    c = coo.coords.cpu().numpy().astype(np.int64)
+    return c[0], c[1], coo.data.cpu().numpy()
+
+
+def check_exact(name, got, rows, cols, vals, shape):
+    """A 2-D port result on the card holding exactly the oracle's entries:
+    canonical coordinates, the data's dtype and bits."""
+    if got.data.device.type != "cuda" or tuple(got.shape) != tuple(shape):
+        raise AssertionError(f"{name}: {got} (want shape {tuple(shape)} on the card)")
+    order = np.lexsort((cols, rows))
+    r, c, v = host_entries(got)
+    if not (np.array_equal(r, rows[order]) and np.array_equal(c, cols[order])):
+        raise AssertionError(f"{name}: {r.size} coordinates, the oracle {rows.size}, or they differ")
+    if v.dtype != vals.dtype or v.tobytes() != vals[order].tobytes():
+        raise AssertionError(f"{name}: the values differ from the oracle's")
+    return int(r.size)
+
+
+def check_scipy(name, got, want):
+    """A 2-D port result equal to a scipy matrix's entries exactly."""
+    w = want.tocoo()
+    return check_exact(name, got, w.row.astype(np.int64), w.col.astype(np.int64), w.data, w.shape)
+
+
+def _same_arrays(name, got, want):
+    """Two port arrays of one format with the same shape, fill value and
+    buffers, bit for bit (the npz round trip; a CSR loads as a GCXS)."""
+    import sparse_tpu_torch as st
+
+    names = ("coords", "data") if isinstance(want, st.COO) else ("data", "indices", "indptr")
+    same_format = isinstance(got, st.COO) == isinstance(want, st.COO)
+    if not same_format or got.shape != want.shape or np.asarray(got.fill_value).tobytes() != np.asarray(want.fill_value).tobytes():
+        raise AssertionError(f"{name}: {got} against {want}")
+    if not isinstance(want, st.COO) and got.compressed_axes != want.compressed_axes:
+        raise AssertionError(f"{name}: compressed_axes {got.compressed_axes}")
+    for n in names:
+        g, w = getattr(got, n), getattr(want, n)
+        if g.dtype != w.dtype or g.device != w.device or not torch.equal(g, w):
+            raise AssertionError(f"{name}: {n} differs")
+
+
+def argmax_rows_oracle(rows, cols, vals, n_rows, n_cols):
+    """``argmax(axis=1)`` of a zero-fill matrix from its entries (rows
+    sorted), on the host: the first column of each row's maximum, the fill
+    value at the row's first unoccupied column where it ties or wins."""
+    out = np.zeros(n_rows, dtype=np.int64)
+    starts = np.flatnonzero(np.r_[True, np.diff(rows) != 0])
+    counts = np.diff(np.r_[starts, rows.size])
+    m = np.maximum.reduceat(vals, starts)
+    fa = np.minimum.reduceat(np.where(vals == np.repeat(m, counts), cols, n_cols), starts)
+    ranks = np.arange(rows.size) - np.repeat(starts, counts)
+    gap = np.minimum(np.minimum.reduceat(np.where(cols != ranks, ranks, n_cols), starts), counts)
+    has_gap = counts < n_cols
+    res = np.where(has_gap & (m < 0), gap, fa)
+    res = np.where(has_gap & (m == 0), np.minimum(gap, fa), res)
+    out[rows[starts]] = res
+    return out
+
+
+def phase_indexing_path(dev, a, card):
+    """Indexing, DOK, npz I/O, creation and the rest of the namespace on the
+    card through the public entry points, each checked exactly against an
+    oracle built on the host from the stored entries (scipy, NumPy): a
+    GNN-style minibatch of 4,096 rows picked from the bench matrix as a COO
+    (the leading fast path) and a CSR (``indptr`` spliced), then ``@ B`` and
+    ``@ x`` on K2 and K1 (counters advance) against a float64 oracle; the
+    general path (4,096 column picks, a 2-D slice, reversed and stepped
+    slices, two scalars); bench_regression.py's three indexing cases at its
+    shape; sort, argmax, unique_counts, nonzero, triu, roll and ``eye @ B``
+    at the bench shape; the npz round trip of the COO and the CSR; a DOK of
+    the regression matrix through 1,000 edits against scipy's ``dok_array``.
+    Each operation's eager ms (median of 5), device ms (CUDA events) and
+    synchronizing calls; the card's busy share during ``a[picks]``; the
+    library yardsticks, timed only."""
+    import shutil
+    from pathlib import Path
+
+    import scipy.sparse
+
+    import sparse_tpu_torch as st
+    from chip_elemwise_profile import profile
+    from sparse_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    # a view of the matrix with no memo of results, so that each timed call
+    # computes (the main path's array memoizes its layouts and its results)
+    a = a.copy(deep=False)
+    rng = np.random.default_rng(IX_SEED)
+    rows, cols, vals = host_entries(a)
+    A = scipy.sparse.csr_matrix((vals, (rows, cols)), shape=(M, K))
+    csr = a.asformat("csr")
+    picks_np = rng.integers(0, M, IX_PICKS)
+    cols_np = rng.integers(0, K, IX_PICKS)
+    picks = torch.as_tensor(picks_np, device=dev)
+    cpicks = torch.as_tensor(cols_np, device=dev)
+    b = torch.as_tensor(rng.random((K, N), dtype=np.float32), device=dev)
+    x = torch.as_tensor(rng.random(K, dtype=np.float32), device=dev)
+    torch.cuda.synchronize()
+    ops = {}
+
+    def timed(name, fn, nnz):
+        ops[name] = {"eager_ms": eager_ms(fn), "device_ms": device_ms(fn), "reads_back": reads_back(fn), "nnz": nnz}
+
+    # the minibatch: rows picked on the COO's leading fast path and the CSR's
+    # spliced indptr, then the products on K2 and K1
+    reset_launch_counts()
+    sub = a[picks]
+    sub_csr = csr[picks]
+    out_b = sub @ b
+    out_x = sub @ x
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for name in ("row_ell_spmm", "row_ell_spmv"):
+        if launches[name] == 0:
+            raise AssertionError(f"a[picks] @ B / @ x never launched {name}: {launches}")
+    want_sub = A[picks_np]
+    n_sub = check_scipy("a[picks]", sub, want_sub)
+    check_scipy("csr[picks]", sub_csr, want_sub)
+    if type(sub_csr) is not st.GCXS or sub_csr.compressed_axes != (0,):
+        raise AssertionError(f"csr[picks]: {sub_csr}")
+    ref = want_sub.astype(np.float64)
+    np.testing.assert_allclose(out_b.cpu().numpy(), ref @ b.cpu().numpy().astype(np.float64), **ORACLE_TOL)
+    np.testing.assert_allclose(out_x.cpu().numpy(), ref @ x.cpu().numpy().astype(np.float64), **ORACLE_TOL)
+    del out_b, out_x, ref, want_sub
+    timed("a[picks]", lambda: a[picks], n_sub)
+    timed("csr[picks]", lambda: csr[picks], n_sub)
+    timed("a[picks] @ B", lambda: sub @ b, n_sub)
+    timed("a[picks] @ x", lambda: sub @ x, n_sub)
+    wall_ms, busy_ms, top = profile(lambda: a[picks])
+    busy = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms, "top5_kernels_ms_count": top}
+    del sub, sub_csr
+
+    # the general path, against scipy
+    general = [
+        ("a[:, cols]", lambda: a[:, cpicks], A[:, cols_np]),
+        ("a[8192:40960, 1000:60000]", lambda: a[8192:40960, 1000:60000], A[8192:40960, 1000:60000]),
+        ("a[::-1, ::2]", lambda: a[::-1, ::2], A[::-1, ::2]),
+    ]
+    for name, fn, want in general:
+        timed(name, fn, check_scipy(name, fn(), want))
+    i, j = int(rows[len(rows) // 2]), int(cols[len(rows) // 2])
+    row_cols = set(cols[rows == 0].tolist())
+    j_fill = next(c for c in range(K) if c not in row_cols)
+    for name, pos, want in (("a[i, j] stored", (i, j), A[i, j]), ("a[i, j] fill", (0, j_fill), A[0, j_fill])):
+        got = a[pos]
+        if not (isinstance(got, torch.Tensor) and got.shape == () and got.device.type == "cuda"):
+            raise AssertionError(f"{name}: {got!r}")
+        if got.cpu().numpy().tobytes() != np.float32(want).tobytes():
+            raise AssertionError(f"{name}: {got.item()} against scipy's {want}")
+        timed(name, lambda pos=pos: a[pos], 1)
+
+    # bench_regression.py's three cases at its shape
+    ix = st.random(IX_REG_SHAPE, density=IX_REG_DENSITY, random_state=IX_REG_STATE, device=dev)
+    r2, c2, v2 = host_entries(ix)
+    IX = scipy.sparse.csr_matrix((v2, (r2, c2)), shape=IX_REG_SHAPE)
+    reg_picks = np.random.default_rng(IX_REG_STATE).integers(0, IX_REG_SHAPE[0], IX_REG_PICKS)
+    gxi = ix.asformat("gcxs")
+    for name, fn, want in (
+        ("regression ix[2000:8000, 1000:9000]", lambda: ix[2000:8000, 1000:9000], IX[2000:8000, 1000:9000]),
+        ("regression ix[picks]", lambda: ix[reg_picks], IX[reg_picks]),
+        ("regression gcxs[picks]", lambda: gxi[reg_picks], IX[reg_picks]),
+    ):
+        timed(name, fn, check_scipy(name, fn(), want))
+
+    # the rest of the namespace at the bench shape
+    order = np.lexsort((vals, rows))
+    s_rows, s_vals = rows[order], vals[order]
+    starts = np.flatnonzero(np.r_[True, np.diff(s_rows) != 0])
+    counts = np.diff(np.r_[starts, s_rows.size])
+    ranks = np.arange(s_rows.size) - np.repeat(starts, counts)
+    above = ~(s_vals < 0)  # the fill value 0 sorts before every stored value >= 0
+    s_cols = ranks + np.where(above, K - np.repeat(counts, counts), 0)
+    timed("sort(a, axis=1)", lambda: st.sort(a, axis=1), check_exact("sort(a, axis=1)", st.sort(a, axis=1), s_rows, s_cols, s_vals, (M, K)))
+    del order, s_rows, s_vals, s_cols, ranks
+    got = st.argmax(a, axis=1)
+    if not np.array_equal(got.todense().cpu().numpy(), argmax_rows_oracle(rows, cols, vals, M, K)):
+        raise AssertionError("argmax(a, axis=1) differs from the oracle")
+    timed("argmax(a, axis=1)", lambda: st.argmax(a, axis=1), got.nnz)
+    uv, uc = np.unique(vals, return_counts=True)
+    u_order = np.argsort(np.r_[np.float32(0), uv], kind="stable")
+    want_v, want_c = np.r_[np.float32(0), uv][u_order], np.r_[M * K - a.nnz, uc][u_order]
+    got_v, got_c = st.unique_counts(a)
+    if got_v.cpu().numpy().tobytes() != want_v.astype(np.float32).tobytes() or not np.array_equal(got_c.cpu().numpy(), want_c):
+        raise AssertionError("unique_counts(a) differs from np.unique's")
+    timed("unique_counts(a)", lambda: st.unique_counts(a), int(got_v.numel()))
+    got_nz = st.nonzero(a)
+    keep = vals != 0
+    if not (np.array_equal(got_nz[0].cpu().numpy(), rows[keep]) and np.array_equal(got_nz[1].cpu().numpy(), cols[keep])):
+        raise AssertionError("nonzero(a) differs from the stored non-zero entries")
+    timed("nonzero(a)", lambda: st.nonzero(a), int(keep.sum()))
+    up = cols >= rows
+    timed("triu(a)", lambda: st.triu(a), check_exact("triu(a)", st.triu(a), rows[up], cols[up], vals[up], (M, K)))
+    timed("roll(a, 17, axis=1)", lambda: st.roll(a, 17, axis=1), check_exact("roll(a, 17, axis=1)", st.roll(a, 17, axis=1), rows, (cols + 17) % K, vals, (M, K)))
+    del got, got_v, got_c, got_nz, keep, up
+    eye = st.eye(M, dtype=np.float32, device=dev)
+    reset_launch_counts()
+    prod = eye @ b
+    torch.cuda.synchronize()
+    if LAUNCHES["row_ell_spmm"] == 0 or not torch.equal(prod, b):
+        raise AssertionError(f"eye(65536) @ B: {dict(LAUNCHES)}, equal to B: {torch.equal(prod, b)}")
+    timed("eye(65536)", lambda: st.eye(M, dtype=np.float32, device=dev), M)
+    timed("eye(65536) @ B", lambda: eye @ b, M)
+    del eye, prod
+
+    # the npz round trip of the COO and the CSR, bit for bit
+    save_dir = Path(IX_SAVE_DIR)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        for name, arr in (("coo", a), ("csr", csr)):
+            path = save_dir / f"{name}.npz"
+            t0 = time.perf_counter()
+            st.save_npz(path, arr)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = st.load_npz(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            _same_arrays(f"npz {name}", back, arr)
+            ops[f"npz {name}"] = {"save_s": save_s, "load_s": load_s, "file_bytes": path.stat().st_size, "nnz": arr.nnz}
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+    # a DOK of the regression matrix through 1,000 edits, against scipy's dok_array
+    edits = np.random.default_rng(IX_SEED + 1).integers(0, IX_REG_SHAPE[0], (IX_DOK_EDITS, 2))
+    new_vals = np.random.default_rng(IX_SEED + 2).random(IX_DOK_EDITS)
+    new_vals[::10] = 0.0  # a zero deletes the entry in both
+    t0 = time.perf_counter()
+    d = ix.asformat("dok")
+    dok_build_s = time.perf_counter() - t0
+    D = IX.todok()
+    t0 = time.perf_counter()
+    for (p, q), v in zip(edits.tolist(), new_vals.tolist()):
+        d[p, q] = v
+    dok_edit_s = time.perf_counter() - t0
+    for (p, q), v in zip(edits.tolist(), new_vals.tolist()):
+        D[p, q] = v
+    t0 = time.perf_counter()
+    dc = d.to_coo()
+    torch.cuda.synchronize()
+    dok_to_coo_s = time.perf_counter() - t0
+    n_dok = check_scipy("DOK edits .to_coo()", dc, D.tocoo())
+    ops["dok"] = {"build_s": dok_build_s, "edits_s": dok_edit_s, "edit_us": dok_edit_s / IX_DOK_EDITS * 1e6, "to_coo_s": dok_to_coo_s, "nnz": n_dok}
+
+    # the library yardsticks, timed only
+    tsp = torch.sparse_coo_tensor(a.coords.long(), a.data, (M, K)).coalesce()
+    library = {
+        "index_select(0, picks)": device_ms(lambda: tsp.index_select(0, picks)),
+        "index_select(1, cols)": device_ms(lambda: tsp.index_select(1, cpicks)),
+        "torch.sort(a.data)": device_ms(lambda: torch.sort(a.data)),
+    }
+    del tsp
+    return {
+        "indexing_path": "ok",
+        "picks": IX_PICKS,
+        "launches_on_picked_rows": launches,
+        "ops": ops,
+        "a[picks]_profile": busy,
+        "library_ms": library,
+        "regression_shape": list(IX_REG_SHAPE),
+        "regression_nnz": ix.nnz,
+        "seconds": time.perf_counter() - t_phase,
+        "card": card,
+    }
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2697,6 +3027,9 @@ def main():
     torch.cuda.empty_cache()
     # sparse x sparse (SpGEMM) on the bench matrix and the example's shape
     log(json.dumps(phase_spgemm_path(dev, a, card)))
+    torch.cuda.empty_cache()
+    # indexing, DOK, npz I/O, creation and the rest of the namespace on the bench matrix
+    log(json.dumps(phase_indexing_path(dev, a, card)))
     del a
     torch.cuda.empty_cache()
 

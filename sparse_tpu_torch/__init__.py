@@ -22,11 +22,17 @@ its gradient), the rest of the products with one sparse operand (dense ×
 sparse, 1-D and batched ``matmul``/``dot``, ``tensordot`` and ``vecdot``),
 the products of two sparse operands (SpGEMM: ``a @ b``, ``dot``,
 ``matmul``, ``tensordot``, and the capacity-bounded ``jitops.spgemm``),
-``einsum``, ``concatenate``/``stack`` and ``diagonal``/``diagonalize``.
+``einsum``, ``concatenate``/``stack`` and ``diagonal``/``diagonalize``,
+indexing and slicing of COO and GCXS on the device (``x[...]``, ``take``),
+the DOK format (a dict on the host), ``save_npz``/``load_npz`` with
+``sparse_tpu``'s npz schema, the creation functions (``eye``, ``full``,
+``zeros``, ``asarray``, ...), ``random`` (``sparse_tpu.random``'s draws) and
+the rest of the namespace (``sort``, ``argmax``, ``unique_counts``,
+``kron``, ``interp``, ...). ``testing`` holds ``assert_eq`` and its kin.
 
 ``CSR``, ``CSC``, ``jitops``, ``kernels``, ``matvec_add``, ``nn``,
 ``sddmm``, ``swapaxes`` and ``transpose`` are attributes, not names of
-``__all__``, which names only what ``sparse_tpu.__all__`` names.
+``__all__``, which names exactly what ``sparse_tpu.__all__`` names.
 
 The namespace re-exports NumPy's ufuncs under ``sparse_tpu``'s names
 (``sparse_tpu_torch.add is np.add``): called on a sparse array they run on
@@ -117,22 +123,37 @@ from numpy import power as pow  # noqa: A001
 from numpy import right_shift as bitwise_right_shift
 
 from . import jitops, kernels, nn
+from ._io import load_npz, save_npz
+from ._utils import random
 from .core.base import SparseArray
 from .core.coo import COO
+from .core.dok import DOK
 from .core.gcxs import CSC, CSR, GCXS
 from .ops.common import (
+    argmax,
+    argmin,
+    argwhere,
+    asCOO,
+    as_coo,
+    asnumpy,
     broadcast_shapes,
+    can_cast,
     concat,
     concatenate,
     diagonal,
     diagonalize,
+    diff,
     equal,
     expand_dims,
+    flip,
+    interp,
+    isdtype,
     isfinite,
     isinf,
     isnan,
     isneginf,
     isposinf,
+    kron,
     matrix_transpose,
     moveaxis,
     nanmax,
@@ -141,21 +162,42 @@ from .ops.common import (
     nanprod,
     nanreduce,
     nansum,
+    nonzero,
+    outer,
+    pad,
+    repeat,
     result_type,
+    roll,
+    sort,
     stack,
     swapaxes,
+    take,
+    tile,
+    tril,
+    triu,
+    unique_counts,
+    unique_values,
+    unstack,
     where,
 )
 from .ops.creation import (
     abs,  # noqa: A004
     all,  # noqa: A004
     any,  # noqa: A004
+    asarray,
     astype,
     broadcast_arrays,
+    empty,
+    empty_like,
+    eye,
+    full,
+    full_like,
     imag,
     max,  # noqa: A004
     mean,
     min,  # noqa: A004
+    ones,
+    ones_like,
     permute_dims,
     prod,
     real,
@@ -166,6 +208,8 @@ from .ops.creation import (
     sum,  # noqa: A004
     transpose,
     var,
+    zeros,
+    zeros_like,
 )
 from .ops.dot import dot, matmul, matvec_add, sddmm, tensordot, vecdot
 from .ops.einsum import einsum
@@ -184,6 +228,7 @@ def clip(a, min=None, max=None, out=None, *, a_min=None, a_max=None):  # noqa: A
 __all__ = sorted(
     [
         "COO",
+        "DOK",
         "GCXS",
         "SparseArray",
         "abs",
@@ -192,8 +237,15 @@ __all__ = sorted(
         "add",
         "all",
         "any",
+        "argmax",
+        "argmin",
+        "argwhere",
+        "asCOO",
+        "as_coo",
+        "asarray",
         "asin",
         "asinh",
+        "asnumpy",
         "astype",
         "atan",
         "atan2",
@@ -209,6 +261,7 @@ __all__ = sorted(
         "broadcast_arrays",
         "broadcast_shapes",
         "broadcast_to",
+        "can_cast",
         "ceil",
         "clip",
         "complex128",
@@ -221,21 +274,28 @@ __all__ = sorted(
         "cosh",
         "diagonal",
         "diagonalize",
+        "diff",
         "divide",
         "dot",
         "e",
         "einsum",
         "elemwise",
+        "empty",
+        "empty_like",
         "equal",
         "exp",
         "expand_dims",
         "expm1",
+        "eye",
         "finfo",
+        "flip",
         "float16",
         "float32",
         "float64",
         "floor",
         "floor_divide",
+        "full",
+        "full_like",
         "greater",
         "greater_equal",
         "hypot",
@@ -246,13 +306,17 @@ __all__ = sorted(
         "int32",
         "int64",
         "int8",
+        "interp",
         "isfinite",
+        "isdtype",
         "isinf",
         "isnan",
         "isneginf",
         "isposinf",
+        "kron",
         "less",
         "less_equal",
+        "load_npz",
         "log",
         "log10",
         "log1p",
@@ -281,22 +345,32 @@ __all__ = sorted(
         "negative",
         "newaxis",
         "nextafter",
+        "nonzero",
         "not_equal",
+        "ones",
+        "ones_like",
+        "outer",
+        "pad",
         "permute_dims",
         "pi",
         "positive",
         "pow",
         "prod",
+        "random",
         "real",
         "reciprocal",
         "remainder",
+        "repeat",
         "reshape",
         "result_type",
+        "roll",
         "round",
+        "save_npz",
         "sign",
         "signbit",
         "sin",
         "sinh",
+        "sort",
         "sqrt",
         "square",
         "squeeze",
@@ -304,16 +378,25 @@ __all__ = sorted(
         "std",
         "subtract",
         "sum",
+        "take",
         "tan",
         "tanh",
         "tensordot",
+        "tile",
+        "tril",
+        "triu",
         "trunc",
         "uint16",
         "uint32",
         "uint64",
         "uint8",
+        "unique_counts",
+        "unique_values",
+        "unstack",
         "var",
         "vecdot",
         "where",
+        "zeros",
+        "zeros_like",
     ]
 )

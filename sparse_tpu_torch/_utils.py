@@ -1,12 +1,16 @@
 """Shared helpers: dtype maps between NumPy and torch, bitwise fill-value
-equivalence, axis normalization and index-dtype sizing.
+equivalence, axis normalization, index-dtype sizing, random arrays and the
+test oracle.
 
 Same semantics as ``sparse_tpu._utils`` (``equivalent``, ``zero_of_dtype``,
 ``normalize_axis``, ``can_store``, ``index_dtype_for``, ``get_out_dtype``,
-``check_zero_fill_value``, ``check_fill_value``, ``convert_format``);
-``equivalent`` works on torch tensors so that a prune runs on the device the
-data lives on, and ``uncompress_indptr`` expands a compressed format's
-``indptr`` there.
+``check_zero_fill_value``, ``check_fill_value``, ``convert_format``,
+``random``, ``random_value_array``, ``is_canonical``, ``assert_nnz``,
+``assert_eq``); ``equivalent`` works on torch tensors so that a prune runs on
+the device the data lives on, ``uncompress_indptr`` expands a compressed
+format's ``indptr`` there, and ``random`` draws on the host with NumPy as
+``sparse_tpu.random`` does (the same array for the same seed) and copies to
+the device once.
 """
 
 from __future__ import annotations
@@ -306,3 +310,178 @@ def check_consistent_fill_value(arrays):
 def isscalar(x):
     """A 0-d value that is no sparse array."""
     return np.ndim(x) == 0 and not hasattr(x, "fill_value")
+
+
+# ---------------------------------------------------------------------------
+# random arrays and the test oracle
+# ---------------------------------------------------------------------------
+
+
+def random_value_array(value, fraction):
+    """A data generator for ``random(data_rvs=...)``: arrays of which a
+    ``fraction`` of the entries equal ``value`` (NaN-laden data, say)."""
+
+    def replace_values(n):
+        i = int(n * fraction)
+        ar = np.empty((n,), dtype=np.float64)
+        ar[:i] = value
+        ar[i:] = np.random.rand(n - i)
+        return ar
+
+    return replace_values
+
+
+def random(
+    shape,
+    density=None,
+    nnz=None,
+    random_state=None,
+    data_rvs=None,
+    format="coo",
+    fill_value=None,
+    idx_dtype=None,
+    device=None,
+    **kwargs,
+):
+    """A random sparse array of the given density or nnz, built on ``device``
+    (the GPU by default). The positions and values are drawn on the host with
+    NumPy exactly as ``sparse_tpu.random`` draws them, so an integer seed
+    gives its array bit for bit, then copied to the device once.
+
+    Positions: ``nnz`` distinct linear indices uniform over the array (a
+    sorted ``rng.choice`` without replacement, or draws with replacement
+    deduplicated and topped up over a space past 2^24 elements); values
+    ``rng.random(nnz)`` unless ``data_rvs`` gives them."""
+    from .core.coo import COO
+
+    if not isinstance(shape, Iterable):
+        shape = (shape,)
+    shape = tuple(int(s) for s in shape)
+    elements = int(np.prod(shape, dtype=np.float64)) if len(shape) else 1
+    if density is not None and nnz is not None:
+        raise ValueError("'density' and 'nnz' are mutually exclusive")
+    if density is None:
+        density = 0.01
+    if not (0 <= density <= 1):
+        raise ValueError(f"density {density} is not in the unit interval")
+    if nnz is None:
+        nnz = int(round(elements * density))
+    if not (0 <= nnz <= elements):
+        raise ValueError(f"cannot generate {nnz} samples from {elements} elements")
+
+    if random_state is None:
+        rng = np.random.default_rng()
+    elif isinstance(random_state, Integral):
+        rng = np.random.default_rng(random_state)
+    elif isinstance(random_state, np.random.RandomState | np.random.Generator):
+        rng = random_state
+    else:
+        raise ValueError("random_state must be None, an int, RandomState, or Generator")
+
+    ind = _sample_without_replacement(rng, elements, nnz)
+    data = rng.random(nnz) if data_rvs is None else data_rvs(nnz)
+    if len(shape):
+        coords = np.stack(np.unravel_index(ind, shape), axis=0)
+    else:
+        coords = np.empty((0, nnz), dtype=np.intp)
+    ar = COO(
+        coords,
+        data,
+        shape=shape,
+        fill_value=fill_value,
+        has_duplicates=False,
+        sorted=True,
+        idx_dtype=idx_dtype,
+        device=device,
+    )
+    return ar.asformat(format, **kwargs)
+
+
+def _sample_without_replacement(rng, n, k):
+    """``k`` distinct sorted integers uniform over ``[0, n)`` (the draws of
+    ``sparse_tpu._utils._sample_without_replacement``)."""
+    if k == 0:
+        return np.empty(0, dtype=np.int64)
+    if k == n:
+        return np.arange(n, dtype=np.int64)
+    if n <= 1 << 24 or k > n // 2:
+        if k > n // 2:
+            # over half: sample the complement
+            comp = _sample_without_replacement(rng, n, n - k)
+            mask = np.ones(n, dtype=bool)
+            mask[comp] = False
+            return np.flatnonzero(mask).astype(np.int64)
+        return np.sort(rng.choice(n, size=k, replace=False).astype(np.int64))
+    # a sparse sample of a huge space: draw with replacement, dedup, top up
+    out = np.empty(0, dtype=np.int64)
+    need = k
+    while need > 0:
+        draw = rng.integers(0, n, size=int(need * 1.1) + 16, dtype=np.int64)
+        out = np.unique(np.concatenate([out, draw]))
+        need = k - out.size
+    if out.size > k:
+        sel = rng.choice(out.size, size=k, replace=False)
+        out = np.sort(out[sel])
+    return out
+
+
+def is_canonical(x):
+    """True iff a COO is sorted, has no duplicates and stores no fill value."""
+    from .core.coo import COO
+
+    if not isinstance(x, COO):
+        return True
+    lin = x.linear_loc()
+    return bool((lin[1:] > lin[:-1]).all()) and not bool(equivalent(x.data, x.fill_value).any())
+
+
+def _host(v):
+    """A dense NumPy array of a sparse array, tensor, scipy matrix or array."""
+    from .core.base import SparseArray
+
+    if isinstance(v, SparseArray):
+        v = v.todense()
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if hasattr(v, "toarray"):
+        return np.asarray(v.toarray())
+    return np.asarray(v)
+
+
+def assert_nnz(s, x):
+    fill_value = np.asarray(s.fill_value)
+    assert np.sum(~equivalent(torch.as_tensor(np.asarray(x)), fill_value).numpy()) == s.nnz
+
+
+def assert_eq(x, y, check_nnz=True, compare_dtype=True, **kwargs):
+    """Oracle equality of any mix of sparse arrays, tensors, NumPy arrays and
+    scipy matrices: shape, dtype, canonical form and nnz of COO operands,
+    fill values of two sparse operands, and the dense forms on the host
+    (``allclose(equal_nan=True)`` for floats, exact otherwise)."""
+    from .core.base import SparseArray
+    from .core.coo import COO
+
+    assert tuple(x.shape) == tuple(y.shape), f"shape mismatch: {x.shape} vs {y.shape}"
+    if compare_dtype:
+        assert numpy_dtype(x.dtype) == numpy_dtype(y.dtype), f"dtype mismatch: {x.dtype} vs {y.dtype}"
+    if isinstance(x, COO):
+        assert is_canonical(x), "left operand not canonical"
+    if isinstance(y, COO):
+        assert is_canonical(y), "right operand not canonical"
+    if isinstance(x, SparseArray) and isinstance(y, SparseArray):
+        fx, fy = torch.as_tensor(np.asarray(x.fill_value)), np.asarray(y.fill_value)
+        assert bool(equivalent(fx, fy).all()), f"fill_value mismatch: {x.fill_value} vs {y.fill_value}"
+
+    xx, yy = _host(x), _host(y)
+    if check_nnz:
+        if isinstance(x, SparseArray):
+            assert_nnz(x, xx)
+        if isinstance(y, SparseArray):
+            assert_nnz(y, yy)
+    if np.issubdtype(xx.dtype, np.floating) or np.issubdtype(xx.dtype, np.complexfloating):
+        # float32-precision components get accumulation-order slack
+        if "rtol" not in kwargs and np.finfo(xx.dtype).eps >= np.finfo(np.float32).eps:
+            kwargs["rtol"] = 1e-5
+        np.testing.assert_allclose(xx, yy, equal_nan=True, **kwargs)
+    else:
+        np.testing.assert_array_equal(xx, yy)

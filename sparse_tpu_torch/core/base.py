@@ -37,6 +37,8 @@ _reduce_super_ufunc = {np.add: np.multiply, np.multiply: np.power}
 
 
 class SparseArray(np.lib.mixins.NDArrayOperatorsMixin, abc.ABC):
+    __array_priority__ = 12.5  # beat ndarray in binary ops
+
     def __init__(self, shape, fill_value=None):
         if not isinstance(shape, Iterable):
             shape = (shape,)
@@ -86,6 +88,38 @@ class SparseArray(np.lib.mixins.NDArrayOperatorsMixin, abc.ABC):
     @property
     def density(self):
         return self.nnz / self.size if self.size else float("nan")
+
+    @property
+    def device(self):
+        """The ``torch.device`` the array's tensors live on."""
+        return self.data.device
+
+    def to_device(self, device, /, *, stream=None):
+        """The array on ``device``: itself when it is there already, else a
+        copy moved there (``to``), the one explicit move."""
+        if _settings.resolve_device(device) == self.device:
+            return self
+        return self.to(device)
+
+    def maybe_densify(self, max_size=1000, min_density=0.25):
+        """The dense tensor when the array is small or dense enough, else
+        ``ValueError``."""
+        if self.size > max_size and self.density < min_density:
+            raise ValueError("Operation would require converting large sparse array to dense")
+        return self.todense()
+
+    def todok(self):
+        return self.asformat("dok")
+
+    # -- Array-API -----------------------------------------------------------------
+    def __array_namespace__(self, *, api_version=None):
+        if api_version is None:
+            api_version = "2024.12"
+        if api_version not in {"2021.12", "2022.12", "2023.12", "2024.12"}:
+            raise ValueError(f'"{api_version}" Array API version not supported.')
+        import sparse_tpu_torch
+
+        return sparse_tpu_torch
 
     # -- densification gate --------------------------------------------------------
     def __array__(self, *args, **kwargs):

@@ -33,7 +33,6 @@ from .._utils import (
     get_out_dtype,
     index_dtype_for,
     normalize_axis,
-    not_ported,
     numpy_dtype,
     signed_view,
     take,
@@ -143,8 +142,7 @@ class COO(SparseArray):
         if coords.numel():
             # one host read for the inference and the bounds check
             wide = wide_index(coords)
-            cmin = int(wide.amin())
-            cmax = wide.amax(dim=1).tolist()
+            cmin, *cmax = torch.cat([wide.amin().reshape(1), wide.amax(dim=1)]).tolist()
         else:
             cmin, cmax = 0, [-1] * coords.shape[0]
         if shape is None:
@@ -290,30 +288,52 @@ class COO(SparseArray):
     # -- constructors ----------------------------------------------------------------
     @classmethod
     def from_numpy(cls, x, fill_value=None, idx_dtype=None, device=None):
-        """Sparse copy of a dense NumPy array: every entry not bitwise equal
-        to ``fill_value`` (default 0; a 0-d input is its own fill) is stored."""
-        x = np.asarray(x)
-        if fill_value is None:
-            fill_value = zero_of_dtype(x.dtype) if x.shape else x[()]
-        device = _settings.resolve_device(device)
-        xt = _as_tensor(x, device)
-        mask = ~equivalent(xt, np.asarray(fill_value, dtype=x.dtype))
-        if x.ndim:
+        """Sparse copy of a dense NumPy array or tensor: every entry not
+        bitwise equal to ``fill_value`` (default 0; a 0-d input is its own
+        fill) is stored. A tensor stays on its device (``device`` must name
+        it); NumPy input goes to ``device``."""
+        if isinstance(x, torch.Tensor):
+            device = x.device if device is None else _settings.resolve_device(device)
+            xt = _as_tensor(x, device)
+            np_dt = numpy_dtype(xt.dtype)
+            if fill_value is None:
+                fill_value = zero_of_dtype(np_dt) if xt.ndim else xt.cpu().numpy()[()]
+        else:
+            x = np.asarray(x)
+            np_dt = x.dtype
+            if fill_value is None:
+                fill_value = zero_of_dtype(np_dt) if x.shape else x[()]
+            device = _settings.resolve_device(device)
+            xt = _as_tensor(x, device).reshape(x.shape)
+        mask = ~equivalent(xt, np.asarray(fill_value, dtype=np_dt))
+        if xt.ndim:
             coords = torch.nonzero(mask).T  # row-major order: already canonical
-            data = take(xt, mask)
+            data = take(xt, tuple(coords))
         else:  # a 0-d array stores its value at the empty coordinate
             coords = torch.zeros((0, int(mask)), dtype=torch.int64, device=device)
             data = take(xt.reshape(1), mask.reshape(1))
-        return cls(
-            coords,
-            data,
-            shape=x.shape,
-            fill_value=fill_value,
-            has_duplicates=False,
-            sorted=True,
-            idx_dtype=idx_dtype,
-            device=device,
-        )
+        return cls._from_canonical(coords, data, tuple(xt.shape), fill_value, idx_dtype)
+
+    @classmethod
+    def _from_canonical(cls, coords, data, shape, fill_value, idx_dtype=None):
+        """A COO of coordinates known canonical and in bounds, as the
+        constructor builds it (the index dtype, the fill value's checks), with
+        nothing read back from the device."""
+        max_extent = max(shape) if shape else 0
+        if idx_dtype is not None:
+            if not can_store(idx_dtype, max_extent):
+                raise ValueError(f"cannot cast array with shape {shape} to dtype {idx_dtype}.")
+        else:
+            idx_dtype = coords_dtype(coords.dtype, max_extent)
+        self = cls._make(coords.to(torch_dtype(idx_dtype)), data, shape, None)
+        SparseArray.__init__(self, shape, fill_value=fill_value)
+        if _settings.WARN_ON_TOO_DENSE and self.nbytes >= self.size * self.data.element_size():
+            warnings.warn(
+                "Attempting to create a sparse array that takes no less memory than a dense array.",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        return self
 
     @classmethod
     def from_scipy_sparse(cls, x, /, *, fill_value=None, device=None):
@@ -402,8 +422,8 @@ class COO(SparseArray):
     def asformat(self, format, **kwargs):
         """This array as ``"coo"`` (itself), ``"gcxs"`` (``GCXS.from_coo``
         with ``kwargs``), ``"csr"`` or ``"csc"`` (2-D only), built on the
-        array's device."""
-        from .._utils import convert_format, not_ported
+        array's device, or ``"dok"`` (a dict on the host)."""
+        from .._utils import convert_format
         from .gcxs import CSC, CSR, GCXS
 
         format = convert_format(format)
@@ -417,8 +437,21 @@ class COO(SparseArray):
             cls, compressed_axes = (CSR, (0,)) if format == "csr" else (CSC, (1,))
             return cls(GCXS.from_coo(self, compressed_axes=compressed_axes))
         if format == "dok":
-            raise not_ported("the DOK format")
+            from .dok import DOK
+
+            return DOK.from_coo(self, **kwargs)
         raise NotImplementedError(f"The given format {format} is not supported.")
+
+    def to_scipy_sparse(self, /, *, accept_fv=None):
+        """A scipy ``coo_array`` of this array (fill value in ``accept_fv``,
+        default ``[0]``): an explicit copy to the host."""
+        import scipy.sparse
+
+        from .._utils import check_fill_value
+
+        check_fill_value(self, [0] if accept_fv is None else accept_fv, func_name="to_scipy_sparse")
+        coords = tuple(wide_index(self.coords).cpu().numpy())
+        return scipy.sparse.coo_array((self.data.cpu().numpy(), coords), shape=self.shape)
 
     def _tocsr_csc(self, kind):
         from .._utils import check_fill_value
@@ -460,8 +493,25 @@ class COO(SparseArray):
             raise TypeError("len() of unsized object")
         return self.shape[0]
 
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
     def __getitem__(self, index):
-        raise not_ported("indexing of a COO array")
+        """NumPy indexing on the device (``ops.indexing.getitem``); a position
+        holding one value gives a 0-d tensor. Memoized for hashable indices
+        once caching is enabled (not for tensors, which hash by identity and
+        compare element by element)."""
+        from ..ops.indexing import getitem
+
+        parts = index if isinstance(index, tuple) else (index,)
+        if self._cache is not None and not any(isinstance(k, torch.Tensor) for k in parts):
+            try:
+                hash(index)
+            except TypeError:
+                return getitem(self, index)
+            return self._cached("getitem", index, lambda: getitem(self, index))
+        return getitem(self, index)
 
     def transpose(self, axes=None):
         """The axes permuted, on the device: the coordinates' rows permuted and
@@ -568,6 +618,35 @@ class COO(SparseArray):
             return COO._make(self.coords.clone(), self.data.clone(), self.shape, self.fill_value)
         return COO._make(self.coords, self.data, self.shape, self.fill_value)
 
+    def resize(self, *args, refcheck=True, coords_dtype=np.intp):
+        """Resize in place to the new shape, as ``np.ndarray.resize``: the
+        entries whose C-order position lies beyond the new size are dropped.
+        Derived results cached on the array are dropped too."""
+        shape = args[0] if len(args) == 1 and isinstance(args[0], tuple) else args
+        shape = tuple(int(s) for s in shape)
+        lin = self.linear_loc()
+        keep = lin < math.prod(shape)
+        lin = lin[keep]
+        dt = torch_dtype(index_dtype_for(max(shape) if shape else 0))
+        coords = torch.empty((len(shape), lin.numel()), dtype=dt, device=self.device)
+        for d in range(len(shape) - 1, -1, -1):
+            coords[d] = lin % shape[d] if shape[d] else lin
+            lin = lin // shape[d] if shape[d] else lin
+        self.coords, self.data, self.shape = coords, take(self.data, keep), shape
+        if self._cache is not None:
+            self.enable_caching()
+
+    def nonzero(self):
+        """The coordinates of the stored non-zero entries (zero fill only)."""
+        from ..ops.common import nonzero
+
+        return nonzero(self)
+
+    def dot(self, other):
+        from ..ops.dot import dot
+
+        return dot(self, other)
+
     # -- reduction plumbing ------------------------------------------------------------
     def _reduce_calc(self, method, axis, keepdims=False, **kwargs):
         """The reduction of ``method`` over ``axis`` on the device: over every
@@ -635,6 +714,23 @@ class COO(SparseArray):
         return _kept_result(data, arr_attrs, result_fill_value)
 
     # -- kernel layouts --------------------------------------------------------------
+    def to_block_ell(self, block_rows=128):
+        """Cached block-ELL layout of a 2-D zero-fill matrix (``kernels.ell_spmm``'s
+        input; ``sparse_tpu``'s arrays, built on the host and kept on the
+        array's device)."""
+        from ..kernels.ell import build_block_ell
+
+        if self.ndim != 2:
+            raise ValueError("block-ELL requires a 2-D matrix")
+        check_zero_fill_value(self, func_name="to_block_ell")
+
+        def compute():
+            rows, cols = wide_index(self.coords).cpu().numpy()
+            data = self.data.cpu().numpy()
+            return build_block_ell(rows, cols, data, *self.shape, block_rows=block_rows, device=self.device)
+
+        return self._cached_layout("block_ell", block_rows, compute)
+
     def to_row_ell(self, min_pad=8, max_tiers=None, group=16):
         """Cached degree-sorted per-row ELL layout — the SpMM/SpMV kernels'
         input (``kernels.row_ell_spmm``), built once on the host and kept on

@@ -27,7 +27,9 @@ through the COO. Elementwise operations on GCXS operands return a GCXS.
 
 ``concatenate_gcxs``/``stack_gcxs`` splice the inputs' storage on the device.
 
-Not ported yet (``NotImplementedError``): indexing and the DOK format.
+Indexing (``__getitem__``) splices ``indptr`` on the device for the 2-D
+patterns of ``_getitem_fast`` and goes through the COO otherwise;
+``asformat("dok")`` gives a DOK on the host.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from __future__ import annotations
 import math
 from collections import defaultdict, deque
 from collections.abc import Iterable
+from numbers import Integral
 
 import numpy as np
 import torch
@@ -46,10 +49,10 @@ from .._utils import (
     convert_format,
     coords_dtype,
     equivalent,
+    full,
     get_out_dtype,
     index_dtype_for,
     normalize_axis,
-    not_ported,
     numpy_dtype,
     take,
     torch_dtype,
@@ -411,7 +414,9 @@ class GCXS(SparseArray):
         if format == "coo":
             return self.tocoo()
         if format == "dok":
-            raise not_ported("the DOK format")
+            from .dok import DOK
+
+            return DOK.from_coo(self.tocoo(), **kwargs)
         if format == "csr":
             return CSR(self.change_compressed_axes((0,))) if self.compressed_axes != (0,) else CSR(self)
         if format == "csc":
@@ -580,7 +585,187 @@ class GCXS(SparseArray):
         return self.reshape(-1, order=order)
 
     def __getitem__(self, index):
-        raise not_ported("indexing of a GCXS array")
+        """NumPy indexing on the device: the 2-D patterns of ``_getitem_fast``
+        splice ``indptr``; anything else indexes the COO and compresses the
+        result (along this array's ``compressed_axes`` where the result has
+        them). A position holding one value gives a 0-d tensor."""
+        from ..ops.indexing import getitem
+
+        fast = self._getitem_fast(index)
+        if fast is not NotImplemented:
+            return fast
+        out = getitem(self.tocoo(), index)
+        if isinstance(out, COO) and out.ndim >= 1:
+            keep = out.ndim > max(self.compressed_axes, default=0) and out.ndim >= 2
+            try:
+                return GCXS.from_coo(out, compressed_axes=self.compressed_axes if keep else None)
+            except ValueError:
+                return GCXS.from_coo(out)
+        return out
+
+    @staticmethod
+    def _classify_axis_sel(sel, n, device, checks=None):
+        """One 2-D index component as ``(kind, payload)``: ``("full", None)``,
+        ``("int", i)``, ``("range", (c0, c1))`` for a step-1 slice, or
+        ``("fancy", (positions, host))`` for a 1-D integer or boolean array
+        (int64 positions on ``device``; ``host``, the NumPy positions when the
+        index came from the host, else ``None``); ``None`` when unsupported
+        here. A tensor's bounds check reads back here, or joins ``checks``
+        (``ops.slicing.run_checks``) with its positions clamped until then."""
+        if isinstance(sel, Integral):
+            i = int(sel)
+            i += n if i < 0 else 0
+            if not (0 <= i < n):
+                raise IndexError(f"index {sel} out of bounds for axis with size {n}")
+            return ("int", i)
+        if isinstance(sel, slice):
+            if sel == slice(None):
+                return ("full", None)
+            start, stop, step = sel.indices(n)
+            if step != 1:
+                return None
+            return ("range", (start, max(start, stop)))
+        if isinstance(sel, torch.Tensor):
+            if sel.device != device:
+                raise ValueError(f"index tensor on {sel.device} given for an array on {device}; move it first")
+            if sel.ndim == 1 and sel.dtype == torch.bool:
+                if sel.numel() != n:
+                    raise IndexError(f"boolean index of size {sel.numel()} for axis with size {n}")
+                return ("fancy", (torch.nonzero(sel).flatten(), None))
+            if sel.ndim == 1 and not (sel.dtype.is_floating_point or sel.dtype.is_complex):
+                t = sel.long()
+                if t.numel() and checks is None:
+                    lo, hi = torch.stack([t.amin(), t.amax()]).tolist()
+                    if lo < -n or hi >= n:
+                        raise IndexError(f"index out of bounds for axis with size {n}")
+                elif t.numel():
+                    # checked with the caller's read; clamped until then
+                    checks.append((t.amin(), t.amax(), n))
+                    t = t.clamp(-n, n - 1)
+                return ("fancy", (torch.where(t < 0, t + n, t), None))
+            return None
+        arr = np.asarray(sel)
+        if arr.ndim == 1 and arr.dtype.kind == "b":
+            if arr.size != n:
+                raise IndexError(f"boolean index of size {arr.size} for axis with size {n}")
+            pos = np.flatnonzero(arr)
+        elif arr.ndim == 1 and arr.dtype.kind in "iu":
+            if arr.size and (arr.min() < -n or arr.max() >= n):
+                raise IndexError(f"index out of bounds for axis with size {n}")
+            pos = np.where(arr < 0, arr + n, arr).astype(np.int64)
+        else:
+            return None
+        return ("fancy", (torch.as_tensor(pos, dtype=torch.int64, device=device), pos))
+
+    def _getitem_fast(self, index):
+        """The 2-D patterns without a COO: an int, a step-1 slice or an
+        integer-array pick along the compressed axis, with an int, a step-1
+        slice or a strictly increasing integer-array filter along the other;
+        ``indptr`` spliced on the device (each pick's range through
+        ``repeat_interleave`` and ``cumsum``), then one masked pass. Reads
+        back: the picked ranges' bounds or total, and the filter's count."""
+        from ..ops.slicing import run_checks
+
+        if self.ndim != 2 or self.compressed_axes not in ((0,), (1,)):
+            return NotImplemented
+        if not isinstance(index, tuple):
+            index = (index,)
+        if len(index) > 2 or any(i is None or i is Ellipsis for i in index):
+            return NotImplemented
+        index = index + (slice(None),) * (2 - len(index))
+        comp_ax = self.compressed_axes[0]
+        n_comp, n_unc = self.shape[comp_ax], self.shape[1 - comp_ax]
+        dev = self.device
+        checks = []  # the compressed axis' tensor picks: checked with the total's read
+        comp_sel = self._classify_axis_sel(index[comp_ax], n_comp, dev, checks)
+        unc_sel = self._classify_axis_sel(index[1 - comp_ax], n_unc, dev)
+        if comp_sel is None or unc_sel is None:
+            return NotImplemented
+        if comp_sel[0] == "fancy" and unc_sel[0] == "fancy":
+            # two advanced indices select pointwise (NumPy), not the outer
+            # product this path computes
+            return NotImplemented
+        if unc_sel[0] == "fancy":
+            pos, host = unc_sel[1]
+            increasing = bool(np.all(np.diff(host) > 0)) if host is not None else bool((pos[1:] > pos[:-1]).all())
+            if pos.numel() > 1 and not increasing:
+                # repeated or unordered filters would need a per-row re-sort
+                return NotImplemented
+        indptr, indices, data = self.indptr, self.indices, self.data
+
+        # phase 1: the compressed-axis selection (indptr spliced)
+        kind, payload = comp_sel
+        if kind == "int":
+            lo, hi = indptr[payload : payload + 2].tolist()
+            sub_data, sub_ind = data[lo:hi], indices[lo:hi]
+            rel_indptr = torch.zeros(2, dtype=torch.int64, device=dev)
+            rel_indptr[1] = hi - lo
+            n_sel = 1
+        elif kind in ("full", "range"):
+            start, stop = (0, n_comp) if kind == "full" else payload
+            lo, hi = torch.stack([indptr[start], indptr[stop]]).tolist()
+            sub_data, sub_ind = data[lo:hi], indices[lo:hi]
+            rel_indptr = indptr[start : stop + 1].long() - lo
+            n_sel = stop - start
+        else:  # picks, in pick order (repeats allowed)
+            sel_pos = payload[0]
+            lo = indptr[sel_pos].long()
+            counts = indptr[sel_pos + 1].long() - lo
+            (total,) = run_checks(checks, [counts.sum()])
+            run = torch.repeat_interleave(torch.arange(sel_pos.numel(), device=dev), counts, output_size=total)
+            ends = torch.cumsum(counts, 0)
+            src = lo[run] + torch.arange(total, device=dev) - (ends - counts)[run]
+            sub_data, sub_ind = take(data, src), take(indices, src)
+            rel_indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), ends])
+            n_sel = sel_pos.numel()
+        comp_is_scalar = kind == "int"
+
+        # phase 2: the other axis' filter (one masked pass)
+        ukind, upayload = unc_sel
+        hit = None
+        if ukind == "full":
+            new_ind, new_data, new_width = sub_ind, sub_data, n_unc
+        else:
+            wide = sub_ind.long()
+            if ukind == "int":
+                hit = torch.nonzero(wide == upayload).flatten()
+                new_ind = torch.zeros(hit.numel(), dtype=sub_ind.dtype, device=dev)
+                new_width = 1
+            elif ukind == "range":
+                c0, c1 = upayload
+                hit = torch.nonzero((wide >= c0) & (wide < c1)).flatten()
+                new_ind = (wide[hit] - c0).to(sub_ind.dtype)
+                new_width = c1 - c0
+            else:
+                pos = upayload[0]
+                remap = torch.full((n_unc,), -1, dtype=torch.int64, device=dev)
+                remap[pos] = torch.arange(pos.numel(), device=dev)
+                mapped = remap[wide]
+                hit = torch.nonzero(mapped >= 0).flatten()
+                new_ind = mapped[hit].to(sub_ind.dtype)
+                new_width = pos.numel()
+            new_data = take(sub_data, hit)
+
+        if comp_is_scalar and ukind == "int":
+            return new_data[0].clone() if new_data.numel() else full((), self.fill_value, self.dtype, dev)
+        if comp_is_scalar:
+            # a 1-D row: compressed_axes (), indptr [0, nnz]
+            one = torch.zeros(2, dtype=indptr.dtype, device=dev)
+            one[1] = new_ind.numel()
+            return GCXS._make(new_data, new_ind, one, (new_width,), (), self.fill_value)
+        if ukind == "int":
+            # a 1-D result along the compressed axis: each hit's segment
+            rows = torch.searchsorted(rel_indptr, hit, right=True) - 1
+            dt = torch_dtype(index_dtype_for(n_sel))
+            return GCXS.from_coo(COO._make(rows[None, :].to(dt), new_data, (n_sel,), self.fill_value))
+        if hit is None:
+            new_indptr = rel_indptr.to(indptr.dtype)
+        else:
+            kept = torch.zeros(sub_ind.numel() + 1, dtype=torch.int64, device=dev)
+            kept[hit + 1] = 1
+            new_indptr = torch.cumsum(kept, 0)[rel_indptr].to(indptr.dtype)
+        new_shape = (n_sel, new_width) if comp_ax == 0 else (new_width, n_sel)
+        return GCXS._make(new_data, new_ind, new_indptr, new_shape, self.compressed_axes, self.fill_value)
 
     def _reduce_calc(self, method, axis, keepdims=False, **kwargs):
         """Reductions on the device. Reducing exactly the uncompressed axes

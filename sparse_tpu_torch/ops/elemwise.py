@@ -844,10 +844,14 @@ def _first_element(t):
 
 
 def _choose_output_format(args):
-    """all-GCXS → GCXS with their common ``compressed_axes``; else COO."""
+    """all-DOK → DOK; all-GCXS → GCXS with their common ``compressed_axes``;
+    else COO."""
+    from ..core.dok import DOK
     from ..core.gcxs import GCXS
 
     sparse_args = [a for a in args if isinstance(a, SparseArray)]
+    if sparse_args and all(isinstance(a, DOK) for a in sparse_args):
+        return "dok", {}
     if sparse_args and all(isinstance(a, GCXS) for a in sparse_args):
         axes = {a.compressed_axes for a in sparse_args}
         if len(axes) == 1:
@@ -884,7 +888,7 @@ def elemwise(func, *args, **kwargs):
     ``np.where``, ...) or any callable on torch tensors. Sparse operands
     (COO, GCXS, scipy sparse) broadcast against dense ones (tensors on the
     sparse operands' device, NumPy arrays, copied there) and Python scalars.
-    The result is a COO (a GCXS when every sparse operand is one), or a
+    The result is a COO (a GCXS or a DOK when every sparse operand is one), or a
     dense tensor when ``func(fill values, dense operands)`` varies and the
     dense operands alone span the shape."""
     import scipy.sparse

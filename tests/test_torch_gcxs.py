@@ -478,15 +478,6 @@ def test_products_reuse_the_held_coo_and_its_layout():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda g: g[0],
-        lambda g: g[:, 1],
-        lambda g: g.tocoo()[0],
-        lambda g: g.tocoo()[:, 1],
-        lambda g: g[1:],
-        lambda g: g.tocoo()[1:],
-        lambda g: g[[0, 1]],
-        lambda g: g.asformat("dok"),
-        lambda g: g.tocoo().asformat("dok"),
         lambda g: g.reshape((6, 2), order="F"),
     ],
 )

@@ -183,7 +183,7 @@ def test_namespace_reexports_numpys_ufuncs():
 
 
 def test_all_names_only_what_sparse_tpu_names():
-    assert set(st.__all__) <= set(jsp.__all__)
+    assert st.__all__ == jsp.__all__ and len(st.__all__) == 171
     for name in ("CSC", "CSR", "jitops", "kernels", "matvec_add", "nn", "sddmm", "swapaxes", "transpose"):
         assert hasattr(st, name) and name not in st.__all__, name
     for name in ("einsum", "concat", "concatenate", "stack", "diagonal", "diagonalize"):
@@ -201,8 +201,7 @@ def test_array_function_dispatch():
     check(lambda: np.real(t), lambda: np.real(j))
     check(lambda: np.squeeze(t), lambda: np.squeeze(j))
     check(lambda: np.concatenate([t, t]), lambda: np.concatenate([j, j]))
-    with pytest.raises(TypeError):
-        np.kron(t, t)
+    check(lambda: np.kron(t, t), lambda: np.kron(j, j))
 
 
 def test_scalar_conversions_and_0d_results():
@@ -226,10 +225,3 @@ def test_where_with_one_argument_and_errors():
     t1, _ = both(x, fill=1.0)
     with pytest.raises(ValueError, match="zero fill"):
         st.where(t1)
-
-
-def test_unported_coo_indexing_raises():
-    t, _ = both(dense(16, (3, 4)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t[0]
-    assert len(t) == 3 and t.format == "coo"
