@@ -107,6 +107,23 @@ drives the port's two paths on the card:
   ``index_select``/``torch.sort`` beside them (timed only). No kernel of
   the package is new here: the JAX package leaves this work to the host;
 
+- sparse attention and graph convolution (the ``attention_path`` line), at
+  the full width of public models, float32, 12 heads of 64 a loop at L =
+  4,096: Longformer-base's window of 256 each side with one global token on
+  the COO route (K4 scores, the segment softmax, K5's weighted sum) and
+  without it on the row-ELL route (K6), ``longformer_attention`` and
+  ``banded_attention`` (causal too), BigBird's blocks of 64 with 3 random
+  blocks through ``block_sparse_attention``; one head at L = 65,536 on K6
+  and ``banded_attention``; ``graph_conv`` at ogbn-arxiv's sizes (169,343
+  nodes, 1,166,243 edges drawn from a seed, 128 features, hidden 256). Each
+  output against a float64 oracle (dense masked softmax on the card, scipy
+  for ``graph_conv``) within 1e-4 · max|v|, K6 against its plain version
+  (2e-6 · max|v|) and twice bit for bit, the gradients of both routes
+  against the plain versions' (the COO route's and ``graph_conv``'s twice
+  bit for bit), each route's launches counted on its own; device ms a head
+  and a 12-head layer, peak memory, and ``scaled_dot_product_attention``
+  with the pattern's dense mask beside them (timed only);
+
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
   sparse column, ufuncs, a cast and the reductions of the bench matrix as
@@ -183,6 +200,7 @@ SOURCE = {
     },
     "sddmm": "sparse_tpu_torch/kernels/csrc/sddmm.cu",
     "sampled_row_sum": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
+    "ell_attention": "sparse_tpu_torch/kernels/csrc/attention.cu",
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -203,6 +221,7 @@ REPLACES = {
     "pick_scale_wsum": "experiments/pallas_vmem2.py:146",  # g3 (E9)
     "sddmm": "sparse_tpu/kernels/dot.py:103",  # sddmm (XLA gather + sum)
     "sampled_row_sum": "sparse_tpu/kernels/dot.py:124",  # the transpose of sddmm's gathers (XLA segment sum)
+    "ell_attention": "sparse_tpu/nn.py:282",  # sparse_attention_ell (XLA gather, score, masked softmax, weighted sum)
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -2982,6 +3001,387 @@ def phase_indexing_path(dev, a, card):
     }
 
 
+# Sparse attention and graph convolution (the attention_path line), float32,
+# heads a loop, at the full width of public models:
+# - Longformer-base (allenai/longformer-base-4096: hidden 768, 12 heads of 64,
+#   attention_window 512, so 256 each side), L = 4,096: the window with one
+#   global token (the COO route: K4, the segment softmax, K5), the window alone
+#   (the row-ELL route: K6), longformer_attention and banded_attention;
+# - BigBird (google/bigbird-roberta-base: block_size 64, num_random_blocks 3,
+#   one window block each side, two global blocks), L = 4,096;
+# - one long head at the reference docstring's scale, L = 65,536, W = 256
+#   (33.6M slots): banded_attention against K6's row-ELL route;
+# - GCN propagation at OGB ogbn-arxiv's sizes (169,343 nodes, 1,166,243
+#   edges, 128 features; hidden 256), a graph drawn from a seed.
+AT_L, AT_HEADS, AT_D, AT_WINDOW, AT_BLOCK = 4096, 12, 64, 256, 128
+BB_BLOCK, BB_WINDOW, BB_RANDOM, BB_GLOBAL = 64, 1, 3, 2
+AT_LONG_L = 65_536
+GCN_NODES, GCN_EDGES, GCN_IN, GCN_HIDDEN = 169_343, 1_166_243, 128, 256
+# each output against a float64 oracle within AT_ORACLE_TOL · max|v|: float32
+# scores of 64 products of unit normals scaled by 1/8 round at about 1e-6 of
+# their size, the weights inherit that, and an output row sums up to 4,096 of
+# them in float32; 1e-4 leaves room for the sums' order
+AT_ORACLE_TOL = 1e-4
+# K6 against its plain version on the same inputs (sums in another order), · max|v|
+AT_PLAIN_TOL = 2e-6
+# the gradients against the plain versions', max|got - want| / max|want|
+AT_GRAD_TOL = 1e-5
+# graph_conv against scipy's float64 product, max|got - want| / max|want|: x @ w
+# sums 128 float32 products, K5 a row's ~15 weighted rows
+GCN_TOL = 1e-5
+AT_REPS = 5
+
+
+def at_device_ms(fn, reps=AT_REPS):
+    """Median device ms of one call of ``fn`` with the host ahead of the card:
+    a spin of twice the host's enqueue time before each call, CUDA events
+    around the call alone."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(int(max(2 * host_s, 1e-3) * 2e9))  # cycles at about 2 GHz
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def peak_bytes(fn):
+    """Bytes one call of ``fn`` allocates beyond what was live before it, its output included."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def masked_oracle(q, k, v, allowed, scale):
+    """Dense masked softmax attention in float64 on the card."""
+    s = (q.double() @ k.double().T) * scale
+    s = s.masked_fill(~allowed, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m))) * allowed
+    denom = e.sum(dim=-1, keepdim=True)
+    return (e / torch.where(denom == 0, torch.ones_like(denom), denom)) @ v.double()
+
+
+def band_oracle(q, k, v, window, scale, chunk=1024):
+    """:func:`masked_oracle` of a sliding window, a chunk of query rows at a time over its key stripe."""
+    L = q.shape[0]
+    out = torch.empty((L, v.shape[1]), dtype=torch.float64, device=q.device)
+    for r0 in range(0, L, chunk):
+        r1, c0 = min(r0 + chunk, L), max(r0 - window, 0)
+        c1 = min(r1 + window, L)
+        qpos = torch.arange(r0, r1, device=q.device)[:, None]
+        kpos = torch.arange(c0, c1, device=q.device)[None, :]
+        out[r0:r1] = masked_oracle(q[r0:r1], k[c0:c1], v[c0:c1], (qpos - kpos).abs() <= window, scale)
+    return out
+
+
+def dense_allowed(rows, cols, length, dev):
+    allowed = torch.zeros((length, length), dtype=torch.bool, device=dev)
+    allowed[torch.as_tensor(rows, device=dev).long(), torch.as_tensor(cols, device=dev).long()] = True
+    return allowed
+
+
+def check_attention(name, got, want, v):
+    """``max|got - want| <= AT_ORACLE_TOL · max|v|``; that ratio."""
+    vmax = float(v.abs().max())
+    err = float((got.double() - want).abs().max())
+    if not err <= AT_ORACLE_TOL * vmax:
+        raise AssertionError(f"{name}: {err} from the float64 oracle, beyond {AT_ORACLE_TOL} · max|v| = {AT_ORACLE_TOL * vmax}")
+    return err / vmax
+
+
+def by_heads(fn, q, k, v):
+    """``fn`` on each head of ``(H, L, d)`` tensors, stacked: heads are a loop."""
+    return torch.stack([fn(q[h], k[h], v[h]) for h in range(q.shape[0])])
+
+
+def phase_attention_path(dev, card):
+    """Sparse attention and GCN propagation through ``sparse_tpu_torch.nn``,
+    counted route by route (counts set to 0 just before each, read just
+    after): K4 and K5 on the COO route, K6 on the row-ELL route, none on the
+    dense block forms, K5 in ``graph_conv``. Each output against a float64
+    oracle on the card (scipy for ``graph_conv``), K6 against its plain
+    version and twice bit for bit, the gradients of ``(w · attention).sum()``
+    in q, k and v on both routes against the plain versions' (the COO route's
+    twice bit for bit), ``graph_conv``'s gradient twice bit for bit. Then
+    device ms a head and a 12-head layer, peak memory, and
+    ``scaled_dot_product_attention`` with the pattern's dense mask beside
+    them (timed only). Returns the phase's line and K6's ``kernels`` line."""
+    import scipy.sparse as sp
+
+    from sparse_tpu_torch import nn as tnn
+    from sparse_tpu_torch.kernels import LAUNCHES, _cuda, reset_launch_counts
+    from sparse_tpu_torch.kernels import attention as katt
+    from sparse_tpu_torch.kernels import dot as kdot
+
+    t_phase = time.perf_counter()
+    H, L, D, W = AT_HEADS, AT_L, AT_D, AT_WINDOW
+    scale = 1.0 / np.sqrt(D)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn((H, L, D), generator=gen, device=dev) for _ in range(3))
+    rows_g, cols_g = tnn.local_attention_pattern(L, W, 1)
+    rows_w, cols_w = tnn.local_attention_pattern(L, W)
+    bb_ids, bb_valid = tnn.bigbird_block_pattern(
+        L, block=BB_BLOCK, n_window=BB_WINDOW, n_random=BB_RANDOM, n_global=BB_GLOBAL, seed=0
+    )
+    # held on the card, as a caller running many steps holds them (a NumPy list is copied every call)
+    bb_ids_t, bb_valid_t = torch.as_tensor(bb_ids, device=dev), torch.as_tensor(bb_valid, device=dev)
+    ql, kl, vl = (torch.randn((AT_LONG_L, D), generator=gen, device=dev) for _ in range(3))
+    t0 = time.perf_counter()
+    rows_l, cols_l = tnn.local_attention_pattern(AT_LONG_L, W)
+    long_pattern_s = time.perf_counter() - t0
+    # the graph: edges drawn from a seed, made symmetric with self-loops, D^-1/2 (A + I) D^-1/2
+    rng = np.random.default_rng(19)
+    n = GCN_NODES
+    e = rng.integers(0, n, size=(2, GCN_EDGES))
+    lin = np.unique(np.concatenate([e[0] * n + e[1], e[1] * n + e[0], np.arange(n, dtype=np.int64) * (n + 1)]))
+    g_rows, g_cols = lin // n, lin % n
+    deg = np.bincount(g_rows, minlength=n).astype(np.float64)
+    g_vals = 1.0 / np.sqrt(deg[g_rows] * deg[g_cols])
+    gr = torch.as_tensor(g_rows.astype(np.int32), device=dev)
+    gc = torch.as_tensor(g_cols.astype(np.int32), device=dev)
+    gv = torch.as_tensor(g_vals, dtype=torch.float32, device=dev)
+    x = torch.randn((n, GCN_IN), generator=gen, device=dev)
+    w = torch.randn((GCN_IN, GCN_HIDDEN), generator=gen, device=dev) / np.sqrt(GCN_IN)
+    torch.cuda.synchronize()
+
+    coo_head = lambda a, b, c: tnn.sparse_attention(a, b, c, rows_g, cols_g)  # noqa: E731
+    ell_head = lambda a, b, c: tnn.sparse_attention(a, b, c, rows_w, cols_w)  # noqa: E731
+    heads = {
+        "coo_route": coo_head,
+        "ell_route": ell_head,
+        "longformer": lambda a, b, c: tnn.longformer_attention(a, b, c, window=W, n_global=1, block=AT_BLOCK),
+        "banded": lambda a, b, c: tnn.banded_attention(a, b, c, window=W, block=AT_BLOCK),
+        "banded_causal": lambda a, b, c: tnn.banded_attention(a, b, c, window=W, block=AT_BLOCK, causal=True),
+        "bigbird": lambda a, b, c: tnn.block_sparse_attention(a, b, c, bb_ids_t, bb_valid_t, block=BB_BLOCK),
+    }
+    singles = {
+        "long_ell": lambda: tnn.sparse_attention(ql, kl, vl, rows_l, cols_l),
+        "long_banded": lambda: tnn.banded_attention(ql, kl, vl, window=W, block=AT_BLOCK),
+        "graph_conv": lambda: tnn.graph_conv(gr, gc, gv, x, w, n_nodes=n),
+    }
+    launches, outs, first_s = {}, {}, {}
+    for name, fn in [*((nm, lambda f=f: by_heads(f, q, k, v)) for nm, f in heads.items()), *singles.items()]:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        first_s[name] = time.perf_counter() - t0
+        launches[name] = {kn: c for kn, c in LAUNCHES.items() if c}
+    expect = {
+        "coo_route": {"sddmm", "sampled_row_sum"},
+        "ell_route": {"ell_attention"},
+        "long_ell": {"ell_attention"},
+        "graph_conv": {"sampled_row_sum"},
+    }
+    for name, got in launches.items():
+        if set(got) != expect.get(name, set()):
+            raise AssertionError(f"attention path, {name}: launched {got}, expected {sorted(expect.get(name, set()))}")
+    if launches["ell_route"]["ell_attention"] != H or launches["coo_route"]["sddmm"] != H:
+        raise AssertionError(f"attention path: a launch a head expected, got {launches}")
+
+    # each output against the float64 oracle
+    allowed_g = dense_allowed(rows_g, cols_g, L, dev)
+    allowed_w = dense_allowed(rows_w, cols_w, L, dev)
+    pos = torch.arange(L, device=dev)
+    blocks = torch.zeros((L // BB_BLOCK, L // BB_BLOCK), dtype=torch.bool, device=dev)
+    ids_t = bb_ids_t.long()
+    blocks[torch.arange(blocks.shape[0], device=dev)[:, None].expand_as(ids_t)[bb_valid_t], ids_t[bb_valid_t]] = True
+    allowed = {
+        "coo_route": allowed_g,
+        "ell_route": allowed_w,
+        "longformer": allowed_g,
+        "banded": allowed_w,
+        "banded_causal": allowed_w & (pos[None, :] <= pos[:, None]),
+        "bigbird": blocks.repeat_interleave(BB_BLOCK, 0).repeat_interleave(BB_BLOCK, 1),
+    }
+    worst = {name: 0.0 for name in allowed}
+    for h in range(H):
+        want_g = masked_oracle(q[h], k[h], v[h], allowed_g, scale)
+        want_w = masked_oracle(q[h], k[h], v[h], allowed_w, scale)
+        for name, mask in allowed.items():
+            want = want_g if mask is allowed_g else want_w if mask is allowed_w else masked_oracle(q[h], k[h], v[h], mask, scale)
+            worst[name] = max(worst[name], check_attention(f"{name}, head {h}", outs[name][h], want, v[h]))
+    want_long = band_oracle(ql, kl, vl, W, scale)
+    worst["long_ell"] = check_attention("long head, row-ELL route", outs["long_ell"], want_long, vl)
+    worst["long_banded"] = check_attention("long head, banded_attention", outs["long_banded"], want_long, vl)
+    del want_long
+    agree = {
+        "longformer_vs_coo_route": float((outs["longformer"] - outs["coo_route"]).abs().max()),
+        "banded_vs_ell_route": float((outs["banded"] - outs["ell_route"]).abs().max()),
+        "long_banded_vs_ell": float((outs["long_banded"] - outs["long_ell"]).abs().max()),
+    }
+    # graph_conv against scipy's float64 product
+    a_host = sp.csr_matrix((g_vals, (g_rows, g_cols)), shape=(n, n))
+    want_gcn = a_host @ (x.double().cpu().numpy() @ w.double().cpu().numpy())
+    gcn_err = float(np.abs(outs["graph_conv"].double().cpu().numpy() - want_gcn).max() / np.abs(want_gcn).max())
+    if not gcn_err <= GCN_TOL:
+        raise AssertionError(f"graph_conv: {gcn_err} from scipy's float64 product, beyond {GCN_TOL}")
+    del a_host, want_gcn
+
+    # K6 against its plain version, twice bit for bit, and the entry point's bits
+    e_np, valid_np = tnn.build_attention_ell(rows_w, cols_w, L)
+    e_cols, valid = torch.as_tensor(e_np, device=dev), torch.as_tensor(valid_np, device=dev)
+    out_k = torch.empty((L, D), device=dev)
+    launch = lambda: _cuda.ell_attention(q[0], k[0], v[0], e_cols, valid, scale, out_k)  # noqa: E731
+    got = launch().clone()
+    plain = katt.ell_attention_plain(q[0], k[0], v[0], e_cols, valid, scale)
+    k6_err = float((got - plain).abs().max())
+    if not k6_err <= AT_PLAIN_TOL * float(v[0].abs().max()):
+        raise AssertionError(f"K6 against ell_attention_plain: {k6_err} beyond {AT_PLAIN_TOL} · max|v|")
+    if not torch.equal(got, launch()) or not torch.equal(got, outs["ell_route"][0]):
+        raise AssertionError("K6: a second launch, or the entry point, gave other bits")
+    del plain
+
+    # the gradients of (wts · attention).sum() in q, k and v, head 0
+    wts = torch.randn((L, D), generator=gen, device=dev)
+
+    def grads(fn):
+        ins = [t[0].clone().requires_grad_(True) for t in (q, k, v)]
+        (wts * fn(*ins)).sum().backward()
+        return [t.grad for t in ins]
+
+    kept = tnn._coo_pattern(rows_g, cols_g, L, L, dev)
+
+    def coo_plain(a, b, c):  # the COO route in torch ops: sddmm_plain, the softmax's runs, sampled_row_sum_plain
+        ones = torch.ones(kept.rows.shape[0], device=dev)
+        attn = tnn._softmax_runs(kdot.sddmm_plain(kept.rows, kept.cols, ones, a, b.T) * scale, kept.seg, L, None)
+        return kdot.sampled_row_sum_plain(kept.rows, kept.cols, attn, c, L)
+
+    grad_err = {}
+    g1, g2 = grads(coo_head), grads(coo_head)
+    if not all(torch.equal(x_, y_) for x_, y_ in zip(g1, g2)):
+        raise AssertionError("COO route: a second backward gave other bits")
+    gp = grads(coo_plain)
+    grad_err["coo_route"] = {nm: normalised_err(x_, y_.double()) for nm, x_, y_ in zip("qkv", g1, gp)}
+    del g2, gp
+    ge = grads(ell_head)
+    gp = grads(lambda a, b, c: katt.ell_attention_plain(a, b, c, e_cols, valid, scale))
+    grad_err["ell_route"] = {nm: normalised_err(x_, y_.double()) for nm, x_, y_ in zip("qkv", ge, gp)}
+    del ge, gp
+    for route, errs in grad_err.items():
+        if max(errs.values()) > AT_GRAD_TOL:
+            raise AssertionError(f"{route} gradients against the plain version's: {errs}")
+    gwts = torch.randn((n, GCN_HIDDEN), generator=gen, device=dev)
+
+    def gcn_grads():
+        ins = [t.clone().requires_grad_(True) for t in (gv, x, w)]
+        return torch.autograd.grad((gwts * tnn.graph_conv(gr, gc, *ins, n_nodes=n)).sum(), ins)
+
+    if not all(torch.equal(x_, y_) for x_, y_ in zip(gcn_grads(), gcn_grads())):
+        raise AssertionError("graph_conv: a second backward gave other bits")
+    torch.cuda.synchronize()
+
+    # times: a head, a 12-head layer, peak memory; the yardstick
+    import torch.nn.functional as F
+
+    times = {}
+    for name, f in heads.items():
+        times[name] = {
+            "head_ms": at_device_ms(lambda f=f: f(q[0], k[0], v[0])),
+            "layer_ms": at_device_ms(lambda f=f: by_heads(f, q, k, v)),
+            "layer_ms_eager": time_eager(lambda f=f: by_heads(f, q, k, v), reps=3),
+            "head_peak_bytes": peak_bytes(lambda f=f: f(q[0], k[0], v[0])),
+            "first_layer_s": first_s[name],
+        }
+    for route, f in (("coo_route", coo_head), ("ell_route", ell_head)):
+        times[route]["head_forward_backward_ms"] = at_device_ms(lambda f=f: grads(f))
+    for name in ("long_ell", "long_banded", "graph_conv"):
+        times[name] = {"ms": at_device_ms(singles[name]), "peak_bytes": peak_bytes(singles[name]), "first_s": first_s[name]}
+    times["graph_conv"]["forward_backward_ms"] = at_device_ms(gcn_grads)
+    times["graph_conv"]["xw_ms"] = at_device_ms(lambda: x @ w)
+    times["long_pattern_host_s"] = long_pattern_s
+    sdpa = {}
+    for name, mask in (("window", allowed_w), ("window_global", allowed_g)):
+        one = lambda mask=mask: F.scaled_dot_product_attention(q[0][None, None], k[0][None, None], v[0][None, None], attn_mask=mask)  # noqa: E731
+        layer = lambda mask=mask: F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask)  # noqa: E731
+        ref = outs["ell_route"][0] if name == "window" else outs["coo_route"][0]
+        sdpa[name] = {
+            "head_ms": at_device_ms(one),
+            "layer_ms": at_device_ms(layer),
+            "head_max_abs_diff": float((one()[0, 0] - ref).abs().max()),
+        }
+
+    # K6's line: the Longformer window at L = 4,096, head 0
+    slots = e_cols.numel()
+    n_valid = int(valid.sum())
+    touched = int(torch.unique(e_cols[valid]).numel())
+    nbytes = (2 * L * D + touched * 2 * D) * 4 + slots * (4 + 1)
+    flops = n_valid * 2 * D + slots * (2 * D + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    gathered = (n_valid + slots) * D * 4
+    ms = time_graph(launch)
+    line = {
+        "name": "ell_attention",
+        "route": "cuda",
+        "source": SOURCE["ell_attention"],
+        "replaces": REPLACES["ell_attention"],
+        "launches": launches["ell_route"]["ell_attention"],
+        "max_abs_err": k6_err,
+        "ms": ms,
+        "plain_ms": time_eager(lambda: katt.ell_attention_plain(q[0], k[0], v[0], e_cols, valid, scale), reps=3),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": sdpa["window"]["head_ms"],
+    }
+    k6 = {
+        **line,
+        "shape": {"L": L, "cap": int(e_cols.shape[1]), "d": D, "dv": D, "slots": slots, "valid": n_valid},
+        "strip": "shared memory" if _cuda.ell_attention_in_smem(int(e_cols.shape[1]), 4) else "scratch",
+        "bound_bytes": nbytes,
+        "bound_flops": flops,
+        "bound_share": max(t_bytes, t_ops) / ms,
+        "gathered_bytes": gathered,
+        "gathered_tb_per_s": gathered / (ms * 1e-3) / 1e12,
+        "l2_floor_ms": gathered / L2_ROW_BYTES_PER_S * 1e3,
+        "kernel_ms_l2_flushed": time_cold(launch),
+        "library": "scaled_dot_product_attention, the pattern's dense boolean mask",
+        "card": card,
+    }
+    result = {
+        "attention_path": "ok",
+        "seconds": time.perf_counter() - t_phase,
+        "shapes": {
+            "heads": H,
+            "L": L,
+            "d": D,
+            "window": W,
+            "coo_route_nnz": int(rows_g.size),
+            "ell_route_nnz": int(rows_w.size),
+            "bigbird_blocks_a_row": int(bb_ids.shape[1]),
+            "long_L": AT_LONG_L,
+            "long_slots": int(rows_l.size),
+            "graph": {"nodes": n, "edges_drawn": GCN_EDGES, "entries": int(lin.size), "features": GCN_IN, "hidden": GCN_HIDDEN},
+        },
+        "launches": launches,
+        "worst_over_max_v": worst,
+        "tolerance": {"oracle": AT_ORACLE_TOL, "k6_vs_plain": AT_PLAIN_TOL, "gradients": AT_GRAD_TOL, "graph_conv": GCN_TOL},
+        "agreement_max_abs": agree,
+        "graph_conv_err_vs_scipy": gcn_err,
+        "k6_vs_plain_max_abs": k6_err,
+        "gradient_err_vs_plain": grad_err,
+        "bits_equal_twice": {"k6": True, "coo_route_gradient": True, "graph_conv_gradient": True},
+        "times": times,
+        "sdpa": sdpa,
+        "k6": k6,
+        "card": card,
+    }
+    return result, [line]
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -3031,6 +3431,12 @@ def main():
     # indexing, DOK, npz I/O, creation and the rest of the namespace on the bench matrix
     log(json.dumps(phase_indexing_path(dev, a, card)))
     del a
+    torch.cuda.empty_cache()
+    # sparse attention (Longformer, BigBird, one long head) and GCN propagation
+    at_line, at_kernels = phase_attention_path(dev, card)
+    log(json.dumps(at_line))
+    lines += at_kernels
+    del at_line
     torch.cuda.empty_cache()
 
     # the block-sparse layer (BSR)

@@ -9,7 +9,9 @@ not take (``dense_coo_matmul`` too), the sorted-COO MTTKRP, the SDDMM
 (``sddmm``, its CUDA kernel in ``csrc/sddmm.cu``, and ``sddmm_plain``), its
 gradient's row sum (``sampled_row_sum_plain`` beside its kernel) and
 ``coo_sum_axes_dense``. Both MTTKRP forms and the SDDMM gradient's row sum
-run one CUDA kernel (``csrc/mttkrp.cu``). ``_cuda`` builds and
+run one CUDA kernel (``csrc/mttkrp.cu``). ``attention`` holds the row-ELL
+attention, K6 (``ell_attention``, its CUDA kernel in ``csrc/attention.cu``,
+and ``ell_attention_plain``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
 runs), ``elemwise`` (the traceable union of two COO operands) and
 ``spgemm`` (sparse × sparse, eager and capacity-bounded, with
@@ -17,6 +19,7 @@ runs), ``elemwise`` (the traceable union of two COO operands) and
 """
 
 from ._cuda import LAUNCHES, reset_launch_counts
+from .attention import ell_attention, ell_attention_plain
 from .bsr import (
     BSR,
     block_row_ptr,
@@ -81,6 +84,8 @@ __all__ = [
     "coo_spmv",
     "coo_sum_axes_dense",
     "dense_coo_matmul",
+    "ell_attention",
+    "ell_attention_plain",
     "ell_mttkrp",
     "ell_mttkrp_plain",
     "ell_spmm",

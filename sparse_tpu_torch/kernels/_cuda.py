@@ -12,7 +12,8 @@ The launchers take tensors already on the GPU, of the kernel's dtype, check
 that, allocate nothing themselves, launch on the current stream and do not
 synchronize. The row-ELL, MTTKRP and probe launchers take contiguous tensors;
 the BSR launchers and the SDDMM's read their operands through their
-strides, K5 its table through a row stride. ``LAUNCHES``
+strides, K5 its table and K6 (the row-ELL attention) its q, k and v
+through a row stride. ``LAUNCHES``
 counts the launches of each kernel; nothing else touches it.
 """
 
@@ -39,11 +40,12 @@ SOURCES = {
     "mttkrp": _CSRC / "mttkrp.cu",
     "probes": _CSRC / "probes.cu",
     "sddmm": _CSRC / "sddmm.cu",
+    "attention": _CSRC / "attention.cu",
 }
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparse_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_p, _i64 = ctypes.c_void_p, ctypes.c_int64
+_p, _i64, _f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # argtypes of each C entry point, by source; every one returns a CUDA error code
 _SIGNATURES = {
     "row_ell": {
@@ -95,6 +97,11 @@ _SIGNATURES = {
         for dt in ("f32", "f64")
         for it in ("i32", "i64")
     },
+    "attention": {
+        f"st_ell_attention_{dt}_{it}": [_p, _i64, _p, _i64, _p, _i64, _p, _p, *[_i64] * 5, _f64, _i64, _i64, _p, _p, _p]
+        for dt in ("f32", "f64")
+        for it in ("i32", "i64")
+    },
 }
 
 LAUNCHES = {
@@ -116,6 +123,7 @@ LAUNCHES = {
     "pick_scale_wsum": 0,
     "sddmm": 0,
     "sampled_row_sum": 0,
+    "ell_attention": 0,
 }
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
@@ -1561,4 +1569,104 @@ def sampled_row_sum(ptr, pieces, idx, w, table, out, partial, tickets, piece=Non
     )
     _raise_on(err, "sampled_row_sum")
     LAUNCHES["sampled_row_sum"] += 1
+    return out
+
+
+# K6, the row-ELL attention forward (csrc/attention.cu): a warp a query row, 8
+# warps a CTA, at most ATTENTION_BLOCKS_PER_SM CTAs an SM (the grid strides
+# past that); a warp's strip of cap scores lives in shared memory when the
+# CTA's 8 strips fit in ATTENTION_SMEM_BYTES, else in a global scratch
+ATTENTION_WARPS = 8
+ATTENTION_BLOCKS_PER_SM = 8
+ATTENTION_SMEM_BYTES = 48 << 10
+
+
+def ell_attention_grid(n_rows, device):
+    """CTAs of K6 for ``n_rows`` query rows on ``device``'s SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-n_rows // ATTENTION_WARPS), sms * ATTENTION_BLOCKS_PER_SM))
+
+
+def ell_attention_in_smem(cap, itemsize):
+    """True when K6 keeps its score strips of ``cap`` slots in shared memory."""
+    return ATTENTION_WARPS * cap * itemsize <= ATTENTION_SMEM_BYTES
+
+
+def ell_attention(q, k, v, cols, valid, scale, out, scratch=None):
+    """Launch K6: ``out[i] = Σ_j p_ij · v[cols[i, j]]`` with ``p_i`` the
+    masked softmax over row i's slots of ``scale · q[i] · k[cols[i, j]]``
+    (the reference's rules for non-finite values and indices outside the
+    tables: ``csrc/attention.cu``). ``q`` ``(L, d)``, ``k`` ``(Lk, d)``,
+    ``v`` ``(Lk, dv)`` of float32 or float64 with unit stride along their
+    rows and any row stride; ``cols`` ``(L, cap)`` int32 or int64 and
+    ``valid`` ``(L, cap)`` bool, contiguous; ``out`` ``(L, dv)``
+    contiguous. ``scratch`` holds at least ``ell_attention_grid(L) · 8 ·
+    cap`` values of the dtype when :func:`ell_attention_in_smem` is False."""
+    dtype, device = q.dtype, q.device
+    require_cuda(device, "row-ELL attention")
+    if dtype not in _SDDMM_ITEM:
+        raise TypeError(f"the row-ELL attention kernel takes float32 or float64, not {dtype}")
+    if cols.dtype not in _SDDMM_INDEX:
+        raise TypeError(f"the row-ELL attention kernel takes int32 or int64 indices, not {cols.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        _check_device(t, dtype, device, name)
+    _check("cols", cols, cols.dtype, device)
+    _check("valid", valid, torch.bool, device)
+    _check("out", out, dtype, device)
+    if q.ndim != 2 or v.ndim != 2 or cols.ndim != 2:
+        raise ValueError("ell_attention: q, v and cols must be 2-D")
+    n_rows, d = q.shape
+    n_keys, dv = v.shape
+    cap = cols.shape[1]
+    if (
+        k.shape != (n_keys, d)
+        or cols.shape != (n_rows, cap)
+        or valid.shape != (n_rows, cap)
+        or out.shape != (n_rows, dv)
+    ):
+        raise ValueError("ell_attention: q, k, v, cols, valid and out must be (L, d), (Lk, d), (Lk, dv), (L, cap) twice and (L, dv)")
+    if cap < 1 or n_keys < 1:
+        raise ValueError("ell_attention: the kernel takes at least one slot a row and one key")
+    if n_keys >= 2**31:
+        raise ValueError("ell_attention: the kernel takes fewer than 2^31 keys")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not sddmm_k_major(t):
+            raise ValueError(f"ell_attention: {name} must have unit stride along its rows")
+    if n_rows == 0 or dv == 0:
+        return out
+    grid = ell_attention_grid(n_rows, device)
+    if ell_attention_in_smem(cap, q.element_size()):
+        scratch_ptr = None
+    else:
+        if scratch is None:
+            raise ValueError("ell_attention: a strip of this cap needs a scratch")
+        _check("scratch", scratch, dtype, device)
+        if scratch.numel() < grid * ATTENTION_WARPS * cap:
+            raise ValueError("ell_attention: the scratch is too small")
+        scratch_ptr = scratch.data_ptr()
+    vec = all(sddmm_vec(t) for t in (q, k, v, out))
+    fn = getattr(load("attention"), f"st_ell_attention_{_SDDMM_ITEM[dtype]}_{_SDDMM_INDEX[cols.dtype]}")
+    err = fn(
+        q.data_ptr(),
+        q.stride(0),
+        k.data_ptr(),
+        k.stride(0),
+        v.data_ptr(),
+        v.stride(0),
+        cols.data_ptr(),
+        valid.data_ptr(),
+        n_rows,
+        n_keys,
+        cap,
+        d,
+        dv,
+        float(scale),
+        int(vec),
+        grid,
+        scratch_ptr,
+        out.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, "ell_attention")
+    LAUNCHES["ell_attention"] += 1
     return out

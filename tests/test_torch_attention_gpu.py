@@ -1,0 +1,225 @@
+"""K6, the row-ELL attention kernel (``csrc/attention.cu``), and the attention
+and graph paths that reach the card through ``sparse_tpu_torch.nn``, on the
+card.
+
+Run on a machine with an NVIDIA GPU: ``python -m pytest -m gpu --noconftest
+tests/test_torch_attention_gpu.py``. Elsewhere every test skips (from a
+fixture, so each pytest worker collects the same tests). K6 against its
+plain version (``ell_attention_plain``) on the same card: the two sum each
+score over d and each output over the slots in another order, so outputs
+are held at ``max|got - want| <= tol · max|v|`` with tol 1e-5 in float32
+(sums of up to 3,000 slots) and 1e-12 in float64; NaN in the same places.
+K6 sums in one order, so two launches give the same bits; so do the COO
+route's K4 and K5 and their gradients. The card's results against the
+port's CPU results at the same tolerances.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import sparse_tpu_torch.nn as tnn
+from sparse_tpu_torch.kernels import LAUNCHES, _cuda
+from sparse_tpu_torch.kernels import attention as tatt
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _problem(L, Lk, d, dv, cap, dtype, device, seed=0, idx=torch.int32, fill=0.8):
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.standard_normal((L, d)), dtype=dtype, device=device)
+    k = torch.as_tensor(rng.standard_normal((Lk, d)), dtype=dtype, device=device)
+    v = torch.as_tensor(rng.standard_normal((Lk, dv)), dtype=dtype, device=device)
+    e_cols = torch.as_tensor(rng.integers(0, Lk, (L, cap)), dtype=idx, device=device)
+    valid = torch.as_tensor(rng.random((L, cap)) < fill, device=device)
+    return q, k, v, e_cols, valid
+
+
+def _assert_close(got, want, scale, tol, what):
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), what
+    ok = ~torch.isnan(want)
+    err = float((got[ok] - want[ok]).abs().max()) if bool(ok.any()) else 0.0
+    assert err <= tol * scale, f"{what}: {err} > {tol} * {scale}"
+
+
+def _launch(q, k, v, e_cols, valid, scale=0.25):
+    before = LAUNCHES["ell_attention"]
+    out = tatt.ell_attention(q, k, v, e_cols, valid, scale=scale)
+    assert LAUNCHES["ell_attention"] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cap", [1, 5, 33, 513, 1000, 1600, 3000])
+@pytest.mark.parametrize("d,dv", [(64, 64), (7, 5), (130, 33), (1, 1)])
+def test_k6_matches_plain(cuda, dtype, cap, d, dv):
+    L = 64 if cap <= 1000 else 24
+    q, k, v, e_cols, valid = _problem(L, 300, d, dv, cap, dtype, cuda, seed=cap + d)
+    got = _launch(q, k, v, e_cols, valid)
+    want = tatt.ell_attention_plain(q, k, v, e_cols, valid, 0.25)
+    _assert_close(got, want, float(v.abs().max()), TOL[dtype], f"cap {cap} d {d} dv {dv}")
+    assert torch.equal(got, _launch(q, k, v, e_cols, valid)), "a second launch gave other bits"
+    in_smem = _cuda.ell_attention_in_smem(cap, q.element_size())
+    assert in_smem == (cap * q.element_size() * 8 <= 48 << 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+def test_k6_unaligned_strided_operands_and_index_dtypes(cuda, dtype, idx):
+    q, k, v, e_cols, valid = _problem(50, 80, 66, 34, 40, dtype, cuda, seed=3, idx=idx)
+    want = _launch(q, k, v, e_cols, valid)
+    # the same values in row-strided views, one off 16-byte alignment: other loads, the same bits
+    for shift in (0, 1):
+        views = []
+        for t in (q, k, v):
+            wide = torch.zeros((t.shape[0], t.shape[1] + 5), dtype=dtype, device=cuda)
+            wide[:, shift : shift + t.shape[1]] = t
+            views.append(wide[:, shift : shift + t.shape[1]])
+        assert torch.equal(_launch(*views, e_cols, valid), want)
+    # a column-major q is read through a contiguous copy
+    assert torch.equal(_launch(q.T.contiguous().T, k, v, e_cols, valid), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_empty_and_all_invalid_rows(cuda, dtype):
+    q, k, v, e_cols, valid = _problem(40, 50, 16, 8, 9, dtype, cuda, seed=4)
+    valid[3] = False
+    valid[10:20] = False
+    got = _launch(q, k, v, e_cols, valid)
+    want = tatt.ell_attention_plain(q, k, v, e_cols, valid, 0.25)
+    _assert_close(got, want, float(v.abs().max()), TOL[dtype], "empty rows")
+    assert bool((got[3] == 0).all()) and bool((got[10:20] == 0).all())
+    # a pattern from the builder: rows with no edge padded to the cap
+    rows = np.array([0, 0, 2, 2, 2, 5], dtype=np.int32)
+    cols = np.array([1, 3, 0, 4, 7, 2], dtype=np.int32)
+    ec, va = (torch.as_tensor(x, device=cuda) for x in tnn.build_attention_ell(rows, cols, 40))
+    _assert_close(_launch(q, k, v, ec, va), tatt.ell_attention_plain(q, k, v, ec, va, 0.25), float(v.abs().max()), TOL[dtype], "built")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_nonfinite_and_index_rules_equal_the_cpu(cuda, dtype):
+    q, k, v, e_cols, valid = _problem(6, 9, 4, 3, 3, dtype, cuda, seed=5)
+    v[2, 0] = float("inf")
+    v[4, 1] = float("nan")
+    e_cols[0] = torch.tensor([0, 2, 1])  # inf in a valid slot: the row NaN
+    valid[0] = torch.tensor([True, True, False])
+    e_cols[1] = torch.tensor([1, 4, 3])  # NaN in a padding slot: that lane NaN
+    valid[1] = torch.tensor([True, False, True])
+    e_cols[2] = torch.tensor([-1, -9, 0])  # from the end, both in range
+    e_cols[3] = torch.tensor([0, 9, 1])  # past the table: the row NaN
+    e_cols[4] = torch.tensor([1, 3, -10])  # before the table: the row NaN
+    e_cols[5] = torch.tensor([1, 3, 5])
+    valid[5] = False
+    got = _launch(q, k, v, e_cols, valid)
+    cpu = tatt.ell_attention_plain(*(t.cpu() for t in (q, k, v, e_cols, valid)), 0.25)
+    _assert_close(got.cpu(), cpu, float(v[torch.isfinite(v)].abs().max()), TOL[dtype], "non-finite rules")
+    assert bool(torch.isnan(got[0]).all()) and bool(torch.isnan(got[3]).all()) and bool(torch.isnan(got[4]).all())
+    assert bool(torch.isnan(got[1, 1])) and bool(torch.isfinite(got[1, [0, 2]]).all()) and bool(torch.isfinite(got[2]).all())
+
+
+def test_k6_other_dtypes_take_the_plain_version_without_a_launch(cuda):
+    q, k, v, e_cols, valid = _problem(30, 30, 8, 8, 6, torch.bfloat16, cuda, seed=6)
+    before = LAUNCHES["ell_attention"]
+    got = tatt.ell_attention(q, k, v, e_cols, valid)
+    assert LAUNCHES["ell_attention"] == before and got.dtype == torch.bfloat16
+    want = tatt.ell_attention_plain(q.float(), k.float(), v.float(), e_cols, valid, 1 / np.sqrt(8))
+    assert float((got.float() - want).abs().max()) <= 0.05 * float(v.float().abs().max())
+
+
+def _pattern(L, window, n_global):
+    return tnn.local_attention_pattern(L, window, n_global)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sparse_attention_routes_on_the_card_equal_the_cpu(cuda, dtype):
+    L, d, dv = 256, 32, 24
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.as_tensor(rng.standard_normal((L, c)), dtype=dtype) for c in (d, d, dv))
+    for window, n_global, route in ((16, 0, "ell"), (16, 2, "coo")):
+        rows, cols = _pattern(L, window, n_global)
+        if route == "coo":
+            rows, cols = torch.as_tensor(rows), torch.as_tensor(cols)
+        want = tnn.sparse_attention(q, k, v, rows, cols)
+        pat = (rows.to(cuda), cols.to(cuda)) if route == "coo" else (rows, cols)
+        before = dict(LAUNCHES)
+        got = tnn.sparse_attention(q.to(cuda), k.to(cuda), v.to(cuda), *pat)
+        moved = {n for n in LAUNCHES if LAUNCHES[n] != before[n]}
+        assert moved == ({"ell_attention"} if route == "ell" else {"sddmm", "sampled_row_sum"}), moved
+        _assert_close(got.cpu(), want, float(v.abs().max()), TOL[dtype], route)
+        assert torch.equal(got, tnn.sparse_attention(q.to(cuda), k.to(cuda), v.to(cuda), *pat))
+
+
+@pytest.mark.parametrize("route", ["coo", "ell"])
+def test_sparse_attention_gradient_on_the_card(cuda, route):
+    L, d = 128, 16
+    rng = np.random.default_rng(8)
+    q, k, v, w = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float64) for _ in range(4))
+    rows, cols = _pattern(L, 8, 0 if route == "ell" else 2)
+    pat_cpu = (rows, cols) if route == "ell" else (torch.as_tensor(rows), torch.as_tensor(cols))
+    pat_gpu = (rows, cols) if route == "ell" else tuple(t.to(cuda) for t in pat_cpu)
+
+    def grads(device, pat):
+        ins = [t.to(device).clone().requires_grad_(True) for t in (q, k, v)]
+        (w.to(device) * tnn.sparse_attention(*ins, *pat)).sum().backward()
+        return [x.grad for x in ins]
+
+    want = grads("cpu", pat_cpu)
+    got = grads(cuda, pat_gpu)
+    for g, x in zip(got, want):
+        _assert_close(g.cpu(), x, float(x.abs().max()), 1e-12, f"{route} gradient")
+    if route == "coo":  # K4 and K5 sum in a fixed order: the same bits
+        assert all(torch.equal(a, b) for a, b in zip(got, grads(cuda, pat_gpu)))
+
+
+def test_graph_conv_on_the_card(cuda):
+    n = 500
+    rng = np.random.default_rng(9)
+    e = rng.integers(0, n, (2, 2000))
+    lin = np.unique(np.concatenate([e[0] * n + e[1], e[1] * n + e[0], np.arange(n) * (n + 1)]))
+    rows, cols = (lin // n).astype(np.int32), (lin % n).astype(np.int32)
+    deg = np.bincount(rows, minlength=n)
+    vals = torch.as_tensor(1 / np.sqrt(deg[rows] * deg[cols]), dtype=torch.float32)
+    x = torch.as_tensor(rng.standard_normal((n, 32)), dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal((32, 16)), dtype=torch.float32)
+    want = tnn.graph_conv(rows, cols, vals, x, w, n_nodes=n)
+    before = LAUNCHES["sampled_row_sum"]
+    ins = [t.to(cuda).requires_grad_(True) for t in (vals, x, w)]
+    out = tnn.graph_conv(torch.as_tensor(rows, device=cuda), torch.as_tensor(cols, device=cuda), *ins, n_nodes=n)
+    assert LAUNCHES["sampled_row_sum"] == before + 1
+    _assert_close(out.detach().cpu(), want, float(want.abs().max()), 1e-5, "graph_conv")
+    g = torch.as_tensor(rng.standard_normal((n, 16)), dtype=torch.float32, device=cuda)
+    first = torch.autograd.grad((g * out).sum(), ins)
+    out2 = tnn.graph_conv(torch.as_tensor(rows, device=cuda), torch.as_tensor(cols, device=cuda), *ins, n_nodes=n)
+    second = torch.autograd.grad((g * out2).sum(), ins)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_dense_block_forms_on_the_card_equal_the_cpu(cuda):
+    L = 256
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.as_tensor(rng.standard_normal((L, 32)), dtype=torch.float32) for _ in range(3))
+    ids, valid = tnn.bigbird_block_pattern(L, block=32, n_window=1, n_random=2, n_global=1, seed=0)
+    calls = [
+        lambda *a: tnn.banded_attention(*a, window=20, block=32),
+        lambda *a: tnn.banded_attention(*a, window=20, block=32, causal=True),
+        lambda *a: tnn.longformer_attention(*a, window=20, n_global=2, block=32),
+        lambda *a: tnn.block_sparse_attention(*a, ids, valid, block=32, causal=True),
+    ]
+    allow = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True  # the forms hold full float32 anyway
+        for f in calls:
+            got = f(q.to(cuda), k.to(cuda), v.to(cuda))
+            _assert_close(got.cpu(), f(q, k, v), float(v.abs().max()), 1e-5, "dense form")
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow

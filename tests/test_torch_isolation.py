@@ -88,6 +88,9 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     p = st.nn.init_block_sparse_linear(128, 128, 1.0, generator=torch.Generator().manual_seed(0), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         st.nn.block_sparse_linear(p, torch.empty((4, 128), device="meta"))
+    q = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        st.nn.sparse_attention_ell(q, q, q, torch.zeros((4, 2), dtype=torch.int32, device="meta"), torch.ones((4, 2), dtype=torch.bool, device="meta"))
 
 
 def test_missing_nvcc_raises(monkeypatch):
@@ -98,16 +101,16 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes", "sddmm"}
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes", "sddmm", "attention"}
     for name, path in _cuda.SOURCES.items():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
         for fn in _cuda._SIGNATURES[name]:
-            # an entry point of its own or one stamped out by a source's macro (BSR, MTTKRP/K5, SDDMM)
+            # an entry point of its own or one stamped out by a source's macro (BSR, MTTKRP/K5, SDDMM, K6)
             assert (
                 f"int {fn}(" in src
                 or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src
-                or any(f"{macro}({fn}," in src for macro in ("ST_SDDMM", "ST_MTTKRP", "ST_ROW_SUM"))
+                or any(f"{macro}({fn}," in src for macro in ("ST_SDDMM", "ST_MTTKRP", "ST_ROW_SUM", "ST_ELL_ATTENTION"))
             )
     bsr_src = _cuda.SOURCES["bsr"].read_text()
     for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
@@ -142,4 +145,5 @@ def test_launch_counters_start_and_reset():
         "pick_scale_wsum": 0,
         "sddmm": 0,
         "sampled_row_sum": 0,
+        "ell_attention": 0,
     }
