@@ -1,0 +1,227 @@
+#!/usr/bin/env python3
+"""Where the time of K6's tile route goes, and which of its shapes wins, on
+one NVIDIA GPU (H100).
+
+    python3 chip_attention_ablation.py
+
+K6 is the row-ELL attention kernel of ``sparse_tpu_torch/kernels/csrc/attention.cu``;
+its tile route takes a block of query rows against the union of their keys
+on the tensor cores (3xTF32). At Longformer-base's width (L = 4,096 and the
+long head's 65,536, a window of 256 each side, d = dv = 64, float32, seed 0):
+
+- ``shapes``: every shape of ``_cuda.ATTENTION_TILE_CONFIGS`` (rows a block,
+  key slices, CTAs a block, keys a stage; "b64x2w16" and "b64c32x2": blocks
+  of 64 rows split over a cluster of two CTAs, 128 CTAs, merged in a fixed
+  order; "b64c32": one CTA a block) and two the entry points do not take,
+  added to a copy of the source (``ABLATION_SHAPES``: "b32", blocks of 32
+  rows, 128 CTAs at L = 4,096; "b64", one CTA a block with 64-key stages),
+  each on its own layout, timed alone and with the row kernel's filtered
+  launch after it (the entry point's pair), twice bit for bit, against
+  ``ell_attention_plain``; the row kernel alone beside them;
+- ``window_sweep``: the entry points' shapes at L = 4,096 against the window
+  (0 to 512 each side): the fixed cost a block and the cost a stage;
+- ``phases``: each shape built once more with ``clock64`` marks: the
+  cycles the first warp of each CTA spends
+  laying out q, waiting for a stage (with the previous stage's P · V and the
+  next stage's copies), splitting a stage, in S = qs · Kᵀ, in the softmax, and
+  merging and storing, averaged over the CTAs.
+
+The copies are built into ``build/attention_ablation/``. Each time is the
+best of two passes of a CUDA graph of 20 launches, L2 warm.
+Prints one JSON line per measurement, then the card's ``name, power.limit``.
+Imports nothing of JAX or sparse_tpu.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from sparse_tpu_torch import nn as tnn
+from sparse_tpu_torch.experiments.common import time_graph
+from sparse_tpu_torch.kernels import _cuda
+from sparse_tpu_torch.kernels import attention as katt
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "attention_ablation"
+D, WINDOW, SCALE = 64, 256, 0.125
+LENGTHS = (4096, 65536)
+SWEEP_WINDOWS = (0, 16, 64, 128, 256, 512)
+# shapes the entry points do not take: name -> (rows, key slices, CTAs, keys a stage)
+ABLATION_SHAPES = {"b32": (32, 4, 1, 64), "b64": (64, 2, 1, 64)}
+LAST_CASE = "    case 2: return ST_TILES(64, 4, 2, 64);\n"
+PHASES = ("q_layout", "wait", "split", "scores", "softmax", "merge_store")
+# clock64 marks: (source line, the phase that ends there)
+MARKS = (
+    ("  if (mine > 0) issue(0);  // its rows come while q is laid out\n", None),
+    ("  float o[kNV][4];\n", 0),
+    ("    __syncthreads();  // stage i landed; the fragments are free\n", 1),
+    ("    // S = qs · Kᵀ over this warp's keys\n", 2),
+    ("    // the rows' maxima over the positions they name\n", 3),
+    ("    // P, and O += P · V: A's k index t is key 2t, t + 4 key 2t + 1\n", 4),
+)
+
+
+def card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+
+
+def best(fn):
+    return min(time_graph(fn, reps=20) for _ in range(2))
+
+
+def problem(L, window, dev, gen):
+    q, k, v = (torch.randn((L, D), generator=gen, device=dev) for _ in range(3))
+    rows, cols = tnn.local_attention_pattern(L, window)
+    e_cols, valid = (torch.as_tensor(x, device=dev) for x in tnn.build_attention_ell(rows, cols, L))
+    return q, k, v, e_cols, valid
+
+
+def pair(q, k, v, e_cols, valid, blocks, config, out, route):
+    """The entry point's two launches on shape ``config``."""
+
+    def run():
+        _cuda.ell_attention_tiles(q, k, v, blocks, SCALE, out, route, config)
+        return _cuda.ell_attention(q, k, v, e_cols, valid, SCALE, out, block_route=route, block_rows=blocks.block)
+
+    return run
+
+
+def ablation_source():
+    """attention.cu with ABLATION_SHAPES as more cases of its shape switch,
+    registered in ``_cuda.ATTENTION_TILE_CONFIGS`` for this process."""
+    src = _cuda.SOURCES["attention"].read_text()
+    if LAST_CASE not in src:
+        raise RuntimeError("chip_attention_ablation: the shape switch of attention.cu has changed")
+    cases = ""
+    for name, shape in ABLATION_SHAPES.items():
+        cid = len(_cuda.ATTENTION_TILE_CONFIGS)
+        _cuda.ATTENTION_TILE_CONFIGS[name] = (cid, *shape)
+        cases += f"    case {cid}: return ST_TILES({', '.join(map(str, shape))});\n"
+    return src.replace(LAST_CASE, LAST_CASE + cases)
+
+
+def build(name, text):
+    """Build and load ``text`` as the attention library."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / name
+    path.write_text(text)
+    _cuda.SOURCES["attention"] = path
+    _cuda._libs.pop("attention", None)
+    return _cuda.load("attention")
+
+
+def phase_source(src):
+    """``src`` with clock64 marks: the first thread of each CTA adds each
+    phase's cycles and stores them after the three route counters."""
+    for line, phase in MARKS:
+        if line not in src:
+            raise RuntimeError(f"chip_attention_ablation: the source has no line {line.strip()!r} to mark")
+        mark = "  long long T0 = clock64(), T1, ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n" if phase is None else (
+            f"  T1 = clock64(); ph[{phase}] += T1 - T0; T0 = T1;\n"
+        )
+        src = src.replace(line, mark + line if phase is None else line + mark if phase in (1,) else mark + line, 1)
+    end = src.index("template <int BQ, int KS, int CL, int DVT, int CH>\nint launch_tiles(")
+    body_end = src.rindex("}\n", 0, end)
+    store = (
+        "  if (tid == 0) {\n    T1 = clock64(); ph[5] += T1 - T0;\n"
+        "    for (int z = 0; z < 6; ++z) route_blocks[3 + (b * CL + rank) * 8 + z] = ph[z];\n"
+        "    route_blocks[3 + (b * CL + rank) * 8 + 7] = mine;\n  }\n"
+    )
+    return src[:body_end] + store + src[body_end:]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_attention_ablation: no CUDA device available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src = ablation_source()
+    build("attention_shapes.cu", src)
+    problems = {L: problem(L, WINDOW, dev, gen) for L in LENGTHS}
+    plain = katt.ell_attention_plain(*problems[4096], SCALE)
+
+    # every shape, each on its own layout
+    for L, (q, k, v, e_cols, valid) in problems.items():
+        out = torch.empty((L, D), device=dev)
+        line = {"shapes": L, "row_kernel_ms": best(lambda: _cuda.ell_attention(q, k, v, e_cols, valid, SCALE, out))}
+        for config, (_, rows, slices, ctas, chunk) in _cuda.ATTENTION_TILE_CONFIGS.items():
+            blocks = katt.build_attention_blocks(e_cols, valid, L, rows)
+            route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=dev)
+            run = pair(q, k, v, e_cols, valid, blocks, config, out, route)
+            got = run().clone()
+            entry = {
+                "rows": rows,
+                "slices": slices,
+                "ctas": ctas,
+                "chunk": chunk,
+                "ctas_launched": blocks.union.shape[0] * ctas,
+                "smem_bytes": _cuda.attention_tile_smem(config, D, D),
+                "tiles_ms": best(lambda: _cuda.ell_attention_tiles(q, k, v, blocks, SCALE, out, route, config)),
+                "pair_ms": best(run),
+                "bits_twice": bool(torch.equal(got, run())),
+            }
+            if L == 4096:
+                entry["max_abs_err_vs_plain"] = float((got - plain).abs().max())
+            line[config] = entry
+        print(json.dumps(line), flush=True)
+
+    # the entry points' shapes against the window
+    L = 4096
+    q, k, v = problems[L][:3]
+    out = torch.empty((L, D), device=dev)
+    for window in SWEEP_WINDOWS:
+        e_cols, valid = problem(L, window, dev, gen)[3:]
+        blocks = katt.build_attention_blocks(e_cols, valid, L, _cuda.ATTENTION_BLOCK_ROWS, ratio=1e9)
+        route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=dev)
+        line = {"window_sweep": window, "cap": int(e_cols.shape[1]), "mean_union": float(blocks.n_union.double().mean())}
+        for config in {*_cuda.ATTENTION_TILES_FEW, *_cuda.ATTENTION_TILES_MANY}:
+            line[config] = best(lambda: _cuda.ell_attention_tiles(q, k, v, blocks, SCALE, out, route, config))
+        print(json.dumps(line), flush=True)
+
+    # the phases, from a build with clock64 marks
+    lib = build("attention_phases.cu", phase_source(src))
+    for L, (q, k, v, e_cols, valid) in problems.items():
+        out = torch.empty((L, D), device=dev)
+        for config, (cid, rows, _, ctas, _) in _cuda.ATTENTION_TILE_CONFIGS.items():
+            blocks = katt.build_attention_blocks(e_cols, valid, L, rows)
+            n_blocks, u_cap = blocks.union.shape
+            route = torch.empty(n_blocks, dtype=torch.int32, device=dev)
+            marks = torch.zeros(3 + n_blocks * ctas * 8, dtype=torch.int64, device=dev)
+            for _ in range(3):
+                err = lib.st_ell_attention_tiles_f32(
+                    q.data_ptr(), D, k.data_ptr(), D, v.data_ptr(), D, blocks.union.data_ptr(), blocks.n_union.data_ptr(),
+                    blocks.count.data_ptr(), blocks.flag.data_ptr(), L, n_blocks, u_cap, D, D, SCALE, cid,
+                    route.data_ptr(), marks.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                )
+                if err != 0:
+                    raise RuntimeError(f"the marked build's launch failed: CUDA error {err}")
+            torch.cuda.synchronize()
+            per_cta = marks[3:].view(n_blocks * ctas, 8).double()
+            mean = per_cta.mean(0).tolist()
+            print(
+                json.dumps(
+                    {
+                        "phases": L,
+                        "config": config,
+                        "cycles": dict(zip(PHASES, mean[:6])),
+                        "stages_a_cta": mean[7],
+                        "cycles_a_cta": sum(mean[:6]),
+                        "clock_rate_khz": torch.cuda.get_device_properties(dev).clock_rate,
+                    }
+                ),
+                flush=True,
+            )
+    print(card())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -114,15 +114,20 @@ drives the port's two paths on the card:
   without it on the row-ELL route (K6), ``longformer_attention`` and
   ``banded_attention`` (causal too), BigBird's blocks of 64 with 3 random
   blocks through ``block_sparse_attention``; one head at L = 65,536 on K6
-  and ``banded_attention``; ``graph_conv`` at ogbn-arxiv's sizes (169,343
+  and ``banded_attention``; one head of a scattered pattern (129 random
+  columns a row) on K6; ``graph_conv`` at ogbn-arxiv's sizes (169,343
   nodes, 1,166,243 edges drawn from a seed, 128 features, hidden 256). Each
   output against a float64 oracle (dense masked softmax on the card, scipy
-  for ``graph_conv``) within 1e-4 · max|v|, K6 against its plain version
-  (2e-6 · max|v|) and twice bit for bit, the gradients of both routes
-  against the plain versions' (the COO route's and ``graph_conv``'s twice
-  bit for bit), each route's launches counted on its own; device ms a head
-  and a 12-head layer, peak memory, and ``scaled_dot_product_attention``
-  with the pattern's dense mask beside them (timed only);
+  for ``graph_conv``) within 1e-4 · max|v|; K6's tile route (3xTF32) and
+  its row kernel each against the plain version (2e-6 · max|v|) and twice
+  bit for bit; the blocks each route of K6 took (the window's and the long
+  head's on the tiles, the scattered head's on the row kernel); the
+  gradients of both routes against the plain versions' (the COO route's and
+  ``graph_conv``'s twice bit for bit), each route's launches counted on its
+  own; device ms a head and a 12-head layer, peak memory, and
+  ``scaled_dot_product_attention`` with the pattern's dense mask beside them
+  (timed only); a sweep of K6's two routes from the window to random
+  columns at the same cap against the mean union a block (the route rule);
 
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
@@ -201,6 +206,7 @@ SOURCE = {
     "sddmm": "sparse_tpu_torch/kernels/csrc/sddmm.cu",
     "sampled_row_sum": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
     "ell_attention": "sparse_tpu_torch/kernels/csrc/attention.cu",
+    "ell_attention_tiles": "sparse_tpu_torch/kernels/csrc/attention.cu",
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -222,6 +228,7 @@ REPLACES = {
     "sddmm": "sparse_tpu/kernels/dot.py:103",  # sddmm (XLA gather + sum)
     "sampled_row_sum": "sparse_tpu/kernels/dot.py:124",  # the transpose of sddmm's gathers (XLA segment sum)
     "ell_attention": "sparse_tpu/nn.py:282",  # sparse_attention_ell (XLA gather, score, masked softmax, weighted sum)
+    "ell_attention_tiles": "sparse_tpu/nn.py:282",  # the same function, its tile route
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -3011,6 +3018,11 @@ def phase_indexing_path(dev, a, card):
 #   one window block each side, two global blocks), L = 4,096;
 # - one long head at the reference docstring's scale, L = 65,536, W = 256
 #   (33.6M slots): banded_attention against K6's row-ELL route;
+# - one head of a scattered pattern, 129 distinct random columns a row: K6's
+#   unions past the route rule (at 513 a row, a 4,096-key table holds every
+#   union within it), its row kernel;
+# - K6's route sweep: the window's e_cols with a fraction of each row's slots
+#   replaced by random columns, from none to all, both routes timed;
 # - GCN propagation at OGB ogbn-arxiv's sizes (169,343 nodes, 1,166,243
 #   edges, 128 features; hidden 256), a graph drawn from a seed.
 AT_L, AT_HEADS, AT_D, AT_WINDOW, AT_BLOCK = 4096, 12, 64, 256, 128
@@ -3024,12 +3036,17 @@ GCN_NODES, GCN_EDGES, GCN_IN, GCN_HIDDEN = 169_343, 1_166_243, 128, 256
 AT_ORACLE_TOL = 1e-4
 # K6 against its plain version on the same inputs (sums in another order), · max|v|
 AT_PLAIN_TOL = 2e-6
+AT_PLAIN_TOL_F64 = 1e-12  # the same in float64 (the row kernel)
 # the gradients against the plain versions', max|got - want| / max|want|
 AT_GRAD_TOL = 1e-5
 # graph_conv against scipy's float64 product, max|got - want| / max|want|: x @ w
 # sums 128 float32 products, K5 a row's ~15 weighted rows
 GCN_TOL = 1e-5
 AT_REPS = 5
+# K6's route sweep: windows (513 and 129 slots a row), fractions of their slots made random
+AT_SWEEP_WINDOWS = (256, 64)
+AT_SCATTER_CAP = 129
+AT_SWEEP = (0.0, 0.01, 0.02, 0.05, 0.1, 0.2, 0.35, 0.5, 0.75, 1.0)
 
 
 def at_device_ms(fn, reps=AT_REPS):
@@ -3144,6 +3161,13 @@ def phase_attention_path(dev, card):
     t0 = time.perf_counter()
     rows_l, cols_l = tnn.local_attention_pattern(AT_LONG_L, W)
     long_pattern_s = time.perf_counter() - t0
+    # the scattered head: AT_SCATTER_CAP distinct random columns a row (seed 20)
+    cap_w = 2 * W + 1
+    rng_s = np.random.default_rng(20)
+    cols_s = np.argsort(rng_s.random((L, L)), axis=1)[:, :AT_SCATTER_CAP].astype(np.int32)
+    cols_s.sort(axis=1)
+    rows_s = np.repeat(np.arange(L, dtype=np.int32), AT_SCATTER_CAP)
+    cols_s = cols_s.reshape(-1)
     # the graph: edges drawn from a seed, made symmetric with self-loops, D^-1/2 (A + I) D^-1/2
     rng = np.random.default_rng(19)
     n = GCN_NODES
@@ -3172,9 +3196,10 @@ def phase_attention_path(dev, card):
     singles = {
         "long_ell": lambda: tnn.sparse_attention(ql, kl, vl, rows_l, cols_l),
         "long_banded": lambda: tnn.banded_attention(ql, kl, vl, window=W, block=AT_BLOCK),
+        "scattered": lambda: tnn.sparse_attention(q[0], k[0], v[0], rows_s, cols_s),
         "graph_conv": lambda: tnn.graph_conv(gr, gc, gv, x, w, n_nodes=n),
     }
-    launches, outs, first_s = {}, {}, {}
+    launches, outs, first_s, blocks_taken = {}, {}, {}, {}
     for name, fn in [*((nm, lambda f=f: by_heads(f, q, k, v)) for nm, f in heads.items()), *singles.items()]:
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -3182,17 +3207,30 @@ def phase_attention_path(dev, card):
         torch.cuda.synchronize()
         first_s[name] = time.perf_counter() - t0
         launches[name] = {kn: c for kn, c in LAUNCHES.items() if c}
+        # K6's blocks by route: [tile, row by the rule or an index, row by a non-finite value]
+        blocks_taken[name] = _cuda.attention_route_blocks(dev).tolist()
+    k6_kernels = {"ell_attention", "ell_attention_tiles"}  # the tile route, then the row kernel on what it left
     expect = {
         "coo_route": {"sddmm", "sampled_row_sum"},
-        "ell_route": {"ell_attention"},
-        "long_ell": {"ell_attention"},
+        "ell_route": k6_kernels,
+        "long_ell": k6_kernels,
+        "scattered": k6_kernels,
         "graph_conv": {"sampled_row_sum"},
     }
     for name, got in launches.items():
         if set(got) != expect.get(name, set()):
             raise AssertionError(f"attention path, {name}: launched {got}, expected {sorted(expect.get(name, set()))}")
-    if launches["ell_route"]["ell_attention"] != H or launches["coo_route"]["sddmm"] != H:
+    if (
+        launches["ell_route"]["ell_attention"] != H
+        or launches["ell_route"]["ell_attention_tiles"] != H
+        or launches["coo_route"]["sddmm"] != H
+    ):
         raise AssertionError(f"attention path: a launch a head expected, got {launches}")
+    n_blk, n_blk_long = -(-L // _cuda.ATTENTION_BLOCK_ROWS), -(-AT_LONG_L // _cuda.ATTENTION_BLOCK_ROWS)
+    want_blocks = {"ell_route": [H * n_blk, 0, 0], "long_ell": [n_blk_long, 0, 0], "scattered": [0, n_blk, 0]}
+    for name, want in want_blocks.items():
+        if blocks_taken[name] != want:
+            raise AssertionError(f"attention path, {name}: K6's blocks by route {blocks_taken[name]}, expected {want}")
 
     # each output against the float64 oracle
     allowed_g = dense_allowed(rows_g, cols_g, L, dev)
@@ -3216,6 +3254,9 @@ def phase_attention_path(dev, card):
         for name, mask in allowed.items():
             want = want_g if mask is allowed_g else want_w if mask is allowed_w else masked_oracle(q[h], k[h], v[h], mask, scale)
             worst[name] = max(worst[name], check_attention(f"{name}, head {h}", outs[name][h], want, v[h]))
+    worst["scattered"] = check_attention(
+        "scattered head", outs["scattered"], masked_oracle(q[0], k[0], v[0], dense_allowed(rows_s, cols_s, L, dev), scale), v[0]
+    )
     want_long = band_oracle(ql, kl, vl, W, scale)
     worst["long_ell"] = check_attention("long head, row-ELL route", outs["long_ell"], want_long, vl)
     worst["long_banded"] = check_attention("long head, banded_attention", outs["long_banded"], want_long, vl)
@@ -3233,19 +3274,88 @@ def phase_attention_path(dev, card):
         raise AssertionError(f"graph_conv: {gcn_err} from scipy's float64 product, beyond {GCN_TOL}")
     del a_host, want_gcn
 
-    # K6 against its plain version, twice bit for bit, and the entry point's bits
+    # K6's two routes against the plain version, each twice bit for bit; the tile route's bits the entry point's
     e_np, valid_np = tnn.build_attention_ell(rows_w, cols_w, L)
     e_cols, valid = torch.as_tensor(e_np, device=dev), torch.as_tensor(valid_np, device=dev)
-    out_k = torch.empty((L, D), device=dev)
+    out_k, out_t = torch.empty((L, D), device=dev), torch.empty((L, D), device=dev)
     launch = lambda: _cuda.ell_attention(q[0], k[0], v[0], e_cols, valid, scale, out_k)  # noqa: E731
-    got = launch().clone()
+    config = _cuda.attention_tile_config(L, D, D, torch.float32, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = katt.build_attention_blocks(e_cols, valid, L, _cuda.ATTENTION_BLOCK_ROWS)
+    torch.cuda.synchronize()
+    layout_first_s = time.perf_counter() - t0
+    by_block = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=dev)
+    tiles = lambda: _cuda.ell_attention_tiles(q[0], k[0], v[0], blocks, scale, out_t, by_block, config)  # noqa: E731
+
+    def tile_route():  # the entry point's two launches: the tiles, the row kernel on the blocks they left
+        tiles()
+        return _cuda.ell_attention(q[0], k[0], v[0], e_cols, valid, scale, out_t, block_route=by_block, block_rows=blocks.block)
+
     plain = katt.ell_attention_plain(q[0], k[0], v[0], e_cols, valid, scale)
-    k6_err = float((got - plain).abs().max())
-    if not k6_err <= AT_PLAIN_TOL * float(v[0].abs().max()):
-        raise AssertionError(f"K6 against ell_attention_plain: {k6_err} beyond {AT_PLAIN_TOL} · max|v|")
-    if not torch.equal(got, launch()) or not torch.equal(got, outs["ell_route"][0]):
-        raise AssertionError("K6: a second launch, or the entry point, gave other bits")
-    del plain
+    vmax0 = float(v[0].abs().max())
+    k6_err = {}
+    for route_name, fn in (("row", launch), ("tiles", tile_route)):
+        got = fn().clone()
+        k6_err[route_name] = float((got - plain).abs().max())
+        if not k6_err[route_name] <= AT_PLAIN_TOL * vmax0:
+            raise AssertionError(f"K6's {route_name} route against ell_attention_plain: {k6_err[route_name]} beyond {AT_PLAIN_TOL} · max|v|")
+        if not torch.equal(got, fn()):
+            raise AssertionError(f"K6's {route_name} route: a second launch gave other bits")
+    if not torch.equal(out_t, outs["ell_route"][0]):
+        raise AssertionError("K6: the entry point gave other bits than its tile route")
+    if by_block.tolist() != [0] * blocks.union.shape[0]:
+        raise AssertionError("K6: a block of Longformer's window left the tile route")
+    # float64 takes the row kernel (no tile route): its first measurement, against the plain version
+    q64, k64, v64 = (t[0].double() for t in (q, k, v))
+    out64 = torch.empty((L, D), dtype=torch.float64, device=dev)
+    launch64 = lambda: _cuda.ell_attention(q64, k64, v64, e_cols, valid, scale, out64)  # noqa: E731
+    k6_err["row_float64"] = float((launch64() - katt.ell_attention_plain(q64, k64, v64, e_cols, valid, scale)).abs().max())
+    if not k6_err["row_float64"] <= AT_PLAIN_TOL_F64 * vmax0:
+        raise AssertionError(f"K6's row kernel in float64 against ell_attention_plain: {k6_err['row_float64']}")
+    if _cuda.attention_tile_config(L, D, D, torch.float64, dev) is not None:
+        raise AssertionError("K6: float64 must take the row kernel")
+    blocks_plain = katt.ell_attention_blocks_plain(q[0], k[0], v[0], blocks, scale)
+    blocks_plain_err = float((blocks_plain - plain).abs().max())
+    if not blocks_plain_err <= AT_PLAIN_TOL * vmax0:
+        raise AssertionError(f"ell_attention_blocks_plain against ell_attention_plain: {blocks_plain_err}")
+    del plain, blocks_plain
+
+    # the route sweep: a window's slots made random, a fraction of each row's,
+    # both routes, at Longformer's cap and a quarter of it
+    sweep = []
+    rng_w = np.random.default_rng(21)
+    out_w = torch.empty((L, D), device=dev)
+    for w_s in AT_SWEEP_WINDOWS:
+        e_w, valid_w = (torch.as_tensor(a, device=dev) for a in tnn.build_attention_ell(*tnn.local_attention_pattern(L, w_s), L))
+        for frac in AT_SWEEP:
+            e_f = e_w.clone()
+            swap = torch.as_tensor(rng_w.random(tuple(e_w.shape)) < frac, device=dev)
+            e_f[swap] = torch.as_tensor(rng_w.integers(0, L, int(swap.sum())), dtype=e_f.dtype, device=dev)
+            forced = katt.build_attention_blocks(e_f, valid_w, L, _cuda.ATTENTION_BLOCK_ROWS, ratio=1e9)
+            ruled = katt.build_attention_blocks(e_f, valid_w, L, _cuda.ATTENTION_BLOCK_ROWS)
+            route_f = torch.empty(forced.union.shape[0], dtype=torch.int32, device=dev)
+
+            def forced_tiles(forced=forced, route_f=route_f, e_f=e_f, valid_w=valid_w):
+                _cuda.ell_attention_tiles(q[0], k[0], v[0], forced, scale, out_w, route_f, config)
+                return _cuda.ell_attention(q[0], k[0], v[0], e_f, valid_w, scale, out_w, block_route=route_f, block_rows=forced.block)
+
+            err = float((forced_tiles() - katt.ell_attention_plain(q[0], k[0], v[0], e_f, valid_w, scale)).abs().max())
+            if not err <= AT_PLAIN_TOL * vmax0:
+                raise AssertionError(f"K6's tile route at cap {e_w.shape[1]}, {frac} random: {err} from the plain version")
+            sweep.append(
+                {
+                    "cap": int(e_w.shape[1]),
+                    "random_fraction": frac,
+                    "mean_union_over_cap": float(forced.n_union.double().mean()) / e_w.shape[1],
+                    "max_union_over_cap": float(forced.n_union.max()) / e_w.shape[1],
+                    "tiles_ms": time_graph(forced_tiles),
+                    "row_ms": time_graph(lambda e_f=e_f, valid_w=valid_w: _cuda.ell_attention(q[0], k[0], v[0], e_f, valid_w, scale, out_w)),
+                    "blocks_the_rule_refuses": int(ruled.flag.sum()),
+                    "max_abs_err_tiles": err,
+                }
+            )
+    torch.cuda.synchronize()
 
     # the gradients of (wts · attention).sum() in q, k and v, head 0
     wts = torch.randn((L, D), generator=gen, device=dev)
@@ -3300,7 +3410,7 @@ def phase_attention_path(dev, card):
         }
     for route, f in (("coo_route", coo_head), ("ell_route", ell_head)):
         times[route]["head_forward_backward_ms"] = at_device_ms(lambda f=f: grads(f))
-    for name in ("long_ell", "long_banded", "graph_conv"):
+    for name in ("long_ell", "long_banded", "scattered", "graph_conv"):
         times[name] = {"ms": at_device_ms(singles[name]), "peak_bytes": peak_bytes(singles[name]), "first_s": first_s[name]}
     times["graph_conv"]["forward_backward_ms"] = at_device_ms(gcn_grads)
     times["graph_conv"]["xw_ms"] = at_device_ms(lambda: x @ w)
@@ -3316,39 +3426,72 @@ def phase_attention_path(dev, card):
             "head_max_abs_diff": float((one()[0, 0] - ref).abs().max()),
         }
 
-    # K6's line: the Longformer window at L = 4,096, head 0
+    # K6's lines: the Longformer window at L = 4,096, head 0. The function's
+    # bound: q, out, the distinct k and v rows and the pattern read once from
+    # HBM; its products (scores over the valid slots, the weighted sum over
+    # every slot) at the lesser of the CUDA cores and 3xTF32 on the tensor cores
     slots = e_cols.numel()
     n_valid = int(valid.sum())
     touched = int(torch.unique(e_cols[valid]).numel())
     nbytes = (2 * L * D + touched * 2 * D) * 4 + slots * (4 + 1)
     flops = n_valid * 2 * D + slots * (2 * D + 1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(flops / F32_FLOPS_PER_S, 3 * flops / TF32_FLOPS_PER_S) * 1e3
+    bound = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     gathered = (n_valid + slots) * D * 4
-    ms = time_graph(launch)
-    line = {
-        "name": "ell_attention",
-        "route": "cuda",
-        "source": SOURCE["ell_attention"],
-        "replaces": REPLACES["ell_attention"],
-        "launches": launches["ell_route"]["ell_attention"],
-        "max_abs_err": k6_err,
-        "ms": ms,
-        "plain_ms": time_eager(lambda: katt.ell_attention_plain(q[0], k[0], v[0], e_cols, valid, scale), reps=3),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": sdpa["window"]["head_ms"],
-    }
+    union_rows = int(blocks.n_union.sum())
+    ms_row, ms_tiles, ms_route = time_graph(launch), time_graph(tiles), time_graph(tile_route)
+    lines = [
+        {
+            "name": "ell_attention",
+            "route": "cuda",
+            "source": SOURCE["ell_attention"],
+            "replaces": REPLACES["ell_attention"],
+            "launches": launches["ell_route"]["ell_attention"],
+            "max_abs_err": k6_err["row"],
+            "ms": ms_row,
+            "plain_ms": time_eager(lambda: katt.ell_attention_plain(q[0], k[0], v[0], e_cols, valid, scale), reps=3),
+            **bound,
+            "library_ms": sdpa["window"]["head_ms"],
+        },
+        {
+            "name": "ell_attention_tiles",
+            "route": "cuda",
+            "source": SOURCE["ell_attention_tiles"],
+            "replaces": REPLACES["ell_attention_tiles"],
+            "launches": launches["ell_route"]["ell_attention_tiles"],
+            "max_abs_err": k6_err["tiles"],
+            "ms": ms_tiles,
+            "plain_ms": time_eager(lambda: katt.ell_attention_blocks_plain(q[0], k[0], v[0], blocks, scale), reps=3),
+            **bound,
+            "library_ms": sdpa["window"]["head_ms"],
+        },
+    ]
     k6 = {
-        **line,
         "shape": {"L": L, "cap": int(e_cols.shape[1]), "d": D, "dv": D, "slots": slots, "valid": n_valid},
-        "strip": "shared memory" if _cuda.ell_attention_in_smem(int(e_cols.shape[1]), 4) else "scratch",
+        "tile_config": config,
+        "launches": {"tiles": launches["ell_route"]["ell_attention_tiles"], "row": launches["ell_route"]["ell_attention"]},
+        "blocks_by_route": {name: dict(zip(("tiles", "row_by_rule", "row_by_value"), blocks_taken[name])) for name in want_blocks},
+        "mean_union_over_cap": union_rows / blocks.union.shape[0] / cap_w,
+        "union_rows_bytes": union_rows * 2 * D * 4,
+        "union_rule_ratio": katt.ATTENTION_UNION_RATIO,
+        "tiles_ms": ms_tiles,
+        "route_ms": ms_route,
+        "row_kernel_ms": ms_row,
+        "row_kernel_strip": "shared memory" if _cuda.ell_attention_in_smem(int(e_cols.shape[1]), 4) else "scratch",
+        "row_kernel_ms_l2_flushed": time_cold(launch),
+        "row_kernel_float64_ms": time_graph(launch64),
+        "route_ms_l2_flushed": time_cold(tile_route),
+        "layout_first_s": layout_first_s,
+        "layout_bytes": sum(t.numel() * t.element_size() for t in (blocks.union, blocks.n_union, blocks.count, blocks.flag)),
+        "blocks_plain_err": blocks_plain_err,
         "bound_bytes": nbytes,
         "bound_flops": flops,
-        "bound_share": max(t_bytes, t_ops) / ms,
-        "gathered_bytes": gathered,
-        "gathered_tb_per_s": gathered / (ms * 1e-3) / 1e12,
-        "l2_floor_ms": gathered / L2_ROW_BYTES_PER_S * 1e3,
-        "kernel_ms_l2_flushed": time_cold(launch),
+        "bound_share_tiles": bound["bound_ms"] / ms_tiles,
+        "gathered_bytes_row_kernel": gathered,
+        "gathered_tb_per_s_row_kernel": gathered / (ms_row * 1e-3) / 1e12,
+        "l2_floor_ms_row_kernel": gathered / L2_ROW_BYTES_PER_S * 1e3,
+        "sweep": sweep,
         "library": "scaled_dot_product_attention, the pattern's dense boolean mask",
         "card": card,
     }
@@ -3365,22 +3508,29 @@ def phase_attention_path(dev, card):
             "bigbird_blocks_a_row": int(bb_ids.shape[1]),
             "long_L": AT_LONG_L,
             "long_slots": int(rows_l.size),
+            "scattered_nnz": int(rows_s.size),
             "graph": {"nodes": n, "edges_drawn": GCN_EDGES, "entries": int(lin.size), "features": GCN_IN, "hidden": GCN_HIDDEN},
         },
         "launches": launches,
         "worst_over_max_v": worst,
-        "tolerance": {"oracle": AT_ORACLE_TOL, "k6_vs_plain": AT_PLAIN_TOL, "gradients": AT_GRAD_TOL, "graph_conv": GCN_TOL},
+        "tolerance": {
+            "oracle": AT_ORACLE_TOL,
+            "k6_vs_plain": AT_PLAIN_TOL,
+            "k6_vs_plain_float64": AT_PLAIN_TOL_F64,
+            "gradients": AT_GRAD_TOL,
+            "graph_conv": GCN_TOL,
+        },
         "agreement_max_abs": agree,
         "graph_conv_err_vs_scipy": gcn_err,
         "k6_vs_plain_max_abs": k6_err,
         "gradient_err_vs_plain": grad_err,
-        "bits_equal_twice": {"k6": True, "coo_route_gradient": True, "graph_conv_gradient": True},
+        "bits_equal_twice": {"k6_row": True, "k6_tiles": True, "coo_route_gradient": True, "graph_conv_gradient": True},
         "times": times,
         "sdpa": sdpa,
         "k6": k6,
         "card": card,
     }
-    return result, [line]
+    return result, lines
 
 def main():
     if not torch.cuda.is_available():

@@ -10,8 +10,10 @@ not take (``dense_coo_matmul`` too), the sorted-COO MTTKRP, the SDDMM
 gradient's row sum (``sampled_row_sum_plain`` beside its kernel) and
 ``coo_sum_axes_dense``. Both MTTKRP forms and the SDDMM gradient's row sum
 run one CUDA kernel (``csrc/mttkrp.cu``). ``attention`` holds the row-ELL
-attention, K6 (``ell_attention``, its CUDA kernel in ``csrc/attention.cu``,
-and ``ell_attention_plain``). ``_cuda`` builds and
+attention, K6 (``ell_attention``, its CUDA kernels in ``csrc/attention.cu``:
+the tile route on the tensor cores over a block layout,
+``build_attention_blocks``, and the row kernel; ``ell_attention_plain`` and
+the tile route's ``ell_attention_blocks_plain``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
 runs), ``elemwise`` (the traceable union of two COO operands) and
 ``spgemm`` (sparse × sparse, eager and capacity-bounded, with

@@ -12,8 +12,8 @@ The launchers take tensors already on the GPU, of the kernel's dtype, check
 that, allocate nothing themselves, launch on the current stream and do not
 synchronize. The row-ELL, MTTKRP and probe launchers take contiguous tensors;
 the BSR launchers and the SDDMM's read their operands through their
-strides, K5 its table and K6 (the row-ELL attention) its q, k and v
-through a row stride. ``LAUNCHES``
+strides, K5 its table and K6 (the row-ELL attention: its row kernel and its
+tile route) its q, k and v through a row stride. ``LAUNCHES``
 counts the launches of each kernel; nothing else touches it.
 """
 
@@ -98,9 +98,12 @@ _SIGNATURES = {
         for it in ("i32", "i64")
     },
     "attention": {
-        f"st_ell_attention_{dt}_{it}": [_p, _i64, _p, _i64, _p, _i64, _p, _p, *[_i64] * 5, _f64, _i64, _i64, _p, _p, _p]
-        for dt in ("f32", "f64")
-        for it in ("i32", "i64")
+        **{
+            f"st_ell_attention_{dt}_{it}": [_p, _i64, _p, _i64, _p, _i64, _p, _p, *[_i64] * 5, _f64, _i64, _i64, _p, _i64, _p, _p, _p]
+            for dt in ("f32", "f64")
+            for it in ("i32", "i64")
+        },
+        "st_ell_attention_tiles_f32": [_p, _i64, _p, _i64, _p, _i64, _p, _p, _p, _p, *[_i64] * 5, _f64, _i64, _p, _p, _p, _p],
     },
 }
 
@@ -124,6 +127,7 @@ LAUNCHES = {
     "sddmm": 0,
     "sampled_row_sum": 0,
     "ell_attention": 0,
+    "ell_attention_tiles": 0,
 }
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
@@ -135,11 +139,17 @@ _libs = {}
 # zeroed ticket buffers of the kernels that finish split runs, by (device,
 # stream); every launch leaves its tickets zero
 _tickets = {}
+# K6's tile route's block counters, by device (attention_route_blocks)
+_route_blocks = {}
 
 
 def reset_launch_counts():
+    """Every launch counter to 0, and K6's block counters on each device
+    (:func:`attention_route_blocks`) with them."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for t in _route_blocks.values():
+        t.zero_()
 
 
 def _nvcc():
@@ -1592,16 +1602,19 @@ def ell_attention_in_smem(cap, itemsize):
     return ATTENTION_WARPS * cap * itemsize <= ATTENTION_SMEM_BYTES
 
 
-def ell_attention(q, k, v, cols, valid, scale, out, scratch=None):
-    """Launch K6: ``out[i] = Σ_j p_ij · v[cols[i, j]]`` with ``p_i`` the
-    masked softmax over row i's slots of ``scale · q[i] · k[cols[i, j]]``
-    (the reference's rules for non-finite values and indices outside the
-    tables: ``csrc/attention.cu``). ``q`` ``(L, d)``, ``k`` ``(Lk, d)``,
-    ``v`` ``(Lk, dv)`` of float32 or float64 with unit stride along their
-    rows and any row stride; ``cols`` ``(L, cap)`` int32 or int64 and
-    ``valid`` ``(L, cap)`` bool, contiguous; ``out`` ``(L, dv)``
+def ell_attention(q, k, v, cols, valid, scale, out, scratch=None, block_route=None, block_rows=0):
+    """Launch K6's row kernel: ``out[i] = Σ_j p_ij · v[cols[i, j]]`` with
+    ``p_i`` the masked softmax over row i's slots of ``scale · q[i] ·
+    k[cols[i, j]]`` (the reference's rules for non-finite values and indices
+    outside the tables: ``csrc/attention.cu``). ``q`` ``(L, d)``, ``k``
+    ``(Lk, d)``, ``v`` ``(Lk, dv)`` of float32 or float64 with unit stride
+    along their rows and any row stride; ``cols`` ``(L, cap)`` int32 or
+    int64 and ``valid`` ``(L, cap)`` bool, contiguous; ``out`` ``(L, dv)``
     contiguous. ``scratch`` holds at least ``ell_attention_grid(L) · 8 ·
-    cap`` values of the dtype when :func:`ell_attention_in_smem` is False."""
+    cap`` values of the dtype when :func:`ell_attention_in_smem` is False.
+    With ``block_route`` (int32, one a block of ``block_rows`` rows, as
+    :func:`ell_attention_tiles` writes it) only the rows of blocks marked
+    not 0 are computed, the rest of ``out`` left as it is."""
     dtype, device = q.dtype, q.device
     require_cuda(device, "row-ELL attention")
     if dtype not in _SDDMM_ITEM:
@@ -1632,6 +1645,10 @@ def ell_attention(q, k, v, cols, valid, scale, out, scratch=None):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not sddmm_k_major(t):
             raise ValueError(f"ell_attention: {name} must have unit stride along its rows")
+    if block_route is not None:
+        _check("block_route", block_route, torch.int32, device)
+        if block_rows < 1 or block_route.shape != (-(-n_rows // block_rows),):
+            raise ValueError("ell_attention: block_route must hold one entry a block of block_rows rows")
     if n_rows == 0 or dv == 0:
         return out
     grid = ell_attention_grid(n_rows, device)
@@ -1663,10 +1680,154 @@ def ell_attention(q, k, v, cols, valid, scale, out, scratch=None):
         float(scale),
         int(vec),
         grid,
+        None if block_route is None else block_route.data_ptr(),
+        block_rows,
         scratch_ptr,
         out.data_ptr(),
         _stream(device),
     )
     _raise_on(err, "ell_attention")
     LAUNCHES["ell_attention"] += 1
+    return out
+
+
+# K6's tile route (csrc/attention.cu, namespace tiles), float32: a block of
+# query rows against the union of its keys on the tensor cores (3xTF32). Its
+# shapes by name: (config id of the C entry point, rows a block, key slices,
+# CTAs a block, union keys a stage). Warps a CTA: rows / 16 · slices; a shape
+# of two CTAs takes a block with a cluster of two, each half the stages,
+# merged on the first. chip_attention_ablation.py measures others beside them.
+ATTENTION_TILE_CONFIGS = {
+    "b64c32": (0, 64, 2, 1, 32),
+    "b64c32x2": (1, 64, 2, 2, 32),
+    "b64x2w16": (2, 64, 4, 2, 64),
+}
+ATTENTION_BLOCK_ROWS = 64  # every shape's rows a block: one layout serves them all
+# the shapes the entry points take, in order of preference: while a cluster
+# of two CTAs a block fills at most the card's SMs once ("few" blocks, one
+# head at Longformer's width), and past that (one CTA a block, two an SM);
+# the first that fits the widths runs (an H100: chip_attention_ablation.py)
+ATTENTION_TILES_FEW = ("b64x2w16", "b64c32x2")
+ATTENTION_TILES_MANY = ("b64c32",)
+ATTENTION_MAX_DV = 128
+_MAX_SMEM = 232448
+
+
+def attention_tile_smem(config, d, dv):
+    """Dynamic shared memory of the tile route's shape ``config``
+    (``tiles::smem_plan``): qs's hi and lo; two stages of k rows, v rows
+    (each padded by 4 floats) and counts, and the split stage's fragments
+    (hi and lo of every value), or the warps' partials of each CTA of a block
+    where those are larger; the CTAs' flag words."""
+    _, rows, slices, ctas, chunk = ATTENTION_TILE_CONFIGS[config]
+    stage = chunk * ((d + 4) * 4 + (dv + 4) * 4 + rows)
+    loop = 2 * stage + chunk * (d + dv) * 8
+    merge = ctas * rows * slices * (dv + 2) * 4
+    return rows * d * 8 + max(loop, merge) + 16
+
+
+def attention_tiles_fit(d, dv, dtype, config):
+    """True when the tile route's shape ``config`` takes rows of widths ``d``
+    and ``dv`` in ``dtype``: float32, both multiples of 8, ``dv`` at most 128
+    and the shared memory within a CTA's."""
+    return (
+        dtype == torch.float32
+        and d >= 8
+        and d % 8 == 0
+        and 8 <= dv <= ATTENTION_MAX_DV
+        and dv % 8 == 0
+        and attention_tile_smem(config, d, dv) <= _MAX_SMEM
+    )
+
+
+def attention_tile_config(n_rows, d, dv, dtype, device):
+    """The tile route's shape for ``n_rows`` query rows of widths ``d``,
+    ``dv`` in ``dtype`` on ``device``: from :data:`ATTENTION_TILES_FEW`
+    while twice the blocks are at most the SMs, else from
+    :data:`ATTENTION_TILES_MANY`, the first that fits; None where none
+    does (float64, other widths), and K6's row kernel runs alone."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    few = 2 * -(-n_rows // ATTENTION_BLOCK_ROWS) <= sms
+    for name in ATTENTION_TILES_FEW if few else ATTENTION_TILES_MANY:
+        if attention_tiles_fit(d, dv, dtype, name):
+            return name
+    return None
+
+
+def attention_route_blocks(device):
+    """The int64 counters ``[tile, row by the rule, row by non-finite
+    values]`` of the blocks the tile route took each way on ``device``
+    since the last :func:`reset_launch_counts` (on the card; reading them
+    is the caller's read back)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = _route_blocks.get(device)
+    if t is None:
+        t = _route_blocks[device] = torch.zeros(3, dtype=torch.int64, device=device)
+    return t
+
+
+def ell_attention_tiles(q, k, v, blocks, scale, out, route, config):
+    """Launch K6's tile route on the layout ``blocks``
+    (:class:`~sparse_tpu_torch.kernels.attention.AttentionBlocks`, its rows
+    a block those of ``config``): the blocks it takes get their rows of
+    ``out``; ``route`` (int32, one a block) comes back 0 for those, 1 for a
+    block the layout flags, 2 for one with a non-finite value in its q rows
+    or its union's k or v rows. Those rows are the row kernel's
+    (:func:`ell_attention` with ``block_route=route``). ``q``, ``k``, ``v``
+    float32, rows of 16-byte aligned unit-stride vectors."""
+    cid, rows = ATTENTION_TILE_CONFIGS[config][:2]
+    device = q.device
+    require_cuda(device, "row-ELL attention")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_device(t, torch.float32, device, name)
+        if t.ndim != 2 or not sddmm_k_major(t) or not sddmm_vec(t):
+            raise ValueError(f"ell_attention_tiles: {name} must be 2-D rows of 16-byte aligned vectors")
+    n_rows, d = q.shape
+    n_keys, dv = v.shape
+    if k.shape != (n_keys, d) or out.shape != (n_rows, dv):
+        raise ValueError("ell_attention_tiles: q, k, v and out must be (L, d), (Lk, d), (Lk, dv) and (L, dv)")
+    if not attention_tiles_fit(d, dv, torch.float32, config):
+        raise ValueError(f"ell_attention_tiles: d = {d}, dv = {dv} do not fit the tile route")
+    if blocks.block != rows or blocks.n_keys != n_keys or blocks.n_rows != n_rows:
+        raise ValueError("ell_attention_tiles: the layout was built for other rows, keys or block rows")
+    _check("out", out, torch.float32, device)
+    _check("union", blocks.union, torch.int32, device)
+    _check("n_union", blocks.n_union, torch.int32, device)
+    _check("count", blocks.count, torch.uint8, device)
+    _check("flag", blocks.flag, torch.bool, device)
+    n_blocks, u_cap = blocks.union.shape
+    _check("route", route, torch.int32, device)
+    if route.shape != (n_blocks,):
+        raise ValueError("ell_attention_tiles: route must hold one entry a block")
+    if n_blocks == 0:
+        return out
+    counters = attention_route_blocks(device)
+    fn = load("attention").st_ell_attention_tiles_f32
+    err = fn(
+        q.data_ptr(),
+        q.stride(0),
+        k.data_ptr(),
+        k.stride(0),
+        v.data_ptr(),
+        v.stride(0),
+        blocks.union.data_ptr(),
+        blocks.n_union.data_ptr(),
+        blocks.count.data_ptr(),
+        blocks.flag.data_ptr(),
+        n_rows,
+        n_blocks,
+        u_cap,
+        d,
+        dv,
+        float(scale),
+        cid,
+        route.data_ptr(),
+        counters.data_ptr(),
+        out.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, "ell_attention_tiles")
+    LAUNCHES["ell_attention_tiles"] += 1
     return out

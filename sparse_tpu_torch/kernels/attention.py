@@ -1,15 +1,27 @@
-"""Attention over a row-ELL pattern: K6 and its plain version.
+"""Attention over a row-ELL pattern: K6, its block layout and plain versions.
 
-``ell_attention`` is ``sparse_tpu.nn.sparse_attention_ell``'s function: for
-float32/float64 tensors on the GPU it runs the hand-written CUDA kernel K6
-of ``csrc/attention.cu`` (counted as ``ell_attention``) or raises; on the
-CPU it runs ``ell_attention_plain``, and so does every other dtype on any
-device, as ``kernels.sddmm`` routes float16 and bfloat16. Its gradient is a
-``torch.autograd.Function`` whose backward is, for now, the plain version's
-autograd on a recompute.
+``ell_attention`` is ``sparse_tpu.nn.sparse_attention_ell``'s function. For
+float32/float64 tensors on the GPU it launches K6 (``csrc/attention.cu``)
+or raises; on the CPU it runs ``ell_attention_plain``, and so does every
+other dtype on any device, as ``kernels.sddmm`` routes float16 and bfloat16.
+
+K6 has two routes. float32 rows whose widths fit
+(:func:`~sparse_tpu_torch.kernels._cuda.attention_tile_config`) take the tile
+route first: a CTA a block of query rows against the union of their keys
+(:func:`build_attention_blocks`, kept once a pattern), the scores and the
+weighted sum as dense tiles on the tensor cores in 3xTF32 (counted
+``ell_attention_tiles``); then the row kernel, filtered on the card, takes
+the blocks the tile route left (an index outside the table, a union past
+the route rule, a non-finite value). float64 and the other widths take the
+row kernel alone, a warp a query row (counted ``ell_attention`` either
+way). ``ell_attention_blocks_plain`` runs the tile route's arithmetic in
+torch ops. The gradient is a ``torch.autograd.Function`` whose backward is,
+for now, the plain version's autograd on a recompute.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -17,6 +29,14 @@ import torch
 from . import _cuda
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
+# the route rule: a block takes the tile route when its union holds at most
+# this many keys a slot of a row (its layout keeps that many: ratio · cap, a
+# count tile of ratio · cap · 64 bytes a block). From chip_smoke.py's sweep on
+# an H100: at 129 slots a row the tile route wins up to a union of 11.5 · cap
+# and loses from 16.8 · cap; at 513 it wins up to 8 · cap, all a 4,096-key
+# table allows (PERF.md)
+ATTENTION_UNION_RATIO = 12.0
+_COUNT_MAX = 255  # counts are uint8: a block past it takes the row route
 
 
 def _take_rows(table, idx):
@@ -52,18 +72,220 @@ def ell_attention_plain(q, k, v, e_cols, valid, scale):
     return (attn[:, :, None] * g).sum(dim=1)[:, d:]
 
 
-def _ell_attention_forward(q, k, v, e_cols, valid, scale):
+# ---------------------------------------------------------------------------
+# the tile route's block layout
+# ---------------------------------------------------------------------------
+
+
+class AttentionBlocks(NamedTuple):
+    """The tile route's layout of a row-ELL pattern (``e_cols``, ``valid``)
+    over ``n_keys`` keys, in blocks of ``block`` consecutive query rows.
+
+    ``union`` ``(n_blocks, u_cap)`` int32: block b's union, the sorted
+    distinct key rows its slots name (padding slots too; an index below 0
+    read from the end, as ``jnp.take`` reads it), in ``union[b,
+    :n_union[b]]``, 0 past it. ``n_union`` ``(n_blocks,)`` int32: the
+    union's size, which may pass ``u_cap``. ``count`` ``(n_blocks, u_cap,
+    block)`` uint8: ``count[b, u, r]`` the valid slots of row ``b · block +
+    r`` naming key ``union[b, u]`` (a duplicate slot counts twice), each
+    union key's counts in a row of ``block`` bytes (the ``(block, |U_b|)``
+    tile stored key-major), 0 for rows past ``n_rows``. ``flag``
+    ``(n_blocks,)`` bool: an index outside ``[-n_keys, n_keys)``, a union
+    past ``u_cap`` (the route rule) or a count past 255; such a block takes
+    the row kernel. ``cols`` and ``valid`` are the pattern the layout was
+    built from."""
+
+    block: int
+    n_rows: int
+    n_keys: int
+    union: torch.Tensor
+    n_union: torch.Tensor
+    count: torch.Tensor
+    flag: torch.Tensor
+    cols: torch.Tensor
+    valid: torch.Tensor
+
+
+def union_capacity(cap, n_keys, block, ratio=ATTENTION_UNION_RATIO):
+    """Keys a block's union keeps: ``ratio · cap`` (the route rule), at most
+    the keys ``block`` rows of ``cap`` slots can name, at least 1."""
+    return max(1, min(int(ratio * cap), block * cap, n_keys))
+
+
+def build_attention_blocks(e_cols, valid, n_keys, block, ratio=ATTENTION_UNION_RATIO):
+    """The :class:`AttentionBlocks` of ``(e_cols, valid)`` on their device,
+    by torch ops and nothing read back: one sort of ``block_id · n_keys +
+    key`` over every slot, the first of each run marked and ranked, the
+    ranks scattered back to the slots; a second sort of the valid slots'
+    places in the count tiles, whose runs' lengths are the counts (integer
+    sums, the same in any order; no dense integer tile)."""
+    if e_cols.ndim != 2 or valid.shape != e_cols.shape:
+        raise ValueError(f"build_attention_blocks: e_cols {tuple(e_cols.shape)} and valid {tuple(valid.shape)} must be (L, cap)")
+    if block < 1 or n_keys < 1:
+        raise ValueError("build_attention_blocks: block and n_keys must be positive")
+    dev = e_cols.device
+    n_rows, cap = e_cols.shape
+    n_blocks = -(-n_rows // block)
+    u_cap = union_capacity(cap, n_keys, block, ratio)
+    c = e_cols.long()
+    c = torch.where(c < 0, c + n_keys, c)
+    inside = (c >= 0) & (c < n_keys)
+    row = torch.arange(n_rows, device=dev)
+    blk = torch.div(row, block, rounding_mode="floor")
+    outside = torch.zeros(n_blocks, dtype=torch.int64, device=dev).index_add_(0, blk, (~inside).sum(1))
+    sentinel = n_blocks * n_keys  # slots outside the table sort last and name no key
+    key = torch.where(inside, blk[:, None] * n_keys + c, sentinel).reshape(-1)
+    skey, perm = torch.sort(key)
+    first = torch.ones_like(skey, dtype=torch.bool)
+    first[1:] = skey[1:] != skey[:-1]
+    first &= skey != sentinel
+    sblk = torch.div(skey, n_keys, rounding_mode="floor").clamp_(max=max(n_blocks - 1, 0))
+    n_union = torch.zeros(n_blocks, dtype=torch.int64, device=dev).index_add_(0, sblk, first.long())
+    start = torch.cumsum(n_union, 0) - n_union
+    local = torch.cumsum(first, 0) - 1 - start[sblk]  # each slot's place in its block's union
+    keep = first & (local < u_cap)
+    union = torch.zeros(n_blocks * u_cap + 1, dtype=torch.int32, device=dev)
+    union.index_put_((torch.where(keep, sblk * u_cap + local, n_blocks * u_cap),), (skey - sblk * n_keys).to(torch.int32))
+    local_slot = torch.empty_like(local).scatter_(0, perm, local).view(n_rows, cap)
+    # the counts: the valid slots' places in the count tiles sorted, each run's length stored at its first
+    counted = valid & inside & (local_slot < u_cap)
+    size = n_blocks * u_cap * block
+    at, _ = torch.sort(torch.where(counted, (blk[:, None] * u_cap + local_slot) * block + (row - blk * block)[:, None], size).reshape(-1))
+    starts = torch.ones_like(at, dtype=torch.bool)
+    starts[1:] = at[1:] != at[:-1]
+    starts &= at != size
+    run = torch.cumsum(starts, 0) - 1
+    runs = torch.zeros(at.numel(), dtype=torch.int64, device=dev).index_add_(0, run.clamp_(min=0), (at != size).long())
+    lengths = runs[run]
+    count = torch.zeros(size + 1, dtype=torch.uint8, device=dev)
+    count.index_put_((torch.where(starts, at, size),), lengths.clamp(max=_COUNT_MAX).to(torch.uint8))
+    over = torch.zeros(n_blocks, dtype=torch.int64, device=dev)
+    over.index_add_(0, torch.div(at.clamp(max=size - 1), u_cap * block, rounding_mode="floor"), (starts & (lengths > _COUNT_MAX)).long())
+    flag = (outside > 0) | (n_union > u_cap) | (over > 0)
+    return AttentionBlocks(
+        block,
+        n_rows,
+        n_keys,
+        union[:-1].view(n_blocks, u_cap),
+        n_union.to(torch.int32),
+        count[:-1].view(n_blocks, u_cap, block),
+        flag,
+        e_cols,
+        valid,
+    )
+
+
+_BLOCKS_MEMO_SIZE = 8
+# (id(e_cols), id(valid)) -> {(n_keys, block): AttentionBlocks}, with the
+# sources' version counters (an entry holds its sources: ids stay theirs)
+_BLOCKS_MEMO = {}
+
+
+def attention_blocks(e_cols, valid, n_keys, block, layouts=None):
+    """The :class:`AttentionBlocks` of ``(e_cols, valid)``, built once: kept
+    in ``layouts`` (a dict the caller keeps beside its pattern, as
+    ``nn.sparse_attention``'s memo does) or else in a memo keyed by the
+    identity of the two tensors, rebuilt after an edit in place (their
+    version counters)."""
+    if layouts is None:
+        key = (id(e_cols), id(valid))
+        hit = _BLOCKS_MEMO.get(key)
+        versions = (e_cols._version, valid._version)
+        if hit is None or hit[0] is not e_cols or hit[1] is not valid or hit[2] != versions:
+            hit = (e_cols, valid, versions, {})
+            _BLOCKS_MEMO.pop(key, None)
+            _BLOCKS_MEMO[key] = hit
+            if len(_BLOCKS_MEMO) > _BLOCKS_MEMO_SIZE:
+                _BLOCKS_MEMO.pop(next(iter(_BLOCKS_MEMO)))
+        layouts = hit[3]
+    blocks = layouts.get((n_keys, block))
+    if blocks is None:
+        blocks = layouts[(n_keys, block)] = build_attention_blocks(e_cols, valid, n_keys, block)
+    return blocks
+
+
+def _block_route(q, k, v, blocks, scale):
+    """Per block, True where the tile route leaves it to the row kernel: the
+    layout's flag, or a non-finite value among its q rows (scaled) or its
+    union's k and v rows."""
+    n_blocks, u_cap = blocks.union.shape
+    rows = n_blocks * blocks.block
+    qbad = torch.zeros(rows, dtype=torch.bool, device=q.device)
+    qbad[: q.shape[0]] = ~torch.isfinite(q * scale).all(1)
+    kbad = ~(torch.isfinite(k).all(1) & torch.isfinite(v).all(1))
+    live = torch.arange(u_cap, device=q.device)[None, :] < blocks.n_union[:, None].long()
+    ubad = (kbad[blocks.union.long()] & live).any(1)
+    return blocks.flag | qbad.view(n_blocks, -1).any(1) | ubad
+
+
+def ell_attention_blocks_plain(q, k, v, blocks, scale, chunk=64):
+    """The tile route's arithmetic in torch ops, on any device: for each
+    block, the union in chunks of ``chunk`` keys; scores ``qs · kᵀ`` (``qs =
+    q · scale``, the reference's); where a count is not 0, the running row
+    maximum (an empty row's shift 0), ``p = count · exp(s − m)``, the running
+    sum and ``p @ v`` rescaled as the maximum grows; at the end the sum
+    divided out once (0 counts as 1). The blocks the kernel leaves to its
+    row kernel (:func:`_block_route`) take ``ell_attention_plain``."""
+    d, dv = q.shape[1], v.shape[1]
+    n_blocks, u_cap = blocks.union.shape
+    B, L = blocks.block, q.shape[0]
+    dt, dev = q.dtype, q.device
+    qb = torch.zeros((n_blocks * B, d), dtype=dt, device=dev)
+    qb[:L] = q * scale
+    qb = qb.view(n_blocks, B, d)
+    m = torch.full((n_blocks, B), float("-inf"), dtype=dt, device=dev)
+    s_run = torch.zeros((n_blocks, B), dtype=dt, device=dev)
+    o = torch.zeros((n_blocks, B, dv), dtype=dt, device=dev)
+    pos = torch.arange(u_cap, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    # the union's longest kept run; past it every chunk is padding (a read back: this is no path's code)
+    for c0 in range(0, int(blocks.n_union.max().clamp(max=u_cap)) if n_blocks else 0, chunk):
+        idx = blocks.union[:, c0 : c0 + chunk].long()
+        live = (pos[c0 : c0 + chunk][None, :] < blocks.n_union[:, None].long())[..., None]
+        kc = torch.where(live, k[idx], zero)
+        vc = torch.where(live, v[idx], zero)
+        cnt = blocks.count[:, c0 : c0 + chunk, :].transpose(1, 2).to(dt)  # (n_blocks, B, C)
+        s = torch.matmul(qb, kc.transpose(1, 2))
+        named = cnt != 0
+        m_new = torch.maximum(m, torch.where(named, s, float("-inf")).amax(-1))
+        alpha = torch.where(m == float("-inf"), zero, torch.exp(m - m_new))
+        shift = torch.where(m_new == float("-inf"), zero, m_new)
+        p = torch.where(named, cnt * torch.exp(s - shift[..., None]), zero)
+        s_run = s_run * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.matmul(p, vc)
+        m = m_new
+    out = (o / torch.where(s_run == 0, torch.ones_like(s_run), s_run)[..., None]).reshape(-1, dv)[:L]
+    by_row = _block_route(q, k, v, blocks, scale).repeat_interleave(B)[:L]
+    return torch.where(by_row[:, None], ell_attention_plain(q, k, v, blocks.cols, blocks.valid, scale), out)
+
+
+def _aligned(t):
+    """``t`` itself where the tile route reads it in place (rows of 16-byte
+    aligned vectors), else a fresh copy."""
+    return t if _cuda.sddmm_vec(t) else torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _ell_attention_forward(q, k, v, e_cols, valid, scale, layouts=None):
     if q.device.type == "cpu":
         return ell_attention_plain(q, k, v, e_cols, valid, scale)
     _cuda.require_cuda(q.device, "row-ELL attention")
     n_rows, cap = e_cols.shape
     out = torch.empty((n_rows, v.shape[1]), dtype=q.dtype, device=q.device)
+    route, rows_a_block = None, 0
+    config = _cuda.attention_tile_config(n_rows, q.shape[1], v.shape[1], q.dtype, q.device) if n_rows else None
+    if config is not None:
+        rows_a_block = _cuda.ATTENTION_BLOCK_ROWS
+        blocks = attention_blocks(e_cols, valid, k.shape[0], rows_a_block, layouts)
+        route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=q.device)
+        _cuda.ell_attention_tiles(_aligned(q), _aligned(k), _aligned(v), blocks, scale, out, route, config)
     scratch = None
     if not _cuda.ell_attention_in_smem(cap, q.element_size()):
         n = _cuda.ell_attention_grid(n_rows, q.device) * _cuda.ATTENTION_WARPS * cap
         scratch = torch.empty(n, dtype=q.dtype, device=q.device)
     rows = [t if _cuda.sddmm_k_major(t) else t.contiguous() for t in (q, k, v)]
-    return _cuda.ell_attention(*rows, e_cols.contiguous(), valid.contiguous(), scale, out, scratch)
+    return _cuda.ell_attention(
+        *rows, e_cols.contiguous(), valid.contiguous(), scale, out, scratch, block_route=route, block_rows=rows_a_block
+    )
 
 
 class _EllAttention(torch.autograd.Function):
@@ -72,10 +294,10 @@ class _EllAttention(torch.autograd.Function):
     block the forward never writes."""
 
     @staticmethod
-    def forward(ctx, q, k, v, e_cols, valid, scale):
+    def forward(ctx, q, k, v, e_cols, valid, scale, layouts):
         ctx.save_for_backward(q, k, v, e_cols, valid)
         ctx.scale = scale
-        return _ell_attention_forward(q, k, v, e_cols, valid, scale)
+        return _ell_attention_forward(q, k, v, e_cols, valid, scale, layouts)
 
     @staticmethod
     def backward(ctx, g):
@@ -84,10 +306,10 @@ class _EllAttention(torch.autograd.Function):
         with torch.enable_grad():
             out = ell_attention_plain(*ins, e_cols, valid, ctx.scale)
         grads = torch.autograd.grad(out, ins, g, allow_unused=True)
-        return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad[:3])), None, None, None)
+        return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad[:3])), None, None, None, None)
 
 
-def ell_attention(q, k, v, e_cols, valid, *, scale=None):
+def ell_attention(q, k, v, e_cols, valid, *, scale=None, layouts=None):
     """Sparse attention over a row-ELL pattern: query row ``i`` attends the
     keys ``e_cols[i, j]`` where ``valid[i, j]``. ``q`` ``(L, d)``, ``k``
     ``(Lk, d)``, ``v`` ``(Lk, dv)``, ``e_cols`` ``(L, cap)`` int32/int64,
@@ -95,8 +317,12 @@ def ell_attention(q, k, v, e_cols, valid, *, scale=None):
     promoted dtype; ``scale`` defaults to ``1/sqrt(d)``. Differentiable in
     ``q``, ``k`` and ``v``.
 
-    float32/float64 on the GPU launch K6 (``csrc/attention.cu``) or raise;
-    on the CPU, and for other dtypes on any device, the plain version runs.
+    float32/float64 on the GPU launch K6 (``csrc/attention.cu``) or raise:
+    float32 rows that fit its tile route take it, with the row kernel on the
+    blocks it leaves; the rest the row kernel alone. The tile route's
+    layout (:func:`attention_blocks`) is kept in ``layouts`` where the
+    caller gives a dict, else by the identity of ``e_cols`` and ``valid``.
+    On the CPU, and for other dtypes on any device, the plain version runs.
     The reference's rules hold on both: a non-finite ``v`` value in a valid
     slot makes its row NaN, one in a padding slot that lane; an index below
     0 counts from the end, one outside the table makes its row NaN."""
@@ -118,5 +344,5 @@ def ell_attention(q, k, v, e_cols, valid, *, scale=None):
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     q, k, v = q.to(dt), k.to(dt), v.to(dt)
     if dt in _KERNEL_DTYPES:
-        return _EllAttention.apply(q, k, v, e_cols, valid, float(scale))
+        return _EllAttention.apply(q, k, v, e_cols, valid, float(scale), layouts)
     return ell_attention_plain(q, k, v, e_cols, valid, scale)

@@ -15,15 +15,20 @@
 // takes a masked softmax over the slots and sums the block again weighted by
 // it. Eager PyTorch writes that block and two products of its size: at
 // Longformer-base's width (L = 4,096, 513 slots a row, d = dv = 64, float32)
-// 1.07 GB each, for every head. This kernel writes nothing but the output.
+// 1.07 GB each, for every head. K6 writes nothing but the output. It has two
+// kernels: the row kernel just below, for every input, and the tile route
+// further down (float32, widths multiples of 8), which takes a block of query
+// rows against the union of their keys on the tensor cores and leaves to the
+// row kernel the blocks it cannot take.
 //
-// Bound: bytes. From HBM, q, e_cols, valid and out once, and the k and v
-// tables once (the distinct rows); the L * cap gathered k rows and v rows
-// come from L2, at the card's whole-row rate (about 7.3 TB/s on an H100,
-// PERF.md), which is the floor of this design: 2 * L * cap * 256 bytes at
-// Longformer-base's width, 1.08 GB a head, 0.147 ms.
+// The row kernel. Bound: bytes. From HBM, q, e_cols, valid and out once, and
+// the k and v tables once (the distinct rows); the L * cap gathered k rows and
+// v rows come from L2, at the card's whole-row rate (about 7.3 TB/s on an
+// H100, PERF.md), which is the floor of this design: 2 * L * cap * 256 bytes
+// at Longformer-base's width, 1.08 GB a head, 0.147 ms.
 //
-// Design: one warp a query row, a persistent grid walking the rows.
+// Design: one warp a query row, a persistent grid walking the rows (with a
+// block_route, only the rows of the blocks the tile route marked).
 // - Pass 1 reads each slot's k row once and writes its score to a strip of
 //   `cap` values: the warp's slice of shared memory when 8 strips fit in
 //   48 KB (cap <= 1,536 float32 or 768 float64), else the warp's row of a
@@ -184,7 +189,8 @@ __global__ void __launch_bounds__(kThreads)
     ell_attention_kernel(const T* __restrict__ q, long long ldq, const T* __restrict__ k, long long ldk,
                          const T* __restrict__ v, long long ldv, const I* __restrict__ cols,
                          const unsigned char* __restrict__ valid, long long n_rows, long long n_keys, long long cap,
-                         long long d, long long dv, T scale, T* __restrict__ scratch, T* __restrict__ out) {
+                         long long d, long long dv, T scale, const int* __restrict__ block_route, long long block_rows,
+                         T* __restrict__ scratch, T* __restrict__ out) {
   using VT = typename Vec<T>::type;
   constexpr int V = Vec<T>::width;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -199,6 +205,7 @@ __global__ void __launch_bounds__(kThreads)
   const T neg_inf = -INFINITY;
 
   for (long long row = warp; row < n_rows; row += n_warps) {
+    if (block_route != nullptr && block_route[row / block_rows] == 0) continue;  // the tile route wrote it
     const T* qr = q + row * ldq;
     const I* cr = cols + row * cap;
     const unsigned char* okr = valid + row * cap;
@@ -332,9 +339,12 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename I>
 int launch(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv, const void* cols,
            const void* valid, long long n_rows, long long n_keys, long long cap, long long d, long long dv, double scale,
-           long long vec, long long max_blocks, void* scratch, void* out, void* stream) {
+           long long vec, long long max_blocks, const void* block_route, long long block_rows, void* scratch, void* out,
+           void* stream) {
   if (n_rows <= 0 || dv <= 0) return 0;
-  if (cap < 1 || n_keys < 1 || max_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cap < 1 || n_keys < 1 || max_blocks < 1 || (block_route != nullptr && block_rows < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long wanted = (n_rows + kWarps - 1) / kWarps;
   const long long blocks = wanted < max_blocks ? wanted : max_blocks;
   const size_t smem = scratch != nullptr ? 0 : static_cast<size_t>(kWarps) * cap * sizeof(T);
@@ -345,17 +355,600 @@ int launch(const void* q, long long ldq, const void* k, long long ldk, const voi
   const T* vp = static_cast<const T*>(v);
   const I* cp = static_cast<const I*>(cols);
   const unsigned char* okp = static_cast<const unsigned char*>(valid);
+  const int* rp = static_cast<const int*>(block_route);
   T* sp = static_cast<T*>(scratch);
   T* op = static_cast<T*>(out);
   const T s = static_cast<T>(scale);
   if (vec) {
     ell_attention_kernel<T, I, true><<<blocks, kThreads, smem, st>>>(qp, ldq, kp, ldk, vp, ldv, cp, okp, n_rows, n_keys,
-                                                                      cap, d, dv, s, sp, op);
+                                                                      cap, d, dv, s, rp, block_rows, sp, op);
   } else {
     ell_attention_kernel<T, I, false><<<blocks, kThreads, smem, st>>>(qp, ldq, kp, ldk, vp, ldv, cp, okp, n_rows,
-                                                                       n_keys, cap, d, dv, s, sp, op);
+                                                                       n_keys, cap, d, dv, s, rp, block_rows, sp, op);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// The tile route (float32): a block of BQ consecutive query rows against the
+// union of the keys its slots name, on the tensor cores in 3xTF32.
+//
+// The layout (kernels/attention.py:build_attention_blocks, built once a
+// pattern): for block b, `keys[b, :n_union[b]]` its union, the sorted
+// distinct key rows its slots name (padding slots too, so that the check
+// below sees them); `count[b, u, r]` the valid slots of row r naming key
+// keys[b, u] (a duplicate slot counts twice, as the reference sums it twice);
+// `flag[b]` an index outside the table, a union past the layout's capacity
+// (the route rule) or a count past 255.
+//
+// A CTA (or a cluster of CL CTAs, CTA `rank` taking the stages rank, rank +
+// CL, ...) takes one block. Its warps are BQ / 16 row groups times KS key
+// slices: warp (rg, ks) owns rows 16 rg .. 16 rg + 15 and keys ks * CH / KS
+// .. of each stage of CH union keys. Per stage:
+// - the stage's k rows, v rows and counts come to shared memory by cp.async,
+//   16 bytes a thread, double-buffered (TMA has no row gather);
+// - the CTA splits each k and v value once into hi = x rounded to tf32 and
+//   lo = (x - hi) rounded, written in the mma fragments' order (a lane's four
+//   values of an 8 x 8 tile in one 16-byte word, so a warp reads a tile in
+//   one conflict-free load), and checks it for a non-finite value;
+// - S = qs · Kᵀ by mma.sync.m16n8k8 TF32 as hi·lo + lo·hi + hi·hi
+//   (3xTF32); qs = scale * q rounded (the reference's qs), split once into
+//   shared memory in fragment order;
+// - a score counts where its count is not 0: the row's running maximum m
+//   (an empty one counts as 0 in the shift), p = count * exp(s - m), the
+//   running sum l and output O rescaled by exp(m_old - m_new);
+// - O += P · V on the tensor cores, 3xTF32. P goes from the accumulator to
+//   the A operand without a shuffle: the k index t of an 8-key step stands
+//   for key 2t and t + 4 for key 2t + 1, and V's fragments are laid out in
+//   that order.
+// At the end the partials of a row (KS warps, CL CTAs) are merged in one
+// order, rank then key slice, on the first CTA (the others store theirs into
+// its shared memory), and O is divided by l once, at the store (a sum of 0
+// counts as 1). No atomics on values, one order: two launches give the same
+// bits.
+//
+// The reference's non-finite and index rules are not reproduced here: a
+// block with a flag, a non-finite value in its q rows or in any k or v row
+// of its union writes nothing and is marked in `route` (1 flag, 2 non-finite
+// values); the row kernel above then runs on the marked blocks' rows (a
+// second launch, filtered by `route` on the card, nothing read back).
+// `route_blocks[0..2]` count the blocks each way (one atomic a block).
+//
+// Bound: bytes and operations. From HBM, q and out once and the union rows
+// of k and v once a block (at Longformer-base's width 64 blocks of 576 keys,
+// 18.9 MB a head, against K6's row route's 1.06 GB gathered from L2); the
+// products are 2 * BQ * |U| * (d + dv) a block, three passes each.
+namespace tiles {
+
+constexpr int kPad = 4;  // floats after each staged row: the split's reads hit 32 banks
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Smem {
+  long long raw;          // offset of the two stages (q's fragments lie before them)
+  long long kbytes;       // a stage's k rows
+  long long vbytes;       // its v rows
+  long long stage_bytes;  // k rows, v rows, counts
+  long long frag;         // offset of the split stage: k's fragments, then v's
+  long long total;        // bytes in all, the CTAs' flag words last
+};
+
+__host__ __device__ inline Smem smem_plan(int bq, int ks, int cl, int ch, long long d, long long dv) {
+  Smem s;
+  s.raw = static_cast<long long>(bq) * d * 2 * 4;  // hi and lo of qs
+  s.kbytes = static_cast<long long>(ch) * (d + kPad) * 4;
+  s.vbytes = static_cast<long long>(ch) * (dv + kPad) * 4;
+  s.stage_bytes = s.kbytes + s.vbytes + static_cast<long long>(ch) * bq;
+  s.frag = s.raw + 2 * s.stage_bytes;
+  const long long loop = 2 * s.stage_bytes + static_cast<long long>(ch) * (d + dv) * 2 * 4;
+  const long long merge = static_cast<long long>(cl) * bq * ks * (dv + 2) * 4;  // every warp's O, m and l, a slot a CTA
+  s.total = s.raw + (loop > merge ? loop : merge) + 16;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool copy) {
+  // 16 bytes, or 16 zero bytes where `copy` is false (src-size 0); nothing
+  // reads the destination before cp_wait and a barrier, which order it
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(copy ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address in CTA `rank`'s shared memory of what lies at `p` in this CTA's
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  return addr;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(x) : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float x, float y) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, int x) {
+  asm volatile("st.shared::cluster.s32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+// a value (or pair) at `p`, in this CTA's shared memory for the first CTA
+// of the cluster, in the first CTA's at the same place for the others
+template <int CL>
+__device__ __forceinline__ void put(float* p, uint32_t rank, float x) {
+  if (CL == 1 || rank == 0) *p = x;
+  else st_cluster(map_rank(p, 0), x);
+}
+template <int CL>
+__device__ __forceinline__ void put(float* p, uint32_t rank, float x, float y) {
+  if (CL == 1 || rank == 0) *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  else st_cluster(map_rank(p, 0), x, y);
+}
+
+// x rounded to tf32 (nearest, ties away from zero, as cvt.rna.tf32.f32), as in csrc/bsr_tc.cu
+__device__ __forceinline__ uint32_t tf32_bits(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+// the 3xTF32 split of a finite value
+__device__ __forceinline__ void split(float x, uint32_t& h, uint32_t& l) {
+  h = tf32_bits(x);
+  l = tf32_bits(x - __uint_as_float(h));
+}
+// the hi and lo of two values as one fragment word: (hi x, hi y, lo x, lo y)
+__device__ __forceinline__ float4 split2(float x, float y) {
+  uint32_t hx, lx, hy, ly;
+  split(x, hx, lx);
+  split(y, hy, ly);
+  return make_float4(__uint_as_float(hx), __uint_as_float(hy), __uint_as_float(lx), __uint_as_float(ly));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// c += a · b in 3xTF32 (b a fragment word): the two cross terms first, then hi · hi
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4], float4 b) {
+  const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+  mma(c, al[0], al[1], al[2], al[3], bh0, bh1);
+  mma(c, ah[0], ah[1], ah[2], ah[3], __float_as_uint(b.z), __float_as_uint(b.w));
+  mma(c, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
+}
+
+template <int BQ, int KS, int CL, int DVT, int CH>
+__global__ void __launch_bounds__(BQ / 16 * KS * 32)
+    ell_attention_tiles_kernel(const float* __restrict__ q, long long ldq, const float* __restrict__ k, long long ldk,
+                               const float* __restrict__ v, long long ldv, const int* __restrict__ keys,
+                               const int* __restrict__ n_union, const unsigned char* __restrict__ count,
+                               const unsigned char* __restrict__ flag, long long n_rows, long long u_cap, int d,
+                               int dv, float scale, int* __restrict__ route,
+                               unsigned long long* __restrict__ route_blocks, float* __restrict__ out) {
+  constexpr int kGroups = BQ / 16;  // row groups
+  constexpr int kWarps = kGroups * KS;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kKeysW = CH / KS;  // a warp's keys of a stage
+  constexpr int kNT = kKeysW / 8;  // its 8-key tiles
+  constexpr int kNV = DVT / 8;     // 8-column tiles of the output, at most
+  static_assert(BQ % 16 == 0 && CH % (8 * KS) == 0 && (CL == 1 || CL == 2) && kThreads % BQ == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int rg = wid % kGroups, ks = wid / kGroups;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+  const long long b = blockIdx.x / CL;
+  const Smem plan = smem_plan(BQ, KS, CL, CH, d, dv);
+  float* qf = reinterpret_cast<float*>(smem);
+  float4* kf = reinterpret_cast<float4*>(smem + plan.frag);  // [key tile][d / 8][lane]
+  float4* vf = kf + CH / 8 * (d / 8) * 32;                   // [key tile][dv / 8][lane]
+  int* bad_word = reinterpret_cast<int*>(smem + plan.total - 16);
+
+  if (flag[b]) {  // the row route takes the block: every CTA of the cluster leaves here
+    if (rank == 0 && tid == 0) {
+      route[b] = 1;
+      atomicAdd(route_blocks + 1, 1ull);
+    }
+    return;
+  }
+  const long long n_u = n_union[b];
+  const long long row0 = b * BQ;
+  const int nd8 = d / 8, nv8 = dv / 8, dq4 = d / 4, dv4 = dv / 4;
+  const int sk_ld = d + kPad, sv_ld = dv + kPad;
+
+  const int* kb = keys + b * u_cap;
+  const unsigned char* cb = count + b * u_cap * BQ;
+  const long long n_chunks = (n_u + CH - 1) / CH;
+  const long long mine = n_chunks > rank ? (n_chunks - rank + CL - 1) / CL : 0;
+  auto stage = [&](long long i) { return smem + plan.raw + (i & 1) * plan.stage_bytes; };
+  // each thread's first piece of a stage and its step, without a division in the loops:
+  // a k row is dq4 16-byte pieces, a v row dv4; the fragments are tiles of 32 lanes
+  const int kj0 = tid / dq4, ke0 = tid - kj0 * dq4, kjs = kThreads / dq4, kes = kThreads - kjs * dq4;
+  const int vj0 = tid / dv4, ve0 = tid - vj0 * dv4, vjs = kThreads / dv4, ves = kThreads - vjs * dv4;
+  auto issue = [&](long long i) {
+    const long long c0 = (rank + i * CL) * CH;
+    unsigned char* st = stage(i);
+    float* sk = reinterpret_cast<float*>(st);
+    float* sv = reinterpret_cast<float*>(st + plan.kbytes);
+    unsigned char* sc = st + plan.kbytes + plan.vbytes;
+#pragma unroll 4
+    for (int j = kj0, e = ke0; j < CH;) {
+      const bool live = c0 + j < n_u;
+      cp16(sk + j * sk_ld + e * 4, live ? k + kb[c0 + j] * ldk + e * 4 : k, live);
+      j += kjs, e += kes;
+      if (e >= dq4) e -= dq4, ++j;
+    }
+#pragma unroll 4
+    for (int j = vj0, e = ve0; j < CH;) {
+      const bool live = c0 + j < n_u;
+      cp16(sv + j * sv_ld + e * 4, live ? v + kb[c0 + j] * ldv + e * 4 : v, live);
+      j += vjs, e += ves;
+      if (e >= dv4) e -= dv4, ++j;
+    }
+    for (int pc = tid; pc < CH * BQ / 16; pc += kThreads) {
+      const bool live = c0 + pc * 16 / BQ < n_u;
+      cp16(sc + pc * 16, live ? cb + c0 * BQ + pc * 16 : cb, live);
+    }
+    cp_commit();
+  };
+  // stage i split into the fragments; true where every value is finite.
+  // k's tile (key group jg, k-step k8), lane (g, t): k[8 jg + g][8 k8 + t]
+  // and [.. + t + 4]; v's tile (key group jg, column tile n), lane (g, t):
+  // v[8 jg + 2t][8 n + g] and v[8 jg + 2t + 1][8 n + g]. A warp takes whole
+  // tiles: wid, wid + kWarps, ...
+  const int kg0 = wid / nd8, kk0 = wid - kg0 * nd8, kgs = kWarps / nd8, kks = kWarps - kgs * nd8;
+  const int vg0 = wid / nv8, vn0 = wid - vg0 * nv8, vgs = kWarps / nv8, vns = kWarps - vgs * nv8;
+  auto split_stage = [&](long long i) {
+    const unsigned char* st = stage(i);
+    const float* sk = reinterpret_cast<const float*>(st) + g * sk_ld + t;
+    const float* sv = reinterpret_cast<const float*>(st + plan.kbytes) + 2 * t * sv_ld + g;
+    bool ok = true;
+#pragma unroll 4
+    for (int jg = kg0, k8 = kk0; jg < CH / 8;) {
+      const float* r = sk + jg * 8 * sk_ld + k8 * 8;
+      const float x = r[0], y = r[4];
+      ok = ok && isfinite(x) && isfinite(y);
+      kf[(jg * nd8 + k8) * 32 + lane] = split2(x, y);
+      jg += kgs, k8 += kks;
+      if (k8 >= nd8) k8 -= nd8, ++jg;
+    }
+#pragma unroll 4
+    for (int jg = vg0, n = vn0; jg < CH / 8;) {
+      const float* r = sv + jg * 8 * sv_ld + n * 8;
+      const float x = r[0], y = r[sv_ld];
+      ok = ok && isfinite(x) && isfinite(y);
+      vf[(jg * nv8 + n) * 32 + lane] = split2(x, y);
+      jg += vgs, n += vns;
+      if (n >= nv8) n -= nv8, ++jg;
+    }
+    return ok;
+  };
+
+  if (mine > 0) issue(0);  // its rows come while q is laid out
+
+  // qs, checked, split and stored in the A fragments' order: tile (row
+  // group, k-step k8), lane (g, t) holds hi of a0..a3 then lo of a0..a3,
+  // a0 = qs[16 rg + g][8 k8 + t], a1 row + 8, a2 column + 4, a3 both. A warp
+  // takes whole tiles (wid, wid + kWarps, ...), its lanes' loads in flight
+  // together, each lane's word stored in one piece
+  int bad = 0;
+  constexpr int kQTiles = 2;  // tiles a warp loads at once
+  for (int tile0 = wid; tile0 < kGroups * nd8; tile0 += kQTiles * kWarps) {
+    float a[kQTiles][4];
+#pragma unroll
+    for (int u = 0; u < kQTiles; ++u) {
+      const int tile = tile0 + u * kWarps, gr = tile / nd8, k8 = tile - gr * nd8;
+      const long long r = row0 + gr * 16 + g;
+      const float* qr = q + r * ldq + k8 * 8 + t;
+      const bool in = tile < kGroups * nd8;
+      a[u][0] = in && r < n_rows ? qr[0] : 0.0f;
+      a[u][1] = in && r + 8 < n_rows ? qr[8 * ldq] : 0.0f;
+      a[u][2] = in && r < n_rows ? qr[4] : 0.0f;
+      a[u][3] = in && r + 8 < n_rows ? qr[8 * ldq + 4] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kQTiles; ++u) {
+      const int tile = tile0 + u * kWarps;
+      if (tile >= kGroups * nd8) break;
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float x = a[u][c] * scale;
+        bad |= !isfinite(x);
+        split(x, h[c], l[c]);
+      }
+      float4* dst = reinterpret_cast<float4*>(qf + (static_cast<long long>(tile) * 32 + lane) * 8);
+      dst[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+      dst[1] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+  }
+
+  float o[kNV][4];
+#pragma unroll
+  for (int n = 0; n < kNV; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};  // rows g and g + 8 of the group
+  const int kt0 = ks * kNT;                                            // this warp's first key tile of a stage
+  const float* qw = qf + static_cast<long long>(rg) * nd8 * 32 * 8 + lane * 8;
+
+  for (long long i = 0; i < mine; ++i) {
+    if (i + 1 < mine) {
+      issue(i + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // stage i landed; the fragments are free
+    bad |= !split_stage(i);
+    // this warp's counts, taken before the barrier below: after it, issue(i + 2) may refill the stage
+    const unsigned char* sc = stage(i) + plan.kbytes + plan.vbytes;
+    unsigned cn[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cn[nt][e] = sc[((kt0 + nt) * 8 + 2 * t + (e & 1)) * BQ + rg * 16 + g + (e >> 1) * 8];
+    }
+    if (__syncthreads_or(bad)) {
+      bad = 1;
+      break;
+    }
+
+    // S = qs · Kᵀ over this warp's keys
+    float s[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+#pragma unroll 2
+    for (int k8 = 0; k8 < nd8; ++k8) {
+      const float4 h4 = *reinterpret_cast<const float4*>(qw + k8 * 32 * 8);
+      const float4 l4 = *reinterpret_cast<const float4*>(qw + k8 * 32 * 8 + 4);
+      const uint32_t ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y), __float_as_uint(h4.z),
+                              __float_as_uint(h4.w)};
+      const uint32_t al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y), __float_as_uint(l4.z),
+                              __float_as_uint(l4.w)};
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) mma3(s[nt], ah, al, kf[((kt0 + nt) * nd8 + k8) * 32 + lane]);
+    }
+
+    // the rows' maxima over the positions they name
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (cn[nt][e] != 0) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      const float alpha = m_run[h] == -INFINITY ? 0.0f : expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      mu[h] = m_new == -INFINITY ? 0.0f : m_new;  // an empty row so far: the shift counts as 0
+      l_run[h] *= alpha;
+#pragma unroll
+      for (int n = 0; n < kNV; ++n) {
+        o[n][2 * h] *= alpha;
+        o[n][2 * h + 1] *= alpha;
+      }
+    }
+    // P, and O += P · V: A's k index t is key 2t, t + 4 key 2t + 1
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = cn[j][e] != 0 ? static_cast<float>(cn[j][e]) * expf(s[j][e] - mu[e >> 1]) : 0.0f;
+        l_run[e >> 1] += p[e];
+      }
+      uint32_t ah[4], al[4];
+      split(p[0], ah[0], al[0]);
+      split(p[2], ah[1], al[1]);
+      split(p[1], ah[2], al[2]);
+      split(p[3], ah[3], al[3]);
+      const float4* vw = vf + (kt0 + j) * nv8 * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < kNV; ++n) {
+        if (n < nv8) mma3(o[n], ah, al, vw[n * 32]);
+      }
+    }
+  }
+  cp_wait<0>();
+  bad = __syncthreads_or(bad);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row's sum over the quad's columns
+    l_run[h] += __shfl_xor_sync(kFull, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(kFull, l_run[h], 2);
+  }
+
+  const long long r_lo = row0 + rg * 16 + g;  // the thread's rows r_lo and r_lo + 8
+  if constexpr (KS * CL == 1) {
+    if (!bad) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r_lo + 8 * h >= n_rows) continue;
+        const float inv = l_run[h] == 0.0f ? 1.0f : l_run[h];
+        float* orow = out + (r_lo + 8 * h) * dv + 2 * t;
+#pragma unroll
+        for (int n = 0; n < kNV; ++n) {
+          if (n < nv8) *reinterpret_cast<float2*>(orow + n * 8) = make_float2(o[n][2 * h] / inv, o[n][2 * h + 1] / inv);
+        }
+      }
+    }
+    if (tid == 0) {
+      route[b] = bad ? 2 : 0;
+      atomicAdd(route_blocks + (bad ? 2 : 0), 1ull);
+    }
+  } else {
+    // every warp's partial, O (16 rows of dv) then m and l of its 16 rows, in
+    // slot `rank` of the first CTA's merge area
+    const long long slot = static_cast<long long>(kWarps) * 16 * (dv + 2);
+    float* part = reinterpret_cast<float*>(smem + plan.raw);
+    float* mine_o = part + rank * slot;
+    float* mine_m = mine_o + static_cast<long long>(kWarps) * 16 * dv;
+    float* mine_l = mine_m + kWarps * 16;
+    if constexpr (CL > 1) cluster_sync();  // the first CTA is done with its stages
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* prow = mine_o + static_cast<long long>(wid * 16 + g + 8 * h) * dv + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kNV; ++n) {
+        if (n < nv8) put<CL>(prow + n * 8, rank, o[n][2 * h], o[n][2 * h + 1]);
+      }
+      if (t == 0) {
+        put<CL>(mine_m + wid * 16 + g + 8 * h, rank, m_run[h]);
+        put<CL>(mine_l + wid * 16 + g + 8 * h, rank, l_run[h]);
+      }
+    }
+    int* bad_slot = bad_word + rank;
+    if (tid == 0) {
+      if (CL == 1 || rank == 0) *bad_slot = bad;
+      else st_cluster(map_rank(bad_slot, 0), bad);
+    }
+    if constexpr (CL > 1) {
+      cluster_sync();  // every slot in place
+    } else {
+      __syncthreads();
+    }
+    if (rank == 0) {
+      int any_bad = 0;
+#pragma unroll
+      for (int rk = 0; rk < CL; ++rk) any_bad |= bad_word[rk];
+      if (!any_bad) {
+        // kThreads / BQ threads a row: the row's factors once, then its columns
+        constexpr int kPerRow = kThreads / BQ;
+        const int r = tid / kPerRow;
+        if (row0 + r < n_rows) {
+          const int gr = r >> 4, rr = r & 15;
+          float f[CL * KS], m_all = -INFINITY, sum = 0.0f;
+#pragma unroll
+          for (int rk = 0; rk < CL; ++rk) {
+            const float* pm = part + rk * slot + static_cast<long long>(kWarps) * 16 * dv;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+              f[rk * KS + kk] = pm[(kk * kGroups + gr) * 16 + rr];
+              m_all = fmaxf(m_all, f[rk * KS + kk]);
+            }
+          }
+#pragma unroll
+          for (int rk = 0; rk < CL; ++rk) {
+            const float* pl = part + rk * slot + static_cast<long long>(kWarps) * 16 * (dv + 1);
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) {
+              const float m = f[rk * KS + kk];
+              f[rk * KS + kk] = m == -INFINITY ? 0.0f : expf(m - m_all);
+              sum += f[rk * KS + kk] * pl[(kk * kGroups + gr) * 16 + rr];
+            }
+          }
+          const float inv = sum == 0.0f ? 1.0f : sum;
+          for (int c = tid - r * kPerRow; c < dv; c += kPerRow) {
+            float acc = 0.0f;
+#pragma unroll
+            for (int rk = 0; rk < CL; ++rk) {
+#pragma unroll
+              for (int kk = 0; kk < KS; ++kk) {
+                acc += f[rk * KS + kk] * part[rk * slot + static_cast<long long>((kk * kGroups + gr) * 16 + rr) * dv + c];
+              }
+            }
+            out[(row0 + r) * dv + c] = acc / inv;
+          }
+        }
+      }
+      if (tid == 0) {
+        route[b] = any_bad ? 2 : 0;
+        atomicAdd(route_blocks + (any_bad ? 2 : 0), 1ull);
+      }
+    }
+  }
+}
+
+template <int BQ, int KS, int CL, int DVT, int CH>
+int launch_tiles(const float* q, long long ldq, const float* k, long long ldk, const float* v, long long ldv,
+                 const int* keys, const int* n_union, const unsigned char* count, const unsigned char* flag,
+                 long long n_rows, long long n_blocks, long long u_cap, int d, int dv, float scale, int* route,
+                 unsigned long long* route_blocks, float* out, cudaStream_t st) {
+  auto kernel = ell_attention_tiles_kernel<BQ, KS, CL, DVT, CH>;
+  const Smem plan = smem_plan(BQ, KS, CL, CH, d, dv);
+  if (plan.total > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_blocks * CL));
+  cfg.blockDim = dim3(BQ / 16 * KS * 32);
+  cfg.dynamicSmemBytes = static_cast<size_t>(plan.total);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, q, ldq, k, ldk, v, ldv, keys, n_union, count, flag, n_rows, u_cap, d, dv,
+                           scale, route, route_blocks, out);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tiles
+
+// the tile route's shapes, by `config` (kernels/_cuda.py: ATTENTION_TILE_CONFIGS):
+// rows a block, key slices (warps a row group), CTAs a block (a cluster), keys a stage
+template <int DVT>
+int launch_tiles_config(long long config, const float* q, long long ldq, const float* k, long long ldk,
+                        const float* v, long long ldv, const int* keys, const int* n_union,
+                        const unsigned char* count, const unsigned char* flag, long long n_rows, long long n_blocks,
+                        long long u_cap, int d, int dv, float scale, int* route, unsigned long long* route_blocks,
+                        float* out, cudaStream_t st) {
+#define ST_TILES(BQ, KS, CL, CH)                                                                                    \
+  tiles::launch_tiles<BQ, KS, CL, DVT, CH>(q, ldq, k, ldk, v, ldv, keys, n_union, count, flag, n_rows, n_blocks, \
+                                            u_cap, d, dv, scale, route, route_blocks, out, st)
+  switch (config) {
+    case 0: return ST_TILES(64, 2, 1, 32);
+    case 1: return ST_TILES(64, 2, 2, 32);
+    case 2: return ST_TILES(64, 4, 2, 64);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ST_TILES
+}
+
+int launch_tiles_f32(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
+                     const void* keys, const void* n_union, const void* count, const void* flag, long long n_rows,
+                     long long n_blocks, long long u_cap, long long d, long long dv, double scale, long long config,
+                     void* route, void* route_blocks, void* out, void* stream) {
+  if (n_blocks <= 0) return 0;
+  if (d < 8 || d % 8 != 0 || dv < 8 || dv % 8 != 0 || dv > 128 || d > 1024 || u_cap < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* kk = static_cast<const int*>(keys);
+  const auto* nu = static_cast<const int*>(n_union);
+  const auto* cn = static_cast<const unsigned char*>(count);
+  const auto* fl = static_cast<const unsigned char*>(flag);
+  auto* rt = static_cast<int*>(route);
+  auto* rb = static_cast<unsigned long long*>(route_blocks);
+  auto* op = static_cast<float*>(out);
+  const auto s = static_cast<float>(scale);
+  if (dv <= 64) {
+    return launch_tiles_config<64>(config, qp, ldq, kp, ldk, vp, ldv, kk, nu, cn, fl, n_rows, n_blocks, u_cap,
+                                   static_cast<int>(d), static_cast<int>(dv), s, rt, rb, op, st);
+  }
+  return launch_tiles_config<128>(config, qp, ldq, kp, ldk, vp, ldv, kk, nu, cn, fl, n_rows, n_blocks, u_cap,
+                                  static_cast<int>(d), static_cast<int>(dv), s, rt, rb, op, st);
 }
 
 }  // namespace
@@ -365,15 +958,24 @@ extern "C" {
 #define ST_ELL_ATTENTION(NAME, T, I)                                                                              \
   int NAME(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,             \
            const void* cols, const void* valid, long long n_rows, long long n_keys, long long cap, long long d,  \
-           long long dv, double scale, long long vec, long long max_blocks, void* scratch, void* out,            \
-           void* stream) {                                                                                        \
+           long long dv, double scale, long long vec, long long max_blocks, const void* block_route,             \
+           long long block_rows, void* scratch, void* out, void* stream) {                                       \
     return launch<T, I>(q, ldq, k, ldk, v, ldv, cols, valid, n_rows, n_keys, cap, d, dv, scale, vec, max_blocks, \
-                        scratch, out, stream);                                                                    \
+                        block_route, block_rows, scratch, out, stream);                                          \
   }
 
 ST_ELL_ATTENTION(st_ell_attention_f32_i32, float, int32_t)
 ST_ELL_ATTENTION(st_ell_attention_f32_i64, float, int64_t)
 ST_ELL_ATTENTION(st_ell_attention_f64_i32, double, int32_t)
 ST_ELL_ATTENTION(st_ell_attention_f64_i64, double, int64_t)
+
+int st_ell_attention_tiles_f32(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
+                               const void* keys, const void* n_union, const void* count, const void* flag,
+                               long long n_rows, long long n_blocks, long long u_cap, long long d, long long dv,
+                               double scale, long long config, void* route, void* route_blocks, void* out,
+                               void* stream) {
+  return launch_tiles_f32(q, ldq, k, ldk, v, ldv, keys, n_union, count, flag, n_rows, n_blocks, u_cap, d, dv, scale,
+                          config, route, route_blocks, out, stream);
+}
 
 }  // extern "C"

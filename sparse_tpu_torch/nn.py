@@ -332,8 +332,9 @@ def build_attention_ell(rows, cols, length):
 
 _MEMO_SIZE = 32
 # sparse_tpu.nn's _ATTENTION_ELL_MEMO: (id(rows), id(cols), L) -> (rows, cols,
-# e_cols, valid, {device: (e_cols, valid) there}), e_cols None where the
-# route was refused; the first call's choice stands, as there
+# e_cols, valid, {device: (e_cols, valid, layouts) there}), e_cols None where
+# the route was refused; the first call's choice stands, as there. `layouts`
+# keeps K6's tile layouts of the device copies (kernels.attention.attention_blocks)
 _ATTENTION_ELL_MEMO = {}
 # (id(rows), id(cols), n_rows, n_cols, device) -> _CooPattern
 _COO_PATTERN_MEMO = {}
@@ -491,9 +492,10 @@ def segment_softmax(scores, rows, *, n_rows, mask=None):
 
 
 def _ell_route(rows, cols, length, max_ell_blowup, device):
-    """The row-ELL layout of a host pattern on ``device``, or None where
-    ``sparse_tpu.nn.sparse_attention`` takes its COO route (the blowup guard
-    and the 2^26-slot cap), memoized as there."""
+    """The row-ELL layout of a host pattern on ``device`` with the dict
+    that keeps its tile layouts, or None where ``sparse_tpu.nn.sparse_attention``
+    takes its COO route (the blowup guard and the 2^26-slot cap), memoized
+    as there."""
     key = (id(rows), id(cols), length)
     hit = _ATTENTION_ELL_MEMO.get(key)
     if hit is None or hit[0] is not rows or hit[1] is not cols:
@@ -509,7 +511,7 @@ def _ell_route(rows, cols, length, max_ell_blowup, device):
         return None
     copies = hit[4]
     if device not in copies:
-        copies[device] = (torch.as_tensor(hit[2], device=device), torch.as_tensor(hit[3], device=device))
+        copies[device] = (torch.as_tensor(hit[2], device=device), torch.as_tensor(hit[3], device=device), {})
     return copies[device]
 
 
@@ -531,7 +533,8 @@ def sparse_attention(q, k, v, rows, cols, *, scale=None, mask=None, max_ell_blow
     ``rows`` and ``cols``) with no ``mask`` whose padded row-ELL layout has
     at most ``max_ell_blowup`` times its edges and at most 2^26 slots runs
     :func:`sparse_attention_ell` (K6); the layout and the choice are kept
-    across calls on the arrays' identity. Every other pattern, tensors
+    across calls on the arrays' identity, with K6's tile layout (built on
+    the first float32 call on a card). Every other pattern, tensors
     included (no read back to the host), takes the COO route: the scores by
     K4 (``k.T`` read in place), :func:`segment_softmax`, ``attn @ v`` by K5,
     for float32/float64 on the GPU; the gradient on K4 and K5. One pattern
@@ -546,7 +549,8 @@ def sparse_attention(q, k, v, rows, cols, *, scale=None, mask=None, max_ell_blow
     if mask is None and type(rows) is np.ndarray and type(cols) is np.ndarray and rows.size:
         ell = _ell_route(rows, cols, q.shape[0], max_ell_blowup, device)
         if ell is not None:
-            return sparse_attention_ell(q, k, v, *ell, scale=scale)
+            e_cols, valid, layouts = ell
+            return ell_attention(q, k, v, e_cols, valid, scale=scale, layouts=layouts)
     pattern = _coo_pattern(rows, cols, q.shape[0], k.shape[0], device)
     dt = _promote(q.dtype, k.dtype)
     scores = _sddmm(
@@ -570,7 +574,9 @@ def sparse_attention_ell(q, k, v, e_cols, valid, *, scale=None):
     the promoted dtype. ``e_cols``/``valid`` given as NumPy are copied once
     to ``q``'s device. float32/float64 on the GPU run K6
     (:func:`~sparse_tpu_torch.kernels.attention.ell_attention`), which
-    writes none of the reference's ``(L, cap, d + dv)`` blocks; the
+    writes none of the reference's ``(L, cap, d + dv)`` blocks; its tile
+    layout is kept on the identity of the int32/int64 tensors ``e_cols``
+    and ``valid`` (anything else is copied, and laid out, every call); the
     gradient recomputes the plain version."""
     device = _device_of(q, k, v, e_cols, valid)
     q, k, v = _on(q, device), _on(k, device), _on(v, device)

@@ -1,6 +1,6 @@
-"""K6, the row-ELL attention kernel (``csrc/attention.cu``), and the attention
-and graph paths that reach the card through ``sparse_tpu_torch.nn``, on the
-card.
+"""K6, the row-ELL attention kernel (``csrc/attention.cu``: its tile route on
+the tensor cores and its row kernel), and the attention and graph paths
+that reach the card through ``sparse_tpu_torch.nn``, on the card.
 
 Run on a machine with an NVIDIA GPU: ``python -m pytest -m gpu --noconftest
 tests/test_torch_attention_gpu.py``. Elsewhere every test skips (from a
@@ -11,7 +11,9 @@ are held at ``max|got - want| <= tol · max|v|`` with tol 1e-5 in float32
 (sums of up to 3,000 slots) and 1e-12 in float64; NaN in the same places.
 K6 sums in one order, so two launches give the same bits; so do the COO
 route's K4 and K5 and their gradients. The card's results against the
-port's CPU results at the same tolerances.
+port's CPU results at the same tolerances. The tile route (float32, 3xTF32)
+is held to the same float32 tolerance, on every tile shape, and its block
+counters show which route took each block.
 """
 
 import numpy as np
@@ -153,7 +155,9 @@ def test_sparse_attention_routes_on_the_card_equal_the_cpu(cuda, dtype):
         before = dict(LAUNCHES)
         got = tnn.sparse_attention(q.to(cuda), k.to(cuda), v.to(cuda), *pat)
         moved = {n for n in LAUNCHES if LAUNCHES[n] != before[n]}
-        assert moved == ({"ell_attention"} if route == "ell" else {"sddmm", "sampled_row_sum"}), moved
+        # the row-ELL route in float32 takes K6's tile route, then its row kernel on what the tiles left
+        ell = {"ell_attention", "ell_attention_tiles"} if dtype == torch.float32 else {"ell_attention"}
+        assert moved == (ell if route == "ell" else {"sddmm", "sampled_row_sum"}), moved
         _assert_close(got.cpu(), want, float(v.abs().max()), TOL[dtype], route)
         assert torch.equal(got, tnn.sparse_attention(q.to(cuda), k.to(cuda), v.to(cuda), *pat))
 
@@ -223,3 +227,155 @@ def test_dense_block_forms_on_the_card_equal_the_cpu(cuda):
             assert torch.backends.cuda.matmul.allow_tf32 is True
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+# ---------------------------------------------------------------------------
+# K6's tile route
+# ---------------------------------------------------------------------------
+
+
+def _window(L, window, device):
+    rows, cols = tnn.local_attention_pattern(L, window)
+    return (torch.as_tensor(x, device=device) for x in tnn.build_attention_ell(rows, cols, L))
+
+
+def _tiles(q, k, v, e_cols, valid, scale, config, ratio=tatt.ATTENTION_UNION_RATIO):
+    """K6's tile route with shape ``config`` and its filtered row launch; the
+    output and each block's route."""
+    rows = _cuda.ATTENTION_TILE_CONFIGS[config][1]
+    blocks = tatt.build_attention_blocks(e_cols, valid, k.shape[0], rows, ratio=ratio)
+    out = torch.empty((q.shape[0], v.shape[1]), dtype=q.dtype, device=q.device)
+    route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=q.device)
+    _cuda.ell_attention_tiles(q, k, v, blocks, scale, out, route, config=config)
+    scratch = None
+    if not _cuda.ell_attention_in_smem(e_cols.shape[1], 4):
+        scratch = torch.empty(_cuda.ell_attention_grid(q.shape[0], q.device) * 8 * e_cols.shape[1], device=q.device)
+    _cuda.ell_attention(q, k, v, e_cols, valid, scale, out, scratch, block_route=route, block_rows=rows)
+    return out, route
+
+
+@pytest.mark.parametrize("config", list(_cuda.ATTENTION_TILE_CONFIGS))
+@pytest.mark.parametrize("d,dv", [(64, 64), (8, 8), (128, 128), (16, 40)])
+@pytest.mark.parametrize("pattern", ["window", "random"])
+@pytest.mark.parametrize("cap", [1, 33, 513, 1700])
+def test_k6_tile_route_matches_plain(cuda, config, d, dv, pattern, cap):
+    rng = np.random.default_rng(cap + d)
+    if pattern == "window":
+        L = 300 if cap < 1000 else 2000
+        e_cols, valid = _window(L, cap // 2, cuda)
+        Lk = L
+    else:  # columns drawn from a table small enough for every union to stay under the rule
+        L, Lk = 150, 300
+        e_cols = torch.as_tensor(rng.integers(0, Lk, (L, cap)), dtype=torch.int32, device=cuda)
+        valid = torch.as_tensor(rng.random((L, cap)) < 0.8, device=cuda)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s_), dtype=torch.float32, device=cuda) for s_ in ((L, d), (Lk, d), (Lk, dv)))
+    if not _cuda.attention_tiles_fit(d, dv, torch.float32, config):  # rows too wide for this shape's shared memory
+        with pytest.raises(ValueError, match="do not fit"):
+            _tiles(q, k, v, e_cols, valid, 0.25, config)
+        return
+    _cuda.reset_launch_counts()
+    got, route = _tiles(q, k, v, e_cols, valid, 0.25, config, ratio=1e9)
+    want = tatt.ell_attention_plain(q, k, v, e_cols, valid, 0.25)
+    _assert_close(got, want, float(v.abs().max()), TOL[torch.float32], f"{config} {pattern} cap {cap} d {d} dv {dv}")
+    assert bool((route == 0).all()), "every block on the tile route"
+    again, _ = _tiles(q, k, v, e_cols, valid, 0.25, config, ratio=1e9)
+    assert torch.equal(got, again), "a second launch gave other bits"
+    n_blocks = route.shape[0]
+    assert _cuda.attention_route_blocks(cuda).tolist() == [2 * n_blocks, 0, 0]
+    assert LAUNCHES["ell_attention_tiles"] == LAUNCHES["ell_attention"] == 2
+
+
+def test_k6_tile_route_through_the_entry_point(cuda):
+    L, d = 1000, 64
+    e_cols, valid = _window(L, 100, cuda)
+    rng = np.random.default_rng(30)
+    q, k, v = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(3))
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")  # the layout's build and both launches read nothing back
+    try:
+        first = tatt.ell_attention(q, k, v, e_cols, valid)
+        second = tatt.ell_attention(q, k, v, e_cols, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert torch.equal(first, second)
+    _assert_close(first, tatt.ell_attention_plain(q, k, v, e_cols, valid, 1 / 8), float(v.abs().max()), TOL[torch.float32], "entry point")
+    n_blocks = -(-L // _cuda.ATTENTION_BLOCK_ROWS)
+    assert _cuda.attention_route_blocks(cuda).tolist() == [2 * n_blocks, 0, 0]
+    assert LAUNCHES["ell_attention_tiles"] == LAUNCHES["ell_attention"] == 2
+    # the layout is kept on the pattern's identity; an edit in place builds it anew
+    kept = tatt.attention_blocks(e_cols, valid, L, _cuda.ATTENTION_BLOCK_ROWS)
+    valid[5, :] = False
+    assert tatt.attention_blocks(e_cols, valid, L, kept.block) is not kept
+    _assert_close(tatt.ell_attention(q, k, v, e_cols, valid), tatt.ell_attention_plain(q, k, v, e_cols, valid, 1 / 8), float(v.abs().max()), TOL[torch.float32], "after an edit")
+
+
+@pytest.mark.parametrize("config", list(_cuda.ATTENTION_TILE_CONFIGS))
+def test_k6_tile_route_nonfinite_and_index_rules_equal_the_cpu(cuda, config):
+    # a window pattern: each key lies in the unions of one or two blocks
+    L, d = 384, 16
+    rng = np.random.default_rng(31)
+    q, k, v = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(3))
+    e_cols, valid = _window(L, 5, cuda)
+    v[3, 0] = float("inf")  # in valid slots of rows 0-8: those rows NaN
+    valid[20, 0] = False
+    v[int(e_cols[20, 0]), 5] = float("nan")  # in a padding slot of row 20, valid in its neighbours'
+    k[100, 0] = float("-inf")  # a key of rows 95-105
+    q[150, 1] = float("nan")  # row 150
+    e_cols[250, 3] = -L - 1  # before the table: row 250 NaN
+    e_cols[251, 2] = -5  # from the end
+    got, route = _tiles(q, k, v, e_cols, valid, 0.25, config)
+    cpu = tatt.ell_attention_plain(*(t.cpu() for t in (q, k, v, e_cols, valid)), 0.25)
+    finite_v = float(v[torch.isfinite(v)].abs().max())
+    _assert_close(got.cpu(), cpu, finite_v, TOL[torch.float32], "non-finite rules")
+    assert bool(torch.isnan(got[2]).all()) and bool(torch.isnan(got[250]).all()) and bool(torch.isnan(got[150]).all())
+    rows = _cuda.ATTENTION_TILE_CONFIGS[config][1]
+    by_block = route.cpu().tolist()
+    assert by_block[250 // rows] == 1  # the flag: an index outside the table
+    for row in (2, 20, 100, 150):  # non-finite values in the block's union or q rows
+        assert by_block[row // rows] == 2, (row, by_block)
+    assert 0 in by_block  # the other blocks on the tiles
+    want = tatt._block_route(q, k, v, tatt.build_attention_blocks(e_cols, valid, L, rows), 0.25)
+    assert [r != 0 for r in by_block] == want.cpu().tolist()
+
+
+@pytest.mark.parametrize("case", ["scattered", "d20", "float64"])
+def test_k6_row_route_cases_and_their_counters(cuda, case):
+    L, cap = 2048, 64  # random columns: a block's union about 27 slots' worth, past the rule
+    rng = np.random.default_rng(32)
+    d = 20 if case == "d20" else 64
+    dtype = torch.float64 if case == "float64" else torch.float32
+    q, k, v = (torch.as_tensor(rng.standard_normal((L, d)), dtype=dtype, device=cuda) for _ in range(3))
+    if case == "scattered":  # random columns at the window's cap: unions past the rule
+        e_cols = torch.as_tensor(rng.integers(0, L, (L, cap)), dtype=torch.int32, device=cuda)
+        valid = torch.ones((L, cap), dtype=torch.bool, device=cuda)
+    else:
+        e_cols, valid = _window(L, cap // 2, cuda)
+    _cuda.reset_launch_counts()
+    got = tatt.ell_attention(q, k, v, e_cols, valid)
+    _assert_close(got, tatt.ell_attention_plain(q, k, v, e_cols, valid, 1 / np.sqrt(d)), float(v.abs().max()), TOL[dtype], case)
+    n_blocks = -(-L // _cuda.ATTENTION_BLOCK_ROWS)
+    counters = _cuda.attention_route_blocks(cuda).tolist()
+    if case == "scattered":  # the tile launch finds every block flagged; the row kernel takes them all
+        assert LAUNCHES["ell_attention_tiles"] == 1 and counters == [0, n_blocks, 0]
+    else:  # the row kernel alone
+        assert LAUNCHES["ell_attention_tiles"] == 0 and counters == [0, 0, 0]
+    assert LAUNCHES["ell_attention"] == 1
+    assert sum(counters) in (0, n_blocks)
+
+
+def test_k6_route_counters_sum_to_the_blocks(cuda):
+    L, d = 700, 32
+    rng = np.random.default_rng(33)
+    q, k, v = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(3))
+    e_cols, valid = _window(L, 10, cuda)  # a window's union about 4 slots' worth; random columns' about 28
+    e_cols[600:] = torch.as_tensor(rng.integers(0, L, (100, e_cols.shape[1])), dtype=torch.int32, device=cuda)
+    v[int(e_cols[10, 0]), 0] = float("nan")
+    _cuda.reset_launch_counts()
+    for _ in range(3):
+        out = tatt.ell_attention(q, k, v, e_cols, valid)
+    _assert_close(out, tatt.ell_attention_plain(q, k, v, e_cols, valid, 1 / np.sqrt(d)), float(v[torch.isfinite(v)].abs().max()), TOL[torch.float32], "mixed")
+    n_blocks = -(-L // _cuda.ATTENTION_BLOCK_ROWS)
+    tile, by_rule, by_value = _cuda.attention_route_blocks(cuda).tolist()
+    assert tile + by_rule + by_value == 3 * n_blocks and tile > 0 and by_rule > 0 and by_value > 0

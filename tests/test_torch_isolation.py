@@ -146,4 +146,5 @@ def test_launch_counters_start_and_reset():
         "sddmm": 0,
         "sampled_row_sum": 0,
         "ell_attention": 0,
+        "ell_attention_tiles": 0,
     }
