@@ -234,7 +234,8 @@ def main():
             partial = torch.empty(n_front * K, device=dev)
             tickets = torch.zeros(n_front * _cuda.row_sum_chunks(K, torch.float32), dtype=torch.int32, device=dev)
             args = (ptr.data_ptr(), pieces.data_ptr(), M, n_front, _cuda.MTTKRP_PIECE, idx.data_ptr(), w.data_ptr(),
-                    table.data_ptr(), K, 1, K, out.data_ptr(), partial.data_ptr(), tickets.data_ptr())
+                    table.data_ptr(), K, 1, K, out.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
+                    None, 0)  # no block flag: every row
             launchers[(of, lib)] = checked(libs[lib][0], args, f"{of} {lib}")
             launchers[(of, lib)]()
     torch.cuda.synchronize()

@@ -75,7 +75,8 @@ drives the port's two paths on the card:
   cached transpose; K4 timed at both shapes beside
   ``torch.sparse.sampled_addmm``, the backward beside the first port's
   torch ops (device ms and peak memory), each K5 launch beside
-  ``torch.sparse.mm``;
+  ``torch.sparse.mm`` (the gather route, which the COO entry point's kept
+  pattern takes too, bit for bit alike);
 
 - sparse × sparse products (SpGEMM, BASELINE config 2's example; the
   ``spgemm_path`` line): ``a @ a`` of the benchmark matrix (6.7e7 partial
@@ -128,6 +129,12 @@ drives the port's two paths on the card:
   ``scaled_dot_product_attention`` with the pattern's dense mask beside them
   (timed only); a sweep of K6's two routes from the window to random
   columns at the same cap against the mean union a block (the route rule);
+  K5's routes where these paths run it: ``graph_conv``'s table and its
+  backward's column sum on the sliced route (173 MB, past L2), the COO
+  route's ``attn @ v`` and ``d k`` on the union route (its blocks' tables
+  rows in shared memory), each bit for bit against the gather route and
+  twice, against its plain version, timed beside the gather route and
+  ``torch.sparse.mm``, with the union layout's build time and bytes;
 
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
@@ -204,7 +211,9 @@ SOURCE = {
         )
     },
     "sddmm": "sparse_tpu_torch/kernels/csrc/sddmm.cu",
-    "sampled_row_sum": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",
+    "sampled_row_sum": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",  # K5's gather route
+    "sampled_row_sum_sliced": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",  # K5's sliced route
+    "sampled_row_sum_union": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",  # K5's union route
     "ell_attention": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "ell_attention_tiles": "sparse_tpu_torch/kernels/csrc/attention.cu",
 }
@@ -227,6 +236,8 @@ REPLACES = {
     "pick_scale_wsum": "experiments/pallas_vmem2.py:146",  # g3 (E9)
     "sddmm": "sparse_tpu/kernels/dot.py:103",  # sddmm (XLA gather + sum)
     "sampled_row_sum": "sparse_tpu/kernels/dot.py:124",  # the transpose of sddmm's gathers (XLA segment sum)
+    "sampled_row_sum_sliced": "sparse_tpu/kernels/dot.py:124",  # the same function, K5's sliced route
+    "sampled_row_sum_union": "sparse_tpu/kernels/dot.py:124",  # the same function, K5's union route
     "ell_attention": "sparse_tpu/nn.py:282",  # sparse_attention_ell (XLA gather, score, masked softmax, weighted sum)
     "ell_attention_tiles": "sparse_tpu/nn.py:282",  # the same function, its tile route
 }
@@ -267,6 +278,8 @@ EX_SHAPE, EX_DENSITY, EX_R, EX_RTOL = (1000, 1000, 100), 1e-4, 25, 1e-8
 # same scale; the gradients of (w · sddmm).sum() against the plain version's
 # at max|got - want| / max|want| <= SD_GRAD_TOL
 SD_K = 128
+SD_NARROW_K = 64  # K5's union route on the bench mask's kept pattern: rows of 256 bytes, every block flagged
+K5_ALL_FLAGGED_SLACK = 1.05  # there the union route's two launches within 5 % of the gather route alone
 SD_ORACLE_TOL, SD_PLAIN_TOL, SD_GRAD_TOL = 1e-5, 2e-6, 1e-5
 # the example's shape (examples/sddmm_example.py): a 10,000^2 float64 dense
 # pair and a mask of 1,000 entries, its own limit
@@ -1983,6 +1996,114 @@ def kept_row_loads(rows, epw):
     return int(fresh.sum())
 
 
+def same_bits(a, b):
+    """Equal bit for bit (-0.0 apart from +0.0)."""
+    view = torch.int32 if a.element_size() == 4 else torch.int64
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def k5_route_line(of, pattern, axis, w, table, launches, card):
+    """K5 at one place of a path: the route the rule gives ``pattern`` (kept
+    across calls or not) along ``axis`` for ``table``, its sum held bit for
+    bit against the gather route's on the same inputs and twice, against
+    ``sampled_row_sum_plain`` within SD_GRAD_TOL of ``Σ |w| · |table row|``,
+    timed (CUDA graphs) beside the gather route, the plain version and
+    ``torch.sparse.mm`` (CSR × dense, timed only). ``launches``: the route's
+    counter from the path's run. Returns the ``kernels`` line and its
+    detail."""
+    from sparse_tpu_torch.kernels import _cuda
+    from sparse_tpu_torch.kernels import dot as kdot
+
+    ptr, order, pieces, idx = pattern.plan(axis)
+    ws = (w if order is None else w[order]).contiguous()
+    seg, other = pattern.ends[axis], pattern.ends[1 - axis]
+    n_out, k, n = pattern.sizes[axis], table.shape[1], ws.shape[0]
+    item = table.element_size()
+    route = _cuda.row_sum_route(table.shape[0], k, item, pattern.kept, n, n_out)
+    n_front = _cuda.front_bound(n, n_out, _cuda.MTTKRP_PIECE)
+    partial = torch.empty(n_front * k, dtype=w.dtype, device=w.device)
+    tickets = _cuda.zeroed_tickets(w.device, n_front * _cuda.row_sum_chunks(k, w.dtype, 1))
+    out_g, out_r = (torch.empty((n_out, k), dtype=w.dtype, device=w.device) for _ in range(2))
+    gather = lambda: _cuda.sampled_row_sum(ptr, pieces, idx, ws, table, out_g, partial, tickets)  # noqa: E731
+    detail = {"of": of, "k5_route": route, "k": k, "n_out": n_out, "table_rows": table.shape[0], "nnz": n}
+    if route == "sliced":
+        name = "sampled_row_sum_sliced"
+        launch = lambda: _cuda.sampled_row_sum(  # noqa: E731
+            ptr, pieces, idx, ws, table, out_r, partial, tickets, slice_cols=_cuda.ROW_SUM_SLICE_COLS
+        )
+        detail["slice_cols"] = _cuda.ROW_SUM_SLICE_COLS
+    elif route == "union":
+        name = "sampled_row_sum_union"
+        lay = pattern.union(axis, item)
+        union_only = lambda: _cuda.sampled_row_sum_union(ptr, lay, ws, table, out_r)  # noqa: E731
+        # the entry point's two launches: the union kernel, the gather route on the flagged blocks beside it
+        launch = lambda: kdot.row_sum_union_route(ptr, idx, lay, ws, table, out_r, partial)  # noqa: E731
+    else:
+        name, launch = "sampled_row_sum", gather
+    want = gather().clone()
+    got = launch().clone()
+    if not same_bits(got, want) or not same_bits(launch(), got):
+        raise AssertionError(f"K5 {of}: the {route} route gave other bits than the gather route, or a second launch did")
+    plain = kdot.sampled_row_sum_plain(seg, other, w, table, n_out)
+    scale = kdot.sampled_row_sum_plain(seg, other, w.abs(), table.abs(), n_out)
+    if bool(((got - plain).abs() > SD_GRAD_TOL * scale + 1e-30).any()):
+        raise AssertionError(f"K5 {of} against sampled_row_sum_plain beyond {SD_GRAD_TOL} of its scale")
+    csr = torch.sparse_csr_tensor(ptr, idx.long(), ws, (n_out, table.shape[0]))
+    lib_err = float((torch.sparse.mm(csr, table) - got).abs().max())
+    touched = int(torch.unique(idx).numel())
+    nbytes = touched * k * item + n * (4 + item) + n_out * k * item
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n * k / F32_FLOPS_PER_S * 1e3
+    ms, gather_ms = time_graph(launch), time_graph(gather)
+    line = {
+        "name": name,
+        "route": "cuda",
+        "source": SOURCE[name],
+        "replaces": REPLACES[name],
+        "launches": launches,
+        "max_abs_err": float((got - plain).abs().max()),
+        "ms": ms,
+        "plain_ms": time_eager(lambda: kdot.sampled_row_sum_plain(seg, other, w, table, n_out), reps=5),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": time_eager(lambda: torch.sparse.mm(csr, table), reps=5),
+        "of": of,
+        "k5_route": route,
+    }
+    gathered = n * k * item
+    detail.update(
+        {
+            **{key: line[key] for key in ("ms", "launches", "plain_ms", "bound_ms", "library_ms", "max_abs_err")},
+            "bound_share": max(t_bytes, t_ops) / ms,
+            "bound_bytes": nbytes,
+            "gather_route_ms": gather_ms,
+            "equal_bits_to_gather_route": True,
+            "equal_bits_twice": True,
+            "gathered_bytes": gathered,
+            "gathered_tb_per_s": gathered / (ms * 1e-3) / 1e12,
+            "gather_route_tb_per_s": gathered / (gather_ms * 1e-3) / 1e12,
+            "library_max_abs_diff": lib_err,
+            "weights_gather_ms": 0.0 if order is None else time_graph(lambda: w[order]),
+            "card": card,
+        }
+    )
+    if route == "union":
+        seg_sorted = seg if order is None else seg[order]
+        union_plain = kdot.sampled_row_sum_union_plain(seg_sorted, idx, lay, ws, table, n_out)
+        detail.update(
+            {
+                "union_kernel_ms": time_graph(union_only),
+                "blocks": lay.flag.numel(),
+                "blocks_flagged": int(lay.flag.sum()),
+                "union_capacity": lay.union.shape[1],
+                "mean_union": float(lay.n_union.double().mean()),
+                "union_plain_max_abs_diff": float((union_plain - got).abs().max()),
+            }
+        )
+    del partial, out_g, out_r, csr, plain, scale
+    return line, detail
+
+
 def phase_sddmm_path(dev, a, card):
     """SDDMM (BASELINE config 4) and dense × sparse through the public entry
     points, counted: ``sddmm(a, lhs, rhs)`` at the bench shape against a
@@ -2230,6 +2351,7 @@ def phase_sddmm_path(dev, a, card):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_eager(lambda csr=csr, table=table: torch.sparse.mm(csr, table), reps=5),
             "of": of,
+            "k5_route": "gather",
         }
         lines.append(line)
         gathered = a.nnz * SD_K * 4
@@ -2247,7 +2369,49 @@ def phase_sddmm_path(dev, a, card):
             "kernel_ms_l2_flushed": time_cold(launch),
             "card": card,
         }
+        # the COO entry point's kept pattern: by the route rule the gather route
+        # too (K = 128 rows of 512 bytes, segments of 32 entries); the same bits
+        fwd = lambda axis=axis, table=table: kdot._row_sum_forward(kept, axis, gs, table)  # noqa: E731
+        if not same_bits(fwd(), got):
+            raise AssertionError(f"K5 {of}: the COO entry point's route gave other bits than the gather route")
+        k5[of]["coo_entry_point"] = {
+            "k5_route": _cuda.row_sum_route(table.shape[0], SD_K, 4, kept.kept, a.nnz, n_out),
+            "ms_incl_weights_gather": time_graph(fwd),
+            "equal_bits_to_gather_route": True,
+        }
         del o, partial, got, want_p, scale_p, csr, w_seg
+    # the COO entry point's kept pattern at K = 64 (rows of 256 bytes): by the
+    # route rule the union route, whose layout flags every block of this random
+    # mask (too little reuse), so the gather route beside it takes them all;
+    # the backward counted alone, each launch against the gather route's bits
+    ins64 = [
+        torch.randn(shape, generator=gen, device=dev).requires_grad_(True)
+        for shape in ((M, SD_NARROW_K), (SD_NARROW_K, K))
+    ]
+    loss64 = (w * st.sddmm(a, *ins64).data).sum()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss64.backward()
+    torch.cuda.synchronize()
+    backward64 = {kn: c for kn, c in LAUNCHES.items() if c}
+    n_union = backward64.get("sampled_row_sum_union", 0)
+    if n_union < 1 or backward64.get("sampled_row_sum") != n_union:
+        raise AssertionError(f"sddmm backward at K = {SD_NARROW_K}: K5's union route and gather expected: {backward64}")
+    for of, axis, table in (
+        ("d_lhs_k64_kept", 0, ins64[1].detach().T.contiguous()),
+        ("d_rhs_k64_kept", 1, ins64[0].detach()),
+    ):
+        line, k5[of] = k5_route_line(of, kept, axis, gs, table, backward64["sampled_row_sum_union"], card)
+        if k5[of]["k5_route"] != "union":
+            raise AssertionError(f"K5 {of}: the {k5[of]['k5_route']} route, expected the union route")
+        if k5[of]["ms"] > K5_ALL_FLAGGED_SLACK * k5[of]["gather_route_ms"]:
+            raise AssertionError(
+                f"K5 {of}: the union route ({k5[of]['ms']} ms, {k5[of]['blocks_flagged']} of {k5[of]['blocks']} blocks "
+                f"flagged) past {K5_ALL_FLAGGED_SLACK} times the gather route's {k5[of]['gather_route_ms']} ms"
+            )
+        k5[of]["launches_backward"] = backward64
+        lines.append(line)
+    del ins64, loss64
     plan_ms = time_eager(lambda: kdot.SddmmPattern(rows, cols, M, K).plan(1), reps=5)
     cols32 = cols.int()
     sort_ms = time_eager(lambda: torch.sort(cols32, stable=True), reps=20)
@@ -3210,12 +3374,14 @@ def phase_attention_path(dev, card):
         # K6's blocks by route: [tile, row by the rule or an index, row by a non-finite value]
         blocks_taken[name] = _cuda.attention_route_blocks(dev).tolist()
     k6_kernels = {"ell_attention", "ell_attention_tiles"}  # the tile route, then the row kernel on what it left
+    # the COO route's kept pattern: K5's union route, the gather route on the
+    # blocks its layout flags; graph_conv's table (173 MB) past L2: the sliced route
     expect = {
-        "coo_route": {"sddmm", "sampled_row_sum"},
+        "coo_route": {"sddmm", "sampled_row_sum", "sampled_row_sum_union"},
         "ell_route": k6_kernels,
         "long_ell": k6_kernels,
         "scattered": k6_kernels,
-        "graph_conv": {"sampled_row_sum"},
+        "graph_conv": {"sampled_row_sum_sliced"},
     }
     for name, got in launches.items():
         if set(got) != expect.get(name, set()):
@@ -3224,6 +3390,8 @@ def phase_attention_path(dev, card):
         launches["ell_route"]["ell_attention"] != H
         or launches["ell_route"]["ell_attention_tiles"] != H
         or launches["coo_route"]["sddmm"] != H
+        or launches["coo_route"]["sampled_row_sum_union"] != H
+        or launches["graph_conv"]["sampled_row_sum_sliced"] != 1
     ):
         raise AssertionError(f"attention path: a launch a head expected, got {launches}")
     n_blk, n_blk_long = -(-L // _cuda.ATTENTION_BLOCK_ROWS), -(-AT_LONG_L // _cuda.ATTENTION_BLOCK_ROWS)
@@ -3396,6 +3564,74 @@ def phase_attention_path(dev, card):
         raise AssertionError("graph_conv: a second backward gave other bits")
     torch.cuda.synchronize()
 
+    def counted_backward(fn, ins, weight):  # the launches of one backward alone
+        ins = [t.detach().clone().requires_grad_(True) for t in ins]
+        loss = (weight * fn(*ins)).sum()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss.backward()
+        torch.cuda.synchronize()
+        return {kn: c for kn, c in LAUNCHES.items() if c}
+
+    # the COO route's d v, d q and d k on the union route (the gather route on
+    # its flagged blocks); graph_conv's column sum on the sliced route
+    launches_backward = {
+        "coo_route": counted_backward(coo_head, [t[0] for t in (q, k, v)], wts),
+        "graph_conv": counted_backward(
+            lambda a_, b_, c_: tnn.graph_conv(gr, gc, a_, b_, c_, n_nodes=n), (gv, x, w), gwts
+        ),
+    }
+    lb_coo, lb_gcn = launches_backward["coo_route"], launches_backward["graph_conv"]
+    if lb_coo.get("sampled_row_sum_union", 0) < 1 or lb_coo.get("sampled_row_sum") != lb_coo["sampled_row_sum_union"]:
+        raise AssertionError(f"COO route backward: K5's union route and its flagged gather expected, got {lb_coo}")
+    if lb_gcn.get("sampled_row_sum_sliced", 0) < 1 or "sampled_row_sum" in lb_gcn or "sampled_row_sum_union" in lb_gcn:
+        raise AssertionError(f"graph_conv backward: K5's sliced route alone expected, got {lb_gcn}")
+
+    # K5's routes where these paths run it: graph_conv's table and its
+    # backward's column sum (the sliced route), the COO route's attn @ v and
+    # d k (the union route), each against the gather route bit for bit
+    gpat = tnn._coo_pattern(gr, gc, n, n, dev).sddmm
+    with torch.no_grad():
+        xw = x @ w
+        ones = torch.ones(kept.rows.shape[0], device=dev)
+        attn0 = tnn._softmax_runs(kdot.sddmm_plain(kept.rows, kept.cols, ones, q[0], k[0].T) * scale, kept.seg, L, None)
+        gs0 = attn0 * torch.randn(attn0.shape, generator=gen, device=dev)
+    k5_lines, k5 = [], {}
+    for of, pat, axis, w_e, table, n_launch in (
+        ("graph_conv_forward", gpat, 0, gv, xw, launches["graph_conv"]["sampled_row_sum_sliced"]),
+        ("graph_conv_backward_columns", gpat, 1, gv, gwts, lb_gcn["sampled_row_sum_sliced"]),
+        ("attention_attn_v", kept.sddmm, 0, attn0, v[0], launches["coo_route"]["sampled_row_sum_union"]),
+        ("attention_d_k", kept.sddmm, 1, gs0, q[0], lb_coo["sampled_row_sum_union"]),
+    ):
+        line, k5[of] = k5_route_line(of, pat, axis, w_e, table, n_launch, card)
+        k5_lines.append(line)
+    want_routes = {"graph_conv_forward": "sliced", "graph_conv_backward_columns": "sliced", "attention_attn_v": "union", "attention_d_k": "union"}
+    if {of: d["k5_route"] for of, d in k5.items()} != want_routes:
+        raise AssertionError(f"K5's routes: {[(of, d['k5_route']) for of, d in k5.items()]}, expected {want_routes}")
+    # the union layout of the COO route's rows, built anew: its time and bytes
+    ptr0, _, _, idx0 = kept.sddmm.plan(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lay0 = kdot.row_sum_union_layout(
+        ptr0, idx0, L, _cuda.ROW_SUM_UNION_BLOCK, _cuda.row_sum_union_capacity(4, L, idx0.numel()), _cuda.ROW_SUM_UNION_REUSE
+    )
+    torch.cuda.synchronize()
+    k5["union_layout"] = {
+        "first_build_s": time.perf_counter() - t0,
+        "bytes": sum(t.numel() * t.element_size() for t in lay0[2:]),
+        "block": lay0.block,
+        "capacity": lay0.union.shape[1],
+        "blocks_flagged": int(lay0.flag.sum()),
+        "rule": {
+            "l2_budget_bytes": _cuda.ROW_SUM_L2_BUDGET,
+            "slice_cols": _cuda.ROW_SUM_SLICE_COLS,
+            "union_block": _cuda.ROW_SUM_UNION_BLOCK,
+            "union_reuse": _cuda.ROW_SUM_UNION_REUSE,
+            "union_smem_bytes": _cuda.ROW_SUM_UNION_SMEM,
+        },
+    }
+    del lay0, xw, attn0, gs0
+
     # times: a head, a 12-head layer, peak memory; the yardstick
     import torch.nn.functional as F
 
@@ -3528,9 +3764,11 @@ def phase_attention_path(dev, card):
         "times": times,
         "sdpa": sdpa,
         "k6": k6,
+        "k5": k5,
+        "launches_backward": launches_backward,
         "card": card,
     }
-    return result, lines
+    return result, lines + k5_lines
 
 def main():
     if not torch.cuda.is_available():

@@ -7,8 +7,9 @@ the block-ELL layouts, their SpMM/SpMV and the block-ELL MTTKRP; ``dot`` the
 COO gather + ``index_add_`` products for the dtypes the row-ELL kernels do
 not take (``dense_coo_matmul`` too), the sorted-COO MTTKRP, the SDDMM
 (``sddmm``, its CUDA kernel in ``csrc/sddmm.cu``, and ``sddmm_plain``), its
-gradient's row sum (``sampled_row_sum_plain`` beside its kernel) and
-``coo_sum_axes_dense``. Both MTTKRP forms and the SDDMM gradient's row sum
+gradient's row sum (``sampled_row_sum_plain`` beside its kernel's three
+routes; the union route's layout ``row_sum_union_layout`` and plain
+version ``sampled_row_sum_union_plain``) and ``coo_sum_axes_dense``. Both MTTKRP forms and the SDDMM gradient's row sum
 run one CUDA kernel (``csrc/mttkrp.cu``). ``attention`` holds the row-ELL
 attention, K6 (``ell_attention``, its CUDA kernels in ``csrc/attention.cu``:
 the tile route on the tensor cores over a block layout,

@@ -80,7 +80,18 @@ _SIGNATURES = {
             f"st_mttkrp_{dt}": [_p, _p, _p, _i64, _i64, _i64, _p, _p, _p, _p, _p, _i64, _p, _p, _p, _p]
             for dt in ("f32", "f64", "bf16_f32", "bf16_f64")
         },
-        **{f"st_row_sum_{dt}": [_p, _p, *[_i64] * 3, _p, _p, _p, *[_i64] * 3, _p, _p, _p, _p] for dt in ("f32", "f64")},
+        **{
+            f"st_row_sum_{dt}": [_p, _p, *[_i64] * 3, _p, _p, _p, *[_i64] * 3, _p, _p, _p, _p, _i64, _p]
+            for dt in ("f32", "f64")
+        },
+        **{
+            f"st_row_sum_sliced_{dt}": [_p, _p, *[_i64] * 3, _p, _p, _p, *[_i64] * 3, _p, _p, _p, _i64, _p]
+            for dt in ("f32", "f64")
+        },
+        **{
+            f"st_row_sum_union_{dt}": [_p, _p, _p, _p, *[_i64] * 3, _p, _p, _i64, _p, _p, *[_i64] * 5, _p, _p]
+            for dt in ("f32", "f64")
+        },
     },
     "probes": {
         **{f"st_spmv_products_{t}": [_p, _i64, _p, _p, _i64, _i64, _p, _p] for t in ("hilo", "bf16")},
@@ -126,6 +137,8 @@ LAUNCHES = {
     "pick_scale_wsum": 0,
     "sddmm": 0,
     "sampled_row_sum": 0,
+    "sampled_row_sum_sliced": 0,
+    "sampled_row_sum_union": 0,
     "ell_attention": 0,
     "ell_attention_tiles": 0,
 }
@@ -569,12 +582,15 @@ MTTKRP_PIECE = 256
 BSR_PIECE = 32
 
 
-def run_pieces(row_ptr, piece):
+def run_pieces(row_ptr, piece, keep=None):
     """int64 ``(n + 1,)`` from run offsets ``row_ptr`` ``(n + 1,)``: the
     number of pieces of ``piece`` entries that the runs longer than
     ``piece`` make, summed over the rows before each row (0 for a row that
-    is not split). Torch ops on ``row_ptr``'s device."""
+    is not split, and for a row where the bool ``keep`` is False). Torch
+    ops on ``row_ptr``'s device."""
     lens = row_ptr[1:] - row_ptr[:-1]
+    if keep is not None:
+        lens = torch.where(keep, lens, 0)
     n = torch.where(lens > piece, torch.div(lens + (piece - 1), piece, rounding_mode="floor"), 0)
     out = torch.zeros(row_ptr.shape[0], dtype=torch.int64, device=row_ptr.device)
     torch.cumsum(n, 0, out=out[1:])
@@ -1509,22 +1525,108 @@ def sddmm(rows, cols, s, lhs_rows, rhs_rows, out, route=None):
     return out
 
 
-def row_sum_chunks(k, dtype):
-    """The column chunks of K5 (csrc/mttkrp.cu ``RowSum``): a lane owns 16 bytes of a row."""
+# K5's routes (csrc/mttkrp.cu). The route rule (row_sum_route) and its
+# constants, from chip_row_sum_ablation.py's sweep on an H100 (PERF.md):
+# - a table past ROW_SUM_L2_BUDGET bytes is read in column slices of
+#   ROW_SUM_SLICE_COLS values (the sliced route) in one grid numbered
+#   slice-major: at 32 MB the gather route wins at K >= 128, at 64 MB and
+#   past the slices win at every K (256 MB, K = 256: 0.83 ms against 1.34);
+#   slices of 32 beat 16 and 64 past 64 MB, one grid beat a launch a slice;
+# - a pattern kept across calls takes the union route when a table row is at
+#   most ROW_SUM_UNION_ROW_BYTES (the gather route's 16-byte lanes idle past
+#   it) or its mean segment is longer than a piece (the gather route's
+#   front path): its union layout (kernels/dot.py:row_sum_union_layout)
+#   in blocks of ROW_SUM_UNION_BLOCK segments flags a block whose union of
+#   table rows passes ROW_SUM_UNION_SMEM bytes a 32-column chunk (two CTAs
+#   an SM) or whose entries name each union key fewer than
+#   ROW_SUM_UNION_REUSE times on average (at K = 64 the union route won
+#   from 5.6 entries a key and tied at 4.7; 8 keeps a margin), and the
+#   flagged blocks take the gather route; short segments of wider rows stay
+#   on the gather route, whose rows hit L1 there (a window of 129 at K =
+#   256: 0.160 ms against the union route's 0.171);
+# - every other pattern takes the gather route.
+ROW_SUM_ROUTES = ("gather", "sliced", "union")
+ROW_SUM_L2_BUDGET = 40 << 20
+ROW_SUM_SLICE_COLS = 32
+ROW_SUM_UNION_ROW_BYTES = 256
+ROW_SUM_UNION_BLOCK = 64
+ROW_SUM_UNION_REUSE = 8.0
+ROW_SUM_UNION_SMEM = 112 << 10
+ROW_SUM_UNION_COLS = 32  # columns a chunk of the union route: 16 bytes a lane, 8 lanes a segment in float32
+
+
+def row_sum_route(n_table, k, itemsize, kept, n_entries, n_seg):
+    """K5's route for ``n_entries`` entries in ``n_seg`` segments over a
+    table of ``n_table`` rows of ``k`` values of ``itemsize`` bytes, from
+    sizes alone: "sliced" past the L2 budget (when ``k`` spans more than one
+    slice), else "union" for a pattern kept across calls (``kept``) whose
+    table rows are narrow or whose mean segment is longer than a piece (its
+    layout's per-block flags send the blocks it cannot serve to the gather
+    route), else "gather"."""
+    if k > ROW_SUM_SLICE_COLS and n_table * k * itemsize > ROW_SUM_L2_BUDGET:
+        return "sliced"
+    if kept and (k * itemsize <= ROW_SUM_UNION_ROW_BYTES or n_entries > MTTKRP_PIECE * n_seg):
+        return "union"
+    return "gather"
+
+
+_side_streams = {}
+
+
+def side_stream(device):
+    """A second stream on ``device``, kept: the union route's gather on the
+    blocks its layout flags runs on it beside the union kernel."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    stream = _side_streams.get(device)
+    if stream is None:
+        stream = _side_streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def row_sum_union_capacity(itemsize, n_table, n_entries):
+    """Keys a block's union keeps on the union route (the width of its
+    layout): the rows of a 32-column chunk of ``itemsize`` values that fit
+    :data:`ROW_SUM_UNION_SMEM`, at most the table's rows and the entries, at
+    least 1 (local slots are int16)."""
+    fit = ROW_SUM_UNION_SMEM // (ROW_SUM_UNION_COLS * itemsize)
+    return max(1, min(fit, n_table, n_entries, (1 << 15) - 1))
+
+
+def row_sum_chunks(k, dtype, slice_cols=None):
+    """The column chunks of K5 (csrc/mttkrp.cu ``RowSum``): on the gather
+    route a lane owns 16 bytes of a row; on the sliced route a chunk is a
+    slice of ``slice_cols`` values."""
+    if slice_cols is not None:
+        return -(-k // slice_cols)
     return -(-k // (32 * (16 // dtype.itemsize)))
 
 
-def sampled_row_sum(ptr, pieces, idx, w, table, out, partial, tickets, piece=None):
-    """Launch K5: ``out[i] = Σ w[e] · table[idx[e]]`` over the entries
-    ``ptr[i] <= e < ptr[i + 1]`` of segment ``i``, summed in that order from
-    0. ``idx`` int32 and ``w`` of the value dtype (float32 or float64), flat,
-    of one length; ``table`` ``(rows, K)`` with unit stride along K and any
-    row stride; ``out`` ``(n_seg, K)``. Segments longer than ``piece``
-    entries (:data:`MTTKRP_PIECE`) are split: ``pieces`` is
-    ``run_pieces(ptr, piece)``, scratch ``partial`` of the value dtype holds
-    at least ``front_bound(n, n_seg, piece) · K`` values and ``tickets``
-    (:func:`zeroed_tickets`) as many as ``front_bound · row_sum_chunks``.
-    The caller guarantees every index in range."""
+def sampled_row_sum(
+    ptr, pieces, idx, w, table, out, partial, tickets, piece=None, *, slice_cols=None, flag=None, block=0
+):
+    """Launch K5 on its gather or sliced route: ``out[i] = Σ w[e] ·
+    table[idx[e]]`` over the entries ``ptr[i] <= e < ptr[i + 1]`` of segment
+    ``i``, summed in that order from 0. ``idx`` int32 and ``w`` of the value
+    dtype (float32 or float64), flat, of one length; ``table`` ``(rows, K)``
+    with unit stride along K and any row stride; ``out`` ``(n_seg, K)``.
+    Segments longer than ``piece`` entries (:data:`MTTKRP_PIECE`) are split:
+    ``pieces`` is ``run_pieces(ptr, piece)``, scratch ``partial`` of the
+    value dtype holds at least ``front_bound(n, n_seg, piece) · K`` values and
+    ``tickets`` (:func:`zeroed_tickets`) as many as ``front_bound ·
+    row_sum_chunks(K, dtype, slice_cols)``. The caller guarantees every index
+    in range.
+
+    ``slice_cols``: the sliced route, the table read in column slices of
+    that many values (16 / itemsize times a power of two, at most 32: a
+    row's slice over that many lanes of 16 bytes), one grid numbered
+    slice-major (counted ``sampled_row_sum_sliced``); else the gather route
+    (``sampled_row_sum``). ``flag`` (bool, one a block of ``block``
+    segments, the union layout's): the gather route computes only the rows
+    of the flagged blocks, with ``pieces`` counting only their split
+    segments (:func:`~sparse_tpu_torch.kernels.dot.row_sum_union_layout`),
+    the rest of ``out`` left as it is. All routes give the same bits."""
     piece = MTTKRP_PIECE if piece is None else int(piece)
     dtype, device = w.dtype, w.device
     require_cuda(device, "sampled row sum")
@@ -1549,18 +1651,29 @@ def sampled_row_sum(ptr, pieces, idx, w, table, out, partial, tickets, piece=Non
         or table.ndim != 2
         or table.shape[1] != k
         or partial.numel() < n_front * k
-        or tickets.numel() < n_front * row_sum_chunks(k, dtype)
+        or tickets.numel() < n_front * row_sum_chunks(k, dtype, slice_cols)
     ):
         raise ValueError("sampled_row_sum: operand shapes do not match")
     if not sddmm_k_major(table):
         raise ValueError("sampled_row_sum: table must have unit stride along K")
+    lanes = 16 // table.element_size()  # values a 16-byte load
+    if slice_cols is not None:
+        if not 1 <= slice_cols <= 32 or slice_cols % lanes or 32 % (slice_cols // lanes):
+            raise ValueError(
+                f"sampled_row_sum: a slice of {slice_cols} values is not {lanes} times a power of two up to 32 in {dtype}"
+            )
+        if flag is not None:
+            raise ValueError("sampled_row_sum: the sliced route takes no block flag")
+    if flag is not None:
+        _check("flag", flag, torch.bool, device)
+        if block < 1 or flag.shape != (-(-n_seg // block),):
+            raise ValueError("sampled_row_sum: flag must hold one entry a block of block segments")
     if n_seg == 0 or k == 0:
         return out
     item = table.element_size()
     ld = table.stride(0)
-    vec = table.data_ptr() % 16 == 0 and (table.shape[0] <= 1 or ld * item % 16 == 0) and k % (16 // item) == 0
-    fn = getattr(load("mttkrp"), f"st_row_sum_{_SDDMM_ITEM[dtype]}")
-    err = fn(
+    vec = table.data_ptr() % (lanes * item) == 0 and (table.shape[0] <= 1 or ld % lanes == 0) and k % lanes == 0
+    args = (
         ptr.data_ptr(),
         pieces.data_ptr(),
         n_seg,
@@ -1575,10 +1688,94 @@ def sampled_row_sum(ptr, pieces, idx, w, table, out, partial, tickets, piece=Non
         out.data_ptr(),
         partial.data_ptr(),
         tickets.data_ptr(),
+    )
+    lib, suffix = load("mttkrp"), _SDDMM_ITEM[dtype]
+    if slice_cols is not None:
+        err = getattr(lib, f"st_row_sum_sliced_{suffix}")(*args, int(slice_cols), _stream(device))
+        name = "sampled_row_sum_sliced"
+    else:
+        flag_ptr = None if flag is None else flag.data_ptr()
+        err = getattr(lib, f"st_row_sum_{suffix}")(*args, flag_ptr, int(block), _stream(device))
+        name = "sampled_row_sum"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def sampled_row_sum_union(ptr, layout, w, table, out, piece=None):
+    """Launch K5's union route on ``layout`` (a
+    :class:`~sparse_tpu_torch.kernels.dot.RowSumUnion` of the segments
+    ``ptr``): the rows of the blocks the layout does not flag get their sums,
+    each block's union rows read from shared memory a 32-column chunk at a
+    time; the rest of ``out`` is left as it is (the gather route's, with the
+    layout's flag). ``w`` in segment order, ``table`` and ``out`` as for
+    :func:`sampled_row_sum`. Counted ``sampled_row_sum_union``."""
+    piece = MTTKRP_PIECE if piece is None else int(piece)
+    dtype, device = w.dtype, w.device
+    require_cuda(device, "sampled row sum")
+    if dtype not in _SDDMM_ITEM:
+        raise TypeError(f"the sampled row sum kernel takes float32 or float64, not {dtype}")
+    _check("ptr", ptr, torch.int64, device)
+    _check("w", w, dtype, device)
+    _check_device(table, dtype, device, "table")
+    _check("out", out, dtype, device)
+    for name, t, dt in (
+        ("local", layout.local, torch.int16),
+        ("union", layout.union, torch.int32),
+        ("n_union", layout.n_union, torch.int32),
+        ("work", layout.work, torch.int32),
+        ("n_work", layout.n_work, torch.int32),
+    ):
+        _check(name, t, dt, device)
+    n_seg, k = out.shape
+    n_blocks, u_cap = layout.union.shape
+    if (
+        layout.local.shape != w.shape
+        or w.ndim != 1
+        or ptr.ndim != 1
+        or ptr.shape[0] < n_seg + 1
+        or table.ndim != 2
+        or table.shape[1] != k
+        or n_blocks != -(-n_seg // layout.block)
+        or layout.n_union.shape != (n_blocks,)
+        or layout.work.shape != (n_blocks,)
+        or layout.n_work.shape != (1,)
+        or table.shape[0] != layout.n_table
+    ):
+        raise ValueError("sampled_row_sum_union: operand shapes do not match the layout")
+    if not sddmm_k_major(table):
+        raise ValueError("sampled_row_sum_union: table must have unit stride along K")
+    if u_cap * ROW_SUM_UNION_COLS * table.element_size() > _MAX_SMEM:
+        raise ValueError("sampled_row_sum_union: the layout's union does not fit a CTA's shared memory")
+    if n_seg == 0 or k == 0:
+        return out
+    item = table.element_size()
+    ld = table.stride(0)
+    vec = table.data_ptr() % 16 == 0 and (table.shape[0] <= 1 or ld * item % 16 == 0) and k % (16 // item) == 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    err = getattr(load("mttkrp"), f"st_row_sum_union_{_SDDMM_ITEM[dtype]}")(
+        ptr.data_ptr(),
+        layout.local.data_ptr(),
+        w.data_ptr(),
+        table.data_ptr(),
+        ld,
+        int(vec),
+        k,
+        layout.union.data_ptr(),
+        layout.n_union.data_ptr(),
+        u_cap,
+        layout.work.data_ptr(),
+        layout.n_work.data_ptr(),
+        n_blocks,
+        layout.block,
+        n_seg,
+        piece,
+        sms,
+        out.data_ptr(),
         _stream(device),
     )
-    _raise_on(err, "sampled_row_sum")
-    LAUNCHES["sampled_row_sum"] += 1
+    _raise_on(err, "sampled_row_sum_union")
+    LAUNCHES["sampled_row_sum_union"] += 1
     return out
 
 

@@ -19,13 +19,20 @@ on the GPU it runs the hand-written CUDA kernel K4 of ``csrc/sddmm.cu``
 dtype, as ``sparse_tpu`` routes float16 and complex off its kernel. Its
 gradient in the sample values, ``lhs`` and ``rhs`` is a
 ``torch.autograd.Function`` whose backward runs K4 again and K5, the
-weighted row sum of ``csrc/mttkrp.cu`` (counted as ``sampled_row_sum``;
-``sampled_row_sum_plain`` beside it), in a fixed order and twice
-differentiable. ``dense_coo_matmul`` is dense × COO as gather +
-``index_add_``.
+weighted row sum of ``csrc/mttkrp.cu`` (``sampled_row_sum_plain`` beside
+it), in a fixed order and twice differentiable. K5 has three routes with
+the same bits (``_cuda.row_sum_route``): the gather route (counted
+``sampled_row_sum``), the sliced route for tables past L2
+(``sampled_row_sum_sliced``) and, for a pattern kept across calls, the union
+route on the blocks of its union layout (``row_sum_union_layout``; counted
+``sampled_row_sum_union``, ``sampled_row_sum_union_plain`` beside it) with
+the gather route on the blocks the layout flags. ``dense_coo_matmul`` is
+dense × COO as gather + ``index_add_``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -297,6 +304,79 @@ def sddmm_plain(rows, cols, sample_data, lhs, rhs):
     return out
 
 
+class RowSumUnion(NamedTuple):
+    """K5's union layout of the segments ``ptr`` over a table of ``n_table``
+    rows, in blocks of ``block`` consecutive segments (:func:`row_sum_union_layout`).
+
+    ``union`` ``(n_blocks, u_cap)`` int32: block b's union, the sorted
+    distinct table rows its entries name, in ``union[b, :n_union[b]]``, 0
+    past it. ``n_union`` ``(n_blocks,)`` int32: the union's size, which may
+    pass ``u_cap``. ``local`` ``(n,)`` int16: each entry's place in its
+    block's union (``union[b, local[e]] == idx[e]``; at most ``u_cap - 1``,
+    meaningless in a block whose union passes ``u_cap``). ``flag``
+    ``(n_blocks,)`` bool: a union past ``u_cap``, or fewer entries than
+    ``reuse`` times the union; such a block takes the gather route.
+    ``work`` ``(n_blocks,)`` int32: the blocks not flagged, in order, then
+    the flagged; ``n_work`` ``(1,)`` int32 the count of the first.
+    ``pieces``: :func:`~sparse_tpu_torch.kernels._cuda.run_pieces` of the
+    flagged blocks' segments alone (the gather route's split segments)."""
+
+    block: int
+    n_table: int
+    union: torch.Tensor
+    n_union: torch.Tensor
+    local: torch.Tensor
+    flag: torch.Tensor
+    work: torch.Tensor
+    n_work: torch.Tensor
+    pieces: torch.Tensor
+
+
+def row_sum_union_layout(ptr, idx, n_table, block, u_cap, reuse, piece=None):
+    """The :class:`RowSumUnion` of the segments ``ptr`` (int64 ``(n_seg +
+    1,)``) whose entries name table rows ``idx`` (in segment order), on
+    their device, by torch ops and nothing read back: one sort of
+    ``block_id · n_table + idx`` over every entry, the first of each run
+    marked and ranked, the ranks scattered back to the entries (the method
+    of :func:`~sparse_tpu_torch.kernels.attention.build_attention_blocks`)."""
+    piece = _cuda.MTTKRP_PIECE if piece is None else int(piece)
+    if block < 1 or n_table < 1 or not 1 <= u_cap < 1 << 15:
+        raise ValueError("row_sum_union_layout: block and n_table must be positive, u_cap in [1, 2^15)")
+    dev = idx.device
+    n_seg, n = ptr.shape[0] - 1, idx.shape[0]
+    n_blocks = -(-n_seg // block)
+    lens = ptr[1:] - ptr[:-1]
+    seg_blk = torch.div(torch.arange(n_seg, device=dev), block, rounding_mode="floor")
+    blk = torch.repeat_interleave(seg_blk, lens, output_size=n)
+    skey, perm = torch.sort(blk * n_table + idx.long())
+    first = torch.ones_like(skey, dtype=torch.bool)
+    first[1:] = skey[1:] != skey[:-1]
+    sblk = torch.div(skey, n_table, rounding_mode="floor")
+    n_union = torch.zeros(n_blocks, dtype=torch.int64, device=dev).index_add_(0, sblk, first.long())
+    start = torch.cumsum(n_union, 0) - n_union
+    local = torch.cumsum(first, 0) - 1 - start[sblk]  # each entry's place in its block's union
+    keep = first & (local < u_cap)
+    union = torch.zeros(n_blocks * u_cap + 1, dtype=torch.int32, device=dev)
+    union.index_put_((torch.where(keep, sblk * u_cap + local, n_blocks * u_cap),), (skey - sblk * n_table).to(torch.int32))
+    local_e = torch.empty_like(local).scatter_(0, perm, local.clamp(max=u_cap - 1))
+    bounds = torch.arange(n_blocks + 1, device=dev) * block
+    entries = ptr[bounds.clamp(max=n_seg)]
+    flag = (n_union > u_cap) | ((entries[1:] - entries[:-1]) < reuse * n_union)
+    work = torch.sort(flag.to(torch.int32), stable=True).indices.to(torch.int32)
+    n_work = (~flag).sum().to(torch.int32).reshape(1)
+    return RowSumUnion(
+        block,
+        n_table,
+        union[:-1].view(n_blocks, u_cap),
+        n_union.to(torch.int32),
+        local_e.to(torch.int16),
+        flag,
+        work,
+        n_work,
+        _cuda.run_pieces(ptr, piece, keep=flag[seg_blk]),
+    )
+
+
 class SddmmPattern:
     """The entries of an SDDMM in the two orders its gradient sums in: by
     row (``d lhs``, axis 0) and by column (``d rhs``, axis 1). For each
@@ -304,19 +384,25 @@ class SddmmPattern:
     read: the segment pointer (``searchsorted``), the entries' order in it
     (a stable sort of the segment ids, int32 keys where they fit; None when
     the ids come sorted, as a canonical COO's rows do), the pieces of the
-    long segments and the other axis's ids in that order. ``T`` is the same
-    pattern with the axes swapped, sharing what was built."""
+    long segments and the other axis's ids in that order. A pattern ``kept``
+    across calls (``nn``'s memo, the COO entry point's) also keeps K5's
+    union layout of each axis (:meth:`union`), and K5 takes the union route
+    on it. ``T`` is the same pattern with the axes swapped, sharing what was
+    built."""
 
-    def __init__(self, rows, cols, n_rows, n_cols, rows_sorted=False):
+    def __init__(self, rows, cols, n_rows, n_cols, rows_sorted=False, kept=False):
         self.ends = (rows, cols)
         self.sizes = (n_rows, n_cols)
         self.ordered = (rows_sorted, False)
+        self.kept = kept
         self._plans = ([], [])
+        self._unions = ({}, {})
 
     @property
     def T(self):
         t = object.__new__(SddmmPattern)
         t.ends, t.sizes, t.ordered, t._plans = self.ends[::-1], self.sizes[::-1], self.ordered[::-1], self._plans[::-1]
+        t.kept, t._unions = self.kept, self._unions[::-1]
         return t
 
     def plan(self, axis):
@@ -337,6 +423,19 @@ class SddmmPattern:
             self._plans[axis].append((ptr, order, pieces, idx.to(torch.int32).contiguous()))
         return self._plans[axis][0]
 
+    def union(self, axis, itemsize):
+        """K5's :class:`RowSumUnion` along ``axis`` for table values of
+        ``itemsize`` bytes, built on its first use and kept."""
+        ptr, _, _, idx = self.plan(axis)
+        n_table = self.sizes[1 - axis]
+        u_cap = _cuda.row_sum_union_capacity(itemsize, n_table, idx.shape[0])
+        memo = self._unions[axis]
+        if u_cap not in memo:
+            memo[u_cap] = row_sum_union_layout(
+                ptr, idx, n_table, _cuda.ROW_SUM_UNION_BLOCK, u_cap, _cuda.ROW_SUM_UNION_REUSE
+            )
+        return memo[u_cap]
+
 
 def sampled_row_sum_plain(seg, idx, w, table, n_out):
     """K5's function in torch ops, on any device: ``out[i] = Σ w[e] ·
@@ -347,29 +446,68 @@ def sampled_row_sum_plain(seg, idx, w, table, n_out):
     return out.index_add_(0, seg.long(), w[:, None] * table[idx.long()])
 
 
+def sampled_row_sum_union_plain(seg, idx, layout, w, table, n_out):
+    """K5's union route's read in torch ops, on any device: the entries
+    ``(seg, idx, w)`` in segment order, each table row taken through its
+    block's union, ``layout.union[block][layout.local]`` (through ``idx`` in
+    a block the layout flags, as the gather route reads them), summed as
+    :func:`sampled_row_sum_plain` sums → ``(n_out, K)``."""
+    blk = torch.div(seg.long(), layout.block, rounding_mode="floor")
+    rows = torch.where(layout.flag[blk], idx.long(), layout.union[blk, layout.local.long()].long())
+    out = torch.zeros((n_out, table.shape[1]), dtype=w.dtype, device=w.device)
+    return out.index_add_(0, seg.long(), w[:, None] * table[rows])
+
+
 def _row_sum_forward(pattern, axis, w, table):
     n_out = pattern.sizes[axis]
     if w.device.type == "cpu" or w.dtype not in _KERNEL_DTYPES:
         return sampled_row_sum_plain(pattern.ends[axis], pattern.ends[1 - axis], w, table, n_out)
     _cuda.require_cuda(w.device, "sampled row sum")
     ptr, order, pieces, idx = pattern.plan(axis)
-    w = w if order is None else w[order]
+    w = (w if order is None else w[order]).contiguous()
     k = table.shape[1]
+    rows = table if _cuda.sddmm_k_major(table) else table.contiguous()
+    route = _cuda.row_sum_route(rows.shape[0], k, w.element_size(), pattern.kept, w.shape[0], n_out)
     out = torch.empty((n_out, k), dtype=w.dtype, device=w.device)
     n_front = _cuda.front_bound(w.shape[0], n_out, _cuda.MTTKRP_PIECE)
     partial = torch.empty(n_front * k, dtype=w.dtype, device=w.device)
-    tickets = _cuda.zeroed_tickets(w.device, n_front * _cuda.row_sum_chunks(k, w.dtype))
-    rows = table if _cuda.sddmm_k_major(table) else table.contiguous()
-    return _cuda.sampled_row_sum(ptr, pieces, idx, w.contiguous(), rows, out, partial, tickets)
+    if route == "union":
+        return row_sum_union_route(ptr, idx, pattern.union(axis, w.element_size()), w, rows, out, partial)
+    slice_cols = _cuda.ROW_SUM_SLICE_COLS if route == "sliced" else None
+    tickets = _cuda.zeroed_tickets(w.device, n_front * _cuda.row_sum_chunks(k, w.dtype, slice_cols))
+    return _cuda.sampled_row_sum(ptr, pieces, idx, w, rows, out, partial, tickets, slice_cols=slice_cols)
+
+
+def row_sum_union_route(ptr, idx, layout, w, table, out, partial):
+    """K5's union route on the card: the union kernel on the blocks
+    ``layout`` keeps (counted ``sampled_row_sum_union``) and, beside it on a
+    second stream that the current one waits for, the gather route on the
+    blocks it flags (``sampled_row_sum``), whose split segments' chains of
+    pieces would otherwise follow the union kernel's. The union kernel is
+    launched first, so its CTAs take their SMs before the gather's fill
+    them, and with at least a CTA an SM, so the gather finds every SM alike
+    where most blocks are flagged. ``partial`` as for the gather route;
+    every row of ``out`` written."""
+    main = torch.cuda.current_stream(w.device)
+    side = _cuda.side_stream(w.device)
+    side.wait_stream(main)  # the inputs, as they stand before the union kernel
+    _cuda.sampled_row_sum_union(ptr, layout, w, table, out)
+    with torch.cuda.stream(side):
+        n_front = _cuda.front_bound(w.shape[0], out.shape[0], _cuda.MTTKRP_PIECE)
+        tickets = _cuda.zeroed_tickets(w.device, n_front * _cuda.row_sum_chunks(out.shape[1], w.dtype))
+        _cuda.sampled_row_sum(ptr, layout.pieces, idx, w, table, out, partial, tickets, flag=layout.flag, block=layout.block)
+    main.wait_stream(side)
+    return out
 
 
 class _SampledRowSum(torch.autograd.Function):
-    """K5 (``csrc/mttkrp.cu``, counted as ``sampled_row_sum``; plain on the
-    CPU): ``out[i] = Σ_e w[e] · table[idx[e]]`` over the entries of segment
-    ``i`` of ``pattern`` along ``axis``, summed in the pattern's order, so
-    the same bits every call. Its derivatives: in ``w`` an SDDMM (K4) of the
-    output's gradient with ``table`` on the same entries, in ``table`` K5
-    over the other axis; twice differentiable through both."""
+    """K5 (``csrc/mttkrp.cu``, on the route of ``_cuda.row_sum_route``;
+    plain on the CPU): ``out[i] = Σ_e w[e] · table[idx[e]]`` over the
+    entries of segment ``i`` of ``pattern`` along ``axis``, summed in the
+    pattern's order, so the same bits every call and on every route. Its
+    derivatives: in ``w`` an SDDMM (K4) of the output's gradient with
+    ``table`` on the same entries, in ``table`` K5 over the other axis;
+    twice differentiable through both."""
 
     @staticmethod
     def forward(ctx, pattern, axis, w, table):

@@ -384,7 +384,7 @@ def _coo_pattern(rows, cols, n_rows, n_cols, device):
     cols_t = wide_index(_on(cols, device))
     if rows_t.ndim != 1 or cols_t.shape != rows_t.shape:
         raise ValueError(f"rows {tuple(rows_t.shape)} and cols {tuple(cols_t.shape)} must be 1-D of one length")
-    pattern = SddmmPattern(rows_t, cols_t, n_rows, n_cols, rows_sorted=rows_sorted)
+    pattern = SddmmPattern(rows_t, cols_t, n_rows, n_cols, rows_sorted=rows_sorted, kept=True)
     _, order, _, _ = pattern.plan(0)
     seg = rows_t.long() if order is None else rows_t.long()[order]
     entry = _CooPattern(rows_t, cols_t, pattern, seg, order, (rows, cols), _versions(rows, cols))

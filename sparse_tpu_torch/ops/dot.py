@@ -547,7 +547,7 @@ def sddmm(s, lhs, rhs):
     rows, cols = wide_index(s_coo.coords[0]), wide_index(s_coo.coords[1])
     sizes = (lhs.shape[0], rhs.shape[1])
     pattern = s_coo._cached_layout(
-        "sddmm_pattern", sizes, lambda: kdot.SddmmPattern(rows, cols, *sizes, rows_sorted=True)
+        "sddmm_pattern", sizes, lambda: kdot.SddmmPattern(rows, cols, *sizes, rows_sorted=True, kept=True)
     )
     vals = kdot._sddmm(rows, cols, s_coo.data.to(dt), lhs.to(dt), rhs.to(dt), pattern=pattern)
     return COO._make(s_coo.coords.clone(), vals, s_coo.shape, zero_of_dtype(numpy_dtype(dt)))

@@ -157,7 +157,8 @@ def test_sparse_attention_routes_on_the_card_equal_the_cpu(cuda, dtype):
         moved = {n for n in LAUNCHES if LAUNCHES[n] != before[n]}
         # the row-ELL route in float32 takes K6's tile route, then its row kernel on what the tiles left
         ell = {"ell_attention", "ell_attention_tiles"} if dtype == torch.float32 else {"ell_attention"}
-        assert moved == (ell if route == "ell" else {"sddmm", "sampled_row_sum"}), moved
+        # the COO route's pattern is kept: K5's union route, the gather route on the blocks its layout flags
+        assert moved == (ell if route == "ell" else {"sddmm", "sampled_row_sum", "sampled_row_sum_union"}), moved
         _assert_close(got.cpu(), want, float(v.abs().max()), TOL[dtype], route)
         assert torch.equal(got, tnn.sparse_attention(q.to(cuda), k.to(cuda), v.to(cuda), *pat))
 

@@ -145,6 +145,8 @@ def test_launch_counters_start_and_reset():
         "pick_scale_wsum": 0,
         "sddmm": 0,
         "sampled_row_sum": 0,
+        "sampled_row_sum_sliced": 0,
+        "sampled_row_sum_union": 0,
         "ell_attention": 0,
         "ell_attention_tiles": 0,
     }

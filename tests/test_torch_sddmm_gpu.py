@@ -14,7 +14,10 @@ result at rtol 1e-5 (float32) or 1e-12 (float64), and bit for bit equal to
 ``(b.T @ a.T).T``, the route it takes through K1/K2. K4 sums each entry in
 one order whatever the layout of its operands and whichever route, so
 those are held bit for bit; K5 adds each segment in a fixed order, so it
-gives the same bits on every launch (the atomics of ``index_add`` did not).
+gives the same bits on every launch (the atomics of ``index_add`` did not),
+and its sliced and union routes give the gather route's bits (slices of
+8, 16 and 32 values, blocks of 32 and 64 segments, with and without
+flagged blocks; -0.0 included).
 """
 
 import numpy as np
@@ -364,3 +367,202 @@ def test_k5_second_order_on_the_card(cuda):
         f = lambda w_, t_, axis=axis: dot._SampledRowSum.apply(pattern, axis, w_, t_)  # noqa: E731
         assert torch.autograd.gradcheck(f, (ins[0], tab))
         assert torch.autograd.gradgradcheck(f, (ins[0], tab))
+
+
+# ---------------------------------------------------------------------------
+# K5's routes: the sliced and union routes against the gather route, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit: -0.0 apart from +0.0, NaN payloads compared."""
+    return a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def _route_problem(shape, k, dtype, cuda, seed):
+    """An unsorted pattern (both axes through a stable sort) of 300 x 200 and
+    its table rows: "short" segments, "long" ones past a piece, "empty" ones,
+    "neg_zero" (every product underflows to -0.0: an unsplit segment sums to
+    -0.0, a split one to +0.0) and "strided" (the table a column slice of a
+    wider tensor, 4-byte aligned rows)."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols, nnz = 300, 200, 6000
+    rows = rng.integers(0, n_rows, nnz)
+    cols = rng.integers(0, 40 if shape == "short" else n_cols, nnz)  # "short": few distinct columns, much reuse
+    if shape in ("long", "neg_zero"):
+        rows[: nnz // 3] = 5  # a segment of 2,000 entries along the rows
+        cols[nnz // 3 : nnz // 2] = 7  # and one of 1,000 along the columns
+    if shape == "empty":
+        rows = rows - rows % 7
+        cols = cols - cols % 5
+    w = torch.as_tensor(rng.standard_normal(nnz), dtype=dtype, device=cuda)
+    tables = [torch.as_tensor(rng.standard_normal((n, k)), dtype=dtype, device=cuda) for n in (n_cols, n_rows)]
+    if shape == "neg_zero":
+        tiny = 1e-30 if dtype == torch.float32 else 1e-200
+        w = -tiny * w.abs().clamp(min=0.5)
+        tables = [tiny * t.abs().clamp(min=0.5) for t in tables]
+    if shape == "strided":
+        tables = [_layout(t, "strided") for t in tables]
+    pattern = dot.SddmmPattern(torch.as_tensor(rows, device=cuda), torch.as_tensor(cols, device=cuda), n_rows, n_cols)
+    return pattern, w, tables
+
+
+def _routes(pattern, axis, w, table):
+    """{route name: K5's sum along ``axis``} on the gather route, the sliced
+    route at each slice width and the union
+    route on layouts of blocks of 32 and 64 (every block that fits on it,
+    and the default reuse threshold with the flagged blocks on the gather
+    route)."""
+    ptr, order, pieces, idx = pattern.plan(axis)
+    ws = (w if order is None else w[order]).contiguous()
+    n_out, k = pattern.sizes[axis], table.shape[1]
+    n_front = _cuda.front_bound(ws.shape[0], n_out, _cuda.MTTKRP_PIECE)
+    partial = torch.empty(n_front * k, dtype=w.dtype, device=w.device)
+
+    def fresh():
+        return torch.full((n_out, k), float("nan"), dtype=w.dtype, device=w.device)
+
+    out = {}
+    tickets = _cuda.zeroed_tickets(w.device, n_front * _cuda.row_sum_chunks(k, w.dtype, 1))
+    out["gather"] = _cuda.sampled_row_sum(ptr, pieces, idx, ws, table, fresh(), partial, tickets)
+    for width in (8, 16, 32):
+        out[f"sliced_{width}"] = _cuda.sampled_row_sum(
+            ptr, pieces, idx, ws, table, fresh(), partial, tickets, slice_cols=width
+        )
+    u_cap = _cuda.row_sum_union_capacity(w.element_size(), table.shape[0], idx.shape[0])
+    for block in (32, 64):
+        for reuse in (0.0, _cuda.ROW_SUM_UNION_REUSE):
+            lay = dot.row_sum_union_layout(ptr, idx, table.shape[0], block, u_cap, reuse)
+            o = _cuda.sampled_row_sum_union(ptr, lay, ws, table, fresh())
+            out[f"union_{block}_{reuse}"] = _cuda.sampled_row_sum(
+                ptr, lay.pieces, idx, ws, table, o, partial, tickets, flag=lay.flag, block=lay.block
+            )
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 3, 8, 64, 128, 256, 300])
+@pytest.mark.parametrize("shape", ["short", "long", "empty", "neg_zero", "strided"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_k5_routes_give_the_gather_routes_bits(cuda, dtype, k, shape, axis):
+    pattern, w, tables = _route_problem(shape, k, dtype, cuda, seed=k)
+    table = tables[axis]
+    first = _routes(pattern, axis, w, table)
+    second = _routes(pattern, axis, w, table)
+    torch.cuda.synchronize()
+    ref = first["gather"]
+    assert not bool(torch.isnan(ref).any())
+    for name, got in first.items():
+        assert _same_bits(got, ref), f"K5 {name} against the gather route, K={k} {shape} axis {axis}"
+        assert _same_bits(second[name], got), f"K5 {name}: a second launch gave other bits"
+    if shape == "neg_zero":  # the rule the routes keep: -0.0 from an unsplit chain, +0.0 from a split one
+        ptr = pattern.plan(axis)[0]
+        lens = ptr[1:] - ptr[:-1]
+        neg = torch.signbit(ref[:, 0]) & (ref[:, 0] == 0)
+        assert bool(neg[(lens > 0) & (lens <= _cuda.MTTKRP_PIECE)].all())
+        assert not bool(neg[lens > _cuda.MTTKRP_PIECE].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [24, 96])
+def test_k5_route_rule_moves_its_counters_with_the_same_bits(cuda, dtype, k, monkeypatch):
+    pattern, w, tables = _route_problem("long", k, dtype, cuda, seed=4)
+    kept = dot.SddmmPattern(*pattern.ends, *pattern.sizes, kept=True)
+    want_moved = {
+        "gather": {"sampled_row_sum": 1},
+        "union": {"sampled_row_sum_union": 1, "sampled_row_sum": 1},  # the gather route on the flagged blocks
+        "sliced": {"sampled_row_sum_sliced": 1},
+    }
+    for axis in (0, 1):
+        table = tables[axis]
+        n, n_seg = w.shape[0], pattern.sizes[axis]
+        runs = {}
+        # the rule as it stands, then with its constants moved to reach the other routes
+        for label, pat, consts in (
+            ("one call", pattern, {}),
+            ("kept", kept, {}),
+            ("kept, narrow rows", kept, {"ROW_SUM_UNION_ROW_BYTES": 1 << 20}),
+            ("kept, past L2", kept, {"ROW_SUM_L2_BUDGET": 0}),
+        ):
+            for name, value in consts.items():
+                monkeypatch.setattr(_cuda, name, value)
+            route = _cuda.row_sum_route(table.shape[0], k, w.element_size(), pat.kept, n, n_seg)
+            before = dict(LAUNCHES)
+            runs[label] = dot._SampledRowSum.apply(pat, axis, w, table)
+            moved = {c: LAUNCHES[c] - before[c] for c in LAUNCHES if LAUNCHES[c] != before[c]}
+            assert moved == want_moved[route], (label, route, moved)
+            monkeypatch.undo()
+        assert _cuda.row_sum_route(table.shape[0], k, w.element_size(), False, n, n_seg) == "gather"
+        assert all(_same_bits(got, runs["one call"]) for got in runs.values())
+        if k > _cuda.ROW_SUM_SLICE_COLS:
+            with monkeypatch.context() as m:
+                m.setattr(_cuda, "ROW_SUM_L2_BUDGET", 0)
+                assert _cuda.row_sum_route(table.shape[0], k, w.element_size(), True, n, n_seg) == "sliced"
+        with monkeypatch.context() as m:
+            m.setattr(_cuda, "ROW_SUM_UNION_ROW_BYTES", 1 << 20)
+            assert _cuda.row_sum_route(table.shape[0], k, w.element_size(), True, n, n_seg) == "union"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_union_route_backward_without_a_host_read(cuda, dtype):
+    rows, cols, s, lhs, rhs = _problem(300, 64, 32, 6000, dtype, cuda, seed=15)
+    w = torch.as_tensor(np.random.default_rng(16).standard_normal(6000), dtype=dtype, device=cuda)
+    ins = [t.clone().requires_grad_(True) for t in (s, lhs, rhs)]
+    pattern = dot.SddmmPattern(rows.long(), cols.long(), 300, 64, rows_sorted=True, kept=True)
+    loss = (w * dot._sddmm(rows, cols, *ins, pattern=pattern)).sum()
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = torch.autograd.grad(loss, ins, retain_graph=True)  # the union layouts are built here, on the card
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert LAUNCHES["sampled_row_sum_union"] == before["sampled_row_sum_union"] + 2
+    again = torch.autograd.grad(loss, ins)
+    assert all(_same_bits(a, b) for a, b in zip(grads, again))
+    plain = dot.SddmmPattern(rows.long(), cols.long(), 300, 64, rows_sorted=True)
+    ins2 = [t.detach().clone().requires_grad_(True) for t in (s, lhs, rhs)]
+    (w * dot._sddmm(rows, cols, *ins2, pattern=plain)).sum().backward()
+    assert all(_same_bits(a, b.grad) for a, b in zip(grads, ins2))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_k5_union_route_on_a_kept_pattern_with_every_block_flagged(cuda, axis):
+    # a random mask kept across calls at K = 64 float32: the union route by the
+    # rule, every block flagged; its two launches give the gather route's bits
+    # and move both counters once
+    rng = np.random.default_rng(18)
+    m, n, k = 4096, 4096, 64
+    lin = np.unique(rng.integers(0, m * n, 120_000))
+    rows, cols = torch.as_tensor(lin // n, device=cuda), torch.as_tensor(lin % n, device=cuda)
+    pattern = dot.SddmmPattern(rows, cols, m, n, rows_sorted=True, kept=True)
+    w = torch.as_tensor(rng.standard_normal(rows.numel()), dtype=torch.float32, device=cuda)
+    table = torch.as_tensor(rng.standard_normal((n if axis == 0 else m, k)), dtype=torch.float32, device=cuda)
+    assert _cuda.row_sum_route(table.shape[0], k, 4, True, rows.numel(), pattern.sizes[axis]) == "union"
+    before = dict(LAUNCHES)
+    got = dot._SampledRowSum.apply(pattern, axis, w, table)
+    moved = {c: LAUNCHES[c] - before[c] for c in LAUNCHES if LAUNCHES[c] != before[c]}
+    assert moved == {"sampled_row_sum_union": 1, "sampled_row_sum": 1}
+    assert bool(pattern.union(axis, 4).flag.all())
+    once = dot.SddmmPattern(rows, cols, m, n, rows_sorted=True)
+    want = dot._SampledRowSum.apply(once, axis, w, table)
+    assert _same_bits(got, want)
+    assert _same_bits(dot._SampledRowSum.apply(pattern, axis, w, table), got)
+
+
+def test_k5_union_plain_version_on_the_card(cuda):
+    pattern, w, tables = _route_problem("short", 64, torch.float32, cuda, seed=17)
+    for axis in (0, 1):
+        ptr, order, _, idx = pattern.plan(axis)
+        seg = pattern.ends[axis] if order is None else pattern.ends[axis][order]
+        ws = w if order is None else w[order]
+        lay = dot.row_sum_union_layout(ptr, idx, tables[axis].shape[0], 64, 512, 0.0)
+        assert not bool(lay.flag.any())
+        got = dot.sampled_row_sum_union_plain(seg, idx, lay, ws, tables[axis], pattern.sizes[axis])
+        want = dot.sampled_row_sum_plain(seg, idx, ws, tables[axis], pattern.sizes[axis])
+        scale = dot.sampled_row_sum_plain(seg, idx, ws.abs(), tables[axis].abs(), pattern.sizes[axis])
+        _assert_norm_close(got, want.double(), scale, NORM_TOL[torch.float32], f"union plain axis {axis}")
