@@ -3770,6 +3770,325 @@ def phase_attention_path(dev, card):
     }
     return result, lines + k5_lines
 
+# ---------------------------------------------------------------------------
+# linalg: the Krylov solvers on the card, their matvecs on the DIA shifts or K1
+# ---------------------------------------------------------------------------
+
+# the 5-point Poisson matrix of examples/solvers_example.py:poisson_2d at side
+# 1,024 (n = 1,048,576, 5,238,784 entries), float64, CG to tol 1e-8 on both routes
+LA_SIDE, LA_TOL = 1024, 1e-8
+LA_SMALL_SIDE = 256  # gmres(restart=40), tfqmr and spsolve on the example's perturbation
+LA_UPPER = 0.3  # the example's nonsymmetric perturbation: +0.3 on the upper neighbours
+LA_OTHER_TOL = 1e-10  # the example's tolerance for gmres and tfqmr
+# eigsh(k=4) at the example's side 128 against the closed form. A Krylov budget
+# of ncv = 128 per restart (the default, 40, doubles to at most 320 and
+# converges nothing on this clustered spectrum, in both packages: PERF.md)
+LA_EIG_SIDE, LA_EIG_K, LA_EIG_NCV, LA_EIG_RTOL = 128, 4, 128, 1e-8
+# the true residual on the host in float64 against the solver's own:
+# ||b - A x|| <= LA_SLACK * tol * ||b||
+LA_SLACK = 2.0
+LA_SPSOLVE_RTOL = 1e-10  # against scipy's spsolve of the same matrix, of the largest entry
+LA_MATVEC_TOL = 1e-13  # K1 against its plain version, D1 against scipy: of max_r sum_j |a_rj x_j|
+LA_SEED = 22
+LA_REPS = 3  # each solve's wall ms is the median of this many
+F64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
+DIA_KEY = (64, 8.0)
+
+
+def poisson_triplets(side, dev):
+    """``(rows, cols, vals)`` of the 5-point Laplacian of a side × side grid
+    (examples/solvers_example.py:poisson_2d), built on ``dev``, float64."""
+    n = side * side
+    idx = torch.arange(n, device=dev).reshape(side, side)
+    rows, cols = [idx.reshape(-1)], [idx.reshape(-1)]
+    vals = [torch.full((n,), 4.0, dtype=torch.float64, device=dev)]
+    for di, dj in ((0, 1), (1, 0)):
+        a = idx[: side - di, : side - dj].reshape(-1)
+        b = idx[di:, dj:].reshape(-1)
+        rows += [a, b]
+        cols += [b, a]
+        vals += [torch.full((a.numel(),), -1.0, dtype=torch.float64, device=dev)] * 2
+    return torch.cat(rows), torch.cat(cols), torch.cat(vals)
+
+
+def la_operators(side, dev, upper=0.0):
+    """The Poisson matrix (``upper`` added to its upper neighbours) as a COO
+    on ``dev``, the same matrix under a seeded symmetric permutation
+    (``P A Pᵀ``: entry ``(r, c)`` moves to ``(sigma[r], sigma[c])``), sigma,
+    and the matrix and its permuted form as scipy CSR on the host."""
+    import scipy.sparse as sps
+    import sparse_tpu_torch as st
+
+    r, c, v = poisson_triplets(side, dev)
+    if upper:
+        v = v + upper * (c > r)
+    n = side * side
+    sigma = torch.randperm(n, generator=torch.Generator().manual_seed(LA_SEED + side)).to(dev)
+    a = st.COO(torch.stack([r, c]), v, shape=(n, n))
+    ap = st.COO(torch.stack([sigma[r], sigma[c]]), v, shape=(n, n))
+    rh, ch, vh, sh = (t.cpu().numpy() for t in (r, c, v, sigma))
+    host = sps.csr_matrix((vh, (rh, ch)), shape=(n, n))
+    host_p = sps.csr_matrix((vh, (sh[rh], sh[ch])), shape=(n, n))
+    return a, ap, sigma, host, host_p
+
+
+def la_rhs(n, dev, sigma, seed):
+    """A seeded right-hand side and its permuted form (``bp[sigma] = b``)."""
+    b = torch.randn(n, generator=torch.Generator().manual_seed(seed), dtype=torch.float64).to(dev)
+    bp = torch.empty_like(b)
+    bp[sigma] = b
+    return b, bp
+
+
+def la_check_residual(name, host, x, b, tol):
+    """``||b - A x|| <= LA_SLACK * tol * ||b||`` on the host in float64; the
+    relative residual."""
+    bh = b.cpu().numpy()
+    rel = float(np.linalg.norm(bh - host @ x.cpu().numpy()) / np.linalg.norm(bh))
+    if not rel <= LA_SLACK * tol:
+        raise AssertionError(f"{name}: relative residual {rel} > {LA_SLACK} * {tol}")
+    return rel
+
+
+def la_wall_ms(fn):
+    """Median wall ms of ``LA_REPS`` calls of ``fn``, each ended by a synchronize."""
+    times = []
+    for _ in range(LA_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def cg_iteration_device_ms(mv, b):
+    """Device ms of one CG iteration on ``mv`` (the matvec and the vector
+    updates of ``linalg.cg``, in place, without the stop test's read back),
+    from a CUDA graph of back-to-back iterations: the floor a captured
+    block of iterations would approach."""
+    x = torch.zeros_like(b)
+    r = b.clone()
+    p = b.clone()
+    rz = torch.dot(r, r)
+
+    def step():
+        ap = mv(p)
+        alpha = rz / torch.dot(p, ap)
+        x.add_(alpha * p)
+        r.sub_(alpha * ap)
+        rz_new = torch.dot(r, r)
+        p.mul_(rz_new / rz).add_(r)
+        rz.copy_(rz_new)
+        torch.linalg.vector_norm(r)
+
+    return time_graph(step)
+
+
+def phase_linalg_path(dev, card):
+    """``sparse_tpu_torch.linalg`` on the card: CG at side 1,024 through the
+    DIA route and, on the permuted matrix, through K1; gmres, tfqmr,
+    eigsh and spsolve at sides 256/128 through the permuted form. Returns
+    ``(line, k1_kernel_line)``."""
+    import scipy.sparse.linalg as spla
+
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.kernels import LAUNCHES, _cuda, reset_launch_counts, row_ell
+    from sparse_tpu_torch.kernels import dia as kdia
+    from sparse_tpu_torch.kernels.row_ell import row_ell_cache_key
+
+    t_phase = time.perf_counter()
+    a, ap, sigma, host, _ = la_operators(LA_SIDE, dev)
+    n, nnz = a.shape[0], a.nnz
+    b, bp = la_rhs(n, dev, sigma, LA_SEED)
+
+    def cg(op, rhs):
+        return linalg.cg(op, rhs, tol=LA_TOL, return_iters=True)
+
+    # the DIA route: the banded matrix, its matvecs counted at the module function
+    dia_calls = []
+    real_dia = kdia.dia_spmv
+    kdia.dia_spmv = lambda *args: dia_calls.append(1) or real_dia(*args)
+    reset_launch_counts()
+    try:
+        x, info, it = cg(a, b)
+        torch.cuda.synchronize()
+    finally:
+        kdia.dia_spmv = real_dia
+    launches_dia = dict(LAUNCHES)
+    dia = a.peek_layout("dia", DIA_KEY)
+    if dia is None or dia.offsets != (-LA_SIDE, -1, 0, 1, LA_SIDE):
+        raise AssertionError(f"linalg_path: the banded matrix built no 5-offset DIA layout ({dia and dia.offsets})")
+    if any(launches_dia.values()) or a.peek_layout("row_ell", row_ell_cache_key()) is not None:
+        raise AssertionError(f"linalg_path: the DIA route launched a kernel or built a row-ELL layout: {launches_dia}")
+    if info != 0 or len(dia_calls) != it + 1:
+        raise AssertionError(f"linalg_path: DIA cg info {info}, {len(dia_calls)} matvecs for {it} iterations")
+
+    # the K1 route: the permuted matrix has far more than 64 diagonals
+    reset_launch_counts()
+    xp, infop, itp = cg(ap, bp)
+    torch.cuda.synchronize()
+    launches_k1 = dict(LAUNCHES)
+    if ap.to_dia() is not None or ap.peek_layout("row_ell", row_ell_cache_key()) is None:
+        raise AssertionError("linalg_path: the permuted matrix did not take the row-ELL route")
+    if infop != 0 or launches_k1["row_ell_spmv"] != itp + 1 or sum(launches_k1.values()) != itp + 1:
+        raise AssertionError(f"linalg_path: K1 cg info {infop}, launches {launches_k1} for {itp} iterations")
+
+    res_dia = la_check_residual("cg DIA", host, x, b, LA_TOL)
+    x_back = xp[sigma]  # P x, read back to A's numbering
+    res_k1 = la_check_residual("cg K1", host, x_back, b, LA_TOL)
+    # both residuals within LA_SLACK * tol * ||b||: each solution within
+    # that over lambda_min of the exact one, so within twice that of the other
+    lam_min = 8 * np.sin(np.pi / (2 * (LA_SIDE + 1))) ** 2
+    bnorm = float(torch.linalg.vector_norm(b))
+    diff = float(torch.linalg.vector_norm(x_back - x))
+    diff_bound = 2 * LA_SLACK * LA_TOL * bnorm / lam_min
+    if not diff <= diff_bound:
+        raise AssertionError(f"linalg_path: ||P x_permuted - x|| = {diff} > {diff_bound}")
+
+    routes = {}
+    for route, op, rhs, iters in (("dia", a, b, it), ("k1", ap, bp, itp)):
+        wall = la_wall_ms(lambda op=op, rhs=rhs: cg(op, rhs))
+        routes[route] = {
+            "iterations": iters,
+            "wall_ms": wall,
+            "ms_per_iteration": wall / iters,
+            "reads_back_per_solve": reads_back(lambda op=op, rhs=rhs: cg(op, rhs)),
+            "device_ms_per_iteration_graph": cg_iteration_device_ms(linalg._as_matvec(op), rhs),
+        }
+    routes["dia"]["relative_residual"], routes["k1"]["relative_residual"] = res_dia, res_k1
+
+    # the matvec alone, at the Poisson shape
+    xv = torch.randn(n, generator=torch.Generator().manual_seed(LA_SEED + 1), dtype=torch.float64).to(dev)
+    rell = ap.to_row_ell()
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    # the matvecs' errors against the scale of their terms, max_r sum_j |a_rj x_j|
+    # (the permuted matrix's rows are the same rows): five float64 terms in another order
+    term_scale = float((abs(host) @ np.abs(xv.cpu().numpy())).max())
+    k1_kernel = row_ell.row_ell_spmv(rell, xv)
+    k1_err = float((k1_kernel - row_ell._spmv_plain(rell, xv)).abs().max())
+    if not k1_err <= LA_MATVEC_TOL * term_scale:
+        raise AssertionError(f"linalg_path: K1 against its plain version, max abs err {k1_err}")
+    k1_ms = time_graph(lambda: _cuda.spmv(rell, xv, None, out))
+    k1_eager_ms = time_eager(lambda: row_ell.row_ell_spmv(rell, xv))
+    k1_plain_ms = time_eager(lambda: row_ell._spmv_plain(rell, xv), reps=5)
+    csr_p = torch.sparse_coo_tensor(ap.coords.long(), ap.data, (n, n)).coalesce().to_sparse_csr()
+    csr = torch.sparse_coo_tensor(a.coords.long(), a.data, (n, n)).coalesce().to_sparse_csr()
+    k1_lib_ms = time_eager(lambda: torch.mv(csr_p, xv))
+    d1_out = kdia.dia_spmv(dia.offsets, dia.bands, xv)
+    d1_err = float(np.abs(d1_out.cpu().numpy() - host @ xv.cpu().numpy()).max())
+    if not d1_err <= LA_MATVEC_TOL * term_scale:
+        raise AssertionError(f"linalg_path: dia_spmv against the host product, max abs err {d1_err}")
+    d1_eager_ms = time_eager(lambda: kdia.dia_spmv(dia.offsets, dia.bands, xv))
+    d1_graph_ms = time_graph(lambda: kdia.dia_spmv(dia.offsets, dia.bands, xv))
+    d1_lib_ms = time_eager(lambda: torch.mv(csr, xv))
+    # bytes the function must move: each input read once, the output written once
+    k1_bytes = nnz * (4 + 8) + 8 * n + 8 * n  # int32 column and float64 value an entry, x, y
+    d1_bytes = len(dia.offsets) * n * 8 + 8 * n + 8 * n  # the bands, x, y
+    flops = 2 * nnz
+
+    def bound(nbytes):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F64_FLOPS_PER_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    k1_bound, k1_by = bound(k1_bytes)
+    d1_bound, d1_by = bound(d1_bytes)
+    k1_line = {
+        "name": "row_ell_spmv (linalg_path: cg, Poisson 1,024², float64)",
+        "route": "cuda",
+        "source": SOURCE["row_ell_spmv"],
+        "replaces": REPLACES["row_ell_spmv"],
+        "launches": launches_k1["row_ell_spmv"],
+        "max_abs_err": k1_err,
+        "ms": k1_ms,
+        "plain_ms": k1_plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": k1_lib_ms,
+    }
+    d1_line = {
+        "name": "D1 dia_spmv (linalg_path: cg, Poisson 1,024², float64)",
+        "route": "torch ops",
+        "source": "sparse_tpu_torch/kernels/dia.py",
+        "replaces": "sparse_tpu/kernels/dia.py:67",  # dia_spmv (XLA)
+        "launches": len(dia_calls),
+        "max_abs_err": d1_err,  # against scipy's float64 product on the host
+        "ms": d1_graph_ms,
+        "plain_ms": d1_eager_ms,  # the same torch ops, launched eagerly
+        "bound_ms": d1_bound,
+        "bound_by": d1_by,
+        "library_ms": d1_lib_ms,
+    }
+    for line, nbytes, eager in ((k1_line, k1_bytes, k1_eager_ms), (d1_line, d1_bytes, d1_eager_ms)):
+        log(json.dumps({**line, "eager_ms": eager, "bound_bytes": nbytes, "bound_share": line["bound_ms"] / line["ms"], "card": card}))
+
+    # the other solvers, each once through the permuted form (K1)
+    a2, ap2, sigma2, host2, host2_p = la_operators(LA_SMALL_SIDE, dev, upper=LA_UPPER)
+    b2, bp2 = la_rhs(a2.shape[0], dev, sigma2, LA_SEED + 2)
+    others = {}
+    for name, fn in (
+        ("gmres", lambda: linalg.gmres(ap2, bp2, tol=LA_OTHER_TOL, restart=40)),
+        ("tfqmr", lambda: linalg.tfqmr(ap2, bp2, tol=LA_OTHER_TOL)),
+    ):
+        reset_launch_counts()
+        xo, info_o = fn()
+        torch.cuda.synchronize()
+        matvecs = LAUNCHES["row_ell_spmv"]
+        if info_o != 0 or matvecs == 0 or sum(LAUNCHES.values()) != matvecs:
+            raise AssertionError(f"linalg_path: {name} info {info_o}, launches {dict(LAUNCHES)}")
+        rel = la_check_residual(name, host2, xo[sigma2], b2, LA_OTHER_TOL)
+        wall = la_wall_ms(fn)
+        others[name] = {"matvecs": matvecs, "wall_ms": wall, "ms_per_matvec": wall / matvecs, "reads_back_per_solve": reads_back(fn), "relative_residual": rel}
+
+    _, ap3, _, _, _ = la_operators(LA_EIG_SIDE, dev)
+
+    def eig():
+        return linalg.eigsh(ap3, k=LA_EIG_K, ncv=LA_EIG_NCV)
+
+    reset_launch_counts()
+    w, V = eig()
+    torch.cuda.synchronize()
+    eig_matvecs = LAUNCHES["row_ell_spmv"]
+    i = np.arange(1, LA_EIG_SIDE + 1)
+    lam1 = 4 * np.sin(np.pi * i / (2 * (LA_EIG_SIDE + 1))) ** 2
+    want_w = np.sort((lam1[:, None] + lam1[None, :]).ravel())[-LA_EIG_K:]
+    if eig_matvecs == 0 or not np.allclose(w.cpu().numpy(), want_w, rtol=LA_EIG_RTOL, atol=0):
+        raise AssertionError(f"linalg_path: eigsh {w.cpu().numpy()} against the closed form {want_w}, {eig_matvecs} K1 launches")
+    wall = la_wall_ms(eig)
+    others["eigsh"] = {"matvecs": eig_matvecs, "wall_ms": wall, "ms_per_matvec": wall / eig_matvecs, "reads_back_per_solve": reads_back(eig), "eigenvalues": w.cpu().numpy().tolist()}
+
+    xs = linalg.spsolve(ap2, bp2)
+    want_s = spla.spsolve(host2_p.tocsc(), bp2.cpu().numpy())
+    s_err = float(np.abs(xs.cpu().numpy() - want_s).max())
+    if xs.device.type != "cuda" or not s_err <= LA_SPSOLVE_RTOL * np.abs(want_s).max():
+        raise AssertionError(f"linalg_path: spsolve against scipy's, max abs err {s_err}")
+    others["spsolve"] = {"wall_ms": la_wall_ms(lambda: linalg.spsolve(ap2, bp2)), "max_abs_err_vs_scipy": s_err}
+
+    line = {
+        "linalg_path": "ok",
+        "seconds": time.perf_counter() - t_phase,
+        "poisson": {"side": LA_SIDE, "n": n, "nnz": nnz, "tol": LA_TOL, "dia_offsets": list(dia.offsets)},
+        "cg": routes,
+        "iterations": {"dia": it, "k1": itp},
+        "launches": {"dia_route": launches_dia, "k1_route": launches_k1, "dia_spmv_calls": len(dia_calls)},
+        "permuted_vs_natural": {"abs_diff": diff, "bound": diff_bound, "relative": diff / float(torch.linalg.vector_norm(x))},
+        "matvec_ms": {
+            "k1_graph": k1_ms,
+            "k1_eager": k1_eager_ms,
+            "dia_eager": d1_eager_ms,
+            "dia_graph": d1_graph_ms,
+            "torch_mv_csr_permuted": k1_lib_ms,
+            "torch_mv_csr": d1_lib_ms,
+            "k1_bound": k1_bound,
+            "dia_bound": d1_bound,
+        },
+        "others": others,
+        "kernel_lines": [k1_line, d1_line],
+        "card": card,
+    }
+    return line, k1_line
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -3825,6 +4144,12 @@ def main():
     log(json.dumps(at_line))
     lines += at_kernels
     del at_line
+    torch.cuda.empty_cache()
+    # the Krylov solvers (linalg): CG on the DIA shifts and on K1, gmres, tfqmr, eigsh, spsolve
+    la_line, la_k1 = phase_linalg_path(dev, card)
+    log(json.dumps(la_line))
+    lines.append(la_k1)
+    del la_line
     torch.cuda.empty_cache()
 
     # the block-sparse layer (BSR)

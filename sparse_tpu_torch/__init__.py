@@ -28,9 +28,12 @@ the DOK format (a dict on the host), ``save_npz``/``load_npz`` with
 ``sparse_tpu``'s npz schema, the creation functions (``eye``, ``full``,
 ``zeros``, ``asarray``, ...), ``random`` (``sparse_tpu.random``'s draws) and
 the rest of the namespace (``sort``, ``argmax``, ``unique_counts``,
-``kron``, ``interp``, ...). ``testing`` holds ``assert_eq`` and its kin.
+``kron``, ``interp``, ...), and ``linalg``: the Krylov solvers and spectral
+functions of ``sparse_tpu.linalg`` on the operand's device (their matvecs on
+the DIA shifts or the row-ELL SpMV kernel) with scipy's direct solvers as host
+bridges. ``testing`` holds ``assert_eq`` and its kin.
 
-``CSR``, ``CSC``, ``jitops``, ``kernels``, ``matvec_add``, ``nn``,
+``CSR``, ``CSC``, ``jitops``, ``kernels``, ``linalg``, ``matvec_add``, ``nn``,
 ``sddmm``, ``swapaxes`` and ``transpose`` are attributes, not names of
 ``__all__``, which names exactly what ``sparse_tpu.__all__`` names.
 
@@ -214,6 +217,7 @@ from .ops.creation import (
 from .ops.dot import dot, matmul, matvec_add, sddmm, tensordot, vecdot
 from .ops.einsum import einsum
 from .ops.elemwise import broadcast_to, elemwise
+from . import linalg  # noqa: E402  (after the namespace it builds on)
 
 
 def clip(a, min=None, max=None, out=None, *, a_min=None, a_max=None):  # noqa: A002

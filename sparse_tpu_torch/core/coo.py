@@ -759,6 +759,24 @@ class COO(SparseArray):
 
         return self._cached_layout("row_ell", row_ell_cache_key(min_pad, max_tiers, group), compute)
 
+    def to_dia(self, max_bands=64, max_fill=8.0):
+        """Cached DIA (banded) layout, built on the array's device, or
+        ``None`` when the matrix isn't usefully banded (or not square 2-D):
+        the matvec becomes shifted multiply-adds (``kernels.dia_spmv``),
+        with no gather."""
+        from ..kernels.dia import build_dia
+
+        if self.ndim != 2 or self.shape[0] != self.shape[1]:
+            return None
+        check_zero_fill_value(self, func_name="to_dia")
+
+        def compute():
+            return build_dia(
+                self.coords[0], self.coords[1], self.data, self.shape[0], max_bands=max_bands, max_fill=max_fill
+            )
+
+        return self._cached_layout("dia", (max_bands, max_fill), compute)
+
 
 def _kept_result(data, arr_attrs, result_fill_value):
     """The COO of a reduction over some axes: one entry per kept key whose

@@ -15,6 +15,7 @@ from ._utils import torch_dtype, zero_of_dtype
 from .core.coo import COO, _as_tensor
 from .core.gcxs import GCXS, _validate_compressed_axes
 from .kernels.bsr import bsr_from_numpy
+from .kernels.dia import DiaMatrix
 from .kernels.ell import DEFAULT_BLOCK_ROWS, block_ell_3d_from_numpy
 from .kernels.row_ell import pack_row_ell
 from .nn import make_block_sparse_linear_params
@@ -50,6 +51,13 @@ def row_ell_from_arrays(tiers, perm_inv, n_rows, n_cols, nz_rows, device=None):
     ``(cols, data)`` NumPy pairs, ``perm_inv`` as a NumPy array."""
     tiers = [(np.asarray(c), np.asarray(d)) for c, d in tiers]
     return pack_row_ell(tiers, np.asarray(perm_inv), n_rows, n_cols, nz_rows, device=device)
+
+
+def dia_from_arrays(offsets, bands, shape, device=None):
+    """The port's ``DiaMatrix`` from a JAX ``DiaMatrix``'s fields, taken as
+    they are."""
+    device = resolve_device(device)
+    return DiaMatrix(tuple(int(o) for o in offsets), _float_tensor(bands, device), tuple(shape))
 
 
 def _float_tensor(a, device):

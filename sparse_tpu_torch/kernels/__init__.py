@@ -16,9 +16,11 @@ the tile route on the tensor cores over a block layout,
 ``build_attention_blocks``, and the row kernel; ``ell_attention_plain`` and
 the tile route's ``ell_attention_blocks_plain``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
-runs), ``elemwise`` (the traceable union of two COO operands) and
+runs), ``elemwise`` (the traceable union of two COO operands),
 ``spgemm`` (sparse × sparse, eager and capacity-bounded, with
-``product_count``) are torch ops: the JAX package leaves their work to XLA.
+``product_count``) and ``dia`` (the banded layout, ``build_dia``, and its
+shifted products ``dia_spmv``/``dia_spmm``) are torch ops: the JAX package
+leaves their work to XLA.
 """
 
 from ._cuda import LAUNCHES, reset_launch_counts
@@ -36,6 +38,7 @@ from .bsr import (
     build_bsr,
     transpose_bsr_layout,
 )
+from .dia import DiaMatrix, build_dia, dia_spmm, dia_spmv
 from .dot import coo_spmm, coo_spmv, coo_sum_axes_dense, dense_coo_matmul, mttkrp, mttkrp_plain, sddmm, sddmm_plain
 from .elemwise import coo_elemwise_union
 from .segment import segment_reduce, segment_sum_onehot_mm
@@ -64,6 +67,7 @@ from .row_ell import (
 __all__ = [
     "BSR",
     "DEFAULT_BLOCK_ROWS",
+    "DiaMatrix",
     "BlockEll",
     "BlockEll3d",
     "LAUNCHES",
@@ -81,12 +85,15 @@ __all__ = [
     "build_block_ell",
     "build_block_ell_3d",
     "build_bsr",
+    "build_dia",
     "build_row_ell",
     "coo_elemwise_union",
     "coo_spmm",
     "coo_spmv",
     "coo_sum_axes_dense",
     "dense_coo_matmul",
+    "dia_spmm",
+    "dia_spmv",
     "ell_attention",
     "ell_attention_plain",
     "ell_mttkrp",

@@ -1,0 +1,113 @@
+"""DIA (diagonal/banded) layout and its products, on torch tensors.
+
+Stencil-structured matrices (grid Laplacians, tridiagonal systems,
+finite-difference operators) hold all of their entries on a handful of
+diagonals. In DIA form the matvec is a sum of shifted element-wise
+products, with no gather: ``bands[i, r] == A[r, r + offsets[i]]``.
+
+The layout is the one ``sparse_tpu.kernels.dia.build_dia`` builds, array
+for array: the offsets are the sorted distinct ``col - row`` of the entries
+(Python ints), ``bands`` a dense ``(k, n)`` tensor on the array's device.
+It is built on the device (a unique of the diagonals, a search, one
+scatter), with one read back of the offsets.
+
+``dia_spmv`` and ``dia_spmm`` are torch ops: the JAX package leaves them to
+XLA. They add ``bands[i] * x_shifted`` into a result that starts from zeros,
+one pass a diagonal in offset order, over the rows that diagonal reaches
+(outside them the band is zero by construction): a product, then a sum,
+each rounded, as XLA rounds them, so the results are the JAX package's bit
+for bit.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._settings import resolve_device
+from .._utils import result_dtype
+
+#: refuse conversions that would pad more than this many stored values per nnz
+_MAX_FILL_RATIO = 8.0
+#: refuse matrices with more distinct diagonals than this
+_MAX_BANDS = 64
+
+
+class DiaMatrix(NamedTuple):
+    """Banded matrix: ``bands[i, r] == A[r, r + offsets[i]]`` (0 outside)."""
+
+    offsets: tuple  # diagonal offsets (col - row) as Python ints, sorted
+    bands: torch.Tensor  # (k, n)
+    shape: tuple  # (n, n)
+
+
+def _tensor(a, device):
+    """``a`` as a tensor on ``device``: NumPy input is copied there, a tensor elsewhere raises."""
+    if isinstance(a, torch.Tensor):
+        if a.device != device:
+            raise ValueError(f"an input is on {a.device} but the layout is on {device}")
+        return a
+    return torch.as_tensor(np.asarray(a), device=device)
+
+
+def build_dia(rows, cols, data, n, max_bands=_MAX_BANDS, max_fill=_MAX_FILL_RATIO, device=None):
+    """Convert canonical COO triplets of an ``n×n`` matrix to DIA form on
+    the device of ``data`` (a tensor), or on ``device`` for NumPy input.
+
+    Returns ``None`` when the matrix isn't usefully banded: more than
+    ``max_bands`` distinct diagonals, or band storage exceeding
+    ``max_fill`` × nnz.
+    """
+    if isinstance(data, torch.Tensor):
+        device = data.device
+    else:
+        device = resolve_device(device)
+    rows, cols, data = (_tensor(a, device) for a in (rows, cols, data))
+    if data.numel() == 0:
+        return None
+    rows = rows.to(torch.int64)
+    diffs = cols.to(torch.int64) - rows
+    offsets = torch.unique(diffs)  # sorted
+    k = offsets.numel()
+    if k > max_bands or k * n > max_fill * data.numel():
+        return None
+    bands = torch.zeros((k, n), dtype=data.dtype, device=device)
+    bands[torch.searchsorted(offsets, diffs), rows] = data
+    return DiaMatrix(tuple(offsets.tolist()), bands, (n, n))
+
+
+def _operand(bands, x, ndim):
+    x = _tensor(x, bands.device)
+    if x.ndim != ndim or x.shape[0] != bands.shape[1]:
+        raise ValueError(f"operand of shape {tuple(x.shape)} does not fit {bands.shape[1]} columns")
+    return x
+
+
+def _shifted_sum(offsets, bands, x):
+    """``sum_i bands[i] * x[r + offsets[i]]`` over the rows each diagonal
+    reaches; ``x`` is ``(n,)`` or ``(n, m)``."""
+    n = bands.shape[1]
+    dt = result_dtype(bands.dtype, x.dtype)
+    bands, x = bands.to(dt), x.to(dt)
+    y = torch.zeros((n, *x.shape[1:]), dtype=dt, device=x.device)
+    for i, o in enumerate(offsets):
+        r0, r1 = max(0, -o), min(n, n - o)
+        if r0 >= r1:
+            continue
+        band = bands[i, r0:r1]
+        if x.ndim == 2:
+            band = band[:, None]
+        y[r0:r1].add_(band * x[r0 + o : r1 + o])
+    return y
+
+
+def dia_spmv(offsets, bands, x):
+    """``y = A @ x`` for a DIA matrix: one shifted multiply-add a diagonal."""
+    return _shifted_sum(offsets, bands, _operand(bands, x, 1))
+
+
+def dia_spmm(offsets, bands, dense):
+    """``Y = A @ X`` for a DIA matrix and dense ``X`` of shape (n, m)."""
+    return _shifted_sum(offsets, bands, _operand(bands, dense, 2))
