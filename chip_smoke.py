@@ -136,6 +136,21 @@ drives the port's two paths on the card:
   twice, against its plain version, timed beside the gather route and
   ``torch.sparse.mm``, with the union layout's build time and bytes;
 
+- the graph algorithms (the ``csgraph_path`` line), float64, on the bench
+  graph of bench_suite.py:386-389 (131,072 nodes, 1,048,576 uniform random
+  edges, weights U[0.05, 1.05), from a seed): ``dijkstra`` and
+  ``bellman_ford`` from 8 sources on K7, the min-plus relaxation kernel,
+  against scipy at rtol 1e-12 with its ``inf`` pattern, K7 counted at the
+  rounds + 1 and held bit for bit against its plain version (one round, the
+  fixed point at 8 and 128 sources), the layout built once for two calls,
+  the predecessor trees through ``reconstruct_path``; all sources of a
+  16,384-node graph on K7 (64 seeded rows against scipy; the plain version
+  is not run, its block would be 34 GB a round); PageRank on K1 against a
+  host power iteration; weak components, the spanning tree of the
+  symmetrised graph and Floyd-Warshall at 1,024 nodes against scipy; K7
+  timed beside ``scatter_reduce_`` "amin" over the edge list, the solve's
+  wall split into the edge list's read back and the loop;
+
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
   sparse column, ufuncs, a cast and the reductions of the bench matrix as
@@ -216,6 +231,7 @@ SOURCE = {
     "sampled_row_sum_union": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",  # K5's union route
     "ell_attention": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "ell_attention_tiles": "sparse_tpu_torch/kernels/csrc/attention.cu",
+    "minplus_relax": "sparse_tpu_torch/kernels/csrc/minplus.cu",
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -240,6 +256,7 @@ REPLACES = {
     "sampled_row_sum_union": "sparse_tpu/kernels/dot.py:124",  # the same function, K5's union route
     "ell_attention": "sparse_tpu/nn.py:282",  # sparse_attention_ell (XLA gather, score, masked softmax, weighted sum)
     "ell_attention_tiles": "sparse_tpu/nn.py:282",  # the same function, its tile route
+    "minplus_relax": "sparse_tpu/csgraph.py:228",  # _bellman_ford_device_ell and its _tail form :255 (XLA)
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -4089,6 +4106,331 @@ def phase_linalg_path(dev, card):
     return line, k1_line
 
 
+# csgraph on the card (the csgraph_path line), float64: the bench graph of
+# bench_suite.py:386-389 (n = 131,072 nodes, 1,048,576 uniform random edges,
+# weights U[0.05, 1.05), 8 sources), drawn from CG_SEED; the COO sums the
+# draws' parallel edges, and scipy sees the COO's canonical entries
+CG_NODES, CG_EDGES, CG_SOURCES = 1 << 17, 1 << 20, 8
+CG_WIDE_SOURCES = 128  # K7 against its plain version at a wider table: the plain block is 2.1 GB a round
+# all sources where the plain version cannot run (its block 34 GB a round):
+# 16,384 nodes, 131,072 edges of the same kind, 64 seeded rows against scipy
+CG_ALL_NODES, CG_ALL_EDGES, CG_ALL_SAMPLE = 1 << 14, 1 << 17, 64
+CG_FW_NODES = 1024  # floyd_warshall on a graph of the same kind, mean degree 8
+CG_SEED = 23
+CG_RTOL = 1e-12  # distances, the tree's weight and Floyd-Warshall against scipy
+CG_PR_RTOL = 1e-12  # PageRank's scores against the host power iteration: max |Δ| over max |p|
+CG_PR_TOL = 1e-10  # pagerank's default stop tolerance
+CG_PATH_SOURCES = 3  # sources whose predecessor trees are checked with reconstruct_path
+
+
+def cg_graph(n, m, seed, dev):
+    """A uniform random graph as a port COO on ``dev`` and scipy CSR of its
+    canonical entries (the draws' parallel edges summed), and the host
+    entries ``(rows, cols, w)``."""
+    import scipy.sparse as sps
+    import sparse_tpu_torch as st
+
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, n, m), rng.integers(0, n, m)
+    w = rng.random(m) + 0.05
+    a = st.COO(torch.from_numpy(np.stack([rows, cols])).to(dev), torch.from_numpy(w).to(dev), shape=(n, n))
+    c = a.coords.cpu().numpy().astype(np.int64)
+    d = a.data.cpu().numpy()
+    return a, sps.csr_matrix((d, (c[0], c[1])), shape=(n, n)), (c[0], c[1], d)
+
+
+def cg_check_dist(name, got, want):
+    """``got`` (a tensor) against scipy's distances: the same ``inf``
+    pattern, finite entries within CG_RTOL; the largest relative error."""
+    got = got.cpu().numpy()
+    fin = np.isfinite(want)
+    if got.shape != want.shape or not np.array_equal(np.isfinite(got), fin):
+        raise AssertionError(f"csgraph_path: {name}: shape {got.shape} or inf pattern differs from scipy's")
+    rel = np.abs(got[fin] - want[fin]) / np.maximum(np.abs(want[fin]), np.finfo(np.float64).tiny)
+    err = float(rel.max()) if rel.size else 0.0
+    if not err <= CG_RTOL:
+        raise AssertionError(f"csgraph_path: {name}: relative error {err} > {CG_RTOL}")
+    return err
+
+
+def cg_max_abs_diff(x, y):
+    """``max |x - y|`` of two tables, 0 where they hold the same value
+    (``inf`` included), ``inf`` where their ``inf`` patterns differ."""
+    return float(torch.where(x == y, torch.zeros_like(x), (x - y).abs()).max())
+
+
+def cg_pagerank_host(host, alpha=0.85, tol=CG_PR_TOL, maxiter=200):
+    """PageRank by the reference's formula on the host in float64 (scipy CSR
+    of the out-normalized Wᵀ): ``(scores, iterations)``."""
+    import scipy.sparse as sps
+
+    n = host.shape[0]
+    c = host.tocoo()
+    out_deg = np.zeros(n)
+    np.add.at(out_deg, c.row, c.data)
+    dangling = out_deg == 0
+    wn = np.where(out_deg[c.row] > 0, c.data / np.where(out_deg[c.row] > 0, out_deg[c.row], 1.0), 0.0)
+    wt = sps.csr_matrix((wn, (c.col, c.row)), shape=(n, n))
+    tele = np.full(n, 1.0 / n)
+    p = np.full(n, 1.0 / n)
+    delta, it = np.inf, 0
+    while delta > tol and it < maxiter:
+        new = alpha * (wt @ p + p[dangling].sum() * tele) + (1.0 - alpha) * tele
+        delta = np.abs(new - p).sum()
+        p, it = new, it + 1
+    return p, it
+
+
+def phase_csgraph_path(dev, card):
+    """``sparse_tpu_torch.csgraph`` on the card: the shortest paths on K7 at
+    the bench graph's size against scipy, K7 against its plain version bit
+    for bit, all sources on a 16,384-node graph, PageRank on K1, the
+    components, the spanning tree and Floyd-Warshall. Returns ``(line,
+    [k7_kernel_line, k1_kernel_line])``."""
+    import scipy.sparse.csgraph as sp_csgraph
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch import csgraph
+    from sparse_tpu_torch.kernels import LAUNCHES, _cuda, minplus, reset_launch_counts, row_ell
+
+    t_phase = time.perf_counter()
+    a, host, (h_rows, h_cols, h_w) = cg_graph(CG_NODES, CG_EDGES, CG_SEED, dev)
+    n, nnz = CG_NODES, a.nnz
+    sources = np.arange(CG_SOURCES)
+
+    # the main path: dijkstra from 8 sources, the layout built on the first call
+    builds = []
+    real_build = minplus.build_dest_ell
+    minplus.build_dest_ell = lambda *args, **kw: builds.append(1) or real_build(*args, **kw)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        dist = csgraph.dijkstra(a, indices=sources)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches_dij = dict(LAUNCHES)
+        ell = a.peek_layout("dest_ell", True)
+        reset_launch_counts()
+        dist_bf = csgraph.bellman_ford(a, indices=sources)
+        torch.cuda.synchronize()
+        launches_bf = dict(LAUNCHES)
+        if len(builds) != 1 or a.peek_layout("dest_ell", True) is not ell:
+            raise AssertionError(f"csgraph_path: the layout was built {len(builds)} times for two calls on one COO")
+    finally:
+        minplus.build_dest_ell = real_build
+    if ell is None:
+        raise AssertionError("csgraph_path: the bench graph built no dest-ELL layout")
+    L0 = ell.e_src.shape[1]
+    tail_shape = None if ell.tail is None else list(ell.tail[0].shape)
+
+    # the rounds, from the plain version's fixed point on the same start table
+    src = torch.from_numpy(sources).to(dev)
+    start = src if ell.inv is None else ell.inv[src]
+    distT0 = csgraph._start_table(CG_SOURCES, n, start, dev)
+
+    def plain(d, s, e, t, out=None):
+        return minplus.minplus_relax_plain(d, s, e, t)
+
+    fix_p, neg_p, rounds = minplus.minplus_fixpoint(distT0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1, relax=plain)
+    dist_p = fix_p.T.contiguous() if ell.inv is None else torch.index_select(fix_p.T, 1, ell.inv)
+    k7_err = cg_max_abs_diff(dist, dist_p)
+    if neg_p or not torch.equal(dist, dist_p) or not torch.equal(dist_bf, dist):
+        raise AssertionError("csgraph_path: dijkstra/bellman_ford on K7 differ from the plain fixed point")
+    for name, got in (("dijkstra", launches_dij), ("bellman_ford", launches_bf)):
+        if got["minplus_relax"] != rounds + 1 or got["row_ell_spmv"] != 0 or sum(got.values()) != rounds + 1:
+            raise AssertionError(f"csgraph_path: {name} launched {got} for {rounds} rounds (+1 for has_neg)")
+    want = sp_csgraph.dijkstra(host, indices=sources)
+    err_dij = cg_check_dist("dijkstra, 8 sources", dist, want)
+    err_bf = cg_check_dist("bellman_ford, 8 sources", dist_bf, want)
+
+    # predecessors: each tree's edges against scipy's distances
+    d_pred, pred = csgraph.dijkstra(a, indices=sources, return_predecessors=True)
+    if not torch.equal(d_pred, dist):
+        raise AssertionError("csgraph_path: dijkstra with predecessors moved the distances")
+    path_err = 0.0
+    for s in range(CG_PATH_SOURCES):
+        tree = csgraph.reconstruct_path(a, pred[s])
+        p, j = (t.cpu().numpy() for t in tree.coords)
+        tw = tree.data.cpu().numpy()
+        reach = np.isfinite(want[s])
+        if not (np.array_equal(np.sort(j), np.flatnonzero(reach & (np.arange(n) != s))) and reach[p].all()):
+            raise AssertionError(f"csgraph_path: the predecessor tree of source {s} does not span its reachable nodes")
+        rel = np.abs(want[s, p] + tw - want[s, j]) / want[s, j]
+        path_err = max(path_err, float(rel.max()))
+    if not path_err <= CG_RTOL:
+        raise AssertionError(f"csgraph_path: predecessor edges off scipy's distances by {path_err}")
+
+    # K7 against its plain version: one round, and the fixed point at 128 sources
+    out = torch.empty_like(distT0)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    _cuda.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out, flag)
+    one_p, changed_p = minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail)
+    k7_err = max(k7_err, cg_max_abs_diff(out, one_p))
+    if not (torch.equal(out, one_p) and bool(flag) == bool(changed_p)):
+        raise AssertionError("csgraph_path: one K7 round differs from the plain round")
+    wide_src = torch.arange(CG_WIDE_SOURCES, device=dev)
+    wide0 = csgraph._start_table(CG_WIDE_SOURCES, n, wide_src if ell.inv is None else ell.inv[wide_src], dev)
+    fix_k, neg_k, rounds_w = minplus.minplus_fixpoint(wide0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1)
+    fix_w, neg_w, rounds_wp = minplus.minplus_fixpoint(wide0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1, relax=plain)
+    k7_err = max(k7_err, cg_max_abs_diff(fix_k, fix_w))
+    if not (torch.equal(fix_k, fix_w) and (neg_k, rounds_w) == (neg_w, rounds_wp)):
+        raise AssertionError("csgraph_path: K7's fixed point at 128 sources differs from the plain version's")
+    del fix_k, fix_w, wide0
+
+    # times at the bench graph
+    solve_ms = la_wall_ms(lambda: csgraph.dijkstra(a, indices=sources))
+    solve_reads = reads_back(lambda: csgraph.dijkstra(a, indices=sources))
+    # the solve's parts: the edge list read back to the host, and the loop of rounds alone
+    triplet_ms = la_wall_ms(lambda: csgraph._graph_triplet(a))
+    loop_ms = la_wall_ms(lambda: minplus.minplus_fixpoint(distT0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1))
+    k7_ms = time_graph(lambda: _cuda.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out, flag))
+    k7_eager = time_eager(lambda: minplus.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out=out))
+    plain_eager = time_eager(lambda: minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail), reps=5)
+    plain_graph = time_graph(lambda: minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail), reps=5)
+    # no single PyTorch call computes a min-plus product: scatter_reduce_'s
+    # "amin" over the edge list, its candidates computed beforehand
+    e_rows, e_cols, e_w = (torch.from_numpy(x).to(dev) for x in (h_rows, h_cols, h_w))
+    d0 = distT0.T.contiguous()
+    cand_t = (d0[:, e_rows] + e_w[None, :]).T
+    seg = torch.full((n, CG_SOURCES), torch.inf, dtype=torch.float64, device=dev)
+    idx = e_cols[:, None].expand(-1, CG_SOURCES)
+    lib_ms = time_eager(lambda: seg.scatter_reduce_(0, idx, cand_t, "amin"))
+    del cand_t, seg, idx, d0
+    # the bytes the round needs: each edge's source and weight (int64 and
+    # float64) once, the table read once and written once; the layout's +inf
+    # padding slots are not counted
+    k7_bytes = nnz * 16 + 2 * n * CG_SOURCES * 8
+    k7_bound = k7_bytes / HBM_BYTES_PER_S * 1e3  # a comparison and an add an edge: far below the float64 peak
+    slots = ell.e_src.numel() + (0 if ell.tail is None else ell.tail[0].numel())
+    k7_line = {
+        "name": "K7 minplus_relax (csgraph_path: dijkstra, bench graph 131,072 nodes, 8 sources, float64)",
+        "route": "cuda",
+        "source": SOURCE["minplus_relax"],
+        "replaces": REPLACES["minplus_relax"],
+        "launches": launches_dij["minplus_relax"],
+        "max_abs_err": k7_err,  # one round and both fixed points against the plain version
+        "ms": k7_ms,
+        "plain_ms": plain_eager,
+        "bound_ms": k7_bound,
+        "bound_by": "bytes",
+        "library_ms": lib_ms,  # scatter_reduce_(..., "amin") over the edge list, one call
+    }
+    log(json.dumps({**k7_line, "eager_ms": k7_eager, "plain_graph_ms": plain_graph, "bound_bytes": k7_bytes, "bound_share": k7_bound / k7_ms, "layout_slots": slots, "edges": nnz, "library": "scatter_reduce_ amin over the edge list (candidates precomputed); no PyTorch call computes a min-plus product", "card": card}))
+    del distT0, out
+
+    # all sources where the plain version cannot run
+    a_all, host_all, _ = cg_graph(CG_ALL_NODES, CG_ALL_EDGES, CG_SEED + 1, dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_all = csgraph.shortest_path(a_all, method="BF")
+    torch.cuda.synchronize()
+    all_s = time.perf_counter() - t0
+    all_rounds = LAUNCHES["minplus_relax"] - 1
+    sample = np.sort(np.random.default_rng(CG_SEED + 2).choice(CG_ALL_NODES, CG_ALL_SAMPLE, replace=False))
+    err_all = cg_check_dist("shortest_path BF, all sources (sample)", d_all[torch.from_numpy(sample).to(dev)], sp_csgraph.dijkstra(host_all, indices=sample))
+    ell_all = a_all.peek_layout("dest_ell", True)
+    del d_all
+    all0 = csgraph._start_table(CG_ALL_NODES, CG_ALL_NODES, torch.arange(CG_ALL_NODES, device=dev) if ell_all.inv is None else ell_all.inv, dev)
+    all_out = torch.empty_like(all0)
+    all_round_ms = time_graph(lambda: _cuda.minplus_relax(all0, ell_all.e_src, ell_all.e_w, ell_all.tail, all_out, flag), reps=5)
+    all_bound = (a_all.nnz * 16 + 2 * all0.numel() * 8) / HBM_BYTES_PER_S * 1e3
+    del all0, all_out, a_all
+    torch.cuda.empty_cache()
+
+    # PageRank on K1
+    reset_launch_counts()
+    scores, iters = csgraph.pagerank(a)
+    torch.cuda.synchronize()
+    launches_pr = dict(LAUNCHES)
+    want_p, want_it = cg_pagerank_host(host)
+    pr_err = float(np.abs(scores.cpu().numpy() - want_p).max())
+    pr_rel = pr_err / float(np.abs(want_p).max())
+    if iters != want_it or not pr_rel <= CG_PR_RTOL:
+        raise AssertionError(f"csgraph_path: pagerank {iters} iterations (host {want_it}), max abs err {pr_err}, relative {pr_rel}")
+    if launches_pr["row_ell_spmv"] != iters or sum(launches_pr.values()) != iters:
+        raise AssertionError(f"csgraph_path: pagerank launched {launches_pr} for {iters} iterations")
+    scores2, _ = csgraph.pagerank(a)
+    if not torch.equal(scores, scores2):
+        raise AssertionError("csgraph_path: pagerank's scores moved between two calls")
+    pr_ms = la_wall_ms(lambda: csgraph.pagerank(a))
+    pr_inputs_ms = la_wall_ms(lambda: csgraph._pagerank_inputs(a, None))
+    pr_reads = reads_back(lambda: csgraph.pagerank(a))
+    wt = a.peek_layout("pagerank_walk", None)
+    rell = wt.to_row_ell()
+    p_vec = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
+    pr_out = torch.empty_like(p_vec)
+    k1_got = row_ell.row_ell_spmv(rell, p_vec)
+    k1_err = float((k1_got - row_ell._spmv_plain(rell, p_vec)).abs().max())
+    if not k1_err <= 1e-15:
+        raise AssertionError(f"csgraph_path: K1 at PageRank's shape against its plain version, max abs err {k1_err}")
+    k1_ms = time_graph(lambda: _cuda.spmv(rell, p_vec, None, pr_out))
+    k1_plain = time_eager(lambda: row_ell._spmv_plain(rell, p_vec), reps=5)
+    csr_wt = torch.sparse_coo_tensor(wt.coords.long(), wt.data, (n, n)).coalesce().to_sparse_csr()
+    k1_lib = time_eager(lambda: torch.mv(csr_wt, p_vec))
+    k1_bytes = wt.nnz * (4 + 8) + 8 * n + 8 * n  # int32 column and float64 value an entry, x, y
+    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, 2 * wt.nnz / F64_FLOPS_PER_S) * 1e3
+    k1_line = {
+        "name": "row_ell_spmv (csgraph_path: pagerank's Wᵀ p, bench graph, float64)",
+        "route": "cuda",
+        "source": SOURCE["row_ell_spmv"],
+        "replaces": REPLACES["row_ell_spmv"],
+        "launches": launches_pr["row_ell_spmv"],
+        "max_abs_err": k1_err,
+        "ms": k1_ms,
+        "plain_ms": k1_plain,
+        "bound_ms": k1_bound,
+        "bound_by": "bytes",
+        "library_ms": k1_lib,
+    }
+    log(json.dumps({**k1_line, "bound_bytes": k1_bytes, "bound_share": k1_bound / k1_ms, "card": card}))
+    del csr_wt, k1_got
+
+    # weak components, the spanning tree of the symmetrised graph, Floyd-Warshall
+    t0 = time.perf_counter()
+    n_cc, labels = csgraph.connected_components(a)
+    torch.cuda.synchronize()
+    cc_s = time.perf_counter() - t0
+    ref_n, ref_labels = sp_csgraph.connected_components(host, directed=True, connection="weak")
+    if n_cc != ref_n or not np.array_equal(labels.cpu().numpy(), ref_labels):
+        raise AssertionError(f"csgraph_path: {n_cc} weak components against scipy's {ref_n}, or other labels")
+    und = host.maximum(host.T)
+    und_c = und.tocoo()
+    a_und = st.COO(torch.from_numpy(np.stack([und_c.row, und_c.col]).astype(np.int64)).to(dev), torch.from_numpy(und_c.data).to(dev), shape=(n, n))
+    t0 = time.perf_counter()
+    tree = csgraph.minimum_spanning_tree(a_und)
+    mst_s = time.perf_counter() - t0
+    ref_tree = sp_csgraph.minimum_spanning_tree(und)
+    tree_w, ref_w = float(tree.data.sum()), float(ref_tree.data.sum())
+    if tree.nnz != ref_tree.nnz or not abs(tree_w - ref_w) <= CG_RTOL * ref_w:
+        raise AssertionError(f"csgraph_path: spanning tree nnz {tree.nnz} weight {tree_w} against scipy's {ref_tree.nnz}, {ref_w}")
+    a_fw, host_fw, _ = cg_graph(CG_FW_NODES, 8 * CG_FW_NODES, CG_SEED + 3, dev)
+    t0 = time.perf_counter()
+    d_fw = csgraph.floyd_warshall(a_fw)
+    torch.cuda.synchronize()
+    fw_s = time.perf_counter() - t0
+    err_fw = cg_check_dist("floyd_warshall", d_fw, sp_csgraph.floyd_warshall(host_fw))
+
+    line = {
+        "csgraph_path": "ok",
+        "seconds": time.perf_counter() - t_phase,
+        "graph": {"nodes": n, "edge_draws": CG_EDGES, "edges": nnz, "sources": CG_SOURCES, "seed": CG_SEED},
+        "layout": {"L0": L0, "tail": tail_shape, "relabelled": ell.inv is not None, "first_call_s_incl_layout": first_s},
+        "rounds": rounds,
+        "launches": {k: {c: v for c, v in got.items() if v} for k, got in (("dijkstra", launches_dij), ("bellman_ford", launches_bf), ("pagerank", launches_pr))},
+        "rel_err_vs_scipy": {"dijkstra": err_dij, "bellman_ford": err_bf, "predecessor_edges": path_err, "all_sources_sample": err_all, "floyd_warshall": err_fw},
+        "solve": {"wall_ms": solve_ms, "ms_per_round": solve_ms / (rounds + 1), "reads_back_per_solve": solve_reads, "graph_triplet_ms": triplet_ms, "loop_ms": loop_ms, "loop_ms_per_round": loop_ms / (rounds + 1)},
+        "k7_ms": {"graph": k7_ms, "eager": k7_eager, "plain_eager": plain_eager, "plain_graph": plain_graph, "bound": k7_bound, "scatter_reduce_amin": lib_ms},
+        "wide_128_sources": {"rounds": rounds_w, "plain_block_bytes": n * L0 * CG_WIDE_SOURCES * 8},
+        "all_sources": {"nodes": CG_ALL_NODES, "edges": CG_ALL_EDGES, "rounds": all_rounds, "wall_s": all_s, "k7_round_ms": all_round_ms, "k7_round_bound_ms": all_bound, "plain": "not run: its gathered block would be n * L0 * k * 8 bytes a round", "plain_block_bytes": ell_all.e_src.numel() * CG_ALL_NODES * 8, "sample_rows": CG_ALL_SAMPLE},
+        "pagerank": {"iterations": iters, "max_abs_err_vs_host": pr_err, "rel_err_vs_host": pr_rel, "wall_ms": pr_ms, "ms_per_iteration": pr_ms / iters, "reads_back_per_solve": pr_reads, "inputs_ms": pr_inputs_ms, "k1_ms": k1_ms},
+        "components": {"n": n_cc, "seconds": cc_s},
+        "spanning_tree": {"nnz": tree.nnz, "weight": tree_w, "seconds": mst_s},
+        "floyd_warshall": {"nodes": CG_FW_NODES, "seconds": fw_s},
+        "card": card,
+    }
+    return line, [k7_line, k1_line]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -4150,6 +4492,12 @@ def main():
     log(json.dumps(la_line))
     lines.append(la_k1)
     del la_line
+    torch.cuda.empty_cache()
+    # csgraph: shortest paths on K7, PageRank on K1, components, spanning tree, Floyd-Warshall
+    cg_line, cg_kernels = phase_csgraph_path(dev, card)
+    log(json.dumps(cg_line))
+    lines += cg_kernels
+    del cg_line
     torch.cuda.empty_cache()
 
     # the block-sparse layer (BSR)

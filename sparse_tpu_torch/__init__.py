@@ -31,9 +31,11 @@ the rest of the namespace (``sort``, ``argmax``, ``unique_counts``,
 ``kron``, ``interp``, ...), and ``linalg``: the Krylov solvers and spectral
 functions of ``sparse_tpu.linalg`` on the operand's device (their matvecs on
 the DIA shifts or the row-ELL SpMV kernel) with scipy's direct solvers as host
-bridges. ``testing`` holds ``assert_eq`` and its kin.
+bridges, and ``csgraph``: the graph algorithms of ``sparse_tpu.csgraph``
+(shortest paths on the min-plus relaxation kernel, PageRank on the row-ELL
+SpMV kernel). ``testing`` holds ``assert_eq`` and its kin.
 
-``CSR``, ``CSC``, ``jitops``, ``kernels``, ``linalg``, ``matvec_add``, ``nn``,
+``CSR``, ``CSC``, ``csgraph``, ``jitops``, ``kernels``, ``linalg``, ``matvec_add``, ``nn``,
 ``sddmm``, ``swapaxes`` and ``transpose`` are attributes, not names of
 ``__all__``, which names exactly what ``sparse_tpu.__all__`` names.
 
@@ -218,6 +220,7 @@ from .ops.dot import dot, matmul, matvec_add, sddmm, tensordot, vecdot
 from .ops.einsum import einsum
 from .ops.elemwise import broadcast_to, elemwise
 from . import linalg  # noqa: E402  (after the namespace it builds on)
+from . import csgraph  # noqa: E402
 
 
 def clip(a, min=None, max=None, out=None, *, a_min=None, a_max=None):  # noqa: A002

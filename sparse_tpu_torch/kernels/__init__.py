@@ -14,7 +14,10 @@ run one CUDA kernel (``csrc/mttkrp.cu``). ``attention`` holds the row-ELL
 attention, K6 (``ell_attention``, its CUDA kernels in ``csrc/attention.cu``:
 the tile route on the tensor cores over a block layout,
 ``build_attention_blocks``, and the row kernel; ``ell_attention_plain`` and
-the tile route's ``ell_attention_blocks_plain``). ``_cuda`` builds and
+the tile route's ``ell_attention_blocks_plain``). ``minplus`` holds the
+shortest paths' per-destination ELL layout (``build_dest_ell``) and the
+min-plus relaxation round, K7 (``minplus_relax``, its CUDA kernel in
+``csrc/minplus.cu``, and ``minplus_relax_plain``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
 runs), ``elemwise`` (the traceable union of two COO operands),
 ``spgemm`` (sparse × sparse, eager and capacity-bounded, with
@@ -41,6 +44,7 @@ from .bsr import (
 from .dia import DiaMatrix, build_dia, dia_spmm, dia_spmv
 from .dot import coo_spmm, coo_spmv, coo_sum_axes_dense, dense_coo_matmul, mttkrp, mttkrp_plain, sddmm, sddmm_plain
 from .elemwise import coo_elemwise_union
+from .minplus import DestEll, build_dest_ell, minplus_relax, minplus_relax_plain
 from .segment import segment_reduce, segment_sum_onehot_mm
 from .spgemm import esc_spgemm, product_count
 from .ell import (
@@ -67,6 +71,7 @@ from .row_ell import (
 __all__ = [
     "BSR",
     "DEFAULT_BLOCK_ROWS",
+    "DestEll",
     "DiaMatrix",
     "BlockEll",
     "BlockEll3d",
@@ -85,6 +90,7 @@ __all__ = [
     "build_block_ell",
     "build_block_ell_3d",
     "build_bsr",
+    "build_dest_ell",
     "build_dia",
     "build_row_ell",
     "coo_elemwise_union",
@@ -101,6 +107,8 @@ __all__ = [
     "ell_spmm",
     "ell_spmv",
     "esc_spgemm",
+    "minplus_relax",
+    "minplus_relax_plain",
     "mttkrp",
     "mttkrp_plain",
     "product_count",

@@ -13,7 +13,8 @@ that, allocate nothing themselves, launch on the current stream and do not
 synchronize. The row-ELL, MTTKRP and probe launchers take contiguous tensors;
 the BSR launchers and the SDDMM's read their operands through their
 strides, K5 its table and K6 (the row-ELL attention: its row kernel and its
-tile route) its q, k and v through a row stride. ``LAUNCHES``
+tile route) its q, k and v through a row stride; K7 (the min-plus
+relaxation) takes contiguous tables and layouts. ``LAUNCHES``
 counts the launches of each kernel; nothing else touches it.
 """
 
@@ -41,6 +42,7 @@ SOURCES = {
     "probes": _CSRC / "probes.cu",
     "sddmm": _CSRC / "sddmm.cu",
     "attention": _CSRC / "attention.cu",
+    "minplus": _CSRC / "minplus.cu",
 }
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparse_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -116,6 +118,7 @@ _SIGNATURES = {
         },
         "st_ell_attention_tiles_f32": [_p, _i64, _p, _i64, _p, _i64, _p, _p, _p, _p, *[_i64] * 5, _f64, _i64, _p, _p, _p, _p],
     },
+    "minplus": {f"st_minplus_relax_{dt}": [_p, _p, _p, _p, *[_i64] * 3, _p, _p, _i64, _i64, _p, _p] for dt in ("f32", "f64")},
 }
 
 LAUNCHES = {
@@ -141,6 +144,7 @@ LAUNCHES = {
     "sampled_row_sum_union": 0,
     "ell_attention": 0,
     "ell_attention_tiles": 0,
+    "minplus_relax": 0,
 }
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
@@ -2027,4 +2031,57 @@ def ell_attention_tiles(q, k, v, blocks, scale, out, route, config):
     )
     _raise_on(err, "ell_attention_tiles")
     LAUNCHES["ell_attention_tiles"] += 1
+    return out
+
+
+def minplus_relax(dist, e_src, e_w, tail, out, changed):
+    """Launch K7 (``csrc/minplus.cu``): one Jacobi round of the min-plus
+    relaxation of ``dist`` (n, k), float32 or float64, over the
+    per-destination ELL ``e_src``/``e_w`` (n, L0; int64 sources, weights of
+    ``dist``'s dtype) and its ``tail`` (``None`` or ``(t_src, t_w)`` of the
+    last ``d`` destinations) into ``out`` (not ``dist``); sets the 0-d bool
+    ``changed`` where an entry fell (the caller zeroes it). Counted as
+    ``minplus_relax``."""
+    dtype, device = dist.dtype, dist.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the min-plus kernel takes float32 or float64, not {dtype}")
+    require_cuda(device, "min-plus")
+    for name, t, dt in (("dist", dist, dtype), ("out", out, dtype), ("e_src", e_src, torch.int64), ("e_w", e_w, dtype)):
+        _check(name, t, dt, device)
+    _check_device(changed, torch.bool, device, "changed")
+    n, width = e_src.shape
+    k = dist.shape[1] if dist.ndim == 2 else -1
+    if dist.shape != (n, k) or out.shape != dist.shape or e_w.shape != e_src.shape or changed.numel() != 1:
+        raise ValueError("minplus_relax: operand shapes do not match the layout")
+    if out.data_ptr() == dist.data_ptr() and dist.numel():
+        raise ValueError("minplus_relax: out must not be dist (each round reads only the previous table)")
+    t_src = t_w = None
+    d = t_width = 0
+    if tail is not None:
+        t_src, t_w = tail
+        _check("t_src", t_src, torch.int64, device)
+        _check("t_w", t_w, dtype, device)
+        d, t_width = t_src.shape
+        if t_w.shape != t_src.shape or d > n:
+            raise ValueError("minplus_relax: the tail does not match the layout")
+    if n * k == 0:
+        return out
+    fn = getattr(load("minplus"), f"st_minplus_relax_{_SUFFIX[dtype]}")
+    err = fn(
+        dist.data_ptr(),
+        out.data_ptr(),
+        e_src.data_ptr(),
+        e_w.data_ptr(),
+        n,
+        width,
+        k,
+        None if t_src is None else t_src.data_ptr(),
+        None if t_w is None else t_w.data_ptr(),
+        d,
+        t_width,
+        changed.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(err, "minplus_relax")
+    LAUNCHES["minplus_relax"] += 1
     return out

@@ -101,7 +101,7 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes", "sddmm", "attention"}
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes", "sddmm", "attention", "minplus"}
     for name, path in _cuda.SOURCES.items():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
@@ -149,4 +149,5 @@ def test_launch_counters_start_and_reset():
         "sampled_row_sum_union": 0,
         "ell_attention": 0,
         "ell_attention_tiles": 0,
+        "minplus_relax": 0,
     }
