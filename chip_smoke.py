@@ -139,17 +139,25 @@ drives the port's two paths on the card:
 - the graph algorithms (the ``csgraph_path`` line), float64, on the bench
   graph of bench_suite.py:386-389 (131,072 nodes, 1,048,576 uniform random
   edges, weights U[0.05, 1.05), from a seed): ``dijkstra`` and
-  ``bellman_ford`` from 8 sources on K7, the min-plus relaxation kernel,
-  against scipy at rtol 1e-12 with its ``inf`` pattern, K7 counted at the
-  rounds + 1 and held bit for bit against its plain version (one round, the
-  fixed point at 8 and 128 sources), the layout built once for two calls,
-  the predecessor trees through ``reconstruct_path``; all sources of a
-  16,384-node graph on K7 (64 seeded rows against scipy; the plain version
-  is not run, its block would be 34 GB a round); PageRank on K1 against a
-  host power iteration; weak components, the spanning tree of the
-  symmetrised graph and Floyd-Warshall at 1,024 nodes against scipy; K7
-  timed beside ``scatter_reduce_`` "amin" over the edge list, the solve's
-  wall split into the edge list's read back and the loop;
+  ``bellman_ford`` from 8 sources on K7, the min-plus relaxation kernel
+  (its gather route), against scipy at rtol 1e-12 with its ``inf``
+  pattern, K7 counted at the rounds + 1 and held bit for bit against its
+  plain version (one round over the filled slots and over every slot, the
+  fixed point), the layout built once for two calls, the predecessor trees
+  through ``reconstruct_path``; ``dijkstra`` from 128 sources on K7's
+  sliced route (the table past L2), its fixed point and one round bit for
+  bit against the plain version's, counted at the rounds + 1; all sources
+  of a 16,384-node graph through ``shortest_path`` on the sliced route (64
+  seeded rows against scipy; one round bit for bit against the plain round
+  taken a column slice at a time, its whole block would be 34 GB), counted
+  at the rounds + 1; PageRank on K1 against a host power iteration; weak
+  components, the spanning tree of the symmetrised graph and
+  Floyd-Warshall at 1,024 nodes against scipy; K7 timed on each route (and
+  on the gather route where the rule slices, its round at 128 and at all
+  sources bit for bit against the plain round too) beside ``scatter_reduce_``
+  "amin" over the edge list and the plain round, with each bound, the
+  layout's count bytes, the solve's wall split into the edge list's read
+  back and the loop;
 
 - element-wise operations and reductions (BASELINE config 3, the
   ``elemwise_path`` line): unions, comparisons, a dense row, a broadcast
@@ -4111,10 +4119,12 @@ def phase_linalg_path(dev, card):
 # weights U[0.05, 1.05), 8 sources), drawn from CG_SEED; the COO sums the
 # draws' parallel edges, and scipy sees the COO's canonical entries
 CG_NODES, CG_EDGES, CG_SOURCES = 1 << 17, 1 << 20, 8
-CG_WIDE_SOURCES = 128  # K7 against its plain version at a wider table: the plain block is 2.1 GB a round
-# all sources where the plain version cannot run (its block 34 GB a round):
-# 16,384 nodes, 131,072 edges of the same kind, 64 seeded rows against scipy
+CG_WIDE_SOURCES = 128  # K7's sliced route through dijkstra against the plain version: its block is 2.1 GB a round
+# all sources, where the plain version runs a column slice at a time (its
+# whole block would be 34 GB a round): 16,384 nodes, 131,072 edges of the
+# same kind, 64 seeded rows against scipy
 CG_ALL_NODES, CG_ALL_EDGES, CG_ALL_SAMPLE = 1 << 14, 1 << 17, 64
+CG_ALL_PLAIN_COLS = 1024  # the plain round at all sources, a column slice at a time (2.1 GB blocks)
 CG_FW_NODES = 1024  # floyd_warshall on a graph of the same kind, mean degree 8
 CG_SEED = 23
 CG_RTOL = 1e-12  # distances, the tree's weight and Floyd-Warshall against scipy
@@ -4259,82 +4269,187 @@ def phase_csgraph_path(dev, card):
     if not path_err <= CG_RTOL:
         raise AssertionError(f"csgraph_path: predecessor edges off scipy's distances by {path_err}")
 
-    # K7 against its plain version: one round, and the fixed point at 128 sources
+    # K7 against its plain version: one round on the rule's route, over the
+    # filled slots (the port's path) and over every slot
+    route8, cols8 = _cuda.minplus_route(n, CG_SOURCES, 8)
+    deg = {"deg": ell.deg, "t_deg": ell.t_deg}
     out = torch.empty_like(distT0)
-    flag = torch.zeros((), dtype=torch.bool, device=dev)
-    _cuda.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out, flag)
     one_p, changed_p = minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail)
-    k7_err = max(k7_err, cg_max_abs_diff(out, one_p))
-    if not (torch.equal(out, one_p) and bool(flag) == bool(changed_p)):
-        raise AssertionError("csgraph_path: one K7 round differs from the plain round")
-    wide_src = torch.arange(CG_WIDE_SOURCES, device=dev)
-    wide0 = csgraph._start_table(CG_WIDE_SOURCES, n, wide_src if ell.inv is None else ell.inv[wide_src], dev)
-    fix_k, neg_k, rounds_w = minplus.minplus_fixpoint(wide0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1)
-    fix_w, neg_w, rounds_wp = minplus.minplus_fixpoint(wide0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1, relax=plain)
-    k7_err = max(k7_err, cg_max_abs_diff(fix_k, fix_w))
-    if not (torch.equal(fix_k, fix_w) and (neg_k, rounds_w) == (neg_w, rounds_wp)):
-        raise AssertionError("csgraph_path: K7's fixed point at 128 sources differs from the plain version's")
-    del fix_k, fix_w, wide0
+    for counts in (deg, {}):
+        one_k, changed_k = minplus.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out=out, **counts)
+        k7_err = max(k7_err, cg_max_abs_diff(one_k, one_p))
+        if not (torch.equal(one_k, one_p) and bool(changed_k) == bool(changed_p)):
+            raise AssertionError(f"csgraph_path: one K7 round ({route8}, counts {bool(counts)}) differs from the plain round")
+
+    # 128 sources through dijkstra: the sliced route, its fixed point bit for bit against the plain one
+    wide = np.arange(CG_WIDE_SOURCES)
+    route_w, cols_w = _cuda.minplus_route(n, CG_WIDE_SOURCES, 8)
+    if route_w != "sliced":
+        raise AssertionError(f"csgraph_path: the route rule sends 128 sources to {route_w}, not the sliced route")
+    reset_launch_counts()
+    dist_w = csgraph.dijkstra(a, indices=wide)
+    torch.cuda.synchronize()
+    launches_w = dict(LAUNCHES)
+    wide_t = torch.from_numpy(wide).to(dev)
+    wide0 = csgraph._start_table(CG_WIDE_SOURCES, n, wide_t if ell.inv is None else ell.inv[wide_t], dev)
+    fix_w, neg_w, rounds_w = minplus.minplus_fixpoint(wide0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1, relax=plain)
+    dist_wp = fix_w.T.contiguous() if ell.inv is None else torch.index_select(fix_w.T, 1, ell.inv)
+    k7_err_w = cg_max_abs_diff(dist_w, dist_wp)
+    if neg_w or not torch.equal(dist_w, dist_wp):
+        raise AssertionError("csgraph_path: dijkstra from 128 sources on K7's sliced route differs from the plain fixed point")
+    if launches_w["minplus_relax"] != rounds_w + 1 or sum(launches_w.values()) != rounds_w + 1:
+        raise AssertionError(f"csgraph_path: dijkstra from 128 sources launched {launches_w} for {rounds_w} rounds (+1)")
+    del fix_w, dist_wp, dist_w
+    out_w = torch.empty_like(wide0)
+    one_w, changed_w = minplus.minplus_relax(wide0, ell.e_src, ell.e_w, ell.tail, out=out_w, **deg)
+    one_wp, changed_wp = minplus.minplus_relax_plain(wide0, ell.e_src, ell.e_w, ell.tail)
+    k7_err_w = max(k7_err_w, cg_max_abs_diff(one_w, one_wp))
+    if not (torch.equal(one_w, one_wp) and bool(changed_w) == bool(changed_wp)):
+        raise AssertionError("csgraph_path: one round of K7's sliced route at 128 sources differs from the plain round")
 
     # times at the bench graph
     solve_ms = la_wall_ms(lambda: csgraph.dijkstra(a, indices=sources))
     solve_reads = reads_back(lambda: csgraph.dijkstra(a, indices=sources))
     # the solve's parts: the edge list read back to the host, and the loop of rounds alone
     triplet_ms = la_wall_ms(lambda: csgraph._graph_triplet(a))
-    loop_ms = la_wall_ms(lambda: minplus.minplus_fixpoint(distT0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1))
-    k7_ms = time_graph(lambda: _cuda.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out, flag))
-    k7_eager = time_eager(lambda: minplus.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out=out))
-    plain_eager = time_eager(lambda: minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail), reps=5)
-    plain_graph = time_graph(lambda: minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail), reps=5)
+    loop_ms = la_wall_ms(lambda: minplus.minplus_fixpoint(distT0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1, **deg))
+    stamp = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def k7(table, dst, cols, layout=ell):
+        counts = {"deg": layout.deg, "t_deg": layout.t_deg}
+        return lambda: _cuda.minplus_relax(table, layout.e_src, layout.e_w, layout.tail, dst, stamp, 1, slice_cols=cols, **counts)
+
     # no single PyTorch call computes a min-plus product: scatter_reduce_'s
     # "amin" over the edge list, its candidates computed beforehand
+    def library_ms(table, rows_, cols_, w_, reps):
+        cand = table[rows_]
+        cand += w_[:, None]
+        seg = torch.full_like(table, torch.inf)
+        idx = cols_[:, None].expand(-1, table.shape[1])
+        ms = time_eager(lambda: seg.scatter_reduce_(0, idx, cand, "amin"), reps=reps)
+        del cand, seg
+        return ms
+
+    k7_ms = time_graph(k7(distT0, out, cols8))
+    k7_eager = time_eager(lambda: minplus.minplus_relax(distT0, ell.e_src, ell.e_w, ell.tail, out=out, **deg))
+    plain_eager = time_eager(lambda: minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail), reps=5)
+    plain_graph = time_graph(lambda: minplus.minplus_relax_plain(distT0, ell.e_src, ell.e_w, ell.tail), reps=5)
     e_rows, e_cols, e_w = (torch.from_numpy(x).to(dev) for x in (h_rows, h_cols, h_w))
-    d0 = distT0.T.contiguous()
-    cand_t = (d0[:, e_rows] + e_w[None, :]).T
-    seg = torch.full((n, CG_SOURCES), torch.inf, dtype=torch.float64, device=dev)
-    idx = e_cols[:, None].expand(-1, CG_SOURCES)
-    lib_ms = time_eager(lambda: seg.scatter_reduce_(0, idx, cand_t, "amin"))
-    del cand_t, seg, idx, d0
-    # the bytes the round needs: each edge's source and weight (int64 and
+    if ell.inv is not None:  # the layout's labels, as the tables'
+        e_rows, e_cols = ell.inv[e_rows], ell.inv[e_cols]
+    lib_ms = library_ms(distT0, e_rows, e_cols, e_w, 20)
+    k7_w_ms = time_graph(k7(wide0, out_w, cols_w))
+    k7_w_gather_ms = time_graph(k7(wide0, out_w, 0))
+    # the gather route's table at 128 sources (several 32-lane chunks a destination), bit for bit
+    k7_err_w = max(k7_err_w, cg_max_abs_diff(out_w, one_wp))
+    if not torch.equal(out_w, one_wp):
+        raise AssertionError("csgraph_path: one round of K7's gather route at 128 sources differs from the plain round")
+    del one_wp
+    plain_w_ms = time_eager(lambda: minplus.minplus_relax_plain(wide0, ell.e_src, ell.e_w, ell.tail), reps=2)
+    lib_w_ms = library_ms(wide0, e_rows, e_cols, e_w, 5)
+    del wide0, out_w, one_w, e_rows, e_cols, e_w
+    # the bytes a round needs: each edge's source and weight (int64 and
     # float64) once, the table read once and written once; the layout's +inf
     # padding slots are not counted
     k7_bytes = nnz * 16 + 2 * n * CG_SOURCES * 8
     k7_bound = k7_bytes / HBM_BYTES_PER_S * 1e3  # a comparison and an add an edge: far below the float64 peak
+    k7_w_bytes = nnz * 16 + 2 * n * CG_WIDE_SOURCES * 8
+    k7_w_bound = k7_w_bytes / HBM_BYTES_PER_S * 1e3
     slots = ell.e_src.numel() + (0 if ell.tail is None else ell.tail[0].numel())
+    layout_extra = 4 * (ell.deg.numel() + (0 if ell.t_deg is None else ell.t_deg.numel()))  # deg and t_deg, int32
     k7_line = {
-        "name": "K7 minplus_relax (csgraph_path: dijkstra, bench graph 131,072 nodes, 8 sources, float64)",
+        "name": f"K7 minplus_relax, {route8} route (csgraph_path: dijkstra, bench graph 131,072 nodes, 8 sources, float64)",
         "route": "cuda",
         "source": SOURCE["minplus_relax"],
         "replaces": REPLACES["minplus_relax"],
         "launches": launches_dij["minplus_relax"],
-        "max_abs_err": k7_err,  # one round and both fixed points against the plain version
+        "max_abs_err": k7_err,  # one round on the filled slots and on every slot, both fixed points, against the plain version
         "ms": k7_ms,
         "plain_ms": plain_eager,
         "bound_ms": k7_bound,
         "bound_by": "bytes",
         "library_ms": lib_ms,  # scatter_reduce_(..., "amin") over the edge list, one call
     }
-    log(json.dumps({**k7_line, "eager_ms": k7_eager, "plain_graph_ms": plain_graph, "bound_bytes": k7_bytes, "bound_share": k7_bound / k7_ms, "layout_slots": slots, "edges": nnz, "library": "scatter_reduce_ amin over the edge list (candidates precomputed); no PyTorch call computes a min-plus product", "card": card}))
+    k7_w_line = {
+        "name": f"K7 minplus_relax, {route_w} route, {cols_w} columns a slice (csgraph_path: dijkstra, bench graph, 128 sources, float64)",
+        "route": "cuda",
+        "source": SOURCE["minplus_relax"],
+        "replaces": REPLACES["minplus_relax"],
+        "launches": launches_w["minplus_relax"],
+        "max_abs_err": k7_err_w,  # the fixed point through dijkstra and one round on each route, against the plain version
+        "ms": k7_w_ms,
+        "plain_ms": plain_w_ms,
+        "bound_ms": k7_w_bound,
+        "bound_by": "bytes",
+        "library_ms": lib_w_ms,
+    }
+    library = "scatter_reduce_ amin over the edge list (candidates precomputed); no PyTorch call computes a min-plus product"
+    log(json.dumps({**k7_line, "eager_ms": k7_eager, "plain_graph_ms": plain_graph, "bound_bytes": k7_bytes, "bound_share": k7_bound / k7_ms, "layout_slots": slots, "layout_extra_bytes": layout_extra, "edges": nnz, "library": library, "card": card}))
+    log(json.dumps({**k7_w_line, "gather_route_ms": k7_w_gather_ms, "bound_bytes": k7_w_bytes, "bound_share": k7_w_bound / k7_w_ms, "rounds": rounds_w, "library": library, "card": card}))
     del distT0, out
 
-    # all sources where the plain version cannot run
-    a_all, host_all, _ = cg_graph(CG_ALL_NODES, CG_ALL_EDGES, CG_SEED + 1, dev)
+    # all sources, through shortest_path on the sliced route
+    a_all, host_all, (r_all, c_all, w_all) = cg_graph(CG_ALL_NODES, CG_ALL_EDGES, CG_SEED + 1, dev)
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d_all = csgraph.shortest_path(a_all, method="BF")
     torch.cuda.synchronize()
     all_s = time.perf_counter() - t0
-    all_rounds = LAUNCHES["minplus_relax"] - 1
+    launches_all = dict(LAUNCHES)
+    all_rounds = launches_all["minplus_relax"] - 1
+    if sum(launches_all.values()) != all_rounds + 1 or all_rounds < 1:
+        raise AssertionError(f"csgraph_path: shortest_path at all sources launched {launches_all}")
     sample = np.sort(np.random.default_rng(CG_SEED + 2).choice(CG_ALL_NODES, CG_ALL_SAMPLE, replace=False))
     err_all = cg_check_dist("shortest_path BF, all sources (sample)", d_all[torch.from_numpy(sample).to(dev)], sp_csgraph.dijkstra(host_all, indices=sample))
     ell_all = a_all.peek_layout("dest_ell", True)
     del d_all
+    route_all, cols_all = _cuda.minplus_route(CG_ALL_NODES, CG_ALL_NODES, 8)
+    if route_all != "sliced":
+        raise AssertionError(f"csgraph_path: the route rule sends all sources to {route_all}, not the sliced route")
     all0 = csgraph._start_table(CG_ALL_NODES, CG_ALL_NODES, torch.arange(CG_ALL_NODES, device=dev) if ell_all.inv is None else ell_all.inv, dev)
     all_out = torch.empty_like(all0)
-    all_round_ms = time_graph(lambda: _cuda.minplus_relax(all0, ell_all.e_src, ell_all.e_w, ell_all.tail, all_out, flag), reps=5)
-    all_bound = (a_all.nnz * 16 + 2 * all0.numel() * 8) / HBM_BYTES_PER_S * 1e3
-    del all0, all_out, a_all
+    all_round_ms = time_graph(k7(all0, all_out, cols_all, ell_all), reps=5)
+
+    def plain_all():
+        """The plain round in slices of CG_ALL_PLAIN_COLS columns (its whole block would be 34 GB)."""
+        got = torch.empty_like(all0)
+        for c0 in range(0, CG_ALL_NODES, CG_ALL_PLAIN_COLS):
+            got[:, c0 : c0 + CG_ALL_PLAIN_COLS] = minplus.minplus_relax_plain(all0[:, c0 : c0 + CG_ALL_PLAIN_COLS].contiguous(), ell_all.e_src, ell_all.e_w, ell_all.tail)[0]
+        return got
+
+    want_all = plain_all()
+    k7(all0, all_out, cols_all, ell_all)()
+    k7_err_all = cg_max_abs_diff(all_out, want_all)
+    if not torch.equal(all_out, want_all):
+        raise AssertionError("csgraph_path: K7's sliced round at all sources differs from the plain round")
+    all_gather_ms = time_graph(k7(all0, all_out, 0, ell_all), reps=5)
+    k7_err_all = max(k7_err_all, cg_max_abs_diff(all_out, want_all))
+    if not torch.equal(all_out, want_all):
+        raise AssertionError("csgraph_path: K7's gather round at all sources differs from the plain round")
+    del want_all
+    plain_all_ms = time_eager(plain_all, reps=1)
+    r_t, c_t, w_t = (torch.from_numpy(x).to(dev) for x in (r_all, c_all, w_all))
+    if ell_all.inv is not None:
+        r_t, c_t = ell_all.inv[r_t], ell_all.inv[c_t]
+    lib_all_ms = library_ms(all0, r_t, c_t, w_t, 1)
+    all_bytes = a_all.nnz * 16 + 2 * all0.numel() * 8
+    all_bound = all_bytes / HBM_BYTES_PER_S * 1e3
+    k7_all_line = {
+        "name": f"K7 minplus_relax, {route_all} route, {cols_all} columns a slice (csgraph_path: shortest_path BF, all sources of 16,384 nodes, float64)",
+        "route": "cuda",
+        "source": SOURCE["minplus_relax"],
+        "replaces": REPLACES["minplus_relax"],
+        "launches": launches_all["minplus_relax"],
+        "max_abs_err": k7_err_all,  # one round on each route against the plain round taken in column slices
+        "ms": all_round_ms,
+        "plain_ms": plain_all_ms,  # the plain round in column slices of CG_ALL_PLAIN_COLS
+        "bound_ms": all_bound,
+        "bound_by": "bytes",
+        "library_ms": lib_all_ms,
+    }
+    log(json.dumps({**k7_all_line, "gather_route_ms": all_gather_ms, "bound_bytes": all_bytes, "bound_share": all_bound / all_round_ms, "rounds": all_rounds, "library": library, "card": card}))
+    del all0, all_out, a_all, r_t, c_t, w_t
     torch.cuda.empty_cache()
 
     # PageRank on K1
@@ -4416,19 +4531,20 @@ def phase_csgraph_path(dev, card):
         "graph": {"nodes": n, "edge_draws": CG_EDGES, "edges": nnz, "sources": CG_SOURCES, "seed": CG_SEED},
         "layout": {"L0": L0, "tail": tail_shape, "relabelled": ell.inv is not None, "first_call_s_incl_layout": first_s},
         "rounds": rounds,
-        "launches": {k: {c: v for c, v in got.items() if v} for k, got in (("dijkstra", launches_dij), ("bellman_ford", launches_bf), ("pagerank", launches_pr))},
+        "launches": {k: {c: v for c, v in got.items() if v} for k, got in (("dijkstra", launches_dij), ("bellman_ford", launches_bf), ("dijkstra_128_sources", launches_w), ("shortest_path_all_sources", launches_all), ("pagerank", launches_pr))},
         "rel_err_vs_scipy": {"dijkstra": err_dij, "bellman_ford": err_bf, "predecessor_edges": path_err, "all_sources_sample": err_all, "floyd_warshall": err_fw},
         "solve": {"wall_ms": solve_ms, "ms_per_round": solve_ms / (rounds + 1), "reads_back_per_solve": solve_reads, "graph_triplet_ms": triplet_ms, "loop_ms": loop_ms, "loop_ms_per_round": loop_ms / (rounds + 1)},
-        "k7_ms": {"graph": k7_ms, "eager": k7_eager, "plain_eager": plain_eager, "plain_graph": plain_graph, "bound": k7_bound, "scatter_reduce_amin": lib_ms},
-        "wide_128_sources": {"rounds": rounds_w, "plain_block_bytes": n * L0 * CG_WIDE_SOURCES * 8},
-        "all_sources": {"nodes": CG_ALL_NODES, "edges": CG_ALL_EDGES, "rounds": all_rounds, "wall_s": all_s, "k7_round_ms": all_round_ms, "k7_round_bound_ms": all_bound, "plain": "not run: its gathered block would be n * L0 * k * 8 bytes a round", "plain_block_bytes": ell_all.e_src.numel() * CG_ALL_NODES * 8, "sample_rows": CG_ALL_SAMPLE},
+        "k7_ms": {"route": route8, "graph": k7_ms, "eager": k7_eager, "plain_eager": plain_eager, "plain_graph": plain_graph, "bound": k7_bound, "scatter_reduce_amin": lib_ms},
+        "layout_extra_bytes": layout_extra,
+        "wide_128_sources": {"route": route_w, "slice_cols": cols_w, "rounds": rounds_w, "launches": launches_w["minplus_relax"], "k7_round_ms": k7_w_ms, "gather_route_ms": k7_w_gather_ms, "k7_round_bound_ms": k7_w_bound, "plain_ms": plain_w_ms, "scatter_reduce_amin": lib_w_ms, "plain_block_bytes": n * L0 * CG_WIDE_SOURCES * 8},
+        "all_sources": {"nodes": CG_ALL_NODES, "edges": CG_ALL_EDGES, "route": route_all, "slice_cols": cols_all, "rounds": all_rounds, "wall_s": all_s, "k7_round_ms": all_round_ms, "gather_route_ms": all_gather_ms, "k7_round_bound_ms": all_bound, "plain_ms": plain_all_ms, "plain": f"in column slices of {CG_ALL_PLAIN_COLS} (the whole block would be n * L0 * k * 8 bytes)", "scatter_reduce_amin": lib_all_ms, "sample_rows": CG_ALL_SAMPLE},
         "pagerank": {"iterations": iters, "max_abs_err_vs_host": pr_err, "rel_err_vs_host": pr_rel, "wall_ms": pr_ms, "ms_per_iteration": pr_ms / iters, "reads_back_per_solve": pr_reads, "inputs_ms": pr_inputs_ms, "k1_ms": k1_ms},
         "components": {"n": n_cc, "seconds": cc_s},
         "spanning_tree": {"nnz": tree.nnz, "weight": tree_w, "seconds": mst_s},
         "floyd_warshall": {"nodes": CG_FW_NODES, "seconds": fw_s},
         "card": card,
     }
-    return line, [k7_line, k1_line]
+    return line, [k7_line, k7_w_line, k7_all_line, k1_line]
 
 
 def main():

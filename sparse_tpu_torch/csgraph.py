@@ -227,7 +227,9 @@ def _start_table(k, n, zero_at, device):
 def _relax_ell(ell, distT0, n):
     """The fixed point over the layout from the transposed start table (in
     the layout's labels): ``(dist (k, n) in the input's labels, has_neg)``."""
-    distT, has_neg, _ = _minplus.minplus_fixpoint(distT0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1)
+    distT, has_neg, _ = _minplus.minplus_fixpoint(
+        distT0, ell.e_src, ell.e_w, ell.tail, maxiter=n + 1, deg=ell.deg, t_deg=ell.t_deg
+    )
     if ell.inv is not None:
         return torch.index_select(distT.T, 1, ell.inv), has_neg  # back to the input's labels
     return distT.T.contiguous(), has_neg

@@ -118,7 +118,10 @@ _SIGNATURES = {
         },
         "st_ell_attention_tiles_f32": [_p, _i64, _p, _i64, _p, _i64, _p, _p, _p, _p, *[_i64] * 5, _f64, _i64, _p, _p, _p, _p],
     },
-    "minplus": {f"st_minplus_relax_{dt}": [_p, _p, _p, _p, *[_i64] * 3, _p, _p, _i64, _i64, _p, _p] for dt in ("f32", "f64")},
+    "minplus": {
+        f"st_minplus_relax_{dt}": [_p, _p, _p, _p, _p, *[_i64] * 3, _p, _p, _p, *[_i64] * 3, _p, _i64, _p]
+        for dt in ("f32", "f64")
+    },
 }
 
 LAUNCHES = {
@@ -2034,27 +2037,70 @@ def ell_attention_tiles(q, k, v, blocks, scale, out, route, config):
     return out
 
 
-def minplus_relax(dist, e_src, e_w, tail, out, changed):
+# K7's routes (csrc/minplus.cu), the same kernel and the same bits; the route
+# rule (minplus_route) reads sizes alone, from chip_minplus_ablation.py's
+# sweep on an H100 (PERF.md):
+# - a table past MINPLUS_L2_BUDGET bytes of at least two slices' columns is
+#   read in column slices of MINPLUS_SLICE_COLS (the sliced route), one grid
+#   numbered slice-major: at all sources of 16,384 nodes slices of 64
+#   float64 columns took 3.17 ms a round against 3.25 at 128, 3.60 at 256
+#   and 3.74 at 32 (the gather route 7.08); at 128 sources of the bench
+#   graph 0.337 ms, 0.336 at 32, 0.342 at 16 (gather 0.389), in float32
+#   0.139 at 64 columns against 0.158 at 32 (gather 0.172); float32 at all
+#   sources 1.72 ms at 64, 1.68 at 128, 2.04 at 32 (gather 3.38);
+# - every other table takes the gather route (one slice of all k columns):
+#   narrower slices were not shown faster on a table past L2.
+MINPLUS_ROUTES = ("gather", "sliced")
+MINPLUS_L2_BUDGET = 40 << 20
+MINPLUS_SLICE_COLS = 64
+_MINPLUS_MAX_ROUND = (1 << 31) - 1
+
+
+def minplus_route(n, k, itemsize, budget=None):
+    """K7's route for a table of ``n`` rows of ``k`` values of ``itemsize``
+    bytes, from sizes alone: ``("sliced", MINPLUS_SLICE_COLS)`` where the
+    table passes ``budget`` bytes (:data:`MINPLUS_L2_BUDGET` for ``None``;
+    a smaller one forces the route on small tables) and ``k`` holds at
+    least two slices, else ``("gather", 0)``."""
+    budget = MINPLUS_L2_BUDGET if budget is None else int(budget)
+    if n * k * itemsize <= budget or k < 2 * MINPLUS_SLICE_COLS:
+        return "gather", 0
+    return "sliced", MINPLUS_SLICE_COLS
+
+
+def minplus_relax(dist, e_src, e_w, tail, out, stamp, round_no, *, deg=None, t_deg=None, slice_cols=0):
     """Launch K7 (``csrc/minplus.cu``): one Jacobi round of the min-plus
     relaxation of ``dist`` (n, k), float32 or float64, over the
     per-destination ELL ``e_src``/``e_w`` (n, L0; int64 sources, weights of
     ``dist``'s dtype) and its ``tail`` (``None`` or ``(t_src, t_w)`` of the
-    last ``d`` destinations) into ``out`` (not ``dist``); sets the 0-d bool
-    ``changed`` where an entry fell (the caller zeroes it). Counted as
-    ``minplus_relax``."""
+    last ``d`` destinations) into ``out`` (not ``dist``); writes ``round_no``
+    (1 to 2^31 - 1) into ``stamp`` (int32, one value) where an entry fell.
+    ``deg`` (n,) and ``t_deg`` (d,), int32, the rows' filled slots: each row
+    takes only those (``None``: every slot). ``slice_cols``: 0 for the
+    gather route, else the sliced route's columns a slice (a multiple of 16
+    bytes of values). Counted as ``minplus_relax``; every route gives the
+    same bits."""
     dtype, device = dist.dtype, dist.device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the min-plus kernel takes float32 or float64, not {dtype}")
     require_cuda(device, "min-plus")
     for name, t, dt in (("dist", dist, dtype), ("out", out, dtype), ("e_src", e_src, torch.int64), ("e_w", e_w, dtype)):
         _check(name, t, dt, device)
-    _check_device(changed, torch.bool, device, "changed")
+    _check("stamp", stamp, torch.int32, device)
     n, width = e_src.shape
     k = dist.shape[1] if dist.ndim == 2 else -1
-    if dist.shape != (n, k) or out.shape != dist.shape or e_w.shape != e_src.shape or changed.numel() != 1:
+    if dist.shape != (n, k) or out.shape != dist.shape or e_w.shape != e_src.shape or stamp.numel() != 1:
         raise ValueError("minplus_relax: operand shapes do not match the layout")
     if out.data_ptr() == dist.data_ptr() and dist.numel():
         raise ValueError("minplus_relax: out must not be dist (each round reads only the previous table)")
+    if not 1 <= round_no <= _MINPLUS_MAX_ROUND or n > _MINPLUS_MAX_ROUND:
+        raise ValueError("minplus_relax: round_no must lie in 1 .. 2^31 - 1, and n below 2^31")
+    if slice_cols < 0 or slice_cols % (16 // dist.element_size()):
+        raise ValueError(f"minplus_relax: a slice of {slice_cols} values is not a multiple of 16 bytes in {dtype}")
+    if deg is not None:
+        _check("deg", deg, torch.int32, device)
+        if deg.shape != (n,):
+            raise ValueError("minplus_relax: deg must hold one count a destination")
     t_src = t_w = None
     d = t_width = 0
     if tail is not None:
@@ -2064,23 +2110,35 @@ def minplus_relax(dist, e_src, e_w, tail, out, changed):
         d, t_width = t_src.shape
         if t_w.shape != t_src.shape or d > n:
             raise ValueError("minplus_relax: the tail does not match the layout")
+    if t_deg is not None:
+        _check("t_deg", t_deg, torch.int32, device)
+        if t_deg.shape != (d,):
+            raise ValueError("minplus_relax: t_deg must hold one count a tail row")
     if n * k == 0:
         return out
     fn = getattr(load("minplus"), f"st_minplus_relax_{_SUFFIX[dtype]}")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = fn(
         dist.data_ptr(),
         out.data_ptr(),
         e_src.data_ptr(),
         e_w.data_ptr(),
+        ptr(deg),
         n,
         width,
         k,
-        None if t_src is None else t_src.data_ptr(),
-        None if t_w is None else t_w.data_ptr(),
+        ptr(t_src),
+        ptr(t_w),
+        ptr(t_deg),
         d,
         t_width,
-        changed.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        int(slice_cols),
+        stamp.data_ptr(),
+        int(round_no),
+        _stream(device),
     )
     _raise_on(err, "minplus_relax")
     LAUNCHES["minplus_relax"] += 1

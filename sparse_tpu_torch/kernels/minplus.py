@@ -22,9 +22,12 @@ once, so a round's bits do not depend on the order of the slots.
 
 On a CUDA tensor the round is K7, the hand-written kernel of
 ``csrc/minplus.cu`` (it replaces the XLA relaxation of
-``sparse_tpu/csgraph.py:_bellman_ford_device_ell`` and ``_tail``); on a CPU
-tensor it is the plain version ``minplus_relax_plain``, which materialises
-the gathered ``(n, L0, k)`` block.
+``sparse_tpu/csgraph.py:_bellman_ford_device_ell`` and ``_tail``), on the
+route ``_cuda.minplus_route`` picks from the table's size (the gather route,
+or column slices for a table past L2), taking only each row's filled slots
+where the layout's counts ``deg``/``t_deg`` are given; on a CPU tensor it is
+the plain version ``minplus_relax_plain``, which materialises the gathered
+``(n, L0, k)`` block. Every route gives the plain version's bits.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ class DestEll(NamedTuple):
     tail: tuple | None  # (t_src, t_w), each (d, Lt): overflow slots of destinations n - d .. n - 1
     perm: torch.Tensor | None  # (n,) int64, perm[new_id] == old_id
     inv: torch.Tensor | None  # (n,) int64, inv[old_id] == new_id
+    deg: torch.Tensor  # (n,) int32, min(in-degree, L0): the filled slots of each row, its prefix
+    t_deg: torch.Tensor | None  # (d,) int32, the filled slots of each tail row, its prefix
 
 
 def build_dest_ell(rows, cols, w, n, *, width_cap=256, dtype=torch.float64, device=None):
@@ -58,7 +63,9 @@ def build_dest_ell(rows, cols, w, n, *, width_cap=256, dtype=torch.float64, devi
 
     ``L0`` is the smallest of 4, 8, 12, ..., 256 below the largest in-degree
     that leaves at most 1,024 destinations and 1 % of the edges (at least
-    64) to the tail; else the largest in-degree, and no tail."""
+    64) to the tail; else the largest in-degree, and no tail. ``deg`` and
+    ``t_deg`` count each row's filled slots (int32: 4 bytes a row beside the
+    reference's arrays)."""
     device = resolve_device(device)
     if rows.size == 0:
         return None
@@ -95,7 +102,7 @@ def build_dest_ell(rows, cols, w, n, *, width_cap=256, dtype=torch.float64, devi
     e_w = np.full((n, L0), np.inf, dtype=fdt)
     e_src[cs[main], within[main]] = rs[main]
     e_w[cs[main], within[main]] = ws[main]
-    tail = None
+    tail = t_deg = None
     if not main.all():
         t = ~main
         d = int(high.sum())
@@ -105,11 +112,13 @@ def build_dest_ell(rows, cols, w, n, *, width_cap=256, dtype=torch.float64, devi
         t_src[cs[t] - (n - d), within[t] - L0] = rs[t]
         t_w[cs[t] - (n - d), within[t] - L0] = ws[t]
         tail = (torch.from_numpy(t_src).to(device), torch.from_numpy(t_w).to(device))
+        t_deg = (counts[n - d :] - L0).astype(np.int32)
+    deg = np.minimum(counts, L0).astype(np.int32)
 
     def dev(a):
         return None if a is None else torch.from_numpy(a).to(device)
 
-    return DestEll(dev(e_src), dev(e_w), tail, dev(perm), dev(inv))
+    return DestEll(dev(e_src), dev(e_w), tail, dev(perm), dev(inv), dev(deg), dev(t_deg))
 
 
 def minplus_relax_plain(distT, e_src, e_w, tail=None):
@@ -128,12 +137,15 @@ def minplus_relax_plain(distT, e_src, e_w, tail=None):
     return new, (new < distT).any()
 
 
-def minplus_relax(distT, e_src, e_w, tail=None, out=None):
+def minplus_relax(distT, e_src, e_w, tail=None, out=None, *, deg=None, t_deg=None, budget=None):
     """One round, ``(new, changed)``: K7 on a CUDA ``distT`` (float32 or
     float64, contiguous; the layout on the same device, ``e_w`` of its
-    dtype), writing into ``out`` (a new table when ``None``; never
-    ``distT``); the plain version on a CPU tensor, copied into ``out`` when
-    one is given. ``changed`` is a 0-d bool tensor on ``distT``'s device."""
+    dtype), on ``_cuda.minplus_route``'s route for ``budget`` (the L2
+    budget in bytes; ``None`` for the rule's), taking only the ``deg``/
+    ``t_deg`` filled slots of each row where given, writing into ``out`` (a
+    new table when ``None``; never ``distT``); the plain version on a CPU
+    tensor, copied into ``out`` when one is given. ``changed`` is a 0-d
+    bool tensor on ``distT``'s device."""
     if distT.device.type == "cpu":
         new, changed = minplus_relax_plain(distT, e_src, e_w, tail)
         if out is not None:
@@ -141,21 +153,44 @@ def minplus_relax(distT, e_src, e_w, tail=None, out=None):
         return new, changed
     if out is None:
         out = torch.empty_like(distT, memory_format=torch.contiguous_format)
-    changed = torch.zeros((), dtype=torch.bool, device=distT.device)
-    _cuda.minplus_relax(distT, e_src, e_w, tail, out, changed)
-    return out, changed
+    _, cols = _cuda.minplus_route(*distT.shape, distT.element_size(), budget)
+    stamp = torch.zeros(1, dtype=torch.int32, device=distT.device)
+    _cuda.minplus_relax(distT, e_src, e_w, tail, out, stamp, 1, deg=deg, t_deg=t_deg, slice_cols=cols)
+    return out, stamp[0] == 1
 
 
-def minplus_fixpoint(distT, e_src, e_w, tail=None, *, maxiter, relax=None):
+def _k7_rounds(distT, *, deg=None, t_deg=None, budget=None):
+    """A solve's round on K7 for :func:`minplus_fixpoint`'s ``relax``, on
+    the route ``_cuda.minplus_route`` picks for ``distT``'s shape and
+    ``budget``, over the ``deg``/``t_deg`` filled slots where given. The
+    solve zeroes one int32 stamp of its own, once; round ``r`` (1, 2, ...)
+    writes ``r`` into it where a value fell, and returns the Python bool
+    ``stamp == r``: one launch and one read back a round, no fill."""
+    _, cols = _cuda.minplus_route(*distT.shape, distT.element_size(), budget)
+    stamp = torch.zeros(1, dtype=torch.int32, device=distT.device)
+    number = 0
+
+    def relax(src, e_src, e_w, tail, out):
+        nonlocal number
+        number += 1
+        _cuda.minplus_relax(src.contiguous(), e_src, e_w, tail, out, stamp, number, deg=deg, t_deg=t_deg, slice_cols=cols)
+        return out, stamp.item() == number
+
+    return relax
+
+
+def minplus_fixpoint(distT, e_src, e_w, tail=None, *, maxiter, relax=None, deg=None, t_deg=None, budget=None):
     """Jacobi rounds from ``distT`` until a round changes nothing or
     ``maxiter`` rounds ran, then one more round for the negative-cycle
     test, as the reference's loop (``csgraph.py:240-250``): ``(table,
-    has_neg, rounds)``, ``has_neg`` a Python bool. Each round reads back
-    its 0-d flag. ``distT`` is left as it is: the rounds ping-pong between
-    two tables of their own. ``relax`` is the round (``minplus_relax`` for
-    ``None``); it takes ``out=``."""
+    has_neg, rounds)``, ``has_neg`` a Python bool. ``distT`` is left as it
+    is: the rounds ping-pong between two tables of their own. ``relax`` is
+    the round; it takes ``out=`` and returns a flag, read back once a
+    round. For ``None`` it is :func:`_k7_rounds`' on a CUDA table (with
+    ``deg``, ``t_deg`` and ``budget``) and :func:`minplus_relax` on a CPU
+    one."""
     if relax is None:
-        relax = minplus_relax
+        relax = _k7_rounds(distT, deg=deg, t_deg=t_deg, budget=budget) if distT.device.type == "cuda" else minplus_relax
     bufs = [torch.empty_like(distT, memory_format=torch.contiguous_format) for _ in range(2)]
     rounds, changed = 0, True
     while changed and rounds < maxiter:
