@@ -169,6 +169,23 @@ drives the port's two paths on the card:
   calls) beside torch.sparse where torch has the operation. No kernel of
   the package runs here: the JAX package leaves this path to XLA.
 
+- the multi-device layer (``sparse_tpu_torch.parallel``, the
+  ``parallel_path`` line) on a mesh of one NCCL rank (a process group from
+  an in-process ``HashStore``) holding every shard: BASELINE config 5's
+  MTTKRP tensor in 1 and 4 shards through ``mttkrp_sharded_ell`` (E2 once
+  a shard) and ``mttkrp_sharded`` (K3 once a shard), each against the
+  unsharded call (one shard the same bits, four within 1e-5); on the bench
+  matrix in 4 shards ``sddmm_sharded`` (K4 once a shard, K = 128) within
+  1e-5 of ``|s|·Σ|lhs·rhs|``, ``spmm_sharded_ell``, ``spmm_replicated``,
+  ``spmm_ring`` (the dense operand a DTensor sharded over K) and
+  ``spmm_ring_ell`` (a ring of one) against ``a @ B`` on K2, the sums
+  against a float64 bincount, ``elemwise_partitioned`` exactly as
+  ``a + a.T``; ``spgemm_sharded`` at 4,096² against ``a4 @ a4``; the bench
+  partition's checkpoint round trip; ``profiling.benchmark`` beside
+  ``time_graph`` on K2 and ``profiling.trace`` of one sharded MTTKRP naming
+  E2's kernel once a shard; each sharded call's wall and device ms (median
+  of 5 eager calls) beside the unsharded call's, one line a pair.
+
 The launch counters show that each path ran its kernels; each kernel is
 timed beside its plain version, one library call on the same inputs
 (torch.sparse, which reaches cuSPARSE or torch's own kernels; timed here
@@ -4547,6 +4564,296 @@ def phase_csgraph_path(dev, card):
     return line, [k7_line, k7_w_line, k7_all_line, k1_line]
 
 
+# The multi-device layer (the parallel_path line): a world of one on NCCL,
+# its process group from an in-process HashStore, the rank holding every
+# shard. BASELINE config 5's MTTKRP tensor in 1 and PAR_SHARDS shards (E2
+# through mttkrp_sharded_ell, K3 through mttkrp_sharded), SDDMM (K4) and the
+# SpMMs, sums and unions on the bench matrix in PAR_SHARDS shards, SpGEMM at
+# the spgemm_path's 4,096^2 shape (jitops.spgemm's), the bench partition's
+# checkpoint, profiling.benchmark on K2 and profiling.trace around
+# mttkrp_sharded_ell
+PAR_SHARDS = 4
+PAR_REPS = 5  # wall and device ms: the median of this many eager calls
+# sum_partitioned in float32 against a float64 bincount: each shard's
+# partial sums up to 2.1M entries in another order than the oracle
+PAR_SUM_RTOL = 1e-5
+PAR_SPGEMM_RTOL = 1e-5  # SpGEMM's tolerance (PERF.md §2)
+PAR_DIR = "build/parallel_path"  # the checkpoint and the trace, inside the checkout, removed after
+
+
+def wall_and_device_ms(fn, reps=PAR_REPS):
+    """(median host ms of one eager call up to its synchronize, median
+    device ms of one call from CUDA events around it)."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls)), device_ms(fn, reps)
+
+
+def mttkrp_coo_shards(coords, vals, n_rows, n_shards):
+    """``mttkrp_sharded``'s i-partition (tests/test_parallel.py:61's form)
+    of a row-sorted COO tensor, built on its device: ``(n_shards, cap)``
+    local rows, ``j``, ``k`` and values, zero padding at each shard's end."""
+    block_rows = -(-n_rows // n_shards)
+    ci = coords[0].long()
+    bounds = torch.searchsorted(ci, torch.arange(n_shards + 1, device=ci.device) * block_rows).tolist()
+    counts = [hi - lo for lo, hi in zip(bounds, bounds[1:])]
+    cap = max(max(counts), 1)
+    out = [torch.zeros((n_shards, cap), dtype=torch.int32, device=ci.device) for _ in range(3)]
+    out.append(torch.zeros((n_shards, cap), dtype=vals.dtype, device=ci.device))
+    for s, (lo, k) in enumerate(zip(bounds, counts)):
+        for o, src in zip(out, (ci - s * block_rows, coords[1], coords[2], vals)):
+            o[s, :k] = src[lo : lo + k]
+    return out
+
+
+def shard_prefixes(x, counts):
+    """The first ``counts[s]`` entries of each shard's row of ``x``, in shard order."""
+    return torch.cat([x[s, :k] for s, k in enumerate(counts)])
+
+
+def phase_parallel_path(dev, a, t, c, d, lay, card):
+    """The multi-device layer (``sparse_tpu_torch.parallel``) through its
+    entry points on a mesh of one NCCL rank, counted: E2 once a shard of
+    ``mttkrp_sharded_ell``, K3 of ``mttkrp_sharded``, K4 of ``sddmm_sharded``,
+    no other kernel. Each result against the unsharded call on the card:
+    one shard the same bits, several within MT_ORACLE_TOL (MTTKRP) or
+    SD_ORACLE_TOL (SDDMM), the SpMMs within ORACLE_TOL of ``a @ B`` (K2), the
+    sums within PAR_SUM_RTOL of a float64 bincount, the union exactly as
+    ``a + a.T``, SpGEMM's coordinates exactly as ``a4 @ a4`` and its values
+    within PAR_SPGEMM_RTOL; the checkpoint's round trip array for array;
+    ``profiling.benchmark`` beside ``time_graph`` on K2; ``profiling.trace``
+    of one ``mttkrp_sharded_ell`` naming E2's kernel (``run_sum_kernel`` on
+    its ``MttkrpSum``) once a shard.
+    Returns the phase's line and one line a timed pair."""
+    import shutil
+
+    import torch.distributed as dist
+
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch import checkpoint, parallel, profiling
+    from sparse_tpu_torch.kernels import LAUNCHES, _cuda, reset_launch_counts
+    from sparse_tpu_torch.kernels import dot as kdot
+    from sparse_tpu_torch.kernels import ell as kell
+    from sparse_tpu_torch.kernels.row_ell import ROW_ELL_DEFAULT_KEY
+    from torch.distributed.tensor import DTensor, Shard
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        n = PAR_SHARDS
+        gen = torch.Generator(device=dev).manual_seed(25)
+        bmat = torch.rand((K, N), generator=gen, device=dev)
+        lhs = torch.rand((M, SD_K), generator=gen, device=dev)
+        rhs = torch.rand((K, SD_K), generator=gen, device=dev).T
+        rng = np.random.default_rng(25)
+        r4, c4, v4 = _unique_draw(rng, SG_JIT_LEN, SG_JIT_DENSITY, np.float32)
+        a4 = st.COO(np.stack([r4, c4]), v4, shape=(SG_JIT_LEN,) * 2, device=dev)
+        at = a.T
+        torch.cuda.synchronize()
+
+        # the host partitions (set-up: once a matrix), moved to the card once
+        t0 = time.perf_counter()
+        mt_ell = {k: parallel.partition_mttkrp_ell(t.coords, t.data, MT_I, k) for k in (1, n)}
+        t_mt_ell = time.perf_counter()
+        mt_ell = {k: (*(x.to(dev) for x in p[:4]), p[4]) for k, p in mt_ell.items()}
+        mt_coo = {k: mttkrp_coo_shards(t.coords, t.data, MT_I, k) for k in (1, n)}
+        pc = parallel.partition_coo_rows(a, n, mesh=mesh)
+        pct = parallel.partition_coo_rows(at, n, mesh=mesh)
+        pc4 = parallel.partition_coo_rows(a4, n, mesh=mesh)
+        spmm_ell = (*(x.to(dev) for x in parallel.partition_spmm_ell(a, n)[:3]),)
+        ring = parallel.bucket_columns(pc, n)
+        ring = (*(x.to(dev) for x in ring[:3]), ring[3])
+        ring_ell = parallel.bucket_columns_ell(a, n)
+        ring_ell = (*(x.to(dev) for x in ring_ell[:3]), *ring_ell[3:])
+        dense_ring = DTensor.from_local(bmat, mesh, [Shard(0)], run_check=False)  # K-sharded, as the reference takes it
+        torch.cuda.synchronize()
+        setup_s = {"partition_mttkrp_ell_1_and_4": t_mt_ell - t0, "all": time.perf_counter() - t0}
+        if ring[3] * n != K or ring_ell[4] * n != K:
+            raise AssertionError("parallel_path: the bench shape's column buckets do not tile K")
+
+        calls = {
+            **{f"mttkrp_sharded_ell_{k}": (lambda k=k: parallel.mttkrp_sharded_ell(*mt_ell[k][:4], c, d, MT_I, mt_ell[k][4], mesh)) for k in (1, n)},
+            **{f"mttkrp_sharded_{k}": (lambda k=k: parallel.mttkrp_sharded(*mt_coo[k], c, d, MT_I, mesh)) for k in (1, n)},
+            "sddmm_sharded": lambda: parallel.sddmm_sharded(pc, lhs, rhs, mesh),
+            "spmm_sharded_ell": lambda: parallel.spmm_sharded_ell(*spmm_ell, bmat, M, mesh),
+            "spmm_replicated": lambda: parallel.spmm_replicated(pc, bmat, mesh),
+            "spmm_ring": lambda: parallel.spmm_ring(ring, (M, K), pc.block_rows, dense_ring, mesh),
+            "spmm_ring_ell": lambda: parallel.spmm_ring_ell(ring_ell, M, bmat, mesh),
+            **{f"sum_partitioned_{ax}": (lambda ax=ax: parallel.sum_partitioned(pc, mesh, axis=ax)) for ax in (0, 1, None)},
+            "elemwise_partitioned": lambda: parallel.elemwise_partitioned(torch.add, pc, pct, mesh),
+            "spgemm_sharded": lambda: parallel.spgemm_sharded(pc4, a4, mesh),
+        }
+        # the path, counted: every count to 0 just before it, read just after
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        want_launches = {"ell_mttkrp": 1 + n, "coo_mttkrp": 1 + n, "sddmm": n}
+        if {k: v for k, v in launches.items() if v} != want_launches:
+            raise AssertionError(f"parallel_path: launches {launches}, expected {want_launches} and no other kernel")
+
+        # against the unsharded calls on the card
+        unsharded = {
+            "ell_mttkrp": lambda: kell.ell_mttkrp(*lay[:4], c, d, n_rows=MT_I, order=lay.order, row_ptr=lay.row_ptr, pieces=lay.pieces),
+            "mttkrp": lambda: kdot.mttkrp(*t.coords, t.data, c, d, n_rows=MT_I),
+            "sddmm": lambda: kdot.sddmm(a.coords[0], a.coords[1], a.data, lhs, rhs),
+            "a @ B": lambda: a @ bmat,
+            **{f"a.sum(axis={ax})": (lambda ax=ax: a.sum(axis=ax)) for ax in (0, 1, None)},
+            "a + a.T": lambda: a + at,
+            "jitops.spgemm": None,  # set below, with its capacity
+        }
+        checks = {}
+        same_bits = {}
+        for form, whole in (("mttkrp_sharded_ell", unsharded["ell_mttkrp"]()), ("mttkrp_sharded", unsharded["mttkrp"]())):
+            for k in (1, n):
+                out = got[f"{form}_{k}"]
+                rows_same = int((out == whole).all(1).sum())
+                same_bits[f"{form}_{k}"] = {"rows_same_bits": rows_same, "rows": MT_I}
+                if k == 1 and not torch.equal(out, whole):
+                    raise AssertionError(f"parallel_path: {form} with one shard differs from the unsharded call in {MT_I - rows_same} rows")
+                err = normalised_err(out, whole.double())
+                if not err <= MT_ORACLE_TOL["exact"]:
+                    raise AssertionError(f"parallel_path: {form} with {k} shards at {err} of the unsharded call")
+                checks[f"{form}_{k}"] = err
+        counts = torch.bincount(a.coords[0].long() // pc.block_rows, minlength=n).tolist()
+        sd_whole = unsharded["sddmm"]()
+        sd_got = shard_prefixes(got["sddmm_sharded"], counts)
+        # every input is nonnegative: the value is its own scale |s| · Σ|lhs · rhs|
+        checks["sddmm_sharded"] = check_sddmm("sddmm_sharded", sd_got, sd_whole.double(), sd_whole.double().abs(), SD_ORACLE_TOL)
+        same_bits["sddmm_sharded"] = bool(torch.equal(sd_got, sd_whole))
+        mm_whole = unsharded["a @ B"]()
+        for name in ("spmm_sharded_ell", "spmm_replicated", "spmm_ring", "spmm_ring_ell"):
+            checks[name] = check_close(name, got[name], mm_whole, ORACLE_TOL)
+        rows_h, cols_h = (x.cpu().numpy() for x in a.coords)
+        vals_h = a.data.double().cpu().numpy()
+        oracle = {0: np.bincount(cols_h, vals_h, minlength=K), 1: np.bincount(rows_h, vals_h, minlength=M), None: vals_h.sum()}
+        for ax in (0, 1, None):
+            name = f"sum_partitioned_{ax}"
+            want = torch.as_tensor(oracle[ax], device=dev)
+            torch.testing.assert_close(got[name].double(), want, rtol=PAR_SUM_RTOL, atol=0, msg=lambda m, name=name: f"{name}: {m}")
+            checks[name] = float(((got[name].double() - want).abs() / want.abs().clamp_min(1e-300)).max())
+        union, nnz = got["elemwise_partitioned"]
+        nnz = nnz.tolist()
+        keep = shard_prefixes(union.data, nnz) != 0  # the padding's one slot a shard holds func(0, 0) = 0
+        u_rows = shard_prefixes(union.rows.long() + torch.arange(n, device=dev)[:, None] * union.block_rows, nnz)[keep]
+        u_cols, u_vals = shard_prefixes(union.cols.long(), nnz)[keep], shard_prefixes(union.data, nnz)[keep]
+        e_whole = unsharded["a + a.T"]()
+        if not (torch.equal(torch.stack([u_rows, u_cols]), e_whole.coords.long()) and torch.equal(u_vals, e_whole.data)):
+            raise AssertionError("parallel_path: elemwise_partitioned differs from a + a.T")
+        checks["elemwise_partitioned"] = 0.0
+        sg = parallel.assemble_spgemm_result(got["spgemm_sharded"], pc4, SG_JIT_LEN)
+        sg_whole = a4 @ a4
+        if not torch.equal(sg.coords.long(), sg_whole.coords.long()):
+            raise AssertionError("parallel_path: spgemm_sharded's coordinates differ from a4 @ a4")
+        torch.testing.assert_close(sg.data, sg_whole.data, rtol=PAR_SPGEMM_RTOL, atol=0)
+        checks["spgemm_sharded"] = float(((sg.data - sg_whole.data).abs() / sg_whole.data.abs()).max())
+        cap4 = int(got["spgemm_sharded"][0].shape[1])
+        cap_whole = max(st.kernels.product_count(a4.coords[1], a4.coords[0], SG_JIT_LEN), 1)
+        unsharded["jitops.spgemm"] = lambda: st.jitops.spgemm(a4, a4, product_capacity=cap_whole)
+
+        # the checkpoint of the bench partition, and the profiling helpers
+        t0 = time.perf_counter()
+        checkpoint.save_partitioned(f"{PAR_DIR}/ckpt", pc)
+        t_save = time.perf_counter()
+        back = checkpoint.load_partitioned(f"{PAR_DIR}/ckpt", mesh=mesh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter()
+        for x, y in ((back.rows, pc.rows), (back.cols, pc.cols), (back.data, pc.data)):
+            if not torch.equal(x.full_tensor(), y.full_tensor()):
+                raise AssertionError("parallel_path: the checkpoint's round trip changed an array")
+        re = a.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY)
+        out_m = torch.empty((M, N), device=dev)
+        k2_graph_ms = time_graph(lambda: _cuda.spmm(re, bmat, out_m))
+        k2_bench_ms = profiling.benchmark(lambda b: _cuda.spmm(re, b, out_m), (bmat,), iters=50) * 1e3
+        k2_bench_plain_ms = profiling.benchmark(lambda b: _cuda.spmm(re, b, out_m), (bmat,), iters=50, perturb=None) * 1e3
+        bump_ms = time_graph(lambda: bmat + 1e-6)
+        with profiling.trace(f"{PAR_DIR}/trace") as log_dir:
+            parallel.mttkrp_sharded_ell(*mt_ell[n][:4], c, d, MT_I, mt_ell[n][4], mesh)
+            torch.cuda.synchronize()
+        with open(f"{log_dir}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+        # E2's kernel: csrc/mttkrp.cu's run_sum_kernel on its MTTKRP sum
+        named = sum("run_sum_kernel" in e.get("name", "") and "MttkrpSum" in e.get("name", "") for e in kernels)
+        if named != n:
+            names = sorted({e.get("name", "")[:120] for e in kernels})[:12]
+            cats = sorted({str(e.get("cat")) for e in events})
+            raise AssertionError(f"parallel_path: the trace names E2's kernel {named} times, not once a shard ({n}); kernels {names}; categories {cats}")
+        by_kernel = {}
+        for e in kernels:
+            key = e["name"].split("(")[0][:80]
+            by_kernel[key] = by_kernel.get(key, 0.0) + e.get("dur", 0.0) / 1e3
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+
+        # each sharded call beside its unsharded call: wall and device ms
+        pairs = {
+            **{f"mttkrp_sharded_ell_{k}": "ell_mttkrp" for k in (1, n)},
+            **{f"mttkrp_sharded_{k}": "mttkrp" for k in (1, n)},
+            "sddmm_sharded": "sddmm",
+            **{k: "a @ B" for k in ("spmm_sharded_ell", "spmm_replicated", "spmm_ring", "spmm_ring_ell")},
+            **{f"sum_partitioned_{ax}": f"a.sum(axis={ax})" for ax in (0, 1, None)},
+            "elemwise_partitioned": "a + a.T",
+            "spgemm_sharded": "jitops.spgemm",
+        }
+        whole_ms = {name: wall_and_device_ms(fn) for name, fn in unsharded.items()}
+        lines = []
+        for name, whole in pairs.items():
+            wall, dev_ms = wall_and_device_ms(calls[name])
+            w_wall, w_dev = whole_ms[whole]
+            lines.append(
+                {
+                    "parallel_call": name,
+                    "shards": 1 if name.endswith("_1") else n,
+                    "wall_ms": wall,
+                    "device_ms": dev_ms,
+                    "unsharded": whole,
+                    "unsharded_wall_ms": w_wall,
+                    "unsharded_device_ms": w_dev,
+                    "layer_wall_ms": wall - w_wall,
+                    "layer_device_ms": dev_ms - w_dev,
+                    "card": card,
+                }
+            )
+        line = {
+            "parallel_path": "ok",
+            "seconds": time.perf_counter() - t_phase,
+            "world": dist.get_world_size(),
+            "backend": str(dist.get_backend()),
+            "shards": n,
+            "shapes": {"mttkrp": [MT_I, MT_J, MT_K, MT_R, t.nnz], "bench": [M, K, a.nnz, N, SD_K], "spgemm": [SG_JIT_LEN, a4.nnz]},
+            "mttkrp_ell_caps": {k: int(mt_ell[k][0].shape[-1]) for k in (1, n)},
+            "spgemm_capacity": {"sharded": cap4, "whole": cap_whole},
+            "setup_s": setup_s,
+            "path_s": path_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "err_vs_unsharded": checks,
+            "same_bits": same_bits,
+            "checkpoint": {"save_s": t_save - t0, "load_s": t_load - t_save},
+            "profiling": {
+                "k2_time_graph_ms": k2_graph_ms,
+                "k2_benchmark_ms": k2_bench_ms,
+                "k2_benchmark_unperturbed_ms": k2_bench_plain_ms,
+                "perturb_add_ms": bump_ms,
+                "trace_e2_kernel_events": named,
+                "trace_top_kernels_ms": top,
+            },
+            "card": card,
+        }
+        return line, lines
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -4595,7 +4902,6 @@ def main():
     torch.cuda.empty_cache()
     # indexing, DOK, npz I/O, creation and the rest of the namespace on the bench matrix
     log(json.dumps(phase_indexing_path(dev, a, card)))
-    del a
     torch.cuda.empty_cache()
     # sparse attention (Longformer, BigBird, one long head) and GCN propagation
     at_line, at_kernels = phase_attention_path(dev, card)
@@ -4654,7 +4960,14 @@ def main():
     )
     mt_errs = {"ell_mttkrp": cmp_errs["ell_mttkrp exact torch.float32"], "coo_mttkrp": cmp_errs["coo_mttkrp torch.float32"]}
     lines += phase_mttkrp_times(t, c, d, lay, want, mt_launches, mt_errs, card, build)
-    del c, d, lay, ex, want
+    del ex, want
+    torch.cuda.empty_cache()
+    # the multi-device layer on a mesh of one NCCL rank (MTTKRP, SDDMM, SpMM, ...)
+    par_line, par_calls = phase_parallel_path(dev, a, t, c, d, lay, card)
+    for call in par_calls:
+        log(json.dumps(call))
+    log(json.dumps(par_line))
+    del a, c, d, lay, par_line, par_calls
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     elem["mttkrp_tensor"] = phase_elemwise_3d(t)

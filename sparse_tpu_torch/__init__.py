@@ -33,11 +33,16 @@ functions of ``sparse_tpu.linalg`` on the operand's device (their matvecs on
 the DIA shifts or the row-ELL SpMV kernel) with scipy's direct solvers as host
 bridges, and ``csgraph``: the graph algorithms of ``sparse_tpu.csgraph``
 (shortest paths on the min-plus relaxation kernel, PageRank on the row-ELL
-SpMV kernel). ``testing`` holds ``assert_eq`` and its kin.
+SpMV kernel). ``testing`` holds ``assert_eq`` and its kin. ``parallel``
+holds the multi-device layer on ``torch.distributed`` (row-partitioned
+operands and their sharded products), ``checkpoint`` its save and restore,
+and ``profiling`` the timers (``benchmark`` on CUDA events, ``trace`` on
+``torch.profiler``, ``compiled``).
 
-``CSR``, ``CSC``, ``csgraph``, ``jitops``, ``kernels``, ``linalg``, ``matvec_add``, ``nn``,
-``sddmm``, ``swapaxes`` and ``transpose`` are attributes, not names of
-``__all__``, which names exactly what ``sparse_tpu.__all__`` names.
+``CSR``, ``CSC``, ``compiled``, ``csgraph``, ``jitops``, ``kernels``, ``linalg``,
+``matvec_add``, ``nn``, ``parallel``, ``profiling``, ``sddmm``, ``swapaxes``
+and ``transpose`` are attributes, not names of ``__all__``, which names
+exactly what ``sparse_tpu.__all__`` names.
 
 The namespace re-exports NumPy's ufuncs under ``sparse_tpu``'s names
 (``sparse_tpu_torch.add is np.add``): called on a sparse array they run on
@@ -221,6 +226,9 @@ from .ops.einsum import einsum
 from .ops.elemwise import broadcast_to, elemwise
 from . import linalg  # noqa: E402  (after the namespace it builds on)
 from . import csgraph  # noqa: E402
+from . import parallel  # noqa: E402
+from . import profiling  # noqa: E402
+from .profiling import compiled  # noqa: E402
 
 
 def clip(a, min=None, max=None, out=None, *, a_min=None, a_max=None):  # noqa: A002

@@ -19,6 +19,7 @@ from .kernels.dia import DiaMatrix
 from .kernels.ell import DEFAULT_BLOCK_ROWS, block_ell_3d_from_numpy
 from .kernels.row_ell import pack_row_ell
 from .nn import make_block_sparse_linear_params
+from .parallel.sharding import PartitionedCOO, _tensor
 
 
 def coo_from_arrays(coords, data, shape, fill_value=None, device=None):
@@ -82,6 +83,25 @@ def block_ell_3d_from_arrays(e_rows, e_j, e_k, e_data, block_rows=DEFAULT_BLOCK_
     needs built beside them on the host."""
     device = resolve_device(device)
     return block_ell_3d_from_numpy(e_rows, e_j, e_k, _float_tensor(e_data, device), block_rows, device)
+
+
+def partitioned_coo_from_arrays(rows, cols, data, shape, block_rows, row_starts=None):
+    """The port's host ``PartitionedCOO`` (CPU tensors) from a JAX
+    ``PartitionedCOO``'s leaves and its ``row_starts``, taken as they are;
+    ``parallel.partition_coo_rows`` and the sharded functions take it."""
+    rows, cols, data = (_tensor(np.asarray(a)) for a in (rows, cols, data))
+    starts = None if row_starts is None else np.asarray(row_starts, dtype=np.int64)
+    return PartitionedCOO(rows, cols, data, tuple(int(n) for n in shape), int(block_rows), starts)
+
+
+def ell_partition_from_arrays(*partition):
+    """The port's form of a host partition of ``sparse_tpu.parallel``: the
+    arrays of ``partition_spmm_ell``'s ``(e_rows, e_cols, e_data,
+    block_rows)``, ``partition_mttkrp_ell``'s ``(e_rows, e_j, e_k, e_data,
+    block_rows)``, ``bucket_columns``' ``(rows, cols, data, block_cols)`` or
+    ``bucket_columns_ell``'s ``(e_rows, e_cols, e_data, block_rows,
+    block_cols)`` as CPU tensors, the trailing ints as ints."""
+    return tuple(int(a) if np.ndim(a) == 0 else _tensor(np.asarray(a)) for a in partition)
 
 
 def block_sparse_linear_params_from_arrays(

@@ -24,13 +24,14 @@ _EXPERIMENTS = ("pallas_spmv_onehot", "pallas_vmem", "pallas_vmem2")
 
 
 def test_import_loads_no_jax_and_no_sparse_tpu():
-    imports = ", ".join(["sparse_tpu_torch", *(f"sparse_tpu_torch.experiments.{m}" for m in _EXPERIMENTS)])
+    modules = ["sparse_tpu_torch", "sparse_tpu_torch.parallel", "sparse_tpu_torch.checkpoint", "sparse_tpu_torch.profiling"]
+    imports = ", ".join([*modules, *(f"sparse_tpu_torch.experiments.{m}" for m in _EXPERIMENTS)])
     code = f"import json, sys, {imports}; print(json.dumps(sorted(sys.modules)))"
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
     mods = json.loads(res.stdout.strip().splitlines()[-1])
     bad = [m for m in mods if m.split(".")[0] in ("jax", "sparse_tpu", "experiments")]
     assert bad == []
-    assert "sparse_tpu_torch" in mods
+    assert all(m in mods for m in modules)
     assert all(f"sparse_tpu_torch.experiments.{m}" in mods for m in _EXPERIMENTS)
 
 
