@@ -186,6 +186,23 @@ drives the port's two paths on the card:
   E2's kernel once a shard; each sharded call's wall and device ms (median
   of 5 eager calls) beside the unsharded call's, one line a pair.
 
+- the partitioned forms (the ``partitioned_path`` line) on the same world
+  of one, at the unsharded paths' shapes: ``bellman_ford_partitioned`` on
+  the bench graph from 8 sources with predecessors (K7 once a round, the
+  unsharded solve's count; distances and predecessors bit for bit
+  ``bellman_ford``'s and ``dijkstra``'s), ``pagerank_partitioned`` (K1 once
+  an iteration, within 1e-12 of max |p| of ``pagerank``, its bits
+  reported), ``dia_spmv_sharded`` on the Poisson matrix at side 1,024 (bit
+  for bit ``dia_spmv``), CG to 1e-8 on ``partitioned_matvec`` over 4 row
+  shards (its true residual, its iterations beside K1's solve),
+  ``banded_attention_sharded`` (causal and not) and
+  ``sparse_attention_sharded`` in 4 shards (K4 and K5 once a shard) at the
+  attention head's shape within 1e-4 · max|v| of the unsharded calls;
+  ``entry()``'s step against its plain version and
+  ``dryrun_multichip(1)``; each call's wall and device ms beside the
+  unsharded call's, one line a pair; the path's launches join the K7, K1,
+  K4 and K5 rows of the ``kernels`` line (``partitioned_path_launches``).
+
 The launch counters show that each path ran its kernels; each kernel is
 timed beside its plain version, one library call on the same inputs
 (torch.sparse, which reaches cuSPARSE or torch's own kernels; timed here
@@ -4854,6 +4871,252 @@ def phase_parallel_path(dev, a, t, c, d, lay, card):
         shutil.rmtree(PAR_DIR, ignore_errors=True)
 
 
+# The partitioned forms (the partitioned_path line): the same world of one on
+# NCCL, at the unsharded paths' shapes: the csgraph_path's bench graph
+# (bellman_ford_partitioned on K7 from CG_SOURCES sources, with predecessors;
+# pagerank_partitioned on K1), the linalg_path's Poisson matrix at side
+# LA_SIDE (dia_spmv_sharded on its 5 offsets; cg on partitioned_matvec over
+# PAR_SHARDS row shards), the attention_path's head (L = AT_L, window
+# AT_WINDOW, d = dv = AT_D: banded_attention_sharded, causal and not;
+# sparse_attention_sharded over PAR_SHARDS shards, K4 and K5 a shard), then
+# entry() and dryrun_multichip(1)
+PT_CG_REPS = 1  # a partitioned CG solve takes seconds: one timed call a side
+PT_SEED = 26
+
+
+def phase_partitioned_path(dev, card):
+    """The partitioned forms through their entry points on a mesh of one
+    NCCL rank, counted: K7 once a round of ``bellman_ford_partitioned`` (the
+    unsharded solve's count), K1 once an iteration of
+    ``pagerank_partitioned``, K4 and K5 once a shard of
+    ``sparse_attention_sharded``, no other kernel. Each result against the
+    unsharded call on the card: the distances and predecessors bit for bit
+    (``bellman_ford`` and ``dijkstra``), PageRank within CG_PR_RTOL of max
+    |p| (whether its bits are equal is reported), ``dia_spmv_sharded`` bit
+    for bit ``dia_spmv``, the partitioned CG converged with a true residual
+    within LA_SLACK · LA_TOL, the attentions within AT_ORACLE_TOL · max|v|;
+    ``entry()``'s step against its plain version within ORACLE_TOL;
+    ``dryrun_multichip(1)``'s own asserts. Returns the phase's line and one
+    line a timed pair."""
+    import torch.distributed as dist
+
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch import csgraph, entry, linalg, nn, parallel
+    from sparse_tpu_torch.kernels import LAUNCHES, reset_launch_counts, row_ell
+    from sparse_tpu_torch.kernels import dia as kdia
+    from sparse_tpu_torch.kernels import dot as kdot
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh()
+        n = PAR_SHARDS
+        g, _, _ = cg_graph(CG_NODES, CG_EDGES, CG_SEED, dev)
+        sources = np.arange(CG_SOURCES)
+        r, c, vals = poisson_triplets(LA_SIDE, dev)
+        n_la = LA_SIDE * LA_SIDE
+        lap = st.COO(torch.stack([r, c]), vals, shape=(n_la, n_la))
+        dia = lap.to_dia()
+        if dia is None or dia.offsets != (-LA_SIDE, -1, 0, 1, LA_SIDE):
+            raise AssertionError(f"partitioned_path: the Poisson matrix built no 5-offset DIA layout ({dia and dia.offsets})")
+        gen = torch.Generator(device=dev).manual_seed(PT_SEED)
+        x_la = torch.randn(n_la, generator=gen, dtype=torch.float64, device=dev)
+        b_la = torch.randn(n_la, generator=gen, dtype=torch.float64, device=dev)
+        p_lap = parallel.partition_coo_rows(lap, n, mesh=mesh)
+        mv = linalg.partitioned_matvec(p_lap, mesh)
+        q, k, v = (torch.randn((AT_L, AT_D), generator=gen, device=dev) for _ in range(3))
+        rows, cols = nn.local_attention_pattern(AT_L, AT_WINDOW)
+        lr, lc, valid, br = nn.partition_attention_pattern(rows, cols, AT_L, n)
+        pattern = [torch.as_tensor(x, device=dev) for x in (lr, lc, valid)]
+        rows_t, cols_t = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_phase
+
+        calls = {
+            "bellman_ford_partitioned": lambda: csgraph.bellman_ford_partitioned(g, mesh, indices=sources, return_predecessors=True),
+            "pagerank_partitioned": lambda: csgraph.pagerank_partitioned(g, mesh),
+            "dia_spmv_sharded": lambda: kdia.dia_spmv_sharded(dia.offsets, dia.bands, x_la, mesh),
+            "cg_partitioned_matvec": lambda: linalg.cg(mv, b_la, tol=LA_TOL, return_iters=True),
+            **{f"banded_attention_sharded_causal_{cz}": (lambda cz=cz: nn.banded_attention_sharded(q, k, v, window=AT_WINDOW, mesh=mesh, block=AT_BLOCK, causal=cz)) for cz in (False, True)},
+            "sparse_attention_sharded": lambda: nn.sparse_attention_sharded(q, k, v, *pattern, br, mesh),
+        }
+        # the path, counted: every count to 0 just before it, read just after
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = {kk: vv for kk, vv in LAUNCHES.items() if vv}
+
+        # the unsharded calls on the card
+        unsharded = {
+            "bellman_ford_partitioned": lambda: csgraph.bellman_ford(g, indices=sources, return_predecessors=True),
+            "pagerank_partitioned": lambda: csgraph.pagerank(g),
+            "dia_spmv_sharded": lambda: kdia.dia_spmv(dia.offsets, dia.bands, x_la),
+            "cg_partitioned_matvec": None,  # set below: the K1 solve of the same matrix
+            **{f"banded_attention_sharded_causal_{cz}": (lambda cz=cz: nn.banded_attention(q, k, v, window=AT_WINDOW, block=AT_BLOCK, causal=cz)) for cz in (False, True)},
+            "sparse_attention_sharded": lambda: nn.sparse_attention(q, k, v, rows_t, cols_t),
+        }
+        reset_launch_counts()
+        d_bf, p_bf = unsharded["bellman_ford_partitioned"]()
+        torch.cuda.synchronize()
+        bf_rounds = LAUNCHES["minplus_relax"]
+        d_dij, p_dij = csgraph.dijkstra(g, indices=sources, return_predecessors=True)
+        reset_launch_counts()
+        pr_whole, pr_it_whole = unsharded["pagerank_partitioned"]()
+        torch.cuda.synchronize()
+        pr_launches_whole = LAUNCHES["row_ell_spmv"]
+        pr, pr_it = got["pagerank_partitioned"]
+        # K5's calls: its gather and sliced routes' launches (the union route
+        # launches its union kernel and the gather route on its flagged blocks)
+        k5_union = launches.get("sampled_row_sum_union", 0)
+        k5 = launches.get("sampled_row_sum", 0) + launches.get("sampled_row_sum_sliced", 0)
+        want_launches = {"minplus_relax": bf_rounds, "row_ell_spmv": pr_it, "sddmm": n}
+        others = sum(launches.values()) - sum(want_launches.values()) - k5 - k5_union
+        if {kk: launches.get(kk, 0) for kk in want_launches} != want_launches or k5 != n or k5_union > launches.get("sampled_row_sum", 0) or others:
+            raise AssertionError(f"partitioned_path: launches {launches}, expected {want_launches}, {n} K5 calls, no other kernel")
+
+        checks, same_bits = {}, {}
+        d_pt, p_pt = got["bellman_ford_partitioned"]
+        for name, (dd, pp) in (("bellman_ford", (d_bf, p_bf)), ("dijkstra", (d_dij, p_dij))):
+            if not (torch.equal(d_pt, dd) and torch.equal(p_pt, pp)):
+                raise AssertionError(f"partitioned_path: bellman_ford_partitioned differs from {name} in its distances or predecessors")
+        same_bits["bellman_ford_partitioned"] = True
+        pr_err = float((pr - pr_whole).abs().max() / pr_whole.abs().max())
+        if not (pr_err <= CG_PR_RTOL and pr_it == pr_it_whole and pr_launches_whole == pr_it_whole):
+            raise AssertionError(f"partitioned_path: pagerank_partitioned at {pr_err} of max |p| ({pr_it} iterations, the unsharded {pr_it_whole})")
+        checks["pagerank_partitioned"] = pr_err
+        same_bits["pagerank_partitioned"] = bool(torch.equal(pr, pr_whole))
+        if not torch.equal(got["dia_spmv_sharded"], unsharded["dia_spmv_sharded"]()):
+            raise AssertionError("partitioned_path: dia_spmv_sharded differs from dia_spmv")
+        same_bits["dia_spmv_sharded"] = True
+        x_cg, info_cg, it_cg = got["cg_partitioned_matvec"]
+        res_cg = float(torch.linalg.vector_norm(b_la - kdia.dia_spmv(dia.offsets, dia.bands, x_cg)) / torch.linalg.vector_norm(b_la))
+        if info_cg != 0 or not res_cg <= LA_SLACK * LA_TOL:
+            raise AssertionError(f"partitioned_path: cg on partitioned_matvec info {info_cg}, true residual {res_cg}")
+        rell = lap.to_row_ell()
+
+        def mv_k1(vec):
+            return row_ell.row_ell_spmv(rell, vec)
+
+        mv_k1.shape = lap.shape
+        unsharded["cg_partitioned_matvec"] = lambda: linalg.cg(mv_k1, b_la, tol=LA_TOL, return_iters=True)
+        _, info_k1, it_k1 = unsharded["cg_partitioned_matvec"]()
+        checks["cg_partitioned_matvec"] = res_cg
+        for name in ("banded_attention_sharded_causal_False", "banded_attention_sharded_causal_True", "sparse_attention_sharded"):
+            checks[name] = check_attention(f"partitioned_path: {name}", got[name], unsharded[name]().double(), v)
+
+        # entry(): the fused step against its plain version; dryrun_multichip(1)
+        fn, args = entry.entry()
+        e_rows, e_cols, e_data, e_dense, e_bias = args
+
+        def plain_step():
+            out = kdot.coo_spmm(e_rows, e_cols, e_data, e_dense, n_rows=8192) + e_bias[None, :]
+            return out, kdot.sddmm_plain(e_rows.long(), e_cols.long(), e_data, out, e_dense.T).sum()
+
+        reset_launch_counts()
+        e_out, e_loss = fn(*args)
+        torch.cuda.synchronize()
+        entry_launches = {kk: vv for kk, vv in LAUNCHES.items() if vv}
+        p_out, p_loss = plain_step()
+        checks["entry_out"] = check_close("entry out", e_out, p_out, ORACLE_TOL)
+        # the step's SDDMM entries (K4, again on its own out: the same bits
+        # sum to its loss) each within SD_PLAIN_TOL of their scale of the
+        # plain version's on the same inputs; the loss is their sum
+        e_sample = kdot.sddmm(e_rows, e_cols, e_data, e_out, e_dense.T)
+        if not torch.equal(e_sample.sum(), e_loss):
+            raise AssertionError("partitioned_path: entry's loss is not the sum of its SDDMM entries")
+        _, e_scale = sddmm_oracle(e_rows, e_cols, e_data, e_out, e_dense)
+        e_plain = kdot.sddmm_plain(e_rows, e_cols, e_data, e_out, e_dense.T)
+        checks["entry_sddmm"] = check_sddmm("entry SDDMM vs sddmm_plain", e_sample, e_plain.double(), e_scale, SD_PLAIN_TOL)
+        checks["entry_loss"] = check_close("entry loss", e_loss[None], p_loss[None], ORACLE_TOL)
+        del e_sample, e_scale, e_plain
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        entry.dryrun_multichip(1)
+        torch.cuda.synchronize()
+        dryrun_s = time.perf_counter() - t0
+        dryrun_launches = {kk: vv for kk, vv in LAUNCHES.items() if vv}
+
+        # each partitioned call beside its unsharded call: wall and device ms
+        lines = []
+        pairs = {**{name: (calls[name], unsharded[name]) for name in calls}, "entry": (lambda: fn(*args), plain_step)}
+        for name, (sharded_fn, whole_fn) in pairs.items():
+            reps = PT_CG_REPS if name.startswith("cg_") else PAR_REPS
+            wall, dev_ms = wall_and_device_ms(sharded_fn, reps)
+            w_wall, w_dev = wall_and_device_ms(whole_fn, reps)
+            lines.append(
+                {
+                    "partitioned_call": name,
+                    "wall_ms": wall,
+                    "device_ms": dev_ms,
+                    "unsharded": "plain step" if name == "entry" else ("cg on K1, the same matrix" if name.startswith("cg_") else "the unsharded call"),
+                    "unsharded_wall_ms": w_wall,
+                    "unsharded_device_ms": w_dev,
+                    "reps": reps,
+                    "card": card,
+                }
+            )
+        line = {
+            "partitioned_path": "ok",
+            "seconds": time.perf_counter() - t_phase,
+            "world": dist.get_world_size(),
+            "backend": str(dist.get_backend()),
+            "shards": n,
+            "shapes": {
+                "graph": [CG_NODES, g.nnz, CG_SOURCES],
+                "poisson": [LA_SIDE, n_la, lap.nnz, list(dia.offsets)],
+                "attention": [AT_L, AT_WINDOW, AT_D, AT_BLOCK, len(rows)],
+                "entry": [8192, 8192, int(e_rows.numel()), 128],
+            },
+            "setup_s": setup_s,
+            "path_s": path_s,
+            "launches": launches,
+            "bellman_ford_rounds_unsharded_launches": bf_rounds,
+            "pagerank_iterations": {"partitioned": pr_it, "unsharded": pr_it_whole},
+            "cg_iterations": {"partitioned_matvec": it_cg, "k1": it_k1, "k1_info": info_k1},
+            "err_vs_unsharded": checks,
+            "same_bits": same_bits,
+            "entry_launches": entry_launches,
+            "dryrun_multichip_1": {"seconds": dryrun_s, "launches": dryrun_launches},
+            "card": card,
+        }
+        return line, lines
+    finally:
+        dist.destroy_process_group()
+
+
+# the one kernel row a later path's counter joins, by name and by the shape
+# or route it runs: K7's gather route at the bench graph from 8 sources and
+# K1 on PageRank's Wᵀ p (the path's shapes); K5's union route on the
+# attention head's attn @ v, whose query shards the sharded attention runs
+# (with the gather route's launches on the flagged blocks, which that
+# route's entry point makes); K4 on the bench row, the one K4 row not at the
+# example's shape (the path runs it on the attention shards, L = AT_L,
+# d = AT_D). The partitioned_path line holds every counter
+PATH_ROWS = {
+    "minplus_relax": lambda row: row["name"].startswith("K7 minplus_relax, gather route") and ", 8 sources" in row["name"],
+    "row_ell_spmv": lambda row: row["name"].startswith("row_ell_spmv (csgraph_path: pagerank"),
+    "sddmm": lambda row: row["name"] == "sddmm" and "shape" not in row,
+    "sampled_row_sum_union": lambda row: row.get("of") == "attention_attn_v",
+}
+PATH_ROW_EXTRA = {"sampled_row_sum_union": ("sampled_row_sum", "flagged_gather_launches")}
+
+
+def add_path_launches(lines, path, launches):
+    """The one kernel row of ``lines`` that ``PATH_ROWS`` matches for each
+    counter gains ``<path>_launches``: that counter's launches on the path
+    (the union route's row also its flagged blocks' gather launches)."""
+    for counter, matches in PATH_ROWS.items():
+        rows = [row for row in lines if matches(row)]
+        if len(rows) != 1:
+            raise AssertionError(f"{path}: {len(rows)} kernel rows match {counter}'s, not one")
+        rows[0][f"{path}_launches"] = launches.get(counter, 0)
+        if counter in PATH_ROW_EXTRA:
+            other, key = PATH_ROW_EXTRA[counter]
+            rows[0][f"{path}_{key}"] = launches.get(other, 0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -4968,6 +5231,14 @@ def main():
         log(json.dumps(call))
     log(json.dumps(par_line))
     del a, c, d, lay, par_line, par_calls
+    torch.cuda.empty_cache()
+    # the partitioned forms on the same world of one (K7, K1, K4 and K5 on each rank's part)
+    pt_line, pt_calls = phase_partitioned_path(dev, card)
+    for call in pt_calls:
+        log(json.dumps(call))
+    log(json.dumps(pt_line))
+    add_path_launches(lines, "partitioned_path", pt_line["launches"])
+    del pt_line, pt_calls
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     elem["mttkrp_tensor"] = phase_elemwise_3d(t)

@@ -59,6 +59,17 @@ def signed_view(t):
     return t if signed is None else t.view(signed)
 
 
+def as_int64(t):
+    """``t``'s integer or bool values as int64, modulo 2**64: the unsigned
+    types zero-extended (uint64 by its signed view, the same bits)."""
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64)
+    signed = _SIGNED.get(t.dtype)
+    if signed is None:
+        return t.to(torch.int64)
+    return t.view(signed).to(torch.int64) & ((1 << (8 * t.element_size())) - 1)
+
+
 def take(t, index):
     """``t[index]`` (index tensors, a tuple of them or a boolean mask); the
     unsigned types wider than 8 bits, which CUDA's indexing lacks, through
@@ -148,6 +159,16 @@ def result_dtype(*dtypes):
     for dt in dtypes[1:]:
         out = np.promote_types(out, numpy_dtype(dt))
     return torch_dtype(out)
+
+
+def sum_dtype(dtype):
+    """The dtype ``np.sum`` (and ``jnp.sum`` under x64) sums ``dtype`` in,
+    as a torch dtype: bool and the signed integers int64, the unsigned
+    uint64, the rest themselves."""
+    dtype = torch_dtype(dtype)
+    if _is_inexact(dtype):
+        return dtype
+    return torch.uint64 if dtype in (torch.uint8, torch.uint16, torch.uint32, torch.uint64) else torch.int64
 
 
 def _is_inexact(dtype):

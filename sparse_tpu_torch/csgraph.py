@@ -1,8 +1,8 @@
 """Graph algorithms over sparse adjacency matrices, on torch tensors.
 
-The surface of ``sparse_tpu.csgraph`` (modelled on ``scipy.sparse.csgraph``)
-but its partitioned forms. Stored entries are edges and the fill value
-must be zero; ``directed=False`` reads each stored edge both ways.
+The surface of ``sparse_tpu.csgraph`` (modelled on ``scipy.sparse.csgraph``).
+Stored entries are edges and the fill value must be zero;
+``directed=False`` reads each stored edge both ways.
 
 The shortest paths (``bellman_ford``, ``dijkstra``, ``shortest_path``'s
 ``'BF'``/``'D'``, ``johnson``'s second phase, the BFS levels) run the
@@ -20,7 +20,10 @@ with ``scatter_reduce_``; strong components the boolean closure by
 repeated squaring in float32 at full precision; Floyd-Warshall a loop of
 torch ops over ``k``. The traversal orders, the spanning tree, the
 matchings, the maximum flow, Yen's paths and the representation helpers
-are host NumPy, as in the reference.
+are host NumPy, as in the reference. ``bellman_ford_partitioned`` and
+``pagerank_partitioned`` split the edge list over a mesh's ranks
+(``parallel.make_mesh``): a rank's rounds on K7 or K1 over its chunk, the
+ranks joined by one collective a round.
 
 Distances, weights and scores are float64 and indices int64 on every
 device (the reference's types on its CPU backend, and scipy's). Results
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as _dist
 
 from ._settings import resolve_device
 from .core.base import SparseArray
@@ -46,6 +50,7 @@ from .kernels.bsr import _full_f32_matmul
 __all__ = [
     "NegativeCycleError",
     "bellman_ford",
+    "bellman_ford_partitioned",
     "breadth_first_order",
     "breadth_first_tree",
     "connected_components",
@@ -66,6 +71,7 @@ __all__ = [
     "min_weight_full_bipartite_matching",
     "minimum_spanning_tree",
     "pagerank",
+    "pagerank_partitioned",
     "reconstruct_path",
     "reverse_cuthill_mckee",
     "shortest_path",
@@ -324,6 +330,106 @@ def dijkstra(
         else:
             out = torch.where(out > limit, torch.inf, out)
     return _squeeze_sources(out, indices, return_predecessors)
+
+
+# ---------------------------------------------------------------------------
+# the partitioned relaxation (the edge list split over a mesh's ranks)
+# ---------------------------------------------------------------------------
+
+_LOW63 = 0x7FFFFFFFFFFFFFFF
+
+
+def _min_keys(t):
+    """float64 ``t`` as int64 keys in the same order, NaN the least: an
+    ``all_reduce(MIN)`` of the keys is ``jnp.minimum``'s (NaN propagates),
+    whatever NaN rule the backend's float minimum has."""
+    b = t.view(torch.int64)
+    key = torch.where(b < 0, b ^ _LOW63, b)
+    return torch.where(torch.isnan(t), torch.iinfo(torch.int64).min, key)
+
+
+def _from_min_keys(key):
+    """:func:`_min_keys`' inverse; a NaN comes back as the quiet NaN
+    ``torch.nan`` (its payload is not kept)."""
+    t = torch.where(key < 0, key ^ _LOW63, key).view(torch.float64)
+    return torch.where(key == torch.iinfo(torch.int64).min, torch.nan, t)
+
+
+def _edge_chunk(mesh, axis_name, arrays, fills):
+    """The rank's chunk of the edge list: ``arrays`` padded to a multiple of
+    the axis's size with ``fills`` (the reference's padding edges 0 → 0)
+    and cut into equal chunks, one a rank in rank order."""
+    from .parallel.sharding import _mesh_dim
+
+    dim = _mesh_dim(mesh, axis_name)
+    size, coord = mesh.size(dim), mesh.get_local_rank(dim)
+    cap = max(-(-arrays[0].size // size), 1)
+    pad = cap * size - arrays[0].size
+    return [np.concatenate([a, np.full(pad, f, dtype=a.dtype)])[coord * cap : (coord + 1) * cap] for a, f in zip(arrays, fills)]
+
+
+def bellman_ford_partitioned(
+    csgraph, mesh, *, indices=None, directed=True, unweighted=False, return_predecessors=False, axis_name="x"
+):
+    """Multi-source Bellman-Ford with the edge list split over the ranks of
+    ``mesh``'s axis (``parallel.make_mesh``): the same results as
+    :func:`bellman_ford`, bit for bit, at every world size.
+
+    The edges are cut into one equal chunk a rank, padded with ``+inf``
+    edges 0 → 0. Each Jacobi round a rank relaxes the shared ``(n, k)``
+    table over its chunk, on K7 over the chunk's ``build_dest_ell`` layout
+    (built once a call; the scatter form where the layout is refused), and
+    one ``all_reduce(MIN)`` joins the ranks' tables (int64 keys in the
+    floats' order, so NaN propagates as in the reference); the flag of a
+    fall is taken from the joined table and read back once a round. The
+    rounds run to the fixed point (at most ``n + 1``), then one more tests
+    for a negative cycle (:class:`NegativeCycleError`). Predecessors come
+    from the whole edge list. The table is in the input's labels: where a
+    chunk's layout relabels the nodes, the rank maps the table into the
+    layout's labels and its round back, every round, at every world size.
+    Results are on the mesh's device."""
+    from .parallel.sharding import _device, _mesh_dim
+
+    rows, cols, w, n, _ = _graph_triplet(csgraph, directed=directed, unweighted=unweighted)
+    device = _device(mesh)
+    dim = _mesh_dim(mesh, axis_name)
+    group = mesh.get_group(dim)
+    sources = _prepare_sources(indices, n)
+    k = sources.shape[0]
+    src = torch.from_numpy(sources).to(device)
+    r_c, c_c, w_c = _edge_chunk(mesh, axis_name, (rows, cols, w), (0, 0, np.inf))
+    ell = _minplus.build_dest_ell(r_c, c_c, w_c, n, device=device)
+    relabel = ell is not None and ell.perm is not None
+    local = torch.empty((n, k), dtype=_F, device=device)  # the rank's round, before the join
+    if ell is None:
+        scatter = _relax_scatter(*_edges(r_c, c_c, w_c, device))
+    elif device.type == "cuda":
+        launch, _ = _minplus._k7_launches(local, deg=ell.deg, t_deg=ell.t_deg)
+
+    def relax(distT, _e_src, _e_w, _tail, out):
+        mine = distT.index_select(0, ell.perm) if relabel else distT
+        if ell is None:
+            scatter(mine, None, None, None, local)
+        elif device.type == "cuda":
+            launch(mine, ell.e_src, ell.e_w, ell.tail, local)
+        else:
+            local.copy_(_minplus.minplus_relax_plain(mine, ell.e_src, ell.e_w, ell.tail)[0])
+        keys = _min_keys(local.index_select(0, ell.inv) if relabel else local)
+        _dist.all_reduce(keys, op=_dist.ReduceOp.MIN, group=group)
+        new = out.copy_(_from_min_keys(keys))
+        return new, (new < distT).any()
+
+    distT, has_neg, _ = _minplus.minplus_fixpoint(_start_table(k, n, src, device), None, None, maxiter=n + 1, relax=relax)
+    dist_t = distT.T.contiguous()
+    if has_neg:
+        raise NegativeCycleError("negative-weight cycle detected in the graph")
+    if return_predecessors:
+        if rows.size:
+            pred = _predecessors_device(*_edges(rows, cols, w, device), dist_t, src, n=n)
+        else:
+            pred = torch.full((k, n), _NULL_IDX, dtype=torch.int32, device=device)
+        return _squeeze_sources((dist_t, pred), indices, True)
+    return _squeeze_sources(dist_t, indices, False)
 
 
 def _squeeze_sources(out, indices, return_predecessors):
@@ -1008,18 +1114,52 @@ def pagerank(csgraph, *, alpha=0.85, tol=1e-10, maxiter=200, personalize=None):
     cached = getattr(csgraph, "_cached_layout", None)
     wt = cached("pagerank_walk", None, walk) if cached is not None else walk()
     layout = wt.to_row_ell()
+    return _pagerank_iterate(lambda p: _row_ell.row_ell_spmv(layout, p), dangling, tele, n, device, alpha, tol, maxiter)
+
+
+def _pagerank_iterate(spread, dangling, tele, n, device, alpha, tol, maxiter):
+    """The damped power iteration from the uniform vector: ``spread(p)`` is
+    ``Wᵀ p``; the dangling mass and the teleport are added, and the stop
+    test ``(delta > tol) & (it < maxiter)`` is read back once a round, with
+    ``delta`` the L1 change. Returns ``(p, iterations)``."""
     dj = torch.from_numpy(dangling).to(device)
     tj = torch.from_numpy(tele).to(device)
     p = torch.full((n,), 1.0 / n, dtype=_F, device=device)
     delta = torch.tensor(torch.inf, dtype=_F, device=device)
     it = 0
     while bool((delta > tol) & (it < maxiter)):
-        spread = _row_ell.row_ell_spmv(layout, p)
         dangling_mass = torch.sum(torch.where(dj, p, 0.0))
-        new = alpha * (spread + dangling_mass * tj) + (1.0 - alpha) * tj
+        new = alpha * (spread(p) + dangling_mass * tj) + (1.0 - alpha) * tj
         delta = torch.sum(torch.abs(new - p))
         p, it = new, it + 1
     return p, it
+
+
+def pagerank_partitioned(csgraph, mesh, *, alpha=0.85, tol=1e-10, maxiter=200, personalize=None, axis_name="x"):
+    """:func:`pagerank` with the edge list split over the ranks of
+    ``mesh``'s axis: ``(scores, iterations)``, the scores on the mesh's
+    device.
+
+    The edges are cut into one equal chunk a rank, padded with weight-0
+    edges 0 → 0. Each iteration a rank spreads ``p`` over its chunk with
+    K1 (``row_ell_spmv`` on the row-ELL layout of the chunk's ``Wᵀ``, built
+    once a call as :func:`pagerank` builds the whole graph's), the ranks'
+    spreads are gathered and summed in rank order (the same bits at every
+    world for one chunking; at a world of one :func:`pagerank`'s), and the
+    dangling mass, the teleport and the L1 stop test follow as in
+    :func:`pagerank`, one read back an iteration."""
+    from .parallel.sharding import _device, _gather, _shard_sum
+
+    rows, cols, w_norm, dangling, tele, n, _ = _pagerank_inputs(csgraph, personalize)
+    device = _device(mesh)
+    r_c, c_c, w_c = _edge_chunk(mesh, axis_name, (rows, cols, w_norm), (0, 0, 0.0))
+    wt = COO(torch.from_numpy(np.stack([c_c, r_c])).to(device), torch.from_numpy(w_c).to(device), shape=(n, n))
+    layout = wt.to_row_ell()
+
+    def spread(p):
+        return _shard_sum(_gather(_row_ell.row_ell_spmv(layout, p)[None], mesh, axis_name))
+
+    return _pagerank_iterate(spread, dangling, tele, n, device, alpha, tol, maxiter)
 
 
 # ---------------------------------------------------------------------------

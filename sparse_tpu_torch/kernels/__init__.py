@@ -22,10 +22,12 @@ launches every kernel. ``segment`` (segment reductions, the reductions'
 runs), ``elemwise`` (the traceable union of two COO operands),
 ``spgemm`` (sparse × sparse, eager and capacity-bounded, with
 ``product_count``) and ``dia`` (the banded layout, ``build_dia``, and its
-shifted products ``dia_spmv``/``dia_spmm``) are torch ops: the JAX package
+shifted products ``dia_spmv``/``dia_spmm``, ``dia_spmv_sharded`` with its
+halos over the ring) are torch ops: the JAX package
 leaves their work to XLA.
 """
 
+from .._utils import uncompress_indptr
 from ._cuda import LAUNCHES, reset_launch_counts
 from .attention import ell_attention, ell_attention_plain
 from .bsr import (
@@ -41,7 +43,7 @@ from .bsr import (
     build_bsr,
     transpose_bsr_layout,
 )
-from .dia import DiaMatrix, build_dia, dia_spmm, dia_spmv
+from .dia import DiaMatrix, build_dia, dia_spmm, dia_spmv, dia_spmv_sharded
 from .dot import coo_spmm, coo_spmv, coo_sum_axes_dense, dense_coo_matmul, mttkrp, mttkrp_plain, sddmm, sddmm_plain
 from .elemwise import coo_elemwise_union
 from .minplus import DestEll, build_dest_ell, minplus_relax, minplus_relax_plain
@@ -100,6 +102,7 @@ __all__ = [
     "dense_coo_matmul",
     "dia_spmm",
     "dia_spmv",
+    "dia_spmv_sharded",
     "ell_attention",
     "ell_attention_plain",
     "ell_mttkrp",
@@ -121,4 +124,5 @@ __all__ = [
     "segment_reduce",
     "segment_sum_onehot_mm",
     "transpose_bsr_layout",
+    "uncompress_indptr",
 ]

@@ -16,7 +16,9 @@ XLA. They add ``bands[i] * x_shifted`` into a result that starts from zeros,
 one pass a diagonal in offset order, over the rows that diagonal reaches
 (outside them the band is zero by construction): a product, then a sum,
 each rounded, as XLA rounds them, so the results are the JAX package's bit
-for bit.
+for bit. ``dia_spmv_sharded`` splits the rows over a mesh's ranks
+(``parallel.make_mesh``) and swaps the halos of ``x`` with the two ring
+neighbours before the same shifted sum on each segment.
 """
 
 from __future__ import annotations
@@ -111,3 +113,42 @@ def dia_spmv(offsets, bands, x):
 def dia_spmm(offsets, bands, dense):
     """``Y = A @ X`` for a DIA matrix and dense ``X`` of shape (n, m)."""
     return _shifted_sum(offsets, bands, _operand(bands, dense, 2))
+
+
+def dia_spmv_sharded(offsets, bands, x, mesh, axis_name="x"):
+    """Row-sharded banded matvec over a 1-D mesh (``parallel.make_mesh``):
+    each rank holds ``n / size`` rows of ``x`` and the same columns of
+    ``bands`` (slices of global arrays, or DTensors sharded so), takes the
+    last ``-min(offsets)`` values of its predecessor's ``x`` and the first
+    ``max(offsets)`` of its successor's (``batch_isend_irecv``; the ring
+    wraps at the global edges, where the bands are zero), and adds the
+    shifted products on its segment from zeros, one rounded product a
+    diagonal in offset order. Returns the global ``(n,)`` on every rank, on
+    the mesh's device: for a finite ``x`` the bits of :func:`dia_spmv`.
+
+    ``n`` must divide over the mesh and the halo must fit one segment."""
+    from ..parallel.sharding import _gather, _local, _mesh_dim, _rotate
+
+    offsets = tuple(int(o) for o in offsets)
+    n = bands.shape[1]
+    size = mesh.size(_mesh_dim(mesh, axis_name))
+    if n % size:
+        raise ValueError(f"n={n} must divide over {size} devices")
+    seg = n // size
+    lo, hi = -min(min(offsets), 0), max(max(offsets), 0)
+    if max(lo, hi) > seg:
+        raise ValueError("band halo wider than a device segment; use fewer devices")
+    bl = _local(bands, mesh, axis_name, dim=1)
+    xl = _local(x, mesh, axis_name)
+    dt = result_dtype(bl.dtype, xl.dtype)
+    bl, xl = bl.to(dt), xl.to(dt)
+    parts = [xl]
+    if lo:
+        parts.insert(0, _rotate(xl[-lo:], mesh, axis_name, shift=-1))
+    if hi:
+        parts.append(_rotate(xl[:hi], mesh, axis_name, shift=1))
+    xp = torch.cat(parts)
+    y = torch.zeros(seg, dtype=dt, device=xl.device)
+    for i, o in enumerate(offsets):
+        y.add_(bl[i] * xp[lo + o : lo + o + seg])
+    return _gather(y, mesh, axis_name)

@@ -36,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._utils import result_dtype, signed_view, wide_index
+from .._utils import as_int64, result_dtype, signed_view, sum_dtype, wide_index
 from . import _cuda
 
 
@@ -283,8 +283,11 @@ def _rowdot(rows, cols, sample_data, lhs, rhs_t):
         return sample_data * (lg.float() * rg.float()).sum(-1).to(lhs.dtype)
     if lhs.dtype.is_floating_point or lhs.dtype.is_complex:
         return sample_data * (lg * rg).sum(-1)
-    dot = (signed_view(lg) * signed_view(rg)).sum(-1, dtype=signed_view(lg).dtype)
-    return (signed_view(sample_data) * dot).view(lhs.dtype)
+    # products in the operands' dtype, their sum in NumPy's (int64, or uint64
+    # through its signed view: the same bits), as the reference's jnp.sum; the
+    # unsigned products and samples zero-extend
+    prod = (signed_view(lg) * signed_view(rg)).view(lhs.dtype)
+    return (as_int64(sample_data) * as_int64(prod).sum(-1)).view(sum_dtype(lhs.dtype))
 
 
 def sddmm_plain(rows, cols, sample_data, lhs, rhs):
@@ -292,12 +295,14 @@ def sddmm_plain(rows, cols, sample_data, lhs, rhs):
     ``rhs.T[cols]``, multiply, sum over K, times ``sample_data``; above
     ``SDDMM_CHUNK_MIN_NNZ`` entries in chunks of ``SDDMM_CHUNK``, as
     ``sparse_tpu`` scans them. The three operands share one dtype; float16
-    and bfloat16 sum in float32 and round once."""
+    and bfloat16 sum in float32 and round once; integers and bool multiply
+    in their dtype and sum, and return, in NumPy's sum dtype (int64, or
+    uint64 for the unsigned)."""
     nnz = rows.shape[0]
     rhs_t = rhs.T
     if nnz < SDDMM_CHUNK_MIN_NNZ:
         return _rowdot(rows, cols, sample_data, lhs, rhs_t)
-    out = torch.empty(nnz, dtype=sample_data.dtype, device=sample_data.device)
+    out = torch.empty(nnz, dtype=sum_dtype(lhs.dtype), device=sample_data.device)
     for start in range(0, nnz, SDDMM_CHUNK):
         sl = slice(start, start + SDDMM_CHUNK)
         out[sl] = _rowdot(rows[sl], cols[sl], sample_data[sl], lhs, rhs_t)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._utils import signed_view
+
 
 def _scalar(v, device):
     """A fill value as a 0-d tensor; a Python scalar takes NumPy's dtype
@@ -49,9 +51,13 @@ def coo_elemwise_union(lin_a, data_a, fv_a, lin_b, data_b, fv_b, *, func, size):
     seg = torch.cumsum(is_new, 0) - 1
     nnz_out = is_new.sum()
 
-    zero = torch.zeros((), dtype=val_s.dtype, device=device)
-    a_val = torch.zeros(cap, dtype=val_s.dtype, device=device).index_add_(0, seg, torch.where(owner_s == 0, val_s, zero))
-    b_val = torch.zeros(cap, dtype=val_s.dtype, device=device).index_add_(0, seg, torch.where(owner_s == 1, val_s, zero))
+    # bool values sum as int64, as the reference's jnp.where(..., val, 0)
+    # promotes them; uint16/32/64 through their signed views (the same bits)
+    sv = signed_view(val_s)
+    acc, vt = (torch.int64, torch.int64) if val_s.dtype == torch.bool else (sv.dtype, val_s.dtype)
+    zero = torch.zeros((), dtype=acc, device=device)
+    a_val = torch.zeros(cap, dtype=acc, device=device).index_add_(0, seg, torch.where(owner_s == 0, sv, zero)).view(vt)
+    b_val = torch.zeros(cap, dtype=acc, device=device).index_add_(0, seg, torch.where(owner_s == 1, sv, zero)).view(vt)
     a_present = torch.zeros(cap, dtype=torch.int32, device=device).index_add_(0, seg, (owner_s == 0).to(torch.int32)) > 0
     b_present = torch.zeros(cap, dtype=torch.int32, device=device).index_add_(0, seg, (owner_s == 1).to(torch.int32)) > 0
     a_val = torch.where(a_present, a_val, fv_a.to(a_val.dtype))

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .._settings import resolve_device
-from .._utils import result_dtype, torch_dtype
+from .._utils import result_dtype, signed_view, torch_dtype
 from . import _cuda
 from .bsr import _host
 from .dot import (
@@ -117,8 +117,9 @@ def build_block_ell(rows, cols, data, n_rows, n_cols, block_rows=DEFAULT_BLOCK_R
 def ell_spmm(e_rows, e_cols, e_data, dense, *, n_rows, block_rows=DEFAULT_BLOCK_ROWS):
     """Block-ELL ``A @ B`` → dense ``(n_rows, N)`` in the promoted dtype."""
     dt = result_dtype(e_data.dtype, dense.dtype)
-    prods = e_data.reshape(-1).to(dt)[:, None] * dense.to(dt)[e_cols.reshape(-1).long()]
-    return segment_sum(prods, slot_rows(e_rows, block_rows), n_rows)
+    # uint16/32/64 through their signed views: torch's CPU gathers and sums lack them
+    prods = signed_view(e_data.reshape(-1).to(dt))[:, None] * signed_view(dense.to(dt))[e_cols.reshape(-1).long()]
+    return segment_sum(prods, slot_rows(e_rows, block_rows), n_rows).view(dt)
 
 
 def ell_spmv(e_rows, e_cols, e_data, x, *, n_rows, block_rows=DEFAULT_BLOCK_ROWS, lane_gather=None):

@@ -159,21 +159,34 @@ def minplus_relax(distT, e_src, e_w, tail=None, out=None, *, deg=None, t_deg=Non
     return out, stamp[0] == 1
 
 
-def _k7_rounds(distT, *, deg=None, t_deg=None, budget=None):
-    """A solve's round on K7 for :func:`minplus_fixpoint`'s ``relax``, on
-    the route ``_cuda.minplus_route`` picks for ``distT``'s shape and
-    ``budget``, over the ``deg``/``t_deg`` filled slots where given. The
-    solve zeroes one int32 stamp of its own, once; round ``r`` (1, 2, ...)
-    writes ``r`` into it where a value fell, and returns the Python bool
-    ``stamp == r``: one launch and one read back a round, no fill."""
+def _k7_launches(distT, *, deg=None, t_deg=None, budget=None):
+    """``(launch, stamp)``: ``launch(src, e_src, e_w, tail, out)`` runs one
+    round on K7 into ``out``, on the route ``_cuda.minplus_route`` picks for
+    ``distT``'s shape and ``budget``, over the ``deg``/``t_deg`` filled
+    slots where given, and returns the round's number ``r`` (1, 2, ...); the
+    round writes ``r`` into the int32 ``stamp`` where a value fell. The
+    stamp is zeroed once, here: no fill a round, and nothing read back."""
     _, cols = _cuda.minplus_route(*distT.shape, distT.element_size(), budget)
     stamp = torch.zeros(1, dtype=torch.int32, device=distT.device)
     number = 0
 
-    def relax(src, e_src, e_w, tail, out):
+    def launch(src, e_src, e_w, tail, out):
         nonlocal number
         number += 1
         _cuda.minplus_relax(src.contiguous(), e_src, e_w, tail, out, stamp, number, deg=deg, t_deg=t_deg, slice_cols=cols)
+        return number
+
+    return launch, stamp
+
+
+def _k7_rounds(distT, *, deg=None, t_deg=None, budget=None):
+    """A solve's round on K7 for :func:`minplus_fixpoint`'s ``relax``
+    (:func:`_k7_launches`' launch), returning the Python bool ``stamp ==
+    r``: one launch and one read back a round, no fill."""
+    launch, stamp = _k7_launches(distT, deg=deg, t_deg=t_deg, budget=budget)
+
+    def relax(src, e_src, e_w, tail, out):
+        number = launch(src, e_src, e_w, tail, out)
         return out, stamp.item() == number
 
     return relax

@@ -7,7 +7,9 @@ spectral functions (``eigsh``, ``svds``, ``lobpcg``, ``eigs``,
 ``power_iteration``, ``onenormest``, ``expm_multiply``, ``norm``) and the
 host bridges to scipy (``spsolve``, ``spsolve_triangular``, ``splu``,
 ``spilu``, ``factorized``, ``inv``, ``expm``, the shift-invert mode of
-``eigsh``/``eigs``), plus ``matrix_power`` on the port's SpGEMM.
+``eigsh``/``eigs``), plus ``matrix_power`` on the port's SpGEMM and
+``partitioned_matvec``, the matvec of a matrix row-partitioned over a mesh
+(``parallel``).
 
 Every vector lives on the operand's device. A solver iterates in Python:
 each iteration enqueues its work on the device and reads back one 0-d
@@ -74,6 +76,7 @@ __all__ = [
     "minres",
     "norm",
     "onenormest",
+    "partitioned_matvec",
     "power_iteration",
     "qmr",
     "spilu",
@@ -102,8 +105,26 @@ def _norm(v, dim=None, keepdim=False):
 
 
 def _device_of(A):
-    """The operand's device, or ``None`` for a callable or a LinearOperator."""
-    return A.device if isinstance(A, SparseArray) else None
+    """The operand's device: a sparse array's, a callable's ``device``
+    attribute (:func:`partitioned_matvec`'s), else ``None``."""
+    return A.device if isinstance(A, SparseArray) else getattr(A, "device", None)
+
+
+def partitioned_matvec(pcoo, mesh, axis_name="x"):
+    """``v -> A @ v`` for a :class:`~sparse_tpu_torch.parallel.PartitionedCOO`
+    on ``mesh``: each rank's row shards times the replicated ``v``
+    (``parallel.spmm_replicated``), gathered, so every rank holds the whole
+    product. The callable carries ``shape`` and ``device`` (the mesh's), so
+    it drops into :func:`cg`, :func:`bicgstab` and :func:`power_iteration`,
+    whose vectors then live on the mesh's device."""
+    from .parallel.sharding import _device, spmm_replicated
+
+    def mv(v):
+        return spmm_replicated(pcoo, v[:, None], mesh, axis_name=axis_name)[:, 0]
+
+    mv.shape = pcoo.shape
+    mv.device = _device(mesh)
+    return mv
 
 
 def _as_vector(v, device, name="b"):

@@ -23,8 +23,9 @@
   as ``sparse_tpu.nn``'s.
 
 Attention functions take one head, ``q (L, d)``, as ``sparse_tpu.nn``'s do;
-heads are a loop. The sequence-sharded forms come with the multi-device
-layer.
+heads are a loop. :func:`banded_attention_sharded` and
+:func:`sparse_attention_sharded` (with :func:`partition_attention_pattern`)
+split the sequence over a mesh's ranks (``parallel.make_mesh``).
 
 The random block mask and weights come from a ``torch.Generator``; they
 differ from ``jax.random``'s for the same seed, so the tests carry the JAX
@@ -755,3 +756,99 @@ def longformer_attention(q, k, v, *, window, n_global=0, scale=None, block=128, 
             rows_g = (torch.softmax(gs, dim=-1) @ v.to(acc)).to(q.dtype)
         out = torch.cat([rows_g, out[G:]])
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharded forms (a mesh of ranks, parallel.make_mesh)
+# ---------------------------------------------------------------------------
+
+
+def banded_attention_sharded(q, k, v, *, window, mesh, axis_name="x", block=128, causal=False):
+    """Sequence-parallel :func:`banded_attention` over a 1-D mesh: each rank
+    holds ``L / size`` rows of q, k and v (slices of the global arrays, or
+    DTensors sharded so), takes the last ``window`` rows of k and v from its
+    predecessor and the first ``window`` from its successor
+    (``batch_isend_irecv``; the ring wraps, where the mask drops the keys
+    past either end), and runs the blocked band attention on its segment:
+    each block of queries against its stripe of ``block + 2·window`` keys,
+    global positions, ``causal`` masking, scale ``1/√d``; bfloat16 and
+    float16 accumulate in float32. Returns the global ``(L, dv)`` on every
+    rank, in q's dtype, on the mesh's device. ``L`` must divide over the
+    ranks and a segment be a multiple of ``block`` and at least
+    ``window``."""
+    from .parallel.sharding import _gather, _local, _mesh_dim, _rotate
+
+    dim = _mesh_dim(mesh, axis_name)
+    size, coord = mesh.size(dim), mesh.get_local_rank(dim)
+    L = q.shape[0]
+    if L % size:
+        raise ValueError(f"sequence length {L} must divide over {size} devices")
+    seg_len = L // size
+    if seg_len % block or window > seg_len:
+        raise ValueError(f"segment {seg_len} must be a multiple of block={block} and >= window={window}")
+    qs, ks, vs = (_local(x, mesh, axis_name) for x in (q, k, v))
+    # the halos: [predecessor's last window | own | successor's first window]
+    k_ext = torch.cat([_rotate(ks[-window:], mesh, axis_name, shift=-1), ks, _rotate(ks[:window], mesh, axis_name)])
+    v_ext = torch.cat([_rotate(vs[-window:], mesh, axis_name, shift=-1), vs, _rotate(vs[:window], mesh, axis_name)])
+    d = qs.shape[-1]
+    acc = _acc_dtype(qs, ks, vs)
+    nb = seg_len // block
+    device = qs.device
+    stripe = torch.arange(block + 2 * window, device=device)[None, :] + (torch.arange(nb, device=device) * block)[:, None]
+    flat = stripe.reshape(-1)
+    kb = k_ext.to(acc).index_select(0, flat).reshape(nb, -1, d)
+    vb = v_ext.to(acc).index_select(0, flat).reshape(nb, -1, v_ext.shape[-1])
+    offset = coord * seg_len
+    qpos = offset + _query_positions(nb, block, device)
+    kpos = offset + stripe[:, None, :] - window
+    in_band = ((qpos - kpos).abs() <= window) & (kpos >= 0) & (kpos < size * seg_len)
+    if causal:
+        in_band &= kpos <= qpos
+    out = _block_attention(qs.to(acc).reshape(nb, block, d), kb, vb, in_band, 1.0 / np.sqrt(d))
+    return _gather(out.reshape(seg_len, -1).to(qs.dtype), mesh, axis_name)
+
+
+def partition_attention_pattern(rows, cols, length, n_shards):
+    """Partition an attention edge pattern by query-row blocks for
+    :func:`sparse_attention_sharded`. Host NumPy, ``sparse_tpu.nn``'s
+    arrays: ``(local_rows, cols, valid, block_rows)``, the three ``(n_shards,
+    cap)`` (int32, int32, bool; ``valid`` flags real edges) with a common
+    capacity a shard."""
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    block_rows = -(-length // n_shards)
+    shard_of = rows // block_rows
+    counts = np.bincount(shard_of, minlength=n_shards)
+    cap = max(int(counts.max()), 1)
+    lr = np.zeros((n_shards, cap), dtype=np.int32)
+    lc = np.zeros((n_shards, cap), dtype=np.int32)
+    valid = np.zeros((n_shards, cap), dtype=bool)
+    for s in range(n_shards):
+        sel = shard_of == s
+        c = int(counts[s])
+        lr[s, :c] = rows[sel] - s * block_rows
+        lc[s, :c] = cols[sel]
+        valid[s, :c] = True
+    return lr, lc, valid, block_rows
+
+
+def sparse_attention_sharded(q, k, v, local_rows, cols, valid, block_rows, mesh, axis_name="x"):
+    """Sequence-sharded :func:`sparse_attention` over a 1-D mesh: the query
+    rows and their pattern edges block-partitioned over the ranks (inputs
+    from :func:`partition_attention_pattern`; ``n_shards`` a multiple of the
+    mesh's size, a rank taking its consecutive shards), k and v replicated.
+    A shard runs the COO route: its scores on K4 (the SDDMM) times
+    ``1/√d``, :func:`segment_softmax` with the shard's ``valid`` mask, the
+    weighted sum on K5; no collective but the output's gather. Returns the
+    global ``(L, dv)`` on every rank, on the mesh's device."""
+    from .parallel.sharding import _gather, _locals, _replicated
+
+    n_shards = local_rows.shape[0]
+    L = q.shape[0]
+    q_pad = torch.nn.functional.pad(_replicated(q, mesh), (0, 0, 0, n_shards * block_rows - L))
+    q_blocks = q_pad.reshape(n_shards, block_rows, q_pad.shape[1])
+    qb, lr, lc, m = _locals(mesh, axis_name, q_blocks, local_rows, cols, valid)
+    k, v = _replicated(k, mesh), _replicated(v, mesh)
+    outs = [sparse_attention(q_, k, v, r_, c_, mask=m_) for q_, r_, c_, m_ in zip(qb, lr, lc, m)]
+    out = _gather(torch.stack(outs), mesh, axis_name)
+    return out.reshape(n_shards * block_rows, -1)[:L]

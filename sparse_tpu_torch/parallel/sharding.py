@@ -40,6 +40,11 @@ runs; DTensor's operators do none of the arithmetic:
 
 The partitioners are host NumPy, array for array the reference's (int32
 rows and columns); their leaves are CPU tensors without a mesh.
+
+The collectives take every dtype: int16, uint16, uint32 and uint64, which
+gloo refuses, travel as their bytes. The partitioned forms of ``linalg``,
+``kernels.dia``, ``csgraph`` and ``nn`` are built on these helpers
+(``_local``, ``_gather``, ``_rotate``, ``_shard_sum``).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .._utils import _sample_without_replacement, result_dtype, torch_dtype
+from .._utils import _sample_without_replacement, result_dtype, signed_view, sum_dtype, torch_dtype
 from ..kernels.dot import coo_spmm, mttkrp, sddmm
 from ..kernels.elemwise import coo_elemwise_union
 from ..kernels.ell import DEFAULT_BLOCK_ROWS, _block_ell_arrays, ell_mttkrp, ell_spmm
@@ -205,19 +210,34 @@ def _place(arrays, mesh, axis_name):
     return [DTensor.from_local(_local(a, mesh, axis_name), mesh, _placements(mesh, axis_name), run_check=False) for a in arrays]
 
 
+# integer dtypes gloo's collectives refuse ("Invalid scalar type"): they
+# travel as their bytes
+_AS_BYTES = (torch.int16, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _wire(t):
+    """Contiguous ``t`` as the backends take it: a uint8 view of the same
+    bytes (its last axis ``itemsize`` times as long) for the dtypes of
+    ``_AS_BYTES``, else itself. ``.view(t.dtype)`` undoes it."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype in _AS_BYTES else t
+
+
 def _gather(local, mesh, axis_name, dim=0):
     """Every rank's ``local`` along ``axis_name``, concatenated along ``dim``
     in rank order (the all_gather that stands for a sharded output spec)."""
     group = mesh.get_group(_mesh_dim(mesh, axis_name))
-    local = local.contiguous()
-    parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, local, group=group)
-    return torch.cat(parts, dim)
+    wire = _wire(local)
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat(parts, dim).view(local.dtype)
 
 
-def _rotate(block, mesh, axis_name):
-    """``ppermute`` by one step down the ring: each rank sends ``block`` to
-    its predecessor and receives its successor's. A ring of one keeps its
+def _rotate(block, mesh, axis_name, shift=1):
+    """``ppermute`` by one step along the ring: each rank receives the
+    ``block`` of the rank ``shift`` (±1) places after it and sends its own
+    to the rank ``shift`` places before it; ``shift=1`` passes blocks down
+    the ring (to the predecessor), ``-1`` up it. A ring of one keeps its
     own block (the pair is a local copy)."""
     dim = _mesh_dim(mesh, axis_name)
     size = mesh.size(dim)
@@ -225,14 +245,14 @@ def _rotate(block, mesh, axis_name):
         return block
     group = mesh.get_group(dim)
     coord = mesh.get_local_rank(dim)
-    dst = dist.get_global_rank(group, (coord - 1) % size)
-    src = dist.get_global_rank(group, (coord + 1) % size)
-    block = block.contiguous()
-    received = torch.empty_like(block)
-    ops = [dist.P2POp(dist.isend, block, dst, group), dist.P2POp(dist.irecv, received, src, group)]
+    dst = dist.get_global_rank(group, (coord - shift) % size)
+    src = dist.get_global_rank(group, (coord + shift) % size)
+    wire = _wire(block)
+    received = torch.empty_like(wire)
+    ops = [dist.P2POp(dist.isend, wire, dst, group), dist.P2POp(dist.irecv, received, src, group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return received
+    return received.view(block.dtype)
 
 
 def _shard_sum(parts):
@@ -542,7 +562,7 @@ def _ring(local_buckets, chunk, block_cols, mesh, axis_name, product, acc):
         for j in range(per_rank):
             blk = chunk[j * block_cols : (j + 1) * block_cols]
             for s in range(acc.shape[0]):
-                acc[s] += product(*(a[s, first + j] for a in local_buckets), blk)
+                signed_view(acc[s]).add_(signed_view(product(*(a[s, first + j] for a in local_buckets), blk)))
         if i < size - 1:
             chunk = _rotate(chunk, mesh, axis_name)
     return acc
@@ -781,15 +801,27 @@ def sum_partitioned(pcoo: PartitionedCOO, mesh, axis=None, axis_name="x"):
     device: ``axis=1`` ``(M,)`` within rows (no communication but the
     gather), ``axis=0`` ``(K,)`` across the row partition, ``axis=None``
     the 0-d total. The last two are the shards' partials summed in shard
-    order: the same bits at every world size."""
+    order: the same bits at every world size. Those two sum bool and
+    integer data in NumPy's sum dtype (int64, or uint64 for the unsigned),
+    a shard's partials of ``axis=0`` in the data's dtype, as the reference
+    does, but bool's (counts); ``axis=1`` keeps the data's dtype (bool: any
+    entry set, where the reference refuses bool)."""
     M, K = pcoo.shape
     rows, cols, data = _locals(mesh, axis_name, pcoo.rows, pcoo.cols, pcoo.data)
-    if axis == 1:
-        parts = [data.new_zeros(pcoo.block_rows).index_add_(0, r.long(), d) for r, d in zip(rows, data)]
-        return _stitch(_gather(torch.stack(parts), mesh, axis_name), M, pcoo.block_rows, pcoo.row_starts)
-    if axis == 0:
-        parts = [data.new_zeros(K).index_add_(0, c.long(), d) for c, d in zip(cols, data)]
-        return _shard_sum(_gather(torch.stack(parts), mesh, axis_name))
-    if axis is not None:
+    if axis not in (0, 1, None):
         raise ValueError(f"sum_partitioned takes axis 0, 1 or None, not {axis!r}")
-    return _shard_sum(_gather(data.sum(1, dtype=data.dtype), mesh, axis_name))
+    total = sum_dtype(data.dtype)
+    acc = torch.int64 if total == torch.uint64 else total  # uint64 sums as int64: the same bits
+    if axis is None:
+        return _shard_sum(_gather(data.sum(1, dtype=acc), mesh, axis_name)).view(total)
+    # a shard's segment sums keep the data's dtype, as the reference's
+    # segment_sum does (unsigned through the signed view: the same bits);
+    # the partials of axis 0 then sum in NumPy's sum dtype, as its jnp.sum
+    if axis == 0 and data.dtype == torch.bool:
+        data = data.to(total)  # counts, as NumPy's sum (a shard's bool sums would be "or")
+    seg, n = (rows, pcoo.block_rows) if axis == 1 else (cols, K)
+    sv = signed_view(data)
+    parts = torch.stack([sv.new_zeros(n).index_add_(0, i.long(), d) for i, d in zip(seg, sv)]).view(data.dtype)
+    if axis == 1:
+        return _stitch(_gather(parts, mesh, axis_name), M, pcoo.block_rows, pcoo.row_starts)
+    return _shard_sum(_gather(parts.to(acc), mesh, axis_name)).view(total)

@@ -24,7 +24,7 @@ _EXPERIMENTS = ("pallas_spmv_onehot", "pallas_vmem", "pallas_vmem2")
 
 
 def test_import_loads_no_jax_and_no_sparse_tpu():
-    modules = ["sparse_tpu_torch", "sparse_tpu_torch.parallel", "sparse_tpu_torch.checkpoint", "sparse_tpu_torch.profiling"]
+    modules = ["sparse_tpu_torch", "sparse_tpu_torch.parallel", "sparse_tpu_torch.checkpoint", "sparse_tpu_torch.profiling", "sparse_tpu_torch.entry"]
     imports = ", ".join([*modules, *(f"sparse_tpu_torch.experiments.{m}" for m in _EXPERIMENTS)])
     code = f"import json, sys, {imports}; print(json.dumps(sorted(sys.modules)))"
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True)

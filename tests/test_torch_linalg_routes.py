@@ -194,7 +194,7 @@ def _params(f):
 
 
 def test_public_surface_matches_sparse_tpu():
-    assert linalg.__all__ == [n for n in jlinalg.__all__ if n != "partitioned_matvec"]
+    assert linalg.__all__ == jlinalg.__all__  # partitioned_matvec included
     for name in linalg.__all__:
         got, want = _params(getattr(linalg, name)), _params(getattr(jlinalg, name))
         assert [(n, p.kind, p.default) for n, p in got] == [(n, p.kind, p.default) for n, p in want], name

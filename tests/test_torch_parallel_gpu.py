@@ -9,7 +9,13 @@ shard. Each shard's kernel (E2 through ``mttkrp_sharded_ell``, K3 through
 version shard by shard and launched once a shard; the torch-op products
 against the dense product on the card; the rest against the host. A child
 process finds out whether NCCL takes a send to the same rank (the ring
-never posts one).
+never posts one). The partitioned forms against the unsharded calls:
+``bellman_ford_partitioned`` bit for bit with K7 once a round (the
+unsharded solve's count; a graph with hubs relabels),
+``pagerank_partitioned`` bit for bit with K1 once an iteration,
+``dia_spmv_sharded`` bit for bit and CG on ``partitioned_matvec``, the
+sharded attentions (K4 and K5 once a shard), ``entry()`` and
+``dryrun_multichip(1)``.
 """
 
 import subprocess
@@ -225,3 +231,116 @@ def test_nccl_self_send_is_reported(mesh):
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("SELF_SEND")]
     print(line[0] if line else f"SELF_SEND no answer, rc {res.returncode}: {res.stderr[-500:]}")
     assert line or res.returncode != 0  # an answer, or a child that died on the send
+
+
+# ---------------------------------------------------------------------------
+# the partitioned forms: K7, K1, K4 and K5 on each rank's part
+# ---------------------------------------------------------------------------
+
+
+def _graph(n, m, seed, hubs=False):
+    rng = np.random.default_rng(seed)
+    rows, cols = rng.integers(0, n, m), rng.integers(0, n, m)
+    if hubs:  # two hub destinations: the layout's tail and relabelling
+        cols[:300] = 7
+        cols[300:360] = 123
+    return st.COO(np.stack([rows, cols]), rng.random(m) + 0.05, shape=(n, n), device="cuda")
+
+
+def _k5_calls():
+    """K5's calls: its gather and sliced routes' launches (the union route
+    launches its union kernel and the gather route on its flagged blocks)."""
+    assert LAUNCHES["sampled_row_sum_union"] <= LAUNCHES["sampled_row_sum"]
+    return LAUNCHES["sampled_row_sum"] + LAUNCHES["sampled_row_sum_sliced"]
+
+
+@pytest.mark.parametrize("hubs", [False, True])
+def test_bellman_ford_partitioned_runs_k7_a_round(mesh, hubs):
+    from sparse_tpu_torch import csgraph
+
+    g = _graph(20000, 160000, 31, hubs)
+    src = np.arange(8)
+    reset_launch_counts()
+    want, want_pred = csgraph.bellman_ford(g, indices=src, return_predecessors=True)
+    torch.cuda.synchronize()
+    rounds = LAUNCHES["minplus_relax"]
+    ell = g.peek_layout("dest_ell", True)
+    assert rounds > 0 and ell is not None and (ell.perm is not None or not hubs)
+    reset_launch_counts()
+    got, pred = csgraph.bellman_ford_partitioned(g, mesh, indices=src, return_predecessors=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"minplus_relax": rounds}
+    assert got.device.type == "cuda" and torch.equal(got, want) and torch.equal(pred, want_pred)
+
+
+def test_pagerank_partitioned_runs_k1_an_iteration(mesh):
+    from sparse_tpu_torch import csgraph
+
+    g = _graph(20000, 160000, 32)
+    want, it_want = csgraph.pagerank(g)
+    reset_launch_counts()
+    got, it = csgraph.pagerank_partitioned(g, mesh)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"row_ell_spmv": it}
+    assert it == it_want and torch.equal(got, want)  # one chunk: the whole graph's layout and bits
+
+
+def test_dia_spmv_sharded_and_a_partitioned_cg_on_the_card(mesh):
+    from sparse_tpu_torch import linalg
+    from sparse_tpu_torch.kernels import dia as kdia
+
+    side = 128
+    n = side * side
+    idx = np.arange(n).reshape(side, side)
+    r = [idx.ravel(), idx[:, :-1].ravel(), idx[:, 1:].ravel(), idx[:-1].ravel(), idx[1:].ravel()]
+    c = [idx.ravel(), idx[:, 1:].ravel(), idx[:, :-1].ravel(), idx[1:].ravel(), idx[:-1].ravel()]
+    vals = np.concatenate([np.full(n, 4.0)] + [np.full(x.size, -1.0) for x in r[1:]])
+    lap = st.COO(np.stack([np.concatenate(r), np.concatenate(c)]), vals, shape=(n, n), device="cuda")
+    dia = lap.to_dia()
+    x = torch.randn(n, dtype=torch.float64, device="cuda")
+    reset_launch_counts()
+    y = kdia.dia_spmv_sharded(dia.offsets, dia.bands, x, mesh)
+    assert not any(LAUNCHES.values())
+    assert torch.equal(y, kdia.dia_spmv(dia.offsets, dia.bands, x))
+    mv = linalg.partitioned_matvec(tp.partition_coo_rows(lap, 4, mesh=mesh), mesh)
+    xs, info = linalg.cg(mv, x, tol=1e-8)
+    assert info == 0 and xs.device.type == "cuda"
+    res = torch.linalg.vector_norm(x - kdia.dia_spmv(dia.offsets, dia.bands, xs)) / torch.linalg.vector_norm(x)
+    assert float(res) <= 2e-8
+
+
+def test_sharded_attentions_on_the_card(mesh):
+    from sparse_tpu_torch import nn
+
+    L, window, n_shards = 1024, 64, 4
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((L, 64), generator=gen, device="cuda") for _ in range(3))
+    for causal in (False, True):
+        got = nn.banded_attention_sharded(q, k, v, window=window, mesh=mesh, causal=causal)
+        torch.testing.assert_close(got, nn.banded_attention(q, k, v, window=window, causal=causal), rtol=0, atol=1e-5)
+    rows, cols = nn.local_attention_pattern(L, window)
+    lr, lc, valid, br = nn.partition_attention_pattern(rows, cols, L, n_shards)
+    on_card = [torch.as_tensor(a, device="cuda") for a in (lr, lc, valid)]
+    reset_launch_counts()
+    got = nn.sparse_attention_sharded(q, k, v, *on_card, br, mesh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sddmm"] == n_shards and _k5_calls() == n_shards
+    want = nn.sparse_attention(q, k, v, torch.as_tensor(rows, device="cuda"), torch.as_tensor(cols, device="cuda"))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_entry_and_dryrun_on_the_card(mesh):
+    from sparse_tpu_torch import entry
+    from sparse_tpu_torch.kernels import dot
+
+    fn, args = entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    reset_launch_counts()
+    out, loss = fn(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sddmm"] == 1
+    rows, cols, data, dense, bias = args
+    want = dot.coo_spmm(rows, cols, data, dense, n_rows=8192) + bias
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(loss, dot.sddmm_plain(rows.long(), cols.long(), data, want, dense.T).sum(), rtol=1e-5, atol=0)
+    entry.dryrun_multichip(1)

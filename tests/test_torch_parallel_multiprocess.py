@@ -9,8 +9,12 @@ devices, and every rank must hold the same global result. The ring's
 rotations cross process boundaries, ``spmm_2d*`` run on a 2 x 1 and a 2 x 2
 mesh (gloo sub-groups), and a checkpoint of 8 shards saved here (no process
 group) restores onto both worlds (four and two shards a rank) beside each
-world's own round trip. ``sum_partitioned`` has the same
-bits at worlds of 1, 2 and 4. Tolerances as tests/test_torch_parallel.py.
+world's own round trip. ``sum_partitioned``, ``bellman_ford_partitioned``
+and ``dia_spmv_sharded`` have the same bits at worlds of 1, 2 and 4. The
+partitioned forms of ``linalg``, ``kernels.dia``, ``csgraph`` and ``nn``
+run at the reference tests' tolerances, int16 and the wide unsigned dtypes
+go through the collectives as bytes, and ``entry.dryrun_multichip`` runs at
+each world. Tolerances as tests/test_torch_parallel.py.
 """
 
 import json
@@ -31,7 +35,7 @@ import sparse_tpu as sparse
 import sparse_tpu.parallel as rp
 import sparse_tpu_torch as st
 import sparse_tpu_torch.parallel as tp
-from torch_parallel_worker import FEATURES, N_SHARDS, m3_coords, make_inputs, mttkrp_shards
+from torch_parallel_worker import FEATURES, INT_DTYPES, N_SHARDS, m3_coords, make_inputs, mttkrp_shards
 
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
 WORLDS = (2, 4)
@@ -242,6 +246,115 @@ def check_checkpoint(world, mine, inputs):
     _close(mine[0]["other_world"], want)
 
 
+def check_partitioned_matvec(world, mine, inputs):
+    from sparse_tpu import linalg
+
+    m = _mesh(N_SHARDS)
+    mv = linalg.partitioned_matvec(rp.partition_coo_rows(_ref_coo(inputs["spd"]), N_SHARDS, mesh=m), m)
+    x, info = linalg.cg(mv, inputs["spd_b"], tol=1e-10, maxiter=500)
+    assert int(mine[0]["info"]) == int(info) == 0
+    _close(mine[0]["x"], x, rtol=1e-6, atol=0.0)
+
+
+def check_dia_spmv_sharded(world, mine, inputs):
+    from sparse_tpu.kernels import dia_spmv_sharded
+
+    offsets, bands = inputs["band"]
+    x = inputs["band_x"]
+    _close(mine[0]["y"], dia_spmv_sharded(tuple(offsets), bands, x, _mesh(N_SHARDS)), rtol=1e-10, atol=0.0)
+    with_inf = x.copy()
+    with_inf[0], with_inf[-1] = np.inf, -np.inf
+    want = np.asarray(dia_spmv_sharded(tuple(offsets), bands, with_inf, _mesh(N_SHARDS)))
+    np.testing.assert_array_equal(np.isnan(mine[0]["with_inf"]), np.isnan(want))
+    _close(mine[0]["with_inf"], want, rtol=1e-12, atol=0.0)
+    for o in mine:
+        assert "must divide" in str(o["rank_refused"])
+
+
+def _graph(case, inputs, nan=False):
+    r, c, w, n = inputs[case]
+    if nan:
+        w = w.copy()
+        w[::37] = np.nan
+    return sparse.COO(np.stack([r, c]), w, shape=(n, n))
+
+
+def check_bellman_ford_partitioned(world, mine, inputs):
+    from sparse_tpu import csgraph
+
+    m = _mesh(N_SHARDS)
+    for case in ("graph", "hub"):
+        d, p = csgraph.bellman_ford_partitioned(_graph(case, inputs), m, indices=[0, 7, 50], return_predecessors=True)
+        np.testing.assert_array_equal(mine[0][f"{case}_dist"], np.asarray(d))
+        np.testing.assert_array_equal(mine[0][f"{case}_pred"], np.asarray(p))
+    # NaN propagates as in the reference's bellman_ford (ROADMAP §C2)
+    np.testing.assert_array_equal(mine[0]["nan_dist"], np.asarray(csgraph.bellman_ford(_graph("graph", inputs, nan=True), indices=[0, 3])))
+    assert bool(mine[0]["negative_cycle_raised"])
+
+
+def check_pagerank_partitioned(world, mine, inputs):
+    from sparse_tpu import csgraph
+
+    m = _mesh(N_SHARDS)
+    want, it = csgraph.pagerank_partitioned(_graph("graph", inputs), m, tol=1e-13)
+    _close(mine[0]["p"], want, rtol=1e-10, atol=1e-14)
+    assert int(mine[0]["iterations"]) == it
+    pers = np.zeros(120)
+    pers[:4] = 1.0
+    want2, _ = csgraph.pagerank_partitioned(_graph("graph", inputs), m, personalize=pers, tol=1e-12)
+    _close(mine[0]["personalized"], want2, rtol=1e-9, atol=1e-13)
+
+
+def check_banded_attention_sharded(world, mine, inputs):
+    from sparse_tpu import nn
+
+    q, k, v = (jnp.asarray(inputs[f"attn_{x}"]) for x in "qkv")
+    for c in (False, True):
+        want = nn.banded_attention_sharded(q, k, v, window=16, mesh=_mesh(N_SHARDS), block=16, causal=c)
+        _close(mine[0][f"causal_{c}"], want, rtol=0.0, atol=2e-5)
+    for o in mine:
+        assert "must divide" in str(o["rank_refused"])
+
+
+def check_sparse_attention_sharded(world, mine, inputs):
+    from sparse_tpu import nn
+
+    rows, cols = nn.local_attention_pattern(70, 5, 2)
+    q, k, v = (jnp.asarray(inputs[f"attn_{x}"][:70, :8]) for x in "qkv")
+    lr, lc, valid, br = nn.partition_attention_pattern(rows, cols, 70, N_SHARDS)
+    _close(mine[0]["out"], nn.sparse_attention_sharded(q, k, v, lr, lc, valid, br, _mesh(N_SHARDS)), rtol=0.0, atol=1e-5)
+
+
+def check_int_gathers(world, mine, inputs):
+    m = _mesh(N_SHARDS)
+    coords, data, shape = inputs["ints"]
+    vals = np.round(data * 98 + 1)
+    sharded = NamedSharding(m, P("x", None))
+    for name in INT_DTYPES:
+        a = sparse.COO(coords, vals.astype(name), shape=shape)
+        pc = rp.partition_coo_rows(a, N_SHARDS, mesh=m)
+        b = (np.arange(40 * 3).reshape(40, 3) % 5).astype(name)
+        bucketed = rp.bucket_columns(rp.partition_coo_rows(a, N_SHARDS), N_SHARDS)
+        b_pad = np.zeros((N_SHARDS * bucketed[3], 3), dtype=name)
+        b_pad[:40] = b
+        want = {
+            "spmm": rp.spmm_replicated(pc, jnp.asarray(b), m),
+            "ring": rp.spmm_ring(bucketed, shape, pc.block_rows, jax.device_put(jnp.asarray(b_pad), sharded), m),
+            **{f"sum_{axis}": rp.sum_partitioned(pc, m, axis=axis) for axis in (0, 1, None)},
+            "sddmm": rp.sddmm_sharded(pc, (np.arange(64 * 3).reshape(64, 3) % 4).astype(name), b.T.copy(), m),
+        }
+        union, nnz = rp.elemwise_partitioned(jnp.bitwise_or, pc, pc, m)
+        want.update(union=union.data, union_nnz=nnz)
+        for key, w in want.items():
+            got, w = mine[0][f"{name}_{key}"], np.asarray(w)
+            assert got.dtype == w.dtype, (name, key, got.dtype, w.dtype)
+            np.testing.assert_array_equal(got, w, err_msg=f"{name} {key}")
+
+
+def check_dryrun_multichip(world, mine, inputs):
+    assert all(bool(o["done"]) for o in mine)
+
+
 CHECKS = {name: globals()[f"check_{name}"] for name in FEATURES}
 
 
@@ -268,3 +381,29 @@ def test_sum_partitioned_has_the_same_bits_at_every_world(runs, inputs, tmp_path
         for case in _sum_cases():
             assert mine[case].dtype == world1[case].dtype
             assert mine[case].tobytes() == world1[case].tobytes(), (world, case)
+
+
+def test_partitioned_forms_have_the_same_bits_at_every_world(runs, inputs, tmp_path):
+    """``bellman_ford_partitioned`` (the hub graph's layout relabels at every
+    world) and ``dia_spmv_sharded`` give the bits of a world of one at 2 and
+    4 ranks."""
+    from sparse_tpu_torch import csgraph
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = tp.make_mesh(device="cpu")
+        world1 = {}
+        for case in ("graph", "hub"):
+            r, c, w, n = inputs[case]
+            g = st.COO(np.stack([r, c]), w, shape=(n, n), device="cpu")
+            d, p = csgraph.bellman_ford_partitioned(g, mesh, indices=[0, 7, 50], return_predecessors=True)
+            world1[f"bellman_ford_partitioned/{case}_dist"], world1[f"bellman_ford_partitioned/{case}_pred"] = d.numpy(), p.numpy()
+        offsets, bands = inputs["band"]
+        world1["dia_spmv_sharded/y"] = st.kernels.dia_spmv_sharded(tuple(offsets), bands, inputs["band_x"], mesh).numpy()
+    finally:
+        dist.destroy_process_group()
+    for world in WORLDS:
+        for key, want in world1.items():
+            feature, name = key.split("/")
+            got = _feature(runs, world, feature)[0][name]
+            assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), (world, key)

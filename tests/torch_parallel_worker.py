@@ -4,7 +4,10 @@
     python tests/torch_parallel_worker.py RANK WORLD STORE OUT [CHECKPOINT]
 
 The rank joins a gloo group of ``WORLD`` ranks rendezvousing on the file
-``STORE``, runs every feature of ``FEATURES`` on the inputs of
+``STORE``, runs every feature of ``FEATURES`` (the ``parallel`` layer, the
+partitioned forms of ``linalg``, ``kernels.dia``, ``csgraph`` and ``nn``,
+narrow integer dtypes through the collectives, and
+``entry.dryrun_multichip``) on the inputs of
 :func:`make_inputs` (numpy seeds, the same in every process), and writes
 what each returned to ``OUT/rank<RANK>.npz`` (``<feature>/<name>`` keys;
 names that start with ``rank_`` are the rank's own, the rest global)
@@ -65,7 +68,56 @@ def make_inputs():
         "m3": _matrix(64, 120, 0.05, 5),  # a (64, 10 x 12) tensor's unfolding
         "m3_c": rng.random((10, 4)),
         "m3_d": rng.random((12, 4)),
+        "spd": spd_matrix(96, 8),
+        "spd_b": rng.standard_normal(96),
+        "band": banded(512, (-64, -1, 0, 1, 64), 9),
+        "band_x": rng.standard_normal(512),
+        "graph": graph_edges(10),
+        "hub": hub_edges(11),
+        "attn_q": rng.standard_normal((128, 8)).astype(np.float32),
+        "attn_k": rng.standard_normal((128, 8)).astype(np.float32),
+        "attn_v": rng.standard_normal((128, 12)).astype(np.float32),
+        "ints": _matrix(64, 40, 0.3, 12),
     }
+
+
+def spd_matrix(n, seed):
+    """``(coords, data, shape)`` of ``B Bᵀ + n I`` for a sparse random ``B``."""
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.15)
+    dense = b @ b.T + n * np.eye(n)
+    rows, cols = np.nonzero(dense)
+    return np.stack([rows, cols]), dense[rows, cols], (n, n)
+
+
+def banded(n, offsets, seed):
+    """``(offsets, bands (k, n))`` of a banded matrix (zero where a diagonal leaves it)."""
+    rng = np.random.default_rng(seed)
+    bands = np.zeros((len(offsets), n))
+    for i, o in enumerate(offsets):
+        r = np.arange(max(0, -o), min(n, n - o))
+        bands[i, r] = rng.standard_normal(r.size)
+    return np.asarray(offsets), bands
+
+
+def graph_edges(seed, n=120, m=600):
+    """A random directed graph's ``(rows, cols, weights, n)``, weights in [0.1, 1.1)."""
+    rng = np.random.default_rng(seed)
+    lin = np.unique(rng.integers(0, n * n, m))
+    lin = lin[lin // n != lin % n]
+    return lin // n, lin % n, rng.random(lin.size) + 0.1, n
+
+
+def hub_edges(seed, n=400):
+    """Two hub destinations: the layout of every chunk has a tail and relabels."""
+    rng = np.random.default_rng(seed)
+    r = np.concatenate([rng.integers(0, n, 300), rng.integers(0, n, 60), rng.integers(0, n, 2000)])
+    c = np.concatenate([np.full(300, 7), np.full(60, 123), rng.integers(0, n, 2000)])
+    lin = np.unique(r * n + c)
+    return lin // n, lin % n, rng.random(lin.size) + 0.1, n
+
+
+INT_DTYPES = ("int16", "uint16", "uint32", "uint64")
 
 
 def mttkrp_shards(coords, data, m, n_shards):
@@ -222,6 +274,102 @@ def _features(st, tp, tck, torch, dist, inputs, checkpoint_dir):
             "rank_other_shards": np.array(other.rows.to_local().shape[0]),
         }
 
+    def partitioned_matvec():
+        from sparse_tpu_torch import linalg
+
+        mv = linalg.partitioned_matvec(tp.partition_coo_rows(_coo(st, inputs["spd"]), N_SHARDS, mesh=mesh), mesh)
+        x, info = linalg.cg(mv, torch.from_numpy(inputs["spd_b"]), tol=1e-10, maxiter=500)
+        return {"x": x.numpy(), "info": np.array(info)}
+
+    def dia_spmv_sharded():
+        offsets, bands = inputs["band"]
+        x = inputs["band_x"]
+        y = st.kernels.dia_spmv_sharded(tuple(offsets), torch.from_numpy(bands), x, mesh)
+        with_inf = x.copy()
+        with_inf[0], with_inf[-1] = np.inf, -np.inf
+        out = {"y": y.numpy(), "with_inf": st.kernels.dia_spmv_sharded(tuple(offsets), bands, with_inf, mesh).numpy()}
+        try:
+            st.kernels.dia_spmv_sharded((0,), np.zeros((1, 513)), np.zeros(513), mesh)
+        except ValueError as e:
+            out["rank_refused"] = np.array(str(e))
+        return out
+
+    def _graph(case):
+        r, c, w, n = inputs[case]
+        return st.COO(np.stack([r, c]), w, shape=(n, n), device="cpu")
+
+    def bellman_ford_partitioned():
+        from sparse_tpu_torch import csgraph
+
+        out = {}
+        for case in ("graph", "hub"):
+            d, p = csgraph.bellman_ford_partitioned(_graph(case), mesh, indices=[0, 7, 50], return_predecessors=True)
+            out[f"{case}_dist"], out[f"{case}_pred"] = d.numpy(), p.numpy()
+        r, c, w, n = inputs["graph"]
+        w = w.copy()
+        w[::37] = np.nan
+        out["nan_dist"] = csgraph.bellman_ford_partitioned(st.COO(np.stack([r, c]), w, shape=(n, n), device="cpu"), mesh, indices=[0, 3]).numpy()
+        cycle = st.COO(np.array([[0, 1, 2], [1, 2, 0]]), np.array([1.0, -3.0, 1.0]), shape=(3, 3), device="cpu")
+        try:
+            csgraph.bellman_ford_partitioned(cycle, mesh, indices=0)
+        except csgraph.NegativeCycleError:
+            out["negative_cycle_raised"] = np.array(True)
+        return out
+
+    def pagerank_partitioned():
+        from sparse_tpu_torch import csgraph
+
+        p, it = csgraph.pagerank_partitioned(_graph("graph"), mesh, tol=1e-13)
+        pers = np.zeros(120)
+        pers[:4] = 1.0
+        p2, _ = csgraph.pagerank_partitioned(_graph("graph"), mesh, personalize=pers, tol=1e-12)
+        return {"p": p.numpy(), "iterations": np.array(it), "personalized": p2.numpy()}
+
+    def banded_attention_sharded():
+        from sparse_tpu_torch import nn
+
+        q, k, v = (torch.from_numpy(inputs[f"attn_{x}"]) for x in "qkv")
+        out = {f"causal_{c}": nn.banded_attention_sharded(q, k, v, window=16, mesh=mesh, block=16, causal=c).numpy() for c in (False, True)}
+        try:
+            nn.banded_attention_sharded(q[:67], k[:67], v[:67], window=4, mesh=mesh)
+        except ValueError as e:
+            out["rank_refused"] = np.array(str(e))
+        return out
+
+    def sparse_attention_sharded():
+        from sparse_tpu_torch import nn
+
+        rows, cols = nn.local_attention_pattern(70, 5, 2)
+        q, k, v = (torch.from_numpy(inputs[f"attn_{x}"][:70, :8].copy()) for x in "qkv")
+        lr, lc, valid, br = nn.partition_attention_pattern(rows, cols, 70, N_SHARDS)
+        return {"out": nn.sparse_attention_sharded(q, k, v, lr, lc, valid, br, mesh).numpy()}
+
+    def int_gathers():
+        coords, data, shape = inputs["ints"]
+        vals = np.round(data * 98 + 1)
+        out = {}
+        for name in INT_DTYPES:
+            t = st.COO(coords, vals.astype(name), shape=shape, device="cpu")
+            pc = tp.partition_coo_rows(t, N_SHARDS, mesh=mesh)
+            b = (np.arange(40 * 3).reshape(40, 3) % 5).astype(name)
+            out[f"{name}_spmm"] = tp.spmm_replicated(pc, b, mesh).numpy()
+            bucketed = tp.bucket_columns(tp.partition_coo_rows(t, N_SHARDS), N_SHARDS)
+            b_pad = np.zeros((N_SHARDS * bucketed[3], 3), dtype=name)
+            b_pad[:40] = b
+            out[f"{name}_ring"] = tp.spmm_ring(bucketed, shape, pc.block_rows, b_pad, mesh).numpy()
+            for axis in (0, 1, None):
+                out[f"{name}_sum_{axis}"] = tp.sum_partitioned(pc, mesh, axis=axis).numpy()
+            out[f"{name}_sddmm"] = tp.sddmm_sharded(pc, (np.arange(64 * 3).reshape(64, 3) % 4).astype(name), b.T.copy(), mesh).numpy()
+            union, nnz = tp.elemwise_partitioned(torch.bitwise_or, pc, pc, mesh)
+            out[f"{name}_union"], out[f"{name}_union_nnz"] = union.data.numpy(), nnz.numpy()
+        return out
+
+    def dryrun_multichip():
+        from sparse_tpu_torch import entry
+
+        entry.dryrun_multichip(world)
+        return {"done": np.array(True)}
+
     return {
         "placement": placement,
         "spmm_replicated": spmm_replicated,
@@ -236,6 +384,14 @@ def _features(st, tp, tck, torch, dist, inputs, checkpoint_dir):
         "elemwise_partitioned": elemwise_partitioned,
         "sum_partitioned": sum_partitioned,
         "checkpoint": checkpoint,
+        "partitioned_matvec": partitioned_matvec,
+        "dia_spmv_sharded": dia_spmv_sharded,
+        "bellman_ford_partitioned": bellman_ford_partitioned,
+        "pagerank_partitioned": pagerank_partitioned,
+        "banded_attention_sharded": banded_attention_sharded,
+        "sparse_attention_sharded": sparse_attention_sharded,
+        "int_gathers": int_gathers,
+        "dryrun_multichip": dryrun_multichip,
     }
 
 
@@ -253,6 +409,14 @@ FEATURES = (
     "elemwise_partitioned",
     "sum_partitioned",
     "checkpoint",
+    "partitioned_matvec",
+    "dia_spmv_sharded",
+    "bellman_ford_partitioned",
+    "pagerank_partitioned",
+    "banded_attention_sharded",
+    "sparse_attention_sharded",
+    "int_gathers",
+    "dryrun_multichip",
 )
 
 
