@@ -203,6 +203,20 @@ drives the port's two paths on the card:
   unsharded call's, one line a pair; the path's launches join the K7, K1,
   K4 and K5 rows of the ``kernels`` line (``partitioned_path_launches``).
 
+- the host path (the ``host_path`` line), on the machine's CPU: builds the
+  host library (``sparse_tpu_torch/native``, g++), prints g++'s first line,
+  the CPU model and the thread counts, and runs its call sites at the
+  benchmark shape in float32 on both CPU routes (the library, and the
+  plain torch ops with every threshold past the size): the canonical COO
+  from the shuffled draws with duplicates, ``a @ B`` (N = 128), ``a @ x``,
+  ``matvec_add``, ``a + a.T`` and ``a @ a``. The COO, ``a + a.T`` and ``a @ a``
+  are bit for bit the plain route's; the products within float32's
+  tolerance of it and of the float64 oracle. The library's call counters
+  move on its route and stay at 0 on the other; each call's host ms (median
+  of 3 on the library, one call on the plain route) stands beside the
+  card's name and power limit. An integer MTTKRP on the card launches no
+  kernel and equals the CPU's.
+
 The launch counters show that each path ran its kernels; each kernel is
 timed beside its plain version, one library call on the same inputs
 (torch.sparse, which reaches cuSPARSE or torch's own kernels; timed here
@@ -229,6 +243,7 @@ from sparse_tpu_torch.experiments.common import REPS, WARMUP, time_graph
 
 M = K = 1 << 16  # benchmark shape (bench.py)
 NNZ_DRAWS = 1 << 21
+BENCH_NNZ = 2_096_628  # the canonical COO of those draws (seed 0)
 N = 128
 SPMV_ADD_SHAPE = (99_990, 100_000)  # spmv_add example
 SPMV_ADD_DENSITY = 1e-6
@@ -5103,6 +5118,162 @@ PATH_ROWS = {
 PATH_ROW_EXTRA = {"sampled_row_sum_union": ("sampled_row_sum", "flagged_gather_launches")}
 
 
+HOST_REPS = 3  # host ms of the library route: median of 3 calls
+
+
+def cpu_model():
+    """The CPU's model name from ``/proc/cpuinfo``, else its vendor, family
+    and model numbers; with the FMA and AVX flags either way."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model", "stepping") if k in fields
+    )
+    flags = [f for f in ("fma", "avx2", "avx512f") if f in fields.get("flags", "").split()]
+    return f"{name or 'unknown'} ({' '.join(flags) or 'no fma/avx2/avx512f flag'})"
+
+
+def host_ms(fn, reps):
+    """``(median ms, last result)`` of ``reps`` calls of ``fn`` on the host."""
+    times, out = [], None
+    for _ in range(reps):
+        del out
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def phase_host_path(dev, card):
+    """The host library's call sites at the bench shape on the CPU, against
+    the plain CPU route (the torch ops), and an integer MTTKRP on the card."""
+    import os
+
+    import sparse_tpu_torch as st
+    from sparse_tpu_torch import native
+    from sparse_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from sparse_tpu_torch.kernels import dot as kdot
+    from sparse_tpu_torch.native import eager as te
+
+    t0 = time.perf_counter()
+    native.library()
+    build = {"build_s": time.perf_counter() - t0, **native.BUILD_INFO}
+    threads = {
+        "os_cpu_count": os.cpu_count(),
+        "affinity": len(os.sched_getaffinity(0)),
+        "torch": torch.get_num_threads(),
+    }
+    log(json.dumps({"host_build": build, "cpu": cpu_model(), "threads": threads}))
+
+    rng = np.random.default_rng(0)
+    lin = rng.integers(0, M * K, size=NNZ_DRAWS, dtype=np.int64)
+    rows, cols = lin // K, lin % K
+    coords = torch.as_tensor(np.stack([rows, cols]))
+    data = torch.as_tensor(rng.random(NNZ_DRAWS, dtype=np.float32))
+    b = torch.as_tensor(rng.random((K, N), dtype=np.float32))
+    x = torch.as_tensor(rng.random(K, dtype=np.float32))
+    y = torch.as_tensor(rng.random(M, dtype=np.float32))
+
+    defaults = (native.NATIVE_MIN_SIZE, te.NATIVE_MIN_NNZ, te.NATIVE_MIN_PRODUCT_NNZ)
+
+    def set_thresholds(values):
+        native.NATIVE_MIN_SIZE, te.NATIVE_MIN_NNZ, te.NATIVE_MIN_PRODUCT_NNZ = values
+
+    out, ms, calls = {}, {}, {}
+    try:
+        for route, thresholds, reps in (("host", defaults, HOST_REPS), ("plain", (10**15,) * 3, 1)):
+            set_thresholds(thresholds)
+            native.reset_calls()
+            res, times = {}, {}
+            times["coo"], a = host_ms(lambda: st.COO(coords, data, shape=(M, K), device="cpu"), reps)
+            res["coo"] = a
+            times["a@B"], res["a@B"] = host_ms(lambda: a @ b, reps)
+            times["a@x"], res["a@x"] = host_ms(lambda: a @ x, reps)
+            times["matvec_add"], res["matvec_add"] = host_ms(lambda: st.matvec_add(a, x, y), reps)
+            at = a.T
+            times["a+a.T"], res["a+a.T"] = host_ms(lambda: a + at, reps)
+            times["a@a"], res["a@a"] = host_ms(lambda: a @ a, reps)
+            out[route], ms[route], calls[route] = res, times, dict(native.CALLS)
+            del a, at, res
+    finally:
+        set_thresholds(defaults)
+
+    # the library ran on its route and nowhere else
+    want_calls = {
+        "coo": "canonicalize2d",
+        "a@B": "csr_spmm_dense",
+        "matvec_add": "spmv_add",
+        "a+a.T": "fused_join_2d",
+        "a@a": "spgemm_csr",
+    }
+    for name, fn in want_calls.items():
+        if calls["host"].get(fn, 0) == 0:
+            raise AssertionError(f"host_path: {name} never called {fn} on the library route: {calls['host']}")
+    if any(calls["plain"].values()):
+        raise AssertionError(f"host_path: the plain route called the library: {calls['plain']}")
+    # bit for bit where both routes sum in one order
+    h, p = out["host"], out["plain"]
+    checks = {}
+    for name in ("coo", "a+a.T", "a@a"):
+        hd, pd = h[name].data, p[name].data
+        if not (torch.equal(h[name].coords, p[name].coords) and hd.dtype == pd.dtype == torch.float32):
+            raise AssertionError(f"host_path: {name}'s coordinates differ from the plain route's")
+        if not torch.equal(hd.view(torch.int32), pd.view(torch.int32)):
+            raise AssertionError(f"host_path: {name}'s values differ from the plain route's bits")
+        checks[name] = {"bits": "equal", "nnz": h[name].nnz}
+    if h["coo"].nnz != BENCH_NNZ:
+        raise AssertionError(f"host_path: the canonical COO holds {h['coo'].nnz} entries")
+    ref = oracle_csr(rows, cols, data.numpy(), (M, K))
+    oracles = {"a@B": ref @ b.numpy().astype(np.float64), "a@x": ref @ x.numpy().astype(np.float64)}
+    oracles["matvec_add"] = oracles["a@x"] + y.numpy().astype(np.float64)
+    for name, want in oracles.items():
+        got = h[name].numpy()
+        if not np.isfinite(got).all() or got.shape != want.shape:
+            raise AssertionError(f"host_path: {name} of shape {got.shape}, finite={bool(np.isfinite(got).all())}")
+        np.testing.assert_allclose(got, p[name].numpy(), **TOL[torch.float32])
+        np.testing.assert_allclose(got, want, **ORACLE_TOL)
+        checks[name] = {
+            "max_abs_diff_vs_plain": float(np.abs(got - p[name].numpy()).max()),
+            "max_rel_err_vs_f64": float(np.abs(got - want).max() / np.abs(want).max()),
+        }
+
+    # an integer MTTKRP on the card takes the plain version, by dtype, before any launch
+    mi = np.random.default_rng(1)
+    ci = torch.as_tensor(np.sort(mi.integers(0, 1000, 50_000)), device=dev)
+    cj, ck = (torch.as_tensor(mi.integers(0, 200, 50_000), device=dev) for _ in range(2))
+    v = torch.as_tensor(mi.integers(1, 100, 50_000).astype(np.int16), device=dev)
+    cf, df = (torch.as_tensor(mi.integers(0, 5, (200, 16)).astype(np.int16), device=dev) for _ in range(2))
+    reset_launch_counts()
+    got = kdot.mttkrp(ci, cj, ck, v, cf, df, n_rows=1000)
+    torch.cuda.synchronize()
+    if sum(LAUNCHES.values()) or got.dtype != torch.int16:
+        raise AssertionError(f"an int16 MTTKRP on the card launched {dict(LAUNCHES)} -> {got.dtype}")
+    want = kdot.mttkrp(*(t.cpu() for t in (ci, cj, ck, v, cf, df)), n_rows=1000)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("the int16 MTTKRP on the card differs from the CPU's")
+    checks["mttkrp_int16_cuda"] = {"launches": 0, "equal_to_cpu": True}
+
+    return {
+        "host_path": "ok",
+        "cpu": cpu_model(),
+        "threads": threads,
+        "gxx": build.get("gxx_version"),
+        "build_s": build["build_s"],
+        "shape": [M, K],
+        "draws": NNZ_DRAWS,
+        "n": N,
+        "host_ms": ms["host"],
+        "plain_ms": ms["plain"],
+        "calls": calls["host"],
+        "plain_calls": calls["plain"],
+        "checks": checks,
+        "card": card,
+    }
+
+
 def add_path_launches(lines, path, launches):
     """The one kernel row of ``lines`` that ``PATH_ROWS`` matches for each
     counter gains ``<path>_launches``: that counter's launches on the path
@@ -5271,6 +5442,9 @@ def main():
     lines += phase_experiments_times(spmv, runs, ex_launches, ex_errs, card)
     del spmv, runs
     torch.cuda.empty_cache()
+
+    # the host library's call sites on the machine's CPU (no kernel of the card)
+    log(json.dumps(phase_host_path(dev, card)))
 
     log(json.dumps({"kernels": lines}))
     log(card)

@@ -302,6 +302,47 @@ def not_ported(what):
     return NotImplementedError(f"{what} is not yet ported to sparse_tpu_torch")
 
 
+def html_table(arr):
+    """The HTML summary table of ``_repr_html_``, cell for cell
+    ``sparse_tpu``'s; "Data Type" holds the array's torch dtype."""
+    table = ["<table><tbody>"]
+    headings = ["Format", "Data Type", "Shape", "nnz", "Density", "Read-only"]
+    info = [
+        type(arr).__name__.lower(),
+        str(arr.dtype),
+        str(arr.shape),
+        str(arr.nnz),
+        str(arr.density),
+        str(not hasattr(arr, "__setitem__")),
+    ]
+    if hasattr(arr, "nbytes"):
+        headings.append("Size")
+        info.append(human_readable_size(arr.nbytes))
+        headings.append("Storage ratio")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", category=RuntimeWarning)
+            ratio = float(np.float64(arr.nbytes) / np.float64(arr.size * arr.dtype.itemsize))
+        info.append(f"{ratio:.2f}")
+    if type(arr).__name__ == "GCXS":
+        headings.append("Compressed Axes")
+        info.append(str(arr.compressed_axes))
+    for h, i in zip(headings, info):
+        table.append(f'<tr><th style="text-align: left">{h}</th><td style="text-align: left">{i}</td></tr>')
+    table.append("</tbody></table>")
+    return "".join(table)
+
+
+def human_readable_size(size):
+    """``size`` bytes as ``sparse_tpu`` prints them: bytes below 1 KiB, then
+    one decimal and K, M, G or T."""
+    for limit, suffix in [(2**10, ""), (2**20, "K"), (2**30, "M"), (2**40, "G")]:
+        if size < limit:
+            if not suffix:
+                return str(size)
+            return f"{size / (limit / 2**10):.1f}{suffix}"
+    return f"{size / 2**40:.1f}T"
+
+
 def uncompress_indptr(indptr, nnz):
     """The int64 row of every stored entry of a compressed format, on
     ``indptr``'s device: row ``r`` repeated ``indptr[r + 1] - indptr[r]``

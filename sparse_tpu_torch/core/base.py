@@ -129,6 +129,13 @@ class SparseArray(np.lib.mixins.NDArrayOperatorsMixin, abc.ABC):
             )
         return np.asarray(self.todense().cpu().numpy(), *args, **kwargs)
 
+    def _repr_html_(self):
+        """The Jupyter display: ``sparse_tpu``'s summary table (format, dtype,
+        shape, nnz, density, read-only, size, storage ratio, compressed axes)."""
+        from .._utils import html_table
+
+        return html_table(self)
+
     # -- NEP-18: __array_function__ ------------------------------------------------
     def __array_function__(self, func, types, args, kwargs):
         import sparse_tpu_torch

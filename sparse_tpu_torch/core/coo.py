@@ -6,7 +6,12 @@ coordinates sorted in row-major (C) order, duplicates summed, and
 (optionally) entries equal to the fill value pruned — the semantics of
 ``sparse_tpu.core.coo.COO``. Canonicalization runs with torch ops on the
 array's device: a stable ``torch.sort`` of the int64 linear key, a segment
-sum of duplicates (``index_add_``) and a bitwise prune of the fill.
+sum of duplicates (``index_add_``) and a bitwise prune of the fill; a CPU
+array of float32/float64 data with ``native.NATIVE_MIN_SIZE`` entries or
+more takes the host library instead (one ``canonicalize2d`` call in 2-D,
+else its sort and duplicate sum), with the same bits; so do its 2-D
+transpose, its reshape and its add-reductions over some axes
+(``sparse_tpu``'s host route, see ``_host_sum``).
 
 Arrays are placed on the GPU unless the caller asks for another device
 (``device="cpu"``); see :func:`sparse_tpu_torch._settings.resolve_device`.
@@ -23,7 +28,8 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from .. import _settings
+from .. import _settings, native
+from ..native import eager as native_eager
 from .._utils import (
     can_store,
     check_zero_fill_value,
@@ -167,7 +173,7 @@ class COO(SparseArray):
         self.data = data
         super().__init__(shape, fill_value=fill_value)
 
-        if not sorted or has_duplicates:
+        if (not sorted or has_duplicates) and not self._canonicalize2d_host(sorted):
             lin = self.linear_loc()
             if not sorted:
                 lin = self._sort_indices(lin)
@@ -253,17 +259,54 @@ class COO(SparseArray):
             stride *= self.shape[d]
         return out
 
+    def _canonicalize2d_host(self, already_sorted):
+        """Sort and sum duplicates in one call of the host library
+        (``native.eager.canonicalize2d``: a counting sort by row, a stable
+        sort a row, runs summed from their first value in entry order) for a
+        2-D CPU array of float32/float64 data with ``NATIVE_MIN_SIZE`` entries
+        or more, as ``sparse_tpu`` does; the same bits as the torch route.
+        Returns whether it ran."""
+        n = self.coords.shape[1]
+        if (
+            self.ndim != 2
+            or already_sorted
+            or not native.host_route(self.data.device, self.data.dtype, n, native.NATIVE_MIN_SIZE)
+            # the counting sort allocates O(rows): not for hyper-tall matrices
+            or self.shape[0] > max(4 * n, 1 << 22)
+        ):
+            return False
+        rows, cols, vals = native_eager.canonicalize2d(self.coords[0], self.coords[1], self.data, self.shape[0])
+        self.coords = torch.stack([rows, cols]).to(self.coords.dtype)
+        self.data = vals
+        return True
+
     def _sort_indices(self, lin):
         """Sort entries into canonical row-major order (stable, so duplicates
-        keep their input order). Returns the sorted linear keys."""
+        keep their input order). Returns the sorted linear keys. CPU
+        float32/float64 arrays of ``NATIVE_MIN_SIZE`` entries or more sort
+        by ``native.sort_with_perm``, as ``sparse_tpu`` does."""
         if lin.numel() > 1 and not bool((lin[1:] >= lin[:-1]).all()):
-            lin, order = torch.sort(lin, stable=True)
+            if native.host_route(self.data.device, self.data.dtype, lin.numel(), native.NATIVE_MIN_SIZE):
+                order, lin_sorted = native.sort_with_perm(lin, max_key=self.size - 1)
+                lin = lin[order] if lin_sorted is None else lin_sorted
+            else:
+                lin, order = torch.sort(lin, stable=True)
             self.coords = take(self.coords, (slice(None), order))
             self.data = take(self.data, order)
         return lin
 
     def _sum_duplicates(self, lin):
         if lin.numel() == 0:
+            return
+        if self.data.dtype == torch.float64 and native.host_route(
+            self.data.device, self.data.dtype, lin.numel(), native.NATIVE_MIN_SIZE
+        ):
+            if bool((lin[1:] != lin[:-1]).all()):
+                return
+            # each run summed from its first value in entry order: the bits
+            # of the torch route below
+            starts, self.data = native.dedup_sum_sorted(lin, self.data)
+            self.coords = take(self.coords, (slice(None), starts))
             return
         uniq, inverse, counts = torch.unique_consecutive(lin, return_inverse=True, return_counts=True)
         if uniq.numel() == lin.numel():
@@ -517,7 +560,9 @@ class COO(SparseArray):
         """The axes permuted, on the device: the coordinates' rows permuted and
         the entries re-sorted by the new linear key (2-D: one stable sort of
         the new row key, since canonical order already sorts each column's
-        entries by row). Cached as ``sparse_tpu`` caches it."""
+        entries by row; a CPU array of float32/float64 data with
+        ``NATIVE_MIN_NNZ`` entries or more by the host library's counting
+        scatter, the same entries). Cached as ``sparse_tpu`` caches it."""
         if axes is None:
             axes = tuple(reversed(range(self.ndim)))
         axes = normalize_axis(axes, self.ndim)
@@ -531,6 +576,15 @@ class COO(SparseArray):
         def compute():
             shape = tuple(self.shape[ax] for ax in axes)
             dt = torch_dtype(coords_dtype(self.coords.dtype, max(shape) if shape else 0))
+            if (
+                axes == (1, 0)
+                and native.host_route(self.data.device, self.data.dtype, self.nnz, native_eager.NATIVE_MIN_NNZ)
+                and self.shape[1] <= max(4 * self.nnz, 1 << 22)
+            ):
+                # the host library's stable counting scatter by column, as
+                # sparse_tpu transposes: the entries of the sort below
+                _, rows, cols, vals = native_eager.transpose2d(self.coords[0], self.coords[1], self.data, shape[0])
+                return COO._make(torch.stack([rows, cols]).to(dt), vals, shape, self.fill_value)
             coords = wide_index(self.coords)[list(axes), :]
             if axes == (1, 0):
                 order = torch.sort(coords[0], stable=True).indices
@@ -550,8 +604,10 @@ class COO(SparseArray):
     def reshape(self, shape, order="C"):
         """The same entries in ``shape`` (C order), on the device: a 2-D to
         2-D reshape whose column counts divide is digit arithmetic on the
-        coordinates; any other unravels the linear key. The linear order,
-        and so the canonical order, is kept: nothing is sorted."""
+        coordinates; any other unravels the linear key (a CPU array of
+        float32/float64 data with ``NATIVE_MIN_NNZ`` entries or more by the
+        host library's ``unravel``). The linear order, and so the canonical
+        order, is kept: nothing is sorted."""
         shape = tuple(shape) if isinstance(shape, Iterable) else (shape,)
         if order not in ("C", None):
             raise NotImplementedError("The `order` parameter is not supported")
@@ -583,6 +639,10 @@ class COO(SparseArray):
             if not shape:
                 return COO._make(torch.zeros((0, self.nnz), dtype=dt, device=self.device), self.data, shape, self.fill_value)
             lin = self.linear_loc()
+            host = native.host_route(self.data.device, self.data.dtype, self.nnz, native_eager.NATIVE_MIN_NNZ)
+            if host and all(shape):
+                # the host library's threaded unravel, as sparse_tpu reshapes
+                return COO._make(native_eager.unravel(lin, shape).to(dt), self.data, shape, self.fill_value)
             coords = torch.empty((len(shape), self.nnz), dtype=dt, device=self.device)
             for d in range(len(shape) - 1, -1, -1):
                 coords[d] = lin % shape[d] if d else lin
@@ -684,7 +744,12 @@ class COO(SparseArray):
         red = math.prod(self.shape[ax] for ax in axis)
         keys = _linearize(take(self.coords, list(neg_axis)), neg_shape)
         data = self.data
-        if neg_axis != tuple(range(len(neg_axis))):
+        leading = neg_axis == tuple(range(len(neg_axis)))
+        if method is np.add and kw_dtype is None and self.nnz and native.host_route(self.device, self.dtype):
+            zero_fill = bool(np.all(np.asarray(self.fill_value) == 0))
+            result, counts, keys, drop_zero = _host_sum(keys, data, keep, leading, zero_fill, self.nnz)
+            return result, counts, axis, red, (neg_shape, keys, drop_zero)
+        if not leading:
             # the kept axes do not lead: group by a stable sort of their key
             keys, order = torch.sort(keys, stable=True)
             data = take(data, order)
@@ -776,6 +841,34 @@ class COO(SparseArray):
             )
 
         return self._cached_layout("dia", (max_bands, max_fill), compute)
+
+
+def _host_sum(keys, data, keep, leading, zero_fill, nnz):
+    """The add-reduction of float32/float64 ``data`` over the runs of the
+    kept axes' ``keys`` on the host library, at ``sparse_tpu``'s conditions:
+    ``(sums, counts, keys, drop_zero)``. With a zero fill and at most ``16 ·
+    nnz`` (or 2^22) kept positions, one fused pass that drops every sum
+    equal to zero and counts nothing (``sorted_reduce_compact`` on leading
+    kept axes, four accumulators a run; ``bincount_sum_compact`` otherwise);
+    else on other kept axes ``bincount_sum`` (bins from +0.0, entries in
+    order) while the positions are few, and ``row_reduce_sorted`` (each run
+    from its first entry) over the runs of the stably sorted keys."""
+    small = keep <= max(16 * nnz, 1 << 22)
+    if small and zero_fill:
+        if leading:
+            idx, sums = native_eager.sorted_reduce_compact(keys, data, max_runs=keep)
+        else:
+            idx, sums = native_eager.bincount_sum_compact(keys, data, keep)
+        return sums, None, idx, True
+    if small and not leading:
+        sums, counts = native_eager.bincount_sum(keys, data, keep)
+        idx = torch.nonzero(counts).flatten()
+        return sums[idx], counts[idx], idx, False
+    if not leading:
+        keys, order = torch.sort(keys, stable=True)
+        data = take(data, order)
+    idx, sums, counts = native_eager.row_reduce_sorted(keys, data)
+    return sums, counts, idx, False
 
 
 def _kept_result(data, arr_attrs, result_fill_value):

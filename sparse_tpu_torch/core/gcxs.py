@@ -14,7 +14,11 @@ raveled to int64 keys, a stable ``torch.sort`` by the compressed key alone
 expanded from ``indptr`` by ``repeat_interleave``. ``_restructure`` (transpose,
 reshape, new compressed axes) computes each entry's new keys with mixed-radix
 integer ops and reorders only as far as the old order does not already give
-the new one.
+the new one. CPU arrays of float32/float64 data take the host library for
+these steps (``native``: ``transpose2d``'s counting scatter in
+``from_coo``, ``relinearize`` and the scatter or ``canonicalize2d`` in
+``_restructure``, ``csr_row_splice`` for row picks), as ``sparse_tpu``
+does, with the same results.
 
 Products of a 2-D array (``@``, ``matmul``, ``dot``, ``matvec_add``) run on
 its canonical COO, which the array keeps while its buffers stay the same
@@ -22,8 +26,9 @@ ones, and so on that COO's cached row-ELL layout and the CUDA kernels.
 
 Reductions run on the device (``_reduce_calc``): over exactly the
 uncompressed axes one segment reduce with ``indptr`` as its offsets, an add
-over exactly the compressed axes on runs of ``indices``, anything else
-through the COO. Elementwise operations on GCXS operands return a GCXS.
+over exactly the compressed axes on runs of ``indices`` (float32/float64 on
+the CPU: the host library's ``bincount_sum``), anything else through the
+COO. Elementwise operations on GCXS operands return a GCXS.
 
 ``concatenate_gcxs``/``stack_gcxs`` splice the inputs' storage on the device.
 
@@ -42,7 +47,8 @@ from numbers import Integral
 import numpy as np
 import torch
 
-from .. import _settings
+from .. import _settings, native
+from ..native import eager as native_eager
 from .._utils import (
     can_store,
     check_fill_value,
@@ -267,12 +273,18 @@ class GCXS(SparseArray):
 
         # a canonical COO is sorted by (comp, uncomp) when the compressed axes
         # lead; otherwise its order within one compressed key is already
-        # uncompressed-lex, so a stable sort by that key alone suffices
+        # uncompressed-lex, so a stable sort by that key alone suffices: on
+        # the CPU for float32/float64 data the host library's stable counting
+        # scatter (``transpose2d``, as sparse_tpu does), the same entries
+        host = native.host_route(device, data.dtype)
+        if comp != tuple(range(len(comp))) and host and row_size <= max(4 * nnz, 1 << 22):
+            indptr, _, cols, data = native_eager.transpose2d(cols, rows, data, row_size, want_rows=False)
+            return cls._make(data, cols.to(tdt), indptr.to(tdt), x.shape, compressed_axes, x.fill_value)
         if comp != tuple(range(len(comp))):
             rows, order = torch.sort(rows, stable=True)
             cols = cols[order]
             data = take(data, order)
-        indptr = _build_indptr(rows, row_size)
+        indptr = native.build_indptr(rows, row_size) if host else _build_indptr(rows, row_size)
         return cls._make(data, cols.to(tdt), indptr.to(tdt), x.shape, compressed_axes, x.fill_value)
 
     @classmethod
@@ -509,23 +521,32 @@ class GCXS(SparseArray):
                     (*base_term(src_axis[a]), math.prod(new_shape[b] for b in axs[i + 1 :])) for i, a in enumerate(axs)
                 ]
 
-        crow = uncompress_indptr(self.indptr, nnz)
-        idx = self.indices.long()
+        # CPU float32/float64 data: the host library's relinearization, scatter
+        # and sorts, as sparse_tpu restructures (integer keys and moved
+        # entries: the torch route's results)
+        host = native.host_route(self.device, data.dtype)
+        if host:
+            new_row, new_col = native_eager.relinearize(
+                self.indptr, self.indices, lin_terms, key_terms(new_comp), key_terms(new_uncomp)
+            )
+        else:
+            crow = uncompress_indptr(self.indptr, nnz)
+            idx = self.indices.long()
 
-        def eval_terms(terms, lin):
-            key = torch.zeros(nnz, dtype=torch.int64, device=self.device)
-            for s, d, m, u in terms:
-                v = (crow, idx, lin)[s]
-                if d != 1:
-                    v = v // d
-                if m:
-                    v = v % m
-                key += v * u if u != 1 else v
-            return key
+            def eval_terms(terms, lin):
+                key = torch.zeros(nnz, dtype=torch.int64, device=self.device)
+                for s, d, m, u in terms:
+                    v = (crow, idx, lin)[s]
+                    if d != 1:
+                        v = v // d
+                    if m:
+                        v = v % m
+                    key += v * u if u != 1 else v
+                return key
 
-        lin = eval_terms(lin_terms, None) if lin_terms else None
-        new_row = eval_terms(key_terms(new_comp), lin)
-        new_col = eval_terms(key_terms(new_uncomp), lin)
+            lin = eval_terms(lin_terms, None) if lin_terms else None
+            new_row = eval_terms(key_terms(new_comp), lin)
+            new_col = eval_terms(key_terms(new_uncomp), lin)
 
         # reorder: already sorted; one stable sort by the row key (ties are
         # already in column order); or a sort by the whole key, unique since
@@ -533,15 +554,20 @@ class GCXS(SparseArray):
         tdt = torch_dtype(get_out_dtype(idx_np, max(new_row_size, new_col_size, nnz)))
         if sig is not None and sig == new_comp + new_uncomp:
             data = data.clone()
+        elif sig is not None and tuple(a for a in sig if a not in new_comp) == new_uncomp:
+            if host and new_row_size <= max(4 * nnz, 1 << 22):
+                indptr, _, new_col, data = native_eager.transpose2d(
+                    new_col, new_row, data, new_row_size, want_rows=False
+                )
+                return GCXS._make(data, new_col.to(tdt), indptr.to(tdt), new_shape, new_comp, self.fill_value)
+            new_row, order = torch.sort(new_row, stable=True)
+            new_col, data = new_col[order], take(data, order)
+        elif host:
+            new_row, new_col, data = native_eager.canonicalize2d(new_row, new_col, data, new_row_size)
         else:
-            if sig is not None and tuple(a for a in sig if a not in new_comp) == new_uncomp:
-                new_row, order = torch.sort(new_row, stable=True)
-            else:
-                _, order = torch.sort(new_row * new_col_size + new_col, stable=True)
-                new_row = new_row[order]
-            new_col = new_col[order]
-            data = take(data, order)
-        indptr = _build_indptr(new_row, new_row_size)
+            _, order = torch.sort(new_row * new_col_size + new_col, stable=True)
+            new_row, new_col, data = new_row[order], new_col[order], take(data, order)
+        indptr = native.build_indptr(new_row, new_row_size) if host else _build_indptr(new_row, new_row_size)
         return GCXS._make(data, new_col.to(tdt), indptr.to(tdt), new_shape, new_comp, self.fill_value)
 
     # -- structural ops ---------------------------------------------------------------------
@@ -712,11 +738,15 @@ class GCXS(SparseArray):
             lo = indptr[sel_pos].long()
             counts = indptr[sel_pos + 1].long() - lo
             (total,) = run_checks(checks, [counts.sum()])
-            run = torch.repeat_interleave(torch.arange(sel_pos.numel(), device=dev), counts, output_size=total)
-            ends = torch.cumsum(counts, 0)
-            src = lo[run] + torch.arange(total, device=dev) - (ends - counts)[run]
-            sub_data, sub_ind = take(data, src), take(indices, src)
-            rel_indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), ends])
+            if native.host_route(dev, data.dtype):
+                # the host library's segment copies, as sparse_tpu splices
+                rel_indptr, sub_ind, sub_data = native_eager.csr_row_splice(indptr, indices, data, sel_pos)
+            else:
+                run = torch.repeat_interleave(torch.arange(sel_pos.numel(), device=dev), counts, output_size=total)
+                ends = torch.cumsum(counts, 0)
+                src = lo[run] + torch.arange(total, device=dev) - (ends - counts)[run]
+                sub_data, sub_ind = take(data, src), take(indices, src)
+                rel_indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), ends])
             n_sel = sel_pos.numel()
         comp_is_scalar = kind == "int"
 
@@ -798,13 +828,19 @@ class GCXS(SparseArray):
             and not (self.dtype.is_complex or self.dtype == torch.bool)
             and keep <= max(16 * self.nnz, 1 << 22)
         ):
-            keys, order = torch.sort(self.indices.long(), stable=True)
-            keys, counts = torch.unique_consecutive(keys, return_counts=True)
-            offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=self.device)
-            torch.cumsum(counts, 0, out=offsets[1:])
-            sums = reduce_runs(np.add, take(self.data, order), offsets)
-            if sums.dtype.is_floating_point:
-                sums = sums + 0.0  # the sums start from +0.0, as ``sparse_tpu``'s bincount does
+            if native.host_route(self.device, self.dtype):
+                # the host library's bincount, as sparse_tpu sums
+                sums, counts = native_eager.bincount_sum(self.indices, self.data, keep)
+                keys = torch.nonzero(counts).flatten()
+                sums, counts = sums[keys], counts[keys]
+            else:
+                keys, order = torch.sort(self.indices.long(), stable=True)
+                keys, counts = torch.unique_consecutive(keys, return_counts=True)
+                offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=self.device)
+                torch.cumsum(counts, 0, out=offsets[1:])
+                sums = reduce_runs(np.add, take(self.data, order), offsets)
+                if sums.dtype.is_floating_point:
+                    sums = sums + 0.0  # the sums start from +0.0, as ``sparse_tpu``'s bincount does
             red = math.prod(self.shape[a] for a in axis)
             return sums, counts, axis, red, ((uncomp_shape, keys, False), comp)
 

@@ -164,12 +164,16 @@ _route_blocks = {}
 
 
 def reset_launch_counts():
-    """Every launch counter to 0, and K6's block counters on each device
-    (:func:`attention_route_blocks`) with them."""
+    """Every launch counter to 0, K6's block counters on each device
+    (:func:`attention_route_blocks`) and the host library's call counters
+    (``native.CALLS``) with them."""
+    from .. import native
+
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     for t in _route_blocks.values():
         t.zero_()
+    native.reset_calls()
 
 
 def _nvcc():

@@ -5,12 +5,14 @@ not take (integers, complex, float16): ``ops.dot`` sends those here by dtype,
 as ``sparse_tpu`` keeps them off its row-ELL path. Same functions as
 ``sparse_tpu.kernels.dot.coo_spmm`` and ``coo_spmv``.
 
-``mttkrp`` is ``sparse_tpu.kernels.dot.mttkrp``: for tensors on the GPU it
-runs the hand-written CUDA kernel of ``csrc/mttkrp.cu`` (counted as
-``coo_mttkrp``), with each row's run found by ``torch.searchsorted`` and
-the pieces of the long runs by one ``cumsum`` (``_cuda.run_pieces``), both
-on the device; ``mttkrp_plain`` beside it is its plain PyTorch version, taken only
-for tensors on the CPU. The differentiable core (``_Mttkrp``) is shared
+``mttkrp`` is ``sparse_tpu.kernels.dot.mttkrp``: for float32/float64
+tensors on the GPU it runs the hand-written CUDA kernel of
+``csrc/mttkrp.cu`` (counted as ``coo_mttkrp``), with each row's run found by
+``torch.searchsorted`` and the pieces of the long runs by one ``cumsum``
+(``_cuda.run_pieces``), both on the device; ``mttkrp_plain`` beside it is
+its plain PyTorch version, taken for tensors on the CPU and, by dtype before
+any launch, for integer and bool data on any device (products and sums in
+NumPy's promoted dtype, the unsigned types through their signed views). The differentiable core (``_Mttkrp``) is shared
 with the block-ELL form, ``ell.ell_mttkrp``.
 
 ``sddmm`` is ``sparse_tpu.kernels.dot.sddmm``: for float32/float64 tensors
@@ -36,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._utils import as_int64, result_dtype, signed_view, sum_dtype, wide_index
+from .._utils import as_int64, result_dtype, signed_view, sum_dtype, take, wide_index
 from . import _cuda
 
 
@@ -71,17 +73,37 @@ def coo_spmv(rows, cols, data, x, *, n_rows):
 
 MTTKRP_STRATEGIES = ("exact", "hilo", "bf16")
 _KERNEL_DTYPES = (torch.float32, torch.float64)
+_PLAIN_DTYPES = (
+    torch.bool, torch.int8, torch.int16, torch.int32, torch.int64,
+    torch.uint8, torch.uint16, torch.uint32, torch.uint64,
+)  # fmt: skip
 
 
 def mttkrp_dtypes(data, c, d, strategy="exact"):
     """``(value dtype, table dtype)`` of an MTTKRP, as ``sparse_tpu`` computes
     it: NumPy promotion of the three for ``"exact"``/``"hilo"``; for
     ``"bf16"`` bfloat16 tables and ``data``'s dtype. The value dtype is
-    float32 or float64, else ``TypeError``."""
+    float32, float64, an integer type or bool, else ``TypeError``."""
     vt = data.dtype if strategy == "bf16" else result_dtype(data.dtype, c.dtype, d.dtype)
-    if vt not in _KERNEL_DTYPES:
-        raise TypeError(f"mttkrp computes in float32 or float64, not {vt}")
+    if vt not in _KERNEL_DTYPES + _PLAIN_DTYPES:
+        raise TypeError(f"mttkrp computes in float32, float64, an integer type or bool, not {vt}")
     return vt, torch.bfloat16 if strategy == "bf16" else vt
+
+
+def on_kernel(device, vt):
+    """Whether an MTTKRP of value dtype ``vt`` on ``device`` launches its
+    kernel: float32/float64 on the GPU. Decided before any launch; integer
+    and bool data take the plain version on every device."""
+    return device.type != "cpu" and vt in _KERNEL_DTYPES
+
+
+def _as_int(x, dt):
+    """Float ``x`` truncated to the integer or bool dtype ``dt`` (the
+    unsigned types through int64 and their signed views)."""
+    signed = signed_view(torch.empty(0, dtype=dt)).dtype
+    if signed == dt:
+        return x.to(dt)
+    return x.to(torch.int64).to(signed).view(dt)
 
 
 def slot_rows(rows, block_rows=0):
@@ -98,9 +120,14 @@ def _products(cj, ck, v, c, d, strategy):
     """``(n_slots, r)``: ``v · (C[j] · D[k])`` in the value dtype, flat slots;
     ``"bf16"`` multiplies the bf16-rounded factors in float32 (exact) first."""
     vt, tt = mttkrp_dtypes(v, c, d, strategy)
-    cg, dg = c.to(tt)[cj.long()], d.to(tt)[ck.long()]
-    g = (cg.float() * dg.float()).to(vt) if strategy == "bf16" else cg * dg
-    return v.to(vt)[:, None] * g
+    cg, dg = take(c.to(tt), cj.long()), take(d.to(tt), ck.long())
+    if vt in _KERNEL_DTYPES:
+        g = (cg.float() * dg.float()).to(vt) if strategy == "bf16" else cg * dg
+        return v.to(vt)[:, None] * g
+    # integers multiply modulo their width (unsigned as signed, the same
+    # bits); bool as "and"
+    g = _as_int(cg.float() * dg.float(), vt) if strategy == "bf16" else signed_view(cg) * signed_view(dg)
+    return (signed_view(v.to(vt))[:, None] * signed_view(g)).view(vt)
 
 
 def segment_sum(prods, rows, n_rows):
@@ -110,7 +137,8 @@ def segment_sum(prods, rows, n_rows):
     if not bool(keep.all()):
         rows, prods = rows[keep], prods[keep]
     out = torch.zeros((n_rows, prods.shape[1]), dtype=prods.dtype, device=prods.device)
-    return out.index_add_(0, rows, prods)
+    signed_view(out).index_add_(0, rows, signed_view(prods))  # booleans add as "or"
+    return out
 
 
 def mttkrp_plain(coords_i, coords_j, coords_k, data, c, d, *, n_rows, block_rows=0, strategy="exact"):
@@ -139,11 +167,11 @@ def check_indices(cj, ck, c, d, ci=None):
 
 
 def _mttkrp_forward(rows, block_rows, cj, ck, data, c, d, n_rows, strategy, row_ptr, order, pieces):
-    if data.device.type == "cpu":
+    vt, tt = mttkrp_dtypes(data, c, d, strategy)
+    if not on_kernel(data.device, vt):
         return mttkrp_plain(rows, cj, ck, data, c, d, n_rows=n_rows, block_rows=block_rows, strategy=strategy)
     device = data.device
     _cuda.require_cuda(device, "MTTKRP")
-    vt, tt = mttkrp_dtypes(data, c, d, strategy)
     r = c.shape[1]
     out = torch.empty((n_rows, r), dtype=vt, device=device)
     n_front = _cuda.front_bound(data.numel(), n_rows, _cuda.MTTKRP_PIECE)
@@ -215,7 +243,9 @@ def check_mttkrp_operands(what, tensors, c, d):
 def mttkrp(coords_i, coords_j, coords_k, data, c, d, *, n_rows):
     """MTTKRP of a 3-D COO tensor B with entries sorted by ``coords_i``:
     ``out[i, r] = Σ_{(i,j,k) in B} B[i,j,k] · C[j, r] · D[k, r]`` → dense
-    ``(n_rows, r)`` in the promoted dtype (float32 or float64).
+    ``(n_rows, r)`` in the promoted dtype (float32 or float64 on the kernel;
+    integers on the plain version, modulo their width; bool raises
+    ``TypeError``, as ``sparse_tpu``'s segment sum refuses it).
     Differentiable in ``data``, ``c`` and ``d``.
 
     ``coords_i`` must be sorted (``ValueError`` otherwise; ``sparse_tpu``
@@ -229,13 +259,15 @@ def mttkrp(coords_i, coords_j, coords_k, data, c, d, *, n_rows):
         coords_i.shape == coords_j.shape == coords_k.shape == data.shape
     ):
         raise ValueError("mttkrp: coords_i, coords_j, coords_k and data must be 1-D of one length")
-    mttkrp_dtypes(data, c, d)
-    on_cpu = data.device.type == "cpu"
-    if not on_cpu:
+    vt, _ = mttkrp_dtypes(data, c, d)
+    if vt == torch.bool:
+        raise TypeError("mttkrp: bool data has no sum (sparse_tpu's segment sum refuses bool)")
+    kernel = on_kernel(data.device, vt)
+    if kernel:
         _cuda.require_cuda(data.device, "MTTKRP")
     check_indices(coords_j, coords_k, c, d, ci=coords_i)
     row_ptr = pieces = None
-    if not on_cpu:
+    if kernel:
         ci = coords_i if coords_i.dtype == torch.int64 else coords_i.long()
         row_ptr = torch.searchsorted(ci, torch.arange(n_rows + 1, device=ci.device))
         pieces = _cuda.run_pieces(row_ptr, _cuda.MTTKRP_PIECE)

@@ -40,6 +40,7 @@ from .dot import (
     check_mttkrp_operands,
     mttkrp_dtypes,
     mttkrp_plain,
+    on_kernel,
     segment_sum,
     slot_rows,
 )
@@ -230,7 +231,8 @@ def ell_mttkrp(
     ``strategy`` (``sparse_tpu``'s TPU gather modes):
 
     - ``"exact"`` (default): the promoted dtype of ``e_data``, ``c`` and
-      ``d`` (float32 or float64), exact factors;
+      ``d`` (float32 or float64 on the kernel; integers and bool on the
+      plain version, bool summing as "or"), exact factors;
     - ``"hilo"``: the same computation as ``"exact"`` (``sparse_tpu``'s
       hi|lo bf16 split reconstructs the factors to about 1e-7; this card
       reads them whole);
@@ -252,13 +254,12 @@ def ell_mttkrp(
         raise ValueError(f"ell_mttkrp: n_rows = {n_rows} exceeds the layout's {e_rows.shape[0]} blocks")
     if (order is None) != (row_ptr is None):
         raise ValueError("ell_mttkrp: pass both order and row_ptr, or neither")
-    mttkrp_dtypes(e_data, c, d, strategy)
-    on_cpu = e_data.device.type == "cpu"
-    if not on_cpu:
+    kernel = on_kernel(e_data.device, mttkrp_dtypes(e_data, c, d, strategy)[0])
+    if kernel:
         _cuda.require_cuda(e_data.device, "MTTKRP")
     check_indices(e_j, e_k, c, d)
-    if not on_cpu and order is None:
+    if kernel and order is None:
         order, row_ptr = block_ell_3d_runs(e_rows, block_rows)
-    if not on_cpu and pieces is None:
+    if kernel and pieces is None:
         pieces = _cuda.run_pieces(row_ptr, _cuda.MTTKRP_PIECE)
     return _Mttkrp.apply(e_rows, block_rows, e_j, e_k, e_data, c, d, n_rows, strategy, row_ptr, order, pieces)

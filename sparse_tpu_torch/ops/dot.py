@@ -11,16 +11,22 @@ and the fused ``matvec_add``, with the semantics of ``sparse_tpu.ops.dot``:
 - dtypes promote as NumPy's do (``np.promote_types``).
 
 A 2-D sparse operand is a ``COO`` or ``GCXS`` (``CSR``, ``CSC``); a GCXS
-multiplies through the canonical COO it keeps. float32/float64 products run
-on the COO's cached row-ELL layout (``kernels.row_ell``: the CUDA kernels on
-the GPU); dense × sparse runs there too, as ``(bᵀ @ aᵀ)ᵀ`` on the cached
-transpose of ``b``. Other dtypes take the COO gather + ``index_add_`` path
+multiplies through the canonical COO it keeps. float32/float64 products on
+the GPU run on the COO's cached row-ELL layout (``kernels.row_ell``: the CUDA
+kernels); dense × sparse runs there too, as ``(bᵀ @ aᵀ)ᵀ`` on the cached
+transpose of ``b``. On the CPU they take the host library (``native.eager``:
+the CSR kernels on the COO's kept ``indptr``, the entry loop for sparse
+rows, ``dense_spmm_csrt`` on ``b``'s kept CSC), as ``sparse_tpu``'s host
+route does. Other dtypes take the COO gather + ``index_add_`` path
 (``kernels.dot``). ``sddmm`` runs ``kernels.sddmm`` (K4 on the GPU).
 1-D operands, batched (N-D) ``matmul`` and ``tensordot`` reduce to these
 2-D products; sparse 1-D · 1-D runs as ``(a * b).sum()``. Sparse × sparse
 runs ``kernels.spgemm.spgemm`` on the operands' device (expand, one stable
 sort, run sums in a fixed order, computed zeros dropped); two CSR or two CSC
-operands build the GCXS result straight from the product's rows.
+operands build the GCXS result straight from the product's rows. On the
+CPU, float32/float64 operands with ``native.eager.NATIVE_MIN_NNZ`` entries
+or more between them take the host library's Gustavson SpGEMM
+(``spgemm_csr``), with the same bits and the same zero rule.
 """
 
 from __future__ import annotations
@@ -43,12 +49,14 @@ from .._utils import (
     wide_index,
     zero_of_dtype,
 )
+from .. import native
 from ..core.base import SparseArray
 from ..core.coo import COO
 from ..core.gcxs import GCXS
 from ..kernels import dot as kdot
 from ..kernels import spgemm as kspgemm
 from ..kernels.row_ell import row_ell_spmm_program, row_ell_spmv
+from ..native import eager as native_eager
 
 __all__ = ["tensordot", "matmul", "dot", "vecdot", "matvec_add", "sddmm"]
 
@@ -409,9 +417,32 @@ def _spgemm(a, b):
         res = _spgemm(a, b.reshape((-1, 1)))
         return res.reshape(res.shape[:-1])
     (m, k), n = a.shape, b.shape[1]
-    rows, cols, vals = kspgemm.spgemm(*a.coords, a.data, *b.coords, b.data, m=m, k=k, n=n)
+    dt = result_dtype(a.dtype, b.dtype)
+    if _host_spgemm(a, b, dt):
+        indptr, cols, vals = native_eager.spgemm_csr(
+            _host_indptr(a), a.coords[1], a.data.to(dt), _host_indptr(b), b.coords[1], b.data.to(dt), m, n
+        )
+        rows, cols, vals = _drop_zero_sums(native_eager.uncompress_indptr(indptr, m), cols, vals)
+    else:
+        rows, cols, vals = kspgemm.spgemm(*a.coords, a.data, *b.coords, b.data, m=m, k=k, n=n)
     idx = torch_dtype(index_dtype_for(max(m, n)))
     return COO._make(torch.stack([rows, cols]).to(idx), vals, (m, n), zero_of_dtype(numpy_dtype(vals.dtype)))
+
+
+def _host_spgemm(a, b, dt):
+    """Whether a product of two sparse operands computed in ``dt`` takes the
+    host library (``spgemm_csr``): CPU float32/float64 with
+    ``NATIVE_MIN_NNZ`` entries or more between them, as in ``sparse_tpu``."""
+    return native.host_route(a.device, dt, a.nnz + b.nnz, native_eager.NATIVE_MIN_NNZ)
+
+
+def _drop_zero_sums(rows, cols, vals):
+    """The entries whose sum is not zero (either sign), as
+    ``kernels.spgemm.spgemm`` keeps them."""
+    keep = vals != 0
+    if bool(keep.all()):
+        return rows, cols, vals
+    return rows[keep], cols[keep], vals[keep]
 
 
 def _gcxs_triplet(x):
@@ -433,9 +464,15 @@ def _spgemm_gcxs_direct(a, b):
     csc = a.compressed_axes == (1,)
     m, n = a.shape[0], b.shape[1]
     first, second = (b, a) if csc else (a, b)
-    rows, cols, vals = kspgemm.spgemm(
-        *_gcxs_triplet(first), *_gcxs_triplet(second), m=n if csc else m, k=a.shape[1], n=m if csc else n
-    )
+    m_out, n_out = (n, m) if csc else (m, n)
+    dt = result_dtype(a.dtype, b.dtype)
+    if _host_spgemm(a, b, dt):
+        a_csr = (first.indptr, first.indices, first.data.to(dt))
+        b_csr = (second.indptr, second.indices, second.data.to(dt))
+        indptr, cols, vals = native_eager.spgemm_csr(*a_csr, *b_csr, m_out, n_out)
+        rows, cols, vals = _drop_zero_sums(native_eager.uncompress_indptr(indptr, m_out), cols, vals)
+    else:
+        rows, cols, vals = kspgemm.spgemm(*_gcxs_triplet(first), *_gcxs_triplet(second), m=m_out, k=a.shape[1], n=n_out)
     idx = torch_dtype(index_dtype_for(max(m, n, vals.numel())))
     indptr = torch.searchsorted(rows, torch.arange((n if csc else m) + 1, device=rows.device))
     return GCXS._make(
@@ -449,10 +486,42 @@ def _product_coo(a):
     return a._product_coo() if isinstance(a, GCXS) else a
 
 
+def _host_product(a, dt):
+    """Whether a product of the 2-D sparse ``a`` computed in ``dt`` takes the
+    host library: CPU float32/float64 (``native.host_route``)."""
+    return a.ndim == 2 and native.host_route(a.device, dt, a.nnz, native_eager.NATIVE_MIN_PRODUCT_NNZ)
+
+
+def _host_indptr(a):
+    """The int64 row ``indptr`` of a canonical 2-D COO, kept on it."""
+    return a._cached_layout("host_indptr", None, lambda: native.build_indptr(a.coords[0], a.shape[0]))
+
+
+def _host_spmm(a, b, y=None):
+    """sparse ``(M, K)`` × dense ``b`` (``+ y``) on the host library, as
+    ``sparse_tpu``'s host route: a vector of a matrix with at most one entry
+    in two rows by the entry loop (``coo_spmv_entries``), else the CSR
+    kernels (``csr_spmm_dense``, ``spmv_add`` seeded with ``y``) on the
+    ``indptr`` kept on the COO. A GCXS multiplies through the COO it keeps,
+    so a CSR's, a CSC's and the COO's products have the same bits. ``b``
+    and ``y`` come in the result dtype."""
+    a = _product_coo(a)
+    data = a.data.to(b.dtype)
+    n_rows = a.shape[0]
+    if b.ndim == 1 and a.nnz * 2 <= n_rows:
+        return native_eager.coo_spmv_entries(a.coords[0], a.coords[1], data, b, n_rows, y=y)
+    indptr, cols = _host_indptr(a), a.coords[1]
+    if y is not None:
+        return native_eager.spmv_add(indptr, cols, data, b, y, n_rows, a.shape[1], True)
+    return native_eager.csr_spmm_dense(indptr, cols, data, b, n_rows)
+
+
 def _spmm_dense(a, b):
     """sparse ``(M, K)`` × dense ``(K,)`` or ``(K, N)`` → dense tensor."""
-    a = _product_coo(a)
     dt = result_dtype(a.dtype, b.dtype)
+    if _host_product(a, dt):
+        return _host_spmm(a, b.to(dt))
+    a = _product_coo(a)
     if dt in _ROW_ELL_DTYPES:
         return _spmm_row_ell(a, b.to(dt))
     coords = a.coords
@@ -477,12 +546,41 @@ def _dense_spmm(a, b):
     ``kernels.dot.dense_coo_matmul``."""
     b = _product_coo(b)
     dt = result_dtype(a.dtype, b.dtype)
+    if _host_product(b, dt):
+        return _host_dense_spmm(a.to(dt), b)
     if dt in _ROW_ELL_DTYPES:
         bt = _transposed(b)
         if a.shape[0] == 1:
             return _spmm_row_ell(bt, a[0].to(dt))[None, :]
         return _spmm_row_ell(bt, a.T.to(dt)).T.contiguous()
     return kdot.dense_coo_matmul(a.to(dt), b.coords[0], b.coords[1], b.data.to(dt), n_out_cols=b.shape[1]).contiguous()
+
+
+def _host_dense_spmm(x, b):
+    """dense ``(M, K)`` × the canonical COO ``b (K, N)`` on the host library,
+    as ``sparse_tpu``'s host route: with four rows or more (or ``b``'s CSC
+    already kept) on ``b``'s CSC buffers (``transpose2d``, kept on ``b``):
+    ``dense_spmm_csrt``, or the CSR SpMV for one row; else the CSC scatter
+    of ``xᵀ`` over ``b``'s rows. Each output entry sums from 0 in ``b``'s row
+    order on every form but the SpMV, so ``x @ b`` has the bits of ``(bᵀ @
+    xᵀ)ᵀ``."""
+    k, n = b.shape
+    kept = b.peek_layout("host_csc", None)
+    if b.dtype in native.HOST_DTYPES and (x.shape[0] >= 4 or kept is not None):
+        indptr, kids, vals = kept or b._cached_layout("host_csc", None, lambda: _host_csc(b))
+        vals = vals.to(x.dtype)
+        if x.shape[0] == 1:
+            return native_eager.csr_spmm_dense(indptr, kids, vals, x[0], n)[None, :]
+        return native_eager.dense_spmm_csrt(indptr, kids, vals, x, n)
+    out_t = native_eager.csc_spmm_dense(_host_indptr(b), b.coords[1], b.data.to(x.dtype), x.T, n, k)
+    return out_t.T.contiguous()
+
+
+def _host_csc(b):
+    """``(indptr over columns, row ids, values)`` of a canonical 2-D COO: one
+    stable counting scatter (``native.eager.transpose2d``)."""
+    indptr, _, kids, vals = native_eager.transpose2d(b.coords[0], b.coords[1], b.data, b.shape[1], want_rows=False)
+    return indptr, kids, vals
 
 
 def _spmm_row_ell(a, b, y=None):
@@ -517,6 +615,8 @@ def matvec_add(a, x, y):
         if dt in _ROW_ELL_DTYPES:
             check_zero_fill_value(a, x, func_name="matmul")
             _warn_nan(a, x, stacklevel=2)
+            if _host_product(a, dt):
+                return _host_spmm(a, x.to(dt), y=y.to(dt))
             return _spmm_row_ell(_product_coo(a), x.to(dt), y=y.to(dt))
     out = matmul(a, x)
     y = _dense_operand(y, out.device)

@@ -15,7 +15,13 @@ the operands' device:
    equal to the result's fill value.
 
 Operands that share one coordinate pattern skip the union; two to four
-same-shape operands take one packed sort of their owner-tagged keys. The
+same-shape operands take one packed sort of their owner-tagged keys. Two
+same-shape CPU operands of float32/float64 data with
+``native.eager.NATIVE_MIN_NNZ`` entries or more between them take the host
+library's single-pass joins instead, as ``sparse_tpu``'s host route does:
+``a + b``, ``a - b`` and ``a * b`` of +0.0 fills evaluated and pruned in the
+join (``fused_join_2d``/``fused_join``), other operations on the union of
+``union_join_values`` (``union_join`` for two float dtypes). The
 union's size and the pruned size are the two reads back to the host.
 
 **The op table.** The vocabulary is NumPy's: ``elemwise(np.add, a, b)``,
@@ -45,8 +51,10 @@ import numpy as np
 import torch
 
 from .._utils import equivalent, numpy_dtype, select, signed_view, take, torch_dtype, wide_index
+from .. import native
 from ..core.base import SparseArray
 from ..core.coo import COO
+from ..native import eager as native_eager
 
 __all__ = ["elemwise", "broadcast_to", "apply_ufunc", "op_for"]
 
@@ -978,6 +986,13 @@ def elemwise(func, *args, **kwargs):
         values = [a.data if isinstance(a, COO) else (a if _is_weak(a) else _gather_dense(a, coords, full_shape)) for a in args]
         return finish(values, coords)
 
+    host = _host_union(func, args, sparse_args, kwargs, dtype, out_dt, fill_value, full_shape)
+    if host is not None:
+        out, values, union_coords = host
+        if out is not None:
+            return _to_output_format(out, out_format, out_kwargs)
+        return finish(values, union_coords)
+
     # two to four same-shape operands: one packed sort of owner-tagged keys
     k_sp = len(sparse_args)
     owner_bits = 2 if k_sp > 2 else 1
@@ -1030,6 +1045,78 @@ def elemwise(func, *args, **kwargs):
         else:
             values.append(a if _is_weak(a) else _gather_dense(a, union_coords, full_shape))
     return finish(values, union_coords)
+
+
+_FUSED_UFUNCS = {np.add: "add", np.subtract: "subtract", np.multiply: "multiply"}
+
+
+def _is_pos_zero(v):
+    v = np.asarray(v)
+    return v.dtype.kind == "f" and v == 0 and not np.signbit(v)
+
+
+def _host_unravel(keys, shape):
+    if keys.numel() >= native_eager.NATIVE_MIN_NNZ and all(shape):
+        return native_eager.unravel(keys, shape)
+    return _unravel(keys, shape)
+
+
+def _host_union(func, args, sparse_args, kwargs, dtype, out_dt, fill_value, full_shape):
+    """The host library's union of two distinct same-shape CPU operands of
+    float32/float64 data with ``NATIVE_MIN_NNZ`` entries or more between
+    them, as ``sparse_tpu``'s host route: ``(out, None, None)`` from a fused
+    join (``a + b``, ``a - b``, ``a * b`` with +0.0 fills: evaluated and
+    pruned of bitwise +0.0 in one pass, on ``(row, col)`` pairs in 2-D), or
+    ``(None, values, union_coords)`` of a union join for the caller's
+    evaluation; ``None`` where the torch route runs."""
+    if len(sparse_args) != 2:
+        return None
+    a0, a1 = sparse_args
+    d0, d1 = a0.data, a1.data
+    if (
+        a0 is a1
+        or a0.shape != full_shape
+        or a1.shape != full_shape
+        or not native.host_route(a0.device, d0.dtype, a0.nnz + a1.nnz, native_eager.NATIVE_MIN_NNZ)
+        or d1.dtype not in native.HOST_DTYPES
+    ):
+        return None
+    name = _FUSED_UFUNCS.get(func)
+    fusable = (
+        name is not None
+        and len(args) == 2
+        and args[0] is a0
+        and args[1] is a1
+        and not kwargs
+        and dtype is None
+        and d0.dtype == d1.dtype == out_dt
+        and _is_pos_zero(a0.fill_value)
+        and _is_pos_zero(a1.fill_value)
+        and _is_pos_zero(fill_value)
+    )
+    if fusable and len(full_shape) == 2:
+        rows, cols, vals = native_eager.fused_join_2d(name, *a0.coords, d0, *a1.coords, d1, full_shape[1])
+        return COO._make(torch.stack([rows, cols]).to(_I64), vals, full_shape, fill_value), None, None
+    lin0, lin1 = a0.linear_loc(), a1.linear_loc()
+    if fusable:
+        keys, vals = native_eager.fused_join(name, lin0, d0, lin1, d1)
+        return COO._make(_host_unravel(keys, full_shape), vals, full_shape, fill_value), None, None
+    if d0.dtype == d1.dtype:
+        keys, v0, v1 = native_eager.union_join_values(lin0, d0, a0.fill_value, lin1, d1, a1.fill_value)
+    else:
+        keys, ia, ib = native_eager.union_join(lin0, lin1)
+        v0, v1 = (
+            select(i >= 0, take(d, i.clamp(min=0)), torch.tensor(a.fill_value, dtype=d.dtype))
+            if d.numel()
+            else torch.full(i.shape, a.fill_value.item(), dtype=d.dtype)
+            for a, d, i in ((a0, d0, ia), (a1, d1, ib))
+        )
+    union_coords = _host_unravel(keys, full_shape)
+    values = [
+        v0 if a is a0 else v1 if a is a1 else a if _is_weak(a) else _gather_dense(a, union_coords, full_shape)
+        for a in args
+    ]
+    return None, values, union_coords
 
 
 def _numpy_fill(func, args, dtype, kwargs):

@@ -20,7 +20,6 @@ import sparse_tpu_torch as st
 from sparse_tpu_torch import interop
 from sparse_tpu_torch._utils import numpy_dtype
 from sparse_tpu_torch.core import gcxs as tg
-from sparse_tpu_torch.kernels.row_ell import ROW_ELL_DEFAULT_KEY
 
 CPU = "cpu"
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -461,10 +460,12 @@ def test_products_reuse_the_held_coo_and_its_layout():
     for t in (st.CSR.from_numpy(x, device=CPU), st.CSC.from_numpy(x, device=CPU)):
         out1 = t @ b
         coo = t._product_coo()
-        layout = coo.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY)
+        # on the CPU the product runs on the host library, on the row
+        # indptr kept on the COO (the row-ELL layout is the GPU's)
+        layout = coo.peek_layout("host_indptr", None)
         assert layout is not None
         out2 = t @ b
-        assert t._product_coo() is coo and coo.peek_layout("row_ell", ROW_ELL_DEFAULT_KEY) is layout
+        assert t._product_coo() is coo and coo.peek_layout("host_indptr", None) is layout
         assert torch.equal(out1, out2)
         st.matvec_add(t, np.ones(48), np.ones(64))
         assert t._product_coo() is coo

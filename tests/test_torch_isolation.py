@@ -3,6 +3,7 @@ repository's Pallas experiments, places data on the GPU unless told
 otherwise, and never lets a tensor that is not on the CPU reach a kernel's
 plain version."""
 
+import ast
 import json
 import re
 import subprocess
@@ -24,7 +25,15 @@ _EXPERIMENTS = ("pallas_spmv_onehot", "pallas_vmem", "pallas_vmem2")
 
 
 def test_import_loads_no_jax_and_no_sparse_tpu():
-    modules = ["sparse_tpu_torch", "sparse_tpu_torch.parallel", "sparse_tpu_torch.checkpoint", "sparse_tpu_torch.profiling", "sparse_tpu_torch.entry"]
+    modules = [
+        "sparse_tpu_torch",
+        "sparse_tpu_torch.parallel",
+        "sparse_tpu_torch.checkpoint",
+        "sparse_tpu_torch.profiling",
+        "sparse_tpu_torch.entry",
+        "sparse_tpu_torch.native",
+        "sparse_tpu_torch.native.eager",
+    ]
     imports = ", ".join([*modules, *(f"sparse_tpu_torch.experiments.{m}" for m in _EXPERIMENTS)])
     code = f"import json, sys, {imports}; print(json.dumps(sorted(sys.modules)))"
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
@@ -56,6 +65,71 @@ def test_forbidden_import_pattern():
     assert _FORBIDDEN.search("from experiments.pallas_spmv_onehot import products_kernel")
     assert not _FORBIDDEN.search("from sparse_tpu_torch.experiments import pallas_vmem")
     assert not _FORBIDDEN.search("from .pallas_vmem import lane_gather")
+
+
+# a path into the reference package: "sparse_tpu" as a path component, or a
+# path under sparse_tpu/ (not sparse_tpu_torch/), or its libraries
+_REF_PATH = re.compile(r"^sparse_tpu$|(?<![\w])sparse_tpu/|_eager\.so\b|_canonical\.so\b")
+# in any text of the source: the reference's native directory or libraries
+_REF_NATIVE = re.compile(r"(?<![\w])sparse_tpu/native|_eager\.so\b|_canonical\.so\b")
+_C_STRING = re.compile(r'"(?:[^"\\\n]|\\.)*"')
+
+
+def _code_strings(path):
+    """The string literals of a source file that are not docstrings (Python)
+    or comments (C/C++/CUDA)."""
+    text = path.read_text()
+    if path.suffix == ".py":
+        tree = ast.parse(text)
+        docs = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+                first = node.body[0]
+                if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                    docs.add(id(first.value))
+        strings = (n for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str))
+        return [n.value for n in strings if id(n) not in docs]
+    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+    return [m[1:-1] for m in _C_STRING.findall(code)]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p.relative_to(REPO).as_posix() for p in PKG.rglob("*") if p.suffix in (".py", ".cpp", ".h", ".cu"))
+)
+def test_source_names_no_path_into_sparse_tpu(path):
+    # the port builds and loads only its own files: no path into the
+    # reference package, no library built there
+    assert not _REF_NATIVE.search((REPO / path).read_text())
+    assert not [s for s in _code_strings(REPO / path) if _REF_PATH.search(s)]
+
+
+def test_reference_path_pattern():
+    for bad in ("sparse_tpu", "sparse_tpu/native/eager.cpp", "../sparse_tpu/x.so", "a/_eager.so", "_canonical.so"):
+        assert _REF_PATH.search(bad)
+    for good in ("sparse_tpu_torch", "sparse_tpu_torch/native/csrc", "build/sparse_tpu_torch", "sparse_tpu.kernels"):
+        assert not _REF_PATH.search(good)
+    assert _REF_NATIVE.search("lib = 'sparse_tpu/native/_eager.so'") and _REF_NATIVE.search("x/_canonical.so")
+    assert not _REF_NATIVE.search("native_eager.sorted_reduce_compact(keys)")
+    assert _code_strings(PKG / "native" / "__init__.py")  # the scan reads code strings
+
+
+def test_host_sources_ship_with_the_package():
+    from sparse_tpu_torch import native
+
+    assert native.SOURCES == (PKG / "native" / "csrc" / "canonical.cpp", PKG / "native" / "csrc" / "eager.cpp")
+    assert native.HEADERS == (PKG / "native" / "csrc" / "pool.h",)
+    text = ""
+    for path in (*native.SOURCES, *native.HEADERS):
+        assert path.exists()
+        text += path.read_text()
+    # the port's own symbols and pool, no environment read
+    assert not re.search(r"\bst_[a-z]", text) and "stpool" not in text.replace("sttpool", "")
+    assert "getenv" not in text and '#include "pool.h"' in text
+    for fn in native._signatures():
+        base = re.sub(r"_(f64|f32|s64)?_?(i64|i32)?$", "", fn)
+        assert fn.startswith("stt_") and (f"{fn}(" in text or f"({fn}," in text or f"{base}_##TS##_##IS(" in text), fn
+    assert native.GXX_FLAGS == ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
+    assert native._BUILD_DIR == REPO / "build" / "sparse_tpu_torch"
 
 
 def test_default_device_is_the_gpu():

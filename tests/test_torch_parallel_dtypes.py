@@ -13,7 +13,8 @@ the port gives NumPy's answer (ROADMAP §C2), held against NumPy.
 uint16/32/64; the caller's function takes tensors, ROADMAP §C2) and
 ``add`` where torch has it. Values
 are 1-99 (dense operands 0-4), so narrow sums overflow as they do in the
-reference. The MTTKRPs compute in float32/float64 only (ROADMAP §C1.4).
+reference. The MTTKRPs at these dtypes are in
+``tests/test_torch_mttkrp_dtypes.py``.
 """
 
 import numpy as np
