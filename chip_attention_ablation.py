@@ -2,9 +2,9 @@
 """Where the time of K6's tile route goes, and which of its shapes wins, on
 one NVIDIA GPU (H100).
 
-    python3 chip_attention_ablation.py
+    python3 chip_attention_ablation.py [tiles] [backward]
 
-K6 is the row-ELL attention kernel of ``sparse_tpu_torch/kernels/csrc/attention.cu``;
+(no argument: both). K6 is the row-ELL attention kernel of ``sparse_tpu_torch/kernels/csrc/attention.cu``;
 its tile route takes a block of query rows against the union of their keys
 on the tensor cores (3xTF32). At Longformer-base's width (L = 4,096 and the
 long head's 65,536, a window of 256 each side, d = dv = 64, float32, seed 0):
@@ -26,6 +26,17 @@ long head's 65,536, a window of 256 each side, d = dv = 64, float32, seed 0):
   next stage's copies), splitting a stage, in S = qs · Kᵀ, in the softmax, and
   merging and storing, averaged over the CTAs.
 
+``backward``: K6's backward kernel (``ell_attention_backward_kernel``, a
+warp a query row) built with other ``ATTENTION_BWD_MIN_BLOCKS`` (CTAs an SM
+in its launch bounds, so its registers) and ``ATTENTION_BWD_ROUND`` (slots
+a round, their loads in flight) side by side (``BWD_VARIANTS``, one
+``nvcc`` each, started together), each timed at both lengths with its
+registers, the variants of 4 slots a round bit for bit against the
+default, those of 8 against ``ell_attention_backward_rows_plain``; then
+K5's two sums (``dk``, ``dv``) over the slot pattern and the whole backward
+(the kernel and K5) on the port's defaults, with the union layout's
+flagged blocks.
+
 The copies are built into ``build/attention_ablation/``. Each time is the
 best of two passes of a CUDA graph of 20 launches, L2 warm.
 Prints one JSON line per measurement, then the card's ``name, power.limit``.
@@ -34,9 +45,12 @@ Imports nothing of JAX or sparse_tpu.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -45,6 +59,7 @@ from sparse_tpu_torch import nn as tnn
 from sparse_tpu_torch.experiments.common import time_graph
 from sparse_tpu_torch.kernels import _cuda
 from sparse_tpu_torch.kernels import attention as katt
+from sparse_tpu_torch.kernels import dot as kdot
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "attention_ablation"
@@ -55,6 +70,19 @@ SWEEP_WINDOWS = (0, 16, 64, 128, 256, 512)
 ABLATION_SHAPES = {"b32": (32, 4, 1, 64), "b64": (64, 2, 1, 64)}
 LAST_CASE = "    case 2: return ST_TILES(64, 4, 2, 64);\n"
 PHASES = ("q_layout", "wait", "split", "scores", "softmax", "merge_store")
+SOURCE = _cuda.SOURCES["attention"]
+# K6's backward: name -> (ATTENTION_BWD_MIN_BLOCKS, ATTENTION_BWD_ROUND); "min1_r4" is the source's default
+BWD_VARIANTS = {
+    "min1_r4": (1, 4),
+    "min2_r4": (2, 4),
+    "min3_r4": (3, 4),
+    "min4_r4": (4, 4),
+    "min1_r8": (1, 8),
+    "min2_r8": (2, 8),
+    "min3_r8": (3, 8),
+}
+BWD_ENTRY = "st_ell_attention_backward_f32_i32"
+BWD_TOL = 1e-5  # of max|want|: float32 sums in another order than the plain version's
 # clock64 marks: (source line, the phase that ends there)
 MARKS = (
     ("  if (mine > 0) issue(0);  // its rows come while q is laid out\n", None),
@@ -137,12 +165,98 @@ def phase_source(src):
     return src[:body_end] + store + src[body_end:]
 
 
+def build_backward_variant(name, min_blocks, slots):
+    """attention.cu built with the backward's macros set: its entry point
+    (ctypes, the port's argument types) and the registers ptxas gave the
+    float32, int32-index, 16-byte-load instance."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    so = OUT / f"backward_{name}.so"
+    macros = [f"-DATTENTION_BWD_MIN_BLOCKS={min_blocks}", f"-DATTENTION_BWD_ROUND={slots}"]
+    cmd = [_cuda._nvcc(), *_cuda._NVCC_FLAGS, "-Xptxas", "-v", *macros, "-o", str(so), str(SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+    regs, seen = None, False
+    for line in (res.stderr + res.stdout).splitlines():
+        if "Compiling entry function" in line:
+            seen = "ell_attention_backward_kernelIfiLb1" in line
+        elif seen and "Used" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            seen = False
+    fn = getattr(ctypes.CDLL(str(so)), BWD_ENTRY)
+    fn.argtypes = _cuda._SIGNATURES["attention"][BWD_ENTRY]
+    fn.restype = ctypes.c_int
+    return fn, regs
+
+
+def backward_section(dev, gen):
+    with ThreadPoolExecutor(len(BWD_VARIANTS)) as pool:
+        futures = {name: pool.submit(build_backward_variant, name, *shape) for name, shape in BWD_VARIANTS.items()}
+        variants = {name: f.result() for name, f in futures.items()}
+    for L in LENGTHS:
+        q, k, v, e_cols, valid = problem(L, WINDOW, dev, gen)
+        g = torch.randn((L, D), generator=gen, device=dev)
+        cap = e_cols.shape[1]
+        grid = _cuda.ell_attention_grid(L, dev)
+
+        def launcher(fn, outs):
+            def run():  # on the current stream at each call: a graph's capture stream while it is captured
+                err = fn(
+                    q.data_ptr(), D, k.data_ptr(), D, v.data_ptr(), D, g.data_ptr(), D, e_cols.data_ptr(), valid.data_ptr(),
+                    L, L, cap, D, D, SCALE, 1, grid, *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream,
+                )
+                if err != 0:
+                    raise RuntimeError(f"the backward variant's launch failed: CUDA error {err}")
+                return outs
+
+            return run
+
+        want = katt.ell_attention_backward_rows_plain(q, k, v, e_cols, valid, SCALE, g) if L == 4096 else None
+        base = None
+        line = {"backward": L, "cap": cap, "grid": grid, "gathered_bytes": 3 * L * cap * D * 4}
+        for name, (fn, regs) in variants.items():
+            outs = [torch.empty(s_, device=dev) for s_ in ((L, D), (L, cap), (L, cap))]
+            run = launcher(fn, outs)
+            got = [t.clone() for t in run()]
+            entry = {"registers": regs, "ms": best(run)}
+            entry["gathered_tb_per_s"] = line["gathered_bytes"] / (entry["ms"] * 1e-3) / 1e12
+            if name == "min1_r4":
+                base = got
+            if BWD_VARIANTS[name][1] == 4:
+                entry["bits_as_default"] = all(torch.equal(a, b) for a, b in zip(got, base))
+            if want is not None:
+                entry["max_err_over_max"] = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+                if entry["max_err_over_max"] > BWD_TOL:
+                    raise AssertionError(f"backward variant {name}: {entry['max_err_over_max']} from the plain version")
+            if entry.get("bits_as_default") is False:
+                raise AssertionError(f"backward variant {name}: other bits than the default")
+            line[name] = entry
+        port = [torch.empty(s_, device=dev) for s_ in ((L, D), (L, cap), (L, cap))]
+        line["port_kernel_ms"] = best(lambda: _cuda.ell_attention_backward(q, k, v, g, e_cols, valid, SCALE, *port))
+        # K5's two sums over the slot pattern, and the whole backward, on the port's defaults
+        pattern = katt.attention_slot_pattern(e_cols, valid, L)
+        ds, p = base[1], base[2]
+        qs = q * SCALE
+        line["k5_dk_ms"] = best(lambda: kdot._row_sum_forward(pattern, 1, ds.view(-1), qs))
+        line["k5_dv_ms"] = best(lambda: kdot._row_sum_forward(pattern, 1, p.view(-1), g))
+        line["kernel_and_k5_ms"] = best(lambda: katt._ell_attention_backward(q, k, v, e_cols, valid, SCALE, g))
+        line["k5_blocks_flagged"] = int(pattern.union(1, 4).flag.sum())
+        line["k5_blocks"] = int(pattern.union(1, 4).flag.numel())
+        print(json.dumps(line), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_attention_ablation: no CUDA device available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    sections = set(sys.argv[1:]) or {"tiles", "backward"}
+    if "backward" in sections:
+        backward_section(dev, gen)
+    if "tiles" not in sections:
+        print(card())
+        return 0
     src = ablation_source()
     build("attention_shapes.cu", src)
     problems = {L: problem(L, WINDOW, dev, gen) for L in LENGTHS}

@@ -125,7 +125,16 @@ drives the port's two paths on the card:
   head's on the tiles, the scattered head's on the row kernel); the
   gradients of both routes against the plain versions' (the COO route's and
   ``graph_conv``'s twice bit for bit), each route's launches counted on its
-  own; device ms a head and a 12-head layer, peak memory, and
+  own; K6's backward kernel (``dq`` and the slot weights of ``dk``/``dv``)
+  against ``ell_attention_backward_rows_plain`` and the whole gradient (the
+  kernel, then K5 twice over the slots by key) against
+  ``ell_attention_backward_plain`` at the window's width in float32 and
+  float64, each twice bit for bit; a 12-head layer's forward and backward on
+  the row-ELL route counted (K6, its backward and K5 a head, no plain
+  version); the long head's forward and backward on the row-ELL route
+  against the COO route's gradients (1e-4 · max|grad|) with its time and
+  peak bytes; device ms a head and a 12-head layer (forward, and forward
+  with backward), peak memory, and
   ``scaled_dot_product_attention`` with the pattern's dense mask beside them
   (timed only); a sweep of K6's two routes from the window to random
   columns at the same cap against the mean union a block (the route rule);
@@ -288,6 +297,7 @@ SOURCE = {
     "sampled_row_sum_union": "sparse_tpu_torch/kernels/csrc/mttkrp.cu",  # K5's union route
     "ell_attention": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "ell_attention_tiles": "sparse_tpu_torch/kernels/csrc/attention.cu",
+    "ell_attention_backward": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "minplus_relax": "sparse_tpu_torch/kernels/csrc/minplus.cu",
 }
 REPLACES = {
@@ -313,6 +323,7 @@ REPLACES = {
     "sampled_row_sum_union": "sparse_tpu/kernels/dot.py:124",  # the same function, K5's union route
     "ell_attention": "sparse_tpu/nn.py:282",  # sparse_attention_ell (XLA gather, score, masked softmax, weighted sum)
     "ell_attention_tiles": "sparse_tpu/nn.py:282",  # the same function, its tile route
+    "ell_attention_backward": "sparse_tpu/nn.py:282",  # the gradient of sparse_attention_ell (jax.grad through the XLA code)
     "minplus_relax": "sparse_tpu/csgraph.py:228",  # _bellman_ford_device_ell and its _tail form :255 (XLA)
 }
 
@@ -3277,6 +3288,10 @@ AT_PLAIN_TOL = 2e-6
 AT_PLAIN_TOL_F64 = 1e-12  # the same in float64 (the row kernel)
 # the gradients against the plain versions', max|got - want| / max|want|
 AT_GRAD_TOL = 1e-5
+AT_GRAD_TOL_F64 = 1e-12  # the same in float64 (K6's backward kernel and K5 against the plain backward)
+# the long head's gradients on the row-ELL route against the COO route's, of max|grad|:
+# float32 sums of 513 slots in two other orders
+AT_LONG_GRAD_TOL = 1e-4
 # graph_conv against scipy's float64 product, max|got - want| / max|want|: x @ w
 # sums 128 float32 products, K5 a row's ~15 weighted rows
 GCN_TOL = 1e-5
@@ -3622,12 +3637,93 @@ def phase_attention_path(dev, card):
     grad_err["coo_route"] = {nm: normalised_err(x_, y_.double()) for nm, x_, y_ in zip("qkv", g1, gp)}
     del g2, gp
     ge = grads(ell_head)
+    if not all(torch.equal(x_, y_) for x_, y_ in zip(ge, grads(ell_head))):
+        raise AssertionError("row-ELL route: a second backward gave other bits")
     gp = grads(lambda a, b, c: katt.ell_attention_plain(a, b, c, e_cols, valid, scale))
     grad_err["ell_route"] = {nm: normalised_err(x_, y_.double()) for nm, x_, y_ in zip("qkv", ge, gp)}
     del ge, gp
     for route, errs in grad_err.items():
         if max(errs.values()) > AT_GRAD_TOL:
             raise AssertionError(f"{route} gradients against the plain version's: {errs}")
+
+    # K6's backward at the window's width, head 0, g = wts: the kernel's dq,
+    # ds and p against ell_attention_backward_rows_plain, the whole gradient
+    # (the kernel, then K5 for dk and dv) against ell_attention_backward_plain,
+    # float32 and float64, each twice bit for bit
+    strips = tuple(e_cols.shape)
+    kb_out = [torch.empty(s_, device=dev) for s_ in ((L, D), strips, strips)]
+
+    def k6_backward(qq, kk, vv, gg, outs=None):
+        outs = outs or [torch.empty(s_, dtype=qq.dtype, device=dev) for s_ in ((L, D), strips, strips)]
+        return _cuda.ell_attention_backward(qq, kk, vv, gg, e_cols, valid, scale, *outs)
+
+    kb_err, kb_grad_err = {}, {}
+    for dt_name, dt_, tol in (("float32", torch.float32, AT_GRAD_TOL), ("float64", torch.float64, AT_GRAD_TOL_F64)):
+        qq, kk, vv, gg = (t.to(dt_) for t in (q[0], k[0], v[0], wts))
+        got = [t.clone() for t in k6_backward(qq, kk, vv, gg)]
+        want = katt.ell_attention_backward_rows_plain(qq, kk, vv, e_cols, valid, scale, gg)
+        kb_err[dt_name] = {nm: float((a_ - b_).abs().max()) for nm, a_, b_ in zip(("dq", "ds", "p"), got, want)}
+        for nm, b_ in zip(("dq", "ds", "p"), want):
+            if not kb_err[dt_name][nm] <= tol * float(b_.abs().max()):
+                raise AssertionError(f"K6's backward kernel, {dt_name} {nm}: {kb_err[dt_name][nm]} beyond {tol} · max|{nm}|")
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(got, k6_backward(qq, kk, vv, gg))):
+            raise AssertionError(f"K6's backward kernel, {dt_name}: a second launch gave other bits")
+        del got, want
+        full = katt._ell_attention_backward(qq, kk, vv, e_cols, valid, scale, gg)
+        plain_full = katt.ell_attention_backward_plain(qq, kk, vv, e_cols, valid, scale, gg)
+        kb_grad_err[dt_name] = {nm: normalised_err(a_, b_.double()) for nm, a_, b_ in zip(("dq", "dk", "dv"), full, plain_full)}
+        if max(kb_grad_err[dt_name].values()) > tol:
+            raise AssertionError(f"K6's backward and K5, {dt_name}, against ell_attention_backward_plain: {kb_grad_err[dt_name]}")
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(full, katt._ell_attention_backward(qq, kk, vv, e_cols, valid, scale, gg))):
+            raise AssertionError(f"K6's backward and K5, {dt_name}: a second backward gave other bits")
+        del full, plain_full, qq, kk, vv, gg
+    torch.cuda.empty_cache()
+
+    def layer_grads(f):  # a 12-head layer's forward and backward, heads a loop
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (wts * by_heads(f, *ins)).sum().backward()
+        return [t.grad for t in ins]
+
+    # the training path of the row-ELL route, counted: K6 forward, its backward and K5 a head, no plain version
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    layer_grads(ell_head)
+    torch.cuda.synchronize()
+    launches["ell_route_training"] = lt = {kn: c for kn, c in LAUNCHES.items() if c}
+    if (
+        lt.get("ell_attention") != H
+        or lt.get("ell_attention_tiles") != H
+        or lt.get("ell_attention_backward") != H
+        or lt.get("sampled_row_sum_union") != 2 * H
+        or not set(lt) <= k6_kernels | {"ell_attention_backward", "sampled_row_sum_union", "sampled_row_sum"}
+    ):
+        raise AssertionError(f"row-ELL route training: K6, its backward and K5 twice a head expected, got {lt}")
+
+    # the long head's forward and backward: the row-ELL route against the COO
+    # route's gradients (copies of the pattern: the route memo keys on identity)
+    wl = torch.randn((AT_LONG_L, D), generator=gen, device=dev)
+    rows_lc, cols_lc = rows_l.copy(), cols_l.copy()
+
+    def long_grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in (ql, kl, vl)]
+        (wl * fn(*ins)).sum().backward()
+        return [t.grad for t in ins]
+
+    ell_long = lambda a, b, c: tnn.sparse_attention(a, b, c, rows_l, cols_l)  # noqa: E731
+    coo_long = lambda a, b, c: tnn.sparse_attention(a, b, c, rows_lc, cols_lc, max_ell_blowup=0)  # noqa: E731
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    gl = long_grads(ell_long)
+    torch.cuda.synchronize()
+    launches["long_ell_training"] = ll = {kn: c for kn, c in LAUNCHES.items() if c}
+    if ll.get("ell_attention_backward") != 1 or ll.get("sampled_row_sum_union", 0) + ll.get("sampled_row_sum", 0) < 2:
+        raise AssertionError(f"long head training: K6's backward and K5 expected, got {ll}")
+    gc_ = long_grads(coo_long)
+    long_grad_err = {nm: float((a_ - b_).abs().max() / b_.abs().max()) for nm, a_, b_ in zip(("dq", "dk", "dv"), gl, gc_)}
+    if max(long_grad_err.values()) > AT_LONG_GRAD_TOL:
+        raise AssertionError(f"long head: the row-ELL route's gradients against the COO route's: {long_grad_err}")
+    del gl, gc_
+    torch.cuda.empty_cache()
     gwts = torch.randn((n, GCN_HIDDEN), generator=gen, device=dev)
 
     def gcn_grads():
@@ -3720,8 +3816,13 @@ def phase_attention_path(dev, card):
         }
     for route, f in (("coo_route", coo_head), ("ell_route", ell_head)):
         times[route]["head_forward_backward_ms"] = at_device_ms(lambda f=f: grads(f))
+        times[route]["layer_forward_backward_ms"] = at_device_ms(lambda f=f: layer_grads(f))
+        times[route]["head_forward_backward_peak_bytes"] = peak_bytes(lambda f=f: grads(f))
     for name in ("long_ell", "long_banded", "scattered", "graph_conv"):
         times[name] = {"ms": at_device_ms(singles[name]), "peak_bytes": peak_bytes(singles[name]), "first_s": first_s[name]}
+    for name, f in (("long_ell", ell_long), ("long_coo", coo_long)):
+        times.setdefault(name, {})["forward_backward_ms"] = at_device_ms(lambda f=f: long_grads(f))
+        times[name]["forward_backward_peak_bytes"] = peak_bytes(lambda f=f: long_grads(f))
     times["graph_conv"]["forward_backward_ms"] = at_device_ms(gcn_grads)
     times["graph_conv"]["xw_ms"] = at_device_ms(lambda: x @ w)
     times["long_pattern_host_s"] = long_pattern_s
@@ -3730,11 +3831,26 @@ def phase_attention_path(dev, card):
         one = lambda mask=mask: F.scaled_dot_product_attention(q[0][None, None], k[0][None, None], v[0][None, None], attn_mask=mask)  # noqa: E731
         layer = lambda mask=mask: F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask)  # noqa: E731
         ref = outs["ell_route"][0] if name == "window" else outs["coo_route"][0]
+
+        def one_fb(mask=mask):
+            ins = [t[0].clone().requires_grad_(True) for t in (q, k, v)]
+            (wts * F.scaled_dot_product_attention(*(t[None, None] for t in ins), attn_mask=mask)[0, 0]).sum().backward()
+
+        def layer_fb(mask=mask):
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (wts * F.scaled_dot_product_attention(*(t[None] for t in ins), attn_mask=mask)[0]).sum().backward()
+
+        ins_s = [t[0].clone().requires_grad_(True) for t in (q, k, v)]
+        out_s = F.scaled_dot_product_attention(*(t[None, None] for t in ins_s), attn_mask=mask)[0, 0]
         sdpa[name] = {
             "head_ms": at_device_ms(one),
             "layer_ms": at_device_ms(layer),
             "head_max_abs_diff": float((one()[0, 0] - ref).abs().max()),
+            "head_forward_backward_ms": at_device_ms(one_fb),
+            "layer_forward_backward_ms": at_device_ms(layer_fb),
+            "head_backward_ms": at_device_ms(lambda out_s=out_s, ins_s=ins_s: torch.autograd.grad(out_s, ins_s, wts, retain_graph=True)),
         }
+        del out_s, ins_s
 
     # K6's lines: the Longformer window at L = 4,096, head 0. The function's
     # bound: q, out, the distinct k and v rows and the pattern read once from
@@ -3751,6 +3867,25 @@ def phase_attention_path(dev, card):
     gathered = (n_valid + slots) * D * 4
     union_rows = int(blocks.n_union.sum())
     ms_row, ms_tiles, ms_route = time_graph(launch), time_graph(tiles), time_graph(tile_route)
+    # K6's backward kernel: q, g, the distinct k and v rows its slots name and
+    # the pattern read once, dq and the two (L, cap) strips written once; its
+    # products: the scores over the valid slots, dP and dq over every slot (2
+    # d each), the softmax, δ and dS (6 a slot)
+    touched_all = int(torch.unique(e_cols).numel())
+    nbytes_b = (3 * L * D + touched_all * 2 * D) * 4 + slots * (4 + 1) + 2 * slots * 4
+    flops_b = n_valid * 2 * D + slots * (4 * D + 6)
+    tb_bytes = nbytes_b / HBM_BYTES_PER_S * 1e3
+    tb_ops = min(flops_b / F32_FLOPS_PER_S, 3 * flops_b / TF32_FLOPS_PER_S) * 1e3
+    bound_b = {"bound_ms": max(tb_bytes, tb_ops), "bound_by": "bytes" if tb_bytes >= tb_ops else "operations"}
+    kb_launch = lambda: k6_backward(q[0], k[0], v[0], wts, kb_out)  # noqa: E731
+    wts64 = wts.double()
+    kb_out64 = [t.double() for t in kb_out]
+    ms_backward = time_graph(kb_launch)
+    slot_pattern = katt.attention_slot_pattern(e_cols, valid, L)
+    qs0 = q[0] * scale
+    ms_k5_dk = time_graph(lambda: kdot._row_sum_forward(slot_pattern, 1, kb_out[1].view(-1), qs0))
+    ms_k5_dv = time_graph(lambda: kdot._row_sum_forward(slot_pattern, 1, kb_out[2].view(-1), wts))
+    ms_backward_all = time_graph(lambda: katt._ell_attention_backward(q[0], k[0], v[0], e_cols, valid, scale, wts))
     lines = [
         {
             "name": "ell_attention",
@@ -3775,6 +3910,20 @@ def phase_attention_path(dev, card):
             "plain_ms": time_eager(lambda: katt.ell_attention_blocks_plain(q[0], k[0], v[0], blocks, scale), reps=3),
             **bound,
             "library_ms": sdpa["window"]["head_ms"],
+        },
+        {
+            "name": "ell_attention_backward",
+            "route": "cuda",
+            "source": SOURCE["ell_attention_backward"],
+            "replaces": REPLACES["ell_attention_backward"],
+            "launches": launches["ell_route_training"]["ell_attention_backward"],
+            "max_abs_err": max(kb_err["float32"].values()),
+            "ms": ms_backward,
+            "plain_ms": time_eager(
+                lambda: katt.ell_attention_backward_rows_plain(q[0], k[0], v[0], e_cols, valid, scale, wts), reps=3
+            ),
+            **bound_b,
+            "library_ms": sdpa["window"]["head_backward_ms"],
         },
     ]
     k6 = {
@@ -3803,6 +3952,25 @@ def phase_attention_path(dev, card):
         "l2_floor_ms_row_kernel": gathered / L2_ROW_BYTES_PER_S * 1e3,
         "sweep": sweep,
         "library": "scaled_dot_product_attention, the pattern's dense boolean mask",
+        "backward": {
+            "kernel_ms": ms_backward,
+            "kernel_float64_ms": time_graph(lambda: k6_backward(q64, k64, v64, wts64, kb_out64)),
+            "k5_dk_ms": ms_k5_dk,
+            "k5_dv_ms": ms_k5_dv,
+            "kernel_and_k5_ms": ms_backward_all,
+            "k5_route": _cuda.row_sum_route(L, D, 4, True, slots, L + 1),
+            "bound_bytes": nbytes_b,
+            "bound_flops": flops_b,
+            "bound_share": bound_b["bound_ms"] / ms_backward,
+            "gathered_bytes": 3 * slots * D * 4,
+            "gathered_tb_per_s": 3 * slots * D * 4 / (ms_backward * 1e-3) / 1e12,
+            "l2_floor_ms": 3 * slots * D * 4 / L2_ROW_BYTES_PER_S * 1e3,
+            "kernel_ms_l2_flushed": time_cold(kb_launch),
+            "max_abs_err_vs_rows_plain": kb_err,
+            "gradient_err_vs_plain": kb_grad_err,
+            "long_head_gradient_err_vs_coo_route": long_grad_err,
+            "sdpa_head_backward_ms": sdpa["window"]["head_backward_ms"],
+        },
         "card": card,
     }
     result = {
@@ -3828,13 +3996,22 @@ def phase_attention_path(dev, card):
             "k6_vs_plain": AT_PLAIN_TOL,
             "k6_vs_plain_float64": AT_PLAIN_TOL_F64,
             "gradients": AT_GRAD_TOL,
+            "gradients_float64": AT_GRAD_TOL_F64,
+            "long_head_gradients_vs_coo_route": AT_LONG_GRAD_TOL,
             "graph_conv": GCN_TOL,
         },
         "agreement_max_abs": agree,
         "graph_conv_err_vs_scipy": gcn_err,
         "k6_vs_plain_max_abs": k6_err,
         "gradient_err_vs_plain": grad_err,
-        "bits_equal_twice": {"k6_row": True, "k6_tiles": True, "coo_route_gradient": True, "graph_conv_gradient": True},
+        "bits_equal_twice": {
+            "k6_row": True,
+            "k6_tiles": True,
+            "k6_backward": True,
+            "ell_route_gradient": True,
+            "coo_route_gradient": True,
+            "graph_conv_gradient": True,
+        },
         "times": times,
         "sdpa": sdpa,
         "k6": k6,

@@ -14,14 +14,17 @@ run one CUDA kernel (``csrc/mttkrp.cu``). ``attention`` holds the row-ELL
 attention, K6 (``ell_attention``, its CUDA kernels in ``csrc/attention.cu``:
 the tile route on the tensor cores over a block layout,
 ``build_attention_blocks``, and the row kernel; ``ell_attention_plain`` and
-the tile route's ``ell_attention_blocks_plain``). ``minplus`` holds the
+the tile route's ``ell_attention_blocks_plain``) and its gradient (K6's
+backward kernel, then K5 by key over ``attention_slot_pattern``;
+``ell_attention_backward_plain``). ``minplus`` holds the
 shortest paths' per-destination ELL layout (``build_dest_ell``) and the
 min-plus relaxation round, K7 (``minplus_relax``, its CUDA kernel in
 ``csrc/minplus.cu``, and ``minplus_relax_plain``). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
 runs), ``elemwise`` (the traceable union of two COO operands),
 ``spgemm`` (sparse × sparse, eager and capacity-bounded, with
-``product_count``) and ``dia`` (the banded layout, ``build_dia``, and its
+``product_count``), ``search`` (``searchsorted_sorted_probes`` on
+``torch.searchsorted``) and ``dia`` (the banded layout, ``build_dia``, and its
 shifted products ``dia_spmv``/``dia_spmm``, ``dia_spmv_sharded`` with its
 halos over the ring) are torch ops: the JAX package
 leaves their work to XLA.
@@ -29,7 +32,7 @@ leaves their work to XLA.
 
 from .._utils import uncompress_indptr
 from ._cuda import LAUNCHES, reset_launch_counts
-from .attention import ell_attention, ell_attention_plain
+from .attention import ell_attention, ell_attention_backward_plain, ell_attention_plain
 from .bsr import (
     BSR,
     block_row_ptr,
@@ -104,6 +107,7 @@ __all__ = [
     "dia_spmv",
     "dia_spmv_sharded",
     "ell_attention",
+    "ell_attention_backward_plain",
     "ell_attention_plain",
     "ell_mttkrp",
     "ell_mttkrp_plain",

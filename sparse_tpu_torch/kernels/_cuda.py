@@ -116,6 +116,11 @@ _SIGNATURES = {
             for dt in ("f32", "f64")
             for it in ("i32", "i64")
         },
+        **{
+            f"st_ell_attention_backward_{dt}_{it}": [_p, _i64, _p, _i64, _p, _i64, _p, _i64, _p, _p, *[_i64] * 5, _f64, _i64, _i64, _p, _p, _p, _p]
+            for dt in ("f32", "f64")
+            for it in ("i32", "i64")
+        },
         "st_ell_attention_tiles_f32": [_p, _i64, _p, _i64, _p, _i64, _p, _p, _p, _p, *[_i64] * 5, _f64, _i64, _p, _p, _p, _p],
     },
     "minplus": {
@@ -147,6 +152,7 @@ LAUNCHES = {
     "sampled_row_sum_union": 0,
     "ell_attention": 0,
     "ell_attention_tiles": 0,
+    "ell_attention_backward": 0,
     "minplus_relax": 0,
 }
 
@@ -1551,7 +1557,13 @@ def sddmm(rows, cols, s, lhs_rows, rhs_rows, out, route=None):
 #   table rows passes ROW_SUM_UNION_SMEM bytes a 32-column chunk (two CTAs
 #   an SM) or whose entries name each union key fewer than
 #   ROW_SUM_UNION_REUSE times on average (at K = 64 the union route won
-#   from 5.6 entries a key and tied at 4.7; 8 keeps a margin), and the
+#   from 5.6 entries a key and tied at 4.7; 8 keeps a margin) or which
+#   holds a segment longer than ROW_SUM_UNION_LONG entries (the union route
+#   sums a segment in one group of lanes, its pieces one after another, so
+#   one long segment holds its block's CTA: the row-ELL attention
+#   backward's padding slots, all naming key 0, 65,792 entries of a window
+#   at L = 4,096: 4.5 ms a sum that way, 0.083 with that block on the
+#   gather route, which splits the segment into pieces over warps), and the
 #   flagged blocks take the gather route; short segments of wider rows stay
 #   on the gather route, whose rows hit L1 there (a window of 129 at K =
 #   256: 0.160 ms against the union route's 0.171);
@@ -1562,6 +1574,7 @@ ROW_SUM_SLICE_COLS = 32
 ROW_SUM_UNION_ROW_BYTES = 256
 ROW_SUM_UNION_BLOCK = 64
 ROW_SUM_UNION_REUSE = 8.0
+ROW_SUM_UNION_LONG = 8 * MTTKRP_PIECE
 ROW_SUM_UNION_SMEM = 112 << 10
 ROW_SUM_UNION_COLS = 32  # columns a chunk of the union route: 16 bytes a lane, 8 lanes a segment in float32
 
@@ -1897,6 +1910,83 @@ def ell_attention(q, k, v, cols, valid, scale, out, scratch=None, block_route=No
     _raise_on(err, "ell_attention")
     LAUNCHES["ell_attention"] += 1
     return out
+
+
+def ell_attention_backward(q, k, v, g, cols, valid, scale, dq, ds, p):
+    """Launch K6's backward kernel: for each query row i, with ``p`` the
+    masked softmax of :func:`ell_attention` recomputed, ``dP_j = g[i] ·
+    v[cols[i, j]]``, ``δ = Σ_j p_j dP_j`` and ``dS = p ⊙ (dP − δ)`` on the
+    valid slots, ``dq[i] = scale · Σ_j dS_j k[cols[i, j]]`` in slot order;
+    ``ds`` and ``p`` get the slot weights of ``dk`` and ``dv`` (the
+    reference's NaN rules: ``kernels.attention.ell_attention_backward_rows_plain``).
+    ``q``, ``k``, ``v`` as for :func:`ell_attention`, ``g`` ``(L, dv)`` with
+    unit stride along its rows; ``cols`` and ``valid`` contiguous; ``dq``
+    ``(L, d)``, ``ds`` and ``p`` ``(L, cap)``, contiguous. Counted
+    ``ell_attention_backward``."""
+    dtype, device = q.dtype, q.device
+    require_cuda(device, "row-ELL attention")
+    if dtype not in _SDDMM_ITEM:
+        raise TypeError(f"the row-ELL attention kernel takes float32 or float64, not {dtype}")
+    if cols.dtype not in _SDDMM_INDEX:
+        raise TypeError(f"the row-ELL attention kernel takes int32 or int64 indices, not {cols.dtype}")
+    for name, t in (("k", k), ("v", v), ("g", g)):
+        _check_device(t, dtype, device, name)
+    _check("cols", cols, cols.dtype, device)
+    _check("valid", valid, torch.bool, device)
+    for name, t in (("dq", dq), ("ds", ds), ("p", p)):
+        _check(name, t, dtype, device)
+    if q.ndim != 2 or v.ndim != 2 or cols.ndim != 2:
+        raise ValueError("ell_attention_backward: q, v and cols must be 2-D")
+    n_rows, d = q.shape
+    n_keys, dv = v.shape
+    cap = cols.shape[1]
+    if (
+        k.shape != (n_keys, d)
+        or g.shape != (n_rows, dv)
+        or valid.shape != (n_rows, cap)
+        or dq.shape != (n_rows, d)
+        or ds.shape != (n_rows, cap)
+        or p.shape != (n_rows, cap)
+    ):
+        raise ValueError("ell_attention_backward: operand shapes do not match (L, d), (Lk, d), (Lk, dv), (L, dv), (L, cap)")
+    if cap < 1 or n_keys < 1:
+        raise ValueError("ell_attention_backward: the kernel takes at least one slot a row and one key")
+    if n_keys >= 2**31:
+        raise ValueError("ell_attention_backward: the kernel takes fewer than 2^31 keys")
+    for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
+        if not sddmm_k_major(t):
+            raise ValueError(f"ell_attention_backward: {name} must have unit stride along its rows")
+    if n_rows == 0:
+        return dq, ds, p
+    vec = all(sddmm_vec(t) for t in (q, k, v, g, dq))
+    fn = getattr(load("attention"), f"st_ell_attention_backward_{_SDDMM_ITEM[dtype]}_{_SDDMM_INDEX[cols.dtype]}")
+    err = fn(
+        q.data_ptr(),
+        q.stride(0),
+        k.data_ptr(),
+        k.stride(0),
+        v.data_ptr(),
+        v.stride(0),
+        g.data_ptr(),
+        g.stride(0),
+        cols.data_ptr(),
+        valid.data_ptr(),
+        n_rows,
+        n_keys,
+        cap,
+        d,
+        dv,
+        float(scale),
+        int(vec),
+        ell_attention_grid(n_rows, device),
+        dq.data_ptr(),
+        ds.data_ptr(),
+        p.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, "ell_attention_backward")
+    LAUNCHES["ell_attention_backward"] += 1
+    return dq, ds, p
 
 
 # K6's tile route (csrc/attention.cu, namespace tiles), float32: a block of

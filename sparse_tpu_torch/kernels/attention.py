@@ -15,8 +15,15 @@ the blocks the tile route left (an index outside the table, a union past
 the route rule, a non-finite value). float64 and the other widths take the
 row kernel alone, a warp a query row (counted ``ell_attention`` either
 way). ``ell_attention_blocks_plain`` runs the tile route's arithmetic in
-torch ops. The gradient is a ``torch.autograd.Function`` whose backward is,
-for now, the plain version's autograd on a recompute.
+torch ops.
+
+The gradient is a ``torch.autograd.Function``. For float32/float64 on the
+GPU its backward launches K6's backward kernel (a warp a query row: the
+scores again, ``dP``, the softmax, ``δ``, ``dS`` and ``dq``; counted
+``ell_attention_backward``), then K5 (``kernels.dot``'s fixed-order row
+sum) twice over the pattern's slots by key, for ``dk`` and ``dv``, or
+raises; on the CPU, and for other dtypes, ``ell_attention_backward_plain``
+runs the same decomposition in torch ops.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .dot import SddmmPattern, _row_sum_forward
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 # the route rule: a block takes the tile route when its union holds at most
@@ -70,6 +78,63 @@ def ell_attention_plain(q, k, v, e_cols, valid, scale):
     denom = e.sum(dim=1, keepdim=True)
     attn = e / torch.where(denom == 0, torch.ones_like(denom), denom)
     return (attn[:, :, None] * g).sum(dim=1)[:, d:]
+
+
+def ell_attention_backward_rows_plain(q, k, v, e_cols, valid, scale, g):
+    """What K6's backward kernel writes, in torch ops on any device:
+    ``(dq, ds, p)``, ``dq`` ``(L, d)`` and the slot weights of ``dk`` and
+    ``dv``, ``ds`` and ``p`` ``(L, cap)``.
+
+    The reference's VJP (``jax.grad`` of ``sparse_tpu/nn.py:282``) over the
+    packed ``[k | v]`` block: ``s`` and ``p`` the forward's scores and
+    masked softmax; ``dP = [0 | g] · [k | v]_j`` (NaN where a slot's k row
+    holds a non-finite value or its index is outside the table: ``0 · inf``
+    and the fill row); ``δ = Σ_j p·dP`` over every slot; ``dS = p ⊙ (dP −
+    δ)`` on the valid slots, 0 on the others; ``dq = scale · Σ_j dS·[k]_j``
+    over every slot (the fill row's NaN too). ``dk[c]`` sums ``dS·qs + p·0``
+    and ``dv[c]`` sums ``dS·0 + p·g`` over the slots naming ``c``: the
+    weights written are ``dS`` where ``p`` is finite (else NaN) and ``p``
+    where ``dS`` is finite (else NaN). The row max's gradient, which cancels
+    up to rounding, is left out."""
+    d, dv = q.shape[-1], v.shape[-1]
+    rows = _take_rows(torch.cat([k, v], dim=1), e_cols)  # (L, cap, d+dv), NaN rows outside the table
+    qs = q * scale
+    zeros = torch.zeros((), dtype=q.dtype, device=q.device)
+    s = (torch.cat([qs, zeros.expand(q.shape[0], dv)], dim=1)[:, None, :] * rows).sum(dim=-1)
+    s = torch.where(valid, s, torch.full((), float("-inf"), dtype=s.dtype, device=s.device))
+    m = torch.max(s, dim=1, keepdim=True).values
+    e = torch.where(valid, torch.exp(s - torch.where(torch.isfinite(m), m, zeros)), zeros)
+    denom = e.sum(dim=1, keepdim=True)
+    p = e / torch.where(denom == 0, torch.ones_like(denom), denom)
+    dp = (torch.cat([zeros.expand(q.shape[0], d), g], dim=1)[:, None, :] * rows).sum(dim=-1)
+    delta = (p * dp).sum(dim=1, keepdim=True)
+    ds = torch.where(valid, p * (dp - delta), zeros)
+    dq = (ds[:, :, None] * rows[:, :, :d]).sum(dim=1) * scale
+    nan = torch.full((), float("nan"), dtype=q.dtype, device=q.device)
+    return dq, torch.where(torch.isfinite(p), ds, nan), torch.where(torch.isfinite(ds), p, nan)
+
+
+def _slot_keys(e_cols, n_keys):
+    """Each slot's key row, an index below 0 read from the end; ``n_keys``
+    for one outside the table (whose gradient the reference drops)."""
+    c = e_cols.long()
+    c = torch.where(c < 0, c + n_keys, c)
+    return torch.where((c >= 0) & (c < n_keys), c, n_keys)
+
+
+def ell_attention_backward_plain(q, k, v, e_cols, valid, scale, g):
+    """The gradient ``(dq, dk, dv)`` of :func:`ell_attention_plain`'s output
+    against ``g`` ``(L, dv)``, in torch ops on any device: the decomposition
+    of :func:`ell_attention_backward_rows_plain`, ``dk`` and ``dv`` summed
+    over the slots by key (``index_add_``)."""
+    n_keys, d, dv = k.shape[0], q.shape[1], v.shape[1]
+    dq, ds, p = ell_attention_backward_rows_plain(q, k, v, e_cols, valid, scale, g)
+    at = _slot_keys(e_cols, n_keys).reshape(-1)
+    dk = torch.zeros((n_keys + 1, d), dtype=q.dtype, device=q.device)
+    dk.index_add_(0, at, (ds[:, :, None] * (q * scale)[:, None, :]).reshape(-1, d))
+    dvv = torch.zeros((n_keys + 1, dv), dtype=q.dtype, device=q.device)
+    dvv.index_add_(0, at, (p[:, :, None] * g[:, None, :]).reshape(-1, dv))
+    return dq, dk[:n_keys], dvv[:n_keys]
 
 
 # ---------------------------------------------------------------------------
@@ -181,12 +246,11 @@ _BLOCKS_MEMO_SIZE = 8
 _BLOCKS_MEMO = {}
 
 
-def attention_blocks(e_cols, valid, n_keys, block, layouts=None):
-    """The :class:`AttentionBlocks` of ``(e_cols, valid)``, built once: kept
-    in ``layouts`` (a dict the caller keeps beside its pattern, as
-    ``nn.sparse_attention``'s memo does) or else in a memo keyed by the
-    identity of the two tensors, rebuilt after an edit in place (their
-    version counters)."""
+def _kept_layouts(e_cols, valid, layouts):
+    """``layouts`` (a dict the caller keeps beside its pattern, as
+    ``nn.sparse_attention``'s memo does), or else the dict of a memo keyed by
+    the identity of ``e_cols`` and ``valid``, new after an edit in place
+    (their version counters)."""
     if layouts is None:
         key = (id(e_cols), id(valid))
         hit = _BLOCKS_MEMO.get(key)
@@ -198,10 +262,36 @@ def attention_blocks(e_cols, valid, n_keys, block, layouts=None):
             if len(_BLOCKS_MEMO) > _BLOCKS_MEMO_SIZE:
                 _BLOCKS_MEMO.pop(next(iter(_BLOCKS_MEMO)))
         layouts = hit[3]
+    return layouts
+
+
+def attention_blocks(e_cols, valid, n_keys, block, layouts=None):
+    """The :class:`AttentionBlocks` of ``(e_cols, valid)``, built once and
+    kept (:func:`_kept_layouts`)."""
+    layouts = _kept_layouts(e_cols, valid, layouts)
     blocks = layouts.get((n_keys, block))
     if blocks is None:
         blocks = layouts[(n_keys, block)] = build_attention_blocks(e_cols, valid, n_keys, block)
     return blocks
+
+
+def attention_slot_pattern(e_cols, valid, n_keys, layouts=None):
+    """The :class:`~sparse_tpu_torch.kernels.dot.SddmmPattern` of the
+    pattern's slots, which the backward's K5 sums along by key: entry ``i ·
+    cap + j`` at row ``i`` (sorted) and column ``e_cols[i, j]`` (an index
+    below 0 read from the end), every slot, padding too; a slot outside the
+    table in an extra column ``n_keys``, whose sum is dropped. ``kept``
+    (K5's union route), built once beside the tile layout
+    (:func:`_kept_layouts`)."""
+    layouts = _kept_layouts(e_cols, valid, layouts)
+    key = ("slots", n_keys)
+    pattern = layouts.get(key)
+    if pattern is None:
+        n_rows, cap = e_cols.shape
+        rows = torch.arange(n_rows, dtype=torch.int32, device=e_cols.device).repeat_interleave(cap)
+        cols = _slot_keys(e_cols, n_keys).reshape(-1).to(torch.int32 if n_keys < 2**31 - 1 else torch.int64)
+        pattern = layouts[key] = SddmmPattern(rows, cols, n_rows, n_keys + 1, rows_sorted=True, kept=True)
+    return pattern
 
 
 def _block_route(q, k, v, blocks, scale):
@@ -288,24 +378,43 @@ def _ell_attention_forward(q, k, v, e_cols, valid, scale, layouts=None):
     )
 
 
+def _ell_attention_backward(q, k, v, e_cols, valid, scale, g, layouts=None):
+    if q.device.type == "cpu" or q.dtype not in _KERNEL_DTYPES:
+        return ell_attention_backward_plain(q, k, v, e_cols, valid, scale, g)
+    _cuda.require_cuda(q.device, "row-ELL attention")
+    n_rows, cap = e_cols.shape
+    n_keys = k.shape[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ds = torch.empty((n_rows, cap), dtype=q.dtype, device=q.device)
+    p = torch.empty((n_rows, cap), dtype=q.dtype, device=q.device)
+    q_, k_, v_, g_ = (t if _cuda.sddmm_k_major(t) else t.contiguous() for t in (q, k, v, g))
+    _cuda.ell_attention_backward(q_, k_, v_, g_, e_cols.contiguous(), valid.contiguous(), scale, dq, ds, p)
+    pattern = attention_slot_pattern(e_cols, valid, n_keys, layouts)
+    dk = _row_sum_forward(pattern, 1, ds.view(-1), q * scale)
+    dv = _row_sum_forward(pattern, 1, p.view(-1), g_)
+    return dq, dk[:n_keys], dv[:n_keys]
+
+
 class _EllAttention(torch.autograd.Function):
-    """K6 forward (plain on the CPU). The backward, for now, is the plain
-    version's autograd on a recompute: it builds the ``(L, cap, d + dv)``
-    block the forward never writes."""
+    """K6 forward (plain on the CPU and for dtypes K6 does not take). Its
+    backward, once differentiable: for float32/float64 on the GPU, K6's
+    backward kernel (``dq`` and the slot weights ``dS`` and ``p``), then
+    ``dk`` and ``dv`` by K5 over :func:`attention_slot_pattern`, or a raise;
+    elsewhere :func:`ell_attention_backward_plain`."""
 
     @staticmethod
     def forward(ctx, q, k, v, e_cols, valid, scale, layouts):
         ctx.save_for_backward(q, k, v, e_cols, valid)
-        ctx.scale = scale
+        ctx.scale, ctx.layouts = scale, layouts
+        if q.dtype not in _KERNEL_DTYPES:
+            return ell_attention_plain(q, k, v, e_cols, valid, scale)
         return _ell_attention_forward(q, k, v, e_cols, valid, scale, layouts)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         q, k, v, e_cols, valid = ctx.saved_tensors
-        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        with torch.enable_grad():
-            out = ell_attention_plain(*ins, e_cols, valid, ctx.scale)
-        grads = torch.autograd.grad(out, ins, g, allow_unused=True)
+        grads = _ell_attention_backward(q, k, v, e_cols, valid, ctx.scale, g, ctx.layouts)
         return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad[:3])), None, None, None, None)
 
 
@@ -315,14 +424,17 @@ def ell_attention(q, k, v, e_cols, valid, *, scale=None, layouts=None):
     ``(Lk, d)``, ``v`` ``(Lk, dv)``, ``e_cols`` ``(L, cap)`` int32/int64,
     ``valid`` ``(L, cap)`` bool, all on one device → ``(L, dv)`` in the
     promoted dtype; ``scale`` defaults to ``1/sqrt(d)``. Differentiable in
-    ``q``, ``k`` and ``v``.
+    ``q``, ``k`` and ``v`` (once).
 
     float32/float64 on the GPU launch K6 (``csrc/attention.cu``) or raise:
     float32 rows that fit its tile route take it, with the row kernel on the
-    blocks it leaves; the rest the row kernel alone. The tile route's
-    layout (:func:`attention_blocks`) is kept in ``layouts`` where the
+    blocks it leaves; the rest the row kernel alone. The gradient launches
+    K6's backward kernel and K5 twice (``dk``, ``dv``). The tile route's
+    layout (:func:`attention_blocks`) and the backward's slot pattern
+    (:func:`attention_slot_pattern`) are kept in ``layouts`` where the
     caller gives a dict, else by the identity of ``e_cols`` and ``valid``.
-    On the CPU, and for other dtypes on any device, the plain version runs.
+    On the CPU, and for other dtypes on any device, the plain versions run
+    (``ell_attention_plain``, ``ell_attention_backward_plain``).
     The reference's rules hold on both: a non-finite ``v`` value in a valid
     slot makes its row NaN, one in a padding slot that lane; an index below
     0 counts from the end, one outside the table makes its row NaN."""
@@ -342,7 +454,4 @@ def ell_attention(q, k, v, e_cols, valid, *, scale=None, layouts=None):
     if scale is None:
         scale = 1.0 / np.sqrt(q.shape[-1])
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
-    q, k, v = q.to(dt), k.to(dt), v.to(dt)
-    if dt in _KERNEL_DTYPES:
-        return _EllAttention.apply(q, k, v, e_cols, valid, float(scale), layouts)
-    return ell_attention_plain(q, k, v, e_cols, valid, scale)
+    return _EllAttention.apply(q.to(dt), k.to(dt), v.to(dt), e_cols, valid, float(scale), layouts)

@@ -1,4 +1,4 @@
-// Row-ELL sparse attention forward (K6) for Hopper (sm_90a), plain C interface
+// Row-ELL sparse attention (K6) for Hopper (sm_90a), its forward and its backward, plain C interface
 // for ctypes. Built by sparse_tpu_torch/kernels/_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 //
@@ -365,6 +365,327 @@ int launch(const void* q, long long ldq, const void* k, long long ldk, const voi
   } else {
     ell_attention_kernel<T, I, false><<<blocks, kThreads, smem, st>>>(qp, ldq, kp, ldk, vp, ldv, cp, okp, n_rows,
                                                                        n_keys, cap, d, dv, s, rp, block_rows, sp, op);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// K6's backward: the row kernel's gradient, a warp a query row.
+//
+// Replaces the gradient of sparse_tpu/nn.py:sparse_attention_ell (XLA code:
+// jax.grad through the packed gather, the masked softmax and the weighted
+// sum). Eager PyTorch, autograd on a recompute, writes three (L, cap, d + dv)
+// blocks of 1.07 GB each a head at Longformer-base's width (L = 4,096, 513
+// slots a row, d = dv = 64, float32), 17.2 GB each at L = 65,536. This kernel
+// writes dq and two (L, cap) strips; dk and dv are K5's (csrc/mttkrp.cu),
+// summed by key over the pattern's slots in a fixed order.
+//
+// For query row i, its slots j and g = the output's gradient row:
+//   s_j, p_j  the forward's scores and masked softmax, recomputed
+//   dP_j      = g · v[c_j]  (+ NaN where k[c_j] holds a non-finite value or
+//               c_j lies outside the table: the reference's 0 · k and fill row)
+//   δ         = sum_j p_j dP_j over every slot
+//   dS_j      = p_j (dP_j - δ) on the valid slots, 0 on the others
+//   dq        = scale * sum_j dS_j k[c_j] over every slot in the table, by
+//               FMA in slot order (NaN where a slot lies outside the table)
+// and writes ds_j = dS_j where p_j is finite, else NaN (dk sums dS qs + p 0),
+// and p_j where dS_j is finite, else NaN (dv sums dS 0 + p g). A row with a
+// valid slot outside the table or a non-finite v value in a valid slot has
+// p all NaN, as the reference's scores over the packed row make it.
+//
+// Design: the row kernel's persistent grid and warp a row. Each row's two
+// output rows of p and ds are its strips (no shared memory, no scratch, at
+// any cap): pass 1 reads each slot's k row (padding slots too, for their
+// finiteness) and writes the scores to p in K6's lane order and butterfly,
+// so p carries the forward's bits, and each slot's 0 or NaN to ds; pass 2
+// reads each slot's v row once against g held in registers, the same
+// butterfly giving dP, added to ds; then the softmax over p, δ by lanes over
+// slots and an xor butterfly, dS; pass 3 reads each slot's k row again, a
+// lane a 16-byte vector of d, and adds dS_j k_j in slot order. No atomics and
+// one order: two launches give the same bits.
+//
+// Bound: bytes. From HBM, q, g, dq and the two strips once, the pattern
+// once, the distinct k and v rows once; the 3 L cap gathered rows (k twice,
+// v once) come from L2, at the card's whole-row rate, the floor of this
+// design: 3 * L * cap * 256 bytes at Longformer-base's width, 1.6 GB a head.
+// K6's backward's CTAs an SM (the second bound of __launch_bounds__) and
+// slots a round, as chip_attention_ablation.py varies them
+#ifndef ATTENTION_BWD_MIN_BLOCKS
+#define ATTENTION_BWD_MIN_BLOCKS 1
+#endif
+#ifndef ATTENTION_BWD_ROUND
+#define ATTENTION_BWD_ROUND 4
+#endif
+constexpr int kBwdRound = ATTENTION_BWD_ROUND;
+
+template <typename T, typename I, bool VEC>
+__global__ void __launch_bounds__(kThreads, ATTENTION_BWD_MIN_BLOCKS)
+    ell_attention_backward_kernel(const T* __restrict__ q, long long ldq, const T* __restrict__ k, long long ldk,
+                                  const T* __restrict__ v, long long ldv, const T* __restrict__ g, long long ldg,
+                                  const I* __restrict__ cols, const unsigned char* __restrict__ valid,
+                                  long long n_rows, long long n_keys, long long cap, long long d, long long dv,
+                                  T scale, T* __restrict__ dq, T* __restrict__ ds, T* __restrict__ p) {
+  using VT = typename Vec<T>::type;
+  constexpr int V = Vec<T>::width;
+  const int lane = threadIdx.x % kWarp;
+  const long long warp = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / kWarp;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kWarps;
+  const long long nq = d / V, kt = nq * V + lane;  // d's vectors; this lane's tail element of d, where it exists
+  const long long nv = dv / V, vt = nv * V + lane;  // the same of dv
+  const T neg_inf = -INFINITY;
+  const T nan = T(NAN);
+
+  for (long long row = warp; row < n_rows; row += n_warps) {
+    const T* qr = q + row * ldq;
+    const T* gr = g + row * ldg;
+    const I* cr = cols + row * cap;
+    const unsigned char* okr = valid + row * cap;
+    T* pr = p + row * cap;
+    T* sr = ds + row * cap;
+    bool nan_row = false;  // a valid slot outside the table, or a non-finite v value in a valid slot
+    bool outside = false;  // a slot outside the table: dq's row NaN
+
+    // pass 1: the scores (K6's order) into p; 0, or NaN for a non-finite k value or a slot outside the table, into ds
+    for (long long base = 0; base < cap; base += kWarp) {
+      const int cnt = static_cast<int>(min(static_cast<long long>(kWarp), cap - base));
+      int my_col = 0;
+      bool my_in = false, my_ok = false;
+      if (lane < cnt) {
+        const int c = key_row(cr, base + lane, n_keys);
+        my_in = c >= 0;
+        my_ok = okr[base + lane] != 0 && my_in;
+        outside |= !my_in;
+        nan_row |= okr[base + lane] != 0 && !my_in;
+        my_col = my_in ? c : 0;
+      }
+      for (int t = 0; t < cnt; t += kBwdRound) {
+        int c[kBwdRound];
+        bool in[kBwdRound];
+        T acc[kBwdRound];
+#pragma unroll
+        for (int u = 0; u < kBwdRound; ++u) {
+          c[u] = __shfl_sync(kFull, my_col, (t + u) & (kWarp - 1));
+          in[u] = __shfl_sync(kFull, static_cast<int>(my_in), (t + u) & (kWarp - 1)) && t + u < cnt;
+          acc[u] = T(0);
+        }
+        unsigned bad = 0;  // bit u: a non-finite value in slot t + u's k row
+        for (long long vi = lane; vi < nq; vi += kWarp) {
+          const VT qv = scale_vec(load_vec<T, VEC>(qr, vi), scale);
+          VT kv[kBwdRound];
+#pragma unroll
+          for (int u = 0; u < kBwdRound; ++u) {
+            if (in[u]) kv[u] = load_vec<T, VEC>(k + static_cast<long long>(c[u]) * ldk, vi);
+          }
+#pragma unroll
+          for (int u = 0; u < kBwdRound; ++u) {
+            if (in[u]) {
+              acc[u] = dot_vec(qv, kv[u], acc[u]);
+              if (!finite_vec(kv[u])) bad |= 1u << u;
+            }
+          }
+        }
+        if (kt < d) {
+          const T qt = qr[kt] * scale;
+#pragma unroll
+          for (int u = 0; u < kBwdRound; ++u) {
+            if (in[u]) {
+              const T x = k[static_cast<long long>(c[u]) * ldk + kt];
+              acc[u] = fma_(qt, x, acc[u]);
+              if (!isfinite(x)) bad |= 1u << u;
+            }
+          }
+        }
+        const T mine = reduce_slots<T, kBwdRound>(acc, t, lane);
+        bad = __reduce_or_sync(kFull, bad);
+        if (lane >= t && lane < t + kBwdRound && lane < cnt) {
+          pr[base + lane] = my_ok ? mine : neg_inf;
+          sr[base + lane] = (!my_in || ((bad >> (lane - t)) & 1u)) ? nan : T(0);
+        }
+      }
+    }
+    __syncwarp();
+
+    // pass 2: dP_j = g · v_j added to ds, by the same lanes and butterfly
+    for (long long base = 0; base < cap; base += kWarp) {
+      const int cnt = static_cast<int>(min(static_cast<long long>(kWarp), cap - base));
+      int my_col = 0;
+      bool my_in = false, my_valid = false;
+      if (lane < cnt) {
+        const int c = key_row(cr, base + lane, n_keys);
+        my_in = c >= 0;
+        my_valid = okr[base + lane] != 0;
+        my_col = my_in ? c : 0;
+      }
+      for (int t = 0; t < cnt; t += kBwdRound) {
+        int c[kBwdRound];
+        bool in[kBwdRound];
+        T acc[kBwdRound];
+#pragma unroll
+        for (int u = 0; u < kBwdRound; ++u) {
+          c[u] = __shfl_sync(kFull, my_col, (t + u) & (kWarp - 1));
+          in[u] = __shfl_sync(kFull, static_cast<int>(my_in), (t + u) & (kWarp - 1)) && t + u < cnt;
+          acc[u] = T(0);
+        }
+        unsigned bad = 0;  // bit u: a non-finite value in slot t + u's v row
+        for (long long vi = lane; vi < nv; vi += kWarp) {
+          const VT gv = load_vec<T, VEC>(gr, vi);
+          VT xv[kBwdRound];
+#pragma unroll
+          for (int u = 0; u < kBwdRound; ++u) {
+            if (in[u]) xv[u] = load_vec<T, VEC>(v + static_cast<long long>(c[u]) * ldv, vi);
+          }
+#pragma unroll
+          for (int u = 0; u < kBwdRound; ++u) {
+            if (in[u]) {
+              acc[u] = dot_vec(gv, xv[u], acc[u]);
+              if (!finite_vec(xv[u])) bad |= 1u << u;
+            }
+          }
+        }
+        if (vt < dv) {
+          const T gt = gr[vt];
+#pragma unroll
+          for (int u = 0; u < kBwdRound; ++u) {
+            if (in[u]) {
+              const T x = v[static_cast<long long>(c[u]) * ldv + vt];
+              acc[u] = fma_(gt, x, acc[u]);
+              if (!isfinite(x)) bad |= 1u << u;
+            }
+          }
+        }
+        const T mine = reduce_slots<T, kBwdRound>(acc, t, lane);
+        bad = __reduce_or_sync(kFull, bad);
+        if (lane >= t && lane < t + kBwdRound && lane < cnt) {
+          sr[base + lane] += mine;
+          nan_row |= my_valid && ((bad >> (lane - t)) & 1u);
+        }
+      }
+    }
+    __syncwarp();
+    nan_row = __any_sync(kFull, nan_row);
+
+    // the softmax over p, as K6's; a NaN row's weights all NaN
+    T m = neg_inf;
+    for (long long j = lane; j < cap; j += kWarp) m = nan_max(m, pr[j]);
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) m = nan_max(m, __shfl_xor_sync(kFull, m, off));
+    if (!isfinite(m)) m = T(0);
+    T denom = T(0);
+    for (long long j = lane; j < cap; j += kWarp) {
+      const T e = exp_(pr[j] - m);  // an invalid slot holds -inf: 0
+      pr[j] = e;
+      denom += e;
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) denom += __shfl_xor_sync(kFull, denom, off);
+    if (denom == T(0)) denom = T(1);
+    // δ = sum_j p_j dP_j: lanes over slots in order, then an xor butterfly (every lane the same bits)
+    T delta = T(0);
+    for (long long j = lane; j < cap; j += kWarp) {
+      const T pj = nan_row ? nan : pr[j] / denom;
+      pr[j] = pj;
+      delta = fma_(pj, sr[j], delta);
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) delta += __shfl_xor_sync(kFull, delta, off);
+    // dS, and the two strips' weights
+    for (long long j = lane; j < cap; j += kWarp) {
+      const T pj = pr[j];
+      const T dsj = okr[j] != 0 ? pj * (sr[j] - delta) : T(0);
+      sr[j] = isfinite(pj) ? dsj : nan;
+      pr[j] = isfinite(dsj) ? pj : nan;
+    }
+    __syncwarp();
+
+    // pass 3: dq = scale * sum_j dS_j k_j, a lane a 16-byte vector of d, then the tail elements
+    T* dqr = dq + row * d;
+    const long long n_rounds = (nq + kWarp - 1) / kWarp + (nq * V < d ? 1 : 0);
+    for (long long r = 0; r < n_rounds; ++r) {
+      const bool tail = r * kWarp >= nq;  // warp-uniform: the round of the tail elements
+      const long long vi = r * kWarp + lane;
+      const bool mine = tail ? kt < d : vi < nq;
+      VT acc = splat<T>(T(0));
+      for (long long base = 0; base < cap; base += kWarp) {
+        const int cnt = static_cast<int>(min(static_cast<long long>(kWarp), cap - base));
+        int my_col = 0;
+        bool my_in = false;
+        T my_ds = T(0);
+        if (lane < cnt) {
+          const int c = key_row(cr, base + lane, n_keys);
+          my_in = c >= 0;
+          my_col = my_in ? c : 0;
+          my_ds = okr[base + lane] != 0 ? sr[base + lane] : T(0);  // dS itself: 0 on an invalid slot
+        }
+        for (int t = 0; t < cnt; t += kBwdRound) {
+          int c[kBwdRound];
+          bool in[kBwdRound];
+          T w[kBwdRound];
+          VT x[kBwdRound];
+#pragma unroll
+          for (int u = 0; u < kBwdRound; ++u) {
+            c[u] = __shfl_sync(kFull, my_col, (t + u) & (kWarp - 1));
+            in[u] = __shfl_sync(kFull, static_cast<int>(my_in), (t + u) & (kWarp - 1)) && t + u < cnt;
+            w[u] = __shfl_sync(kFull, my_ds, (t + u) & (kWarp - 1));
+          }
+          if (mine) {
+#pragma unroll
+            for (int u = 0; u < kBwdRound; ++u) {
+              if (!in[u]) continue;
+              const T* krow = k + static_cast<long long>(c[u]) * ldk;
+              if (tail) x[u] = splat<T>(krow[kt]);
+              else x[u] = load_vec<T, VEC>(krow, vi);
+            }
+#pragma unroll
+            for (int u = 0; u < kBwdRound; ++u) {
+              if (in[u]) acc = axpy_vec(w[u], x[u], acc);
+            }
+          }
+        }
+      }
+      if (mine) {
+        acc = scale_vec(acc, scale);
+        if (tail) dqr[kt] = acc.x;
+        else store_vec<T, VEC>(dqr, vi, acc);
+      }
+    }
+
+    // a slot outside the table: the reference's dq row NaN (its fill row times dS)
+    if (__any_sync(kFull, outside)) {
+      const VT nanv = splat<T>(nan);
+      for (long long vi = lane; vi < nq; vi += kWarp) store_vec<T, VEC>(dqr, vi, nanv);
+      if (kt < d) dqr[kt] = nan;
+    }
+    __syncwarp();  // the strips are written before the next row's
+  }
+}
+
+template <typename T, typename I>
+int launch_backward(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
+                    const void* g, long long ldg, const void* cols, const void* valid, long long n_rows,
+                    long long n_keys, long long cap, long long d, long long dv, double scale, long long vec,
+                    long long max_blocks, void* dq, void* ds, void* p, void* stream) {
+  if (n_rows <= 0) return 0;
+  if (cap < 1 || n_keys < 1 || max_blocks < 1 || d < 0 || dv < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long wanted = (n_rows + kWarps - 1) / kWarps;
+  const long long blocks = wanted < max_blocks ? wanted : max_blocks;
+  auto st = static_cast<cudaStream_t>(stream);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* gp = static_cast<const T*>(g);
+  const I* cp = static_cast<const I*>(cols);
+  const unsigned char* okp = static_cast<const unsigned char*>(valid);
+  T* dqp = static_cast<T*>(dq);
+  T* dsp = static_cast<T*>(ds);
+  T* pp = static_cast<T*>(p);
+  const T s = static_cast<T>(scale);
+  if (vec) {
+    ell_attention_backward_kernel<T, I, true><<<blocks, kThreads, 0, st>>>(qp, ldq, kp, ldk, vp, ldv, gp, ldg, cp, okp,
+                                                                            n_rows, n_keys, cap, d, dv, s, dqp, dsp, pp);
+  } else {
+    ell_attention_backward_kernel<T, I, false><<<blocks, kThreads, 0, st>>>(qp, ldq, kp, ldk, vp, ldv, gp, ldg, cp,
+                                                                             okp, n_rows, n_keys, cap, d, dv, s, dqp,
+                                                                             dsp, pp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -968,6 +1289,20 @@ ST_ELL_ATTENTION(st_ell_attention_f32_i32, float, int32_t)
 ST_ELL_ATTENTION(st_ell_attention_f32_i64, float, int64_t)
 ST_ELL_ATTENTION(st_ell_attention_f64_i32, double, int32_t)
 ST_ELL_ATTENTION(st_ell_attention_f64_i64, double, int64_t)
+
+#define ST_ELL_ATTENTION_BACKWARD(NAME, T, I)                                                                      \
+  int NAME(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv, const void* g, \
+           long long ldg, const void* cols, const void* valid, long long n_rows, long long n_keys, long long cap,   \
+           long long d, long long dv, double scale, long long vec, long long max_blocks, void* dq, void* ds,       \
+           void* p, void* stream) {                                                                                \
+    return launch_backward<T, I>(q, ldq, k, ldk, v, ldv, g, ldg, cols, valid, n_rows, n_keys, cap, d, dv, scale,  \
+                                 vec, max_blocks, dq, ds, p, stream);                                              \
+  }
+
+ST_ELL_ATTENTION_BACKWARD(st_ell_attention_backward_f32_i32, float, int32_t)
+ST_ELL_ATTENTION_BACKWARD(st_ell_attention_backward_f32_i64, float, int64_t)
+ST_ELL_ATTENTION_BACKWARD(st_ell_attention_backward_f64_i32, double, int32_t)
+ST_ELL_ATTENTION_BACKWARD(st_ell_attention_backward_f64_i64, double, int64_t)
 
 int st_ell_attention_tiles_f32(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
                                const void* keys, const void* n_union, const void* count, const void* flag,

@@ -351,8 +351,10 @@ class RowSumUnion(NamedTuple):
     pass ``u_cap``. ``local`` ``(n,)`` int16: each entry's place in its
     block's union (``union[b, local[e]] == idx[e]``; at most ``u_cap - 1``,
     meaningless in a block whose union passes ``u_cap``). ``flag``
-    ``(n_blocks,)`` bool: a union past ``u_cap``, or fewer entries than
-    ``reuse`` times the union; such a block takes the gather route.
+    ``(n_blocks,)`` bool: a union past ``u_cap``, fewer entries than
+    ``reuse`` times the union, or a segment longer than
+    ``_cuda.ROW_SUM_UNION_LONG`` entries; such a block takes the gather
+    route.
     ``work`` ``(n_blocks,)`` int32: the blocks not flagged, in order, then
     the flagged; ``n_work`` ``(1,)`` int32 the count of the first.
     ``pieces``: :func:`~sparse_tpu_torch.kernels._cuda.run_pieces` of the
@@ -398,7 +400,8 @@ def row_sum_union_layout(ptr, idx, n_table, block, u_cap, reuse, piece=None):
     local_e = torch.empty_like(local).scatter_(0, perm, local.clamp(max=u_cap - 1))
     bounds = torch.arange(n_blocks + 1, device=dev) * block
     entries = ptr[bounds.clamp(max=n_seg)]
-    flag = (n_union > u_cap) | ((entries[1:] - entries[:-1]) < reuse * n_union)
+    longest = torch.zeros(n_blocks, dtype=lens.dtype, device=dev).scatter_reduce_(0, seg_blk, lens, "amax")
+    flag = (n_union > u_cap) | ((entries[1:] - entries[:-1]) < reuse * n_union) | (longest > _cuda.ROW_SUM_UNION_LONG)
     work = torch.sort(flag.to(torch.int32), stable=True).indices.to(torch.int32)
     n_work = (~flag).sum().to(torch.int32).reshape(1)
     return RowSumUnion(

@@ -577,8 +577,9 @@ def sparse_attention_ell(q, k, v, e_cols, valid, *, scale=None):
     (:func:`~sparse_tpu_torch.kernels.attention.ell_attention`), which
     writes none of the reference's ``(L, cap, d + dv)`` blocks; its tile
     layout is kept on the identity of the int32/int64 tensors ``e_cols``
-    and ``valid`` (anything else is copied, and laid out, every call); the
-    gradient recomputes the plain version."""
+    and ``valid`` (anything else is copied, and laid out, every call), and
+    so is the slot pattern of its gradient, which runs K6's backward kernel
+    and K5 (``dk``, ``dv``) on the card."""
     device = _device_of(q, k, v, e_cols, valid)
     q, k, v = _on(q, device), _on(k, device), _on(v, device)
     e_cols = wide_index(_on(e_cols, device))

@@ -13,7 +13,11 @@ K6 sums in one order, so two launches give the same bits; so do the COO
 route's K4 and K5 and their gradients. The card's results against the
 port's CPU results at the same tolerances. The tile route (float32, 3xTF32)
 is held to the same float32 tolerance, on every tile shape, and its block
-counters show which route took each block.
+counters show which route took each block. K6's backward kernel against
+``ell_attention_backward_rows_plain`` and the whole gradient (the kernel,
+then K5 for ``dk`` and ``dv``) against ``ell_attention_backward_plain`` at
+the same tolerances of the largest finite magnitude, twice bit for bit; the
+entry point's training path with every plain version made to raise.
 """
 
 import numpy as np
@@ -380,3 +384,107 @@ def test_k6_route_counters_sum_to_the_blocks(cuda):
     n_blocks = -(-L // _cuda.ATTENTION_BLOCK_ROWS)
     tile, by_rule, by_value = _cuda.attention_route_blocks(cuda).tolist()
     assert tile + by_rule + by_value == 3 * n_blocks and tile > 0 and by_rule > 0 and by_value > 0
+
+
+# ---------------------------------------------------------------------------
+# K6's backward: its kernel (dq and the slot weights), then K5 for dk and dv
+# ---------------------------------------------------------------------------
+
+
+def _backward(q, k, v, e_cols, valid, g, scale=0.25):
+    """``(dq, dk, dv)`` through ``ell_attention``'s autograd Function."""
+    ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = tatt.ell_attention(*ins, e_cols, valid, scale=scale)
+    return torch.autograd.grad(out, ins, g)
+
+
+def _assert_grads(got, want, tol, what):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        finite = b[torch.isfinite(b)]
+        scale = float(finite.abs().max()) if finite.numel() else 0.0
+        _assert_close(a, b, scale, tol, f"{what} {name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cap", [1, 5, 33, 513, 1700])
+@pytest.mark.parametrize("d,dv", [(64, 64), (7, 5), (130, 33), (1, 1)])
+def test_k6_backward_matches_plain(cuda, dtype, cap, d, dv):
+    q, k, v, e_cols, valid = _problem(150, 170, d, dv, cap, dtype, cuda, seed=cap + d)
+    g = torch.as_tensor(np.random.default_rng(40).standard_normal((150, dv)), dtype=dtype, device=cuda)
+    # the kernel's own outputs against the plain decomposition's
+    dq, ds, p = (torch.empty(s_, dtype=dtype, device=cuda) for s_ in ((150, d), (150, cap), (150, cap)))
+    _cuda.ell_attention_backward(q, k, v, g, e_cols, valid, 0.25, dq, ds, p)
+    want_rows = tatt.ell_attention_backward_rows_plain(q, k, v, e_cols, valid, 0.25, g)
+    for name, a, b in zip(("dq", "ds", "p"), (dq, ds, p), want_rows):
+        _assert_close(a, b, float(b.abs().max()), TOL[dtype], f"kernel {name}")
+    # the whole gradient, twice bit for bit
+    got = _backward(q, k, v, e_cols, valid, g)
+    _assert_grads(got, tatt.ell_attention_backward_plain(q, k, v, e_cols, valid, 0.25, g), TOL[dtype], f"cap {cap}")
+    assert all(torch.equal(a, b) for a, b in zip(got, _backward(q, k, v, e_cols, valid, g)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+def test_k6_backward_strided_operands_and_index_dtypes(cuda, dtype, idx):
+    q, k, v, e_cols, valid = _problem(64, 80, 24, 20, 17, dtype, cuda, seed=41, idx=idx)
+    wide = torch.zeros((80, 50), dtype=dtype, device=cuda)
+    wide[:, 3:27] = k  # a row stride of 50 and an offset: scalar loads
+    g = torch.as_tensor(np.random.default_rng(42).standard_normal((20, 64)), dtype=dtype, device=cuda).T  # transposed: copied
+    got = _backward(q, wide[:, 3:27], v, e_cols, valid, g)
+    _assert_grads(got, tatt.ell_attention_backward_plain(q, k, v, e_cols, valid, 0.25, g), TOL[dtype], "strided")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6_backward_nonfinite_and_index_rules_equal_the_cpu(cuda, dtype):
+    q, k, v, e_cols, valid = _problem(8, 9, 4, 3, 3, dtype, cuda, seed=5)
+    v[2, 0] = float("inf")
+    v[4, 1] = float("nan")
+    k[6, 2] = float("-inf")
+    e_cols[0] = torch.tensor([0, 2, 1])  # inf in a valid slot: the row NaN
+    valid[0] = torch.tensor([True, True, False])
+    e_cols[1] = torch.tensor([1, 4, 3])  # NaN in a padding slot
+    valid[1] = torch.tensor([True, False, True])
+    e_cols[2] = torch.tensor([-1, -9, 0])  # from the end, both in range
+    e_cols[3] = torch.tensor([0, 9, 1])  # past the table
+    e_cols[4] = torch.tensor([1, 3, -10])  # before the table
+    e_cols[5] = torch.tensor([1, 3, 5])  # no valid slot
+    valid[5] = False
+    e_cols[6] = torch.tensor([1, 1, 6])  # a key twice; -inf in a padding slot's k row
+    valid[6] = torch.tensor([True, True, False])
+    g = torch.as_tensor(np.random.default_rng(43).standard_normal((8, 3)), dtype=dtype, device=cuda)
+    got = _backward(q, k, v, e_cols, valid, g)
+    cpu = tatt.ell_attention_backward_plain(*(t.cpu() for t in (q, k, v, e_cols, valid)), 0.25, g.cpu())
+    _assert_grads([t.cpu() for t in got], cpu, TOL[dtype], "non-finite rules")
+    assert bool(torch.isnan(got[0][0]).all()) and bool(torch.isnan(got[0][3]).all())
+
+
+def test_k6_backward_counters_and_no_plain_version_on_the_card(cuda, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    L, d = 512, 32
+    rng = np.random.default_rng(44)
+    rows, cols = tnn.local_attention_pattern(L, 16)
+    q, k, v, w = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(4))
+    e_cols, valid = _window(L, 16, "cpu")
+    want = tatt.ell_attention_backward_plain(*(t.cpu() for t in (q, k, v)), e_cols, valid, 1 / np.sqrt(d), w.cpu())
+    for name in ("ell_attention_plain", "ell_attention_backward_plain", "ell_attention_backward_rows_plain", "ell_attention_blocks_plain"):
+        monkeypatch.setattr(tatt, name, refuse)
+    for dtype in (torch.float32, torch.float64):
+        ins = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        out = tnn.sparse_attention(*ins, rows, cols)  # the row-ELL route
+        loss = (w.to(dtype) * out).sum()
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")  # the slot pattern's build and the launches read nothing back
+        try:
+            loss.backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        moved = {n: c for n, c in LAUNCHES.items() if c}
+        assert moved.get("ell_attention_backward") == 1, moved
+        k5 = moved.get("sampled_row_sum_union", 0) + moved.get("sampled_row_sum", 0) + moved.get("sampled_row_sum_sliced", 0)
+        assert k5 >= 2 and set(moved) <= {"ell_attention_backward", "sampled_row_sum_union", "sampled_row_sum", "sampled_row_sum_sliced"}, moved
+        if dtype == torch.float32:
+            _assert_grads([t.grad.cpu() for t in ins], want, TOL[dtype], "entry point")

@@ -181,11 +181,11 @@ def test_kernel_sources_ship_with_the_package():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
         for fn in _cuda._SIGNATURES[name]:
-            # an entry point of its own or one stamped out by a source's macro (BSR, MTTKRP/K5, SDDMM, K6)
+            # an entry point of its own or one stamped out by a source's macro (BSR, MTTKRP/K5, SDDMM, K6 and its backward)
             assert (
                 f"int {fn}(" in src
                 or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src
-                or any(f"{macro}({fn}," in src for macro in ("ST_SDDMM", "ST_MTTKRP", "ST_ROW_SUM", "ST_ELL_ATTENTION"))
+                or any(f"{macro}({fn}," in src for macro in ("ST_SDDMM", "ST_MTTKRP", "ST_ROW_SUM", "ST_ELL_ATTENTION", "ST_ELL_ATTENTION_BACKWARD"))
             )
     bsr_src = _cuda.SOURCES["bsr"].read_text()
     for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
@@ -224,5 +224,6 @@ def test_launch_counters_start_and_reset():
         "sampled_row_sum_union": 0,
         "ell_attention": 0,
         "ell_attention_tiles": 0,
+        "ell_attention_backward": 0,
         "minplus_relax": 0,
     }

@@ -128,7 +128,8 @@ def _numpy_layout(ptr, idx, n_table, block, u_cap, reuse, piece):
         n_union[b] = u.size
         union[b, : min(u.size, u_cap)] = u[:u_cap]
         local[lo:hi] = np.minimum(np.searchsorted(u, idx[lo:hi]), u_cap - 1)
-        flag[b] = u.size > u_cap or (hi - lo) < reuse * u.size
+        longest = np.diff(ptr[b * block : min((b + 1) * block, n_seg) + 1]).max(initial=0)
+        flag[b] = u.size > u_cap or (hi - lo) < reuse * u.size or longest > _cuda.ROW_SUM_UNION_LONG
     lens = np.diff(ptr)
     keep = flag[np.arange(n_seg) // block]
     n_pieces = np.where(keep & (lens > piece), -(-lens // piece), 0)
@@ -191,6 +192,19 @@ def test_union_layout_flags():
     lay = dot.row_sum_union_layout(ptr, _t(idx.astype(np.int32)), 200, 4, 2, 0.0)
     assert lay.flag.tolist() == [True, True, True]
     assert lay.pieces[1].item() == -(-600 // _cuda.MTTKRP_PIECE)
+
+
+def test_union_layout_flags_a_block_with_a_long_segment():
+    # a hub row named by many entries (the row-ELL attention's padding slots
+    # all name key 0): its block takes the gather route, which splits it into pieces
+    lens = np.full(8, 40, np.int64)
+    lens[1] = _cuda.ROW_SUM_UNION_LONG  # at the limit: kept
+    lens[5] = _cuda.ROW_SUM_UNION_LONG + 1
+    ptr = _t(np.concatenate([[0], np.cumsum(lens)]))
+    idx = _t((np.arange(int(lens.sum())) % 7).astype(np.int32))
+    lay = dot.row_sum_union_layout(ptr, idx, 7, 4, 32, 2.0)
+    assert lay.flag.tolist() == [False, True] and lay.work.tolist() == [0, 1]
+    assert lay.pieces[-1].item() == -(-int(lens[5]) // _cuda.MTTKRP_PIECE)
 
 
 def test_union_layout_of_empty_and_ragged_patterns():

@@ -21,7 +21,7 @@ import torch
 
 import jax.numpy as jnp
 
-MODULES = ("linalg", "kernels", "kernels.dia", "csgraph", "nn")
+MODULES = ("linalg", "kernels", "kernels.dia", "kernels.search", "csgraph", "nn")
 
 JAX_ONLY_FUNCTIONS = {"kernels": {"bsr_spmm_pallas", "bsr_sddmm_pallas", "bsr_spmm_xla"}}
 JAX_ONLY_PARAMETERS = {
