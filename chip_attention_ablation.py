@@ -2,9 +2,11 @@
 """Where the time of K6's tile route goes, and which of its shapes wins, on
 one NVIDIA GPU (H100).
 
-    python3 chip_attention_ablation.py [tiles] [backward]
+    python3 chip_attention_ablation.py [tiles] [backward] [backward_tiles]
 
-(no argument: both). K6 is the row-ELL attention kernel of ``sparse_tpu_torch/kernels/csrc/attention.cu``;
+(no argument: ``tiles`` and ``backward``; ``backward_tiles`` runs the
+backward's tile route section alone). K6 is the row-ELL attention kernel of
+``sparse_tpu_torch/kernels/csrc/attention.cu``;
 its tile route takes a block of query rows against the union of their keys
 on the tensor cores (3xTF32). At Longformer-base's width (L = 4,096 and the
 long head's 65,536, a window of 256 each side, d = dv = 64, float32, seed 0):
@@ -34,8 +36,14 @@ a round, their loads in flight) side by side (``BWD_VARIANTS``, one
 registers, the variants of 4 slots a round bit for bit against the
 default, those of 8 against ``ell_attention_backward_rows_plain``; then
 K5's two sums (``dk``, ``dv``) over the slot pattern and the whole backward
-(the kernel and K5) on the port's defaults, with the union layout's
-flagged blocks.
+(the tile route, the row kernel and K5) on the port's defaults, with the
+union layout's flagged blocks. Then the backward's tile route
+(``ell_attention_backward_tiles_kernel``), from two more builds: every
+shape of ``_cuda.ATTENTION_BWD_TILE_CONFIGS`` and ``BWD_ABLATION_SHAPES``
+(keys a stage, key slices, one CTA or a cluster of two), and the
+recomputed ``(m, l)`` pass alone (``-DATTENTION_BWD_PASS1_ONLY=1``, which
+writes nothing but the route), each at both lengths, the shapes against
+``ell_attention_backward_blocks_plain`` and twice bit for bit.
 
 The copies are built into ``build/attention_ablation/``. Each time is the
 best of two passes of a CUDA graph of 20 launches, L2 warm.
@@ -52,6 +60,7 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -83,6 +92,12 @@ BWD_VARIANTS = {
 }
 BWD_ENTRY = "st_ell_attention_backward_f32_i32"
 BWD_TOL = 1e-5  # of max|want|: float32 sums in another order than the plain version's
+# the backward tile route's shapes the entry points do not take: name -> (rows, key slices, CTAs, keys a stage)
+BWD_ABLATION_SHAPES = {"b64c32": (64, 2, 1, 32), "b64c16": (64, 2, 1, 16), "b64c32x2w4": (64, 1, 2, 32)}
+BWD_LAST_CASE = "    case 3: return ST_BWD_TILES(64, 4, 2, 32);\n"
+BWD_TILES_ENTRY = "st_ell_attention_backward_tiles_f32"
+# the tile route's builds: name -> nvcc macros
+BWD_TILE_BUILDS = {"shapes": [], "pass1": ["-DATTENTION_BWD_PASS1_ONLY=1"]}
 # clock64 marks: (source line, the phase that ends there)
 MARKS = (
     ("  if (mine > 0) issue(0);  // its rows come while q is laid out\n", None),
@@ -203,7 +218,8 @@ def backward_section(dev, gen):
             def run():  # on the current stream at each call: a graph's capture stream while it is captured
                 err = fn(
                     q.data_ptr(), D, k.data_ptr(), D, v.data_ptr(), D, g.data_ptr(), D, e_cols.data_ptr(), valid.data_ptr(),
-                    L, L, cap, D, D, SCALE, 1, grid, *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream,
+                    L, L, cap, D, D, SCALE, 1, grid, None, 0, *(t.data_ptr() for t in outs),
+                    torch.cuda.current_stream().cuda_stream,
                 )
                 if err != 0:
                     raise RuntimeError(f"the backward variant's launch failed: CUDA error {err}")
@@ -239,10 +255,98 @@ def backward_section(dev, gen):
         qs = q * SCALE
         line["k5_dk_ms"] = best(lambda: kdot._row_sum_forward(pattern, 1, ds.view(-1), qs))
         line["k5_dv_ms"] = best(lambda: kdot._row_sum_forward(pattern, 1, p.view(-1), g))
-        line["kernel_and_k5_ms"] = best(lambda: katt._ell_attention_backward(q, k, v, e_cols, valid, SCALE, g))
+        out = katt.ell_attention(q, k, v, e_cols, valid, scale=SCALE)
+        line["kernel_and_k5_ms"] = best(lambda: katt._ell_attention_backward(q, k, v, e_cols, valid, SCALE, g, out))
         line["k5_blocks_flagged"] = int(pattern.union(1, 4).flag.sum())
         line["k5_blocks"] = int(pattern.union(1, 4).flag.numel())
         print(json.dumps(line), flush=True)
+
+
+def build_tiles_variant(name, text, macros):
+    """``text`` (attention.cu with the ablation shapes) built with ``macros``:
+    its backward tile entry point (ctypes, the port's argument types)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src, so = OUT / "attention_bwd_shapes.cu", OUT / f"backward_tiles_{name}.so"
+    src.write_text(text)
+    cmd = [_cuda._nvcc(), *_cuda._NVCC_FLAGS, *macros, "-o", str(so), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
+    fn = getattr(ctypes.CDLL(str(so)), BWD_TILES_ENTRY)
+    fn.argtypes = _cuda._SIGNATURES["attention"][BWD_TILES_ENTRY]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_ablation_source():
+    """attention.cu with BWD_ABLATION_SHAPES as more cases of the backward's
+    shape switch, registered in ``_cuda.ATTENTION_BWD_TILE_CONFIGS`` for this
+    process."""
+    src = _cuda.SOURCES["attention"].read_text()
+    if BWD_LAST_CASE not in src:
+        raise RuntimeError("chip_attention_ablation: the backward's shape switch of attention.cu has changed")
+    cases = ""
+    for name, shape in BWD_ABLATION_SHAPES.items():
+        cid = len(_cuda.ATTENTION_BWD_TILE_CONFIGS)
+        _cuda.ATTENTION_BWD_TILE_CONFIGS[name] = (cid, *shape)
+        cases += f"    case {cid}: return ST_BWD_TILES({', '.join(map(str, shape))});\n"
+    return src.replace(BWD_LAST_CASE, BWD_LAST_CASE + cases)
+
+
+def backward_tiles_section(dev, gen):
+    """The backward tile route's shapes and its pass 1 alone, each build's
+    entry point put in the port's place
+    of the attention library while it runs (the wrapper's checks and
+    arguments as the port's)."""
+    text = bwd_ablation_source()
+    with ThreadPoolExecutor(len(BWD_TILE_BUILDS)) as pool:
+        futures = {name: pool.submit(build_tiles_variant, name, text, macros) for name, macros in BWD_TILE_BUILDS.items()}
+        fns = {name: f.result() for name, f in futures.items()}
+    port = _cuda.load("attention")
+    for L in LENGTHS:
+        q, k, v, e_cols, valid = problem(L, WINDOW, dev, gen)
+        g = torch.randn((L, D), generator=gen, device=dev)
+        out = katt.ell_attention(q, k, v, e_cols, valid, scale=SCALE)
+        blocks = katt.build_attention_blocks(e_cols, valid, L, _cuda.ATTENTION_BLOCK_ROWS)
+        strips = katt.build_strip_order(blocks)
+        want = katt.ell_attention_backward_blocks_plain(q, k, v, g, out, blocks, SCALE)
+        cap = e_cols.shape[1]
+        route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=dev)
+        outs = [torch.empty(s_, device=dev) for s_ in ((L, D), (L, cap), (L, cap))]
+        default = _cuda.attention_backward_tile_config(L, D, D, torch.float32, dev)
+        line = {"backward_tiles": L, "cap": cap, "default": default, "mean_union": float(blocks.n_union.double().mean())}
+        row = [torch.empty_like(t) for t in outs]
+        line["row_kernel_ms"] = best(lambda: _cuda.ell_attention_backward(q, k, v, g, e_cols, valid, SCALE, *row))
+        runs = [("shapes", c) for c in _cuda.ATTENTION_BWD_TILE_CONFIGS]
+        runs += [(build, default) for build in BWD_TILE_BUILDS if build != "shapes"]
+        for build, config in runs:
+            if not _cuda.attention_backward_tiles_fit(D, D, torch.float32, config):
+                continue
+            _cuda._libs["attention"] = SimpleNamespace(**{BWD_TILES_ENTRY: fns[build]})
+            try:
+
+                def run(config=config):
+                    return _cuda.ell_attention_backward_tiles(q, k, v, g, out, blocks, strips, SCALE, *outs, route, config)
+
+                for t in outs:
+                    t.fill_(float("nan"))
+                got = [t.clone() for t in run()]
+                _, rows, slices, ctas, chunk = _cuda.ATTENTION_BWD_TILE_CONFIGS[config]
+                entry = {"rows": rows, "slices": slices, "ctas": ctas, "chunk": chunk, "ms": best(run)}
+                entry["smem_bytes"] = _cuda.attention_backward_tile_smem(config, D, D)
+                if not bool((route == 0).all()):
+                    raise AssertionError(f"backward tiles {build} {config}: a block left the tile route")
+                if build != "pass1":  # pass 1 alone writes nothing but the route
+                    entry["err_of_max"] = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+                    entry["bits_twice"] = all(torch.equal(a, b) for a, b in zip(got, run()))
+                    if entry["err_of_max"] > BWD_TOL or not entry["bits_twice"]:
+                        raise AssertionError(f"backward tiles {build} {config}: {entry}")
+            finally:
+                _cuda._libs["attention"] = port
+            line[config if build == "shapes" else f"{build}_{config}"] = entry
+        print(json.dumps(line), flush=True)
+        del q, k, v, g, out, blocks, strips, want, outs, row
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -254,6 +358,8 @@ def main():
     sections = set(sys.argv[1:]) or {"tiles", "backward"}
     if "backward" in sections:
         backward_section(dev, gen)
+    if sections & {"backward", "backward_tiles"}:
+        backward_tiles_section(dev, gen)
     if "tiles" not in sections:
         print(card())
         return 0

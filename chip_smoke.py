@@ -129,11 +129,16 @@ drives the port's two paths on the card:
   against ``ell_attention_backward_rows_plain`` and the whole gradient (the
   kernel, then K5 twice over the slots by key) against
   ``ell_attention_backward_plain`` at the window's width in float32 and
-  float64, each twice bit for bit; a 12-head layer's forward and backward on
-  the row-ELL route counted (K6, its backward and K5 a head, no plain
-  version); the long head's forward and backward on the row-ELL route
-  against the COO route's gradients (1e-4 · max|grad|) with its time and
-  peak bytes; device ms a head and a 12-head layer (forward, and forward
+  float64, each twice bit for bit; its tile route (float32, 3xTF32 on K6's
+  block layout, the row kernel after it on the blocks it leaves) against
+  ``ell_attention_backward_blocks_plain`` and the row decomposition, twice
+  bit for bit; a 12-head layer's forward and backward on the row-ELL route
+  counted (K6, its backward's tiles and row kernel and K5 a head, no plain
+  version, the backward's blocks by route); the long head's forward and
+  backward on the row-ELL route against the COO route's gradients (1e-4 ·
+  max|grad|) and its tile backward's ``dq``, ``ds``, ``p`` against
+  ``ell_attention_backward_blocks_plain`` (union chunks, no 17.2 GB block),
+  with its time and peak bytes; device ms a head and a 12-head layer (forward, and forward
   with backward), peak memory, and
   ``scaled_dot_product_attention`` with the pattern's dense mask beside them
   (timed only); a sweep of K6's two routes from the window to random
@@ -298,6 +303,7 @@ SOURCE = {
     "ell_attention": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "ell_attention_tiles": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "ell_attention_backward": "sparse_tpu_torch/kernels/csrc/attention.cu",
+    "ell_attention_backward_tiles": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "minplus_relax": "sparse_tpu_torch/kernels/csrc/minplus.cu",
 }
 REPLACES = {
@@ -324,6 +330,7 @@ REPLACES = {
     "ell_attention": "sparse_tpu/nn.py:282",  # sparse_attention_ell (XLA gather, score, masked softmax, weighted sum)
     "ell_attention_tiles": "sparse_tpu/nn.py:282",  # the same function, its tile route
     "ell_attention_backward": "sparse_tpu/nn.py:282",  # the gradient of sparse_attention_ell (jax.grad through the XLA code)
+    "ell_attention_backward_tiles": "sparse_tpu/nn.py:282",  # the same gradient, its tile route
     "minplus_relax": "sparse_tpu/csgraph.py:228",  # _bellman_ford_device_ell and its _tail form :255 (XLA)
 }
 
@@ -3452,13 +3459,17 @@ def phase_attention_path(dev, card):
         "scattered": lambda: tnn.sparse_attention(q[0], k[0], v[0], rows_s, cols_s),
         "graph_conv": lambda: tnn.graph_conv(gr, gc, gv, x, w, n_nodes=n),
     }
-    launches, outs, first_s, blocks_taken = {}, {}, {}, {}
+    launches, outs, first_s, first_peak, blocks_taken = {}, {}, {}, {}, {}
     for name, fn in [*((nm, lambda f=f: by_heads(f, q, k, v)) for nm, f in heads.items()), *singles.items()]:
         reset_launch_counts()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         outs[name] = fn()
         torch.cuda.synchronize()
         first_s[name] = time.perf_counter() - t0
+        first_peak[name] = torch.cuda.max_memory_allocated() - base  # the layouts' builds included
         launches[name] = {kn: c for kn, c in LAUNCHES.items() if c}
         # K6's blocks by route: [tile, row by the rule or an index, row by a non-finite value]
         blocks_taken[name] = _cuda.attention_route_blocks(dev).tolist()
@@ -3660,6 +3671,7 @@ def phase_attention_path(dev, card):
     kb_err, kb_grad_err = {}, {}
     for dt_name, dt_, tol in (("float32", torch.float32, AT_GRAD_TOL), ("float64", torch.float64, AT_GRAD_TOL_F64)):
         qq, kk, vv, gg = (t.to(dt_) for t in (q[0], k[0], v[0], wts))
+        fwd = katt.ell_attention(qq, kk, vv, e_cols, valid, scale=scale)  # the forward's output, the backward's δ
         got = [t.clone() for t in k6_backward(qq, kk, vv, gg)]
         want = katt.ell_attention_backward_rows_plain(qq, kk, vv, e_cols, valid, scale, gg)
         kb_err[dt_name] = {nm: float((a_ - b_).abs().max()) for nm, a_, b_ in zip(("dq", "ds", "p"), got, want)}
@@ -3669,15 +3681,53 @@ def phase_attention_path(dev, card):
         if not all(torch.equal(a_, b_) for a_, b_ in zip(got, k6_backward(qq, kk, vv, gg))):
             raise AssertionError(f"K6's backward kernel, {dt_name}: a second launch gave other bits")
         del got, want
-        full = katt._ell_attention_backward(qq, kk, vv, e_cols, valid, scale, gg)
+        full = katt._ell_attention_backward(qq, kk, vv, e_cols, valid, scale, gg, fwd)
         plain_full = katt.ell_attention_backward_plain(qq, kk, vv, e_cols, valid, scale, gg)
         kb_grad_err[dt_name] = {nm: normalised_err(a_, b_.double()) for nm, a_, b_ in zip(("dq", "dk", "dv"), full, plain_full)}
         if max(kb_grad_err[dt_name].values()) > tol:
             raise AssertionError(f"K6's backward and K5, {dt_name}, against ell_attention_backward_plain: {kb_grad_err[dt_name]}")
-        if not all(torch.equal(a_, b_) for a_, b_ in zip(full, katt._ell_attention_backward(qq, kk, vv, e_cols, valid, scale, gg))):
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(full, katt._ell_attention_backward(qq, kk, vv, e_cols, valid, scale, gg, fwd))):
             raise AssertionError(f"K6's backward and K5, {dt_name}: a second backward gave other bits")
-        del full, plain_full, qq, kk, vv, gg
+        del full, plain_full, qq, kk, vv, gg, fwd
     torch.cuda.empty_cache()
+
+    # K6's backward tile route at the window's width, head 0, float32, g =
+    # wts, out the entry point's forward: its dq, ds and p (the tiles, then
+    # the row kernel on the blocks they leave) against
+    # ell_attention_backward_blocks_plain and ell_attention_backward_rows_plain,
+    # twice bit for bit
+    out0 = outs["ell_route"][0]
+    bconfig = _cuda.attention_backward_tile_config(L, D, D, torch.float32, dev)
+    bt_out = [torch.empty(s_, device=dev) for s_ in ((L, D), strips, strips)]
+    bt_route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    border = katt.build_strip_order(blocks)  # the backward's alone: the forward's layout holds none
+    torch.cuda.synchronize()
+    strip_order_first_s = time.perf_counter() - t0
+    bt_tiles = lambda: _cuda.ell_attention_backward_tiles(q[0], k[0], v[0], wts, out0, blocks, border, scale, *bt_out, bt_route, bconfig)  # noqa: E731
+
+    def bt_pair():  # the entry point's two launches
+        bt_tiles()
+        return _cuda.ell_attention_backward(q[0], k[0], v[0], wts, e_cols, valid, scale, *bt_out, block_route=bt_route, block_rows=blocks.block)
+
+    got = [t.clone() for t in bt_pair()]
+    if bt_route.tolist() != [0] * blocks.union.shape[0]:
+        raise AssertionError("K6's backward: a block of Longformer's window left the tile route")
+    bt_err = {}
+    for against, want in (
+        ("blocks_plain", katt.ell_attention_backward_blocks_plain(q[0], k[0], v[0], wts, out0, blocks, scale)),
+        ("rows_plain", katt.ell_attention_backward_rows_plain(q[0], k[0], v[0], e_cols, valid, scale, wts)),
+    ):
+        bt_err[against] = {nm: float((a_ - b_).abs().max()) / float(b_.abs().max()) for nm, a_, b_ in zip(("dq", "ds", "p"), got, want)}
+        if against == "blocks_plain":
+            bt_abs_err = max(float((a_ - b_).abs().max()) for a_, b_ in zip(got, want))
+        if max(bt_err[against].values()) > AT_GRAD_TOL:
+            raise AssertionError(f"K6's backward tile route against ell_attention_backward_{against}: {bt_err[against]}")
+        del want
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, bt_pair())):
+        raise AssertionError("K6's backward tile route: a second launch gave other bits")
+    del got
 
     def layer_grads(f):  # a 12-head layer's forward and backward, heads a loop
         ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -3690,14 +3740,18 @@ def phase_attention_path(dev, card):
     layer_grads(ell_head)
     torch.cuda.synchronize()
     launches["ell_route_training"] = lt = {kn: c for kn, c in LAUNCHES.items() if c}
+    bwd_blocks = {"ell_route_training": _cuda.attention_backward_route_blocks(dev).tolist()}
+    k6_bwd_kernels = {"ell_attention_backward", "ell_attention_backward_tiles"}  # the tile route, then the row kernel on what it left
     if (
         lt.get("ell_attention") != H
         or lt.get("ell_attention_tiles") != H
+        or lt.get("ell_attention_backward_tiles") != H
         or lt.get("ell_attention_backward") != H
         or lt.get("sampled_row_sum_union") != 2 * H
-        or not set(lt) <= k6_kernels | {"ell_attention_backward", "sampled_row_sum_union", "sampled_row_sum"}
+        or not set(lt) <= k6_kernels | k6_bwd_kernels | {"sampled_row_sum_union", "sampled_row_sum"}
+        or bwd_blocks["ell_route_training"] != [H * n_blk, 0, 0]
     ):
-        raise AssertionError(f"row-ELL route training: K6, its backward and K5 twice a head expected, got {lt}")
+        raise AssertionError(f"row-ELL route training: K6, its backward's two kernels and K5 twice a head expected, got {lt}, {bwd_blocks}")
 
     # the long head's forward and backward: the row-ELL route against the COO
     # route's gradients (copies of the pattern: the route memo keys on identity)
@@ -3716,13 +3770,35 @@ def phase_attention_path(dev, card):
     gl = long_grads(ell_long)
     torch.cuda.synchronize()
     launches["long_ell_training"] = ll = {kn: c for kn, c in LAUNCHES.items() if c}
-    if ll.get("ell_attention_backward") != 1 or ll.get("sampled_row_sum_union", 0) + ll.get("sampled_row_sum", 0) < 2:
-        raise AssertionError(f"long head training: K6's backward and K5 expected, got {ll}")
+    bwd_blocks["long_ell_training"] = _cuda.attention_backward_route_blocks(dev).tolist()
+    if (
+        ll.get("ell_attention_backward") != 1
+        or ll.get("ell_attention_backward_tiles") != 1
+        or ll.get("sampled_row_sum_union", 0) + ll.get("sampled_row_sum", 0) < 2
+        or bwd_blocks["long_ell_training"] != [n_blk_long, 0, 0]
+    ):
+        raise AssertionError(f"long head training: K6's backward's two kernels and K5 expected, got {ll}, {bwd_blocks}")
     gc_ = long_grads(coo_long)
     long_grad_err = {nm: float((a_ - b_).abs().max() / b_.abs().max()) for nm, a_, b_ in zip(("dq", "dk", "dv"), gl, gc_)}
     if max(long_grad_err.values()) > AT_LONG_GRAD_TOL:
         raise AssertionError(f"long head: the row-ELL route's gradients against the COO route's: {long_grad_err}")
     del gl, gc_
+    # the long head's tile backward (the entry point's config, its two
+    # launches) against ell_attention_backward_blocks_plain, which runs in
+    # union chunks: the row decomposition would write 17.2 GB blocks
+    e_l, valid_l = (torch.as_tensor(a, device=dev) for a in tnn.build_attention_ell(rows_l, cols_l, AT_LONG_L))
+    blocks_l = katt.build_attention_blocks(e_l, valid_l, AT_LONG_L, _cuda.ATTENTION_BLOCK_ROWS)
+    out_l = outs["long_ell"]
+    bl_out = [torch.empty(s_, device=dev) for s_ in ((AT_LONG_L, D), tuple(e_l.shape), tuple(e_l.shape))]
+    bl_route = torch.empty(blocks_l.union.shape[0], dtype=torch.int32, device=dev)
+    bl_config = _cuda.attention_backward_tile_config(AT_LONG_L, D, D, torch.float32, dev)
+    _cuda.ell_attention_backward_tiles(ql, kl, vl, wl, out_l, blocks_l, katt.build_strip_order(blocks_l), scale, *bl_out, bl_route, bl_config)
+    _cuda.ell_attention_backward(ql, kl, vl, wl, e_l, valid_l, scale, *bl_out, block_route=bl_route, block_rows=blocks_l.block)
+    want_l = katt.ell_attention_backward_blocks_plain(ql, kl, vl, wl, out_l, blocks_l, scale)
+    long_tile_err = {nm: float((a_ - b_).abs().max()) / float(b_.abs().max()) for nm, a_, b_ in zip(("dq", "ds", "p"), bl_out, want_l)}
+    if max(long_tile_err.values()) > AT_GRAD_TOL or bl_route.tolist() != [0] * blocks_l.union.shape[0]:
+        raise AssertionError(f"long head: K6's backward tile route against ell_attention_backward_blocks_plain: {long_tile_err}")
+    del want_l, bl_out, blocks_l, e_l, valid_l
     torch.cuda.empty_cache()
     gwts = torch.randn((n, GCN_HIDDEN), generator=gen, device=dev)
 
@@ -3819,7 +3895,12 @@ def phase_attention_path(dev, card):
         times[route]["layer_forward_backward_ms"] = at_device_ms(lambda f=f: layer_grads(f))
         times[route]["head_forward_backward_peak_bytes"] = peak_bytes(lambda f=f: grads(f))
     for name in ("long_ell", "long_banded", "scattered", "graph_conv"):
-        times[name] = {"ms": at_device_ms(singles[name]), "peak_bytes": peak_bytes(singles[name]), "first_s": first_s[name]}
+        times[name] = {
+            "ms": at_device_ms(singles[name]),
+            "peak_bytes": peak_bytes(singles[name]),
+            "first_s": first_s[name],
+            "first_peak_bytes": first_peak[name],
+        }
     for name, f in (("long_ell", ell_long), ("long_coo", coo_long)):
         times.setdefault(name, {})["forward_backward_ms"] = at_device_ms(lambda f=f: long_grads(f))
         times[name]["forward_backward_peak_bytes"] = peak_bytes(lambda f=f: long_grads(f))
@@ -3885,7 +3966,15 @@ def phase_attention_path(dev, card):
     qs0 = q[0] * scale
     ms_k5_dk = time_graph(lambda: kdot._row_sum_forward(slot_pattern, 1, kb_out[1].view(-1), qs0))
     ms_k5_dv = time_graph(lambda: kdot._row_sum_forward(slot_pattern, 1, kb_out[2].view(-1), wts))
-    ms_backward_all = time_graph(lambda: katt._ell_attention_backward(q[0], k[0], v[0], e_cols, valid, scale, wts))
+    ms_backward_all = time_graph(lambda: katt._ell_attention_backward(q[0], k[0], v[0], e_cols, valid, scale, wts, out0))
+    # the backward's tile route: the function's bound is the row kernel's with
+    # out read too (its δ); the products its tiles do (S twice, dP, dQ over
+    # each block's union, 3xTF32) beside it
+    nbytes_bt = nbytes_b + L * D * 4
+    tb_bytes_t = nbytes_bt / HBM_BYTES_PER_S * 1e3
+    bound_bt = {"bound_ms": max(tb_bytes_t, tb_ops), "bound_by": "bytes" if tb_bytes_t >= tb_ops else "operations"}
+    tile_flops = 3 * _cuda.ATTENTION_BLOCK_ROWS * union_rows * (6 * D + 2 * D)
+    ms_bt, ms_bt_pair = time_graph(bt_tiles), time_graph(bt_pair)
     lines = [
         {
             "name": "ell_attention",
@@ -3925,6 +4014,20 @@ def phase_attention_path(dev, card):
             **bound_b,
             "library_ms": sdpa["window"]["head_backward_ms"],
         },
+        {
+            "name": "ell_attention_backward_tiles",
+            "route": "cuda",
+            "source": SOURCE["ell_attention_backward_tiles"],
+            "replaces": REPLACES["ell_attention_backward_tiles"],
+            "launches": launches["ell_route_training"]["ell_attention_backward_tiles"],
+            "max_abs_err": bt_abs_err,
+            "ms": ms_bt,
+            "plain_ms": time_eager(
+                lambda: katt.ell_attention_backward_blocks_plain(q[0], k[0], v[0], wts, out0, blocks, scale), reps=3
+            ),
+            **bound_bt,
+            "library_ms": sdpa["window"]["head_backward_ms"],
+        },
     ]
     k6 = {
         "shape": {"L": L, "cap": int(e_cols.shape[1]), "d": D, "dv": D, "slots": slots, "valid": n_valid},
@@ -3953,19 +4056,33 @@ def phase_attention_path(dev, card):
         "sweep": sweep,
         "library": "scaled_dot_product_attention, the pattern's dense boolean mask",
         "backward": {
-            "kernel_ms": ms_backward,
-            "kernel_float64_ms": time_graph(lambda: k6_backward(q64, k64, v64, wts64, kb_out64)),
+            "tile_config": bconfig,
+            "strip_order_first_s": strip_order_first_s,
+            "strip_order_bytes": sum(t.numel() * t.element_size() for t in border),
+            "kernel_ms": ms_bt,
+            "kernel_ms_l2_flushed": time_cold(bt_tiles),
+            "pair_ms": ms_bt_pair,
+            "bound_bytes": nbytes_bt,
+            "bound_share": bound_bt["bound_ms"] / ms_bt,
+            "tile_flops": tile_flops,
+            "tile_flops_ms_at_tf32_peak": tile_flops / TF32_FLOPS_PER_S * 1e3,
+            "blocks_by_route": {nm: dict(zip(("tiles", "row_by_rule", "row_by_value"), c)) for nm, c in bwd_blocks.items()},
+            "err_vs_plain_of_max": bt_err,
+            "long_head_err_vs_blocks_plain_of_max": long_tile_err,
+            "long_head_tile_config": bl_config,
+            "row_kernel_ms": ms_backward,
+            "row_kernel_float64_ms": time_graph(lambda: k6_backward(q64, k64, v64, wts64, kb_out64)),
             "k5_dk_ms": ms_k5_dk,
             "k5_dv_ms": ms_k5_dv,
             "kernel_and_k5_ms": ms_backward_all,
             "k5_route": _cuda.row_sum_route(L, D, 4, True, slots, L + 1),
-            "bound_bytes": nbytes_b,
+            "row_kernel_bound_bytes": nbytes_b,
             "bound_flops": flops_b,
-            "bound_share": bound_b["bound_ms"] / ms_backward,
-            "gathered_bytes": 3 * slots * D * 4,
-            "gathered_tb_per_s": 3 * slots * D * 4 / (ms_backward * 1e-3) / 1e12,
-            "l2_floor_ms": 3 * slots * D * 4 / L2_ROW_BYTES_PER_S * 1e3,
-            "kernel_ms_l2_flushed": time_cold(kb_launch),
+            "row_kernel_bound_share": bound_b["bound_ms"] / ms_backward,
+            "row_kernel_gathered_bytes": 3 * slots * D * 4,
+            "row_kernel_gathered_tb_per_s": 3 * slots * D * 4 / (ms_backward * 1e-3) / 1e12,
+            "row_kernel_l2_floor_ms": 3 * slots * D * 4 / L2_ROW_BYTES_PER_S * 1e3,
+            "row_kernel_ms_l2_flushed": time_cold(kb_launch),
             "max_abs_err_vs_rows_plain": kb_err,
             "gradient_err_vs_plain": kb_grad_err,
             "long_head_gradient_err_vs_coo_route": long_grad_err,

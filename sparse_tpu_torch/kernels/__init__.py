@@ -15,8 +15,10 @@ attention, K6 (``ell_attention``, its CUDA kernels in ``csrc/attention.cu``:
 the tile route on the tensor cores over a block layout,
 ``build_attention_blocks``, and the row kernel; ``ell_attention_plain`` and
 the tile route's ``ell_attention_blocks_plain``) and its gradient (K6's
-backward kernel, then K5 by key over ``attention_slot_pattern``;
-``ell_attention_backward_plain``). ``minplus`` holds the
+backward kernels, its tile route on the same layout and its row kernel,
+then K5 by key over ``attention_slot_pattern``;
+``ell_attention_backward_plain`` and the tile route's
+``ell_attention_backward_blocks_plain``). ``minplus`` holds the
 shortest paths' per-destination ELL layout (``build_dest_ell``) and the
 min-plus relaxation round, K7 (``minplus_relax``, its CUDA kernel in
 ``csrc/minplus.cu``, and ``minplus_relax_plain``). ``_cuda`` builds and

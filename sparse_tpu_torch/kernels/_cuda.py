@@ -117,11 +117,12 @@ _SIGNATURES = {
             for it in ("i32", "i64")
         },
         **{
-            f"st_ell_attention_backward_{dt}_{it}": [_p, _i64, _p, _i64, _p, _i64, _p, _i64, _p, _p, *[_i64] * 5, _f64, _i64, _i64, _p, _p, _p, _p]
+            f"st_ell_attention_backward_{dt}_{it}": [_p, _i64, _p, _i64, _p, _i64, _p, _i64, _p, _p, *[_i64] * 5, _f64, _i64, _i64, _p, _i64, _p, _p, _p, _p]
             for dt in ("f32", "f64")
             for it in ("i32", "i64")
         },
         "st_ell_attention_tiles_f32": [_p, _i64, _p, _i64, _p, _i64, _p, _p, _p, _p, *[_i64] * 5, _f64, _i64, _p, _p, _p, _p],
+        "st_ell_attention_backward_tiles_f32": [*[_p, _i64] * 5, *[_p] * 6, *[_i64] * 6, _f64, _i64, *[_p] * 6],
     },
     "minplus": {
         f"st_minplus_relax_{dt}": [_p, _p, _p, _p, _p, *[_i64] * 3, _p, _p, _p, *[_i64] * 3, _p, _i64, _p]
@@ -153,6 +154,7 @@ LAUNCHES = {
     "ell_attention": 0,
     "ell_attention_tiles": 0,
     "ell_attention_backward": 0,
+    "ell_attention_backward_tiles": 0,
     "minplus_relax": 0,
 }
 
@@ -165,19 +167,22 @@ _libs = {}
 # zeroed ticket buffers of the kernels that finish split runs, by (device,
 # stream); every launch leaves its tickets zero
 _tickets = {}
-# K6's tile route's block counters, by device (attention_route_blocks)
+# K6's tile route's block counters, by device (attention_route_blocks), and
+# its backward's (attention_backward_route_blocks)
 _route_blocks = {}
+_bwd_route_blocks = {}
 
 
 def reset_launch_counts():
-    """Every launch counter to 0, K6's block counters on each device
-    (:func:`attention_route_blocks`) and the host library's call counters
-    (``native.CALLS``) with them."""
+    """Every launch counter to 0, K6's block counters and its backward's on
+    each device (:func:`attention_route_blocks`,
+    :func:`attention_backward_route_blocks`) and the host library's call
+    counters (``native.CALLS``) with them."""
     from .. import native
 
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for t in _route_blocks.values():
+    for t in (*_route_blocks.values(), *_bwd_route_blocks.values()):
         t.zero_()
     native.reset_calls()
 
@@ -1912,7 +1917,7 @@ def ell_attention(q, k, v, cols, valid, scale, out, scratch=None, block_route=No
     return out
 
 
-def ell_attention_backward(q, k, v, g, cols, valid, scale, dq, ds, p):
+def ell_attention_backward(q, k, v, g, cols, valid, scale, dq, ds, p, block_route=None, block_rows=0):
     """Launch K6's backward kernel: for each query row i, with ``p`` the
     masked softmax of :func:`ell_attention` recomputed, ``dP_j = g[i] ·
     v[cols[i, j]]``, ``δ = Σ_j p_j dP_j`` and ``dS = p ⊙ (dP − δ)`` on the
@@ -1921,8 +1926,11 @@ def ell_attention_backward(q, k, v, g, cols, valid, scale, dq, ds, p):
     reference's NaN rules: ``kernels.attention.ell_attention_backward_rows_plain``).
     ``q``, ``k``, ``v`` as for :func:`ell_attention`, ``g`` ``(L, dv)`` with
     unit stride along its rows; ``cols`` and ``valid`` contiguous; ``dq``
-    ``(L, d)``, ``ds`` and ``p`` ``(L, cap)``, contiguous. Counted
-    ``ell_attention_backward``."""
+    ``(L, d)``, ``ds`` and ``p`` ``(L, cap)``, contiguous. With
+    ``block_route`` (int32, one a block of ``block_rows`` rows, as
+    :func:`ell_attention_backward_tiles` writes it) only the rows of blocks
+    marked not 0 are computed, the rest of ``dq``, ``ds`` and ``p`` left as
+    they are. Counted ``ell_attention_backward``."""
     dtype, device = q.dtype, q.device
     require_cuda(device, "row-ELL attention")
     if dtype not in _SDDMM_ITEM:
@@ -1956,6 +1964,10 @@ def ell_attention_backward(q, k, v, g, cols, valid, scale, dq, ds, p):
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
         if not sddmm_k_major(t):
             raise ValueError(f"ell_attention_backward: {name} must have unit stride along its rows")
+    if block_route is not None:
+        _check("block_route", block_route, torch.int32, device)
+        if block_rows < 1 or block_route.shape != (-(-n_rows // block_rows),):
+            raise ValueError("ell_attention_backward: block_route must hold one entry a block of block_rows rows")
     if n_rows == 0:
         return dq, ds, p
     vec = all(sddmm_vec(t) for t in (q, k, v, g, dq))
@@ -1979,6 +1991,8 @@ def ell_attention_backward(q, k, v, g, cols, valid, scale, dq, ds, p):
         float(scale),
         int(vec),
         ell_attention_grid(n_rows, device),
+        None if block_route is None else block_route.data_ptr(),
+        block_rows,
         dq.data_ptr(),
         ds.data_ptr(),
         p.data_ptr(),
@@ -2130,6 +2144,179 @@ def ell_attention_tiles(q, k, v, blocks, scale, out, route, config):
     LAUNCHES["ell_attention_tiles"] += 1
     return out
 
+
+# K6's backward's tile route (csrc/attention.cu, tiles::
+# ell_attention_backward_tiles_kernel), float32, on the forward's block layout
+# (ATTENTION_BLOCK_ROWS rows a block): per block the recomputed (m, l), then
+# p̂, dP, dŝ and dQ a stage on the tensor cores (3xTF32), the strips written
+# by the layout's strip order. Its shapes by name, as the forward's: (config
+# id of the C entry point, rows a block, key slices, CTAs a block, union keys
+# a stage); chip_attention_ablation.py's `backward_tiles` measures others
+# beside them.
+ATTENTION_BWD_TILE_CONFIGS = {
+    "b64c32w16": (0, 64, 4, 1, 32),
+    "b64c32x2": (1, 64, 2, 2, 32),
+    "b64c16x2": (2, 64, 2, 2, 16),
+    "b64c32x2w16": (3, 64, 4, 2, 32),
+}
+# the shapes the backward takes, in order of preference, while twice the
+# blocks are at most the SMs ("few") and past that; the first that fits the
+# widths runs (b64c32x2 needs b64c32w16's shared memory, so it never follows
+# it). On an H100 at the window's width (d = dv = 64, 513 slots;
+# chip_attention_ablation.py backward_tiles, PERF.md §6): at L = 4,096
+# (64 blocks) a cluster of two CTAs of 16 warps a block took 0.1059 ms (one
+# CTA of 16 warps 0.1922, two of 8 warps 0.1129, two of 8 with 16-key stages
+# 0.1422); at 65,536 one CTA of 16 warps 1.5592 (a cluster of two of 16
+# warps 1.6978, two of 8 1.8717, two of 8 with 16-key stages 2.3084)
+ATTENTION_BWD_TILES_FEW = ("b64c32x2w16", "b64c32x2", "b64c16x2")
+ATTENTION_BWD_TILES_MANY = ("b64c32w16", "b64c16x2")
+ATTENTION_BWD_MAX_D = 128  # dQ's 16 rows of d a warp live in registers
+
+
+def attention_backward_tile_smem(config, d, dv):
+    """Dynamic shared memory of the backward tile route's shape ``config``
+    (``tiles::bwd_smem_plan``): qs's and g's hi and lo; two stages of k
+    rows, v rows (each padded by 4 floats) and counts, the split stage's
+    fragments (K twice, V once, hi and lo) and the strip tile (p̂ and dŝ,
+    rows of chunk + 8), or every warp's dQ of each CTA of a block where that
+    is larger; the rows' δ, shift and sum, the stage's run offsets, every
+    warp's (m, l), the CTAs' flag words."""
+    _, rows, slices, ctas, chunk = ATTENTION_BWD_TILE_CONFIGS[config]
+    stage = chunk * ((d + 4) * 4 + (dv + 4) * 4 + rows)
+    loop = rows * (d + dv) * 8 + 2 * stage + chunk * (2 * d + dv) * 8 + 2 * rows * (chunk + 8) * 4
+    merge = ctas * slices * rows * d * 4
+    return max(loop, merge) + rows * 12 + (chunk + 4) * 4 + ctas * slices * rows * 8 + 16
+
+
+def attention_backward_tiles_fit(d, dv, dtype, config):
+    """True when the backward tile route's shape ``config`` takes rows of
+    widths ``d`` and ``dv`` in ``dtype``: float32, both multiples of 8 up to
+    128 and the shared memory within a CTA's."""
+    return (
+        dtype == torch.float32
+        and 8 <= d <= ATTENTION_BWD_MAX_D
+        and d % 8 == 0
+        and 8 <= dv <= ATTENTION_MAX_DV
+        and dv % 8 == 0
+        and attention_backward_tile_smem(config, d, dv) <= _MAX_SMEM
+    )
+
+
+def attention_backward_tile_config(n_rows, d, dv, dtype, device):
+    """The backward tile route's shape for ``n_rows`` query rows of widths
+    ``d``, ``dv`` in ``dtype`` on ``device``: from
+    :data:`ATTENTION_BWD_TILES_FEW` while twice the blocks are at most the
+    SMs, else from :data:`ATTENTION_BWD_TILES_MANY`, the first that fits;
+    None where none does (float64, other widths), and K6's row backward
+    kernel runs alone."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    few = 2 * -(-n_rows // ATTENTION_BLOCK_ROWS) <= sms
+    for name in ATTENTION_BWD_TILES_FEW if few else ATTENTION_BWD_TILES_MANY:
+        if attention_backward_tiles_fit(d, dv, dtype, name):
+            return name
+    return None
+
+
+def attention_backward_route_blocks(device):
+    """The int64 counters ``[tile, row by the rule, row by non-finite
+    values]`` of the blocks the backward tile route took each way on
+    ``device`` since the last :func:`reset_launch_counts`, apart from the
+    forward's (:func:`attention_route_blocks`)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = _bwd_route_blocks.get(device)
+    if t is None:
+        t = _bwd_route_blocks[device] = torch.zeros(3, dtype=torch.int64, device=device)
+    return t
+
+
+def ell_attention_backward_tiles(q, k, v, g, out, blocks, strips, scale, dq, ds, p, route, config):
+    """Launch K6's backward tile route on the layout ``blocks``
+    (:class:`~sparse_tpu_torch.kernels.attention.AttentionBlocks`, its rows
+    a block those of ``config``) and its strip order ``strips``
+    (:class:`~sparse_tpu_torch.kernels.attention.StripOrder`): the blocks
+    it takes get their rows of ``dq`` and of the strips ``ds`` and ``p``,
+    what :func:`ell_attention_backward` writes; ``route`` (int32, one a block)
+    comes back 0 for those, 1 for a block the layout flags, 2 for one with a
+    non-finite value in its q, g or out rows or its union's k or v rows.
+    Those rows are the row kernel's (:func:`ell_attention_backward` with
+    ``block_route=route``). ``out`` is the forward's output (``δ = g ·
+    out``). ``q``, ``k``, ``v``, ``g``, ``out`` float32, rows of 16-byte
+    aligned unit-stride vectors; ``dq`` ``(L, d)``, ``ds`` and ``p`` ``(L,
+    cap)`` float32, contiguous. Counted ``ell_attention_backward_tiles``."""
+    cid, rows = ATTENTION_BWD_TILE_CONFIGS[config][:2]
+    device = q.device
+    require_cuda(device, "row-ELL attention")
+    for name, t in (("q", q), ("k", k), ("v", v), ("g", g), ("out", out)):
+        _check_device(t, torch.float32, device, name)
+        if t.ndim != 2 or not sddmm_k_major(t) or not sddmm_vec(t):
+            raise ValueError(f"ell_attention_backward_tiles: {name} must be 2-D rows of 16-byte aligned vectors")
+    n_rows, d = q.shape
+    n_keys, dv = v.shape
+    cap = blocks.cols.shape[1] if blocks.cols.ndim == 2 else -1
+    if k.shape != (n_keys, d) or g.shape != (n_rows, dv) or out.shape != (n_rows, dv):
+        raise ValueError("ell_attention_backward_tiles: q, k, v, g and out must be (L, d), (Lk, d), (Lk, dv), (L, dv) and (L, dv)")
+    if not attention_backward_tiles_fit(d, dv, torch.float32, config):
+        raise ValueError(f"ell_attention_backward_tiles: d = {d}, dv = {dv} do not fit the tile route")
+    if blocks.block != rows or blocks.n_keys != n_keys or blocks.n_rows != n_rows:
+        raise ValueError("ell_attention_backward_tiles: the layout was built for other rows, keys or block rows")
+    for name, t, shape in (("dq", dq, (n_rows, d)), ("ds", ds, (n_rows, cap)), ("p", p, (n_rows, cap))):
+        _check(name, t, torch.float32, device)
+        if t.shape != shape:
+            raise ValueError(f"ell_attention_backward_tiles: {name} must be {shape}")
+    _check("union", blocks.union, torch.int32, device)
+    _check("n_union", blocks.n_union, torch.int32, device)
+    _check("count", blocks.count, torch.uint8, device)
+    _check("flag", blocks.flag, torch.bool, device)
+    _check("order", strips.order, torch.int32, device)
+    _check("begin", strips.begin, torch.int32, device)
+    n_blocks, u_cap = blocks.union.shape
+    n_groups = -(-u_cap // 8)  # kernels.attention.PLACE_GROUP
+    if strips.order.shape != (n_rows * cap,) or strips.begin.shape != (n_blocks, n_groups + 2) or not 1 <= cap <= 2**31 // (rows * 8):
+        raise ValueError("ell_attention_backward_tiles: the strip order does not match the layout's pattern")
+    _check("route", route, torch.int32, device)
+    if route.shape != (n_blocks,):
+        raise ValueError("ell_attention_backward_tiles: route must hold one entry a block")
+    if n_blocks == 0:
+        return dq, ds, p
+    counters = attention_backward_route_blocks(device)
+    fn = load("attention").st_ell_attention_backward_tiles_f32
+    err = fn(
+        q.data_ptr(),
+        q.stride(0),
+        k.data_ptr(),
+        k.stride(0),
+        v.data_ptr(),
+        v.stride(0),
+        g.data_ptr(),
+        g.stride(0),
+        out.data_ptr(),
+        out.stride(0),
+        blocks.union.data_ptr(),
+        blocks.n_union.data_ptr(),
+        blocks.count.data_ptr(),
+        blocks.flag.data_ptr(),
+        strips.order.data_ptr(),
+        strips.begin.data_ptr(),
+        n_rows,
+        n_blocks,
+        u_cap,
+        cap,
+        d,
+        dv,
+        float(scale),
+        cid,
+        dq.data_ptr(),
+        ds.data_ptr(),
+        p.data_ptr(),
+        route.data_ptr(),
+        counters.data_ptr(),
+        _stream(device),
+    )
+    _raise_on(err, "ell_attention_backward_tiles")
+    LAUNCHES["ell_attention_backward_tiles"] += 1
+    return dq, ds, p
 
 # K7's routes (csrc/minplus.cu), the same kernel and the same bits; the route
 # rule (minplus_route) reads sizes alone, from chip_minplus_ablation.py's

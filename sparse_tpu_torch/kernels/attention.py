@@ -18,12 +18,20 @@ way). ``ell_attention_blocks_plain`` runs the tile route's arithmetic in
 torch ops.
 
 The gradient is a ``torch.autograd.Function``. For float32/float64 on the
-GPU its backward launches K6's backward kernel (a warp a query row: the
-scores again, ``dP``, the softmax, ``δ``, ``dS`` and ``dq``; counted
-``ell_attention_backward``), then K5 (``kernels.dot``'s fixed-order row
-sum) twice over the pattern's slots by key, for ``dk`` and ``dv``, or
-raises; on the CPU, and for other dtypes, ``ell_attention_backward_plain``
-runs the same decomposition in torch ops.
+GPU its backward launches K6's backward kernels, then K5 (``kernels.dot``'s
+fixed-order row sum) twice over the pattern's slots by key, for ``dk`` and
+``dv``, or raises. float32 rows whose widths fit
+(:func:`~sparse_tpu_torch.kernels._cuda.attention_backward_tile_config`)
+take the backward's tile route first, on the forward's block layout: the
+row maxima and sums again, then ``p̂``, ``dP``, ``dŝ`` and ``dq`` on the
+tensor cores and the strips ``ds`` and ``p`` by each slot's union index
+(counted ``ell_attention_backward_tiles``); the row backward kernel (a warp
+a query row: the scores again, ``dP``, the softmax, ``δ``, ``dS`` and
+``dq``; counted ``ell_attention_backward``) takes the blocks it leaves, or
+every row for float64 and the other widths.
+``ell_attention_backward_blocks_plain`` runs the tile route's arithmetic in
+torch ops. On the CPU, and for other dtypes, ``ell_attention_backward_plain``
+runs the row decomposition in torch ops.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ _KERNEL_DTYPES = (torch.float32, torch.float64)
 # table allows (PERF.md)
 ATTENTION_UNION_RATIO = 12.0
 _COUNT_MAX = 255  # counts are uint8: a block past it takes the row route
+PLACE_GROUP = 8  # union places a group of the backward's strip order (csrc/attention.cu's kPlaceGroup)
 
 
 def _take_rows(table, idx):
@@ -171,6 +180,26 @@ class AttentionBlocks(NamedTuple):
     valid: torch.Tensor
 
 
+class StripOrder(NamedTuple):
+    """The order in which the backward's tile route writes the strips of an
+    :class:`AttentionBlocks`, its union places in groups of ``PLACE_GROUP``
+    (8, a divisor of every stage). ``order`` ``(L · cap,)`` int32: each
+    block's slots in the block's own span ``[b · block · cap, ...)``, its
+    counted slots (a valid slot inside the table whose key the layout
+    keeps) by group of places, then row, then place, then slot, its other
+    slots after them, each as ``8 · (r · cap + j) + place % 8`` (``r · cap
+    + j`` the slot within the block). ``begin`` ``(n_blocks, ⌈u_cap / 8⌉ +
+    2)`` int32: where in the block's span each group begins, then where the
+    others do and the span's end (:func:`union_places` gives each slot its
+    place). A stage's slots are one run of it, and a row's slots of a group
+    lie side by side in the strips: a warp's stores of a run share few
+    sectors. Only the backward reads it, so it is built apart from the
+    layout (:func:`attention_strip_order`)."""
+
+    order: torch.Tensor
+    begin: torch.Tensor
+
+
 def union_capacity(cap, n_keys, block, ratio=ATTENTION_UNION_RATIO):
     """Keys a block's union keeps: ``ratio · cap`` (the route rule), at most
     the keys ``block`` rows of ``cap`` slots can name, at least 1."""
@@ -240,6 +269,40 @@ def build_attention_blocks(e_cols, valid, n_keys, block, ratio=ATTENTION_UNION_R
     )
 
 
+def build_strip_order(blocks):
+    """The :class:`StripOrder` of the layout ``blocks`` on its device, by
+    torch ops and nothing read back: each slot's union place by a search of
+    its key among its block's kept union (every block's keys sorted, its
+    padding after them), then one stable sort of every slot by block, group
+    of places (the others last), row and place, ``begin`` by
+    ``searchsorted`` on it."""
+    e_cols, valid = blocks.cols, blocks.valid
+    n_rows, cap = e_cols.shape
+    n_blocks, u_cap = blocks.union.shape
+    block, n_keys, dev = blocks.block, blocks.n_keys, e_cols.device
+    c = e_cols.long()
+    c = torch.where(c < 0, c + n_keys, c)
+    inside = (c >= 0) & (c < n_keys)
+    row = torch.arange(n_rows, device=dev)
+    blk = torch.div(row, block, rounding_mode="floor")
+    live = torch.arange(u_cap, device=dev)[None, :] < blocks.n_union[:, None].long()
+    table = (torch.arange(n_blocks, device=dev)[:, None] * (n_keys + 1) + torch.where(live, blocks.union.long(), n_keys)).reshape(-1)
+    want = blk[:, None] * (n_keys + 1) + c.clamp(0, n_keys - 1)
+    at = torch.searchsorted(table, want.reshape(-1)).view(n_rows, cap).clamp_(max=max(table.numel() - 1, 0))
+    counted = valid & inside & (table[at] == want)
+    place = at - blk[:, None] * u_cap
+    n_groups = -(-u_cap // PLACE_GROUP)
+    group = torch.where(counted, torch.div(place, PLACE_GROUP, rounding_mode="floor"), n_groups)
+    sub = torch.where(counted, place % PLACE_GROUP, 0)
+    rank = ((blk[:, None] * (n_groups + 1) + group) * block + (row - blk * block)[:, None]) * PLACE_GROUP + sub
+    rank, order = torch.sort(rank.reshape(-1), stable=True)
+    span = block * cap
+    bounds = (torch.arange(n_blocks, device=dev)[:, None] * (n_groups + 1) + torch.arange(n_groups + 2, device=dev)) * block
+    begin = torch.searchsorted(rank, bounds * PLACE_GROUP) - torch.arange(n_blocks, device=dev)[:, None] * span
+    order = (order % span) * PLACE_GROUP + sub.reshape(-1)[order]
+    return StripOrder(order.to(torch.int32), begin.to(torch.int32))
+
+
 _BLOCKS_MEMO_SIZE = 8
 # (id(e_cols), id(valid)) -> {(n_keys, block): AttentionBlocks}, with the
 # sources' version counters (an entry holds its sources: ids stay theirs)
@@ -273,6 +336,19 @@ def attention_blocks(e_cols, valid, n_keys, block, layouts=None):
     if blocks is None:
         blocks = layouts[(n_keys, block)] = build_attention_blocks(e_cols, valid, n_keys, block)
     return blocks
+
+
+def attention_strip_order(e_cols, valid, n_keys, block, layouts=None):
+    """The :class:`StripOrder` of :func:`attention_blocks`'s layout, built
+    the first time a backward asks for it and kept beside the layout
+    (:func:`_kept_layouts`), so a caller that runs no backward pays
+    nothing for it."""
+    layouts = _kept_layouts(e_cols, valid, layouts)
+    key = ("strips", n_keys, block)
+    strips = layouts.get(key)
+    if strips is None:
+        strips = layouts[key] = build_strip_order(attention_blocks(e_cols, valid, n_keys, block, layouts))
+    return strips
 
 
 def attention_slot_pattern(e_cols, valid, n_keys, layouts=None):
@@ -349,6 +425,113 @@ def ell_attention_blocks_plain(q, k, v, blocks, scale, chunk=64):
     return torch.where(by_row[:, None], ell_attention_plain(q, k, v, blocks.cols, blocks.valid, scale), out)
 
 
+def union_places(blocks, strips):
+    """Each slot's place in its block's union from the strip order
+    ``strips`` of the layout ``blocks`` (:class:`StripOrder`), ``(L, cap)``
+    int64, -1 for a slot the layout does not count (invalid, outside the
+    table, past ``u_cap``)."""
+    n_blocks = blocks.union.shape[0]
+    n_rows, cap = blocks.cols.shape
+    n_groups = strips.begin.shape[1] - 2
+    span, dev = blocks.block * cap, strips.order.device
+    at = torch.arange(n_rows * cap, device=dev)  # a position of the order: its block, its place in the span
+    b = torch.div(at, span, rounding_mode="floor")
+    rel = torch.zeros(n_blocks * span, dtype=torch.int64, device=dev)
+    rel[: at.numel()] = at - b * span
+    group = torch.searchsorted(strips.begin[:, 1 : n_groups + 1].contiguous().long(), rel.view(n_blocks, span), right=True)
+    group = group.reshape(-1)[: at.numel()]
+    entry = strips.order.long()
+    place = torch.where(group < n_groups, group * PLACE_GROUP + entry % PLACE_GROUP, -1)
+    places = torch.empty(n_rows * cap, dtype=torch.int64, device=dev)
+    places[b * span + torch.div(entry, PLACE_GROUP, rounding_mode="floor")] = place
+    return places.view(n_rows, cap)
+
+
+def _backward_block_route(q, k, v, g, out, blocks, scale):
+    """Per block, True where the backward's tile route leaves it to the row
+    kernel: :func:`_block_route`'s rule, or a non-finite value among its g
+    or out rows."""
+    n_blocks = blocks.union.shape[0]
+    bad = torch.zeros(n_blocks * blocks.block, dtype=torch.bool, device=q.device)
+    bad[: q.shape[0]] = ~(torch.isfinite(g).all(1) & torch.isfinite(out).all(1))
+    return _block_route(q, k, v, blocks, scale) | bad.view(n_blocks, -1).any(1)
+
+
+def ell_attention_backward_blocks_plain(q, k, v, g, out, blocks, scale, chunk=64):
+    """The backward tile route's arithmetic in torch ops, on any device:
+    ``(dq, ds, p)`` as :func:`ell_attention_backward_rows_plain` gives them,
+    ``out`` the forward's output. For each block, ``δ = g · out`` a row;
+    pass 1 over the union in chunks of ``chunk`` keys: scores ``qs · kᵀ``
+    and, where a count is not 0, the running row maximum ``m`` (an empty
+    row's shift 0) and ``l = Σ count · exp(s − m)`` (0 counts as 1); pass 2
+    over the same chunks: ``p̂ = exp(s − m) / l`` where a count is not 0,
+    ``dP = g · vᵀ``, ``dŝ = p̂ (dP − δ)``, ``dq += (count ⊙ dŝ) · k``, and
+    each slot's ``p̂`` and ``dŝ`` by its union place (:func:`union_places`
+    of :func:`build_strip_order`; 0 and 0 where it has none); ``dq``
+    scaled once. The blocks the kernel leaves to its row kernel
+    (:func:`_backward_block_route`) take
+    ``ell_attention_backward_rows_plain`` on their rows alone, so no ``(L,
+    cap, d + dv)`` block is built."""
+    d = q.shape[1]
+    n_blocks, u_cap = blocks.union.shape
+    B, L = blocks.block, q.shape[0]
+    dt, dev = q.dtype, q.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def by_blocks(x):
+        y = torch.zeros((n_blocks * B, x.shape[1]), dtype=dt, device=dev)
+        y[:L] = x
+        return y.view(n_blocks, B, -1)
+
+    qb, gb = by_blocks(q * scale), by_blocks(g)
+    delta = by_blocks((g * out).sum(1, keepdim=True))[..., 0]
+    pos = torch.arange(u_cap, device=dev)
+    # the union's longest kept run; past it every chunk is padding (a read back: this is no path's code)
+    starts = range(0, int(blocks.n_union.max().clamp(max=u_cap)) if n_blocks else 0, chunk)
+
+    def chunk_of(c0):
+        idx = blocks.union[:, c0 : c0 + chunk].long()
+        live = (pos[c0 : c0 + chunk][None, :] < blocks.n_union[:, None].long())[..., None]
+        cnt = blocks.count[:, c0 : c0 + chunk, :].transpose(1, 2).to(dt)  # (n_blocks, B, C)
+        return torch.where(live, k[idx], zero), torch.where(live, v[idx], zero), cnt
+
+    m = torch.full((n_blocks, B), float("-inf"), dtype=dt, device=dev)
+    l_run = torch.zeros((n_blocks, B), dtype=dt, device=dev)
+    for c0 in starts:
+        kc, _, cnt = chunk_of(c0)
+        s = torch.matmul(qb, kc.transpose(1, 2))
+        named = cnt != 0
+        m_new = torch.maximum(m, torch.where(named, s, float("-inf")).amax(-1))
+        alpha = torch.where(m == float("-inf"), zero, torch.exp(m - m_new))
+        shift = torch.where(m_new == float("-inf"), zero, m_new)
+        l_run = l_run * alpha + torch.where(named, cnt * torch.exp(s - shift[..., None]), zero).sum(-1)
+        m = m_new
+    shift = torch.where(m == float("-inf"), zero, m)[..., None]
+    l_run = torch.where(l_run == 0, torch.ones_like(l_run), l_run)[..., None]
+    dqb = torch.zeros((n_blocks, B, d), dtype=dt, device=dev)
+    slot = union_places(blocks, build_strip_order(blocks))
+    ds = torch.zeros(slot.shape, dtype=dt, device=dev)
+    p = torch.zeros(slot.shape, dtype=dt, device=dev)
+    for c0 in starts:
+        kc, vc, cnt = chunk_of(c0)
+        s = torch.matmul(qb, kc.transpose(1, 2))
+        p_hat = torch.where(cnt != 0, torch.exp(s - shift) / l_run, zero)
+        ds_hat = p_hat * (torch.matmul(gb, vc.transpose(1, 2)) - delta[..., None])
+        dqb += torch.matmul(cnt * ds_hat, kc)
+        width = kc.shape[1]
+        here = (slot >= c0) & (slot < c0 + width)
+        at = (slot - c0).clamp(0, width - 1)
+        p = torch.where(here, p_hat.reshape(n_blocks * B, width)[:L].gather(1, at), p)
+        ds = torch.where(here, ds_hat.reshape(n_blocks * B, width)[:L].gather(1, at), ds)
+    dq = dqb.reshape(-1, d)[:L] * scale
+    by_row = _backward_block_route(q, k, v, g, out, blocks, scale).repeat_interleave(B)[:L]
+    rows = by_row.nonzero().flatten()
+    if rows.numel():
+        rq, rds, rp = ell_attention_backward_rows_plain(q[rows], k, v, blocks.cols[rows], blocks.valid[rows], scale, g[rows])
+        dq[rows], ds[rows], p[rows] = rq, rds, rp
+    return dq, ds, p
+
+
 def _aligned(t):
     """``t`` itself where the tile route reads it in place (rows of 16-byte
     aligned vectors), else a fresh copy."""
@@ -378,7 +561,8 @@ def _ell_attention_forward(q, k, v, e_cols, valid, scale, layouts=None):
     )
 
 
-def _ell_attention_backward(q, k, v, e_cols, valid, scale, g, layouts=None):
+def _ell_attention_backward(q, k, v, e_cols, valid, scale, g, out, layouts=None):
+    """``(dq, dk, dv)`` against ``g``; ``out`` the forward's output."""
     if q.device.type == "cpu" or q.dtype not in _KERNEL_DTYPES:
         return ell_attention_backward_plain(q, k, v, e_cols, valid, scale, g)
     _cuda.require_cuda(q.device, "row-ELL attention")
@@ -388,7 +572,20 @@ def _ell_attention_backward(q, k, v, e_cols, valid, scale, g, layouts=None):
     ds = torch.empty((n_rows, cap), dtype=q.dtype, device=q.device)
     p = torch.empty((n_rows, cap), dtype=q.dtype, device=q.device)
     q_, k_, v_, g_ = (t if _cuda.sddmm_k_major(t) else t.contiguous() for t in (q, k, v, g))
-    _cuda.ell_attention_backward(q_, k_, v_, g_, e_cols.contiguous(), valid.contiguous(), scale, dq, ds, p)
+    route, rows_a_block = None, 0
+    config = _cuda.attention_backward_tile_config(n_rows, q.shape[1], v.shape[1], q.dtype, q.device) if n_rows else None
+    if config is not None:
+        rows_a_block = _cuda.ATTENTION_BLOCK_ROWS
+        blocks = attention_blocks(e_cols, valid, n_keys, rows_a_block, layouts)
+        strips = attention_strip_order(e_cols, valid, n_keys, rows_a_block, layouts)
+        route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=q.device)
+        g_ = _aligned(g_)
+        _cuda.ell_attention_backward_tiles(
+            _aligned(q), _aligned(k), _aligned(v), g_, _aligned(out), blocks, strips, scale, dq, ds, p, route, config
+        )
+    _cuda.ell_attention_backward(
+        q_, k_, v_, g_, e_cols.contiguous(), valid.contiguous(), scale, dq, ds, p, block_route=route, block_rows=rows_a_block
+    )
     pattern = attention_slot_pattern(e_cols, valid, n_keys, layouts)
     dk = _row_sum_forward(pattern, 1, ds.view(-1), q * scale)
     dv = _row_sum_forward(pattern, 1, p.view(-1), g_)
@@ -396,25 +593,29 @@ def _ell_attention_backward(q, k, v, e_cols, valid, scale, g, layouts=None):
 
 
 class _EllAttention(torch.autograd.Function):
-    """K6 forward (plain on the CPU and for dtypes K6 does not take). Its
-    backward, once differentiable: for float32/float64 on the GPU, K6's
-    backward kernel (``dq`` and the slot weights ``dS`` and ``p``), then
-    ``dk`` and ``dv`` by K5 over :func:`attention_slot_pattern`, or a raise;
-    elsewhere :func:`ell_attention_backward_plain`."""
+    """K6 forward (plain on the CPU and for dtypes K6 does not take), its
+    output kept for the backward's ``δ``. Its backward, once
+    differentiable: for float32/float64 on the GPU, K6's backward kernels
+    (the tile route where it fits, then the row kernel on what it leaves:
+    ``dq`` and the slot weights ``dS`` and ``p``), then ``dk`` and ``dv`` by
+    K5 over :func:`attention_slot_pattern`, or a raise; elsewhere
+    :func:`ell_attention_backward_plain`."""
 
     @staticmethod
     def forward(ctx, q, k, v, e_cols, valid, scale, layouts):
-        ctx.save_for_backward(q, k, v, e_cols, valid)
         ctx.scale, ctx.layouts = scale, layouts
         if q.dtype not in _KERNEL_DTYPES:
-            return ell_attention_plain(q, k, v, e_cols, valid, scale)
-        return _ell_attention_forward(q, k, v, e_cols, valid, scale, layouts)
+            out = ell_attention_plain(q, k, v, e_cols, valid, scale)
+        else:
+            out = _ell_attention_forward(q, k, v, e_cols, valid, scale, layouts)
+        ctx.save_for_backward(q, k, v, e_cols, valid, out)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v, e_cols, valid = ctx.saved_tensors
-        grads = _ell_attention_backward(q, k, v, e_cols, valid, ctx.scale, g, ctx.layouts)
+        q, k, v, e_cols, valid, out = ctx.saved_tensors
+        grads = _ell_attention_backward(q, k, v, e_cols, valid, ctx.scale, g, out, ctx.layouts)
         return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad[:3])), None, None, None, None)
 
 
@@ -429,8 +630,9 @@ def ell_attention(q, k, v, e_cols, valid, *, scale=None, layouts=None):
     float32/float64 on the GPU launch K6 (``csrc/attention.cu``) or raise:
     float32 rows that fit its tile route take it, with the row kernel on the
     blocks it leaves; the rest the row kernel alone. The gradient launches
-    K6's backward kernel and K5 twice (``dk``, ``dv``). The tile route's
-    layout (:func:`attention_blocks`) and the backward's slot pattern
+    K6's backward kernels (the same two routes) and K5 twice (``dk``,
+    ``dv``). The tile route's layout (:func:`attention_blocks`), the
+    backward's strip order (:func:`attention_strip_order`) and slot pattern
     (:func:`attention_slot_pattern`) are kept in ``layouts`` where the
     caller gives a dict, else by the identity of ``e_cols`` and ``valid``.
     On the CPU, and for other dtypes on any device, the plain versions run

@@ -19,7 +19,9 @@
 // kernels: the row kernel just below, for every input, and the tile route
 // further down (float32, widths multiples of 8), which takes a block of query
 // rows against the union of their keys on the tensor cores and leaves to the
-// row kernel the blocks it cannot take.
+// row kernel the blocks it cannot take. Its backward has the same two: a row
+// backward kernel, and a tile route on the same block layout (float32, widths
+// multiples of 8 up to 128) that leaves it the same kind of blocks.
 //
 // The row kernel. Bound: bytes. From HBM, q, e_cols, valid and out once, and
 // the k and v tables once (the distinct rows); the L * cap gathered k rows and
@@ -393,7 +395,9 @@ int launch(const void* q, long long ldq, const void* k, long long ldk, const voi
 // valid slot outside the table or a non-finite v value in a valid slot has
 // p all NaN, as the reference's scores over the packed row make it.
 //
-// Design: the row kernel's persistent grid and warp a row. Each row's two
+// Design: the row kernel's persistent grid and warp a row (with a
+// block_route, only the rows of the blocks the backward's tile route marked,
+// as the forward's row kernel filters). Each row's two
 // output rows of p and ds are its strips (no shared memory, no scratch, at
 // any cap): pass 1 reads each slot's k row (padding slots too, for their
 // finiteness) and writes the scores to p in K6's lane order and butterfly,
@@ -424,7 +428,8 @@ __global__ void __launch_bounds__(kThreads, ATTENTION_BWD_MIN_BLOCKS)
                                   const T* __restrict__ v, long long ldv, const T* __restrict__ g, long long ldg,
                                   const I* __restrict__ cols, const unsigned char* __restrict__ valid,
                                   long long n_rows, long long n_keys, long long cap, long long d, long long dv,
-                                  T scale, T* __restrict__ dq, T* __restrict__ ds, T* __restrict__ p) {
+                                  T scale, const int* __restrict__ block_route, long long block_rows,
+                                  T* __restrict__ dq, T* __restrict__ ds, T* __restrict__ p) {
   using VT = typename Vec<T>::type;
   constexpr int V = Vec<T>::width;
   const int lane = threadIdx.x % kWarp;
@@ -436,6 +441,7 @@ __global__ void __launch_bounds__(kThreads, ATTENTION_BWD_MIN_BLOCKS)
   const T nan = T(NAN);
 
   for (long long row = warp; row < n_rows; row += n_warps) {
+    if (block_route != nullptr && block_route[row / block_rows] == 0) continue;  // the tile route wrote it
     const T* qr = q + row * ldq;
     const T* gr = g + row * ldg;
     const I* cr = cols + row * cap;
@@ -663,9 +669,12 @@ template <typename T, typename I>
 int launch_backward(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
                     const void* g, long long ldg, const void* cols, const void* valid, long long n_rows,
                     long long n_keys, long long cap, long long d, long long dv, double scale, long long vec,
-                    long long max_blocks, void* dq, void* ds, void* p, void* stream) {
+                    long long max_blocks, const void* block_route, long long block_rows, void* dq, void* ds, void* p,
+                    void* stream) {
   if (n_rows <= 0) return 0;
-  if (cap < 1 || n_keys < 1 || max_blocks < 1 || d < 0 || dv < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (cap < 1 || n_keys < 1 || max_blocks < 1 || d < 0 || dv < 0 || (block_route != nullptr && block_rows < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long wanted = (n_rows + kWarps - 1) / kWarps;
   const long long blocks = wanted < max_blocks ? wanted : max_blocks;
   auto st = static_cast<cudaStream_t>(stream);
@@ -678,14 +687,14 @@ int launch_backward(const void* q, long long ldq, const void* k, long long ldk, 
   T* dqp = static_cast<T*>(dq);
   T* dsp = static_cast<T*>(ds);
   T* pp = static_cast<T*>(p);
+  const int* rp = static_cast<const int*>(block_route);
   const T s = static_cast<T>(scale);
   if (vec) {
-    ell_attention_backward_kernel<T, I, true><<<blocks, kThreads, 0, st>>>(qp, ldq, kp, ldk, vp, ldv, gp, ldg, cp, okp,
-                                                                            n_rows, n_keys, cap, d, dv, s, dqp, dsp, pp);
+    ell_attention_backward_kernel<T, I, true><<<blocks, kThreads, 0, st>>>(
+        qp, ldq, kp, ldk, vp, ldv, gp, ldg, cp, okp, n_rows, n_keys, cap, d, dv, s, rp, block_rows, dqp, dsp, pp);
   } else {
-    ell_attention_backward_kernel<T, I, false><<<blocks, kThreads, 0, st>>>(qp, ldq, kp, ldk, vp, ldv, gp, ldg, cp,
-                                                                             okp, n_rows, n_keys, cap, d, dv, s, dqp,
-                                                                             dsp, pp);
+    ell_attention_backward_kernel<T, I, false><<<blocks, kThreads, 0, st>>>(
+        qp, ldq, kp, ldk, vp, ldv, gp, ldg, cp, okp, n_rows, n_keys, cap, d, dv, s, rp, block_rows, dqp, dsp, pp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1222,6 +1231,607 @@ int launch_tiles(const float* q, long long ldq, const float* k, long long ldk, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K6's backward, the tile route (float32): a block of BQ consecutive query
+// rows against the union of its keys, on the layout of the forward's tile
+// route, the products on the tensor cores in 3xTF32. It writes what the row
+// backward kernel writes, dq (L, d) and the strips ds and p (L, cap) in slot
+// order, for the blocks it takes; dk and dv stay K5's over the slot pattern.
+//
+// For block b (its union U, counts c[u, r] as in the forward), per row r:
+//   prologue  qs = scale * q rounded and the g rows, split once into hi/lo
+//             fragments in shared memory; δ_r = g_r · out_r over dv by a
+//             warp (lanes in order, an xor butterfly), out the forward's
+//             output (FlashAttention-2's δ, Σ_j p_j dP_j up to rounding);
+//   pass 1    the union's k rows (and v rows, for the finiteness check)
+//             and counts staged by cp.async, double-buffered; S = qs · Kᵀ;
+//             where a count is not 0, the running maximum m (an empty row's
+//             shift 0) and l = Σ c · exp(s − m); the key slices' and the
+//             cluster's (m, l) merged in one order, rank then key slice,
+//             every CTA the same bits; l = 0 counts as 1;
+//   pass 2    k rows, v rows and counts again; S again, p̂ = exp(S − m) / l
+//             where c is not 0 (else 0), dP = g · Vᵀ (V in the place K
+//             takes in S), dŝ = p̂ (dP − δ), dQ += (c ⊙ dŝ) · K (K the B
+//             operand over keys as V is in the forward's P · V, the
+//             accumulator the A operand by the same key order);
+//   strips    each stage's p̂ and dŝ go to a tile in shared memory; each
+//             slot of the block whose union place falls in the stage gets
+//             them, each slot with none (an invalid slot) 0 and 0, written
+//             once by the first stage of the first CTA. The layout keeps
+//             each block's slots sorted by group of 8 union places, then
+//             row (`order`, `begin`), so a stage's slots are one run of it,
+//             read once, a row's slots of a group stored side by side;
+//   epilogue  the key slices' and CTAs' dQ partials summed in one order
+//             (rank then key slice) on the first CTA; dq = scale * dQ.
+// No atomics on values, one order: two launches give the same bits.
+//
+// A block the layout flags, or with a non-finite value in its q, g or out
+// rows or in its union's k or v rows (found in pass 1, before anything is
+// written), writes nothing and is marked in `route` (1, 2), as the
+// forward's tile route marks it; the row backward kernel then takes its rows
+// (a second launch, filtered by `route` on the card). `route_blocks[0..2]`
+// count the blocks each way (one atomic a block).
+//
+// Bound: bytes. From HBM q, g, out and dq once, the union rows of k and v
+// once a block (twice from L2: one stream a pass), the counts, the layout's
+// order and the two strips; the products are 2 BQ |U| (3d + dv) a block (S
+// in both passes, dP, dQ), three passes of the tensor cores each.
+#ifndef ATTENTION_BWD_PASS1_ONLY
+#define ATTENTION_BWD_PASS1_ONLY 0  // chip_attention_ablation.py's build: pass 1 timed alone
+#endif
+
+constexpr int kPlaceGroup = 8;  // union places a group of the strip order (kernels/attention.py: PLACE_GROUP)
+
+struct BwdSmem {
+  long long kbytes;       // a stage's k rows
+  long long vbytes;       // its v rows
+  long long stage_bytes;  // k rows, v rows, counts
+  long long raw;          // offset of the two stages (qs's and g's fragments lie before them)
+  long long frag;         // offset of the split stage: K for S, K for dQ, V for dP
+  long long tile;         // offset of the stage's p̂ and dŝ, BQ rows of CH + 8 each
+  long long rows;         // offset of the rows' δ, shift and sum, the stage's run offsets
+  long long part;         // offset of every warp's (m, l)
+  long long total;        // bytes in all, the CTAs' flag words last
+};
+
+__host__ __device__ inline BwdSmem bwd_smem_plan(int bq, int ks, int cl, int ch, long long d, long long dv) {
+  BwdSmem s;
+  s.kbytes = static_cast<long long>(ch) * (d + kPad) * 4;
+  s.vbytes = static_cast<long long>(ch) * (dv + kPad) * 4;
+  s.stage_bytes = s.kbytes + s.vbytes + static_cast<long long>(ch) * bq;
+  s.raw = static_cast<long long>(bq) * (d + dv) * 8;
+  s.frag = s.raw + 2 * s.stage_bytes;
+  s.tile = s.frag + static_cast<long long>(ch) * (2 * d + dv) * 8;
+  const long long loop_end = s.tile + 2LL * bq * (ch + 8) * 4;
+  const long long merge = static_cast<long long>(cl) * ks * bq * d * 4;  // every warp's dQ, a slot a CTA, over all before
+  s.rows = loop_end > merge ? loop_end : merge;
+  s.part = s.rows + static_cast<long long>(bq) * 3 * 4 + static_cast<long long>(ch + 4) * 4;
+  s.total = s.part + static_cast<long long>(cl) * ks * bq * 2 * 4 + 16;
+  return s;
+}
+
+template <int BQ, int KS, int CL, int DT, int CH>
+__global__ void __launch_bounds__(BQ / 16 * KS * 32)
+    ell_attention_backward_tiles_kernel(const float* __restrict__ q, long long ldq, const float* __restrict__ k,
+                                        long long ldk, const float* __restrict__ v, long long ldv,
+                                        const float* __restrict__ gq, long long ldg, const float* __restrict__ o,
+                                        long long ldo, const int* __restrict__ keys, const int* __restrict__ n_union,
+                                        const unsigned char* __restrict__ count, const unsigned char* __restrict__ flag,
+                                        const int* __restrict__ order, const int* __restrict__ begin,
+                                        long long n_rows, long long u_cap, long long cap, int d,
+                                        int dv, float scale, float* __restrict__ dq, float* __restrict__ ds,
+                                        float* __restrict__ p, int* __restrict__ route,
+                                        unsigned long long* __restrict__ route_blocks) {
+  constexpr int kGroups = BQ / 16;  // row groups
+  constexpr int kWarps = kGroups * KS;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kKeysW = CH / KS;  // a warp's keys of a stage
+  constexpr int kNT = kKeysW / 8;  // its 8-key tiles
+  constexpr int kND = DT / 8;      // 8-column tiles of dQ, at most
+  constexpr int kTL = CH + 8;      // the strip tile's row stride: a half warp's float2 stores hit 32 banks
+  constexpr int kStageGroups = CH / kPlaceGroup;  // groups of places of the strip order a stage
+  static_assert(BQ % 16 == 0 && CH % (8 * KS) == 0 && (CL == 1 || CL == 2) && kThreads % BQ == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int rg = wid % kGroups, ks = wid / kGroups;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+  const long long b = blockIdx.x / CL;
+  const BwdSmem plan = bwd_smem_plan(BQ, KS, CL, CH, d, dv);
+  float* qf = reinterpret_cast<float*>(smem);                // qs's A fragments: [tile (row group, k8)][lane][hi 4, lo 4]
+  float* gf = qf + static_cast<long long>(BQ) * d * 2;       // g's, over dv
+  float4* kf = reinterpret_cast<float4*>(smem + plan.frag);  // K for S: [key tile][d / 8][lane]
+  float4* kn = kf + CH / 8 * (d / 8) * 32;                   // K for dQ: [key tile][d / 8][lane]
+  float4* vk = kn + CH / 8 * (d / 8) * 32;                   // V for dP: [key tile][dv / 8][lane]
+  float* tp = reinterpret_cast<float*>(smem + plan.tile);    // the stage's p̂: [row][kTL]
+  float* td = tp + BQ * kTL;                                 // its dŝ
+  float* row_delta = reinterpret_cast<float*>(smem + plan.rows);
+  float* row_shift = row_delta + BQ;
+  float* row_sum = row_shift + BQ;
+  int* stage_runs = reinterpret_cast<int*>(row_sum + BQ);   // where the stage's groups' runs begin, and its end
+  float* part_m = reinterpret_cast<float*>(smem + plan.part);  // [rank][warp][16 rows]
+  float* part_l = part_m + CL * kWarps * 16;
+  int* bad_word = reinterpret_cast<int*>(smem + plan.total - 16);
+
+  if (flag[b]) {  // the row kernel takes the block: every CTA of the cluster leaves here
+    if (rank == 0 && tid == 0) {
+      route[b] = 1;
+      atomicAdd(route_blocks + 1, 1ull);
+    }
+    return;
+  }
+  const long long n_u = n_union[b];
+  const long long row0 = b * BQ;
+  const long long n_groups = (u_cap + kPlaceGroup - 1) / kPlaceGroup;  // of the strip order
+  const int nd8 = d / 8, nv8 = dv / 8, dq4 = d / 4, dv4 = dv / 4;
+  const int sk_ld = d + kPad, sv_ld = dv + kPad;
+  const int* kb = keys + b * u_cap;
+  const unsigned char* cb = count + b * u_cap * BQ;
+  const long long n_chunks = (n_u + CH - 1) / CH;
+  const long long mine = n_chunks > rank ? (n_chunks - rank + CL - 1) / CL : 0;
+  auto stage = [&](long long i) { return smem + plan.raw + (i & 1) * plan.stage_bytes; };
+  const int kj0 = tid / dq4, ke0 = tid - kj0 * dq4, kjs = kThreads / dq4, kes = kThreads - kjs * dq4;
+  const int vj0 = tid / dv4, ve0 = tid - vj0 * dv4, vjs = kThreads / dv4, ves = kThreads - vjs * dv4;
+  auto issue = [&](long long i) {  // stage i's k rows, v rows and counts, as the forward stages them
+    const long long c0 = (rank + i * CL) * CH;
+    unsigned char* st = stage(i);
+    float* sk = reinterpret_cast<float*>(st);
+    float* sv = reinterpret_cast<float*>(st + plan.kbytes);
+    unsigned char* sc = st + plan.kbytes + plan.vbytes;
+#pragma unroll 4
+    for (int j = kj0, e = ke0; j < CH;) {
+      const bool live = c0 + j < n_u;
+      cp16(sk + j * sk_ld + e * 4, live ? k + kb[c0 + j] * ldk + e * 4 : k, live);
+      j += kjs, e += kes;
+      if (e >= dq4) e -= dq4, ++j;
+    }
+#pragma unroll 4
+    for (int j = vj0, e = ve0; j < CH;) {
+      const bool live = c0 + j < n_u;
+      cp16(sv + j * sv_ld + e * 4, live ? v + kb[c0 + j] * ldv + e * 4 : v, live);
+      j += vjs, e += ves;
+      if (e >= dv4) e -= dv4, ++j;
+    }
+    for (int pc = tid; pc < CH * BQ / 16; pc += kThreads) {
+      const bool live = c0 + pc * 16 / BQ < n_u;
+      cp16(sc + pc * 16, live ? cb + c0 * BQ + pc * 16 : cb, live);
+    }
+    cp_commit();
+  };
+  // stage i split into fragments; true where every value is finite. Pass 1
+  // (full false): K for S, and the v rows checked. Pass 2: K for S (tile
+  // (jg, k8), lane (g, t): k[8 jg + g][8 k8 + t] and [.. + 4]), K for dQ
+  // (tile (jg, n): k[8 jg + 2t][8 n + g] and k[8 jg + 2t + 1][8 n + g]) and
+  // V for dP (tile (jg, k8) over dv: v[8 jg + g][8 k8 + t] and [.. + 4]).
+  // A warp takes whole tiles: wid, wid + kWarps, ...
+  auto split_stage = [&](long long i, bool full) {
+    const unsigned char* st = stage(i);
+    const float* skr = reinterpret_cast<const float*>(st);
+    const float* svr = reinterpret_cast<const float*>(st + plan.kbytes);
+    bool ok = true;
+    {
+      const float* sk = skr + g * sk_ld + t;
+      for (int w = wid; w < CH / 8 * nd8; w += kWarps) {
+        const int jg = w / nd8, k8 = w - jg * nd8;
+        const float* r = sk + jg * 8 * sk_ld + k8 * 8;
+        const float x = r[0], y = r[4];
+        ok = ok && isfinite(x) && isfinite(y);
+        kf[w * 32 + lane] = split2(x, y);
+      }
+    }
+    if (full) {
+      const float* sk = skr + 2 * t * sk_ld + g;
+      for (int w = wid; w < CH / 8 * nd8; w += kWarps) {
+        const int jg = w / nd8, n = w - jg * nd8;
+        const float* r = sk + jg * 8 * sk_ld + n * 8;
+        kn[w * 32 + lane] = split2(r[0], r[sk_ld]);
+      }
+      const float* sv = svr + g * sv_ld + t;
+      for (int w = wid; w < CH / 8 * nv8; w += kWarps) {
+        const int jg = w / nv8, k8 = w - jg * nv8;
+        const float* r = sv + jg * 8 * sv_ld + k8 * 8;
+        vk[w * 32 + lane] = split2(r[0], r[4]);
+      }
+    } else {
+      for (int w = tid; w < CH * dv4; w += kThreads) {
+        const int j = w / dv4, e = w - j * dv4;
+        ok = ok && finite_vec(*reinterpret_cast<const float4*>(svr + j * sv_ld + e * 4));
+      }
+    }
+    return ok;
+  };
+
+  if (mine > 0) issue(0);  // its rows come while q and g are laid out
+
+  // qs and g, checked, split and stored in the A fragments' order, as the
+  // forward lays out qs: tile (row group, k-step k8), lane (g, t) holds hi
+  // of a0..a3 then lo, a0 = x[16 rg + g][8 k8 + t], a1 row + 8, a2 column
+  // + 4, a3 both
+  int bad = 0;
+  auto lay_out = [&](const float* src, long long ld, int n8, float s, float* dst) {
+    for (int tile = wid; tile < kGroups * n8; tile += kWarps) {
+      const int gr = tile / n8, k8 = tile - gr * n8;
+      const long long r = row0 + gr * 16 + g;
+      const float* xr = src + r * ld + k8 * 8 + t;
+      const float a[4] = {r < n_rows ? xr[0] : 0.0f, r + 8 < n_rows ? xr[8 * ld] : 0.0f, r < n_rows ? xr[4] : 0.0f,
+                          r + 8 < n_rows ? xr[8 * ld + 4] : 0.0f};
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float x = a[c] * s;
+        bad |= !isfinite(x);
+        split(x, h[c], l[c]);
+      }
+      float4* w = reinterpret_cast<float4*>(dst + (static_cast<long long>(tile) * 32 + lane) * 8);
+      w[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+      w[1] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+  };
+  lay_out(q, ldq, nd8, scale, qf);
+  lay_out(gq, ldg, nv8, 1.0f, gf);
+  // δ_r = g_r · out_r: a warp a row, lanes over dv in order, then an xor butterfly
+  for (int r = wid; r < BQ; r += kWarps) {
+    const long long row = row0 + r;
+    float acc = 0.0f;
+    if (row < n_rows) {
+      for (int c = lane; c < dv; c += 32) {
+        const float x = gq[row * ldg + c], y = o[row * ldo + c];
+        bad |= !(isfinite(x) && isfinite(y));
+        acc = fmaf(x, y, acc);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(kFull, acc, off);
+    if (lane == 0) row_delta[r] = acc;
+  }
+
+  const int kt0 = ks * kNT;  // this warp's first key tile of a stage
+  const float* qw = qf + static_cast<long long>(rg) * nd8 * 32 * 8 + lane * 8;
+  const float* gw = gf + static_cast<long long>(rg) * nv8 * 32 * 8 + lane * 8;
+  // S = qs · Kᵀ over this warp's keys of the split stage
+  auto scores = [&](float (&s)[kNT][4]) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+#pragma unroll 2
+    for (int k8 = 0; k8 < nd8; ++k8) {
+      const float4 h4 = *reinterpret_cast<const float4*>(qw + k8 * 32 * 8);
+      const float4 l4 = *reinterpret_cast<const float4*>(qw + k8 * 32 * 8 + 4);
+      const uint32_t ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y), __float_as_uint(h4.z), __float_as_uint(h4.w)};
+      const uint32_t al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y), __float_as_uint(l4.z), __float_as_uint(l4.w)};
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) mma3(s[nt], ah, al, kf[((kt0 + nt) * nd8 + k8) * 32 + lane]);
+    }
+  };
+  // this warp's counts of stage i, taken before a barrier (after it, issue(i + 2) may refill the stage)
+  auto counts = [&](long long i, unsigned (&cn)[kNT][4]) {
+    const unsigned char* sc = stage(i) + plan.kbytes + plan.vbytes;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cn[nt][e] = sc[((kt0 + nt) * 8 + 2 * t + (e & 1)) * BQ + rg * 16 + g + (e >> 1) * 8];
+    }
+  };
+
+  // pass 1: the rows' maxima and count-weighted sums, as the forward keeps them
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};  // rows g and g + 8 of the group
+  for (long long i = 0; i < mine; ++i) {
+    if (i + 1 < mine) {
+      issue(i + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // stage i landed; the fragments are free
+    bad |= !split_stage(i, false);
+    unsigned cn[kNT][4];
+    counts(i, cn);
+    if (__syncthreads_or(bad)) {
+      bad = 1;
+      break;
+    }
+    float s[kNT][4];
+    scores(s);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (cn[nt][e] != 0) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      const float alpha = m_run[h] == -INFINITY ? 0.0f : expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+      mu[h] = m_new == -INFINITY ? 0.0f : m_new;  // an empty row so far: the shift counts as 0
+      l_run[h] *= alpha;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (cn[nt][e] != 0) l_run[e >> 1] += static_cast<float>(cn[nt][e]) * expf(s[nt][e] - mu[e >> 1]);
+      }
+    }
+  }
+  cp_wait<0>();
+  bad = __syncthreads_or(bad);  // the stages are free
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row's sum over the quad's columns
+    l_run[h] += __shfl_xor_sync(kFull, l_run[h], 1);
+    l_run[h] += __shfl_xor_sync(kFull, l_run[h], 2);
+  }
+  // every warp's (m, l) and every CTA's flag, into slot `rank` of every CTA of the cluster
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = (static_cast<int>(rank) * kWarps + wid) * 16 + g + 8 * h;
+#pragma unroll
+      for (int rk = 0; rk < CL; ++rk) {
+        if (CL == 1 || rk == static_cast<int>(rank)) {
+          part_m[at] = m_run[h];
+          part_l[at] = l_run[h];
+        } else {
+          st_cluster(map_rank(part_m + at, rk), m_run[h]);
+          st_cluster(map_rank(part_l + at, rk), l_run[h]);
+        }
+      }
+    }
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int rk = 0; rk < CL; ++rk) {
+      if (CL == 1 || rk == static_cast<int>(rank)) bad_word[rank] = bad;
+      else st_cluster(map_rank(bad_word + rank, rk), bad);
+    }
+  }
+  if constexpr (CL > 1) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
+  int any_bad = 0;
+#pragma unroll
+  for (int rk = 0; rk < CL; ++rk) any_bad |= bad_word[rk];
+  if (any_bad) {  // the row kernel takes the block; nothing was written
+    if (rank == 0 && tid == 0) {
+      route[b] = 2;
+      atomicAdd(route_blocks + 2, 1ull);
+    }
+    return;
+  }
+  if (mine > 0 && !ATTENTION_BWD_PASS1_ONLY) issue(0);  // pass 2's first stage comes while (m, l) are merged
+  // the rows' shifts and sums, merged in one order (rank, then key slice): every CTA the same bits
+  if (tid < BQ) {
+    const int gr = tid >> 4, rr = tid & 15;
+    float m_all = -INFINITY, sum = 0.0f;
+#pragma unroll
+    for (int rk = 0; rk < CL; ++rk) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) m_all = fmaxf(m_all, part_m[(rk * kWarps + kk * kGroups + gr) * 16 + rr]);
+    }
+#pragma unroll
+    for (int rk = 0; rk < CL; ++rk) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at = (rk * kWarps + kk * kGroups + gr) * 16 + rr;
+        const float f = part_m[at] == -INFINITY ? 0.0f : expf(part_m[at] - m_all);
+        sum += f * part_l[at];
+      }
+    }
+    row_shift[tid] = m_all == -INFINITY ? 0.0f : m_all;
+    row_sum[tid] = sum == 0.0f ? 1.0f : sum;
+  }
+  if (ATTENTION_BWD_PASS1_ONLY) {  // chip_attention_ablation.py's build: pass 1 timed alone
+    if (rank == 0 && tid == 0) {
+      route[b] = 0;
+      atomicAdd(route_blocks, 1ull);
+    }
+    if constexpr (CL > 1) cluster_sync();
+    return;
+  }
+  __syncthreads();
+  float mu[2], lsum[2], delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rg * 16 + g + 8 * h;
+    mu[h] = row_shift[r];
+    lsum[h] = row_sum[r];
+    delta[h] = row_delta[r];
+  }
+
+  // the strips of the stage: each slot of the block's rows whose union
+  // place lies in the stage gets the tile's p̂ and dŝ; with `zero`, each
+  // slot with none gets 0 and 0
+  const int capi = static_cast<int>(cap);
+  const long long base = row0 * cap;
+  auto strips = [&](bool zero) {
+    // the stage's counted slots, one run of the layout's order: group t's
+    // (places 8t .. 8t + 7 of the stage) from stage_runs[t] on, a row's side
+    // by side; an entry is 8 · (its slot in the block) + its place % 8
+    constexpr int kU = 4;  // entries a thread loads before it writes
+    const int* ob = order + base;
+    const int hi = stage_runs[kStageGroups];
+    for (int i0 = stage_runs[0] + tid; i0 < hi; i0 += kU * kThreads) {
+      int e[kU];
+#pragma unroll
+      for (int uu = 0; uu < kU; ++uu) e[uu] = i0 + uu * kThreads < hi ? ob[i0 + uu * kThreads] : 0;
+#pragma unroll
+      for (int uu = 0; uu < kU; ++uu) {
+        const int i = i0 + uu * kThreads;
+        if (i >= hi) break;
+        int a = 0;  // its group: the last whose run begins at or before i
+#pragma unroll
+        for (int t = 1; t < kStageGroups; ++t) a += stage_runs[t] <= i;
+        const int f = e[uu] / kPlaceGroup;
+        const int at = (f / capi) * kTL + a * kPlaceGroup + e[uu] % kPlaceGroup;
+        p[base + f] = tp[at];
+        ds[base + f] = td[at];
+      }
+    }
+    if (zero) {  // the slots the layout does not count: 0 and 0
+      const int* bb = begin + b * (n_groups + 2);
+      for (int i = bb[n_groups] + tid; i < bb[n_groups + 1]; i += kThreads) {
+        p[base + ob[i] / kPlaceGroup] = 0.0f;
+        ds[base + ob[i] / kPlaceGroup] = 0.0f;
+      }
+    }
+  };
+
+  // pass 2: p̂, dP, dŝ and dQ a stage, the strips of each stage
+  float acc[kND][4];
+#pragma unroll
+  for (int n = 0; n < kND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (long long i = 0; i < mine; ++i) {
+    if (i + 1 < mine) {
+      issue(i + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // stage i landed; the fragments and the strip tile are free
+    split_stage(i, true);
+    const long long c0 = (rank + i * CL) * CH;
+    if (tid <= kStageGroups) {
+      const long long group = c0 / kPlaceGroup + tid;
+      stage_runs[tid] = begin[b * (n_groups + 2) + (group < n_groups ? group : n_groups)];
+    }
+    unsigned cn[kNT][4];
+    counts(i, cn);
+    __syncthreads();  // the fragments in place
+    float s[kNT][4], dp[kNT][4];
+    scores(s);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.0f;
+#pragma unroll 2
+    for (int k8 = 0; k8 < nv8; ++k8) {  // dP = g · Vᵀ
+      const float4 h4 = *reinterpret_cast<const float4*>(gw + k8 * 32 * 8);
+      const float4 l4 = *reinterpret_cast<const float4*>(gw + k8 * 32 * 8 + 4);
+      const uint32_t ah[4] = {__float_as_uint(h4.x), __float_as_uint(h4.y), __float_as_uint(h4.z), __float_as_uint(h4.w)};
+      const uint32_t al[4] = {__float_as_uint(l4.x), __float_as_uint(l4.y), __float_as_uint(l4.z), __float_as_uint(l4.w)};
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) mma3(dp[nt], ah, al, vk[((kt0 + nt) * nv8 + k8) * 32 + lane]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      float pv[4], sv[4], a[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        pv[e] = cn[nt][e] != 0 ? expf(s[nt][e] - mu[h]) / lsum[h] : 0.0f;
+        sv[e] = pv[e] * (dp[nt][e] - delta[h]);
+        a[e] = static_cast<float>(cn[nt][e]) * sv[e];
+      }
+      const int col = (kt0 + nt) * 8 + 2 * t, r_lo = rg * 16 + g;
+      *reinterpret_cast<float2*>(tp + r_lo * kTL + col) = make_float2(pv[0], pv[1]);
+      *reinterpret_cast<float2*>(tp + (r_lo + 8) * kTL + col) = make_float2(pv[2], pv[3]);
+      *reinterpret_cast<float2*>(td + r_lo * kTL + col) = make_float2(sv[0], sv[1]);
+      *reinterpret_cast<float2*>(td + (r_lo + 8) * kTL + col) = make_float2(sv[2], sv[3]);
+      // dQ += (c ⊙ dŝ) · K: A's k index t is key 2t, t + 4 key 2t + 1, as K's fragments for dQ are laid out
+      uint32_t ah[4], al[4];
+      split(a[0], ah[0], al[0]);
+      split(a[2], ah[1], al[1]);
+      split(a[1], ah[2], al[2]);
+      split(a[3], ah[3], al[3]);
+      const float4* kw = kn + (kt0 + nt) * nd8 * 32 + lane;
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        if (n < nd8) mma3(acc[n], ah, al, kw[n * 32]);
+      }
+    }
+    __syncthreads();  // the strip tile in place
+    strips(rank == 0 && i == 0);
+  }
+
+  // dq = scale * dQ: the key slices' and CTAs' partials summed in one order on the first CTA
+  const long long r_lo = row0 + rg * 16 + g;  // the thread's rows r_lo and r_lo + 8
+  if constexpr (KS * CL == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r_lo + 8 * h >= n_rows) continue;
+      float* drow = dq + (r_lo + 8 * h) * d + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        if (n < nd8) *reinterpret_cast<float2*>(drow + n * 8) = make_float2(scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
+      }
+    }
+  } else {
+    float* part = reinterpret_cast<float*>(smem);  // [rank][warp][16 rows][d], over the fragments and stages
+    if constexpr (CL > 1) {
+      cluster_sync();  // every CTA is done with its stages and strips
+    } else {
+      __syncthreads();
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* prow = part + ((static_cast<long long>(rank) * kWarps + wid) * 16 + g + 8 * h) * d + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kND; ++n) {
+        if (n < nd8) put<CL>(prow + n * 8, rank, acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+    if constexpr (CL > 1) {
+      cluster_sync();  // every partial in place
+    } else {
+      __syncthreads();
+    }
+    if (rank == 0) {
+      constexpr int kPerRow = kThreads / BQ;
+      const int r = tid / kPerRow;
+      if (row0 + r < n_rows) {
+        const int gr = r >> 4, rr = r & 15;
+        for (int c = tid - r * kPerRow; c < d; c += kPerRow) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int rk = 0; rk < CL; ++rk) {
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) sum += part[((static_cast<long long>(rk) * kWarps + kk * kGroups + gr) * 16 + rr) * d + c];
+          }
+          dq[(row0 + r) * d + c] = scale * sum;
+        }
+      }
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    route[b] = 0;
+    atomicAdd(route_blocks, 1ull);
+  }
+}
+
+template <int BQ, int KS, int CL, int DT, int CH>
+int launch_bwd_tiles(const float* q, long long ldq, const float* k, long long ldk, const float* v, long long ldv,
+                     const float* g, long long ldg, const float* o, long long ldo, const int* keys,
+                     const int* n_union, const unsigned char* count, const unsigned char* flag, const int* order,
+                     const int* begin, long long n_rows, long long n_blocks, long long u_cap, long long cap, int d, int dv, float scale, float* dq, float* ds, float* p,
+                     int* route, unsigned long long* route_blocks, cudaStream_t st) {
+  auto kernel = ell_attention_backward_tiles_kernel<BQ, KS, CL, DT, CH>;
+  if (d > DT) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdSmem plan = bwd_smem_plan(BQ, KS, CL, CH, d, dv);
+  if (plan.total > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.total));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_blocks * CL));
+  cfg.blockDim = dim3(BQ / 16 * KS * 32);
+  cfg.dynamicSmemBytes = static_cast<size_t>(plan.total);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, q, ldq, k, ldk, v, ldv, g, ldg, o, ldo, keys, n_union, count, flag, order, begin,
+                           n_rows, u_cap, cap, d, dv, scale, dq, ds, p, route, route_blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace tiles
 
 // the tile route's shapes, by `config` (kernels/_cuda.py: ATTENTION_TILE_CONFIGS):
@@ -1272,6 +1882,69 @@ int launch_tiles_f32(const void* q, long long ldq, const void* k, long long ldk,
                                   static_cast<int>(d), static_cast<int>(dv), s, rt, rb, op, st);
 }
 
+// K6's backward tile route's shapes, by `config` (kernels/_cuda.py:
+// ATTENTION_BWD_TILE_CONFIGS): rows a block, key slices (warps a row group),
+// CTAs a block (a cluster), keys a stage
+template <int DT>
+int launch_bwd_tiles_config(long long config, const float* q, long long ldq, const float* k, long long ldk,
+                            const float* v, long long ldv, const float* g, long long ldg, const float* o, long long ldo,
+                            const int* keys, const int* n_union, const unsigned char* count, const unsigned char* flag,
+                            const int* order, const int* begin, long long n_rows, long long n_blocks, long long u_cap,
+                            long long cap, int d, int dv, float scale, float* dq, float* ds, float* p, int* route,
+                            unsigned long long* route_blocks, cudaStream_t st) {
+#define ST_BWD_TILES(BQ, KS, CL, CH)                                                                               \
+  tiles::launch_bwd_tiles<BQ, KS, CL, DT, CH>(q, ldq, k, ldk, v, ldv, g, ldg, o, ldo, keys, n_union, count, flag, \
+                                               order, begin, n_rows, n_blocks, u_cap, cap, d, dv, scale, dq, ds, p, \
+                                               route, route_blocks, st)
+  switch (config) {
+    case 0: return ST_BWD_TILES(64, 4, 1, 32);
+    case 1: return ST_BWD_TILES(64, 2, 2, 32);
+    case 2: return ST_BWD_TILES(64, 2, 2, 16);
+    case 3: return ST_BWD_TILES(64, 4, 2, 32);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ST_BWD_TILES
+}
+
+// the strips by the layout's strip order, `order` and `begin` (int32)
+int launch_bwd_tiles_f32(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
+                         const void* g, long long ldg, const void* o, long long ldo, const void* keys,
+                         const void* n_union, const void* count, const void* flag, const void* order,
+                         const void* begin, long long n_rows, long long n_blocks, long long u_cap, long long cap,
+                         long long d, long long dv, double scale, long long config, void* dq, void* ds, void* p,
+                         void* route, void* route_blocks, void* stream) {
+  if (n_blocks <= 0) return 0;
+  if (d < 8 || d % 8 != 0 || d > 128 || dv < 8 || dv % 8 != 0 || dv > 128 || u_cap < 1 || cap < 1 ||
+      cap > (1LL << 31) / (64 * tiles::kPlaceGroup) || order == nullptr || begin == nullptr) {  // order's entries: 32 bits
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  const auto* gp = static_cast<const float*>(g);
+  const auto* op = static_cast<const float*>(o);
+  const auto* kk = static_cast<const int*>(keys);
+  const auto* nu = static_cast<const int*>(n_union);
+  const auto* cn = static_cast<const unsigned char*>(count);
+  const auto* fl = static_cast<const unsigned char*>(flag);
+  const auto* od = static_cast<const int*>(order);
+  const auto* bg = static_cast<const int*>(begin);
+  auto* dqp = static_cast<float*>(dq);
+  auto* dsp = static_cast<float*>(ds);
+  auto* pp = static_cast<float*>(p);
+  auto* rt = static_cast<int*>(route);
+  auto* rb = static_cast<unsigned long long*>(route_blocks);
+  const auto s = static_cast<float>(scale);
+  const int di = static_cast<int>(d), dvi = static_cast<int>(dv);
+  if (d <= 64) {
+    return launch_bwd_tiles_config<64>(config, qp, ldq, kp, ldk, vp, ldv, gp, ldg, op, ldo, kk, nu, cn, fl, od, bg,
+                                       n_rows, n_blocks, u_cap, cap, di, dvi, s, dqp, dsp, pp, rt, rb, st);
+  }
+  return launch_bwd_tiles_config<128>(config, qp, ldq, kp, ldk, vp, ldv, gp, ldg, op, ldo, kk, nu, cn, fl, od, bg,
+                                      n_rows, n_blocks, u_cap, cap, di, dvi, s, dqp, dsp, pp, rt, rb, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1293,10 +1966,10 @@ ST_ELL_ATTENTION(st_ell_attention_f64_i64, double, int64_t)
 #define ST_ELL_ATTENTION_BACKWARD(NAME, T, I)                                                                      \
   int NAME(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv, const void* g, \
            long long ldg, const void* cols, const void* valid, long long n_rows, long long n_keys, long long cap,   \
-           long long d, long long dv, double scale, long long vec, long long max_blocks, void* dq, void* ds,       \
-           void* p, void* stream) {                                                                                \
+           long long d, long long dv, double scale, long long vec, long long max_blocks, const void* block_route,  \
+           long long block_rows, void* dq, void* ds, void* p, void* stream) {                                      \
     return launch_backward<T, I>(q, ldq, k, ldk, v, ldv, g, ldg, cols, valid, n_rows, n_keys, cap, d, dv, scale,  \
-                                 vec, max_blocks, dq, ds, p, stream);                                              \
+                                 vec, max_blocks, block_route, block_rows, dq, ds, p, stream);                     \
   }
 
 ST_ELL_ATTENTION_BACKWARD(st_ell_attention_backward_f32_i32, float, int32_t)
@@ -1311,6 +1984,17 @@ int st_ell_attention_tiles_f32(const void* q, long long ldq, const void* k, long
                                void* stream) {
   return launch_tiles_f32(q, ldq, k, ldk, v, ldv, keys, n_union, count, flag, n_rows, n_blocks, u_cap, d, dv, scale,
                           config, route, route_blocks, out, stream);
+}
+
+int st_ell_attention_backward_tiles_f32(const void* q, long long ldq, const void* k, long long ldk, const void* v,
+                                        long long ldv, const void* g, long long ldg, const void* o, long long ldo,
+                                        const void* keys, const void* n_union, const void* count, const void* flag,
+                                        const void* order, const void* begin, long long n_rows, long long n_blocks,
+                                        long long u_cap, long long cap, long long d, long long dv, double scale,
+                                        long long config, void* dq, void* ds, void* p, void* route, void* route_blocks,
+                                        void* stream) {
+  return launch_bwd_tiles_f32(q, ldq, k, ldk, v, ldv, g, ldg, o, ldo, keys, n_union, count, flag, order, begin, n_rows,
+                              n_blocks, u_cap, cap, d, dv, scale, config, dq, ds, p, route, route_blocks, stream);
 }
 
 }  // extern "C"

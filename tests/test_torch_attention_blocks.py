@@ -35,7 +35,11 @@ def _close(got, want, rtol):
 
 def _np_blocks(e_cols, valid, n_keys, block, ratio):
     """The layout by loops: each block's slots resolved as ``jnp.take`` reads
-    them, the union of the keys inside the table, the valid slots counted."""
+    them, the union of the keys inside the table, the valid slots counted,
+    each counted slot's union place (else -1), each block's slots in the
+    backward's order (by group of 8 places, the others last, then row,
+    place, slot; each as 8 · slot + place % 8) and where each group's run
+    begins."""
     n_rows, cap = e_cols.shape
     n_blocks = -(-n_rows // block)
     u_cap = max(1, min(int(ratio * cap), block * cap, n_keys))
@@ -43,6 +47,10 @@ def _np_blocks(e_cols, valid, n_keys, block, ratio):
     n_union = np.zeros(n_blocks, np.int32)
     count = np.zeros((n_blocks, u_cap, block), np.uint8)
     flag = np.zeros(n_blocks, bool)
+    slot = np.full((n_rows, cap), -1, np.int64)
+    order = np.zeros(n_rows * cap, np.int32)
+    n_groups = -(-u_cap // 8)
+    begin = np.zeros((n_blocks, n_groups + 2), np.int32)
     for b in range(n_blocks):
         r0, r1 = b * block, min((b + 1) * block, n_rows)
         c = e_cols[r0:r1].astype(np.int64)
@@ -58,9 +66,16 @@ def _np_blocks(e_cols, valid, n_keys, block, ratio):
                     u = int(np.searchsorted(keys, c[r, j]))
                     if u < u_cap:
                         cnt[u, r] += 1
+                        slot[r0 + r, j] = u
         flag[b] = bool((~inside).any()) or keys.size > u_cap or cnt.max() > 255
         count[b] = np.minimum(cnt, 255)
-    return union, n_union, count, flag
+        place = slot[r0:r1].reshape(-1)
+        group = np.where(place >= 0, place // 8, n_groups)  # groups of 8 places, the uncounted last
+        ranked = sorted(range(place.size), key=lambda f: (group[f], f // cap, max(place[f], 0), f % cap))
+        order[r0 * cap : r1 * cap] = [8 * f + max(place[f], 0) % 8 for f in ranked]
+        begin[b] = np.searchsorted(np.sort(group), np.arange(n_groups + 2))
+        begin[b, n_groups + 1] = place.size
+    return union, n_union, count, flag, slot, order, begin
 
 
 def _layout_case(case, rng):
@@ -99,8 +114,11 @@ def test_build_attention_blocks_equals_a_numpy_construction(case, block, ratio):
     got = tatt.build_attention_blocks(torch.as_tensor(e), torch.as_tensor(va), n_keys, block, ratio=ratio)
     want = _np_blocks(e, va, n_keys, block, ratio)
     assert (got.block, got.n_rows, got.n_keys) == (block, e.shape[0], n_keys)
-    for name, g, w in zip(("union", "n_union", "count", "flag"), got[3:7], want):
-        assert g.dtype == {"union": torch.int32, "n_union": torch.int32, "count": torch.uint8, "flag": torch.bool}[name]
+    strips = tatt.build_strip_order(got)
+    fields = ("union", "n_union", "count", "flag", "places", "order", "begin")
+    dtypes = (torch.int32, torch.int32, torch.uint8, torch.bool, torch.int64, torch.int32, torch.int32)
+    for name, dt, g, w in zip(fields, dtypes, (*got[3:7], tatt.union_places(got, strips), *strips), want):
+        assert g.dtype == dt, name
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
     assert got.cols is not None and got.valid is not None
     if case == "negative_and_outside":
@@ -212,6 +230,27 @@ def test_attention_blocks_memo_rebuilds_after_an_edit_in_place():
     kept = tatt.attention_blocks(e.clone(), va, 64, 32, layouts)
     assert layouts == {(64, 32): kept} and tatt.attention_blocks(e, va, 64, 32, layouts) is kept
     assert len(tatt._BLOCKS_MEMO) <= tatt._BLOCKS_MEMO_SIZE
+
+
+def test_strip_order_is_built_only_when_asked_and_kept_beside_the_layout():
+    # the forward's layout holds no strip order; the backward's is built once, in the same dict
+    e, va = (torch.as_tensor(x) for x in jnn.build_attention_ell(*jnn.local_attention_pattern(70, 6), 70))
+    layouts = {}
+    blocks = tatt.attention_blocks(e, va, 70, 32, layouts)
+    assert layouts == {(70, 32): blocks} and not hasattr(blocks, "order")
+    strips = tatt.attention_strip_order(e, va, 70, 32, layouts)
+    assert layouts == {(70, 32): blocks, ("strips", 70, 32): strips}
+    assert tatt.attention_strip_order(e, va, 70, 32, layouts) is strips
+    want = _np_blocks(e.numpy(), va.numpy(), 70, 32, tatt.ATTENTION_UNION_RATIO)
+    np.testing.assert_array_equal(strips.order.numpy(), want[5])
+    np.testing.assert_array_equal(strips.begin.numpy(), want[6])
+    # by identity, after an edit in place: a new layout and a new strip order
+    first = tatt.attention_strip_order(e, va, 70, 32)
+    assert tatt.attention_strip_order(e, va, 70, 32) is first
+    va[2, :] = False
+    again = tatt.attention_strip_order(e, va, 70, 32)
+    assert again is not first
+    np.testing.assert_array_equal(again.order.numpy(), _np_blocks(e.numpy(), va.numpy(), 70, 32, tatt.ATTENTION_UNION_RATIO)[5])
 
 
 def test_tile_route_shapes_and_fit():

@@ -17,7 +17,11 @@ counters show which route took each block. K6's backward kernel against
 ``ell_attention_backward_rows_plain`` and the whole gradient (the kernel,
 then K5 for ``dk`` and ``dv``) against ``ell_attention_backward_plain`` at
 the same tolerances of the largest finite magnitude, twice bit for bit; the
-entry point's training path with every plain version made to raise.
+entry point's training path with every plain version made to raise. The
+backward's tile route (float32, 3xTF32) against
+``ell_attention_backward_blocks_plain`` and the row decomposition at the
+same tolerance, on every backward tile shape, twice bit for bit, its block
+counters apart from the forward's.
 """
 
 import numpy as np
@@ -468,7 +472,8 @@ def test_k6_backward_counters_and_no_plain_version_on_the_card(cuda, monkeypatch
     q, k, v, w = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(4))
     e_cols, valid = _window(L, 16, "cpu")
     want = tatt.ell_attention_backward_plain(*(t.cpu() for t in (q, k, v)), e_cols, valid, 1 / np.sqrt(d), w.cpu())
-    for name in ("ell_attention_plain", "ell_attention_backward_plain", "ell_attention_backward_rows_plain", "ell_attention_blocks_plain"):
+    plains = ("ell_attention_plain", "ell_attention_backward_plain", "ell_attention_backward_rows_plain", "ell_attention_blocks_plain")
+    for name in (*plains, "ell_attention_backward_blocks_plain"):
         monkeypatch.setattr(tatt, name, refuse)
     for dtype in (torch.float32, torch.float64):
         ins = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
@@ -483,8 +488,164 @@ def test_k6_backward_counters_and_no_plain_version_on_the_card(cuda, monkeypatch
         finally:
             torch.cuda.set_sync_debug_mode(prev)
         moved = {n: c for n, c in LAUNCHES.items() if c}
+        # float32: the tile route once, the row kernel once (filtered); float64 the row kernel alone
         assert moved.get("ell_attention_backward") == 1, moved
+        assert moved.get("ell_attention_backward_tiles", 0) == (1 if dtype == torch.float32 else 0), moved
         k5 = moved.get("sampled_row_sum_union", 0) + moved.get("sampled_row_sum", 0) + moved.get("sampled_row_sum_sliced", 0)
-        assert k5 >= 2 and set(moved) <= {"ell_attention_backward", "sampled_row_sum_union", "sampled_row_sum", "sampled_row_sum_sliced"}, moved
+        k6 = {"ell_attention_backward", "ell_attention_backward_tiles"}
+        assert k5 >= 2 and set(moved) <= k6 | {"sampled_row_sum_union", "sampled_row_sum", "sampled_row_sum_sliced"}, moved
         if dtype == torch.float32:
             _assert_grads([t.grad.cpu() for t in ins], want, TOL[dtype], "entry point")
+            n_blocks = -(-L // _cuda.ATTENTION_BLOCK_ROWS)
+            assert _cuda.attention_backward_route_blocks(cuda).tolist() == [n_blocks, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# K6's backward tile route
+# ---------------------------------------------------------------------------
+
+
+def _backward_tiles(q, k, v, g, e_cols, valid, scale, config, ratio=tatt.ATTENTION_UNION_RATIO):
+    """The backward tile route with shape ``config`` and the row kernel's
+    filtered launch after it: ``(dq, ds, p)``, each block's route, the
+    layout and the forward's output."""
+    blocks = tatt.build_attention_blocks(e_cols, valid, k.shape[0], _cuda.ATTENTION_BLOCK_ROWS, ratio=ratio)
+    out = tatt.ell_attention_plain(q, k, v, e_cols, valid, scale)
+    L, cap = e_cols.shape
+    dq, ds, p = (torch.empty(s_, device=q.device) for s_ in ((L, q.shape[1]), (L, cap), (L, cap)))
+    route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=q.device)
+    _cuda.ell_attention_backward_tiles(q, k, v, g, out, blocks, tatt.build_strip_order(blocks), scale, dq, ds, p, route, config)
+    _cuda.ell_attention_backward(q, k, v, g, e_cols, valid, scale, dq, ds, p, block_route=route, block_rows=blocks.block)
+    return (dq, ds, p), route, blocks, out
+
+
+def _cancelling(k, g, out, scale, e_cols, valid):
+    """The rows whose valid slots name one key at most, and the size of the
+    terms that cancel there in ``dŝ = p̂ (dP − δ)`` (``max|δ|``, ``p̂ ≤ 1``)
+    and in ``dq = scale · Σ dŝ k`` (``scale · max|k| · max|δ|``): the tile
+    route takes ``δ = g · out``, the row decomposition ``Σ p dP``, so in such
+    a row, where ``dŝ`` and ``dq`` are 0, the two differ by the rounding of
+    those terms alone."""
+    c = e_cols.long()
+    c = torch.where(c < 0, c + k.shape[0], c)
+    lone = torch.where(valid, c, c.new_full((), 2**62)).amin(1) >= torch.where(valid, c, -1).amax(1)
+    delta = (g * out).sum(1)
+    delta = float(delta[torch.isfinite(delta)].abs().max())
+    return lone, {"dq": scale * float(k[torch.isfinite(k)].abs().max()) * delta, "ds": delta, "p": 0.0}
+
+
+def _assert_strips(got, want, tol, what, cancel):
+    """``dq``, ``ds``, ``p`` within ``tol`` of the largest finite magnitude,
+    in the rows :func:`_cancelling` names within ``tol`` of the larger of
+    that and the cancelling terms'."""
+    lone, terms = cancel
+    lone = lone.to(want[0].device)
+    for name, a, b in zip(("dq", "ds", "p"), got, want):
+        finite = b[torch.isfinite(b)]
+        size = float(finite.abs().max()) if finite.numel() else 0.0
+        _assert_close(a[~lone], b[~lone], size, tol, f"{what} {name}")
+        _assert_close(a[lone], b[lone], max(size, terms[name]), tol, f"{what} {name} (rows of one key)")
+
+
+@pytest.mark.parametrize("config", list(_cuda.ATTENTION_BWD_TILE_CONFIGS))
+@pytest.mark.parametrize("d,dv", [(64, 64), (8, 8), (128, 128), (16, 40)])
+@pytest.mark.parametrize("pattern", ["window", "random"])
+@pytest.mark.parametrize("cap", [1, 33, 513, 1700])
+def test_k6_backward_tiles_match_plain(cuda, config, d, dv, pattern, cap):
+    rng = np.random.default_rng(cap + d + 1)
+    if pattern == "window":
+        L = 300 if cap < 1000 else 2000
+        e_cols, valid = _window(L, cap // 2, cuda)
+        Lk = L
+    else:  # columns drawn from a table small enough for every union to stay under the rule
+        L, Lk = 150, 300
+        e_cols = torch.as_tensor(rng.integers(0, Lk, (L, cap)), dtype=torch.int32, device=cuda)
+        valid = torch.as_tensor(rng.random((L, cap)) < 0.8, device=cuda)
+    q, k, v, g = (torch.as_tensor(rng.standard_normal(s_), dtype=torch.float32, device=cuda) for s_ in ((L, d), (Lk, d), (Lk, dv), (L, dv)))
+    if not _cuda.attention_backward_tiles_fit(d, dv, torch.float32, config):  # rows too wide for this shape's shared memory
+        with pytest.raises(ValueError, match="do not fit"):
+            _backward_tiles(q, k, v, g, e_cols, valid, 0.25, config)
+        return
+    _cuda.reset_launch_counts()
+    got, route, blocks, out = _backward_tiles(q, k, v, g, e_cols, valid, 0.25, config, ratio=1e9)
+    what = f"{config} {pattern} cap {cap} d {d} dv {dv}"
+    assert bool((route == 0).all()), "every block on the tile route"
+    cancel = _cancelling(k, g, out, 0.25, e_cols, valid)
+    _assert_strips(got, tatt.ell_attention_backward_blocks_plain(q, k, v, g, out, blocks, 0.25), TOL[torch.float32], what, cancel)
+    if L * cap <= 300 * 513:  # the row decomposition's (L, cap, d + dv) blocks where they stay small
+        want = tatt.ell_attention_backward_rows_plain(q, k, v, e_cols, valid, 0.25, g)
+        _assert_strips(got, want, TOL[torch.float32], what, cancel)
+    again = [t.clone() for t in _backward_tiles(q, k, v, g, e_cols, valid, 0.25, config, ratio=1e9)[0]]
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "a second launch gave other bits"
+    n_blocks = route.shape[0]
+    assert _cuda.attention_backward_route_blocks(cuda).tolist() == [2 * n_blocks, 0, 0]
+    assert _cuda.attention_route_blocks(cuda).tolist() == [0, 0, 0]  # the forward's counters stay apart
+    assert LAUNCHES["ell_attention_backward_tiles"] == LAUNCHES["ell_attention_backward"] == 2
+
+
+@pytest.mark.parametrize("cap_window", [1, 40, 300])
+def test_k6_backward_tiles_write_every_slot_of_their_blocks(cuda, cap_window):
+    # the tiles alone: every slot of a block they take gets its weights (the
+    # layout's runs by union place) or 0 and 0 (an invalid slot), nothing else
+    L, d = 500, 32
+    rng = np.random.default_rng(50 + cap_window)
+    q, k, v, g = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(4))
+    e_cols, valid = _window(L, cap_window // 2, cuda)
+    valid &= torch.as_tensor(rng.random(tuple(valid.shape)) < 0.9, device=cuda)  # invalid slots inside the rows too
+    config = _cuda.attention_backward_tile_config(L, d, d, torch.float32, cuda)
+    blocks = tatt.build_attention_blocks(e_cols, valid, L, _cuda.ATTENTION_BLOCK_ROWS, ratio=1e9)
+    out = tatt.ell_attention_plain(q, k, v, e_cols, valid, 0.25)
+    dq, ds, p = (torch.full(s_, float("nan"), device=cuda) for s_ in ((L, d), tuple(e_cols.shape), tuple(e_cols.shape)))
+    route = torch.empty(blocks.union.shape[0], dtype=torch.int32, device=cuda)
+    _cuda.ell_attention_backward_tiles(q, k, v, g, out, blocks, tatt.build_strip_order(blocks), 0.25, dq, ds, p, route, config)
+    assert bool((route == 0).all())
+    assert not bool(torch.isnan(dq).any() | torch.isnan(ds).any() | torch.isnan(p).any())
+    assert bool((p[~valid] == 0).all()) and bool((ds[~valid] == 0).all()) and bool((p[valid] > 0).all())
+    want = tatt.ell_attention_backward_blocks_plain(q, k, v, g, out, blocks, 0.25)
+    _assert_strips((dq, ds, p), want, TOL[torch.float32], f"window {cap_window}", _cancelling(k, g, out, 0.25, e_cols, valid))
+
+
+@pytest.mark.parametrize("config", list(_cuda.ATTENTION_BWD_TILE_CONFIGS))
+def test_k6_backward_tiles_nonfinite_and_index_rules_equal_the_cpu(cuda, config):
+    L, d = 384, 16
+    rng = np.random.default_rng(51)
+    q, k, v, g = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(4))
+    e_cols, valid = _window(L, 5, cuda)
+    v[3, 0] = float("inf")  # in valid slots of rows 0-8
+    valid[20, 0] = False
+    v[int(e_cols[20, 0]), 5] = float("nan")  # in a padding slot of row 20, valid in its neighbours'
+    k[100, 0] = float("-inf")  # a key of rows 95-105
+    q[150, 1] = float("nan")  # row 150
+    g[300, 2] = float("inf")  # g's row 300
+    e_cols[250, 3] = -L - 1  # before the table: row 250 NaN
+    e_cols[251, 2] = -5  # from the end
+    got, route, blocks, out = _backward_tiles(q, k, v, g, e_cols, valid, 0.25, config)
+    cpu = tatt.ell_attention_backward_rows_plain(*(t.cpu() for t in (q, k, v, e_cols, valid)), 0.25, g.cpu())
+    cancel = _cancelling(k, g, out, 0.25, e_cols, valid)
+    _assert_strips([t.cpu() for t in got], cpu, TOL[torch.float32], "non-finite rules", cancel)
+    by_block = route.cpu().tolist()
+    rows = blocks.block
+    assert by_block[250 // rows] == 1  # the flag: an index outside the table
+    for row in (2, 20, 100, 150, 300):  # non-finite values in the block's union, q, g or out rows
+        assert by_block[row // rows] == 2, (row, by_block)
+    assert 0 in by_block
+    want = tatt._backward_block_route(q, k, v, g, out, blocks, 0.25)
+    assert [r != 0 for r in by_block] == want.cpu().tolist()
+
+
+def test_k6_backward_tile_counters_sum_to_the_blocks(cuda):
+    L, d = 700, 32
+    rng = np.random.default_rng(52)
+    q, k, v, w = (torch.as_tensor(rng.standard_normal((L, d)), dtype=torch.float32, device=cuda) for _ in range(4))
+    e_cols, valid = _window(L, 10, cuda)
+    e_cols[600:] = torch.as_tensor(rng.integers(0, L, (100, e_cols.shape[1])), dtype=torch.int32, device=cuda)  # past the rule
+    v[int(e_cols[10, 0]), 0] = float("nan")
+    _cuda.reset_launch_counts()
+    for _ in range(3):
+        got = _backward(q, k, v, e_cols, valid, w, scale=1 / np.sqrt(d))
+    want = tatt.ell_attention_backward_plain(q, k, v, e_cols, valid, 1 / np.sqrt(d), w)
+    _assert_grads(got, want, TOL[torch.float32], "mixed")
+    n_blocks = -(-L // _cuda.ATTENTION_BLOCK_ROWS)
+    tile, by_rule, by_value = _cuda.attention_backward_route_blocks(cuda).tolist()
+    assert tile + by_rule + by_value == 3 * n_blocks and tile > 0 and by_rule > 0 and by_value > 0
+    assert LAUNCHES["ell_attention_backward_tiles"] == LAUNCHES["ell_attention_backward"] == 3

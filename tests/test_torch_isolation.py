@@ -225,5 +225,6 @@ def test_launch_counters_start_and_reset():
         "ell_attention": 0,
         "ell_attention_tiles": 0,
         "ell_attention_backward": 0,
+        "ell_attention_backward_tiles": 0,
         "minplus_relax": 0,
     }
