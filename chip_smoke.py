@@ -80,17 +80,27 @@ drives the port's two paths on the card:
 
 - sparse × sparse products (SpGEMM, BASELINE config 2's example; the
   ``spgemm_path`` line): ``a @ a`` of the benchmark matrix (6.7e7 partial
-  products) against scipy's ``csr @ csr`` on the host (coordinates
-  exactly, values at rtol 1e-5 of a float64 oracle), twice bit for bit,
-  its device ms (median of 5 eager calls), peak memory, byte bound and
+  products) on S1 (``csrc/spgemm.cu``: its symbolic and numeric pass, two
+  launches counted, no other kernel) against scipy's ``csr @ csr`` on the
+  host (coordinates exactly, values at rtol 1e-5 of a float64 oracle),
+  twice bit for bit, and S1 bit for bit against its plain version's torch
+  ops on the same inputs; its device ms (median of 5 eager calls), each
+  pass's, the plain version's, peak memory, byte bound and
   ``torch.profiler``'s top kernels beside cuSPARSE's ``torch.sparse.mm``
   of the two CSRs; the example's two 100,000² GCXS at density 1e-5
-  (float64) as CSR × CSR and CSC × CSC within 1e-10 of scipy;
-  ``jitops.spgemm`` of two 4,096² matrices at density 5e-4 captured in a
-  CUDA graph and replayed after their values changed, against the eager
-  product; ``einsum("ij,jk->ik", s, s)`` bit for bit ``s @ s``. No kernel
-  of the package runs here: the JAX package leaves SpGEMM to XLA and the
-  host;
+  (float64, two column chunks of S1) as CSR × CSR and CSC × CSC within
+  1e-10 of scipy; ``jitops.spgemm`` (the traceable form, torch ops) of two
+  4,096² matrices at density 5e-4 captured in a CUDA graph and replayed
+  after their values changed, against the eager product;
+  ``einsum("ij,jk->ik", s, s)`` bit for bit ``s @ s``;
+
+- the Krylov solvers (the ``linalg_path`` line), float64, on the 5-point
+  Poisson matrix at side 1,024: CG through the DIA route, whose matvecs
+  launch D1 (``csrc/dia.cu``) once each and no other kernel, and through
+  K1 on the permuted matrix, both within 2 · tol of scipy's residual; D1
+  bit for bit against its plain torch ops at that shape, timed as a CUDA
+  graph beside them, ``torch.mv`` of the CSR and its byte bound; gmres,
+  tfqmr, eigsh and spsolve on K1 at sides 256 and 128;
 
 - indexing and the rest of the namespace (the ``indexing_path`` line): a
   GNN-style minibatch of 4,096 rows picked from the benchmark matrix as a
@@ -305,6 +315,8 @@ SOURCE = {
     "ell_attention_backward": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "ell_attention_backward_tiles": "sparse_tpu_torch/kernels/csrc/attention.cu",
     "minplus_relax": "sparse_tpu_torch/kernels/csrc/minplus.cu",
+    "dia_spmv": "sparse_tpu_torch/kernels/csrc/dia.cu",
+    "spgemm": "sparse_tpu_torch/kernels/csrc/spgemm.cu",
 }
 REPLACES = {
     "row_ell_spmv": "sparse_tpu/kernels/row_ell.py:231",  # _onehot_products_call (Pallas)
@@ -332,6 +344,8 @@ REPLACES = {
     "ell_attention_backward": "sparse_tpu/nn.py:282",  # the gradient of sparse_attention_ell (jax.grad through the XLA code)
     "ell_attention_backward_tiles": "sparse_tpu/nn.py:282",  # the same gradient, its tile route
     "minplus_relax": "sparse_tpu/csgraph.py:228",  # _bellman_ford_device_ell and its _tail form :255 (XLA)
+    "dia_spmv": "sparse_tpu/kernels/dia.py:67",  # dia_spmv (XLA shifted multiply-adds; dia_spmm :147 alike)
+    "spgemm": "sparse_tpu/kernels/spgemm.py:124",  # esc_spgemm (XLA) and the eager ops/dot.py:_spgemm :738
 }
 
 # the block-sparse layer at full width (bench_suite.py:324-339): 8192 x 8192,
@@ -2567,21 +2581,52 @@ def _same_product(name, c1, c2):
         raise AssertionError(f"{name}: two calls differ")
 
 
+def s1_pass_ms(a, index_dtype, reps=SG_REPS):
+    """Device ms of S1's symbolic and numeric passes alone on ``a @ a``
+    (median of ``reps``, CUDA events around each), through the helpers that
+    ``kernels.spgemm.spgemm_coords`` runs them by, and the passes' output
+    (coordinates in ``index_dtype`` and sums, those equal to zero kept). A
+    pass's time holds its launch and the torch ops beside it (the symbolic
+    pass's row pointer, the numeric pass's allocations); the read back of the
+    size between them is outside both."""
+    from sparse_tpu_torch.kernels import spgemm as kspgemm
+
+    ops = kspgemm.s1_operands(*a.coords, a.data, *a.coords, a.data, m=M, k=K, n=K, dt=a.data.dtype)
+    times = {"symbolic": [], "numeric": []}
+    out = vals = None
+    for _ in range(reps + 1):  # the first pair warms up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        row_ptr = kspgemm.s1_symbolic(ops)
+        end.record()
+        nnz = int(row_ptr[-1])
+        times["symbolic"].append(start.elapsed_time(end))
+        del out, vals
+        start.record()
+        out, vals, _ = kspgemm.s1_numeric(ops, row_ptr, nnz, index_dtype)
+        end.record()
+        end.synchronize()
+        times["numeric"].append(start.elapsed_time(end))
+    return {name: float(np.median(t[1:])) for name, t in times.items()}, out, vals
+
+
 def phase_spgemm_path(dev, a, card):
     """Sparse × sparse products through the public entry points, counted
-    (no hand kernel runs: the counts stay 0): ``a @ a`` of the bench matrix
+    (S1's two passes, no other kernel): ``a @ a`` of the bench matrix
     against scipy's ``csr @ csr`` on the host (coordinates exactly, values at
-    SG_RTOL of a float64 oracle), twice bit for bit, its device ms, peak
-    memory and byte bound beside cuSPARSE's ``torch.sparse.mm`` of the two
-    CSRs (timed only); the example's GCXS pair (CSR × CSR and CSC × CSC)
-    within SG_EX_ATOL of scipy; ``jitops.spgemm`` captured in a CUDA graph
-    and replayed after the data changed, against the eager product; and
-    ``einsum("ij,jk->ik", s, s)`` bit for bit ``s @ s``. Returns the line's
-    fields."""
+    SG_RTOL of a float64 oracle), twice bit for bit, S1 bit for bit against
+    its plain version on the same inputs, their device ms, S1's passes
+    alone, peak memory and byte bound beside cuSPARSE's ``torch.sparse.mm``
+    of the two CSRs (timed only); the example's GCXS pair (CSR × CSR and
+    CSC × CSC) within SG_EX_ATOL of scipy; ``jitops.spgemm`` captured in a
+    CUDA graph and replayed after the data changed, against the eager
+    product; and ``einsum("ij,jk->ik", s, s)`` bit for bit ``s @ s``.
+    Returns the line's fields and S1's kernel row."""
     import scipy.sparse
 
     import sparse_tpu_torch as st
     from sparse_tpu_torch.kernels import LAUNCHES, product_count, reset_launch_counts
+    from sparse_tpu_torch.kernels import spgemm as kspgemm
 
     t_phase = time.perf_counter()
     n_products = product_count(a.coords[1], a.coords[0], K)
@@ -2595,6 +2640,8 @@ def phase_spgemm_path(dev, a, card):
     first_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
     launches = dict(LAUNCHES)
+    if launches["spgemm"] != 2 or sum(launches.values()) != 2:
+        raise AssertionError(f"a @ a: S1's two passes did not run alone: {launches}")
     c2 = a @ a
     _same_product("a @ a", c1, c2)
     if c1.shape != (M, K) or c1.data.dtype != torch.float32 or c1.data.device.type != "cuda":
@@ -2621,6 +2668,27 @@ def phase_spgemm_path(dev, a, card):
         raise AssertionError(f"a @ a: {got.shape[1]} coordinates, scipy {want.nnz}, or they differ")
     np.testing.assert_allclose(c1.data.cpu().numpy().astype(np.float64), want.data, rtol=SG_RTOL, err_msg="a @ a")
     del rows, got, want
+
+    # S1 against its plain version (the torch ops) on the same inputs, bit for bit
+    ra, ca, va = a.coords[0], a.coords[1], a.data
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p_rows, p_cols, p_vals = kspgemm.spgemm(ra, ca, va, ra, ca, va, m=M, k=K, n=K)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    if not (torch.equal(c1.coords.long(), torch.stack([p_rows, p_cols])) and torch.equal(c1.data.view(torch.int32), p_vals.view(torch.int32))):
+        raise AssertionError("a @ a: S1 differs from its plain version")
+    s1_err = float((c1.data - p_vals).abs().max())
+    del p_rows, p_cols, p_vals
+    plain_ms = device_ms(lambda: kspgemm.spgemm(ra, ca, va, ra, ca, va, m=M, k=K, n=K), reps=SG_REPS)
+    route_ms = device_ms(lambda: kspgemm.spgemm_coords(ra, ca, va, ra, ca, va, m=M, k=K, n=K, index_dtype=c1.coords.dtype), reps=SG_REPS)
+    passes, out, vals = s1_pass_ms(a, c1.coords.dtype)
+    keep = vals != 0  # the passes keep the sums equal to zero, which the entry point drops
+    if not (torch.equal(out[:, keep], c1.coords) and torch.equal(vals[keep].view(torch.int32), c1.data.view(torch.int32))):
+        raise AssertionError("a @ a: S1's passes alone differ from the entry point")
+    del out, vals, keep
+    torch.cuda.empty_cache()
     nnz_out = c1.nnz
     idx_bytes = a.coords.element_size() * 2 + a.data.element_size()
     out_bytes = nnz_out * (c1.coords.element_size() * 2 + c1.data.element_size())
@@ -2703,6 +2771,8 @@ def phase_spgemm_path(dev, a, card):
         "bench_square": {
             "shape": [M, K], "nnz_a": a.nnz, "product_count": n_products, "nnz_out": nnz_out,
             "device_ms": ms, "first_call_s": first_s, "peak_memory_bytes": peak,
+            "s1_route_ms": route_ms, "s1_symbolic_ms": passes["symbolic"], "s1_numeric_ms": passes["numeric"],
+            "plain_ms": plain_ms, "plain_peak_memory_bytes": plain_peak, "s1_equals_plain_bit_for_bit": True,
             "bound_ms": bound_ms, "bound_by": "bytes", "bound_share": bound_ms / ms,
             "cusparse_ms": lib_ms, "cusparse_peak_memory_bytes": lib_peak, "cusparse_nnz": lib_nnz,
             "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms, "top5_kernels_ms_count": top},
@@ -2713,6 +2783,24 @@ def phase_spgemm_path(dev, a, card):
         "launches": launches,
         "seconds": time.perf_counter() - t_phase,
         "card": card,
+    }, {
+        "name": "S1 spgemm (spgemm_path: a @ a, bench matrix, float32)",
+        "route": "cuda",
+        "source": SOURCE["spgemm"],
+        "replaces": REPLACES["spgemm"],
+        "launches": launches["spgemm"],  # the symbolic and the numeric pass
+        "max_abs_err": s1_err,  # against the plain version: the same bits
+        "ms": passes["symbolic"] + passes["numeric"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": lib_ms,
+        "symbolic_ms": passes["symbolic"],
+        "numeric_ms": passes["numeric"],
+        "entry_ms": ms,  # a @ a, eager: the row pointers, the plan, both passes and two reads back
+        "peak_memory_bytes": peak,
+        "plain_peak_memory_bytes": plain_peak,
+        "library_peak_memory_bytes": lib_peak,
     }
 
 
@@ -4255,9 +4343,10 @@ def cg_iteration_device_ms(mv, b):
 
 def phase_linalg_path(dev, card):
     """``sparse_tpu_torch.linalg`` on the card: CG at side 1,024 through the
-    DIA route and, on the permuted matrix, through K1; gmres, tfqmr,
+    DIA route (D1 once a matvec) and, on the permuted matrix, through K1;
+    D1 bit for bit against its plain version at that shape; gmres, tfqmr,
     eigsh and spsolve at sides 256/128 through the permuted form. Returns
-    ``(line, k1_kernel_line)``."""
+    ``(line, [k1_kernel_line, d1_kernel_line])``."""
     import scipy.sparse.linalg as spla
 
     from sparse_tpu_torch import linalg
@@ -4273,7 +4362,7 @@ def phase_linalg_path(dev, card):
     def cg(op, rhs):
         return linalg.cg(op, rhs, tol=LA_TOL, return_iters=True)
 
-    # the DIA route: the banded matrix, its matvecs counted at the module function
+    # the DIA route: the banded matrix, its matvecs counted at the module function and on D1's counter
     dia_calls = []
     real_dia = kdia.dia_spmv
     kdia.dia_spmv = lambda *args: dia_calls.append(1) or real_dia(*args)
@@ -4287,8 +4376,8 @@ def phase_linalg_path(dev, card):
     dia = a.peek_layout("dia", DIA_KEY)
     if dia is None or dia.offsets != (-LA_SIDE, -1, 0, 1, LA_SIDE):
         raise AssertionError(f"linalg_path: the banded matrix built no 5-offset DIA layout ({dia and dia.offsets})")
-    if any(launches_dia.values()) or a.peek_layout("row_ell", row_ell_cache_key()) is not None:
-        raise AssertionError(f"linalg_path: the DIA route launched a kernel or built a row-ELL layout: {launches_dia}")
+    if launches_dia["dia_spmv"] != it + 1 or sum(launches_dia.values()) != it + 1 or a.peek_layout("row_ell", row_ell_cache_key()) is not None:
+        raise AssertionError(f"linalg_path: the DIA route launched {launches_dia} for {it} iterations, or built a row-ELL layout")
     if info != 0 or len(dia_calls) != it + 1:
         raise AssertionError(f"linalg_path: DIA cg info {info}, {len(dia_calls)} matvecs for {it} iterations")
 
@@ -4344,11 +4433,17 @@ def phase_linalg_path(dev, card):
     csr = torch.sparse_coo_tensor(a.coords.long(), a.data, (n, n)).coalesce().to_sparse_csr()
     k1_lib_ms = time_eager(lambda: torch.mv(csr_p, xv))
     d1_out = kdia.dia_spmv(dia.offsets, dia.bands, xv)
-    d1_err = float(np.abs(d1_out.cpu().numpy() - host @ xv.cpu().numpy()).max())
-    if not d1_err <= LA_MATVEC_TOL * term_scale:
-        raise AssertionError(f"linalg_path: dia_spmv against the host product, max abs err {d1_err}")
+    d1_plain = kdia._shifted_sum_plain(dia.offsets, dia.bands, xv)
+    if not torch.equal(d1_out.view(torch.int64), d1_plain.view(torch.int64)):
+        raise AssertionError("linalg_path: D1 differs from its plain version (the torch ops)")
+    d1_err = float((d1_out - d1_plain).abs().max())
+    d1_host_err = float(np.abs(d1_out.cpu().numpy() - host @ xv.cpu().numpy()).max())
+    if not d1_host_err <= LA_MATVEC_TOL * term_scale:
+        raise AssertionError(f"linalg_path: dia_spmv against the host product, max abs err {d1_host_err}")
+    d1_ms = time_graph(lambda: _cuda.dia_shifted_sum(dia.offsets, dia.bands, xv, out))
     d1_eager_ms = time_eager(lambda: kdia.dia_spmv(dia.offsets, dia.bands, xv))
-    d1_graph_ms = time_graph(lambda: kdia.dia_spmv(dia.offsets, dia.bands, xv))
+    d1_plain_ms = time_eager(lambda: kdia._shifted_sum_plain(dia.offsets, dia.bands, xv))
+    d1_plain_graph_ms = time_graph(lambda: kdia._shifted_sum_plain(dia.offsets, dia.bands, xv))
     d1_lib_ms = time_eager(lambda: torch.mv(csr, xv))
     # bytes the function must move: each input read once, the output written once
     k1_bytes = nnz * (4 + 8) + 8 * n + 8 * n  # int32 column and float64 value an entry, x, y
@@ -4376,16 +4471,18 @@ def phase_linalg_path(dev, card):
     }
     d1_line = {
         "name": "D1 dia_spmv (linalg_path: cg, Poisson 1,024², float64)",
-        "route": "torch ops",
-        "source": "sparse_tpu_torch/kernels/dia.py",
-        "replaces": "sparse_tpu/kernels/dia.py:67",  # dia_spmv (XLA)
-        "launches": len(dia_calls),
-        "max_abs_err": d1_err,  # against scipy's float64 product on the host
-        "ms": d1_graph_ms,
-        "plain_ms": d1_eager_ms,  # the same torch ops, launched eagerly
+        "route": "cuda",
+        "source": SOURCE["dia_spmv"],
+        "replaces": REPLACES["dia_spmv"],
+        "launches": launches_dia["dia_spmv"],
+        "max_abs_err": d1_err,  # against the plain version: the same bits
+        "ms": d1_ms,  # the kernel from a CUDA graph
+        "plain_ms": d1_plain_ms,  # the torch ops (11 launches), eager
         "bound_ms": d1_bound,
         "bound_by": d1_by,
         "library_ms": d1_lib_ms,
+        "plain_graph_ms": d1_plain_graph_ms,
+        "max_abs_err_vs_scipy": d1_host_err,
     }
     for line, nbytes, eager in ((k1_line, k1_bytes, k1_eager_ms), (d1_line, d1_bytes, d1_eager_ms)):
         log(json.dumps({**line, "eager_ms": eager, "bound_bytes": nbytes, "bound_share": line["bound_ms"] / line["ms"], "card": card}))
@@ -4444,7 +4541,9 @@ def phase_linalg_path(dev, card):
             "k1_graph": k1_ms,
             "k1_eager": k1_eager_ms,
             "dia_eager": d1_eager_ms,
-            "dia_graph": d1_graph_ms,
+            "dia_graph": d1_ms,
+            "dia_plain_eager": d1_plain_ms,
+            "dia_plain_graph": d1_plain_graph_ms,
             "torch_mv_csr_permuted": k1_lib_ms,
             "torch_mv_csr": d1_lib_ms,
             "k1_bound": k1_bound,
@@ -4454,7 +4553,7 @@ def phase_linalg_path(dev, card):
         "kernel_lines": [k1_line, d1_line],
         "card": card,
     }
-    return line, k1_line
+    return line, [k1_line, d1_line]
 
 
 # csgraph on the card (the csgraph_path line), float64: the bench graph of
@@ -5198,7 +5297,8 @@ def phase_partitioned_path(dev, card):
     NCCL rank, counted: K7 once a round of ``bellman_ford_partitioned`` (the
     unsharded solve's count), K1 once an iteration of
     ``pagerank_partitioned``, K4 and K5 once a shard of
-    ``sparse_attention_sharded``, no other kernel. Each result against the
+    ``sparse_attention_sharded``, D1 once for ``dia_spmv_sharded``, no
+    other kernel. Each result against the
     unsharded call on the card: the distances and predecessors bit for bit
     (``bellman_ford`` and ``dijkstra``), PageRank within CG_PR_RTOL of max
     |p| (whether its bits are equal is reported), ``dia_spmv_sharded`` bit
@@ -5280,7 +5380,7 @@ def phase_partitioned_path(dev, card):
         # launches its union kernel and the gather route on its flagged blocks)
         k5_union = launches.get("sampled_row_sum_union", 0)
         k5 = launches.get("sampled_row_sum", 0) + launches.get("sampled_row_sum_sliced", 0)
-        want_launches = {"minplus_relax": bf_rounds, "row_ell_spmv": pr_it, "sddmm": n}
+        want_launches = {"minplus_relax": bf_rounds, "row_ell_spmv": pr_it, "sddmm": n, "dia_spmv": 1}
         others = sum(launches.values()) - sum(want_launches.values()) - k5 - k5_union
         if {kk: launches.get(kk, 0) for kk in want_launches} != want_launches or k5 != n or k5_union > launches.get("sampled_row_sum", 0) or others:
             raise AssertionError(f"partitioned_path: launches {launches}, expected {want_launches}, {n} K5 calls, no other kernel")
@@ -5402,12 +5502,14 @@ def phase_partitioned_path(dev, card):
 # (with the gather route's launches on the flagged blocks, which that
 # route's entry point makes); K4 on the bench row, the one K4 row not at the
 # example's shape (the path runs it on the attention shards, L = AT_L,
-# d = AT_D). The partitioned_path line holds every counter
+# d = AT_D); D1 at the linalg_path's Poisson shape, whose segment
+# dia_spmv_sharded takes. The partitioned_path line holds every counter
 PATH_ROWS = {
     "minplus_relax": lambda row: row["name"].startswith("K7 minplus_relax, gather route") and ", 8 sources" in row["name"],
     "row_ell_spmv": lambda row: row["name"].startswith("row_ell_spmv (csgraph_path: pagerank"),
     "sddmm": lambda row: row["name"] == "sddmm" and "shape" not in row,
     "sampled_row_sum_union": lambda row: row.get("of") == "attention_attn_v",
+    "dia_spmv": lambda row: row["name"].startswith("D1 dia_spmv"),
 }
 PATH_ROW_EXTRA = {"sampled_row_sum_union": ("sampled_row_sum", "flagged_gather_launches")}
 
@@ -5625,8 +5727,11 @@ def main():
     sd_lines, _ = phase_sddmm_path(dev, a, card)
     lines += sd_lines
     torch.cuda.empty_cache()
-    # sparse x sparse (SpGEMM) on the bench matrix and the example's shape
-    log(json.dumps(phase_spgemm_path(dev, a, card)))
+    # sparse x sparse (SpGEMM, S1) on the bench matrix and the example's shape
+    sg_line, sg_kernel = phase_spgemm_path(dev, a, card)
+    log(json.dumps(sg_line))
+    lines.append(sg_kernel)
+    del sg_line
     torch.cuda.empty_cache()
     # indexing, DOK, npz I/O, creation and the rest of the namespace on the bench matrix
     log(json.dumps(phase_indexing_path(dev, a, card)))
@@ -5638,9 +5743,9 @@ def main():
     del at_line
     torch.cuda.empty_cache()
     # the Krylov solvers (linalg): CG on the DIA shifts and on K1, gmres, tfqmr, eigsh, spsolve
-    la_line, la_k1 = phase_linalg_path(dev, card)
+    la_line, la_kernels = phase_linalg_path(dev, card)
     log(json.dumps(la_line))
-    lines.append(la_k1)
+    lines += la_kernels
     del la_line
     torch.cuda.empty_cache()
     # csgraph: shortest paths on K7, PageRank on K1, components, spanning tree, Floyd-Warshall

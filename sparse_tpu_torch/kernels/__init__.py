@@ -21,15 +21,18 @@ then K5 by key over ``attention_slot_pattern``;
 ``ell_attention_backward_blocks_plain``). ``minplus`` holds the
 shortest paths' per-destination ELL layout (``build_dest_ell``) and the
 min-plus relaxation round, K7 (``minplus_relax``, its CUDA kernel in
-``csrc/minplus.cu``, and ``minplus_relax_plain``). ``_cuda`` builds and
+``csrc/minplus.cu``, and ``minplus_relax_plain``). ``spgemm`` holds sparse ×
+sparse, eager (``spgemm_coords``: S1, its CUDA kernel's two passes in
+``csrc/spgemm.cu``, for float32/float64 on the card, the torch ops of
+``spgemm`` otherwise) and capacity-bounded (``esc_spgemm``, torch ops), with
+``product_count``; ``dia`` the banded layout (``build_dia``) and its shifted
+products ``dia_spmv``/``dia_spmm`` and ``dia_spmv_sharded`` with its halos
+over the ring (D1, its CUDA kernel in ``csrc/dia.cu``, for float32/float64
+on the card; ``_shifted_sum_plain`` otherwise). ``_cuda`` builds and
 launches every kernel. ``segment`` (segment reductions, the reductions'
-runs), ``elemwise`` (the traceable union of two COO operands),
-``spgemm`` (sparse × sparse, eager and capacity-bounded, with
-``product_count``), ``search`` (``searchsorted_sorted_probes`` on
-``torch.searchsorted``) and ``dia`` (the banded layout, ``build_dia``, and its
-shifted products ``dia_spmv``/``dia_spmm``, ``dia_spmv_sharded`` with its
-halos over the ring) are torch ops: the JAX package
-leaves their work to XLA.
+runs), ``elemwise`` (the traceable union of two COO operands) and
+``search`` (``searchsorted_sorted_probes`` on ``torch.searchsorted``) are
+torch ops: the JAX package leaves their work to XLA.
 """
 
 from .._utils import uncompress_indptr

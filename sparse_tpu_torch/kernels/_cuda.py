@@ -14,7 +14,9 @@ synchronize. The row-ELL, MTTKRP and probe launchers take contiguous tensors;
 the BSR launchers and the SDDMM's read their operands through their
 strides, K5 its table and K6 (the row-ELL attention: its row kernel and its
 tile route) its q, k and v through a row stride; K7 (the min-plus
-relaxation) takes contiguous tables and layouts. ``LAUNCHES``
+relaxation) takes contiguous tables and layouts; D1 (the DIA shifted
+sum) its bands through a row stride and x through both strides; S1 (the
+SpGEMM's two passes) contiguous CSR operands. ``LAUNCHES``
 counts the launches of each kernel; nothing else touches it.
 """
 
@@ -43,6 +45,8 @@ SOURCES = {
     "sddmm": _CSRC / "sddmm.cu",
     "attention": _CSRC / "attention.cu",
     "minplus": _CSRC / "minplus.cu",
+    "dia": _CSRC / "dia.cu",
+    "spgemm": _CSRC / "spgemm.cu",
 }
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sparse_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -128,6 +132,16 @@ _SIGNATURES = {
         f"st_minplus_relax_{dt}": [_p, _p, _p, _p, _p, *[_i64] * 3, _p, _p, _p, *[_i64] * 3, _p, _i64, _p]
         for dt in ("f32", "f64")
     },
+    "dia": {f"st_dia_shifted_sum_{dt}": [_p, _i64, _i64, _p, _p, *[_i64] * 7, _p, _p] for dt in ("f32", "f64")},
+    "spgemm": {
+        **{f"st_spgemm_symbolic_{it}": [*[_p] * 6, *[_i64] * 3, *[_p] * 3] for it in ("i32", "i64")},
+        **{
+            f"st_spgemm_numeric_{dt}_{it}_{ot}": [*[_p] * 8, *[_i64] * 4, *[_p] * 7]
+            for dt in ("f32", "f64")
+            for it in ("i32", "i64")
+            for ot in ("o32", "o64")
+        },
+    },
 }
 
 LAUNCHES = {
@@ -156,6 +170,8 @@ LAUNCHES = {
     "ell_attention_backward": 0,
     "ell_attention_backward_tiles": 0,
     "minplus_relax": 0,
+    "dia_spmv": 0,
+    "spgemm": 0,
 }
 
 # per source, set by its build: {"seconds": wall time of nvcc, "ptxas": its
@@ -2424,3 +2440,180 @@ def minplus_relax(dist, e_src, e_w, tail, out, stamp, round_no, *, deg=None, t_d
     _raise_on(err, "minplus_relax")
     LAUNCHES["minplus_relax"] += 1
     return out
+
+
+# D1 (csrc/dia.cu): the banded layout's shifted sum; at most DIA_MAX_BANDS
+# offsets a launch travel in the kernel's arguments (kernels/dia.py's
+# default limit), a longer list in launches of that many
+DIA_MAX_BANDS = 64
+
+
+def dia_offsets_arg(offsets):
+    """The offsets of one D1 launch as the ctypes int64 array it copies into
+    its arguments: at most :data:`DIA_MAX_BANDS` of them, each an int64."""
+    offsets = [int(o) for o in offsets]
+    if len(offsets) > DIA_MAX_BANDS:
+        raise ValueError(f"D1 takes at most {DIA_MAX_BANDS} diagonals, not {len(offsets)}")
+    if any(not -(1 << 63) <= o < 1 << 63 for o in offsets):
+        raise ValueError("D1 takes int64 offsets")
+    return (ctypes.c_int64 * max(len(offsets), 1))(*offsets)
+
+
+def dia_shifted_sum(offsets, bands, x, out, shift=0):
+    """Launch D1 (``csrc/dia.cu``): ``out[r] = Σ_i bands[i, r] · x[r +
+    offsets[i] + shift]`` over the diagonals whose ``x`` row lies in ``x``,
+    from zeros, one rounded product and one rounded sum a diagonal in offset
+    order (``⌈k / DIA_MAX_BANDS⌉`` launches, each after the first going on
+    from ``out``). ``bands`` (k, n_rows) with unit column stride, ``x``
+    (len,) or (len, m) with any strides, ``out`` contiguous (n_rows,) or
+    (n_rows, m); one float dtype (float32 or float64), one CUDA device.
+    Counted as ``dia_spmv``, once a launch."""
+    dtype, device = bands.dtype, bands.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"D1 takes float32 or float64, not {dtype}")
+    require_cuda(device, "DIA")
+    _check_device(bands, dtype, device, "bands")
+    _check_device(x, dtype, device, "x")
+    _check("out", out, dtype, device)
+    k, n_rows = bands.shape
+    m = x.shape[1] if x.ndim == 2 else 1
+    if x.ndim not in (1, 2) or out.shape != (n_rows, *x.shape[1:]) or len(offsets) != k:
+        raise ValueError("dia_shifted_sum: operand shapes do not match the layout")
+    if n_rows and bands.stride(1) != 1:
+        raise ValueError("dia_shifted_sum: bands must have unit column stride")
+    groups = [offsets[i : i + DIA_MAX_BANDS] for i in range(0, max(k, 1), DIA_MAX_BANDS)]
+    args = [dia_offsets_arg(g) for g in groups]
+    if not out.numel():
+        return out
+    fn = getattr(load("dia"), f"st_dia_shifted_sum_{_SUFFIX[dtype]}")
+    sx1 = x.stride(1) if x.ndim == 2 else 0
+    for i, (group, arg) in enumerate(zip(groups, args)):
+        first = bands[i * DIA_MAX_BANDS] if k else bands
+        err = fn(
+            first.data_ptr(), bands.stride(0), len(group), arg, x.data_ptr(), x.shape[0], x.stride(0), sx1, int(shift),
+            n_rows, m, int(i > 0), out.data_ptr(), _stream(device)
+        )
+        _raise_on(err, "dia_spmv")
+        LAUNCHES["dia_spmv"] += 1
+    return out
+
+
+# S1 (csrc/spgemm.cu): a CTA a row; a row's columns in chunks of at most
+# SPGEMM_CHUNK_COLS (65,536: one chunk at the bench shape) in a bitmap in
+# shared memory; a chunk's sums in shared memory up to SPGEMM_CACHE_BYTES
+# of them (2,048 float32, 1,024 float64; else in the output itself). The
+# source sizes each pass's shared memory from these two.
+SPGEMM_CHUNK_COLS = 1 << 16
+SPGEMM_CACHE_BYTES = 8192
+_SPGEMM_INDEX = {torch.int32: "i32", torch.int64: "i64"}
+_SPGEMM_OUT = {torch.int32: "o32", torch.int64: "o64"}
+
+
+class SpgemmPlan(NamedTuple):
+    """S1's shape for an output of ``n`` columns."""
+
+    span: int  # columns a chunk, a multiple of 64
+    vcap: int  # a chunk's sums held in shared memory, at most
+
+
+def spgemm_plan(n, dtype):
+    """The :class:`SpgemmPlan` of an ``n``-column product in ``dtype``
+    (float32 or float64): one chunk of ``n`` columns rounded up to 64
+    where that is at most :data:`SPGEMM_CHUNK_COLS`, else chunks of that
+    many; up to :data:`SPGEMM_CACHE_BYTES` of sums (no more than a chunk's
+    columns)."""
+    span = max(64, min(SPGEMM_CHUNK_COLS, -(-int(n) // 64) * 64))
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    return SpgemmPlan(span, min(SPGEMM_CACHE_BYTES // itemsize, span))
+
+
+def _check_csr(name, ptr, cols, vals, n_rows, device, dtype):
+    _check(f"{name}_ptr", ptr, torch.int64, device)
+    if cols.dtype not in _SPGEMM_INDEX:
+        raise TypeError(f"{name}_cols must be int32 or int64, not {cols.dtype}")
+    _check(f"{name}_cols", cols, cols.dtype, device)
+    if vals is not None:
+        _check(f"{name}_vals", vals, dtype, device)
+        if vals.shape != cols.shape:
+            raise ValueError(f"{name}_vals and {name}_cols differ in length")
+    if ptr.shape != (n_rows + 1,):
+        raise ValueError(f"{name}_ptr must hold {n_rows + 1} offsets")
+
+
+def _check_rows(m, device, **tensors):
+    for name, t in tensors.items():
+        _check(name, t, torch.int64, device)
+        if t.shape != (m,):
+            raise ValueError(f"{name} must hold one value a row of A")
+
+
+def spgemm_symbolic(a_ptr, a_cols, b_ptr, b_cols, order, products, n, counter, row_count):
+    """Launch S1's symbolic pass (``csrc/spgemm.cu``): ``row_count[r]`` =
+    the distinct columns of row ``r`` of ``A @ B`` (CSR ``A``: ``a_ptr``
+    int64 (m + 1), ``a_cols``; CSR ``B``: ``b_ptr`` (k + 1), ``b_cols`` of
+    ``a_cols``' dtype, int32 or int64, columns sorted in each row, ``n``
+    columns) for the rows of ``order`` (int64, m) whose ``products`` (the
+    rows' product counts in that order, descending) are not 0; the others
+    keep ``row_count``'s value. ``counter``: a zeroed uint64 (one int64)
+    the CTAs take rows from. Counted as ``spgemm``."""
+    device = a_ptr.device
+    require_cuda(device, "SpGEMM")
+    m = a_ptr.numel() - 1
+    _check_csr("a", a_ptr, a_cols, None, m, device, None)
+    _check_csr("b", b_ptr, b_cols, None, b_ptr.numel() - 1, device, None)
+    if b_cols.dtype != a_cols.dtype:
+        raise TypeError("a_cols and b_cols must share one dtype")
+    _check_rows(m, device, order=order, products=products, row_count=row_count)
+    _check("counter", counter, torch.int64, device)
+    plan = spgemm_plan(n, torch.float32)
+    fn = getattr(load("spgemm"), f"st_spgemm_symbolic_{_SPGEMM_INDEX[a_cols.dtype]}")
+    err = fn(
+        a_ptr.data_ptr(), a_cols.data_ptr(), b_ptr.data_ptr(), b_cols.data_ptr(), order.data_ptr(),
+        products.data_ptr(), m, int(n), plan.span, counter.data_ptr(), row_count.data_ptr(), _stream(device)
+    )
+    _raise_on(err, "spgemm")
+    LAUNCHES["spgemm"] += 1
+    return row_count
+
+
+def spgemm_numeric(a_ptr, a_cols, a_vals, b_ptr, b_cols, b_vals, order, products, n, row_ptr, coords, vals, counter, zeros):
+    """Launch S1's numeric pass (``csrc/spgemm.cu``) on the operands of
+    :func:`spgemm_symbolic` with their values (float32 or float64, one
+    dtype): row ``r`` of ``A @ B`` into ``coords`` (2, nnz; int32 or int64:
+    rows, then columns in ascending order) and ``vals`` at ``row_ptr[r]``
+    (int64, m + 1, the symbolic pass's counts' offsets); each sum starts
+    from its first product and adds the later ones in ascending k, each
+    product rounded first. Adds the number of sums equal to zero to
+    ``zeros`` (one int64). ``counter``: a zeroed int64. Counted as
+    ``spgemm``."""
+    dtype, device = vals.dtype, vals.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the SpGEMM kernel takes float32 or float64, not {dtype}")
+    require_cuda(device, "SpGEMM")
+    m = a_ptr.numel() - 1
+    _check_csr("a", a_ptr, a_cols, a_vals, m, device, dtype)
+    _check_csr("b", b_ptr, b_cols, b_vals, b_ptr.numel() - 1, device, dtype)
+    if b_cols.dtype != a_cols.dtype:
+        raise TypeError("a_cols and b_cols must share one dtype")
+    _check_rows(m, device, order=order, products=products)
+    _check("row_ptr", row_ptr, torch.int64, device)
+    if coords.dtype not in _SPGEMM_OUT:
+        raise TypeError(f"coords must be int32 or int64, not {coords.dtype}")
+    _check("coords", coords, coords.dtype, device)
+    _check("vals", vals, dtype, device)
+    for name, t in (("counter", counter), ("zeros", zeros)):
+        _check(name, t, torch.int64, device)
+    nnz = vals.numel()
+    if row_ptr.shape != (m + 1,) or coords.shape != (2, nnz):
+        raise ValueError("spgemm_numeric: row_ptr or coords do not match the output")
+    plan = spgemm_plan(n, dtype)
+    name = f"st_spgemm_numeric_{_SUFFIX[dtype]}_{_SPGEMM_INDEX[a_cols.dtype]}_{_SPGEMM_OUT[coords.dtype]}"
+    err = getattr(load("spgemm"), name)(
+        a_ptr.data_ptr(), a_cols.data_ptr(), a_vals.data_ptr(), b_ptr.data_ptr(), b_cols.data_ptr(),
+        b_vals.data_ptr(), order.data_ptr(), products.data_ptr(), m, int(n), plan.span, plan.vcap,
+        row_ptr.data_ptr(), coords[0].data_ptr(), coords[1].data_ptr(), vals.data_ptr(), counter.data_ptr(),
+        zeros.data_ptr(), _stream(device)
+    )
+    _raise_on(err, "spgemm")
+    LAUNCHES["spgemm"] += 1
+    return coords, vals

@@ -11,14 +11,19 @@ for array: the offsets are the sorted distinct ``col - row`` of the entries
 It is built on the device (a unique of the diagonals, a search, one
 scatter), with one read back of the offsets.
 
-``dia_spmv`` and ``dia_spmm`` are torch ops: the JAX package leaves them to
-XLA. They add ``bands[i] * x_shifted`` into a result that starts from zeros,
-one pass a diagonal in offset order, over the rows that diagonal reaches
-(outside them the band is zero by construction): a product, then a sum,
-each rounded, as XLA rounds them, so the results are the JAX package's bit
-for bit. ``dia_spmv_sharded`` splits the rows over a mesh's ranks
-(``parallel.make_mesh``) and swaps the halos of ``x`` with the two ring
-neighbours before the same shifted sum on each segment.
+``dia_spmv`` and ``dia_spmm`` add ``bands[i] * x_shifted`` into a result
+that starts from zeros, one pass a diagonal in offset order, over the rows
+that diagonal reaches (outside them the band is zero by construction): a
+product, then a sum, each rounded, as XLA rounds them, so the results are
+the JAX package's bit for bit. On a CUDA device, for float32 and float64,
+that is one launch of the hand-written kernel D1 (``csrc/dia.cu``: a thread
+a row, or a row and column of the SpMM, the same rounded products and sums
+in the same order); its plain version, the torch ops ``_shifted_sum``, runs
+for CPU tensors, and on every device for the other dtypes (chosen by dtype
+before any launch, :func:`on_kernel`). ``dia_spmv_sharded`` splits the rows
+over a mesh's ranks (``parallel.make_mesh``) and swaps the halos of ``x``
+with the two ring neighbours before the same shifted sum on each segment
+(D1 with a shift into the halo'd segment, or ``_sharded_sum``).
 """
 
 from __future__ import annotations
@@ -30,11 +35,13 @@ import torch
 
 from .._settings import resolve_device
 from .._utils import result_dtype
+from . import _cuda
 
 #: refuse conversions that would pad more than this many stored values per nnz
 _MAX_FILL_RATIO = 8.0
-#: refuse matrices with more distinct diagonals than this
-_MAX_BANDS = 64
+#: refuse matrices with more distinct diagonals than this (as many offsets
+#: as one D1 launch takes in its arguments)
+_MAX_BANDS = _cuda.DIA_MAX_BANDS
 
 
 class DiaMatrix(NamedTuple):
@@ -87,9 +94,31 @@ def _operand(bands, x, ndim):
     return x
 
 
+def on_kernel(device, dt):
+    """Whether a shifted sum in dtype ``dt`` on ``device`` launches D1:
+    float32/float64 on a CUDA device. Decided before any launch."""
+    return device.type == "cuda" and dt in (torch.float32, torch.float64)
+
+
+def _bands_for_kernel(bands, dt):
+    bands = bands.to(dt)
+    return bands if bands.shape[1] == 0 or bands.stride(1) == 1 else bands.contiguous()
+
+
 def _shifted_sum(offsets, bands, x):
     """``sum_i bands[i] * x[r + offsets[i]]`` over the rows each diagonal
-    reaches; ``x`` is ``(n,)`` or ``(n, m)``."""
+    reaches; ``x`` is ``(n,)`` or ``(n, m)``: D1 where :func:`on_kernel`,
+    else :func:`_shifted_sum_plain`."""
+    dt = result_dtype(bands.dtype, x.dtype)
+    if not on_kernel(x.device, dt):
+        return _shifted_sum_plain(offsets, bands, x)
+    y = torch.empty((bands.shape[1], *x.shape[1:]), dtype=dt, device=x.device)
+    return _cuda.dia_shifted_sum(offsets, _bands_for_kernel(bands, dt), x.to(dt), y)
+
+
+def _shifted_sum_plain(offsets, bands, x):
+    """:func:`_shifted_sum` in torch ops, D1's plain version: from zeros,
+    one rounded product and sum a diagonal over the rows it reaches."""
     n = bands.shape[1]
     dt = result_dtype(bands.dtype, x.dtype)
     bands, x = bands.to(dt), x.to(dt)
@@ -148,7 +177,19 @@ def dia_spmv_sharded(offsets, bands, x, mesh, axis_name="x"):
     if hi:
         parts.append(_rotate(xl[:hi], mesh, axis_name, shift=1))
     xp = torch.cat(parts)
-    y = torch.zeros(seg, dtype=dt, device=xl.device)
+    if on_kernel(xp.device, dt):
+        y = _cuda.dia_shifted_sum(offsets, _bands_for_kernel(bl, dt), xp, torch.empty(seg, dtype=dt, device=xp.device), shift=lo)
+    else:
+        y = _sharded_sum(offsets, bl, xp, lo)
+    return _gather(y, mesh, axis_name)
+
+
+def _sharded_sum(offsets, bl, xp, lo):
+    """A rank's shifted sum over its halo'd segment ``xp`` (``lo`` values of
+    halo before it) in torch ops, D1's plain version there: from zeros, one
+    rounded product and sum a diagonal over every row of the segment."""
+    seg = bl.shape[1]
+    y = torch.zeros(seg, dtype=xp.dtype, device=xp.device)
     for i, o in enumerate(offsets):
         y.add_(bl[i] * xp[lo + o : lo + o + seg])
-    return _gather(y, mesh, axis_name)
+    return y

@@ -1,9 +1,18 @@
-"""Sparse × sparse products (SpGEMM) of canonical COO operands, as torch ops
-on the operands' device: the counterparts of ``sparse_tpu``'s eager
+"""Sparse × sparse products (SpGEMM) of canonical COO operands on the
+operands' device: the counterparts of ``sparse_tpu``'s eager
 ``ops/dot.py:_spgemm`` (NumPy and host C++) and its traceable
-``kernels/spgemm.py:esc_spgemm`` (XLA). No Pallas kernel computes SpGEMM in
-the JAX package, so none is written by hand here: both forms are
-expand, sort and contract.
+``kernels/spgemm.py:esc_spgemm`` (XLA).
+
+The eager product's entry point is :func:`spgemm_coords`. On a CUDA device,
+for float32 and float64, it launches the hand-written kernel S1
+(``csrc/spgemm.cu``, two passes: a row-wise Gustavson product over a column
+bitmap in shared memory, see there) on the operands' CSR row pointers, with
+rows taken largest product count first (:func:`row_plan`), and writes the
+product's coordinates straight in their final index dtype. Its plain
+version, the torch ops of :func:`spgemm` below, runs for CPU tensors and,
+on every device, for the other dtypes (chosen by dtype before any launch,
+:func:`on_kernel`). Both have the same bits. The torch ops, and the
+traceable form, are expand, sort and contract:
 
 - **Expand.** B is canonical, so its row pointer is one ``searchsorted`` of
   its rows. Each A entry ``(i, k)`` owns ``counts_b[k]`` products, one for
@@ -31,12 +40,27 @@ returns its count of entries as a 0-d tensor.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .._utils import result_dtype, select, signed_view, take, wide_index
+from . import _cuda
 
-__all__ = ["esc_spgemm", "product_count", "spgemm"]
+__all__ = [
+    "S1Operands",
+    "esc_spgemm",
+    "on_kernel",
+    "product_count",
+    "row_plan",
+    "row_products",
+    "s1_numeric",
+    "s1_operands",
+    "s1_symbolic",
+    "spgemm",
+    "spgemm_coords",
+]
 
 # runs are summed in this dtype, then rounded once
 _ACC = {torch.float16: torch.float32, torch.bfloat16: torch.float32}
@@ -135,6 +159,117 @@ def spgemm(rows_a, cols_a, data_a, rows_b, cols_b, data_b, *, m, k, n):
     if not bool(keep.all()):
         key, vals = key[keep], take(vals, keep)
     return key // n, key % n, vals
+
+
+def on_kernel(device, dt):
+    """Whether an eager product computed in ``dt`` on ``device`` launches
+    S1: float32/float64 on a CUDA device. Decided before any launch; the
+    other dtypes take :func:`spgemm`'s torch ops on every device."""
+    return device.type == "cuda" and dt in (torch.float32, torch.float64)
+
+
+def row_products(ptr_a, cols_a, ptr_b):
+    """The partial products of each row of ``A @ B`` (int64, one a row of
+    ``A``): over the row's entries, the population of the row of ``B``
+    that the entry's column names. ``ptr_a``/``ptr_b`` the operands' int64
+    row pointers, ``cols_a`` A's column ids."""
+    counts_b = ptr_b[1:] - ptr_b[:-1]
+    ends = torch.zeros(cols_a.numel() + 1, dtype=torch.int64, device=ptr_a.device)
+    torch.cumsum(counts_b[cols_a.long()], 0, out=ends[1:])
+    return ends[ptr_a[1:]] - ends[ptr_a[:-1]]
+
+
+def row_plan(products):
+    """S1's order of the rows: ``(order, counts)``, the rows' indices by
+    product count, largest first (stable among equal counts), and their
+    counts in that order. The rows with no products come last; the kernels'
+    CTAs take rows from the front and stop at the first of them."""
+    counts, order = torch.sort(products, descending=True, stable=True)
+    return order, counts
+
+
+class S1Operands(NamedTuple):
+    """S1's inputs for one product: both operands as CSR (int64 row
+    pointers, column ids in one dtype, values in the product's dtype), the
+    rows of ``A`` in :func:`row_plan`'s order with their product counts,
+    and the product's ``m`` rows and ``n`` columns."""
+
+    ptr_a: torch.Tensor
+    cols_a: torch.Tensor
+    vals_a: torch.Tensor
+    ptr_b: torch.Tensor
+    cols_b: torch.Tensor
+    vals_b: torch.Tensor
+    order: torch.Tensor
+    counts: torch.Tensor
+    m: int
+    n: int
+
+
+def s1_operands(rows_a, cols_a, data_a, rows_b, cols_b, data_b, *, m, k, n, dt):
+    """The :class:`S1Operands` of ``A (m, k) @ B (k, n)``, two canonical COO
+    operands on one CUDA device, computed in ``dt``."""
+    device = data_a.device
+    ptr_a = torch.searchsorted(wide_index(rows_a), torch.arange(m + 1, device=device))
+    ptr_b = torch.searchsorted(wide_index(rows_b), torch.arange(k + 1, device=device))
+    it = torch.int32 if max(k, n) <= np.iinfo(np.int32).max else torch.int64
+    ca, cb = (wide_index(c).to(it).contiguous() for c in (cols_a, cols_b))
+    va, vb = (d.to(dt).contiguous() for d in (data_a, data_b))
+    order, counts = row_plan(row_products(ptr_a, ca, ptr_b))
+    return S1Operands(ptr_a, ca, va, ptr_b, cb, vb, order, counts, m, n)
+
+
+def s1_symbolic(ops):
+    """S1's symbolic pass on ``ops``: the product's row pointer (int64,
+    ``m + 1``), the cumulative sum of its rows' distinct columns."""
+    device = ops.ptr_a.device
+    counter = torch.zeros(1, dtype=torch.int64, device=device)
+    row_count = torch.zeros(ops.m, dtype=torch.int64, device=device)
+    _cuda.spgemm_symbolic(ops.ptr_a, ops.cols_a, ops.ptr_b, ops.cols_b, ops.order, ops.counts, ops.n, counter, row_count)
+    row_ptr = torch.zeros(ops.m + 1, dtype=torch.int64, device=device)
+    torch.cumsum(row_count, 0, out=row_ptr[1:])
+    return row_ptr
+
+
+def s1_numeric(ops, row_ptr, nnz, index_dtype):
+    """S1's numeric pass on ``ops`` into ``nnz`` (``row_ptr[-1]``) entries:
+    ``(coords, vals, zeros)``, the (2, nnz) coordinates in ``index_dtype``,
+    the sums, those equal to zero kept, and their count (a one-element
+    int64 tensor)."""
+    device = ops.ptr_a.device
+    scratch = torch.zeros(2, dtype=torch.int64, device=device)  # the row counter, the count of zero sums
+    coords = torch.empty((2, nnz), dtype=index_dtype, device=device)
+    vals = torch.empty(nnz, dtype=ops.vals_a.dtype, device=device)
+    if nnz:
+        _cuda.spgemm_numeric(
+            ops.ptr_a, ops.cols_a, ops.vals_a, ops.ptr_b, ops.cols_b, ops.vals_b, ops.order, ops.counts, ops.n,
+            row_ptr, coords, vals, scratch[0:1], scratch[1:2]
+        )
+    return coords, vals, scratch[1:2]
+
+
+def spgemm_coords(rows_a, cols_a, data_a, rows_b, cols_b, data_b, *, m, k, n, index_dtype):
+    """``A (m, k) @ B (k, n)`` of two canonical COO operands, eagerly:
+    ``(coords, vals)``, the canonical product's (2, nnz) coordinates in
+    ``index_dtype`` (int32 or int64) and its values in the promoted dtype,
+    every sum equal to zero dropped. S1 where :func:`on_kernel` (reads back
+    the output's size and its count of zero sums), else :func:`spgemm`'s
+    torch ops; the same bits either way."""
+    dt = result_dtype(data_a.dtype, data_b.dtype)
+    if not on_kernel(data_a.device, dt):
+        rows, cols, vals = spgemm(rows_a, cols_a, data_a, rows_b, cols_b, data_b, m=m, k=k, n=n)
+        return torch.stack([rows, cols]).to(index_dtype), vals
+    device = data_a.device
+    if not data_a.numel() or not data_b.numel():
+        return torch.empty((2, 0), dtype=index_dtype, device=device), torch.empty(0, dtype=dt, device=device)
+    ops = s1_operands(rows_a, cols_a, data_a, rows_b, cols_b, data_b, m=m, k=k, n=n, dt=dt)
+    row_ptr = s1_symbolic(ops)
+    nnz = int(row_ptr[-1])  # the one read of the symbolic pass
+    coords, vals, zeros = s1_numeric(ops, row_ptr, nnz, index_dtype)
+    if nnz and int(zeros):  # sums equal to zero, dropped
+        keep = vals != 0
+        coords, vals = coords[:, keep], vals[keep]
+    return coords, vals
 
 
 def esc_spgemm(rows_a, cols_a, data_a, rows_b, cols_b, data_b, *, k, n, product_capacity, out_capacity):

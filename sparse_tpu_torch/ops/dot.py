@@ -21,9 +21,10 @@ route does. Other dtypes take the COO gather + ``index_add_`` path
 (``kernels.dot``). ``sddmm`` runs ``kernels.sddmm`` (K4 on the GPU).
 1-D operands, batched (N-D) ``matmul`` and ``tensordot`` reduce to these
 2-D products; sparse 1-D · 1-D runs as ``(a * b).sum()``. Sparse × sparse
-runs ``kernels.spgemm.spgemm`` on the operands' device (expand, one stable
-sort, run sums in a fixed order, computed zeros dropped); two CSR or two CSC
-operands build the GCXS result straight from the product's rows. On the
+runs ``kernels.spgemm.spgemm_coords`` on the operands' device (S1, the CUDA
+kernel, for float32/float64 on the GPU; else the torch ops: expand, one
+stable sort, run sums in a fixed order; computed zeros dropped); two CSR or
+two CSC operands build the GCXS result straight from the product's rows. On the
 CPU, float32/float64 operands with ``native.eager.NATIVE_MIN_NNZ`` entries
 or more between them take the host library's Gustavson SpGEMM
 (``spgemm_csr``), with the same bits and the same zero rule.
@@ -418,15 +419,16 @@ def _spgemm(a, b):
         return res.reshape(res.shape[:-1])
     (m, k), n = a.shape, b.shape[1]
     dt = result_dtype(a.dtype, b.dtype)
+    idx = torch_dtype(index_dtype_for(max(m, n)))
     if _host_spgemm(a, b, dt):
         indptr, cols, vals = native_eager.spgemm_csr(
             _host_indptr(a), a.coords[1], a.data.to(dt), _host_indptr(b), b.coords[1], b.data.to(dt), m, n
         )
         rows, cols, vals = _drop_zero_sums(native_eager.uncompress_indptr(indptr, m), cols, vals)
+        coords = torch.stack([rows, cols]).to(idx)
     else:
-        rows, cols, vals = kspgemm.spgemm(*a.coords, a.data, *b.coords, b.data, m=m, k=k, n=n)
-    idx = torch_dtype(index_dtype_for(max(m, n)))
-    return COO._make(torch.stack([rows, cols]).to(idx), vals, (m, n), zero_of_dtype(numpy_dtype(vals.dtype)))
+        coords, vals = kspgemm.spgemm_coords(*a.coords, a.data, *b.coords, b.data, m=m, k=k, n=n, index_dtype=idx)
+    return COO._make(coords, vals, (m, n), zero_of_dtype(numpy_dtype(vals.dtype)))
 
 
 def _host_spgemm(a, b, dt):
@@ -472,7 +474,11 @@ def _spgemm_gcxs_direct(a, b):
         indptr, cols, vals = native_eager.spgemm_csr(*a_csr, *b_csr, m_out, n_out)
         rows, cols, vals = _drop_zero_sums(native_eager.uncompress_indptr(indptr, m_out), cols, vals)
     else:
-        rows, cols, vals = kspgemm.spgemm(*_gcxs_triplet(first), *_gcxs_triplet(second), m=m_out, k=a.shape[1], n=n_out)
+        coords, vals = kspgemm.spgemm_coords(
+            *_gcxs_triplet(first), *_gcxs_triplet(second), m=m_out, k=a.shape[1], n=n_out,
+            index_dtype=torch_dtype(index_dtype_for(max(m, n))),
+        )
+        rows, cols = coords[0], coords[1].clone()  # the indices without the rows' buffer
     idx = torch_dtype(index_dtype_for(max(m, n, vals.numel())))
     indptr = torch.searchsorted(rows, torch.arange((n if csc else m) + 1, device=rows.device))
     return GCXS._make(

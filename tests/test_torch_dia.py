@@ -21,7 +21,8 @@ from sparse_tpu.kernels import dia_spmm as j_dia_spmm
 from sparse_tpu.kernels import dia_spmv as j_dia_spmv
 from sparse_tpu_torch import linalg
 from sparse_tpu_torch.interop import coo_from_arrays, dia_from_arrays, gcxs_from_arrays
-from sparse_tpu_torch.kernels import DiaMatrix, build_dia, dia_spmm, dia_spmv
+from sparse_tpu_torch.kernels import DiaMatrix, LAUNCHES, _cuda, build_dia, dia_spmm, dia_spmv, reset_launch_counts
+from sparse_tpu_torch.kernels import dia as tdia
 from sparse_tpu_torch.kernels.row_ell import row_ell_cache_key
 
 CPU = "cpu"
@@ -227,3 +228,62 @@ def test_solver_rebuilds_on_buffer_replacement():
     assert info2 == int(infoj2) == 0
     _close(x2, xj2)
     np.testing.assert_allclose(x2.numpy(), x1.numpy() / 2, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# D1 (csrc/dia.cu): what of it runs on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("offsets", [(), (0,), (-3, 0, 5), tuple(range(-32, 32)), (-(1 << 62), 1 << 62)])
+def test_offsets_pack_into_the_kernel_argument(offsets):
+    arg = _cuda.dia_offsets_arg(offsets)
+    assert len(arg) == max(len(offsets), 1) and list(arg)[: len(offsets)] == list(offsets)
+
+
+@pytest.mark.parametrize("bad", [tuple(range(65)), (1 << 63,), (-(1 << 63) - 1,)])
+def test_offsets_past_one_launch_or_int64_are_refused(bad):
+    with pytest.raises(ValueError):
+        _cuda.dia_offsets_arg(bad)
+    assert _cuda.DIA_MAX_BANDS == tdia._MAX_BANDS == 64
+
+
+@pytest.mark.parametrize(
+    "device, dtype, want",
+    [("cpu", torch.float32, False), ("cpu", torch.float64, False), ("cuda", torch.float32, True), ("cuda", torch.float64, True), ("cuda", torch.int64, False), ("cuda", torch.float16, False), ("meta", torch.float64, False)],
+)
+def test_the_kernel_route_is_chosen_by_device_and_dtype(device, dtype, want):
+    assert tdia.on_kernel(torch.device(device), dtype) is want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cpu_products_never_touch_the_kernels(monkeypatch, dtype):
+    def refuse(name):
+        raise AssertionError(f"a CPU product loaded {name}")
+
+    monkeypatch.setattr(_cuda, "load", refuse)
+    rng = np.random.default_rng(11)
+    offsets = tuple(range(-40, 40))  # past one launch's 64
+    dense = _banded_dense(120, offsets, rng, np.float64)
+    rows, cols = np.nonzero(dense)
+    td = build_dia(rows, cols, dense[rows, cols], 120, max_bands=100, max_fill=100.0, device=CPU)
+    bands = td.bands.to(dtype)
+    x = torch.from_numpy(rng.standard_normal(120)).to(dtype)
+    xm = torch.stack([x, 2 * x], 1)
+    reset_launch_counts()
+    got_v = dia_spmv(td.offsets, bands, x)
+    got_m = dia_spmm(td.offsets, bands, xm)
+    assert not any(LAUNCHES.values())
+    assert torch.equal(got_v, tdia._shifted_sum_plain(td.offsets, bands, x))
+    assert torch.equal(got_m, tdia._shifted_sum_plain(td.offsets, bands, xm))
+    np.testing.assert_allclose(got_v.double().numpy(), dense @ x.double().numpy(), rtol=0, atol=1e-4 * np.abs(dense).sum(1).max())
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_the_kernel_entry_point_raises_off_a_cuda_device(device):
+    bands = torch.zeros((1, 8), dtype=torch.float64, device=device)
+    x = torch.zeros(8, dtype=torch.float64, device=device)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA device"):
+        _cuda.dia_shifted_sum((0,), bands, x, torch.empty(8, dtype=torch.float64, device=device))
+    assert LAUNCHES["dia_spmv"] == 0

@@ -176,16 +176,17 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_ship_with_the_package():
-    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes", "sddmm", "attention", "minplus"}
+    assert set(_cuda.SOURCES) == {"row_ell", "bsr", "bsr_tc", "mttkrp", "probes", "sddmm", "attention", "minplus", "dia", "spgemm"}
     for name, path in _cuda.SOURCES.items():
         assert path.exists() and path.parent == PKG / "kernels" / "csrc"
         src = path.read_text()
         for fn in _cuda._SIGNATURES[name]:
-            # an entry point of its own or one stamped out by a source's macro (BSR, MTTKRP/K5, SDDMM, K6 and its backward)
+            # an entry point of its own or one stamped out by a source's macro (BSR, MTTKRP/K5, SDDMM, K6 and its backward, S1)
+            macros = ("ST_SDDMM", "ST_MTTKRP", "ST_ROW_SUM", "ST_ELL_ATTENTION", "ST_ELL_ATTENTION_BACKWARD", "ST_SPGEMM_SYMBOLIC", "ST_SPGEMM_NUMERIC")
             assert (
                 f"int {fn}(" in src
                 or f"int {fn.rsplit('_', 1)[0]}_##SUFFIX(" in src
-                or any(f"{macro}({fn}," in src for macro in ("ST_SDDMM", "ST_MTTKRP", "ST_ROW_SUM", "ST_ELL_ATTENTION", "ST_ELL_ATTENTION_BACKWARD"))
+                or any(f"{macro}({fn}," in src for macro in macros)
             )
     bsr_src = _cuda.SOURCES["bsr"].read_text()
     for suffix, ctype in (("f32", "float"), ("f64", "double"), ("bf16", "__nv_bfloat16")):
@@ -227,4 +228,6 @@ def test_launch_counters_start_and_reset():
         "ell_attention_backward": 0,
         "ell_attention_backward_tiles": 0,
         "minplus_relax": 0,
+        "dia_spmv": 0,
+        "spgemm": 0,
     }

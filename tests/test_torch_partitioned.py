@@ -142,6 +142,24 @@ def test_dia_spmv_sharded_matches_single_device(mesh, rmesh, offsets):
     bits(tdia.dia_spmv_sharded(dia.offsets, host(dia.bands), x, mesh), y)
 
 
+def test_dia_spmv_sharded_on_the_cpu_launches_nothing(mesh, monkeypatch):
+    from sparse_tpu_torch.kernels import LAUNCHES, _cuda, reset_launch_counts
+
+    def refuse(name):
+        raise AssertionError(f"a CPU product loaded {name}")
+
+    monkeypatch.setattr(_cuda, "load", refuse)
+    rng = np.random.default_rng(9)
+    n, offsets = 64 * 4, (-5, 0, 7)
+    dia = st.COO.from_numpy(_banded_dense(n, offsets, rng), device="cpu").to_dia()
+    x = torch.from_numpy(rng.standard_normal(n))
+    reset_launch_counts()
+    y = tdia.dia_spmv_sharded(dia.offsets, dia.bands, x, mesh)
+    assert not any(LAUNCHES.values())
+    xp = torch.cat([x[-5:], x, x[:7]])  # a world of one: the ring wraps onto the rank
+    bits(y, tdia._sharded_sum(dia.offsets, dia.bands, xp, 5))
+
+
 def test_dia_spmv_sharded_validates(mesh):
     x = np.zeros(64)
     with pytest.raises(ValueError, match="halo"):

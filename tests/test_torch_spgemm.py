@@ -33,7 +33,8 @@ from sparse_tpu.kernels.spgemm import esc_spgemm as jesc
 from sparse_tpu.kernels.spgemm import product_count as jcount
 from sparse_tpu.native import eager as jeager
 from sparse_tpu_torch._utils import numpy_dtype
-from sparse_tpu_torch.kernels import esc_spgemm, product_count
+from sparse_tpu_torch.kernels import LAUNCHES, _cuda, esc_spgemm, product_count, reset_launch_counts
+from sparse_tpu_torch.kernels import spgemm as kspgemm
 
 CPU = "cpu"
 TOL = {np.float64: 1e-12, np.float32: 1e-6}
@@ -489,3 +490,94 @@ def test_einsum_of_two_sparse_matrices_is_their_product():
     (ta, _), (tb, _) = _pair(x), _pair(y)
     got, want = st.einsum("ij,jk->ik", ta, tb), ta @ tb
     assert torch.equal(got.coords, want.coords) and _np(got.data).tobytes() == _np(want.data).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# S1 (csrc/spgemm.cu): what of it runs on the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "products",
+    [[0, 5, 5, 0, 9, 1], [3], [0, 0, 0], [7, 7, 7, 7], [1, 1000, 2, 1000, 0, 3], list(range(50))],
+    ids=lambda p: f"{len(p)}_rows",
+)
+def test_row_plan_puts_the_largest_rows_first(products):
+    order, counts = kspgemm.row_plan(torch.tensor(products, dtype=torch.int64))
+    assert counts.tolist() == sorted(products, reverse=True)
+    # stable among equal counts, empty rows last
+    want = sorted(range(len(products)), key=lambda r: (-products[r], r))
+    assert order.tolist() == want
+    assert counts.dtype == order.dtype == torch.int64
+
+
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.3])
+def test_row_products_sum_to_the_product_count(density):
+    x, y = _dense((40, 30), density, 31), _dense((30, 20), density, 32)
+    (ta, _), (tb, _) = _pair(x), _pair(y)
+    ptr_a = torch.searchsorted(ta.coords[0], torch.arange(41))
+    ptr_b = torch.searchsorted(tb.coords[0], torch.arange(31))
+    per_row = kspgemm.row_products(ptr_a, ta.coords[1], ptr_b)
+    want = [(np.abs(x[i]) > 0).astype(np.int64) @ (np.abs(y) > 0).sum(1) for i in range(40)]
+    assert per_row.tolist() == want and per_row.dtype == torch.int64
+    assert int(per_row.sum()) == product_count(ta.coords[1], tb.coords[0], 30)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000, 65_536, 65_537, 100_000, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spgemm_plan_sizes_its_chunks_and_shared_memory(n, dtype):
+    plan = _cuda.spgemm_plan(n, dtype)
+    assert plan.span % 64 == 0 and 64 <= plan.span <= _cuda.SPGEMM_CHUNK_COLS
+    assert plan.span >= min(n, _cuda.SPGEMM_CHUNK_COLS) and plan.span < max(n, 1) + 64
+    chunks = -(-n // plan.span)  # a row takes only those it has columns in
+    assert (chunks == 1) == (n <= _cuda.SPGEMM_CHUNK_COLS)
+    item = 4 if dtype == torch.float32 else 8
+    assert plan.vcap == min(_cuda.SPGEMM_CACHE_BYTES // item, plan.span)
+
+
+@pytest.mark.parametrize(
+    "device, dtype, want",
+    [("cpu", torch.float32, False), ("cpu", torch.float64, False), ("cuda", torch.float32, True), ("cuda", torch.float64, True), ("cuda", torch.int64, False), ("cuda", torch.bool, False), ("cuda", torch.float16, False), ("cuda", torch.complex128, False)],
+)
+def test_the_kernel_route_is_chosen_by_device_and_dtype(device, dtype, want):
+    assert kspgemm.on_kernel(torch.device(device), dtype) is want
+
+
+@pytest.mark.parametrize("fmt", ["coo", "csr", "csc"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cpu_products_never_touch_the_kernels(monkeypatch, fmt, dtype):
+    def refuse(name):
+        raise AssertionError(f"a CPU product loaded {name}")
+
+    monkeypatch.setattr(_cuda, "load", refuse)
+    x, y = _dense((30, 40), 0.2, 33, dtype), _dense((40, 25), 0.2, 34, dtype)
+    (ta, ja), (tb, jb) = _pair(x, fmt), _pair(y, fmt)
+    reset_launch_counts()
+    got = ta @ tb
+    assert not any(LAUNCHES.values())
+    _check(got, ja @ jb, x, y)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_spgemm_coords_on_the_cpu_is_the_stacked_plain_product(index_dtype):
+    x, y = _dense((25, 35), 0.2, 35), _dense((35, 30), 0.2, 36)
+    (ta, _), (tb, _) = _pair(x), _pair(y)
+    coords, vals = kspgemm.spgemm_coords(*ta.coords, ta.data, *tb.coords, tb.data, m=25, k=35, n=30, index_dtype=index_dtype)
+    rows, cols, want = kspgemm.spgemm(*ta.coords, ta.data, *tb.coords, tb.data, m=25, k=35, n=30)
+    assert coords.dtype == index_dtype and torch.equal(coords.long(), torch.stack([rows, cols]))
+    assert _np(vals).tobytes() == _np(want).tobytes()
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_the_kernel_entry_points_raise_off_a_cuda_device(device):
+    ptr = torch.zeros(3, dtype=torch.int64, device=device)
+    cols = torch.zeros(0, dtype=torch.int32, device=device)
+    vals = torch.zeros(0, dtype=torch.float32, device=device)
+    one = torch.zeros(2, dtype=torch.int64, device=device)
+    scratch = torch.zeros(1, dtype=torch.int64, device=device)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA device"):
+        _cuda.spgemm_symbolic(ptr, cols, ptr, cols, one, one, 2, scratch, one.clone())
+    with pytest.raises(ValueError, match="CUDA device"):
+        _cuda.spgemm_numeric(ptr, cols, vals, ptr, cols, vals, one, one, 2, ptr, torch.zeros((2, 0), dtype=torch.int32, device=device), vals, scratch, scratch.clone())
+    assert LAUNCHES["spgemm"] == 0

@@ -3,11 +3,17 @@ container on the card.
 
 Run on a machine with an NVIDIA GPU: ``python -m pytest -m gpu --noconftest
 tests/test_torch_spgemm_gpu.py``. Elsewhere every test skips (from a
-fixture, so each pytest worker collects the same tests). No hand kernel
-computes SpGEMM: its torch ops add each run of products in one fixed order
-on every device, so the card's results equal the port's CPU results bit for
-bit (float32, float64, integers, booleans) and two calls give the same
-bits. The narrow-coordinate tests hold the row-ELL kernels (K1, K2) and K4
+fixture, so each pytest worker collects the same tests). float32 and
+float64 products run S1 (``csrc/spgemm.cu``, two launches: the symbolic and
+the numeric pass), the other dtypes its plain version's torch ops; both add
+each output entry's products in one fixed order (from the first, then k
+ascending), so S1 equals the plain ``kernels.spgemm.spgemm`` on the card bit
+for bit (coordinates and value bits: empty rows, a row past the shared-memory
+cache, columns past one chunk, a run of many products on one column, ±0.0
+first products, computed zeros, NaN and inf; int32 and int64 coordinates),
+the card's results equal the port's CPU results bit for bit (float32,
+float64, integers, booleans) and two calls give the same bits. The
+narrow-coordinate tests hold the row-ELL kernels (K1, K2) and K4
 against the same products with int32 coordinates, bit for bit, with their
 launch counters moving.
 """
@@ -17,7 +23,8 @@ import pytest
 import torch
 
 import sparse_tpu_torch as st
-from sparse_tpu_torch.kernels import LAUNCHES, product_count, reset_launch_counts
+from sparse_tpu_torch.kernels import LAUNCHES, _cuda, product_count, reset_launch_counts
+from sparse_tpu_torch.kernels import spgemm as kspgemm
 
 pytestmark = pytest.mark.gpu
 
@@ -164,3 +171,126 @@ def test_operands_on_two_devices_raise(cuda):
     for call in (lambda: a @ b, lambda: st.dot(b, a), lambda: st.tensordot(a, b, axes=1), lambda: st.concatenate([a, b])):
         with pytest.raises(ValueError, match="device"):
             call()
+
+
+# S1 against its plain version on the card, on raw canonical COO operands
+# (explicit zeros kept): (m, k, n, density of A, of B) and a value set
+S1_CASES = {
+    "random": (300, 400, 350, 0.05, 0.05),
+    "empty_rows": (300, 400, 350, 0.05, 0.05),  # every third row of A and every fifth of B emptied
+    "past_the_cache": (4, 3000, 5000, 1.0, 0.01),  # row 0: 150k products over about 5,000 columns
+    "chunks": (50, 500, 150_000, 0.1, 0.001),  # three chunks of 65,536 columns
+    "one_column": (3, 2000, 50, 1.0, 0.05),  # column 7 in every row of B: 2,000 products on it
+    "signed_zeros": (200, 150, 180, 0.1, 0.1),  # values in {±0.0, ±1, 2}: ±0.0 first products, computed zeros
+    "not_finite": (200, 150, 180, 0.1, 0.1),  # ±inf and NaN among the values
+}
+
+
+def _operand(m, k, density, rng, dtype, case, cuda):
+    mask = rng.random((m, k)) < density
+    vals = rng.standard_normal((m, k))
+    if case == "signed_zeros":
+        vals = rng.choice(np.array([0.0, -0.0, 1.0, -1.0, 2.0]), size=(m, k))
+    elif case == "not_finite":
+        vals[rng.random((m, k)) < 0.05] = np.inf
+        vals[rng.random((m, k)) < 0.05] = -np.inf
+        vals[rng.random((m, k)) < 0.02] = np.nan
+    r, c = np.nonzero(mask)
+    return (torch.as_tensor(r, device=cuda), torch.as_tensor(c, device=cuda), torch.as_tensor(vals[r, c], device=cuda).to(dtype))
+
+
+def _s1_operands(case, dtype, cuda):
+    m, k, n, da, db = S1_CASES[case]
+    rng = np.random.default_rng(len(case))
+    a = _operand(m, k, da, rng, dtype, case, cuda)
+    b = _operand(k, n, db, rng, dtype, case, cuda)
+    if case == "empty_rows":
+        a = tuple(t[a[0] % 3 != 0] for t in a)
+        b = tuple(t[b[0] % 5 != 0] for t in b)
+    elif case == "one_column":
+        keep = b[1] != 7
+        b = tuple(t[keep] for t in b)
+        lin = torch.cat([b[0] * n + b[1], torch.arange(k, device=cuda) * n + 7])
+        lin, order = torch.sort(lin)
+        vals = torch.cat([b[2], torch.as_tensor(rng.standard_normal(k), device=cuda).to(dtype)])[order]
+        b = (lin // n, lin % n, vals)
+    return a, b, (m, k, n)
+
+
+def _bits(t):
+    return t.cpu().contiguous().view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("case", list(S1_CASES))
+def test_s1_equals_its_plain_version_bit_for_bit(cuda, case, dtype, index_dtype):
+    a, b, (m, k, n) = _s1_operands(case, dtype, cuda)
+    reset_launch_counts()
+    coords, vals = kspgemm.spgemm_coords(*a, *b, m=m, k=k, n=n, index_dtype=index_dtype)
+    assert LAUNCHES["spgemm"] == 2 and sum(LAUNCHES.values()) == 2
+    rows, cols, want = kspgemm.spgemm(*a, *b, m=m, k=k, n=n)
+    assert coords.dtype == index_dtype and vals.dtype == dtype and coords.device.type == "cuda"
+    assert torch.equal(coords.long(), torch.stack([rows, cols]))
+    assert torch.equal(_bits(vals), _bits(want))
+    again = kspgemm.spgemm_coords(*a, *b, m=m, k=k, n=n, index_dtype=index_dtype)
+    assert torch.equal(again[0], coords) and torch.equal(_bits(again[1]), _bits(vals))
+    if case == "past_the_cache":
+        assert int((rows == 0).sum()) > _cuda.spgemm_plan(n, dtype).vcap
+    if case == "chunks":
+        assert -(-n // _cuda.spgemm_plan(n, dtype).span) == 3
+    if case == "signed_zeros":  # computed zeros were dropped, and -0.0 first products taken
+        assert bool((vals != 0).all()) and product_count(a[1], b[0], k) > vals.numel()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("case", ["random", "chunks", "one_column"])
+def test_s1_with_int64_column_ids(cuda, case, dtype):
+    """The kernels' int64 column route (taken past 2^31 - 1 columns) on
+    small products, through the launchers, which keep the sums equal to
+    zero: the plain version's entries and bits where the sums are not."""
+    a, b, (m, k, n) = _s1_operands(case, dtype, cuda)
+    ptr_a = torch.searchsorted(a[0], torch.arange(m + 1, device=cuda))
+    ptr_b = torch.searchsorted(b[0], torch.arange(k + 1, device=cuda))
+    order, counts = kspgemm.row_plan(kspgemm.row_products(ptr_a, a[1], ptr_b))
+    scratch = torch.zeros(3, dtype=torch.int64, device=cuda)
+    row_count = torch.zeros(m, dtype=torch.int64, device=cuda)
+    _cuda.spgemm_symbolic(ptr_a, a[1], ptr_b, b[1], order, counts, n, scratch[0:1], row_count)
+    row_ptr = torch.zeros(m + 1, dtype=torch.int64, device=cuda)
+    torch.cumsum(row_count, 0, out=row_ptr[1:])
+    nnz = int(row_ptr[-1])
+    coords = torch.empty((2, nnz), dtype=torch.int64, device=cuda)
+    vals = torch.empty(nnz, dtype=dtype, device=cuda)
+    _cuda.spgemm_numeric(ptr_a, a[1], a[2], ptr_b, b[1], b[2], order, counts, n, row_ptr, coords, vals, scratch[1:2], scratch[2:3])
+    rows, cols, want = kspgemm.spgemm(*a, *b, m=m, k=k, n=n)
+    keep = vals != 0
+    assert int(scratch[2]) == int((~keep).sum()) and torch.equal(coords[:, keep], torch.stack([rows, cols]))
+    assert torch.equal(_bits(vals[keep]), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("fmt", ["coo", "csr", "csc"])
+def test_public_entry_points_launch_s1(cuda, dtype, fmt):
+    x, y = _dense((500, 400), 0.03, 14, dtype), _dense((400, 300), 0.03, 15, dtype)
+    ta, tb = (st.COO.from_numpy(v, device=cuda).asformat(fmt) for v in (x, y))
+    want = st.COO.from_numpy(x, device="cpu").asformat(fmt) @ st.COO.from_numpy(y, device="cpu").asformat(fmt)
+    for name, call in (
+        ("@", lambda: ta @ tb),
+        ("matmul", lambda: st.matmul(ta, tb)),
+        ("dot", lambda: st.dot(ta, tb)),
+        ("tensordot", lambda: st.tensordot(ta, tb, axes=1)),
+        ("einsum", lambda: st.einsum("ij,jk->ik", ta, tb)),
+    ):
+        reset_launch_counts()
+        got = call()
+        assert LAUNCHES["spgemm"] == 2 and sum(LAUNCHES.values()) == 2, (name, dict(LAUNCHES))
+        assert torch.equal(_bits(got.todense()), _bits(want.todense())), name
+    _same(ta @ tb, want)
+
+
+def test_other_dtypes_launch_nothing(cuda):
+    x, y = _dense((60, 70), 0.2, 16, np.int64), _dense((70, 50), 0.2, 17, np.int64)
+    reset_launch_counts()
+    got = st.COO.from_numpy(x, device=cuda) @ st.COO.from_numpy(y, device=cuda)
+    assert not any(LAUNCHES.values()) and got.data.dtype == torch.int64
+    np.testing.assert_array_equal(got.todense().cpu().numpy(), x @ y)
